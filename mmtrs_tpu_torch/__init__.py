@@ -1,0 +1,23 @@
+"""mmtrs_tpu_torch — the PyTorch + CUDA port of ``mmtrs_tpu`` for one NVIDIA H100.
+
+The JAX package beside it stays the reference. This package keeps its
+module names and public layouts (NHWC ``[B, H, W, 3]`` images, boxes
+``(y0, x0, y1, x1)``) so each module has an obvious counterpart, and uses
+PyTorch idiom inside: ``nn.Module``s, plain tensor functions, an explicit
+``device`` and explicit ``torch.Generator``s.
+
+Every TPU kernel on the serving path is a hand-written CUDA kernel for
+``sm_90a`` (``csrc/``), built with ``nvcc`` at first use (``_build.py``)
+and wrapped in ``ops/kernels/``. A wrapper runs its kernel's plain PyTorch
+version only for a CPU tensor; for a CUDA tensor it launches the kernel or
+raises.
+
+Slice 1 (the serving path): preprocessing (CLAHE on LAB L, deskew, saliency
+crop) and the MIL EfficientNet-B0 stream behind ``serve.service.PredictService``.
+
+It imports ``torch`` and never ``jax``, and nothing of ``mmtrs_tpu``: the
+two small jax-free pieces it shares with it (``config.PreprocessConfig``,
+``serve/choices.py``) are copies, held equal to the originals by the tests.
+"""
+
+__version__ = "0.1.0"

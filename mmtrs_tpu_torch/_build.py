@@ -1,0 +1,116 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -fmad=false -o build/mmtrs_tpu_torch/<hash>.so csrc/*.cu
+
+``-fmad=false`` keeps every multiply and add a separately rounded f32 step,
+as the plain PyTorch versions (one op per kernel) and the JAX reference
+compute them: the LAB quantiser sits on rounding boundaries where a fused
+multiply-add moves a pixel by a level, which the CLAHE LUT then amplifies.
+There is no ``--use_fast_math`` for the same reason.
+
+The library lands in ``build/mmtrs_tpu_torch/`` at the repository root,
+named by a hash of the sources and flags, and is built at the first call of
+:func:`library` — never at import. Without a CUDA device or ``nvcc`` that
+call raises; nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "mmtrs_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points (csrc/*.cu): each returns the cudaGetLastError() code of
+# its launch; every pointer and the stream are c_void_p so none is cut to 32 bits
+_SIGNATURES = {
+    "mmtrs_clahe_lab_fwd_lut": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mmtrs_clahe_apply_lab_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mmtrs_shift_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "mmtrs_tpu_torch CUDA kernels need nvcc (not on PATH nor under "
+        f"{cuda_home}/bin); the port has no CPU fallback for CUDA tensors"
+    )
+
+
+def _source_hash(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "mmtrs_tpu_torch CUDA kernels need a CUDA device; none is visible"
+        )
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    out = BUILD_DIR / f"libmmtrs_kernels_{_source_hash(sources + headers)}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, out)
+        library.build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+library.build_seconds = 0.0  # seconds the last nvcc run took (0: cached)
+
+
+def stream_handle() -> int:
+    """The current PyTorch CUDA stream as an integer handle for ctypes."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,207 @@
+"""EfficientNet B0–B5 for inference (port of
+mmtrs_tpu/models/backbones/efficientnet.py).
+
+Layer-for-layer the Flax module: the same block table and width/depth
+scaling, BatchNorm ε = 1e-3 computed in f32 as Flax does, SE width
+``max(1, block_in_ch // 4)``, TF "SAME" padding (asymmetric at stride 2:
+lo = total // 2, hi = the rest, so it is padded explicitly), drop-path and
+dropout off (eval only; training comes with a later slice). Public input is
+NHWC ``[B, H, W, 3]``; convolutions run on a channels-last NCHW view in the
+compute ``dtype`` (bf16 by default), parameters stay f32, and pooled
+features come out f32. Parameter names follow the Flax tree (see
+models/convert.py).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# (expand_ratio, channels, num_blocks, stride, kernel)
+_BASE_BLOCKS = [
+    (1, 16, 1, 1, 3),
+    (6, 24, 2, 2, 3),
+    (6, 40, 2, 2, 5),
+    (6, 80, 3, 2, 3),
+    (6, 112, 3, 1, 5),
+    (6, 192, 4, 2, 5),
+    (6, 320, 1, 1, 3),
+]
+
+# (width_mult, depth_mult, resolution, dropout)
+_SCALING = {
+    "b0": (1.0, 1.0, 224, 0.2),
+    "b1": (1.0, 1.1, 240, 0.2),
+    "b2": (1.1, 1.2, 260, 0.3),
+    "b3": (1.2, 1.4, 300, 0.3),
+    "b4": (1.4, 1.8, 380, 0.4),
+    "b5": (1.6, 2.2, 456, 0.4),
+}
+
+
+def _round_channels(c: float, divisor: int = 8) -> int:
+    new = max(divisor, int(c + divisor / 2) // divisor * divisor)
+    if new < 0.9 * c:
+        new += divisor
+    return new
+
+
+def _round_repeats(r: float) -> int:
+    return int(math.ceil(r))
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class ConvSame(nn.Module):
+    """Conv with TF/Flax "SAME" padding; weight OIHW f32, run in the input dtype."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__()
+        self.k, self.stride, self.groups = k, stride, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (t, b), (l, r) = (_same_pads(n, self.k, self.stride) for n in x.shape[-2:])
+        if t or b or l or r:
+            x = F.pad(x, (l, r, t, b))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, 0, 1, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm with Flax's arithmetic: (x − mean)·(rsqrt(var + ε)·scale)
+    + bias in f32, cast back to the input dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+class SqueezeExcite(nn.Module):
+    def __init__(self, c: int, reduced: int):
+        super().__init__()
+        self.reduce = ConvSame(c, reduced, 1, bias=True)
+        self.expand = ConvSame(reduced, c, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.expand(F.silu(self.reduce(s)))
+        return x * torch.sigmoid(s)
+
+
+class MBConv(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, expand: int, stride: int, kernel: int):
+        super().__init__()
+        mid = in_ch * expand
+        self.residual = stride == 1 and in_ch == out_ch
+        if expand != 1:
+            self.pw_expand = ConvSame(in_ch, mid, 1)
+            self.bn0 = BatchNorm(mid)
+        self.dw = ConvSame(mid, mid, kernel, stride=stride, groups=mid)
+        self.bn1 = BatchNorm(mid)
+        self.se = SqueezeExcite(mid, max(1, in_ch // 4))
+        self.pw_project = ConvSame(mid, out_ch, 1)
+        self.bn2 = BatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        if hasattr(self, "pw_expand"):
+            h = F.silu(self.bn0(self.pw_expand(h)))
+        h = F.silu(self.bn1(self.dw(h)))
+        h = self.bn2(self.pw_project(self.se(h)))
+        return h + x if self.residual else h
+
+
+class EfficientNet(nn.Module):
+    """Returns pooled f32 features [B, num_features] (num_classes=0) or logits."""
+
+    def __init__(self, variant: str = "b0", num_classes: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        wm, dm, _, _ = _SCALING[variant]
+        self.variant, self.dtype = variant, dtype
+        stem = _round_channels(32 * wm)
+        self.conv_stem = ConvSame(3, stem, 3, stride=2)
+        self.bn_stem = BatchNorm(stem)
+        blocks, cin = {}, stem
+        for si, (e, c, r, s, k) in enumerate(_BASE_BLOCKS):
+            out_ch = _round_channels(c * wm)
+            for j in range(_round_repeats(r * dm)):
+                blocks[f"stage{si}_block{j}"] = MBConv(cin, out_ch, e, s if j == 0 else 1, k)
+                cin = out_ch
+        self.blocks = nn.ModuleDict(blocks)
+        self.num_features = _round_channels(1280 * wm)
+        self.conv_head = ConvSame(cin, self.num_features, 1)
+        self.bn_head = BatchNorm(self.num_features)
+        self.classifier = nn.Linear(self.num_features, num_classes) if num_classes else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NHWC [B, H, W, 3] (ImageNet-normalised float)."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.silu(self.bn_stem(self.conv_stem(x)))
+        for blk in self.blocks.values():
+            x = blk(x)
+        x = F.silu(self.bn_head(self.conv_head(x)))
+        x = x.mean(dim=(2, 3)).float()  # global average pool
+        return x if self.classifier is None else self.classifier(x)
+
+
+def feature_dim(variant: str) -> int:
+    return _round_channels(1280 * _SCALING[variant][0])
+
+
+@torch.no_grad()
+def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initialisation, drawn from ``generator``: LeCun-normal
+    conv/dense weights (std 1/sqrt(fan_in)), zero biases, BatchNorm as the
+    identity (scale 1, bias 0, mean 0, var 1)."""
+    for m in module.modules():
+        if isinstance(m, (ConvSame, nn.Linear)):
+            w = m.weight
+            fan_in = w[0].numel()
+            w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
+
+
+@torch.no_grad()
+def calibrate_batchnorm_(module: nn.Module, x: torch.Tensor) -> nn.Module:
+    """Set every BatchNorm's running statistics to those of its input on the
+    batch ``x`` (one forward pass in which each layer normalises by its batch
+    statistics), so a randomly initialised network keeps unit-scale
+    activations the way a trained one does; with identity BatchNorms the
+    pooled features of a random B0 fade to ~1e-7."""
+
+    def hook(bn, args):
+        a = args[0].float()
+        bn.running_mean.copy_(a.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(a.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in module.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        module(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return module

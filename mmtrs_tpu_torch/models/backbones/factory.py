@@ -1,0 +1,38 @@
+"""Model factory (port of mmtrs_tpu/models/backbones/factory.py) — name →
+backbone module. EfficientNet B0–B5 so far; ConvNeXt and the test net come
+with a later slice."""
+
+from __future__ import annotations
+
+import torch
+
+from mmtrs_tpu_torch.models.backbones import efficientnet as _en
+
+MODEL_REGISTRY: dict[str, dict] = {
+    **{
+        f"efficientnet_{v}": {"family": "efficientnet", "variant": v}
+        for v in ("b0", "b1", "b2", "b3", "b4", "b5")
+    },
+    **{
+        f"tf_efficientnet_{v}_ns": {"family": "efficientnet", "variant": v}
+        for v in ("b0", "b1", "b2", "b3", "b4", "b5")
+    },
+}
+
+
+def _spec(model_name: str) -> dict:
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unknown model '{model_name}'; available: {sorted(MODEL_REGISTRY)}"
+        )
+    return MODEL_REGISTRY[model_name]
+
+
+def create_model(
+    model_name: str, num_classes: int = 2, dtype: torch.dtype = torch.bfloat16
+) -> _en.EfficientNet:
+    return _en.EfficientNet(_spec(model_name)["variant"], num_classes=num_classes, dtype=dtype)
+
+
+def feature_dim(model_name: str) -> int:
+    return _en.feature_dim(_spec(model_name)["variant"])

@@ -1,0 +1,97 @@
+"""Batched deskew: edge-orientation estimate + conditional rotation (port of
+mmtrs_tpu/ops/deskew.py).
+
+Parity with normalise.py:19-57 as the JAX package states it: a Sobel +
+one-step-hysteresis edge map on the 4×4-pooled gray image, the principal
+axis of the edge mass from mask-weighted moments, and a rotation (three
+shears, replicate border) only where |angle| ≥ 15°.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from mmtrs_tpu_torch.ops.augment import subset_apply
+from mmtrs_tpu_torch.ops.color import rgb_to_gray
+from mmtrs_tpu_torch.ops.warp import rotate_shear3
+
+
+def _sobel(gray: torch.Tensor):
+    """3×3 Sobel via shifts (replicate border), gray: [B, H, W]."""
+    p = F.pad(gray[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    tl, tc, tr = p[:, :-2, :-2], p[:, :-2, 1:-1], p[:, :-2, 2:]
+    ml, mr = p[:, 1:-1, :-2], p[:, 1:-1, 2:]
+    bl, bc, br = p[:, 2:, :-2], p[:, 2:, 1:-1], p[:, 2:, 2:]
+    gx = (tr + 2 * mr + br) - (tl + 2 * ml + bl)
+    gy = (bl + 2 * bc + br) - (tl + 2 * tc + tr)
+    return gx, gy
+
+
+def canny_lite(gray: torch.Tensor, low: float = 50.0, high: float = 150.0) -> torch.Tensor:
+    """Strong edges + weak edges adjacent to strong (1-step hysteresis)."""
+    gx, gy = _sobel(gray)
+    mag = torch.sqrt(gx * gx + gy * gy)
+    strong = mag >= high
+    weak = mag >= low
+    dil = F.max_pool2d(strong.float()[:, None], 3, stride=1, padding=1)[:, 0]
+    return strong | (weak & (dil > 0))
+
+
+def estimate_skew_angle(
+    imgs: torch.Tensor,
+    low: float = 50.0,
+    high: float = 150.0,
+    min_points: int = 10,
+    downsample: bool = True,
+) -> torch.Tensor:
+    """Principal-axis angle (degrees) of the edge mass, per image [B]."""
+    gray = rgb_to_gray(imgs.float())
+    if downsample:
+        B, H, W = gray.shape
+        h4, w4 = (H // 4) * 4, (W // 4) * 4
+        gray = gray[:, :h4, :w4].reshape(B, h4 // 4, 4, w4 // 4, 4).mean(dim=(2, 4))
+    m = canny_lite(gray, low, high).float()
+    B, H, W = m.shape
+    ys = torch.arange(H, dtype=torch.float32, device=m.device)[None, :, None]
+    xs = torch.arange(W, dtype=torch.float32, device=m.device)[None, None, :]
+    n = m.sum(dim=(1, 2))
+    safe_n = torch.clamp_min(n, 1.0)
+    my = (m * ys).sum(dim=(1, 2)) / safe_n
+    mx = (m * xs).sum(dim=(1, 2)) / safe_n
+    dy = ys - my[:, None, None]
+    dx = xs - mx[:, None, None]
+    # covariance of (y, x) like np.cov of the coordinate list (ddof=1)
+    denom = torch.clamp_min(n - 1.0, 1.0)
+    vyy = (m * dy * dy).sum(dim=(1, 2)) / denom
+    vxx = (m * dx * dx).sum(dim=(1, 2)) / denom
+    vyx = (m * dy * dx).sum(dim=(1, 2)) / denom
+    # angle (from the x-axis) of the eigenvector with the larger eigenvalue
+    angle = torch.atan2(2.0 * vyx, vxx - vyy) * 0.5 * (180.0 / math.pi)
+    return torch.where(n < min_points, torch.zeros_like(angle), angle)
+
+
+def deskew_batch(
+    imgs: torch.Tensor,
+    tolerance_deg: float = 15.0,
+    low: float = 50.0,
+    high: float = 150.0,
+):
+    """Rotate each image so its dominant edge axis lies horizontal; skip
+    small corrections (|angle| < tolerance). Returns (imgs, applied_angle).
+
+    Only the firing images go through the three shears (:func:`subset_apply`);
+    a u8 batch is stored as u8 after each shear (the TPU main path's route,
+    ≤1.5 levels from the JAX CPU path's single final quantisation)."""
+    B, H, W, _ = imgs.shape
+    angle = estimate_skew_angle(imgs, low, high)
+    apply = angle.abs() >= tolerance_deg
+    eff = torch.where(apply, angle, torch.zeros_like(angle))
+
+    def do_warp(x, a):
+        # the reference rotates about (W/2, H/2) (normalise.py:48-56)
+        return rotate_shear3(x, a, center_xy=(W / 2.0, H / 2.0)).to(imgs.dtype)
+
+    return subset_apply(do_warp, imgs, apply, eff), eff

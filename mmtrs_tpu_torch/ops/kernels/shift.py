@@ -1,0 +1,71 @@
+"""Per-line fractional shift of an NHWC batch: CUDA kernel K3
+(csrc/shift_rows.cu) and its plain PyTorch version.
+
+Port of mmtrs_tpu/ops/pallas/shift_kernel.py:shift_rows_pallas
+(``_shift_rows_kernel``): ``out[m, x] = in[m, x + off[m]]``, bilinear, with
+replicate border. The TPU kernel works on planar rows ``[B·C·H, W]`` behind
+an NHWC→planar transpose, and its caller swaps H and W around the y-shear;
+this one reads NHWC directly and takes ``axis``:
+
+- axis 2: row (b, y) shifts along W by ``off[b, y]`` (off [B, H]);
+- axis 1: column (b, x) shifts along H by ``off[b, x]`` (off [B, W]).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mmtrs_tpu_torch import _build
+from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require
+
+
+def shift_rows_ref(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """Plain version of :func:`shift_rows` (the same two taps, any device)."""
+    x = img.float()
+    if axis == 1:
+        x = x.transpose(1, 2)
+    B, R, n, C = x.shape  # R lines of n samples
+    k = torch.floor(off)
+    f = (off - k)[:, :, None, None]
+    s = torch.remainder(k.long(), n)
+    pos = torch.arange(n, device=x.device)
+    i0 = (pos[None, None, :] + s[:, :, None]) % n
+    i1 = (i0 + 1) % n
+    idx = lambda i: i[..., None].expand(B, R, n, C)
+    a = torch.gather(x, 2, idx(i0))
+    b = torch.gather(x, 2, idx(i1))
+    out = (1.0 - f) * a + f * b
+    src = pos.float()[None, None, :] + off[:, :, None]
+    out = torch.where((src < 0.0)[..., None], x[:, :, :1, :], out)
+    out = torch.where((src > n - 1.0)[..., None], x[:, :, -1:, :], out)
+    if axis == 1:
+        out = out.transpose(1, 2)
+    if img.dtype == torch.uint8:
+        return (torch.clamp(out, 0.0, 255.0) + 0.5).to(torch.uint8).contiguous()
+    return out.contiguous()
+
+
+def shift_rows(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """K3: img [B, H, W, C] u8 or f32, off f32 [B, H] (axis 2) or [B, W]
+    (axis 1) → the shifted batch in the input's dtype (u8 out is the
+    round-half-up store)."""
+    name = "shift_rows"
+    if img.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"{name}: u8/f32 only, got {img.dtype}")
+    require(name, img, img.dtype, 4)
+    require(name, off, torch.float32, 2)
+    if axis not in (1, 2):
+        raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
+    B, H, W, C = img.shape
+    if off.shape != (B, H if axis == 2 else W):
+        raise ValueError(f"{name}: off {tuple(off.shape)} does not fit {tuple(img.shape)} axis {axis}")
+    if not on_cuda(name, img, off):
+        return shift_rows_ref(img, off, axis)
+    out = torch.empty_like(img)
+    code = _build.library().mmtrs_shift_rows(
+        img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
+        int(img.dtype == torch.uint8), _build.stream_handle(),
+    )
+    _build.check_launch(name, code)
+    LAUNCHES[name] += 1
+    return out

@@ -1,0 +1,97 @@
+"""Resizes and crop geometry as separable bilinear resamples (port of
+mmtrs_tpu/ops/resize.py: ``resize_bilinear``, ``center_crop_resize``,
+``crop_box_resize``, ``_crop_affine_params``).
+
+The JAX package builds a dense hat-weight matrix per axis and multiplies,
+because the TPU has no fast gather; an H100 gathers, so each axis here is a
+direct two-tap read with the same clamped coordinates (replicate border) and
+the same weights. float32 throughout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mmtrs_tpu_torch.ops.color import fdiv
+
+
+def _resample_axis(imgs: torch.Tensor, coords: torch.Tensor, axis: int) -> torch.Tensor:
+    """imgs [B, H, W, C] f32; coords [B, n_out] source positions along H
+    (axis 1) or W (axis 2) → bilinear samples, clamped to the image."""
+    B, H, W, C = imgs.shape
+    n_src = imgs.shape[axis]
+    c = torch.clamp(coords, 0.0, n_src - 1.0)
+    i0 = torch.floor(c)
+    w = c - i0
+    i0 = i0.long()
+    i1 = torch.clamp_max(i0 + 1, n_src - 1)
+    n_out = coords.shape[1]
+    if axis == 1:
+        shape, view_w = (B, n_out, W, C), w[:, :, None, None]
+        idx = lambda i: i[:, :, None, None].expand(shape)
+    else:
+        shape, view_w = (B, H, n_out, C), w[:, None, :, None]
+        idx = lambda i: i[:, None, :, None].expand(shape)
+    a = torch.gather(imgs, axis, idx(i0))
+    b = torch.gather(imgs, axis, idx(i1))
+    return (1.0 - view_w) * a + view_w * b
+
+
+def resize_bilinear(imgs: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_LINEAR-compatible batched resize (half-pixel centres)."""
+    B, H, W, C = imgs.shape
+    oh, ow = out_hw
+    dev = imgs.device
+    ys = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) * (H / oh) - 0.5
+    xs = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) * (W / ow) - 0.5
+    out = _resample_axis(imgs.float(), ys[None].expand(B, oh), axis=1)
+    return _resample_axis(out, xs[None].expand(B, ow), axis=2)
+
+
+def center_crop_resize(imgs: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Centre square crop then resize (pipeline.py:23-29)."""
+    B, H, W, C = imgs.shape
+    side = min(H, W)
+    y0, x0 = (H - side) // 2, (W - side) // 2
+    crop = imgs[:, y0 : y0 + side, x0 : x0 + side, :]
+    return resize_bilinear(crop, (out_size, out_size))
+
+
+def _crop_affine_params(boxes: torch.Tensor, H: int, W: int, out_size: int, margin: float):
+    """Per-sample scale and translation of the dst→src axis-aligned map
+    src = scale·dst + t, plus the crop-rect bounds for the zero-pad mask."""
+    b = boxes.float()
+    y0 = torch.clamp_min(b[:, 0] - margin, 0.0)
+    x0 = torch.clamp_min(b[:, 1] - margin, 0.0)
+    y1 = torch.clamp_max(b[:, 2] + margin, float(H))
+    x1 = torch.clamp_max(b[:, 3] + margin, float(W))
+    h = y1 - y0
+    w = x1 - x0
+    d = torch.maximum(h, w)
+    y_off = torch.floor((d - h) / 2.0)
+    x_off = torch.floor((d - w) / 2.0)
+    scale = fdiv(d, out_size)
+    ty = 0.5 * scale - 0.5 - y_off + y0
+    tx = 0.5 * scale - 0.5 - x_off + x0
+    return scale, ty, tx, y0, x0, y1, x1
+
+
+def crop_box_resize(
+    imgs: torch.Tensor, boxes: torch.Tensor, out_size: int, margin: float = 15.0
+) -> torch.Tensor:
+    """Batched ``crop_with_mask`` geometry (segment.py:60-82): per-sample box
+    (y0, x0, y1, x1) + margin, clamp, pad-to-square with zeros, resize to
+    ``out_size``². Returns float32 [B, out, out, C]."""
+    B, H, W, C = imgs.shape
+    scale, ty, tx, y0, x0, y1, x1 = _crop_affine_params(boxes, H, W, out_size, margin)
+    u = torch.arange(out_size, dtype=torch.float32, device=imgs.device)
+    sy = scale[:, None] * u[None, :] + ty[:, None]  # [B, out]
+    sx = scale[:, None] * u[None, :] + tx[:, None]
+    out = _resample_axis(imgs.float(), sy, axis=1)
+    out = _resample_axis(out, sx, axis=2)
+
+    # zero the pad region: outputs whose source falls outside the crop rect
+    row_ok = (sy >= y0[:, None] - 0.5) & (sy <= y1[:, None] - 0.5)
+    col_ok = (sx >= x0[:, None] - 0.5) & (sx <= x1[:, None] - 0.5)
+    mask = row_ok[:, :, None] & col_ok[:, None, :]
+    return torch.where(mask[..., None], out, torch.zeros((), device=out.device))

@@ -1,0 +1,135 @@
+"""In-process prediction service — the serving core behind the UI (port of
+mmtrs_tpu/serve/service.py: ``serve_bucket_shape``, ``PredictService``).
+
+Models load once at startup (app.py:110-155); preprocessing runs in process
+on the compute device; each stream is an optional callable; with no stacker
+the result is the mean of the streams present (``predict_one``'s graceful
+degradation). The LR ``Stacker`` comes with the port of models/linear.py;
+until then any object with ``fuse`` and ``thresholds`` can stand in.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mmtrs_tpu_torch.config import PreprocessConfig
+from mmtrs_tpu_torch.serve.choices import encode_fields, validate_all_or_none
+
+
+def serve_bucket_shape(h: int, w: int, min_edge: int = 512,
+                       max_edge: int = 1024, grain: int = 16) -> tuple[int, int]:
+    """Canonical working shape for an upload: aspect-preserving scale so the
+    min edge is ``min_edge`` (long edge capped at ``max_edge``), then each dim
+    snapped to the nearest multiple of ``grain`` (≤1% aspect distortion).
+    Kept from the JAX service so both serve the same pixels; it also keeps
+    every working shape divisible by the 8×8 CLAHE tile grid."""
+    s = min_edge / min(h, w)
+    hs, ws = h * s, w * s
+    if max(hs, ws) > max_edge:
+        s *= max_edge / max(hs, ws)
+        hs, ws = h * s, w * s
+    snap = lambda v: max(grain, int(round(v / grain)) * grain)
+    return snap(hs), snap(ws)
+
+
+class PredictService:
+    """End-to-end case prediction: preprocess → streams → stack → label."""
+
+    def __init__(
+        self,
+        mm_predict=None,       # callable(img, tab9 or None) -> prob
+        mil_predict=None,      # callable(img) -> prob
+        tab_predict=None,      # callable(tab9) -> prob
+        stacker=None,
+        preprocess_cfg: PreprocessConfig = PreprocessConfig(),
+        min_resolution: int = 512,
+        legacy_blend: bool = False,
+        bucket_shapes: bool = True,
+        device: str | torch.device = "cpu",
+    ):
+        self.mm_predict = mm_predict
+        self.mil_predict = mil_predict
+        self.tab_predict = tab_predict
+        self.stacker = stacker
+        self.cfg = preprocess_cfg
+        self.min_resolution = min_resolution
+        self.legacy_blend = legacy_blend
+        self.bucket_shapes = bucket_shapes
+        self.device = torch.device(device)
+
+    # -- pipeline ------------------------------------------------------------
+
+    def preprocess(self, image: np.ndarray) -> np.ndarray:
+        from mmtrs_tpu_torch.preprocess import preprocess_numpy
+
+        if self.bucket_shapes:
+            h, w = image.shape[:2]
+            bh, bw = serve_bucket_shape(h, w)
+            if (h, w) != (bh, bw):
+                from PIL import Image
+
+                image = np.asarray(
+                    Image.fromarray(image.astype(np.uint8)).resize(
+                        (bw, bh), Image.BILINEAR
+                    )
+                )
+        out, _ = preprocess_numpy(image[None], self.cfg, device=self.device)
+        return out[0]
+
+    def predict_one(
+        self,
+        image: np.ndarray,
+        fields: dict[str, str | None] | None = None,
+        thr_mode: str = "max_f1",
+        threshold: float | None = None,
+    ) -> dict:
+        # resolution gate ≥512 (app.py:272-274 / utils.py:20-24)
+        if min(image.shape[:2]) < self.min_resolution:
+            return {
+                "error": f"image resolution too low "
+                         f"(min edge {min(image.shape[:2])} < {self.min_resolution})"
+            }
+        # all-or-none tabular contract (app.py:298-318)
+        fields = fields or {}
+        use_tab, missing = validate_all_or_none(fields)
+        if missing:
+            return {"error": f"provide all tabular fields or none; missing: {missing}"}
+
+        proc = self.preprocess(np.ascontiguousarray(image))
+
+        streams: dict[str, float] = {}
+        tab_vec = encode_fields(fields) if use_tab else None
+        if self.mm_predict is not None:
+            streams["prob_mm"] = float(self.mm_predict(proc, tab_vec))
+        if self.mil_predict is not None:
+            streams["prob_mil"] = float(self.mil_predict(proc))
+        if use_tab and self.tab_predict is not None:
+            streams["prob_tab"] = float(self.tab_predict(tab_vec))
+
+        if not streams:
+            return {"error": "no model streams available"}
+
+        if self.stacker is not None and "prob_mm" in streams and "prob_mil" in streams:
+            p = self.stacker.fuse(
+                streams["prob_mm"], streams["prob_mil"],
+                streams.get("prob_tab"), legacy_blend=self.legacy_blend,
+            )
+            thr = (
+                threshold
+                if threshold is not None
+                else self.stacker.thresholds.get(thr_mode, 0.5)
+            )
+        else:  # graceful degradation: mean of whatever is available
+            p = float(np.mean(list(streams.values())))
+            thr = threshold if threshold is not None else 0.5
+
+        return {
+            "label": "Indirect" if p >= thr else "Direct",
+            "p_indirect": float(p),
+            "threshold": float(thr),
+            "thr_mode": thr_mode,
+            "streams": streams,
+            "used_tabular": use_tab,
+            "processed_image": proc,
+        }
