@@ -6,7 +6,7 @@ module names and public layouts (NHWC ``[B, H, W, 3]`` images, boxes
 PyTorch idiom inside: ``nn.Module``s, plain tensor functions, an explicit
 ``device`` and explicit ``torch.Generator``s.
 
-Every TPU kernel on the serving path is a hand-written CUDA kernel for
+Every TPU kernel on the ported paths is a hand-written CUDA kernel for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use (``_build.py``)
 and wrapped in ``ops/kernels/``. A wrapper runs its kernel's plain PyTorch
 version only for a CPU tensor; for a CUDA tensor it launches the kernel or
@@ -14,6 +14,9 @@ raises.
 
 Slice 1 (the serving path): preprocessing (CLAHE on LAB L, deskew, saliency
 crop) and the MIL EfficientNet-B0 stream behind ``serve.service.PredictService``.
+Slice 2 (the augmentation chain): ``preprocess.preprocess_augment_batch`` and
+``ops.augment.augment_batch`` with the ``legacy`` preset, its randomness
+drawn on the host per lineage (``ops.augment.draw_legacy``).
 
 It imports ``torch`` and never ``jax``, and nothing of ``mmtrs_tpu``: the
 two small jax-free pieces it shares with it (``config.PreprocessConfig``,

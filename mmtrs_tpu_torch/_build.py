@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds):
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -fmad=false -o build/mmtrs_tpu_torch/<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -fmad=false -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -shared -o build/mmtrs_tpu_torch/libmmtrs_kernels_<hash>.so *.o
 
 ``-fmad=false`` keeps every multiply and add a separately rounded f32 step,
 as the plain PyTorch versions (one op per kernel) and the JAX reference
@@ -36,7 +38,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mmtrs_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,6 +48,9 @@ _SIGNATURES = {
     "mmtrs_clahe_lab_fwd_lut": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "mmtrs_clahe_apply_lab_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mmtrs_shift_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_photometric": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 
@@ -61,6 +66,11 @@ def _nvcc() -> str:
         "mmtrs_tpu_torch CUDA kernels need nvcc (not on PATH nor under "
         f"{cuda_home}/bin); the port has no CPU fallback for CUDA tensors"
     )
+
+
+def _check_nvcc(cmd: list[str], code: int, log: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
 
 
 def _source_hash(sources: list[Path]) -> str:
@@ -85,14 +95,23 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in sources]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+        try:
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)]
+            procs = [
+                subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for c in cmds
+            ]
+            logs = [p.communicate()[0] for p in procs]  # wait for all before raising
+            for cmd, proc, log in zip(cmds, procs, logs):
+                _check_nvcc(cmd, proc.returncode, log)
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(link, capture_output=True, text=True)
+            _check_nvcc(link, res.returncode, res.stdout + res.stderr)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, out)
         library.build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))

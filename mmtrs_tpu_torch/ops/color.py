@@ -97,3 +97,60 @@ def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
     r, g, b2 = _mat3(_XYZ2RGB, X, Y, Z)
     srgb = _linear_to_srgb(torch.stack([r, g, b2], dim=-1))
     return torch.clamp(srgb * 255.0, 0.0, 255.0)
+
+
+# HSV. ``%`` in the JAX package is floor-mod; torch.remainder computes it
+# the same way (fmod plus a sign fix), bit for bit on the CPU.
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """float32 RGB 0..255 → OpenCV-scaled HSV: H ∈ [0, 180), S, V ∈ [0, 255]."""
+    x = fdiv(rgb.float(), 255.0)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    mn = torch.minimum(torch.minimum(r, g), b)
+    c = v - mn
+    one = torch.ones_like(c)
+    safe_c = torch.where(c > 0, c, one)
+    h = torch.where(
+        v == r,
+        (g - b) / safe_c,
+        torch.where(v == g, 2.0 + (b - r) / safe_c, 4.0 + (r - g) / safe_c),
+    )
+    h = torch.where(c > 0, torch.remainder(h * 60.0, 360.0), torch.zeros_like(h))
+    s = torch.where(v > 0, c / torch.where(v > 0, v, one), torch.zeros_like(c))
+    return torch.stack([h / 2.0, s * 255.0, v * 255.0], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """OpenCV-scaled HSV → float32 RGB 0..255."""
+    h = torch.remainder(hsv[..., 0] * 2.0, 360.0)
+    s = fdiv(hsv[..., 1], 255.0)
+    v = fdiv(hsv[..., 2], 255.0)
+    c = v * s
+    hp = fdiv(h, 60.0)
+    xc = c * (1.0 - torch.abs(torch.remainder(hp, 2.0) - 1.0))
+    z = torch.zeros_like(c)
+    idx = torch.remainder(torch.floor(hp).to(torch.int32), 6)
+
+    def pick(*t):
+        out = t[5]
+        for k in range(4, -1, -1):
+            out = torch.where(idx == k, t[k], out)
+        return out
+
+    m = v - c
+    rgb = torch.stack(
+        [pick(c, xc, z, z, xc, c), pick(xc, c, c, xc, z, z), pick(z, z, xc, c, c, xc)], dim=-1
+    )
+    return torch.clamp((rgb + m[..., None]) * 255.0, 0.0, 255.0)
+
+
+def hsv_shift(imgs: torch.Tensor, dh: torch.Tensor, ds: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
+    """HueSaturationValue: per-image shifts [B] in OpenCV HSV units (H mod 180,
+    S and V clipped to 0..255) → float32 RGB 0..255."""
+    hsv = rgb_to_hsv(imgs)
+    h = torch.remainder(hsv[..., 0] + dh[:, None, None], 180.0)
+    s = torch.clamp(hsv[..., 1] + ds[:, None, None], 0.0, 255.0)
+    v = torch.clamp(hsv[..., 2] + dv[:, None, None], 0.0, 255.0)
+    return hsv_to_rgb(torch.stack([h, s, v], dim=-1))

@@ -15,6 +15,9 @@ LAUNCHES: dict[str, int] = {
     "clahe_lab_fwd_lut": 0,
     "clahe_apply_lab_bwd": 0,
     "shift_rows": 0,
+    "resample_rows": 0,
+    "photometric": 0,
+    "shift_rows_windowed": 0,
 }
 
 
@@ -34,9 +37,16 @@ def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
     raise ValueError(f"{name}: tensors must all be on one CUDA device or all on the CPU, got {kinds}")
 
 
-def require(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+def require(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    """``dtype`` is one torch dtype or a tuple of the accepted ones."""
+    ok = t.dtype in dtype if isinstance(dtype, tuple) else t.dtype == dtype
+    if not ok or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
             f"{name}: needs a contiguous {dtype} tensor of {ndim} dims, got "
             f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
+
+
+def require_shape(name: str, what: str, t: torch.Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} {tuple(t.shape)} does not fit, expected {tuple(shape)}")

@@ -1,14 +1,18 @@
-"""Per-line fractional shift of an NHWC batch: CUDA kernel K3
-(csrc/shift_rows.cu) and its plain PyTorch version.
+"""Fractional shifts of an NHWC batch along one axis: CUDA kernels K3 and
+K6 (csrc/shift_rows.cu) and their plain PyTorch versions.
 
-Port of mmtrs_tpu/ops/pallas/shift_kernel.py:shift_rows_pallas
-(``_shift_rows_kernel``): ``out[m, x] = in[m, x + off[m]]``, bilinear, with
-replicate border. The TPU kernel works on planar rows ``[B·C·H, W]`` behind
-an NHWC→planar transpose, and its caller swaps H and W around the y-shear;
-this one reads NHWC directly and takes ``axis``:
+- K3 :func:`shift_rows`, port of mmtrs_tpu/ops/pallas/shift_kernel.py:
+  shift_rows_pallas (``_shift_rows_kernel``): one offset per line,
+  ``out[m, x] = in[m, x + off[m]]``, bilinear, replicate border;
+- K6 :func:`shift_rows_windowed`, port of ``shift_rows_windowed_pallas``
+  (``_shift_rows_pp_kernel``): one offset per pixel, |off| ≤ max_shift.
 
-- axis 2: row (b, y) shifts along W by ``off[b, y]`` (off [B, H]);
-- axis 1: column (b, x) shifts along H by ``off[b, x]`` (off [B, W]).
+The TPU kernels work on planar rows ``[B·C·H, W]`` behind an NHWC→planar
+transpose, and their callers swap H and W for the other axis; these read
+NHWC directly and take ``axis``:
+
+- axis 2: row (b, y) shifts along W (K3: off [B, H]);
+- axis 1: column (b, x) shifts along H (K3: off [B, W]).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from mmtrs_tpu_torch import _build
-from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require
+from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require, require_shape
 
 
 def shift_rows_ref(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Tensor:
@@ -63,6 +67,58 @@ def shift_rows(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Ten
         return shift_rows_ref(img, off, axis)
     out = torch.empty_like(img)
     code = _build.library().mmtrs_shift_rows(
+        img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
+        int(img.dtype == torch.uint8), _build.stream_handle(),
+    )
+    _build.check_launch(name, code)
+    LAUNCHES[name] += 1
+    return out
+
+
+def shift_rows_windowed_ref(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """Plain version of :func:`shift_rows_windowed` (the same two taps, any
+    device). The clipped source gives the replicate border: at src = 0 or
+    n − 1 the second tap's weight is 0."""
+    x = img.float()
+    if axis == 1:
+        x, off = x.transpose(1, 2), off.transpose(1, 2)
+    B, R, n, C = x.shape
+    pos = torch.arange(n, dtype=torch.float32, device=x.device)
+    src = torch.clamp(pos + off, 0.0, n - 1.0)
+    f0 = torch.floor(src)
+    w = (src - f0)[..., None]
+    i0 = f0.long()
+    i1 = torch.clamp_max(i0 + 1, n - 1)
+    idx = lambda i: i[..., None].expand(B, R, n, C)
+    out = (1.0 - w) * torch.gather(x, 2, idx(i0)) + w * torch.gather(x, 2, idx(i1))
+    if axis == 1:
+        out = out.transpose(1, 2)
+    if img.dtype == torch.uint8:
+        return (torch.clamp(out, 0.0, 255.0) + 0.5).to(torch.uint8).contiguous()
+    return out.contiguous()
+
+
+def shift_rows_windowed(
+    img: torch.Tensor, off: torch.Tensor, max_shift: int, axis: int = 2
+) -> torch.Tensor:
+    """K6: img [B, H, W, C] u8 or f32, off f32 [B, H, W] per pixel (shared by
+    the channels) with |off| ≤ max_shift → ``out = in[.., p + off, ..]``
+    along ``axis``, bilinear, replicate border, in the input's dtype (u8 out
+    is the round-half-up store). An offset beyond ``max_shift`` raises."""
+    name = "shift_rows_windowed"
+    require(name, img, (torch.uint8, torch.float32), 4)
+    require(name, off, torch.float32, 3)
+    if axis not in (1, 2):
+        raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
+    B, H, W, C = img.shape
+    require_shape(name, "off", off, (B, H, W))
+    cuda = on_cuda(name, img, off)
+    if off.numel() and bool((off.abs() > max_shift).any()):
+        raise ValueError(f"{name}: |off| exceeds max_shift={max_shift}")
+    if not cuda:
+        return shift_rows_windowed_ref(img, off, axis)
+    out = torch.empty_like(img)
+    code = _build.library().mmtrs_shift_rows_windowed(
         img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
         int(img.dtype == torch.uint8), _build.stream_handle(),
     )

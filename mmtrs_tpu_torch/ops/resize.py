@@ -1,11 +1,12 @@
 """Resizes and crop geometry as separable bilinear resamples (port of
 mmtrs_tpu/ops/resize.py: ``resize_bilinear``, ``center_crop_resize``,
-``crop_box_resize``, ``_crop_affine_params``).
+``crop_box_resize``, ``_crop_affine_params``, ``crop_warp_fused``).
 
 The JAX package builds a dense hat-weight matrix per axis and multiplies,
 because the TPU has no fast gather; an H100 gathers, so each axis here is a
 direct two-tap read with the same clamped coordinates (replicate border) and
-the same weights. float32 throughout.
+the same weights. float32 throughout, except ``crop_warp_fused``, which
+keeps a u8 batch u8 (kernel K4).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from mmtrs_tpu_torch.ops.color import fdiv
+from mmtrs_tpu_torch.ops.warp import _to_3x3, invert_affine, mat3, warp_affine_shear
 
 
 def _resample_axis(imgs: torch.Tensor, coords: torch.Tensor, axis: int) -> torch.Tensor:
@@ -95,3 +97,62 @@ def crop_box_resize(
     col_ok = (sx >= x0[:, None] - 0.5) & (sx <= x1[:, None] - 0.5)
     mask = row_ok[:, :, None] & col_ok[:, None, :]
     return torch.where(mask[..., None], out, torch.zeros((), device=out.device))
+
+
+def crop_warp_fused(
+    imgs: torch.Tensor, boxes: torch.Tensor, mats: torch.Tensor, out_size: int,
+    margin: float = 15.0,
+) -> torch.Tensor:
+    """``crop_box_resize`` composed with a per-image affine augmentation in
+    ONE two-pass warp (``warp_affine_shear``, kernel K4): the crop is the
+    axis-aligned affine src = scale·dst + t, so crop∘augment is one affine.
+
+    ``mats``: [B, 2, 3] or [B, 3, 3] forward maps in the crop-output frame.
+    The warp samples with a replicate border, then the exact combined mask
+    zeroes each output pixel whose augment source leaves the [0, out − 1]²
+    crop frame or whose original source leaves the crop rect (the
+    pad-to-square zeros). Needs square inputs with H == W == out_size. A u8
+    batch stays u8."""
+    B, H, W, C = imgs.shape
+    if H != out_size or W != out_size:
+        raise ValueError(f"crop_warp_fused requires H=W=out_size, got {(H, W, out_size)}")
+    m_total, m_aug, crop_params = _crop_warp_matrix(boxes, mats, H, W, out_size, margin)
+    out = warp_affine_shear(imgs, m_total, border="replicate")
+    ok = _crop_warp_mask(m_aug, crop_params, out_size)
+    return torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _crop_warp_matrix(boxes, mats, H, W, out_size, margin):
+    """Combined crop∘augment forward matrix, the augment matrix, and the
+    crop parameters for the mask."""
+    crop_params = _crop_affine_params(boxes, H, W, out_size, margin)
+    scale, ty, tx = crop_params[:3]
+    m_aug = _to_3x3(mats.to(device=scale.device, dtype=torch.float32))
+    z, one = torch.zeros_like(scale), torch.ones_like(scale)
+    inv_s = 1.0 / scale
+    m_crop = torch.stack([
+        torch.stack([inv_s, z, -tx * inv_s], dim=-1),
+        torch.stack([z, inv_s, -ty * inv_s], dim=-1),
+        torch.stack([z, z, one], dim=-1),
+    ], dim=-2)  # [B, 3, 3] in (x, y, 1)
+    return mat3(m_aug, m_crop), m_aug, crop_params
+
+
+def _crop_warp_mask(m_aug, crop_params, out_size):
+    """[B, out, out] bool: True where the output pixel has a real source."""
+    scale, ty, tx, y0, x0, y1, x1 = crop_params
+    inva = invert_affine(m_aug)
+    xx = torch.arange(out_size, dtype=torch.float32, device=m_aug.device)[None, None, :]
+    yy = torch.arange(out_size, dtype=torch.float32, device=m_aug.device)[None, :, None]
+    e = lambda i, j: inva[:, i, j, None, None]
+    vx = e(0, 0) * xx + e(0, 1) * yy + e(0, 2)
+    vy = e(1, 0) * xx + e(1, 1) * yy + e(1, 2)
+    col = lambda v: v[:, None, None]
+    sx = col(scale) * vx + col(tx)
+    sy = col(scale) * vy + col(ty)
+    lim = float(out_size - 1)
+    return (
+        (vx >= 0.0) & (vx <= lim) & (vy >= 0.0) & (vy <= lim)
+        & (sx >= col(x0) - 0.5) & (sx <= col(x1) - 0.5)
+        & (sy >= col(y0) - 0.5) & (sy <= col(y1) - 0.5)
+    )

@@ -21,6 +21,10 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.ops.kernels",
     "mmtrs_tpu_torch.ops.kernels.clahe_lab",
     "mmtrs_tpu_torch.ops.kernels.shift",
+    "mmtrs_tpu_torch.ops.kernels.resample",
+    "mmtrs_tpu_torch.ops.kernels.photometric",
+    "mmtrs_tpu_torch.utils",
+    "mmtrs_tpu_torch.utils.rng",
     "mmtrs_tpu_torch.ops.warp",
     "mmtrs_tpu_torch.ops.augment",
     "mmtrs_tpu_torch.ops.deskew",
@@ -86,19 +90,28 @@ def test_build_without_card_raises():
         _build.library()
 
 
-@pytest.mark.parametrize("wrapper", ["clahe_lab_fwd_lut", "shift_rows"])
+@pytest.mark.parametrize(
+    "wrapper", ["clahe_lab_fwd_lut", "shift_rows", "resample_rows", "photometric", "shift_rows_windowed"]
+)
 def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
     """A tensor that is not on the CPU never gets the plain version: here a
     meta-device tensor (a CPU-only machine has no CUDA one) is refused."""
     from mmtrs_tpu_torch.ops.kernels.clahe_lab import clahe_lab_fwd_lut
-    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows
+    from mmtrs_tpu_torch.ops.kernels.photometric import photometric
+    from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
+    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows, shift_rows_windowed
 
-    x = torch.empty((1, 16, 16, 3), dtype=torch.uint8, device="meta")
+    meta = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    x = meta((1, 16, 16, 3), torch.uint8)
+    calls = {
+        "clahe_lab_fwd_lut": lambda: clahe_lab_fwd_lut(x, 3.0, (8, 8)),
+        "shift_rows": lambda: shift_rows(x, meta((1, 16))),
+        "resample_rows": lambda: resample_rows(x, meta((1, 16)), meta((1,)), meta((1,))),
+        "photometric": lambda: photometric(x, meta((1, 10)), meta((1,), torch.int32), 2),
+        "shift_rows_windowed": lambda: shift_rows_windowed(x, meta((1, 16, 16)), 11),
+    }
     with pytest.raises(ValueError, match="CUDA device"):
-        if wrapper == "clahe_lab_fwd_lut":
-            clahe_lab_fwd_lut(x, 3.0, (8, 8))
-        else:
-            shift_rows(x, torch.empty((1, 16), device="meta"))
+        calls[wrapper]()
 
 
 def test_wrappers_reject_bad_inputs():
@@ -113,3 +126,42 @@ def test_wrappers_reject_bad_inputs():
         shift_rows(torch.zeros((1, 16, 16, 3)).transpose(1, 2), torch.zeros((1, 16)))
     with pytest.raises(ValueError, match="does not fit"):
         shift_rows(torch.zeros((1, 16, 8, 3)), torch.zeros((1, 16)), axis=1)
+
+
+def _bad_input_cases():
+    """(wrapper, arguments, message) for K4, K5 and K6: a wrong dtype, a
+    non-contiguous input, a shape mismatch, and K6's offset bound."""
+    from mmtrs_tpu_torch.ops.kernels.photometric import photometric
+    from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
+    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows_windowed
+
+    u8 = torch.zeros((2, 16, 8, 3), dtype=torch.uint8)
+    f32 = torch.zeros((2, 16, 8, 3))
+    v = torch.zeros(2)
+    seeds = torch.zeros(2, dtype=torch.int32)
+    return {
+        "resample_dtype": (resample_rows, (f32.double(), torch.zeros((2, 16)), v, v), "contiguous"),
+        "resample_noncontig": (resample_rows, (f32.transpose(1, 2), torch.zeros((2, 8)), v, v), "contiguous"),
+        "resample_shape": (resample_rows, (f32, torch.zeros((2, 16)), v, v, 1), "does not fit"),
+        "resample_f32_to_u8": (resample_rows, (f32, torch.zeros((2, 16)), v, v, 2, torch.uint8), "cannot store"),
+        "photometric_dtype": (photometric, (f32, torch.zeros((2, 10)), seeds, 2), "uint8"),
+        "photometric_noncontig": (photometric, (u8.transpose(1, 2), torch.zeros((2, 10)), seeds, 2), "contiguous"),
+        "photometric_shape": (photometric, (u8, torch.zeros((2, 9)), seeds, 2), "does not fit"),
+        "photometric_seed_dtype": (photometric, (u8, torch.zeros((2, 10)), seeds.long(), 2), "int32"),
+        "windowed_dtype": (shift_rows_windowed, (u8.int(), torch.zeros((2, 16, 8)), 11), "contiguous"),
+        "windowed_noncontig": (shift_rows_windowed, (u8, torch.zeros((2, 8, 16)).transpose(1, 2), 11), "contiguous"),
+        "windowed_shape": (shift_rows_windowed, (u8, torch.zeros((2, 8, 16)), 11), "does not fit"),
+        "windowed_beyond_max_shift": (shift_rows_windowed, (u8, torch.full((2, 16, 8), 11.5), 11), "max_shift"),
+    }
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["resample_dtype", "resample_noncontig", "resample_shape", "resample_f32_to_u8",
+     "photometric_dtype", "photometric_noncontig", "photometric_shape", "photometric_seed_dtype",
+     "windowed_dtype", "windowed_noncontig", "windowed_shape", "windowed_beyond_max_shift"],
+)
+def test_slice2_wrappers_reject_bad_inputs(case):
+    fn, args, msg = _bad_input_cases()[case]
+    with pytest.raises(ValueError, match=msg):
+        fn(*args)
