@@ -14,7 +14,9 @@ Phases (each raises on failure, so the script exits non-zero):
      flipped) and K6 (both axes, |off| ≤ 11) f32 within 1e-3; K4, K5 (rows
      of identity, brightness/contrast, HSV, noise σ = √5 and √15, dropout,
      all at once) and K6 u8 bit-equal to plain, or max ≤ 1 level on
-     ≥ 99.99 % of values; median CUDA-event times;
+     ≥ 99.99 % of values; K7 at u8 and f32 [32, 512, 512, 3] with a random
+     7-row subset: written rows bit-equal to plain, untouched rows
+     byte-identical; median CUDA-event times;
   3. preprocess_batch at [16, 512, 512, 3] with deskew firing on 2 images:
      K1-K3 launched, and the result against the same port run on the CPU
      (seg_valid equal, angles within 1e-3°, boxes within 1 px, u8 within
@@ -30,11 +32,21 @@ Phases (each raises on failure, so the script exits non-zero):
      every gated member fires among the first 8 images, deskew on 2 of
      them: K1-K6 each launched, u8 out, the first 8 against the same port on
      the CPU with the same draws (bars of phase 3); imgs/s of the chain and
-     of augment_batch(·, "legacy") alone.
+     of augment_batch(·, "legacy") alone;
+  6. the other presets: ``ten`` and ``simple`` through the records device
+     loop (augment_children) on u8 [32, 512, 512, 3] synthetic teeth, 10
+     children per origin (10 batches of 32, every variant), and
+     ``randaug`` at u8 [12, 512, 512, 3] (the MM trainer's batch) on
+     lineages chosen so that all 14 ops and the erasing fire among the
+     first 8: K4 and K7 (and K6 for ``ten``) launched, values in 0..255,
+     the first 10 children (8 randaug images) against the same port on the
+     CPU with the same draws (u8 within 2 levels on ≥ 99.9 % of values);
+     imgs/s of augment_batch per preset and host ms of its draws.
 
-The counters are reset just before each driven path (phases 3, 4 and 5);
-the JSON line of kernels reports K1-K3's launches from the serving run
-(phase 4) and K4-K6's from the augmentation run (phase 5).
+The counters are reset just before each driven path (phases 3, 4, 5 and
+each preset of 6); the JSON line of kernels reports K1-K3's launches from
+the serving run (phase 4), K4-K6's from the augmentation run (phase 5) and
+K7's from the preset runs (phase 6).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -58,6 +70,14 @@ SERVE_KERNELS = ("clahe_lab_fwd_lut", "clahe_apply_lab_bwd", "shift_rows")
 AUG_KERNELS = SERVE_KERNELS + ("resample_rows", "photometric", "shift_rows_windowed")
 # gated members of the legacy preset that must fire among the first 8 images
 AUG_MEMBERS = ("hflip", "vflip", "ssr", "persp", "clahe", "bc", "hsv", "noise", "dropout", "blur", "elastic")
+PRESET_SHAPE = AUG_SHAPE
+RANDAUG_SHAPE = (12, 512, 512, 3)  # the MM trainer's batch_size (config.py:276)
+# the kernels each preset of phase 6 runs
+PRESET_KERNELS = {
+    "ten": ("resample_rows", "shift_rows_windowed", "scatter_rows"),
+    "simple": ("resample_rows", "scatter_rows"),
+    "randaug": ("resample_rows", "scatter_rows"),
+}
 
 
 T_START = time.perf_counter()
@@ -147,7 +167,7 @@ def phase_kernels(torch, dev):
         ),
     }
     errs = {"clahe_lab_fwd_lut": k1_err, "clahe_apply_lab_bwd": k2_err, "shift_rows": k3_err}
-    for check in (_check_resample, _check_photometric, _check_windowed):
+    for check in (_check_resample, _check_photometric, _check_windowed, _check_scatter):
         name, err, t = check(torch, dev, x, xf, gen)
         errs[name], times[name] = err, t
     for k, (ms, plain) in times.items():
@@ -230,6 +250,35 @@ def _check_windowed(torch, dev, x, xf, gen):
     t = (_time_ms(lambda: shift_rows_windowed(x, off, 11, 1)),
          _time_ms(lambda: shift_rows_windowed_ref(x, off, 1)))
     return "shift_rows_windowed", err, t
+
+
+def _check_scatter(torch, dev, x, xf, gen):
+    """K7 at u8 and f32 [32, 512, 512, 3], a random 7-row subset: written
+    rows bit-equal to plain, untouched rows byte-identical (a kernel that
+    writes rows beyond the subset fails here)."""
+    from mmtrs_tpu_torch.ops.kernels.scatter import scatter_rows_, scatter_rows_ref
+
+    B = PRESET_SHAPE[0]
+    idx = torch.randperm(B, generator=gen)[:7].to(dev)
+    keep = torch.ones(B, dtype=torch.bool)
+    keep[idx.cpu()] = False
+    keep = keep.to(dev)
+    bufs, err = {}, 0.0
+    for dtype in (torch.uint8, torch.float32):
+        dst = (torch.rand(PRESET_SHAPE, generator=gen) * 255.0).to(dtype).to(dev)
+        sub = (torch.rand((7, *PRESET_SHAPE[1:]), generator=gen) * 255.0).to(dtype).to(dev)
+        got = scatter_rows_(dst.clone(), sub, idx)
+        torch.cuda.synchronize()
+        want = scatter_rows_ref(dst.clone(), sub, idx)
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        _check(torch.equal(got, want), f"K7 {dtype} bit-equal to plain")
+        _check(torch.equal(got[idx], sub), f"K7 {dtype} written rows equal the sub-batch")
+        _check(torch.equal(got[keep], dst[keep]), f"K7 {dtype} the {int(keep.sum())} other rows untouched")
+        bufs[dtype] = (dst, sub)
+    # f32: what subset_apply writes back in the ten / simple / randaug chains
+    dst, sub = bufs[torch.float32]
+    t = (_time_ms(lambda: scatter_rows_(dst, sub, idx)), _time_ms(lambda: scatter_rows_ref(dst, sub, idx)))
+    return "scatter_rows", err, t
 
 
 def phase_preprocess(torch, dev):
@@ -352,17 +401,14 @@ def phase_serve(torch, dev):
     return launches, p50
 
 
-def _covering_origin_ids(n: int, first: int = 8) -> list[int]:
+def _covering_origin_ids(n: int, gates, members, first: int = 8) -> list[int]:
     """n origin ids (seed SEED, aug_idx 0) such that among the first ``first``
-    every gated member of the legacy preset fires at least once; chosen
-    greedily from the host draws' gates."""
-    from mmtrs_tpu_torch.ops.augment import draw_uniforms, legacy_gates
-    from mmtrs_tpu_torch.utils.rng import generators_for_batch
-
+    every one of ``members`` fires at least once; chosen greedily from the
+    host draws' gates (``gates(ids)`` → {member: [len(ids)] bool})."""
     cand = list(range(4000))
-    g = legacy_gates(draw_uniforms(generators_for_batch(SEED, cand, 0)))
-    fired = np.stack([g[k].numpy() for k in AUG_MEMBERS], axis=1)  # [cand, members]
-    chosen, todo = [], np.ones(len(AUG_MEMBERS), bool)
+    g = gates(cand)
+    fired = np.stack([g[k].numpy() for k in members], axis=1)  # [cand, members]
+    chosen, todo = [], np.ones(len(members), bool)
     while todo.any() and len(chosen) < first:
         score = (fired & todo).sum(axis=1)
         score[chosen] = -1
@@ -370,9 +416,35 @@ def _covering_origin_ids(n: int, first: int = 8) -> list[int]:
         chosen.append(best)
         todo &= ~fired[best]
     if todo.any():
-        raise AssertionError(f"no {first} lineages fire {np.array(AUG_MEMBERS)[todo]}")
+        raise AssertionError(f"no {first} lineages fire {np.array(members)[todo]}")
     rest = [i for i in cand if i not in chosen]
     return chosen + rest[: n - len(chosen)]
+
+
+def _legacy_gates(ids):
+    from mmtrs_tpu_torch.ops.augment import draw_uniforms, legacy_gates
+    from mmtrs_tpu_torch.utils.rng import generators_for_batch
+
+    return legacy_gates(draw_uniforms(generators_for_batch(SEED, ids, 0)))
+
+
+def _randaug_gates(ids):
+    from mmtrs_tpu_torch.ops.augment import RANDAUG_SLOTS, draw_uniforms, randaug_gates
+    from mmtrs_tpu_torch.utils.rng import generators_for_batch
+
+    return randaug_gates(draw_uniforms(generators_for_batch(SEED, ids, 0), len(RANDAUG_SLOTS)))
+
+
+def _rate(torch, fn, batch: int, reps: int = 5) -> float:
+    """imgs/s of ``fn`` on a batch: host clock over ``reps`` calls after one
+    warm-up, ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return reps * batch / (time.perf_counter() - t0)
 
 
 def phase_augment(torch, dev):
@@ -383,7 +455,7 @@ def phase_augment(torch, dev):
 
     B, S = AUG_SHAPE[0], AUG_SHAPE[1]
     print("phase 5: preprocess_augment_batch (legacy preset) on the card at", AUG_SHAPE)
-    ids = _covering_origin_ids(B)
+    ids = _covering_origin_ids(B, _legacy_gates, AUG_MEMBERS)
     t0 = time.perf_counter()
     draws = draw_legacy(SEED, ids, 0, S, S, img_size=S)
     draw_s = time.perf_counter() - t0
@@ -414,21 +486,83 @@ def phase_augment(torch, dev):
     within = (d <= 2).float().mean().item()
     _check(within >= 0.999, f"u8 within 2 levels of CPU on {within:.6f} of values (max {d.max().item()})")
 
-    def rate(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return reps * B / (time.perf_counter() - t0)
-
-    ips = rate(lambda: preprocess_augment_batch(x, draws, out_size=S))
-    aug_ips = rate(lambda: augment_batch(x, draws, "legacy", img_size=S))
+    ips = _rate(torch, lambda: preprocess_augment_batch(x, draws, out_size=S), B)
+    aug_ips = _rate(torch, lambda: augment_batch(x, draws, "legacy", img_size=S), B)
     print(f"  preprocess_augment_batch: {ips:.1f} imgs/s at b{B} 512^2 (host clock, 5 reps; "
           f"draws made beforehand, {draw_s * 1e3:.1f} ms per batch on the host)")
     print(f"  augment_batch(legacy): {aug_ips:.1f} imgs/s at b{B} 512^2 (host clock, 5 reps)")
     return counts, ips, aug_ips
+
+
+def _u8_within(what, got, want):
+    """u8 results of the card and the CPU: within 2 levels on ≥ 99.9 %."""
+    d = (got.cpu().int() - want.int()).abs()
+    within = (d <= 2).float().mean().item()
+    _check(within >= 0.999, f"{what}: u8 within 2 levels of CPU on {within:.6f} of values (max {d.max().item()})")
+
+
+def _preset_run(torch, preset, counts, drive):
+    """Drive one preset with the counters reset just before; check that its
+    kernels launched, and return the drive's result."""
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    out = drive()
+    torch.cuda.synchronize()
+    counts[preset] = dict(LAUNCHES)
+    want = PRESET_KERNELS[preset]
+    _check(all(counts[preset][k] > 0 for k in want), f"{preset}: {', '.join(want)} launched: {counts[preset]}")
+    return out
+
+
+def phase_presets(torch, dev):
+    from mmtrs_tpu_torch.data.records import augment_children, child_plan, quantize_round_half_even
+    from mmtrs_tpu_torch.ops.augment import augment_batch, draw_batch, draw_randaug
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    B, S = PRESET_SHAPE[0], PRESET_SHAPE[1]
+    print("phase 6: the ten / simple presets through the records device loop at", PRESET_SHAPE,
+          "and randaug at", RANDAUG_SHAPE)
+    host = torch.from_numpy(synth_teeth(B, S, seed=SEED + 3))
+    x = host.to(dev)
+    plan = child_plan(range(B), 10)
+    counts, rates = {}, {}
+    for preset in ("ten", "simple"):
+        kids = _preset_run(torch, preset, counts, lambda: augment_children(x, plan, preset, seed=SEED, batch_size=B))
+        _check(kids.shape == (len(plan), *PRESET_SHAPE[1:]) and kids.dtype == torch.uint8,
+               f"{preset}: {len(plan)} u8 children in batches of {B}")
+        n = 10  # every variant of origin 0, on the CPU with the same lineages
+        ref = augment_children(host, plan[:n], preset, seed=SEED, batch_size=n)
+        _u8_within(f"{preset} children 0-9", kids[:n], ref)
+
+        src, origins, aug_idxs = zip(*plan[:B])
+        variants = [a - 1 for a in aug_idxs]
+        chunk = x.index_select(0, torch.tensor(src, device=dev))
+        t0 = time.perf_counter()
+        draws = draw_batch(preset, SEED, origins, aug_idxs, S, S, aug_idx=variants)
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        rates[preset] = (_rate(torch, lambda: augment_batch(chunk, draws, preset, aug_idx=variants), B), draw_ms)
+
+    Br = RANDAUG_SHAPE[0]
+    members = [f"op{k}" for k in range(14)] + ["erase"]
+    ids = _covering_origin_ids(Br, _randaug_gates, members)
+    t0 = time.perf_counter()
+    draws = draw_randaug(SEED, ids, 0, S, S)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    xr = x[:Br]
+    out = _preset_run(torch, "randaug", counts, lambda: augment_batch(xr, draws, "randaug"))
+    _check(out.shape == RANDAUG_SHAPE and out.dtype == torch.float32, f"randaug: out {tuple(out.shape)} {out.dtype}")
+    _check(bool(((out >= 0) & (out <= 255)).all()), "randaug: values in 0..255")
+    n = 8
+    ref = augment_batch(host[:n], draws.take(range(n)), "randaug")
+    _u8_within("randaug images 0-7", quantize_round_half_even(out[:n]), quantize_round_half_even(ref))
+    rates["randaug"] = (_rate(torch, lambda: augment_batch(xr, draws, "randaug"), Br), draw_ms)
+    print(f"  randaug origin ids {ids[:8]} + {Br - 8} more; erasing on {int(draws.erase_on.sum())}")
+    for preset, (ips, ms) in rates.items():
+        b = Br if preset == "randaug" else B
+        print(f"  augment_batch({preset}): {ips:.1f} imgs/s at b{b} 512^2 (host clock, 5 reps; "
+              f"draws made beforehand, {ms:.1f} ms per batch on the host)")
+    return counts, rates
 
 
 def main() -> int:
@@ -461,6 +595,7 @@ def main() -> int:
     ips = phase_preprocess(torch, dev)
     serve_launches, p50 = phase_serve(torch, dev)
     aug_launches, aug_ips, legacy_ips = phase_augment(torch, dev)
+    preset_launches, preset_rates = phase_presets(torch, dev)
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -473,10 +608,13 @@ def main() -> int:
         "resample_rows": ("mmtrs_tpu_torch/csrc/resample_rows.cu", "mmtrs_tpu/ops/pallas/shift_kernel.py:177"),
         "photometric": ("mmtrs_tpu_torch/csrc/photometric.cu", "mmtrs_tpu/ops/pallas/photometric_kernel.py:123"),
         "shift_rows_windowed": ("mmtrs_tpu_torch/csrc/shift_rows.cu", "mmtrs_tpu/ops/pallas/shift_kernel.py:102"),
+        "scatter_rows": ("mmtrs_tpu_torch/csrc/scatter_rows.cu", "mmtrs_tpu/ops/pallas/scatter_kernel.py:48"),
     }
     # launches: K1-K3 from the serving run (phase 4), K4-K6 from the
-    # augmentation run (phase 5), each counted from 0 just before its path
+    # augmentation run (phase 5), K7 from the three preset runs (phase 6),
+    # each counted from 0 just before its path
     launches = {k: serve_launches[k] if k in SERVE_KERNELS else aug_launches[k] for k in sources}
+    launches["scatter_rows"] = sum(c["scatter_rows"] for c in preset_launches.values())
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
@@ -485,7 +623,10 @@ def main() -> int:
     ]
     print(f"summary: preprocess_batch {ips:.1f} imgs/s at b16 512^2; serve p50 {p50:.2f} ms; "
           f"preprocess_augment_batch {aug_ips:.1f} imgs/s and augment_batch(legacy) "
-          f"{legacy_ips:.1f} imgs/s at b{AUG_SHAPE[0]} 512^2; total {time.perf_counter() - T_START:.1f} s")
+          f"{legacy_ips:.1f} imgs/s at b{AUG_SHAPE[0]} 512^2; augment_batch ten {preset_rates['ten'][0]:.1f}, "
+          f"simple {preset_rates['simple'][0]:.1f} imgs/s at b{PRESET_SHAPE[0]} 512^2, randaug "
+          f"{preset_rates['randaug'][0]:.1f} imgs/s at b{RANDAUG_SHAPE[0]} 512^2; "
+          f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points (csrc/*.cu): each returns the cudaGetLastError() code of
 # its launch; every pointer and the stream are c_void_p so none is cut to 32 bits
 _SIGNATURES = {
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_photometric": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "mmtrs_scatter_rows": (_P, _P, _P, _L, _L, _L, _P),
 }
 
 

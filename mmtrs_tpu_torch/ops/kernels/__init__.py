@@ -18,6 +18,7 @@ LAUNCHES: dict[str, int] = {
     "resample_rows": 0,
     "photometric": 0,
     "shift_rows_windowed": 0,
+    "scatter_rows": 0,
 }
 
 

@@ -544,12 +544,15 @@ def test_subset_apply_refuses_a_dtype_change():
 
 
 def test_augment_batch_dispatch():
-    from mmtrs_tpu_torch.ops.augment import augment_batch
+    """"none" passes the batch through; ten and simple need aug_idx, as in
+    the JAX package; an unknown name raises (tests/test_torch_presets.py
+    runs the other presets)."""
+    from mmtrs_tpu_torch.ops.augment import augment_batch, draw_ten
 
     x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     assert augment_batch(x, None, "none") is x
-    for preset in ("ten", "simple", "randaug"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            augment_batch(x, None, preset)
+    for preset in ("ten", "simple"):
+        with pytest.raises(ValueError, match="needs aug_idx"):
+            augment_batch(x, draw_ten(0, [0], 1, 8, 8, [0]), preset)
     with pytest.raises(ValueError, match="unknown preset"):
         augment_batch(x, None, "bogus")

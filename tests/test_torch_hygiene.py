@@ -1,11 +1,14 @@
 """Boundaries of the PyTorch port: what it imports, and that a CUDA kernel is
 never replaced by its plain version when the card or nvcc is missing."""
 
+import ctypes
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +26,7 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.ops.kernels.shift",
     "mmtrs_tpu_torch.ops.kernels.resample",
     "mmtrs_tpu_torch.ops.kernels.photometric",
+    "mmtrs_tpu_torch.ops.kernels.scatter",
     "mmtrs_tpu_torch.utils",
     "mmtrs_tpu_torch.utils.rng",
     "mmtrs_tpu_torch.ops.warp",
@@ -36,6 +40,8 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.models.convert",
     "mmtrs_tpu_torch.train.common",
     "mmtrs_tpu_torch.preprocess",
+    "mmtrs_tpu_torch.data",
+    "mmtrs_tpu_torch.data.records",
     "mmtrs_tpu_torch.serve.choices",
     "mmtrs_tpu_torch.serve.ensembles",
     "mmtrs_tpu_torch.serve.service",
@@ -91,7 +97,8 @@ def test_build_without_card_raises():
 
 
 @pytest.mark.parametrize(
-    "wrapper", ["clahe_lab_fwd_lut", "shift_rows", "resample_rows", "photometric", "shift_rows_windowed"]
+    "wrapper",
+    ["clahe_lab_fwd_lut", "shift_rows", "resample_rows", "photometric", "shift_rows_windowed", "scatter_rows"],
 )
 def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
     """A tensor that is not on the CPU never gets the plain version: here a
@@ -99,6 +106,7 @@ def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
     from mmtrs_tpu_torch.ops.kernels.clahe_lab import clahe_lab_fwd_lut
     from mmtrs_tpu_torch.ops.kernels.photometric import photometric
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
+    from mmtrs_tpu_torch.ops.kernels.scatter import scatter_rows_
     from mmtrs_tpu_torch.ops.kernels.shift import shift_rows, shift_rows_windowed
 
     meta = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
@@ -109,6 +117,7 @@ def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
         "resample_rows": lambda: resample_rows(x, meta((1, 16)), meta((1,)), meta((1,))),
         "photometric": lambda: photometric(x, meta((1, 10)), meta((1,), torch.int32), 2),
         "shift_rows_windowed": lambda: shift_rows_windowed(x, meta((1, 16, 16)), 11),
+        "scatter_rows": lambda: scatter_rows_(x, meta((1, 16, 16, 3), torch.uint8), meta((1,), torch.int64)),
     }
     with pytest.raises(ValueError, match="CUDA device"):
         calls[wrapper]()
@@ -165,3 +174,37 @@ def test_slice2_wrappers_reject_bad_inputs(case):
     fn, args, msg = _bad_input_cases()[case]
     with pytest.raises(ValueError, match=msg):
         fn(*args)
+
+
+_CTYPES = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p, "int": ctypes.c_int,
+           "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+def test_signatures_match_the_c_entry_points():
+    """Every ``extern "C"`` entry point of csrc/*.cu has a ``_SIGNATURES``
+    entry with one ctypes type per parameter, in order (a pointer or a
+    64-bit count bound as a C int would be cut to 32 bits), and no entry
+    names a function the sources lack."""
+    from mmtrs_tpu_torch import _build
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = " ".join(src.read_text().split())
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = [_CTYPES[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert set(found) == set(_build._SIGNATURES)
+    for name, types in found.items():
+        assert list(_build._SIGNATURES[name]) == types, name
+
+
+@pytest.mark.parametrize("preset", ["none", "legacy", "ten", "simple", "randaug"])
+def test_augment_batch_runs_every_preset(preset):
+    """No preset raises NotImplementedError any more: each runs on its own
+    host draws at u8 [3, 32, 32, 3] and keeps shape and range."""
+    from mmtrs_tpu_torch.ops.augment import augment_batch, draw_batch
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (3, 32, 32, 3)).astype(np.uint8))
+    aug = [0, 7, 9]
+    draws = draw_batch(preset, 1, [4, 5, 6], 1, 32, 32, aug_idx=aug, img_size=32)
+    out = augment_batch(x, draws, preset, aug_idx=aug, img_size=32)
+    assert out.shape == x.shape and float(out.min()) >= 0 and float(out.max()) <= 255
