@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's L-plane paths, on one NVIDIA GPU.
+
+    python3 chip_profile.py        # from the repository root, on a CUDA machine
+
+Two paths, on the inputs chip_smoke.py drives them with:
+  1. the archive pass, ``preprocess_stream`` over 3 batches of u8
+     [4, 3024, 4032, 3] synthetic 12 MP teeth: host-clock time of each
+     stage of one batch (pinning, the copy to the card, the CLAHE stage, its
+     float LAB and K8/K9 parts, deskew, the segmenter, the crop, the copy
+     back), each ended by a synchronise; then ``torch.profiler`` over the
+     stream: device busy share of the wall and the largest device items;
+  2. one phone-shaped serving request's preprocessing (a 768x1024 upload,
+     bucket 512x688): host-clock time of the bucket resize, the CLAHE stage
+     and the whole ``PredictService.preprocess``.
+K8 and K9 are also timed back to back (100 launches between two CUDA
+events) against one call between events, which separates a launch's host
+cost from the kernel. Prints the card's name and power limit, then one JSON
+object of the numbers as its last line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 20261016
+ARCHIVE_SHAPE = (4, 3024, 4032, 3)
+
+
+def _sync_ms(torch, fn):
+    """(result, host-clock ms of ``fn`` ended by a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _events_ms(torch, fn, n):
+    """Device ms per call of ``fn`` over ``n`` back-to-back calls."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def archive_stages(torch, dev, host):
+    from mmtrs_tpu_torch.models.segmenter import SaliencySegmenter
+    from mmtrs_tpu_torch.ops.clahe import quantize_u8
+    from mmtrs_tpu_torch.ops.color import lab_to_rgb, rgb_to_lab
+    from mmtrs_tpu_torch.ops.deskew import deskew_batch
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_l
+    from mmtrs_tpu_torch.ops.resize import crop_box_resize
+    from mmtrs_tpu_torch.preprocess import _clahe_lab_stage
+
+    ms = {}
+    pinned, ms["pin_memory"] = _sync_ms(torch, lambda: torch.from_numpy(host).pin_memory())
+    x, ms["copy_to_card"] = _sync_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    lab, ms["clahe.rgb_to_lab"] = _sync_ms(torch, lambda: rgb_to_lab(x.float()))
+    l2, ms["clahe.k8_k9"] = _sync_ms(torch, lambda: clahe_l(lab[..., 0], 3.0, (8, 8), torch.uint8))
+    _, ms["clahe.lab_to_rgb_u8"] = _sync_ms(
+        torch, lambda: quantize_u8(lab_to_rgb(torch.cat([l2.float()[..., None], lab[..., 1:]], dim=-1))))
+    del lab, l2
+    c, ms["clahe_stage"] = _sync_ms(torch, lambda: _clahe_lab_stage(x, 3.0, (8, 8)))
+    (d, _), ms["deskew"] = _sync_ms(torch, lambda: deskew_batch(c))
+    (boxes, _), ms["segmenter"] = _sync_ms(torch, lambda: SaliencySegmenter().propose_boxes(d))
+    out, ms["crop_resize_u8"] = _sync_ms(torch, lambda: quantize_u8(crop_box_resize(d, boxes, 512, 15.0)))
+    _, ms["copy_back"] = _sync_ms(torch, lambda: out.cpu().numpy())
+    return ms
+
+
+def archive_profile(torch, dev, host, batches=3):
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtrs_tpu_torch.preprocess import preprocess_stream
+
+    list(preprocess_stream(iter([(0, host)]), device=dev))  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        list(preprocess_stream(((i, host) for i in range(batches)), device=dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device's own events (kernels, copies, memsets), not the host ops
+    # that launched them
+    dev_items = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_items) / 1e3
+    top = sorted(dev_items, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "wall_ms_per_batch": wall_ms / batches,
+        "device_busy_ms_per_batch": busy_ms / batches,
+        "busy_share": busy_ms / wall_ms,
+        "device_events_per_batch": sum(e.count for e in dev_items) / batches,
+        "top_device_ms_per_batch": {e.key[:90]: e.self_device_time_total / 1e3 / batches for e in top},
+    }
+
+
+def kernel_launch_costs(torch, dev, host):
+    from mmtrs_tpu_torch.ops.color import rgb_to_lab
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_apply, clahe_hist_lut, quantize_l
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    res = {}
+    for what, rgb in (("serving_16x512x688", synth_teeth(16, (512, 688), seed=SEED + 5)),
+                      ("archive_2x3024x4032", host[:2])):
+        l = quantize_l(rgb_to_lab(torch.from_numpy(rgb).to(dev).float())[..., 0]).contiguous()
+        lut = clahe_hist_lut(l)
+        for name, fn in (("clahe_hist_lut", lambda: clahe_hist_lut(l)),
+                         ("clahe_apply_u8", lambda: clahe_apply(l, lut, out_dtype=torch.uint8))):
+            res[f"{name}@{what}"] = {"one_call_ms": float(np.median([_events_ms(torch, fn, 1) for _ in range(20)])),
+                                     "back_to_back_ms": _events_ms(torch, fn, 100)}
+    return res
+
+
+def serving_request(torch, dev):
+    from mmtrs_tpu_torch.ops.resize import resize_bilinear_u8
+    from mmtrs_tpu_torch.preprocess import _clahe_lab_stage
+    from mmtrs_tpu_torch.serve.service import PredictService
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    img = synth_teeth(1, (768, 1024), seed=SEED + 10, angles_deg=[25.0])[0]
+    svc = PredictService(mil_predict=lambda im: 0.5, device=dev)
+    svc.preprocess(img)  # warm-up
+    x = torch.from_numpy(img).to(dev)
+    ms = {}
+    for _ in range(5):
+        r, t_resize = _sync_ms(torch, lambda: resize_bilinear_u8(x, (512, 688)))
+        _, t_clahe = _sync_ms(torch, lambda: _clahe_lab_stage(r[None], 3.0, (8, 8)))
+        _, t_all = _sync_ms(torch, lambda: svc.preprocess(img))
+        for k, v in (("resize_bilinear_u8", t_resize), ("clahe_stage", t_clahe), ("preprocess", t_all)):
+            ms.setdefault(k, []).append(v)
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def main() -> int:
+    if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
+        print("chip_profile: run from the repository", file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    B, H, W, _ = ARCHIVE_SHAPE
+    host = synth_teeth(B, (H, W), seed=SEED + 6, angles_deg=[30.0, -25.0] + [0.0] * (B - 2))
+    archive_stages(torch, dev, host)  # warm-up
+    result = {
+        "archive_stage_ms": archive_stages(torch, dev, host),
+        "archive_profile": archive_profile(torch, dev, host),
+        "kernels": kernel_launch_costs(torch, dev, host),
+        "serving_768x1024_ms": serving_request(torch, dev),
+    }
+    print(smi)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

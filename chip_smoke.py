@@ -16,17 +16,26 @@ Phases (each raises on failure, so the script exits non-zero):
      all at once) and K6 u8 bit-equal to plain, or max ≤ 1 level on
      ≥ 99.99 % of values; K7 at u8 and f32 [32, 512, 512, 3] with a random
      7-row subset: written rows bit-equal to plain, untouched rows
-     byte-identical; median CUDA-event times;
+     byte-identical; K8 and K9 on the u8 L planes of synthetic teeth at
+     [16, 512, 688] (serving's tiles, 64 × 86 px) and [2, 3024, 4032] (the
+     archive's, 378 × 504 px): K8's LUTs bit-equal, K9's f32 blend within
+     1e-4 and its u8 store bit-equal; median CUDA-event times, and each
+     kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
+     operations over 67 TFLOP/s (the H100 SXM's published peaks);
   3. preprocess_batch at [16, 512, 512, 3] with deskew firing on 2 images:
      K1-K3 launched, and the result against the same port run on the CPU
      (seg_valid equal, angles within 1e-3°, boxes within 1 px, u8 within
      2 levels on ≥ 99.9 % of values); imgs/s;
   4. serving: PredictService with a 2-fold bf16 MILEnsemble of
      MILNet("efficientnet_b0", attn_dim=128) (random weights from seeded
-     generators) answers uploads at 512², 512×768, 640×512 and 512×1024 and
-     refuses a 480×640 one; the K1-K3 counters rise per request; p50
-     latency; an f32 copy of each fold's logit on the card agrees with the
-     CPU within 1e-3 relative;
+     generators) answers uploads at 512², 512×768, 640×512 and 512×1024
+     (the fused route: the K1-K3 counters rise per request, K8/K9's do not)
+     and phone-shaped uploads at 768×1024, 1024×768 and 576×1024, which
+     bucket to 512×688, 688×512 and 512×912 (the L-plane route: K8, K9 and
+     K3 rise, K1/K2 do not; the bucket resize on the card equals the same
+     function on the CPU), and refuses a 480×640 one; p50 latency per route;
+     an f32 copy of each fold's logit on the card agrees with the CPU within
+     1e-3 relative;
   5. augmentation: preprocess_augment_batch with the legacy preset at u8
      [32, 512, 512, 3], draws from draw_legacy for origin ids chosen so that
      every gated member fires among the first 8 images, deskew on 2 of
@@ -41,17 +50,23 @@ Phases (each raises on failure, so the script exits non-zero):
      first 8: K4 and K7 (and K6 for ``ten``) launched, values in 0..255,
      the first 10 children (8 randaug images) against the same port on the
      CPU with the same draws (u8 within 2 levels on ≥ 99.9 % of values);
-     imgs/s of augment_batch per preset and host ms of its draws.
+     imgs/s of augment_batch per preset and host ms of its draws;
+  7. the archive pass: preprocess_stream over in-memory u8 batches of
+     [4, 3024, 4032, 3] synthetic 12 MP teeth (3 batches after a warm-up):
+     the L-plane route (K8, K9, K3 launched, K1/K2 not), metas in order,
+     imgs/s; and a [2, 752, 1000, 3] batch (a 750×1000 archive padded to
+     /8) against the same port on the CPU with phase 3's bars.
 
-The counters are reset just before each driven path (phases 3, 4, 5 and
-each preset of 6); the JSON line of kernels reports K1-K3's launches from
-the serving run (phase 4), K4-K6's from the augmentation run (phase 5) and
-K7's from the preset runs (phase 6).
+The counters are reset just before each driven path (phases 3, 4, 5, each
+preset of 6, and 7); the JSON line of kernels reports K1-K3's and K8-K9's
+launches from the serving run (phase 4), K4-K6's from the augmentation run
+(phase 5) and K7's from the preset runs (phase 6).
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -64,14 +79,26 @@ ROOT = Path(__file__).resolve().parent
 SHAPE = (16, 512, 512, 3)
 AUG_SHAPE = (32, 512, 512, 3)  # build_augmented_table's default batch (data/records.py:63)
 SEED = 20261016
-# the kernels each driven path runs: serving (phases 3, 4) and the
+# the kernels each driven path runs: serving on the fused route (phases 3,
+# 4), serving and the archive on the L-plane route (phases 4, 7) and the
 # augmentation chain (phase 5)
-SERVE_KERNELS = ("clahe_lab_fwd_lut", "clahe_apply_lab_bwd", "shift_rows")
+FUSED_KERNELS = ("clahe_lab_fwd_lut", "clahe_apply_lab_bwd")
+L_KERNELS = ("clahe_hist_lut", "clahe_apply")
+SERVE_KERNELS = FUSED_KERNELS + ("shift_rows",)
+L_ROUTE_KERNELS = L_KERNELS + ("shift_rows",)
 AUG_KERNELS = SERVE_KERNELS + ("resample_rows", "photometric", "shift_rows_windowed")
 # gated members of the legacy preset that must fire among the first 8 images
 AUG_MEMBERS = ("hflip", "vflip", "ssr", "persp", "clahe", "bc", "hsv", "noise", "dropout", "blur", "elastic")
 PRESET_SHAPE = AUG_SHAPE
 RANDAUG_SHAPE = (12, 512, 512, 3)  # the MM trainer's batch_size (config.py:276)
+L_SHAPE = (16, 512, 688)  # serving's L plane: a 4:3 phone photo's bucket
+# serving's uploads: shapes the fused route takes, and phone photos' shapes,
+# which bucket to 512x688, 688x512 and 512x912 and take the L-plane route
+FUSED_UPLOADS = [(512, 512), (512, 768), (640, 512), (512, 1024)]
+PHONE_UPLOADS = [(768, 1024), (1024, 768), (576, 1024)]
+ARCHIVE_SHAPE = (4, 3024, 4032, 3)  # a batch of 12 MP phone photos
+ARCHIVE_BATCHES = 3
+SMALL_ARCHIVE_SHAPE = (2, 752, 1000, 3)  # a 750x1000 archive padded to /8
 # the kernels each preset of phase 6 runs
 PRESET_KERNELS = {
     "ten": ("resample_rows", "shift_rows_windowed", "scatter_rows"),
@@ -81,6 +108,24 @@ PRESET_KERNELS = {
 
 
 T_START = time.perf_counter()
+# the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
+# f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# f32 operations per output element of each kernel's formula, each exp, log
+# and division counted as one (so the least the card must issue): the LAB
+# conversions, pows and blends of csrc/*.cu counted line by line
+OPS_PER_ELEMENT = {
+    "clahe_lab_fwd_lut": 90,    # per pixel: 3 gamma pows, XYZ, 3 cube roots, L a b, quantise, count
+    "clahe_apply_lab_bwd": 110,  # per pixel: blend, L' store, inverse f, RGB, 3 gamma pows
+    "shift_rows": 8,             # per value: two taps, weight, blend, store
+    "resample_rows": 12,         # per value: affine source, two hat taps, blend, store
+    "photometric": 110,          # per pixel: brightness/contrast, HSV there and back, noise, dropout
+    "shift_rows_windowed": 10,   # per value: clipped source, two taps, blend, store
+    "scatter_rows": 0,           # a copy
+    "clahe_hist_lut": 1,         # per pixel: one count; the 256-bin scan is per tile
+    "clahe_apply": 30,           # per pixel: tile coordinates, 4 gathers, blend, store
+}
 
 
 def _fail(msg: str) -> int:
@@ -104,6 +149,18 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the f32 rate; and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -151,28 +208,39 @@ def phase_kernels(torch, dev):
         _check(torch.equal(u8, shift_rows_ref(x, off, axis)), f"K3 u8 axis {axis} == plain")
 
     lq, da, db, lut = got
-    times = {
-        "clahe_lab_fwd_lut": (
-            _time_ms(lambda: K.clahe_lab_fwd_lut(x, clip, tiles)),
-            _time_ms(lambda: K.clahe_lab_fwd_lut_ref(x, clip, tiles)),
-        ),
-        "clahe_apply_lab_bwd": (
-            _time_ms(lambda: K.clahe_apply_lab_bwd(lq, da, db, lut, tiles)),
-            _time_ms(lambda: K.clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles)),
-        ),
+    px = SHAPE[0] * SHAPE[1] * SHAPE[2]
+    stats = {
+        "clahe_lab_fwd_lut": _stat(
+            "clahe_lab_fwd_lut", lambda: K.clahe_lab_fwd_lut(x, clip, tiles),
+            lambda: K.clahe_lab_fwd_lut_ref(x, clip, tiles), _nbytes(x, *got), px),
+        "clahe_apply_lab_bwd": _stat(
+            "clahe_apply_lab_bwd", lambda: K.clahe_apply_lab_bwd(lq, da, db, lut, tiles),
+            lambda: K.clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles), _nbytes(*got, chain), px),
         # u8 NHWC, one x-shear: what deskew runs per pass
-        "shift_rows": (
-            _time_ms(lambda: shift_rows(x, offs[2], 2)),
-            _time_ms(lambda: shift_rows_ref(x, offs[2], 2)),
-        ),
+        "shift_rows": _stat(
+            "shift_rows", lambda: shift_rows(x, offs[2], 2), lambda: shift_rows_ref(x, offs[2], 2),
+            _nbytes(x, offs[2], x), x.numel()),
     }
     errs = {"clahe_lab_fwd_lut": k1_err, "clahe_apply_lab_bwd": k2_err, "shift_rows": k3_err}
-    for check in (_check_resample, _check_photometric, _check_windowed, _check_scatter):
-        name, err, t = check(torch, dev, x, xf, gen)
-        errs[name], times[name] = err, t
-    for k, (ms, plain) in times.items():
-        print(f"  {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms (median of 20)")
-    return times, errs
+    for check in (_check_resample, _check_photometric, _check_windowed, _check_scatter, _check_clahe_l):
+        for name, err, st in check(torch, dev, x, xf, gen):
+            errs[name], stats[name] = err, st
+    for k, st in stats.items():
+        lib = "" if st["library_ms"] is None else f", library {st['library_ms']:.4f} ms"
+        print(f"  {k}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms{lib} (median of 20); "
+              f"bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']} ({st['nbytes']} B, {st['ops']} ops)")
+    return stats, errs
+
+
+def _stat(name, kernel, plain, nbytes, elements, library=None):
+    """Median CUDA-event times of a kernel's wrapper, its plain version and,
+    where one PyTorch call computes the same function, that call; and the
+    bound of the work on these inputs."""
+    ops = OPS_PER_ELEMENT[name] * elements
+    bound, by = _bound_ms(nbytes, ops)
+    return {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
+            "library_ms": None if library is None else _time_ms(library),
+            "nbytes": nbytes, "ops": ops, "bound_ms": bound, "bound_by": by}
 
 
 def _u8_bar(name, got, want):
@@ -206,9 +274,9 @@ def _check_resample(torch, dev, x, xf, gen):
         err = max(err, e, _u8_bar(f"K4 axis {axis}", resample_rows(x, *a, axis=axis),
                                   resample_rows_ref(x, *a, axis=axis)))
     # u8 NHWC, the warp's horizontal pass
-    t = (_time_ms(lambda: resample_rows(x, *args[2], axis=2)),
-         _time_ms(lambda: resample_rows_ref(x, *args[2], axis=2)))
-    return "resample_rows", err, t
+    st = _stat("resample_rows", lambda: resample_rows(x, *args[2], axis=2),
+               lambda: resample_rows_ref(x, *args[2], axis=2), _nbytes(x, *args[2], x), x.numel())
+    return [("resample_rows", err, st)]
 
 
 def _check_photometric(torch, dev, x, xf, gen):
@@ -228,9 +296,9 @@ def _check_photometric(torch, dev, x, xf, gen):
     seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32).to(dev)
     hole = 512 // 24
     err = _u8_bar("K5", photometric(x, params, seeds, hole), photometric_ref(x, params, seeds, hole))
-    t = (_time_ms(lambda: photometric(x, params, seeds, hole)),
-         _time_ms(lambda: photometric_ref(x, params, seeds, hole)))
-    return "photometric", err, t
+    st = _stat("photometric", lambda: photometric(x, params, seeds, hole),
+               lambda: photometric_ref(x, params, seeds, hole), _nbytes(x, params, seeds, x), x.numel() // 3)
+    return [("photometric", err, st)]
 
 
 def _check_windowed(torch, dev, x, xf, gen):
@@ -247,9 +315,9 @@ def _check_windowed(torch, dev, x, xf, gen):
         err = max(err, e, _u8_bar(f"K6 axis {axis}", shift_rows_windowed(x, off, 11, axis),
                                   shift_rows_windowed_ref(x, off, axis)))
     # u8 NHWC, the elastic transform's first (vertical) pass
-    t = (_time_ms(lambda: shift_rows_windowed(x, off, 11, 1)),
-         _time_ms(lambda: shift_rows_windowed_ref(x, off, 1)))
-    return "shift_rows_windowed", err, t
+    st = _stat("shift_rows_windowed", lambda: shift_rows_windowed(x, off, 11, 1),
+               lambda: shift_rows_windowed_ref(x, off, 1), _nbytes(x, off, x), x.numel())
+    return [("shift_rows_windowed", err, st)]
 
 
 def _check_scatter(torch, dev, x, xf, gen):
@@ -276,9 +344,63 @@ def _check_scatter(torch, dev, x, xf, gen):
         _check(torch.equal(got[keep], dst[keep]), f"K7 {dtype} the {int(keep.sum())} other rows untouched")
         bufs[dtype] = (dst, sub)
     # f32: what subset_apply writes back in the ten / simple / randaug chains
+    # bytes: the sub-batch read and its rows written, and the ids
     dst, sub = bufs[torch.float32]
-    t = (_time_ms(lambda: scatter_rows_(dst, sub, idx)), _time_ms(lambda: scatter_rows_ref(dst, sub, idx)))
-    return "scatter_rows", err, t
+    st = _stat("scatter_rows", lambda: scatter_rows_(dst, sub, idx), lambda: scatter_rows_ref(dst, sub, idx),
+               _nbytes(sub, sub, idx), sub.numel(), library=lambda: dst.index_copy_(0, idx, sub))
+    return [("scatter_rows", err, st)]
+
+
+def _l_planes(torch, dev, rgb):
+    """The u8 L plane of u8 RGB on the card, as the L-plane route makes it."""
+    from mmtrs_tpu_torch.ops.color import rgb_to_lab
+    from mmtrs_tpu_torch.ops.kernels.clahe import quantize_l
+
+    return quantize_l(rgb_to_lab(rgb.to(dev).float())[..., 0]).contiguous()
+
+
+def _check_clahe_l(torch, dev, x, xf, gen):
+    """K8 and K9 on the L planes of synthetic teeth at serving's shape
+    [16, 512, 688] and at the archive's [2, 3024, 4032]: K8's LUTs and K9's
+    u8 store bit-equal to plain, K9's f32 blend within 1e-4. The JSON line
+    takes serving's times; the archive's are printed."""
+    from mmtrs_tpu_torch.ops.kernels import clahe as C
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    clip, tiles = 3.0, (8, 8)
+    res = {}
+    serving = synth_teeth(L_SHAPE[0], L_SHAPE[1:], seed=SEED + 5)
+    for what, rgb in (("serving", serving), ("archive", _archive_batch()[:2])):
+        l = _l_planes(torch, dev, torch.from_numpy(rgb))
+        lut = C.clahe_hist_lut(l, clip, tiles)
+        _check(torch.equal(lut, C.clahe_hist_lut_ref(l, clip, tiles)), f"K8 {what} {tuple(l.shape)} LUTs bit-equal to plain")
+        f32 = C.clahe_apply(l, lut, tiles)
+        e = (f32 - C.clahe_apply_ref(l, lut, tiles)).abs().max().item()
+        _check(e <= 1e-4, f"K9 {what} f32 max err {e:.3g} <= 1e-4")
+        u8 = C.clahe_apply(l, lut, tiles, torch.uint8)
+        _check(torch.equal(u8, C.clahe_apply_ref(l, lut, tiles, torch.uint8)), f"K9 {what} u8 bit-equal to plain")
+        px = l.numel()
+        res[what] = [
+            ("clahe_hist_lut", 0.0, _stat("clahe_hist_lut", lambda: C.clahe_hist_lut(l, clip, tiles),
+                                          lambda: C.clahe_hist_lut_ref(l, clip, tiles), _nbytes(l, lut), px)),
+            # the u8 store: what the preprocessing stage runs
+            ("clahe_apply", e, _stat("clahe_apply", lambda: C.clahe_apply(l, lut, tiles, torch.uint8),
+                                     lambda: C.clahe_apply_ref(l, lut, tiles, torch.uint8), _nbytes(l, lut, u8), px)),
+        ]
+    for name, _, st in res["archive"]:
+        print(f"  {name} at the archive's {ARCHIVE_SHAPE[1:3]} x2: kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms; bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']}")
+    return res["serving"]
+
+
+@functools.cache
+def _archive_batch():
+    """u8 [4, 3024, 4032, 3]: synthetic 12 MP teeth, the first two rotated
+    so deskew fires (built once, on the host)."""
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    B, H, W, _ = ARCHIVE_SHAPE
+    return synth_teeth(B, (H, W), seed=SEED + 6, angles_deg=[30.0, -25.0] + [0.0] * (B - 2))
 
 
 def phase_preprocess(torch, dev):
@@ -326,8 +448,9 @@ def phase_serve(torch, dev):
     from mmtrs_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm_, lecun_init_
     from mmtrs_tpu_torch.models.mil import MILNet, make_eval_bag
     from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.ops.resize import resize_bilinear_u8
     from mmtrs_tpu_torch.serve.ensembles import MILEnsemble
-    from mmtrs_tpu_torch.serve.service import PredictService
+    from mmtrs_tpu_torch.serve.service import PredictService, serve_bucket_shape
     from mmtrs_tpu_torch.synth import synth_teeth
     from mmtrs_tpu_torch.train.common import normalize_imagenet
 
@@ -347,26 +470,34 @@ def phase_serve(torch, dev):
 
     ens = MILEnsemble(folds, MILNet("efficientnet_b0", 128).to(dev))
     svc = PredictService(mil_predict=ens.predict, device=dev)
-    shapes = [(512, 512), (512, 768), (640, 512), (512, 1024)]
     uploads = [
         synth_teeth(1, s, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
-        for i, s in enumerate(shapes)
+        for i, s in enumerate(FUSED_UPLOADS + PHONE_UPLOADS)
     ]
+    # the phone uploads' bucket resize on the card equals the same function on the CPU
+    for img in uploads[len(FUSED_UPLOADS):]:
+        bucket = serve_bucket_shape(*img.shape[:2])
+        host = torch.from_numpy(img)
+        on_card = resize_bilinear_u8(host.to(dev), bucket).cpu()
+        _check(torch.equal(on_card, resize_bilinear_u8(host, bucket)),
+               f"upload {img.shape[:2]} -> bucket {bucket}: resize on the card == on the CPU")
     svc.predict_one(uploads[0])  # warm-up: cuDNN plans, allocator
+    svc.predict_one(uploads[-1])
     torch.cuda.synchronize()
 
     reset_launches()
-    lat, results = [], []
+    lat, results = {"fused": [], "L-plane": []}, []
     for rep in range(3):
         for img in uploads:
+            route, rise, stay = (("fused", SERVE_KERNELS, L_KERNELS) if img.shape[:2] in FUSED_UPLOADS
+                                 else ("L-plane", L_ROUTE_KERNELS, FUSED_KERNELS))
             before = dict(LAUNCHES)
             t0 = time.perf_counter()
             r = svc.predict_one(img)
             torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t0)
-            rose = all(LAUNCHES[k] > before[k] for k in SERVE_KERNELS)
-            if not rose:
-                raise AssertionError(f"counters did not rise for {img.shape}: {before} -> {LAUNCHES}")
+            lat[route].append(time.perf_counter() - t0)
+            if not (all(LAUNCHES[k] > before[k] for k in rise) and all(LAUNCHES[k] == before[k] for k in stay)):
+                raise AssertionError(f"{route} route not taken for {img.shape}: {before} -> {LAUNCHES}")
             if "error" in r:
                 raise AssertionError(f"request {img.shape} failed: {r['error']}")
             p = r["p_indirect"]
@@ -375,20 +506,24 @@ def phase_serve(torch, dev):
             if r["processed_image"].shape != (512, 512, 3) or r["processed_image"].dtype != np.uint8:
                 raise AssertionError("processed image is not u8 512x512x3")
             if rep == 0:
-                results.append((img.shape, r["label"], p))
+                results.append((img.shape, route, r["label"], p))
     launches = dict(LAUNCHES)
-    for shape, label, p in results:
-        print(f"  upload {shape}: {label} p_indirect={p:.6f}")
-    _check(True, f"12 requests answered; K1-K3 counters rose on every request: {launches}")
+    for shape, route, label, p in results:
+        print(f"  upload {shape} ({route} route): {label} p_indirect={p:.6f}")
+    n = len(lat["fused"]) + len(lat["L-plane"])
+    _check(True, f"{n} requests answered; K1-K3 rose on every fused-route request and K8, K9, K3 on every "
+                 f"L-plane one, the other route's counters unchanged: {launches}")
     low = svc.predict_one(synth_teeth(1, (480, 640), seed=SEED)[0])
     _check("resolution" in low.get("error", ""), f"480x640 refused: {low.get('error')}")
-    p50 = float(np.median(lat)) * 1e3
-    print(f"  p50 latency {p50:.2f} ms per request (host clock, {len(lat)} requests)")
+    p50 = float(np.median(lat["fused"] + lat["L-plane"])) * 1e3
+    p50s = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+    print(f"  p50 latency {p50:.2f} ms per request (host clock, {n} requests); fused route "
+          f"{p50s['fused']:.2f} ms, L-plane route {p50s['L-plane']:.2f} ms")
 
     # each fold in f32 on the card against the CPU: logits of one bag of
     # the four processed uploads (TF32 is off; the bound covers cuDNN's
     # other summation order through 16 blocks)
-    procs = torch.from_numpy(np.stack([svc.preprocess(u) for u in uploads]))
+    procs = torch.from_numpy(np.stack([svc.preprocess(u) for u in uploads[:4]]))
     bag = normalize_imagenet(make_eval_bag(procs))[None]
     for f, sd in enumerate(folds):
         net = MILNet("efficientnet_b0", 128, dtype=torch.float32).eval()
@@ -565,6 +700,49 @@ def phase_presets(torch, dev):
     return counts, rates
 
 
+def phase_archive(torch, dev):
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.preprocess import preprocess_stream
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    B = ARCHIVE_SHAPE[0]
+    print(f"phase 7: preprocess_stream (the archive pass) on the card, {ARCHIVE_BATCHES} batches of", ARCHIVE_SHAPE)
+    host = _archive_batch()
+    list(preprocess_stream(iter([("warm-up", host)]), device=dev))
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(preprocess_stream(((i, host) for i in range(ARCHIVE_BATCHES)), device=dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS) and all(counts[k] == 0 for k in FUSED_KERNELS),
+           f"the L-plane route: K8, K9, K3 launched, K1/K2 not: {counts}")
+    _check([m for m, _, _ in outs] == list(range(ARCHIVE_BATCHES)), "batches came back in input order")
+    for _, out, info in outs:
+        _check(out.shape == (B, 512, 512, 3) and out.dtype == np.uint8, f"out {out.shape} {out.dtype}")
+        fired = int((info["deskew_angle"] != 0).sum())
+        _check(fired >= 2, f"deskew fired on {fired} images")
+    ips = ARCHIVE_BATCHES * B / dt
+    print(f"  preprocess_stream: {ips:.2f} imgs/s at b{B} {ARCHIVE_SHAPE[1]}x{ARCHIVE_SHAPE[2]} "
+          f"(host clock, {ARCHIVE_BATCHES} batches from host numpy to host numpy)")
+
+    n, H, W, _ = SMALL_ARCHIVE_SHAPE
+    small = synth_teeth(n, (H, W), seed=SEED + 7, angles_deg=[30.0] + [0.0] * (n - 1))
+    (_, got, info), = preprocess_stream(iter([(0, small)]), device=dev)
+    (_, ref, ref_info), = preprocess_stream(iter([(0, small)]), device="cpu")
+    _check(np.array_equal(info["seg_valid"], ref_info["seg_valid"]), f"{SMALL_ARCHIVE_SHAPE}: seg_valid equal to CPU")
+    da = np.abs(info["deskew_angle"] - ref_info["deskew_angle"]).max()
+    _check(da <= 1e-3, f"angles within 1e-3 deg of CPU (max {da:.3g})")
+    db = np.abs(info["boxes"] - ref_info["boxes"]).max()
+    _check(db <= 1.0, f"boxes within 1 px of CPU (max {db})")
+    d = np.abs(got.astype(int) - ref.astype(int))
+    within = (d <= 2).mean()
+    _check(within >= 0.999, f"u8 within 2 levels of CPU on {within:.6f} of values (max {d.max()})")
+    return counts, ips
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -591,11 +769,12 @@ def main() -> int:
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.library.build_seconds:.2f} s) into {_build.BUILD_DIR.relative_to(ROOT)}")
 
-    times, errs = phase_kernels(torch, dev)
+    stats, errs = phase_kernels(torch, dev)
     ips = phase_preprocess(torch, dev)
     serve_launches, p50 = phase_serve(torch, dev)
     aug_launches, aug_ips, legacy_ips = phase_augment(torch, dev)
     preset_launches, preset_rates = phase_presets(torch, dev)
+    archive_launches, archive_ips = phase_archive(torch, dev)
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -609,24 +788,28 @@ def main() -> int:
         "photometric": ("mmtrs_tpu_torch/csrc/photometric.cu", "mmtrs_tpu/ops/pallas/photometric_kernel.py:123"),
         "shift_rows_windowed": ("mmtrs_tpu_torch/csrc/shift_rows.cu", "mmtrs_tpu/ops/pallas/shift_kernel.py:102"),
         "scatter_rows": ("mmtrs_tpu_torch/csrc/scatter_rows.cu", "mmtrs_tpu/ops/pallas/scatter_kernel.py:48"),
+        "clahe_hist_lut": ("mmtrs_tpu_torch/csrc/clahe_l.cu",
+                           "mmtrs_tpu/ops/pallas/clahe_kernel.py:110, mmtrs_tpu/ops/pallas/clahe_kernel.py:80"),
+        "clahe_apply": ("mmtrs_tpu_torch/csrc/clahe_l.cu", "mmtrs_tpu/ops/pallas/clahe_kernel.py:175"),
     }
-    # launches: K1-K3 from the serving run (phase 4), K4-K6 from the
-    # augmentation run (phase 5), K7 from the three preset runs (phase 6),
-    # each counted from 0 just before its path
-    launches = {k: serve_launches[k] if k in SERVE_KERNELS else aug_launches[k] for k in sources}
+    # launches: K1-K3 and K8-K9 from the serving run (phase 4), K4-K6 from
+    # the augmentation run (phase 5), K7 from the three preset runs (phase
+    # 6), each counted from 0 just before its path
+    launches = {k: serve_launches[k] if k in SERVE_KERNELS + L_KERNELS else aug_launches[k] for k in sources}
     launches["scatter_rows"] = sum(c["scatter_rows"] for c in preset_launches.values())
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         **{key: stats[k][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for k, (src, rep) in sources.items()
     ]
     print(f"summary: preprocess_batch {ips:.1f} imgs/s at b16 512^2; serve p50 {p50:.2f} ms; "
           f"preprocess_augment_batch {aug_ips:.1f} imgs/s and augment_batch(legacy) "
           f"{legacy_ips:.1f} imgs/s at b{AUG_SHAPE[0]} 512^2; augment_batch ten {preset_rates['ten'][0]:.1f}, "
           f"simple {preset_rates['simple'][0]:.1f} imgs/s at b{PRESET_SHAPE[0]} 512^2, randaug "
-          f"{preset_rates['randaug'][0]:.1f} imgs/s at b{RANDAUG_SHAPE[0]} 512^2; "
-          f"total {time.perf_counter() - T_START:.1f} s")
+          f"{preset_rates['randaug'][0]:.1f} imgs/s at b{RANDAUG_SHAPE[0]} 512^2; preprocess_stream "
+          f"{archive_ips:.2f} imgs/s at b{ARCHIVE_SHAPE[0]} {ARCHIVE_SHAPE[1]}x{ARCHIVE_SHAPE[2]} (launches "
+          f"{archive_launches}); total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

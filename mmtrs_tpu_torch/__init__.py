@@ -17,6 +17,15 @@ crop) and the MIL EfficientNet-B0 stream behind ``serve.service.PredictService``
 Slice 2 (the augmentation chain): ``preprocess.preprocess_augment_batch`` and
 ``ops.augment.augment_batch`` with the ``legacy`` preset, its randomness
 drawn on the host per lineage (``ops.augment.draw_legacy``).
+Slice 3 (the other presets and the table builder's device loop):
+``augment_batch`` with ``ten``, ``simple`` and ``randaug``, and
+``data.records.augment_children``.
+Slice 4 (CLAHE on the L plane): the JAX package's second CLAHE route, which
+phone-shaped uploads and native-resolution archives take, and the archive
+pass ``preprocess.preprocess_stream``.
+
+The entry points run on the card unless the caller passes ``device="cpu"``
+(``device.resolve_device``).
 
 It imports ``torch`` and never ``jax``, and nothing of ``mmtrs_tpu``: the
 two small jax-free pieces it shares with it (``config.PreprocessConfig``,

@@ -11,6 +11,9 @@ plain versions (ops/kernels/clahe_lab.py) reuse them:
 2. :func:`interpolate_luts` — bilinear blend of the 4 neighbouring tile LUTs
    with OpenCV's tile coordinate ``y/th − 0.5`` and edge clamping, in the
    JAX oracle's formula and order.
+
+:func:`clahe` is the plain oracle; :func:`clahe_dispatch` is the L-plane
+route through the CUDA kernels K8 and K9 (ops/kernels/clahe.py).
 """
 
 from __future__ import annotations
@@ -107,6 +110,18 @@ def quantize_u8(x: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(x, 0.0, 255.0) + 0.5).to(torch.uint8)
 
 
+def clahe_dispatch(
+    l: torch.Tensor, clip: float = 3.0, tiles: tuple[int, int] = (8, 8)
+) -> torch.Tensor:
+    """CLAHE on an L plane [B, H, W] f32 0..255 → f32, as
+    mmtrs_tpu/ops/clahe.py:clahe_dispatch routes it to ``clahe_pallas``: K8
+    then K9 on a CUDA tensor. On a CPU tensor the two wrappers take their
+    plain versions, which compute :func:`clahe` bit for bit."""
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_l  # it imports this module
+
+    return clahe_l(l, clip=clip, tiles=tiles)
+
+
 def clahe_rgb(
     imgs: torch.Tensor,
     clip: float = 3.0,
@@ -117,7 +132,7 @@ def clahe_rgb(
     ``quant_l`` stores the CLAHE output L as u8 round-half-up (cv2's
     saturate_cast<uchar>)."""
     lab = torch.round(rgb_to_lab(imgs))
-    l2 = clahe(lab[..., 0], clip=clip, tiles=tiles)
+    l2 = clahe_dispatch(lab[..., 0], clip=clip, tiles=tiles)
     if quant_l:
         l2 = torch.floor(torch.clamp(l2, 0.0, 255.0) + 0.5)
     lab = torch.cat([l2[..., None], lab[..., 1:]], dim=-1)

@@ -19,6 +19,8 @@ LAUNCHES: dict[str, int] = {
     "photometric": 0,
     "shift_rows_windowed": 0,
     "scatter_rows": 0,
+    "clahe_hist_lut": 0,
+    "clahe_apply": 0,
 }
 
 

@@ -142,6 +142,30 @@ def clahe_apply_lab_bwd(lq, da, db, lut, tiles=(8, 8)) -> torch.Tensor:
     return out
 
 
+def _plane_rows(H: int) -> int:
+    """Copy of mmtrs_tpu/ops/pallas/lab_kernels.py:_plane_rows: the fused
+    TPU kernels' 16-aligned row block."""
+    for rows in range(min(128, H // 16 * 16), 15, -16):
+        if H % rows == 0:
+            return rows
+    raise ValueError(f"no 16-aligned row block for H={H}")
+
+
+def supports(H: int, W: int, tiles=(8, 8)) -> bool:
+    """Copy of mmtrs_tpu/ops/pallas/lab_kernels.py:supports: the shapes on
+    which the JAX package takes the fused LAB route (K1/K2 here); elsewhere
+    it takes the L-plane route (K8/K9). Held equal by
+    tests/test_torch_hygiene.py."""
+    if not (
+        W % 128 == 0 and H % 16 == 0 and H % tiles[0] == 0 and W % tiles[1] == 0
+    ):
+        return False
+    try:
+        return _plane_rows(H) % 32 == 0
+    except ValueError:
+        return False
+
+
 def _as_u8(imgs: torch.Tensor) -> torch.Tensor:
     if imgs.dtype == torch.uint8:
         return imgs.contiguous()

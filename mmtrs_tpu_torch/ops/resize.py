@@ -6,11 +6,16 @@ The JAX package builds a dense hat-weight matrix per axis and multiplies,
 because the TPU has no fast gather; an H100 gathers, so each axis here is a
 direct two-tap read with the same clamped coordinates (replicate border) and
 the same weights. float32 throughout, except ``crop_warp_fused``, which
-keeps a u8 batch u8 (kernel K4).
+keeps a u8 batch u8 (kernel K4), and ``resize_bilinear_u8``, serving's
+bucket resize, which computes Pillow's integer BILINEAR resize (host work in
+the JAX package, mmtrs_tpu/serve/service.py:133-143).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from mmtrs_tpu_torch.ops.color import fdiv
@@ -48,6 +53,68 @@ def resize_bilinear(imgs: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor
     xs = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) * (W / ow) - 0.5
     out = _resample_axis(imgs.float(), ys[None].expand(B, oh), axis=1)
     return _resample_axis(out, xs[None].expand(B, ow), axis=2)
+
+
+_PRECISION_BITS = 32 - 8 - 2  # Pillow's libImaging/Resample.c
+
+
+def _pillow_bilinear_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` for the bilinear filter over the whole
+    axis, then ``normalize_coeffs_8bpc``: (source index [n_out, k], clamped
+    into the axis; integer weight [n_out, k], 0 past each output's taps).
+    Computed in double on the host in Pillow's order of operations."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), n_in) - xmin
+    taps = np.arange(ksize)
+    used = taps[None, :] < xmax[:, None]
+    t = np.abs(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    k = np.where(used & (t < 1.0), 1.0 - t, 0.0)
+    ww = np.zeros(n_out)
+    for j in range(ksize):  # Pillow's sum, tap by tap
+        ww = ww + k[:, j]
+    k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None], k)
+    one = 1 << _PRECISION_BITS
+    coef = np.where(k < 0, np.trunc(-0.5 + k * one), np.trunc(0.5 + k * one)).astype(np.int32)
+    idx = np.minimum(xmin[:, None] + taps[None, :], n_in - 1)
+    return idx, coef
+
+
+def _pillow_pass(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """One Pillow 8-bit pass along ``axis`` of u8 [B, H, W, C]: an int32
+    accumulator from 1 << 21, the taps' u8 · weight products added, then
+    >> 22 and clipped to 0..255."""
+    idx, coef = _pillow_bilinear_taps(x.shape[axis], n_out)
+    idx = torch.from_numpy(idx).to(x.device)
+    coef = torch.from_numpy(coef).to(x.device)
+    view = [1, 1, 1, 1]
+    view[axis] = n_out
+    acc = None
+    for j in range(idx.shape[1]):
+        term = x.index_select(axis, idx[:, j]).to(torch.int32) * coef[:, j].view(view)
+        acc = term + (1 << (_PRECISION_BITS - 1)) if acc is None else acc + term
+    return torch.clamp(acc >> _PRECISION_BITS, 0, 255).to(torch.uint8)
+
+
+def resize_bilinear_u8(imgs: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``PIL.Image.resize((w, h), Image.BILINEAR)`` of u8 RGB, bit for bit,
+    on the tensor's device: u8 [H, W, 3] or [B, H, W, 3] → the same rank at
+    ``out_hw``. The horizontal pass runs first, u8 between the passes, and
+    each pass only where its dimension changes (libImaging/Resample.c)."""
+    if imgs.dtype != torch.uint8 or imgs.dim() not in (3, 4):
+        raise ValueError(f"resize_bilinear_u8: needs u8 [H, W, C] or [B, H, W, C], got "
+                         f"{imgs.dtype} {tuple(imgs.shape)}")
+    x = imgs if imgs.dim() == 4 else imgs[None]
+    oh, ow = out_hw
+    if x.shape[2] != ow:
+        x = _pillow_pass(x, 2, ow)
+    if x.shape[1] != oh:
+        x = _pillow_pass(x, 1, oh)
+    return x if imgs.dim() == 4 else x[0]
 
 
 def center_crop_resize(imgs: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -6,6 +6,11 @@ on the compute device; each stream is an optional callable; with no stacker
 the result is the mean of the streams present (``predict_one``'s graceful
 degradation). The LR ``Stacker`` comes with the port of models/linear.py;
 until then any object with ``fuse`` and ``thresholds`` can stand in.
+
+The service runs on the card unless it is given ``device="cpu"``. An upload
+is resized to its bucket shape on that device with ``resize_bilinear_u8``,
+which computes Pillow's BILINEAR resize (what the JAX service calls on the
+host) bit for bit, so serving needs no Pillow.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ import numpy as np
 import torch
 
 from mmtrs_tpu_torch.config import PreprocessConfig
+from mmtrs_tpu_torch.device import resolve_device
+from mmtrs_tpu_torch.ops.resize import resize_bilinear_u8
+from mmtrs_tpu_torch.preprocess import preprocess_u8
 from mmtrs_tpu_torch.serve.choices import encode_fields, validate_all_or_none
 
 
@@ -46,7 +54,7 @@ class PredictService:
         min_resolution: int = 512,
         legacy_blend: bool = False,
         bucket_shapes: bool = True,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,  # None: the card
     ):
         self.mm_predict = mm_predict
         self.mil_predict = mil_predict
@@ -56,26 +64,19 @@ class PredictService:
         self.min_resolution = min_resolution
         self.legacy_blend = legacy_blend
         self.bucket_shapes = bucket_shapes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # -- pipeline ------------------------------------------------------------
 
     def preprocess(self, image: np.ndarray) -> np.ndarray:
-        from mmtrs_tpu_torch.preprocess import preprocess_numpy
-
+        x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         if self.bucket_shapes:
             h, w = image.shape[:2]
             bh, bw = serve_bucket_shape(h, w)
             if (h, w) != (bh, bw):
-                from PIL import Image
-
-                image = np.asarray(
-                    Image.fromarray(image.astype(np.uint8)).resize(
-                        (bw, bh), Image.BILINEAR
-                    )
-                )
-        out, _ = preprocess_numpy(image[None], self.cfg, device=self.device)
-        return out[0]
+                x = resize_bilinear_u8(x.to(torch.uint8), (bh, bw))
+        out, _ = preprocess_u8(x[None], self.cfg)
+        return out[0].cpu().numpy()
 
     def predict_one(
         self,

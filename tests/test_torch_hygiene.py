@@ -18,11 +18,13 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch",
     "mmtrs_tpu_torch._build",
     "mmtrs_tpu_torch.config",
+    "mmtrs_tpu_torch.device",
     "mmtrs_tpu_torch.synth",
     "mmtrs_tpu_torch.ops.color",
     "mmtrs_tpu_torch.ops.clahe",
     "mmtrs_tpu_torch.ops.kernels",
     "mmtrs_tpu_torch.ops.kernels.clahe_lab",
+    "mmtrs_tpu_torch.ops.kernels.clahe",
     "mmtrs_tpu_torch.ops.kernels.shift",
     "mmtrs_tpu_torch.ops.kernels.resample",
     "mmtrs_tpu_torch.ops.kernels.photometric",
@@ -74,6 +76,27 @@ def test_config_copy_matches_jax_package():
     assert spec(PreprocessConfig) == spec(Orig)
 
 
+def test_supports_copy_matches_jax_package():
+    """The route predicate and its row block, copied from the fused TPU
+    kernels' module, agree with the originals over H, W in 16..1104 step 8
+    and both tile grids."""
+    from mmtrs_tpu.ops.pallas import lab_kernels as orig
+    from mmtrs_tpu_torch.ops.kernels import clahe_lab
+
+    sizes = range(16, 1105, 8)
+    for H in sizes:
+        try:
+            want = orig._plane_rows(H)
+        except ValueError:
+            with pytest.raises(ValueError):
+                clahe_lab._plane_rows(H)
+        else:
+            assert clahe_lab._plane_rows(H) == want, H
+        for W in sizes:
+            for tiles in ((8, 8), (4, 4)):
+                assert clahe_lab.supports(H, W, tiles) == orig.supports(H, W, tiles), (H, W, tiles)
+
+
 def test_choices_copy_matches_jax_package():
     from mmtrs_tpu.serve import choices as orig
     from mmtrs_tpu_torch.serve import choices
@@ -98,11 +121,13 @@ def test_build_without_card_raises():
 
 @pytest.mark.parametrize(
     "wrapper",
-    ["clahe_lab_fwd_lut", "shift_rows", "resample_rows", "photometric", "shift_rows_windowed", "scatter_rows"],
+    ["clahe_lab_fwd_lut", "shift_rows", "resample_rows", "photometric", "shift_rows_windowed", "scatter_rows",
+     "clahe_hist_lut", "clahe_apply"],
 )
 def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
     """A tensor that is not on the CPU never gets the plain version: here a
     meta-device tensor (a CPU-only machine has no CUDA one) is refused."""
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_apply, clahe_hist_lut
     from mmtrs_tpu_torch.ops.kernels.clahe_lab import clahe_lab_fwd_lut
     from mmtrs_tpu_torch.ops.kernels.photometric import photometric
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
@@ -118,6 +143,8 @@ def test_wrappers_raise_off_cpu_instead_of_plain_result(wrapper):
         "photometric": lambda: photometric(x, meta((1, 10)), meta((1,), torch.int32), 2),
         "shift_rows_windowed": lambda: shift_rows_windowed(x, meta((1, 16, 16)), 11),
         "scatter_rows": lambda: scatter_rows_(x, meta((1, 16, 16, 3), torch.uint8), meta((1,), torch.int64)),
+        "clahe_hist_lut": lambda: clahe_hist_lut(meta((1, 16, 16), torch.uint8), 3.0, (8, 8)),
+        "clahe_apply": lambda: clahe_apply(meta((1, 16, 16), torch.uint8), meta((1, 64, 256), torch.uint8)),
     }
     with pytest.raises(ValueError, match="CUDA device"):
         calls[wrapper]()
@@ -162,6 +189,34 @@ def _bad_input_cases():
         "windowed_shape": (shift_rows_windowed, (u8, torch.zeros((2, 8, 16)), 11), "does not fit"),
         "windowed_beyond_max_shift": (shift_rows_windowed, (u8, torch.full((2, 16, 8), 11.5), 11), "max_shift"),
     }
+
+
+def _clahe_l_bad_input_cases():
+    """(wrapper, arguments, message) for K8 and K9: a wrong dtype, a
+    non-contiguous plane, a shape off the tile grid, LUTs that do not fit,
+    and an output type K9 does not store."""
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_apply, clahe_hist_lut
+
+    l = torch.zeros((2, 16, 24), dtype=torch.uint8)
+    lut = torch.zeros((2, 64, 256), dtype=torch.uint8)
+    return {
+        "hist_lut_dtype": (clahe_hist_lut, (l.float(), 3.0, (8, 8)), "uint8"),
+        "hist_lut_noncontig": (clahe_hist_lut, (torch.zeros((2, 24, 16), dtype=torch.uint8).transpose(1, 2), 3.0, (8, 8)), "contiguous"),
+        "hist_lut_tiles": (clahe_hist_lut, (torch.zeros((2, 20, 24), dtype=torch.uint8), 3.0, (8, 8)), "tile grid"),
+        "apply_lut_dtype": (clahe_apply, (l, lut.float()), "uint8"),
+        "apply_lut_shape": (clahe_apply, (l, lut[:, :16].contiguous()), "do not fit"),
+        "apply_out_dtype": (clahe_apply, (l, lut, (8, 8), torch.float16), "out_dtype"),
+    }
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["hist_lut_dtype", "hist_lut_noncontig", "hist_lut_tiles", "apply_lut_dtype", "apply_lut_shape", "apply_out_dtype"],
+)
+def test_clahe_l_wrappers_reject_bad_inputs(case):
+    fn, args, msg = _clahe_l_bad_input_cases()[case]
+    with pytest.raises(ValueError, match=msg):
+        fn(*args)
 
 
 @pytest.mark.parametrize(

@@ -47,7 +47,7 @@ def test_preprocess_numpy_returns_u8_and_info():
     from mmtrs_tpu_torch.synth import synth_teeth
 
     cfg = PreprocessConfig(output_size=64, do_rotate=False, do_crop=False)
-    out, info = preprocess_numpy(synth_teeth(2, (96, 128), seed=1), cfg)
+    out, info = preprocess_numpy(synth_teeth(2, (96, 128), seed=1), cfg, device="cpu")
     assert out.dtype == np.uint8 and out.shape == (2, 64, 64, 3)
     assert set(info) == {"seg_valid", "deskew_angle", "boxes"}
     np.testing.assert_array_equal(info["boxes"], [[0, 16, 96, 112]] * 2)
@@ -108,7 +108,7 @@ def test_predict_one_matches_jax_mil_service():
     flax_net, v = _mil_pair(seed=4)
     jsvc = JaxService(mil_predict=JaxEnsemble([{"variables": v}], flax_net).predict)
     ens = MILEnsemble([milnet_from_flax(v)], MILNet("efficientnet_b0", 128, dtype=torch.float32))
-    svc = PredictService(mil_predict=ens.predict)
+    svc = PredictService(mil_predict=ens.predict, device="cpu")
 
     upload = synth_teeth(1, 512, seed=8)[0]
     want = jsvc.predict_one(upload)
@@ -132,7 +132,7 @@ def test_mil_ensemble_matches_jax_with_calibrated_weights():
 
     pairs = [_mil_pair(seed=s, calibrate=True) for s in (4, 5)]
     flax_net = pairs[0][0]
-    proc = preprocess_numpy(synth_teeth(1, 512, seed=8))[0][0]
+    proc = preprocess_numpy(synth_teeth(1, 512, seed=8), device="cpu")[0][0]
     want = JaxEnsemble([{"variables": v} for _, v in pairs], flax_net).predict(proc)
     got = MILEnsemble([milnet_from_flax(v) for _, v in pairs],
                       MILNet("efficientnet_b0", 128, dtype=torch.float32)).predict(proc)
@@ -166,7 +166,7 @@ def test_predict_one_stream_logic_matches_jax():
     ]
     for ctor, call in cases:
         want = JaxService(**streams, **ctor).predict_one(upload, **call)
-        got = PredictService(**streams, **ctor).predict_one(upload, **call)
+        got = PredictService(**streams, **ctor, device="cpu").predict_one(upload, **call)
         for k in ("label", "p_indirect", "threshold", "streams", "used_tabular", "error"):
             assert got.get(k) == want.get(k), (ctor, call, k, got.get(k), want.get(k))
-    assert PredictService().predict_one(upload)["error"] == "no model streams available"
+    assert PredictService(device="cpu").predict_one(upload)["error"] == "no model streams available"
