@@ -73,6 +73,7 @@ def archive_stages(torch, dev, host):
         torch, lambda: quantize_u8(lab_to_rgb(torch.cat([l2.float()[..., None], lab[..., 1:]], dim=-1))))
     del lab, l2
     c, ms["clahe_stage"] = _sync_ms(torch, lambda: _clahe_lab_stage(x, 3.0, (8, 8)))
+    # in place, as the archive pass runs it: c is the CLAHE stage's fresh output
     (d, _), ms["deskew"] = _sync_ms(torch, lambda: deskew_batch(c))
     (boxes, _), ms["segmenter"] = _sync_ms(torch, lambda: SaliencySegmenter().propose_boxes(d))
     out, ms["crop_resize_u8"] = _sync_ms(torch, lambda: quantize_u8(crop_box_resize(d, boxes, 512, 15.0)))

@@ -19,13 +19,25 @@ Phases (each raises on failure, so the script exits non-zero):
      byte-identical; K8 and K9 on the u8 L planes of synthetic teeth at
      [16, 512, 688] (serving's tiles, 64 × 86 px) and [2, 3024, 4032] (the
      archive's, 378 × 504 px): K8's LUTs bit-equal, K9's f32 blend within
-     1e-4 and its u8 store bit-equal; median CUDA-event times, and each
-     kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-     operations over 67 TFLOP/s (the H100 SXM's published peaks);
+     1e-4 and its u8 store bit-equal; K3 also at [16, 512, 512, 3] and one
+     archive image [1, 3024, 4032, 3] on both axes, and at phase 7's
+     [2, 752, 1000, 3] (rows of 3000 bytes, not 16-byte aligned), with
+     deskew's shear offsets (±45°) and random ±40: u8 bit-equal, f32 within
+     1e-3. Times of
+     each kernel: one call between CUDA events (median of 50, in turns with
+     the library call where there is one), back to back
+     (per launch of 60 between two events, the inputs rotated over copies
+     whose sum exceeds the 50 MB L2) and the wrapper's host µs (mean of
+     1000 calls); its plain version's one call; the library call's one-call
+     and back-to-back times where one PyTorch call computes the function
+     (K7 index_copy_; K3 and K6 grid_sample at f32, beside their own f32
+     times); and each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+     f32 operations over 67 TFLOP/s (the H100 SXM's published peaks);
   3. preprocess_batch at [16, 512, 512, 3] with deskew firing on 2 images:
      K1-K3 launched, and the result against the same port run on the CPU
      (seg_valid equal, angles within 1e-3°, boxes within 1 px, u8 within
-     2 levels on ≥ 99.9 % of values); imgs/s;
+     2 levels on ≥ 99.9 % of values), the caller's batch byte-identical
+     after the in-place deskew; imgs/s;
   4. serving: PredictService with a 2-fold bf16 MILEnsemble of
      MILNet("efficientnet_b0", attn_dim=128) (random weights from seeded
      generators) answers uploads at 512², 512×768, 640×512 and 512×1024
@@ -40,7 +52,8 @@ Phases (each raises on failure, so the script exits non-zero):
      [32, 512, 512, 3], draws from draw_legacy for origin ids chosen so that
      every gated member fires among the first 8 images, deskew on 2 of
      them: K1-K6 each launched, u8 out, the first 8 against the same port on
-     the CPU with the same draws (bars of phase 3); imgs/s of the chain and
+     the CPU with the same draws (bars of phase 3), the caller's batch
+     byte-identical after the in-place write-backs; imgs/s of the chain and
      of augment_batch(·, "legacy") alone;
   6. the other presets: ``ten`` and ``simple`` through the records device
      loop (augment_children) on u8 [32, 512, 512, 3] synthetic teeth, 10
@@ -48,14 +61,16 @@ Phases (each raises on failure, so the script exits non-zero):
      ``randaug`` at u8 [12, 512, 512, 3] (the MM trainer's batch) on
      lineages chosen so that all 14 ops and the erasing fire among the
      first 8: K4 and K7 (and K6 for ``ten``) launched, values in 0..255,
+     the caller's batch byte-identical afterwards,
      the first 10 children (8 randaug images) against the same port on the
      CPU with the same draws (u8 within 2 levels on ≥ 99.9 % of values);
      imgs/s of augment_batch per preset and host ms of its draws;
   7. the archive pass: preprocess_stream over in-memory u8 batches of
      [4, 3024, 4032, 3] synthetic 12 MP teeth (3 batches after a warm-up):
      the L-plane route (K8, K9, K3 launched, K1/K2 not), metas in order,
-     imgs/s; and a [2, 752, 1000, 3] batch (a 750×1000 archive padded to
-     /8) against the same port on the CPU with phase 3's bars.
+     the host batches byte-identical, imgs/s; and a [2, 752, 1000, 3]
+     batch (a 750×1000 archive padded to /8) against the same port on the
+     CPU with phase 3's bars.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
 preset of 6, and 7); the JSON line of kernels reports K1-K3's and K8-K9's
@@ -109,9 +124,17 @@ PRESET_KERNELS = {
 
 T_START = time.perf_counter()
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
-# f32 outside the tensor cores
+# f32 outside the tensor cores; and its L2, which back-to-back timing rotates
+# its inputs past
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+L2_BYTES = 50e6
+B2B_LAUNCHES = 60  # back-to-back launches between two events
+ONE_CALL_REPS = 50  # single calls whose median is a kernel's one-call time
+HOST_CALLS = 1000  # wrapper calls whose host time is averaged
+# K3 at deskew's shapes: a 512^2 batch, one archive image, and phase 7's
+# small archive batch, whose rows (W·C = 3000 bytes) are not 16-byte aligned
+K3_SHAPES = ((16, 512, 512, 3), (1, 3024, 4032, 3), SMALL_ARCHIVE_SHAPE)
 # f32 operations per output element of each kernel's formula, each exp, log
 # and division counted as one (so the least the card must issue): the LAB
 # conversions, pows and blends of csrc/*.cu counted line by line
@@ -134,7 +157,8 @@ def _fail(msg: str) -> int:
 
 
 def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Median device time of one call, from CUDA events around each call
+    (the card idle before it, so it includes the call's host dispatch)."""
     import torch
 
     for _ in range(warmup):
@@ -149,6 +173,66 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _time_pair_ms(fn_a, fn_b, reps: int = ONE_CALL_REPS, warmup: int = 3) -> tuple[float, float]:
+    """:func:`_time_ms` of two calls taken in turns (a, b, b, a, ...), so
+    that both meet the same card and host: medians of ``reps`` each."""
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    ta, tb = [], []
+    for i in range(reps):
+        for fn, times in ((fn_a, ta), (fn_b, tb))[:: 1 if i % 2 == 0 else -1]:
+            times.append(_time_ms(fn, reps=1, warmup=0))
+    return float(np.median(ta)), float(np.median(tb))
+
+
+def _rotations(args) -> list:
+    """``args`` and copies of it (each tensor cloned), enough sets that their
+    tensors together exceed the card's 50 MB L2: a launch that takes the
+    next set finds its inputs in device memory, not in the cache."""
+    import torch
+
+    nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    n = max(2, int(L2_BYTES // max(nbytes, 1)) + 1)
+    return [tuple(args)] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                            for _ in range(n - 1)]
+
+
+def _b2b_ms(fn, argsets, launches: int = B2B_LAUNCHES) -> float:
+    """Device ms per launch of ``launches`` back-to-back calls of ``fn``
+    between two CUDA events, taking the argument sets in turn."""
+    import torch
+
+    fn(*argsets[0])
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(launches):
+        fn(*argsets[i % len(argsets)])
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def _host_us(fn, args, calls: int = HOST_CALLS, chunk: int = 100) -> float:
+    """Host µs per call of ``fn``: time.perf_counter_ns over ``calls`` calls,
+    in chunks with a synchronise between them outside the clock, so the
+    launch queue never fills and the clock reads the host's own work."""
+    import torch
+
+    fn(*args)
+    total = 0
+    for _ in range(calls // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn(*args)
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / (calls // chunk * chunk) / 1e3
 
 
 def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -195,10 +279,8 @@ def phase_kernels(torch, dev):
     gen = torch.Generator().manual_seed(SEED)
     xf = (torch.rand(SHAPE, generator=gen) * 255.0).to(dev).contiguous()
     k3_err = 0.0
-    offs = {}
     for axis, n in ((2, SHAPE[1]), (1, SHAPE[2])):
         off = ((torch.rand((SHAPE[0], n), generator=gen) * 80.0) - 40.0).to(dev)
-        offs[axis] = off
         e = (shift_rows(xf, off, axis) - shift_rows_ref(xf, off, axis)).abs().max().item()
         k3_err = max(k3_err, e)
         _check(e <= 1e-3, f"K3 f32 axis {axis} max err {e:.3g} <= 1e-3")
@@ -206,41 +288,147 @@ def phase_kernels(torch, dev):
         f32 = shift_rows(x.float(), off, axis)
         _check(torch.equal(u8, quantize_u8(f32)), f"K3 u8 axis {axis} == round-half-up of f32")
         _check(torch.equal(u8, shift_rows_ref(x, off, axis)), f"K3 u8 axis {axis} == plain")
+    k3_stat, k3_detail, e = _check_shift_rows(torch, dev, x, gen)
+    k3_err = max(k3_err, e)
 
     lq, da, db, lut = got
     px = SHAPE[0] * SHAPE[1] * SHAPE[2]
     stats = {
         "clahe_lab_fwd_lut": _stat(
-            "clahe_lab_fwd_lut", lambda: K.clahe_lab_fwd_lut(x, clip, tiles),
+            "clahe_lab_fwd_lut", K.clahe_lab_fwd_lut, (x, clip, tiles),
             lambda: K.clahe_lab_fwd_lut_ref(x, clip, tiles), _nbytes(x, *got), px),
         "clahe_apply_lab_bwd": _stat(
-            "clahe_apply_lab_bwd", lambda: K.clahe_apply_lab_bwd(lq, da, db, lut, tiles),
+            "clahe_apply_lab_bwd", K.clahe_apply_lab_bwd, (lq, da, db, lut, tiles),
             lambda: K.clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles), _nbytes(*got, chain), px),
-        # u8 NHWC, one x-shear: what deskew runs per pass
-        "shift_rows": _stat(
-            "shift_rows", lambda: shift_rows(x, offs[2], 2), lambda: shift_rows_ref(x, offs[2], 2),
-            _nbytes(x, offs[2], x), x.numel()),
+        "shift_rows": k3_stat,
     }
     errs = {"clahe_lab_fwd_lut": k1_err, "clahe_apply_lab_bwd": k2_err, "shift_rows": k3_err}
     for check in (_check_resample, _check_photometric, _check_windowed, _check_scatter, _check_clahe_l):
         for name, err, st in check(torch, dev, x, xf, gen):
             errs[name], stats[name] = err, st
+    print(f"  times (ms): one call between events (median of {ONE_CALL_REPS}), back to back (per launch of "
+          f"{B2B_LAUNCHES}, inputs rotated past the L2); host us per wrapper call (mean of {HOST_CALLS})")
+    f = lambda v, d=4: "-" if v is None else f"{v:.{d}f}"
     for k, st in stats.items():
-        lib = "" if st["library_ms"] is None else f", library {st['library_ms']:.4f} ms"
-        print(f"  {k}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms{lib} (median of 20); "
+        print(f"  {k}: kernel {f(st['ms'])} / b2b {f(st['ms_b2b'])} ms, host {f(st['host_us'], 2)} us; "
+              f"plain {f(st['plain_ms'])} ms; library {f(st['library_ms'])} / b2b {f(st['library_ms_b2b'])} ms; "
               f"bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']} ({st['nbytes']} B, {st['ops']} ops)")
+    stats["shift_rows"]["detail"] = k3_detail
     return stats, errs
 
 
-def _stat(name, kernel, plain, nbytes, elements, library=None):
-    """Median CUDA-event times of a kernel's wrapper, its plain version and,
-    where one PyTorch call computes the same function, that call; and the
-    bound of the work on these inputs."""
+def _deskew_offsets(torch, gen, B, n_lines, axis):
+    """Offsets like deskew's shears (ops/warp.py rotate_shear3) for B images
+    rotated by angles uniform in ±45°: ``alpha·(y − cy)`` with alpha =
+    −tan(θ/2) for the x-shear (axis 2), ``sin θ·(x − cx)`` for the y-shear
+    (axis 1)."""
+    theta = (torch.rand(B, generator=gen) * 90.0 - 45.0) * (np.pi / 180.0)
+    slope = -torch.tan(theta / 2.0) if axis == 2 else torch.sin(theta)
+    return slope[:, None] * (torch.arange(n_lines, dtype=torch.float32)[None, :] - n_lines / 2.0)
+
+
+def _grid_sample_shift(torch, img_nchw, off, axis):
+    """(fn, args) of one ``grid_sample`` call that computes K3's shift (or
+    K6's with per-pixel ``off``) at f32 on an NCHW batch: bilinear, border
+    padding, align_corners, so p + off is the source position; the grid is
+    built here, outside the timed call."""
+    B, _, H, W = img_nchw.shape
+    dev = img_nchw.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None].expand(B, H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :].expand(B, H, W)
+    if off.dim() == 2:
+        off = off[:, :, None] if axis == 2 else off[:, None, :]
+    if axis == 2:
+        xs = xs + off
+    else:
+        ys = ys + off
+    grid = torch.stack([2.0 * xs / (W - 1) - 1.0, 2.0 * ys / (H - 1) - 1.0], dim=-1).contiguous()
+    fn = lambda im, g: torch.nn.functional.grid_sample(
+        im, g, mode="bilinear", padding_mode="border", align_corners=True)
+    return fn, (img_nchw, grid)
+
+
+def _k3_batch(torch, dev, x, shape):
+    """u8 teeth at one of K3_SHAPES: phase 2's batch, archive images, or a
+    batch of phase 7's small archive shape."""
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    B, H, W, _ = shape
+    if shape == SHAPE:
+        return x
+    if (H, W) == ARCHIVE_SHAPE[1:3]:
+        return torch.from_numpy(_archive_batch()[:B]).to(dev)
+    return torch.from_numpy(synth_teeth(B, (H, W), seed=SEED + 7)).to(dev)
+
+
+def _check_shift_rows(torch, dev, x, gen):
+    """K3 on both axes at each of K3_SHAPES, with deskew's shear offsets and
+    with random ±40:
+    u8 bit-equal to plain, f32 within 1e-3; back-to-back times of each at
+    u8 and f32, and ``grid_sample``'s at f32 with deskew's offsets at
+    [16, 512, 512, 3]. The JSON line's numbers are deskew's x-shear at u8
+    [16, 512, 512, 3] (what the main path runs)."""
+    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows, shift_rows_ref
+
+    detail, err, stat = [], 0.0, None
+    for shape in K3_SHAPES:
+        B, H, W, C = shape
+        u8 = _k3_batch(torch, dev, x, shape)
+        f32 = u8.float()
+        for axis in (2, 1):
+            lines = H if axis == 2 else W
+            for kind in ("deskew", "random ±40"):
+                off = (_deskew_offsets(torch, gen, B, lines, axis) if kind == "deskew"
+                       else torch.rand((B, lines), generator=gen) * 80.0 - 40.0).to(dev)
+                got = shift_rows(u8, off, axis)
+                _check(torch.equal(got, shift_rows_ref(u8, off, axis)),
+                       f"K3 u8 {shape} axis {axis} {kind}: bit-equal to plain")
+                e = (shift_rows(f32, off, axis) - shift_rows_ref(f32, off, axis)).abs().max().item()
+                _check(e <= 1e-3, f"K3 f32 {shape} axis {axis} {kind}: max err {e:.3g} <= 1e-3")
+                err = max(err, e)
+                row = {"shape": list(shape), "axis": axis, "offsets": kind,
+                       "bound_ms": _bound_ms(_nbytes(u8, off, u8), OPS_PER_ELEMENT["shift_rows"] * u8.numel())[0],
+                       "u8_ms_b2b": _b2b_ms(shift_rows, _rotations((u8, off, axis))),
+                       "f32_ms_b2b": _b2b_ms(shift_rows, _rotations((f32, off, axis)))}
+                if shape == SHAPE and kind == "deskew":
+                    lib_fn, lib_args = _grid_sample_shift(torch, f32.permute(0, 3, 1, 2).contiguous(), off, axis)
+                    d = (lib_fn(*lib_args).permute(0, 2, 3, 1) - shift_rows(f32, off, axis)).abs().max().item()
+                    row.update(grid_sample_ms=_time_ms(lambda: lib_fn(*lib_args)),
+                               grid_sample_ms_b2b=_b2b_ms(lib_fn, _rotations(lib_args)),
+                               grid_sample_max_diff=d, f32_ms=_time_ms(lambda: shift_rows(f32, off, axis)))
+                    if axis == 2:
+                        stat = _stat("shift_rows", shift_rows, (u8, off, axis), lambda: shift_rows_ref(u8, off, axis),
+                                     _nbytes(u8, off, u8), u8.numel(), library=(lib_fn, lib_args))
+                        stat.update(f32_ms=row["f32_ms"], f32_ms_b2b=row["f32_ms_b2b"])
+                detail.append(row)
+                gs = ("" if "grid_sample_ms" not in row else
+                      f"; f32 one call {row['f32_ms']:.4f}; grid_sample f32 {row['grid_sample_ms']:.4f} / b2b "
+                      f"{row['grid_sample_ms_b2b']:.4f} ms (max diff from K3 {row['grid_sample_max_diff']:.3g})")
+                print(f"  K3 {shape} axis {axis} {kind}: b2b u8 {row['u8_ms_b2b']:.4f}, f32 {row['f32_ms_b2b']:.4f} ms, "
+                      f"bound (u8) {row['bound_ms'] * 1e3:.2f} us{gs}")
+    return stat, detail, err
+
+
+def _stat(name, fn, args, plain, nbytes, elements, library=None):
+    """Times of a kernel's wrapper ``fn(*args)``: one call between events
+    (``ms``, median of ONE_CALL_REPS), back to back over inputs rotated past
+    the L2 (``ms_b2b``) and its host cost (``host_us``); its plain version's
+    one call; and, where one PyTorch call computes the same function
+    (``library``: (fn, args)), that call's one-call time, taken in turns
+    with the kernel's, and its back-to-back time. Besides, the bound of the
+    work on these inputs."""
     ops = OPS_PER_ELEMENT[name] * elements
     bound, by = _bound_ms(nbytes, ops)
-    return {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
-            "library_ms": None if library is None else _time_ms(library),
-            "nbytes": nbytes, "ops": ops, "bound_ms": bound, "bound_by": by}
+    st = {"plain_ms": _time_ms(plain), "ms_b2b": _b2b_ms(fn, _rotations(args)), "host_us": _host_us(fn, args),
+          "library_ms": None, "library_ms_b2b": None,
+          "nbytes": nbytes, "ops": ops, "bound_ms": bound, "bound_by": by}
+    if library is None:
+        st["ms"] = _time_ms(lambda: fn(*args), reps=ONE_CALL_REPS)
+    else:
+        lib_fn, lib_args = library
+        st["ms"], st["library_ms"] = _time_pair_ms(lambda: fn(*args), lambda: lib_fn(*lib_args))
+        st["library_ms_b2b"] = _b2b_ms(lib_fn, _rotations(lib_args))
+    return st
 
 
 def _u8_bar(name, got, want):
@@ -274,7 +462,7 @@ def _check_resample(torch, dev, x, xf, gen):
         err = max(err, e, _u8_bar(f"K4 axis {axis}", resample_rows(x, *a, axis=axis),
                                   resample_rows_ref(x, *a, axis=axis)))
     # u8 NHWC, the warp's horizontal pass
-    st = _stat("resample_rows", lambda: resample_rows(x, *args[2], axis=2),
+    st = _stat("resample_rows", lambda im, *a: resample_rows(im, *a, axis=2), (x, *args[2]),
                lambda: resample_rows_ref(x, *args[2], axis=2), _nbytes(x, *args[2], x), x.numel())
     return [("resample_rows", err, st)]
 
@@ -296,7 +484,7 @@ def _check_photometric(torch, dev, x, xf, gen):
     seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32).to(dev)
     hole = 512 // 24
     err = _u8_bar("K5", photometric(x, params, seeds, hole), photometric_ref(x, params, seeds, hole))
-    st = _stat("photometric", lambda: photometric(x, params, seeds, hole),
+    st = _stat("photometric", photometric, (x, params, seeds, hole),
                lambda: photometric_ref(x, params, seeds, hole), _nbytes(x, params, seeds, x), x.numel() // 3)
     return [("photometric", err, st)]
 
@@ -314,9 +502,14 @@ def _check_windowed(torch, dev, x, xf, gen):
         _check(e <= 1e-3, f"K6 f32 axis {axis} max err {e:.3g} <= 1e-3")
         err = max(err, e, _u8_bar(f"K6 axis {axis}", shift_rows_windowed(x, off, 11, axis),
                                   shift_rows_windowed_ref(x, off, axis)))
-    # u8 NHWC, the elastic transform's first (vertical) pass
-    st = _stat("shift_rows_windowed", lambda: shift_rows_windowed(x, off, 11, 1),
-               lambda: shift_rows_windowed_ref(x, off, 1), _nbytes(x, off, x), x.numel())
+    # u8 NHWC, the elastic transform's first (vertical) pass; grid_sample
+    # computes it at f32, so K6's f32 times stand beside it
+    lib = _grid_sample_shift(torch, xf.permute(0, 3, 1, 2).contiguous(), off, 1)
+    st = _stat("shift_rows_windowed", shift_rows_windowed, (x, off, 11, 1),
+               lambda: shift_rows_windowed_ref(x, off, 1), _nbytes(x, off, x), x.numel(), library=lib)
+    st.update(f32_ms=_time_ms(lambda: shift_rows_windowed(xf, off, 11, 1)),
+              f32_ms_b2b=_b2b_ms(shift_rows_windowed, _rotations((xf, off, 11, 1))))
+    print(f"  K6 f32 axis 1: one call {st['f32_ms']:.4f}, b2b {st['f32_ms_b2b']:.4f} ms (grid_sample's yardstick)")
     return [("shift_rows_windowed", err, st)]
 
 
@@ -346,8 +539,9 @@ def _check_scatter(torch, dev, x, xf, gen):
     # f32: what subset_apply writes back in the ten / simple / randaug chains
     # bytes: the sub-batch read and its rows written, and the ids
     dst, sub = bufs[torch.float32]
-    st = _stat("scatter_rows", lambda: scatter_rows_(dst, sub, idx), lambda: scatter_rows_ref(dst, sub, idx),
-               _nbytes(sub, sub, idx), sub.numel(), library=lambda: dst.index_copy_(0, idx, sub))
+    st = _stat("scatter_rows", scatter_rows_, (dst, sub, idx), lambda: scatter_rows_ref(dst, sub, idx),
+               _nbytes(sub, sub, idx), sub.numel(),
+               library=(lambda d, s, i: d.index_copy_(0, i, s), (dst, sub, idx)))
     return [("scatter_rows", err, st)]
 
 
@@ -381,15 +575,15 @@ def _check_clahe_l(torch, dev, x, xf, gen):
         _check(torch.equal(u8, C.clahe_apply_ref(l, lut, tiles, torch.uint8)), f"K9 {what} u8 bit-equal to plain")
         px = l.numel()
         res[what] = [
-            ("clahe_hist_lut", 0.0, _stat("clahe_hist_lut", lambda: C.clahe_hist_lut(l, clip, tiles),
+            ("clahe_hist_lut", 0.0, _stat("clahe_hist_lut", C.clahe_hist_lut, (l, clip, tiles),
                                           lambda: C.clahe_hist_lut_ref(l, clip, tiles), _nbytes(l, lut), px)),
             # the u8 store: what the preprocessing stage runs
-            ("clahe_apply", e, _stat("clahe_apply", lambda: C.clahe_apply(l, lut, tiles, torch.uint8),
+            ("clahe_apply", e, _stat("clahe_apply", C.clahe_apply, (l, lut, tiles, torch.uint8),
                                      lambda: C.clahe_apply_ref(l, lut, tiles, torch.uint8), _nbytes(l, lut, u8), px)),
         ]
     for name, _, st in res["archive"]:
-        print(f"  {name} at the archive's {ARCHIVE_SHAPE[1:3]} x2: kernel {st['ms']:.4f} ms, plain "
-              f"{st['plain_ms']:.4f} ms; bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']}")
+        print(f"  {name} at the archive's {ARCHIVE_SHAPE[1:3]} x2: kernel {st['ms']:.4f} / b2b {st['ms_b2b']:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms; bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']}")
     return res["serving"]
 
 
@@ -418,6 +612,7 @@ def phase_preprocess(torch, dev):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     _check(all(counts[k] > 0 for k in SERVE_KERNELS), f"every kernel of the path launched: {counts}")
+    _check(torch.equal(x.cpu(), host), "the caller's batch byte-identical after the in-place deskew")
     _check(out.shape == (SHAPE[0], 512, 512, 3) and out.dtype == torch.float32, f"out {tuple(out.shape)} {out.dtype}")
     _check(bool(torch.isfinite(out).all()), "out finite")
     fired = int((info["deskew_angle"] != 0).sum())
@@ -606,6 +801,7 @@ def phase_augment(torch, dev):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     _check(all(counts[k] > 0 for k in AUG_KERNELS), f"K1-K6 each launched: {counts}")
+    _check(torch.equal(x.cpu(), host), "subset_apply_ left the caller's batch byte-identical")
     _check(out.shape == AUG_SHAPE and out.dtype == torch.uint8, f"out {tuple(out.shape)} {out.dtype}")
     fired = int((info["deskew_angle"][:8] != 0).sum())
     _check(fired >= 2, f"deskew fired on {fired} of the first 8 images")
@@ -623,6 +819,7 @@ def phase_augment(torch, dev):
 
     ips = _rate(torch, lambda: preprocess_augment_batch(x, draws, out_size=S), B)
     aug_ips = _rate(torch, lambda: augment_batch(x, draws, "legacy", img_size=S), B)
+    _check(torch.equal(x.cpu(), host), "the caller's batch still byte-identical after the timed runs")
     print(f"  preprocess_augment_batch: {ips:.1f} imgs/s at b{B} 512^2 (host clock, 5 reps; "
           f"draws made beforehand, {draw_s * 1e3:.1f} ms per batch on the host)")
     print(f"  augment_batch(legacy): {aug_ips:.1f} imgs/s at b{B} 512^2 (host clock, 5 reps)")
@@ -666,6 +863,7 @@ def phase_presets(torch, dev):
         kids = _preset_run(torch, preset, counts, lambda: augment_children(x, plan, preset, seed=SEED, batch_size=B))
         _check(kids.shape == (len(plan), *PRESET_SHAPE[1:]) and kids.dtype == torch.uint8,
                f"{preset}: {len(plan)} u8 children in batches of {B}")
+        _check(torch.equal(x.cpu(), host), f"{preset}: subset_apply_ left the caller's batch byte-identical")
         n = 10  # every variant of origin 0, on the CPU with the same lineages
         ref = augment_children(host, plan[:n], preset, seed=SEED, batch_size=n)
         _u8_within(f"{preset} children 0-9", kids[:n], ref)
@@ -676,7 +874,9 @@ def phase_presets(torch, dev):
         t0 = time.perf_counter()
         draws = draw_batch(preset, SEED, origins, aug_idxs, S, S, aug_idx=variants)
         draw_ms = (time.perf_counter() - t0) * 1e3
+        before = chunk.clone()
         rates[preset] = (_rate(torch, lambda: augment_batch(chunk, draws, preset, aug_idx=variants), B), draw_ms)
+        _check(torch.equal(chunk, before), f"{preset}: augment_batch left its input byte-identical")
 
     Br = RANDAUG_SHAPE[0]
     members = [f"op{k}" for k in range(14)] + ["erase"]
@@ -688,6 +888,7 @@ def phase_presets(torch, dev):
     out = _preset_run(torch, "randaug", counts, lambda: augment_batch(xr, draws, "randaug"))
     _check(out.shape == RANDAUG_SHAPE and out.dtype == torch.float32, f"randaug: out {tuple(out.shape)} {out.dtype}")
     _check(bool(((out >= 0) & (out <= 255)).all()), "randaug: values in 0..255")
+    _check(torch.equal(xr.cpu(), host[:Br]), "randaug: subset_apply_ left the caller's batch byte-identical")
     n = 8
     ref = augment_batch(host[:n], draws.take(range(n)), "randaug")
     _u8_within("randaug images 0-7", quantize_round_half_even(out[:n]), quantize_round_half_even(ref))
@@ -708,6 +909,7 @@ def phase_archive(torch, dev):
     B = ARCHIVE_SHAPE[0]
     print(f"phase 7: preprocess_stream (the archive pass) on the card, {ARCHIVE_BATCHES} batches of", ARCHIVE_SHAPE)
     host = _archive_batch()
+    kept = host.copy()
     list(preprocess_stream(iter([("warm-up", host)]), device=dev))
     torch.cuda.synchronize()
 
@@ -720,6 +922,7 @@ def phase_archive(torch, dev):
     _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS) and all(counts[k] == 0 for k in FUSED_KERNELS),
            f"the L-plane route: K8, K9, K3 launched, K1/K2 not: {counts}")
     _check([m for m, _, _ in outs] == list(range(ARCHIVE_BATCHES)), "batches came back in input order")
+    _check(np.array_equal(host, kept), "the caller's host batches byte-identical")
     for _, out, info in outs:
         _check(out.shape == (B, 512, 512, 3) and out.dtype == np.uint8, f"out {out.shape} {out.dtype}")
         fired = int((info["deskew_angle"] != 0).sum())
@@ -768,6 +971,8 @@ def main() -> int:
     _build.library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.library.build_seconds:.2f} s) into {_build.BUILD_DIR.relative_to(ROOT)}")
+    _check(_build.stream_handle() == torch.cuda.current_stream().cuda_stream,
+           "the wrappers' raw stream handle equals torch.cuda.current_stream()'s")
 
     stats, errs = phase_kernels(torch, dev)
     ips = phase_preprocess(torch, dev)
@@ -797,10 +1002,15 @@ def main() -> int:
     # 6), each counted from 0 just before its path
     launches = {k: serve_launches[k] if k in SERVE_KERNELS + L_KERNELS else aug_launches[k] for k in sources}
     launches["scatter_rows"] = sum(c["scatter_rows"] for c in preset_launches.values())
+    # every kernel: the contract's keys, then the back-to-back, host and
+    # library back-to-back times; K3 and K6 their f32 times beside
+    # grid_sample's, K3 its shapes and axes
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_b2b", "host_us", "library_ms_b2b")
+    extra = ("f32_ms", "f32_ms_b2b", "detail")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         **{key: stats[k][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+         **{key: stats[k][key] for key in keys}, **{key: stats[k][key] for key in extra if key in stats[k]}}
         for k, (src, rep) in sources.items()
     ]
     print(f"summary: preprocess_batch {ips:.1f} imgs/s at b16 512^2; serve p50 {p50:.2f} ms; "

@@ -127,10 +127,23 @@ def library() -> ctypes.CDLL:
 
 library.build_seconds = 0.0  # seconds the last nvcc run took (0: cached)
 
+_BOUND: dict[str, ctypes._CFuncPtr] = {}
+
+
+def kernel(name: str) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of the library, looked up once (the first
+    call builds the library) and then taken from a dict."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = _BOUND[name] = getattr(library(), name)
+    return fn
+
 
 def stream_handle() -> int:
-    """The current PyTorch CUDA stream as an integer handle for ctypes."""
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current CUDA stream as an integer handle for ctypes, read
+    raw as PyTorch's own generated code reads it: building a
+    ``torch.cuda.Stream`` for it cost a kernel launch's host time."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def check_launch(name: str, code: int) -> None:

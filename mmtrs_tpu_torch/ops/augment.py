@@ -27,7 +27,9 @@ All geometric members compose into one affine warp (kernel K4). ``legacy``
 runs its pointwise members as one pass (kernel K5) and stores u8 after every
 stage, as the TPU main path does; ``ten``, ``simple`` and ``randaug`` stay
 f32 after the warp, as in the JAX package. The p-gated members run on the
-images whose gate fired (:func:`subset_apply`, written back by kernel K7).
+images whose gate fired and are written back by kernel K7: inside a chain,
+into the buffer the chain itself made (:func:`subset_apply_`); the public
+entry points never mutate a tensor their caller passed in.
 """
 
 from __future__ import annotations
@@ -39,14 +41,16 @@ import math
 import numpy as np
 import torch
 
-from mmtrs_tpu_torch.ops.clahe import quantize_u8
+from mmtrs_tpu_torch.ops.clahe import clahe_rgb, quantize_u8
 from mmtrs_tpu_torch.ops.color import hsv_shift, rgb_to_gray
 from mmtrs_tpu_torch.ops.kernels.clahe_lab import clahe_lab_fused
+from mmtrs_tpu_torch.ops.kernels.clahe_lab import supports as lab_supports
 from mmtrs_tpu_torch.ops.kernels.photometric import (
     N_PARAMS,
     noise_normals_ref,
     photometric,
     photometric_ref as photometrics_pointwise_ref,  # noqa: F401  (the JAX package's name for it)
+    supports as photometric_supports,
 )
 from mmtrs_tpu_torch.ops.kernels.scatter import scatter_rows_
 from mmtrs_tpu_torch.ops.warp import (
@@ -66,10 +70,41 @@ from mmtrs_tpu_torch.ops.warp import (
 from mmtrs_tpu_torch.utils.rng import generators_for_batch
 
 
+def row_ids(on: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """int64 ids [n] on ``device`` of the rows where ``on`` [B] bool.
+
+    Gates drawn on the host (every preset's) are indexed on the host, and the
+    ids go to the card from pinned memory without a sync; gates that live on
+    the card (deskew's) are indexed there, which syncs once, as
+    ``index_select`` needs the count anyway."""
+    return host_row_ids(on, device) if on.device.type == "cpu" else device_row_ids(on, device)
+
+
+def host_row_ids(on: torch.Tensor, device: torch.device) -> torch.Tensor:
+    idx = torch.nonzero(on.cpu()).flatten()
+    if device.type == "cuda":
+        idx = idx.pin_memory().to(device, non_blocking=True)
+    return idx
+
+
+def device_row_ids(on: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return torch.nonzero(on.to(device)).flatten()
+
+
+def _apply_rows(op, imgs: torch.Tensor, idx: torch.Tensor, extras) -> torch.Tensor:
+    sub_out = op(imgs.index_select(0, idx), *[e.index_select(0, idx) for e in extras])
+    if sub_out.dtype != imgs.dtype:
+        raise TypeError(
+            f"subset_apply: op returned {sub_out.dtype} for a {imgs.dtype} batch; "
+            "quantise inside op instead of relying on a cast"
+        )
+    return sub_out.contiguous()
+
+
 def subset_apply(op, imgs: torch.Tensor, on: torch.Tensor, *extras: torch.Tensor):
     """Apply a per-image-independent batch op only where ``on[b]``.
 
-    Selects the rows with a boolean index, runs ``op(sub_imgs, *sub_extras)``
+    Selects the rows (:func:`row_ids`), runs ``op(sub_imgs, *sub_extras)``
     on them and writes the results back with kernel K7 (``scatter_rows_``)
     into a copy of ``imgs``: the caller's ``imgs`` is never mutated, and
     untouched rows pass through bit-exact. Eager PyTorch has no static
@@ -77,17 +112,24 @@ def subset_apply(op, imgs: torch.Tensor, on: torch.Tensor, *extras: torch.Tensor
     not needed: the output is the same. ``op`` must keep the batch's dtype
     (a u8 chain quantises inside ``op``); otherwise this raises rather than
     cast."""
-    idx = torch.nonzero(on.to(imgs.device)).flatten()
+    idx = row_ids(on, imgs.device)
     if idx.numel() == 0:
         return imgs
-    sub_out = op(imgs.index_select(0, idx), *[e.index_select(0, idx) for e in extras])
-    if sub_out.dtype != imgs.dtype:
-        raise TypeError(
-            f"subset_apply: op returned {sub_out.dtype} for a {imgs.dtype} batch; "
-            "quantise inside op instead of relying on a cast"
-        )
-    out = imgs.clone(memory_format=torch.contiguous_format)
-    return scatter_rows_(out, sub_out.contiguous(), idx)
+    sub_out = _apply_rows(op, imgs, idx, extras)
+    return scatter_rows_(imgs.clone(memory_format=torch.contiguous_format), sub_out, idx)
+
+
+def subset_apply_(op, imgs: torch.Tensor, on: torch.Tensor, *extras: torch.Tensor):
+    """:func:`subset_apply` written back by K7 into ``imgs`` itself, with no
+    copy of the batch; returns ``imgs``. Only for a contiguous tensor that
+    the calling chain made itself and no caller holds: ``op`` reads a copy
+    of the selected rows, so writing them back in place is safe."""
+    if not imgs.is_contiguous():
+        raise ValueError("subset_apply_: needs a contiguous batch to write into")
+    idx = row_ids(on, imgs.device)
+    if idx.numel() == 0:
+        return imgs
+    return scatter_rows_(imgs, _apply_rows(op, imgs, idx, extras), idx)
 
 
 # -- primitives --------------------------------------------------------------
@@ -482,24 +524,39 @@ def draw_legacy(seed: int, origin_ids, aug_idxs, H: int, W: int, img_size: int =
     )
 
 
+def legacy_clahe_member(H: int, W: int):
+    """The OneOf's CLAHE branch (clip 2.0, 8 × 8 tiles) for H × W images, u8
+    in and out, on the route the JAX package's ``_clahe_sub`` takes on a TPU
+    (mmtrs_tpu/ops/augment.py:543-558): the fused LAB kernels K1/K2 where
+    both its fused photometric pass and those kernels take the shape; else
+    CLAHE on the rounded LAB's L plane with a u8 L′ store (``clahe_rgb``,
+    K8/K9 on the card), stored u8."""
+    if photometric_supports(H, W) and lab_supports(H, W):
+        return lambda s: clahe_lab_fused(s, clip=2.0, tiles=(8, 8))
+    return lambda s: quantize_u8(clahe_rgb(s.float(), clip=2.0, tiles=(8, 8), quant_l=True))
+
+
 def legacy_photometrics(out: torch.Tensor, draws: LegacyDraws, img_size: int = 512) -> torch.Tensor:
     """Everything after the geometric warp of the ``legacy`` preset: the
     pointwise pass (K5: OneOf's brightness/contrast and HSV branches, noise,
     dropout), then on the images whose gate fired the OneOf's CLAHE branch
-    (K1/K2, clip 2.0), motion blur and the elastic shift (K6). Noise and
-    dropout run before CLAHE, blur and elastic, as in the JAX package.
-    Returns u8: a non-u8 input is quantised once on entry."""
+    (:func:`legacy_clahe_member`), motion blur and the elastic shift (K6).
+    Noise and dropout run before CLAHE, blur and elastic, as in the JAX
+    package. Returns u8: a non-u8 input is quantised once on entry. ``out``
+    is never mutated."""
     hole = max(1, img_size // 24)
     d = draws.to(out.device)
     if out.dtype != torch.uint8:
         out = quantize_u8(out)
     out = photometric(out.contiguous(), d.params, d.seeds, hole)
-    out = subset_apply(lambda s: clahe_lab_fused(s, clip=2.0, tiles=(8, 8)), out, d.use_clahe)
-    out = subset_apply(
-        lambda s, th: quantize_u8(motion_blur(s.float(), th, ksize=5)), out, d.blur_on, d.blur_theta
+    # K5 made ``out``: the gated members write back into it, with the gates
+    # of the caller's draws (on the host when drawn there)
+    out = subset_apply_(legacy_clahe_member(out.shape[1], out.shape[2]), out, draws.use_clahe)
+    out = subset_apply_(
+        lambda s, th: quantize_u8(motion_blur(s.float(), th, ksize=5)), out, draws.blur_on, d.blur_theta
     )
     # the fields are already compacted to the firing images, in batch order
-    return subset_apply(lambda s: elastic(s, d.elastic_fields, 10.0, 5.0), out, d.elastic_on)
+    return subset_apply_(lambda s: elastic(s, d.elastic_fields, 10.0, 5.0), out, draws.elastic_on)
 
 
 def augment_legacy(imgs: torch.Tensor, draws: LegacyDraws, img_size: int = 512) -> torch.Tensor:
@@ -594,8 +651,9 @@ def draw_ten(seed: int, origin_ids, aug_idxs, H: int, W: int, variants) -> TenDr
 
 def _noise_stage(out, on, var, seeds):
     """Gaussian noise of variance ``var`` on the images where ``on``, its
-    normals made on the device from ``seeds``."""
-    return subset_apply(lambda s, v, sd: gauss_noise(s, seeded_normals(sd, s.shape), v), out, on, var, seeds)
+    normals made on the device from ``seeds``; written into ``out``, which
+    its callers made themselves."""
+    return subset_apply_(lambda s, v, sd: gauss_noise(s, seeded_normals(sd, s.shape), v), out, on, var, seeds)
 
 
 def ten_photometrics(out: torch.Tensor, draws: TenDraws) -> torch.Tensor:
@@ -605,12 +663,13 @@ def ten_photometrics(out: torch.Tensor, draws: TenDraws) -> torch.Tensor:
     0..255."""
     d = draws.to(out.device)
     b, c, dh, ds, dv, var = d.params.unbind(1)
-    w = d.which
-    out = brightness_contrast(out.float(), b, c)
-    out = subset_apply(hsv_shift, out, w == 6, dh, ds, dv)
+    w = draws.which  # the gates on the host when drawn there
+    # brightness_contrast makes the batch the gated members write back into
+    out = brightness_contrast(out.float(), b, c).contiguous()
+    out = subset_apply_(hsv_shift, out, w == 6, dh, ds, dv)
     out = _noise_stage(out, w == 7, var, d.seeds)
-    out = subset_apply(lambda s, th: motion_blur(s, th, 5), out, w == 8, d.blur_theta)
-    out = subset_apply(lambda s: elastic(s, d.elastic_fields, 10.0, 5.0), out, w == 9)
+    out = subset_apply_(lambda s, th: motion_blur(s, th, 5), out, w == 8, d.blur_theta)
+    out = subset_apply_(lambda s: elastic(s, d.elastic_fields, 10.0, 5.0), out, w == 9)
     return torch.clamp(out, 0.0, 255.0)
 
 
@@ -619,8 +678,7 @@ def augment_ten(imgs: torch.Tensor, draws: TenDraws, aug_idx) -> torch.Tensor:
     augment_records.py:216-332). One warp with a constant zero border (K4; a
     u8 batch gives a u8 warp), then :func:`ten_photometrics`. → f32."""
     _check_variants(draws, aug_idx)
-    d = draws.to(imgs.device)
-    return ten_photometrics(warp_affine_shear(imgs, d.mats, border="constant", cval=0.0), d)
+    return ten_photometrics(warp_affine_shear(imgs, draws.mats.to(imgs.device), border="constant", cval=0.0), draws)
 
 
 _SIMPLE = _slots("tx", "ty", "scale", "angle", "pad", "bright", "contrast", "ds", "noise_seed")
@@ -674,11 +732,12 @@ def simple_photometrics(out: torch.Tensor, draws: SimpleDraws) -> torch.Tensor:
     (variant 6), noise σ = 8 (7) and a 3×3 Gaussian blur (8); clipped."""
     d = draws.to(out.device)
     b, c, ds, var = d.params.unbind(1)
-    w = d.which
-    out = brightness_contrast(out.float(), b, c)
-    out = subset_apply(lambda s, sa: hsv_shift(s, torch.zeros_like(sa), sa, torch.zeros_like(sa)), out, w == 6, ds)
+    w = draws.which  # the gates on the host when drawn there
+    # brightness_contrast makes the batch the gated members write back into
+    out = brightness_contrast(out.float(), b, c).contiguous()
+    out = subset_apply_(lambda s, sa: hsv_shift(s, torch.zeros_like(sa), sa, torch.zeros_like(sa)), out, w == 6, ds)
     out = _noise_stage(out, w == 7, var, d.seeds)
-    out = subset_apply(gaussian_blur3, out, w == 8)
+    out = subset_apply_(gaussian_blur3, out, w == 8)
     return torch.clamp(out, 0.0, 255.0)
 
 
@@ -688,8 +747,7 @@ def augment_simple(imgs: torch.Tensor, draws: SimpleDraws, aug_idx) -> torch.Ten
     contrast, 6 colour, 7 noise σ 8, 8 Gaussian blur, 9 crop + resize ≈
     centre zoom. → f32."""
     _check_variants(draws, aug_idx)
-    d = draws.to(imgs.device)
-    return simple_photometrics(warp_affine_shear(imgs, d.mats, border="constant", cval=0.0), d)
+    return simple_photometrics(warp_affine_shear(imgs, draws.mats.to(imgs.device), border="constant", cval=0.0), draws)
 
 
 # -- the randaug preset (the MM trainer's regulariser) -----------------------------------
@@ -914,8 +972,9 @@ def augment_randaug(imgs: torch.Tensor, draws: RandaugDraws) -> torch.Tensor:
     then the erasing on the images whose gate fired. → f32."""
     d = draws.to(imgs.device)
     out = warp_affine_shear(imgs, d.mats, border="constant", cval=128.0)
-    out = randaug_photometrics(out, d)
-    return subset_apply(random_erasing, out, d.erase_on, d.erase_box, d.seeds)
+    # randaug_photometrics made ``out``: the erasing writes back into it
+    out = randaug_photometrics(out, d).contiguous()
+    return subset_apply_(random_erasing, out, draws.erase_on, d.erase_box, d.seeds)
 
 
 # -- dispatch ---------------------------------------------------------------------------

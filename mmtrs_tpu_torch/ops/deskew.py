@@ -14,7 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from mmtrs_tpu_torch.ops.augment import subset_apply
+from mmtrs_tpu_torch.ops.augment import subset_apply_
 from mmtrs_tpu_torch.ops.color import rgb_to_gray
 from mmtrs_tpu_torch.ops.warp import rotate_shear3
 
@@ -82,9 +82,12 @@ def deskew_batch(
     """Rotate each image so its dominant edge axis lies horizontal; skip
     small corrections (|angle| < tolerance). Returns (imgs, applied_angle).
 
-    Only the firing images go through the three shears (:func:`subset_apply`);
-    a u8 batch is stored as u8 after each shear (the TPU main path's route,
-    ≤1.5 levels from the JAX CPU path's single final quantisation)."""
+    The rotated images are written back into ``imgs`` itself
+    (:func:`subset_apply_`), so the caller passes a batch it owns (the
+    pipelines pass the CLAHE stage's fresh output). Only the firing images
+    go through the three shears; a u8 batch is stored as u8 after each
+    shear (the TPU main path's route, ≤1.5 levels from the JAX CPU path's
+    single final quantisation)."""
     B, H, W, _ = imgs.shape
     angle = estimate_skew_angle(imgs, low, high)
     apply = angle.abs() >= tolerance_deg
@@ -94,4 +97,4 @@ def deskew_batch(
         # the reference rotates about (W/2, H/2) (normalise.py:48-56)
         return rotate_shear3(x, a, center_xy=(W / 2.0, H / 2.0)).to(imgs.dtype)
 
-    return subset_apply(do_warp, imgs, apply, eff), eff
+    return subset_apply_(do_warp, imgs, apply, eff), eff

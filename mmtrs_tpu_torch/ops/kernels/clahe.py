@@ -59,7 +59,7 @@ def clahe_hist_lut(l: torch.Tensor, clip: float = 3.0, tiles=(8, 8)) -> torch.Te
     ty, tx = tiles
     area = (H // ty) * (W // tx)
     lut = torch.empty((B, ty * tx, N_BINS), dtype=torch.uint8, device=l.device)
-    code = _build.library().mmtrs_clahe_hist_lut(
+    code = _build.kernel("mmtrs_clahe_hist_lut")(
         l.data_ptr(), lut.data_ptr(), B, H, W, ty, tx, clip_limit(clip, area),
         (N_BINS - 1) / area, _build.stream_handle(),
     )
@@ -87,7 +87,7 @@ def clahe_apply(l: torch.Tensor, lut: torch.Tensor, tiles=(8, 8),
     if H > _MAX_ROWS or B > _MAX_ROWS:
         raise ValueError(f"{name}: at most {_MAX_ROWS} rows and images, got {(B, H)}")
     out = torch.empty((B, H, W), dtype=out_dtype, device=l.device)
-    code = _build.library().mmtrs_clahe_apply(
+    code = _build.kernel("mmtrs_clahe_apply")(
         l.data_ptr(), lut.data_ptr(), out.data_ptr(), B, H, W, ty, tx,
         int(out_dtype == torch.uint8), _build.stream_handle(),
     )

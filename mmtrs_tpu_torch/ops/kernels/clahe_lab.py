@@ -108,7 +108,7 @@ def clahe_lab_fwd_lut(imgs: torch.Tensor, clip: float = 3.0, tiles=(8, 8)):
     da = torch.empty((B, H, W), dtype=torch.int8, device=dev)
     db = torch.empty((B, H, W), dtype=torch.int8, device=dev)
     lut = torch.empty((B, ty * tx, N_BINS), dtype=torch.uint8, device=dev)
-    code = _build.library().mmtrs_clahe_lab_fwd_lut(
+    code = _build.kernel("mmtrs_clahe_lab_fwd_lut")(
         imgs.data_ptr(), lq.data_ptr(), da.data_ptr(), db.data_ptr(), lut.data_ptr(),
         B, H, W, ty, tx, clip_limit(clip, area), (N_BINS - 1) / area,
         _build.stream_handle(),
@@ -133,7 +133,7 @@ def clahe_apply_lab_bwd(lq, da, db, lut, tiles=(8, 8)) -> torch.Tensor:
     if not on_cuda(name, lq, da, db, lut):
         return clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles)
     out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=lq.device)
-    code = _build.library().mmtrs_clahe_apply_lab_bwd(
+    code = _build.kernel("mmtrs_clahe_apply_lab_bwd")(
         lq.data_ptr(), da.data_ptr(), db.data_ptr(), lut.data_ptr(), out.data_ptr(),
         B, H, W, ty, tx, _build.stream_handle(),
     )

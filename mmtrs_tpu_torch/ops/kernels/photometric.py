@@ -88,6 +88,14 @@ def photometric_ref(
     return torch.where(in_hole[..., None], torch.zeros_like(out), out)
 
 
+def supports(H: int, W: int) -> bool:
+    """Copy of mmtrs_tpu/ops/pallas/photometric_kernel.py:supports: the
+    shapes on which the JAX package runs its fused photometric pass on a
+    TPU, which also gates the ``legacy`` CLAHE member's fused LAB route
+    (ops/augment.py). Held equal by tests/test_torch_hygiene.py."""
+    return (W * 3) % 128 == 0 and H % 8 == 0
+
+
 def photometric(
     imgs: torch.Tensor, params: torch.Tensor, seeds: torch.Tensor, hole: int
 ) -> torch.Tensor:
@@ -108,7 +116,7 @@ def photometric(
         return photometric_ref(imgs, params, seeds, int(hole))
     out = torch.empty_like(imgs)
     if B:
-        code = _build.library().mmtrs_photometric(
+        code = _build.kernel("mmtrs_photometric")(
             imgs.data_ptr(), out.data_ptr(), params.data_ptr(), seeds.data_ptr(),
             B, H, W, float(hole), _build.stream_handle(),
         )

@@ -74,7 +74,7 @@ def resample_rows(
     if not on_cuda(name, img, off, alpha, r):
         return resample_rows_ref(img, off, alpha, r, axis, out_dtype)
     out = torch.empty(img.shape, dtype=out_dtype, device=img.device)
-    code = _build.library().mmtrs_resample_rows(
+    code = _build.kernel("mmtrs_resample_rows")(
         img.data_ptr(), out.data_ptr(), off.data_ptr(), alpha.data_ptr(), r.data_ptr(),
         B, H, W, C, axis, int(img.dtype == torch.uint8), int(out_dtype == torch.uint8),
         _build.stream_handle(),

@@ -66,7 +66,7 @@ def shift_rows(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Ten
     if not on_cuda(name, img, off):
         return shift_rows_ref(img, off, axis)
     out = torch.empty_like(img)
-    code = _build.library().mmtrs_shift_rows(
+    code = _build.kernel("mmtrs_shift_rows")(
         img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
         int(img.dtype == torch.uint8), _build.stream_handle(),
     )
@@ -118,7 +118,7 @@ def shift_rows_windowed(
     if not cuda:
         return shift_rows_windowed_ref(img, off, axis)
     out = torch.empty_like(img)
-    code = _build.library().mmtrs_shift_rows_windowed(
+    code = _build.kernel("mmtrs_shift_rows_windowed")(
         img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
         int(img.dtype == torch.uint8), _build.stream_handle(),
     )

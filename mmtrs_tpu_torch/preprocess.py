@@ -69,7 +69,8 @@ def preprocess_batch(
     # LAB2BGR on u8 returns u8), on the TPU's route for this shape
     x = _clahe_lab_stage(imgs, clahe_clip, tiles)
 
-    # 2. optional deskew (normalise.py:19-57)
+    # 2. optional deskew (normalise.py:19-57), written back into the CLAHE
+    # stage's fresh output
     if do_rotate:
         x, angle = deskew_batch(x)
     else:
@@ -117,7 +118,7 @@ def preprocess_augment_batch(
             f"draws for B images, got {tuple(imgs.shape)} and {draws.batch} draws"
         )
     x = _clahe_lab_stage(imgs, clahe_clip, tiles)
-    if do_rotate:
+    if do_rotate:  # in place: x is the CLAHE stage's fresh output
         x, angle = deskew_batch(x)
     else:
         angle = torch.zeros(B, device=x.device)

@@ -97,6 +97,18 @@ def test_supports_copy_matches_jax_package():
                 assert clahe_lab.supports(H, W, tiles) == orig.supports(H, W, tiles), (H, W, tiles)
 
 
+def test_photometric_supports_copy_matches_jax_package():
+    """The fused photometric pass's shape predicate, which with the fused
+    LAB kernels' one picks the ``legacy`` CLAHE member's route, agrees with
+    the original over H, W in 16..1104."""
+    from mmtrs_tpu.ops.pallas import photometric_kernel as orig
+    from mmtrs_tpu_torch.ops.kernels import photometric
+
+    sizes = range(16, 1105)
+    got = [[photometric.supports(H, W) for W in sizes] for H in sizes]
+    assert got == [[orig.supports(H, W) for W in sizes] for H in sizes]
+
+
 def test_choices_copy_matches_jax_package():
     from mmtrs_tpu.serve import choices as orig
     from mmtrs_tpu_torch.serve import choices
