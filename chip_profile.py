@@ -3,7 +3,7 @@
 
     python3 chip_profile.py        # from the repository root, on a CUDA machine
 
-Two paths, on the inputs chip_smoke.py drives them with:
+Three paths, on the inputs chip_smoke.py drives them with:
   1. the archive pass, ``preprocess_stream`` over 3 batches of u8
      [4, 3024, 4032, 3] synthetic 12 MP teeth: host-clock time of each
      stage of one batch (pinning, the copy to the card, the CLAHE stage, its
@@ -13,10 +13,22 @@ Two paths, on the inputs chip_smoke.py drives them with:
   2. one phone-shaped serving request's preprocessing (a 768x1024 upload,
      bucket 512x688): host-clock time of the bucket resize, the CLAHE stage
      and the whole ``PredictService.preprocess``.
+  3. the augmentation chain, ``preprocess_augment_batch`` with the
+     ``legacy`` preset on chip_smoke.py phase 5's u8 [32, 512, 512, 3] batch
+     and draws (every gated member firing among the first 8): under
+     ``torch.profiler`` over 3 batches, the device busy share and the
+     device ms of the warp's resample (K4) and the elastic shift (K6).
 K8 and K9 are also timed back to back (100 launches between two CUDA
 events) against one call between events, which separates a launch's host
 cost from the kernel. Prints the card's name and power limit, then one JSON
 object of the numbers as its last line.
+
+    python3 chip_profile.py --line-times
+
+times only the line kernels K3-K6 (see ``line_times``), at arguments that
+every tree of the port takes: copy this file and chip_smoke.py into an
+older commit's checkout and run it there and here in turns to compare two
+commits' kernels in one call.
 """
 
 from __future__ import annotations
@@ -107,6 +119,118 @@ def archive_profile(torch, dev, host, batches=3):
     }
 
 
+def legacy_profile(torch, dev, batches=3):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import AUG_MEMBERS, AUG_SHAPE, _covering_origin_ids, _legacy_gates
+    from mmtrs_tpu_torch.ops.augment import draw_legacy
+    from mmtrs_tpu_torch.preprocess import preprocess_augment_batch
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    B, S = AUG_SHAPE[0], AUG_SHAPE[1]
+    draws = draw_legacy(SEED, _covering_origin_ids(B, _legacy_gates, AUG_MEMBERS), 0, S, S, img_size=S)
+    x = torch.from_numpy(synth_teeth(B, S, seed=SEED + 2, angles_deg=[30.0, -25.0] + [0.0] * (B - 2))).to(dev)
+    preprocess_augment_batch(x, draws, out_size=S)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            preprocess_augment_batch(x, draws, out_size=S)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_items = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_items) / 1e3
+    # the kernels by their device function names (csrc/resample_rows.cu, csrc/shift_rows.cu)
+    own = lambda tag: sum(e.self_device_time_total for e in dev_items if tag in e.key) / 1e3 / batches
+    k4, k6 = own("resample_"), own("window_")
+    return {
+        "elastic_images": int(draws.elastic_on.sum()),
+        "wall_ms_per_batch": wall_ms / batches,
+        "device_busy_ms_per_batch": busy_ms / batches,
+        "busy_share": busy_ms / wall_ms,
+        "k4_ms_per_batch": k4,
+        "k6_ms_per_batch": k6,
+        "k4_k6_share_of_busy": (k4 + k6) * batches / busy_ms if busy_ms else None,
+        "k4_k6_share_of_wall": (k4 + k6) * batches / wall_ms,
+    }
+
+
+# the device functions of each line kernel, in this tree and in older ones
+# (csrc/shift_rows.cu, csrc/resample_rows.cu, csrc/photometric.cu)
+LINE_KERNEL_NAMES = {
+    "K3": ("shift_w_kernel", "shift_h_kernel"),
+    "K4": ("resample_",),
+    "K5": ("photometric_kernel",),
+    "K6": ("shift_pp_kernel", "window_w_kernel", "window_h_kernel"),
+}
+
+
+def _kernel_ms(torch, tags, fn, argsets, launches=20):
+    """Device ms per launch of the kernels whose names hold one of ``tags``,
+    under ``torch.profiler`` over ``launches`` calls of ``fn`` taking
+    ``argsets`` in turn: the kernel alone, without whatever else its wrapper
+    launches or waits for."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*argsets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(launches):
+            fn(*argsets[i % len(argsets)])
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and any(t in e.key for t in tags)) / 1e3 / launches
+
+
+def line_times(torch, dev):
+    """The line kernels K3-K6 through their wrappers, at arguments that
+    every tree of the port takes: K3 with deskew's offsets at
+    [16, 512, 512, 3]; K4 with random ±20 per line (half flipped) and K6
+    with uniform ±11 (window 11) at [16, 512, 512, 3] and [12, 380, 380, 3],
+    u8 and f32, both axes; K5 on chip_smoke.py phase 2's rows. For each,
+    the wrapper's ms per launch back to back between two CUDA events
+    (``b2b``: whatever the wrapper launches or waits for included) and the
+    kernel's own device ms per launch under ``torch.profiler`` (``kernel``);
+    each wrapper's host µs at u8 [16, 512, 512, 3] (axis 1). Checks nothing
+    (chip_smoke.py phase 2 does)."""
+    from chip_smoke import (MM_SHAPE, SEED, SHAPE, _b2b_ms, _deskew_offsets, _host_us, _photometric_rows,
+                            _random_passes, _rotations, _teeth_at)
+    from mmtrs_tpu_torch.ops.kernels.photometric import photometric
+    from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
+    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows, shift_rows_windowed
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(synth_teeth(SHAPE[0], SHAPE[1], seed=SEED)).to(dev)
+    times, host_us = {}, {}
+
+    def both(key, kernel, fn, args):
+        sets = _rotations(args)
+        times[key] = {"b2b": _b2b_ms(fn, sets), "kernel": _kernel_ms(torch, LINE_KERNEL_NAMES[kernel], fn, sets)}
+
+    for axis in (2, 1):
+        off = _deskew_offsets(torch, gen, SHAPE[0], SHAPE[1], axis).to(dev)
+        both(f"K3 {list(SHAPE)} axis {axis} deskew u8", "K3", shift_rows, (x, off, axis))
+    for shape in (SHAPE, MM_SHAPE):
+        B, H, W, C = shape
+        u8 = _teeth_at(torch, dev, x, shape)
+        f32 = u8.float().contiguous()
+        for axis, lines, n in ((2, H, W), (1, W, H)):
+            a = tuple(t.to(dev).contiguous() for t in _random_passes(torch, gen, B, lines, n))
+            off = (torch.rand((B, H, W), generator=gen) * 22.0 - 11.0).to(dev)
+            for name, im in (("u8", u8), ("f32", f32)):
+                both(f"K4 {list(shape)} axis {axis} random ±20 {name}", "K4",
+                     lambda i, *t: resample_rows(i, *t, axis=axis), (im, *a))
+                both(f"K6 {list(shape)} axis {axis} ±11 {name}", "K6",
+                     lambda i, o: shift_rows_windowed(i, o, 11, axis), (im, off))
+            if shape == SHAPE and axis == 1:
+                host_us["K4"] = _host_us(lambda: resample_rows(u8, *a, axis=1), ())
+                host_us["K6"] = _host_us(lambda: shift_rows_windowed(u8, off, 11, 1), ())
+    params, seeds, hole = _photometric_rows(torch, dev, gen)
+    both(f"K5 {list(SHAPE)} u8", "K5", photometric, (x, params, seeds, hole))
+    return {"line_times_ms": times, "host_us": host_us}
+
+
 def kernel_launch_costs(torch, dev, host):
     from mmtrs_tpu_torch.ops.color import rgb_to_lab
     from mmtrs_tpu_torch.ops.kernels.clahe import clahe_apply, clahe_hist_lut, quantize_l
@@ -159,6 +283,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if sys.argv[1:] == ["--line-times"]:
+        result = line_times(torch, dev)
+        print(smi)
+        print(json.dumps(result))
+        return 0
     B, H, W, _ = ARCHIVE_SHAPE
     host = synth_teeth(B, (H, W), seed=SEED + 6, angles_deg=[30.0, -25.0] + [0.0] * (B - 2))
     archive_stages(torch, dev, host)  # warm-up
@@ -167,6 +296,7 @@ def main() -> int:
         "archive_profile": archive_profile(torch, dev, host),
         "kernels": kernel_launch_costs(torch, dev, host),
         "serving_768x1024_ms": serving_request(torch, dev),
+        "legacy_b32_profile": legacy_profile(torch, dev),
     }
     print(smi)
     print(json.dumps(result))

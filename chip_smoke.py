@@ -10,11 +10,18 @@ Phases (each raises on failure, so the script exits non-zero):
   2. kernels vs their plain PyTorch versions on the card, at u8 / f32
      [16, 512, 512, 3]: K1 bit-equal, the K1+K2 chain ≥ 99.99 % bit-equal
      and max ≤ 32 levels, K3 f32 within 1e-3 and its u8 store equal to
-     round-half-up of the f32 result; K4 (both axes, half the images
-     flipped) and K6 (both axes, |off| ≤ 11) f32 within 1e-3; K4, K5 (rows
-     of identity, brightness/contrast, HSV, noise σ = √5 and √15, dropout,
-     all at once) and K6 u8 bit-equal to plain, or max ≤ 1 level on
-     ≥ 99.99 % of values; K7 at u8 and f32 [32, 512, 512, 3] with a random
+     round-half-up of the f32 result; K5 (rows of identity,
+     brightness/contrast, HSV, noise σ = √5 and √15, dropout, all at once)
+     u8 bit-equal to plain, or max ≤ 1 level on ≥ 99.99 % of values; K4 and
+     K6 on both axes at [16, 512, 512, 3] and the MM trainer's randaug
+     batch [12, 380, 380, 3] (rows of 1140 bytes, not 16-byte aligned): K4
+     with the chains' warps (legacy / randaug, ten, crop∘augment, half
+     flipped), random ±20 per line, and ±100 per line with |α| 3 (whose
+     vertical-pass tiles span far more source rows than the kernel stages,
+     so they take its global-read branch), K6 with window 11 and
+     uniform ±11, ±14 (beyond the window) and, at [4, 512, 512, 3],
+     elastic's own fields: u8 bit-equal to plain, f32 within 1e-3; K7 at
+     u8 and f32 [32, 512, 512, 3] with a random
      7-row subset: written rows bit-equal to plain, untouched rows
      byte-identical; K8 and K9 on the u8 L planes of synthetic teeth at
      [16, 512, 688] (serving's tiles, 64 × 86 px) and [2, 3024, 4032] (the
@@ -31,8 +38,9 @@ Phases (each raises on failure, so the script exits non-zero):
      1000 calls); its plain version's one call; the library call's one-call
      and back-to-back times where one PyTorch call computes the function
      (K7 index_copy_; K3 and K6 grid_sample at f32, beside their own f32
-     times); and each kernel's bound: the larger of its bytes over 3.35 TB/s and its
-     f32 operations over 67 TFLOP/s (the H100 SXM's published peaks);
+     times; K3, K4 and K6 per shape, axis and offsets); and each kernel's
+     bound: the larger of its bytes over 3.35 TB/s and its f32 operations
+     over 67 TFLOP/s (the H100 SXM's published peaks);
   3. preprocess_batch at [16, 512, 512, 3] with deskew firing on 2 images:
      K1-K3 launched, and the result against the same port run on the CPU
      (seg_valid equal, angles within 1e-3°, boxes within 1 px, u8 within
@@ -135,6 +143,10 @@ HOST_CALLS = 1000  # wrapper calls whose host time is averaged
 # K3 at deskew's shapes: a 512^2 batch, one archive image, and phase 7's
 # small archive batch, whose rows (W·C = 3000 bytes) are not 16-byte aligned
 K3_SHAPES = ((16, 512, 512, 3), (1, 3024, 4032, 3), SMALL_ARCHIVE_SHAPE)
+# K4 and K6 also at the MM trainer's randaug batch: 12 images at 380²
+# (mmtrs_tpu/config.py:268,276), whose rows (W·C = 1140 bytes) are not
+# 16-byte aligned
+MM_SHAPE = (12, 380, 380, 3)
 # f32 operations per output element of each kernel's formula, each exp, log
 # and division counted as one (so the least the card must issue): the LAB
 # conversions, pows and blends of csrc/*.cu counted line by line
@@ -348,14 +360,14 @@ def _grid_sample_shift(torch, img_nchw, off, axis):
     return fn, (img_nchw, grid)
 
 
-def _k3_batch(torch, dev, x, shape):
-    """u8 teeth at one of K3_SHAPES: phase 2's batch, archive images, or a
-    batch of phase 7's small archive shape."""
+def _teeth_at(torch, dev, x, shape):
+    """u8 teeth at a checked shape: phase 2's batch (or its first images),
+    archive images, or synthetic teeth at another size."""
     from mmtrs_tpu_torch.synth import synth_teeth
 
     B, H, W, _ = shape
-    if shape == SHAPE:
-        return x
+    if shape[1:] == SHAPE[1:] and B <= SHAPE[0]:
+        return x[:B]
     if (H, W) == ARCHIVE_SHAPE[1:3]:
         return torch.from_numpy(_archive_batch()[:B]).to(dev)
     return torch.from_numpy(synth_teeth(B, (H, W), seed=SEED + 7)).to(dev)
@@ -373,7 +385,7 @@ def _check_shift_rows(torch, dev, x, gen):
     detail, err, stat = [], 0.0, None
     for shape in K3_SHAPES:
         B, H, W, C = shape
-        u8 = _k3_batch(torch, dev, x, shape)
+        u8 = _teeth_at(torch, dev, x, shape)
         f32 = u8.float()
         for axis in (2, 1):
             lines = H if axis == 2 else W
@@ -442,36 +454,87 @@ def _u8_bar(name, got, want):
     return float(err)
 
 
+def _warp_mats(torch, B, S, first: str):
+    """Forward maps [B, 3, 3] of the warps the chains draw at S²: a third
+    from ``first`` (the ``legacy`` or ``randaug`` preset's draws), a third
+    from ``ten``'s, a third ``first``'s composed with a tooth's crop as
+    ``crop_warp_fused`` composes them; every second map flipped in x and y,
+    so that both passes meet α < 0."""
+    from mmtrs_tpu_torch.ops.augment import draw_batch, draw_legacy, draw_randaug
+    from mmtrs_tpu_torch.ops.resize import _crop_warp_matrix
+    from mmtrs_tpu_torch.ops.warp import hflip3, mat3, vflip3
+
+    ids = list(range(B))
+    own = (draw_legacy(SEED, ids, 0, S, S, img_size=S) if first == "legacy"
+           else draw_randaug(SEED, ids, 0, S, S)).mats
+    variants = [i % 9 for i in ids]  # ten's variants with a warp (9 is elastic)
+    ten = draw_batch("ten", SEED, ids, [v + 1 for v in variants], S, S, aug_idx=variants).mats
+    gen = torch.Generator().manual_seed(SEED + 8)
+    centre = S / 2.0 + (torch.rand((B, 2), generator=gen) - 0.5) * (S / 5.0)
+    half = (0.3 + 0.15 * torch.rand((B, 2), generator=gen)) * S
+    boxes = torch.cat([centre - half, centre + half], dim=1).clamp(0.0, S - 1.0)  # (y0, x0, y1, x1)
+    crop = _crop_warp_matrix(boxes, own, S, S, S, 15.0)[0]
+    third = torch.arange(B) * 3 // B
+    mats = torch.where((third == 0)[:, None, None], own, torch.where((third == 1)[:, None, None], ten, crop))
+    flip = mat3(hflip3(float(S)), vflip3(float(S)))
+    return torch.where((torch.arange(B) % 2 == 1)[:, None, None], mat3(mats, flip), mats)
+
+
 def _check_resample(torch, dev, x, xf, gen):
-    """K4 on both axes, u8 (u8 store) and f32, half the images flipped
-    (α < 0 with r near n − 1, as an hflip composes)."""
+    """K4 on both axes at phase 2's [16, 512, 512, 3] and at the MM
+    trainer's randaug batch [12, 380, 380, 3] (rows of 1140 bytes, not
+    16-byte aligned), with the offsets of the chains' warps (``_warp_mats``),
+    with random ±20 per line (half the images flipped, α −1.05 or 0.9), and
+    with random ±100 per line at α 3 or −3: a 32-column tile of the
+    vertical pass then needs source rows spread over about 200 (the
+    offsets' floors alone), far past the rows a tile stages for the chains'
+    warps, so every tile takes the kernel's global-read branch. u8 (u8
+    store) bit-equal to plain, f32 within 1e-3; back-to-back times at u8
+    and f32.
+    The JSON line's numbers are the horizontal pass at u8 [16, 512, 512, 3]
+    with random ±20, as the kernel table has always been taken."""
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows, resample_rows_ref
+    from mmtrs_tpu_torch.ops.warp import warp_passes
 
-    B, H, W, _ = SHAPE
-    err = 0.0
-    args = {}
-    for axis, lines, n in ((2, H, W), (1, W, H)):
-        flip = torch.arange(B) % 2 == 1
-        alpha = torch.where(flip, -1.05, 0.9).float()
-        beta = torch.rand((B, lines), generator=gen) * 40.0 - 20.0 + torch.where(flip, n - 1.0, 0.0)[:, None]
-        r = beta.mean(dim=1)
-        off = beta - r[:, None]
-        a = args[axis] = tuple(t.to(dev).contiguous() for t in (off, alpha, r))
-        e = (resample_rows(xf, *a, axis=axis) - resample_rows_ref(xf, *a, axis=axis)).abs().max().item()
-        _check(e <= 1e-3, f"K4 f32 axis {axis} max err {e:.3g} <= 1e-3")
-        err = max(err, e, _u8_bar(f"K4 axis {axis}", resample_rows(x, *a, axis=axis),
-                                  resample_rows_ref(x, *a, axis=axis)))
-    # u8 NHWC, the warp's horizontal pass
-    st = _stat("resample_rows", lambda im, *a: resample_rows(im, *a, axis=2), (x, *args[2]),
-               lambda: resample_rows_ref(x, *args[2], axis=2), _nbytes(x, *args[2], x), x.numel())
-    return [("resample_rows", err, st)]
+    detail, err, stat = [], 0.0, None
+    for shape, first in ((SHAPE, "legacy"), (MM_SHAPE, "randaug")):
+        B, H, W, C = shape
+        u8 = _teeth_at(torch, dev, x, shape)
+        f32 = (u8.float() + torch.rand(shape, generator=gen).to(dev) * 0.99).contiguous()
+        _, warp_h, warp_v = warp_passes(_warp_mats(torch, B, W, first).to(dev), H, W)
+        for kind in ("warps", "random ±20", "steep ±100"):
+            for axis, lines, n in ((2, H, W), (1, W, H)):
+                if kind == "warps":
+                    a = warp_h if axis == 2 else warp_v
+                else:
+                    amp, alphas = (20.0, (0.9, -1.05)) if kind == "random ±20" else (100.0, (3.0, -3.0))
+                    a = tuple(t.to(dev).contiguous() for t in _random_passes(torch, gen, B, lines, n, amp, alphas))
+                got = resample_rows(u8, *a, axis=axis)
+                _check(torch.equal(got, resample_rows_ref(u8, *a, axis=axis)),
+                       f"K4 u8 {shape} axis {axis} {kind}: bit-equal to plain")
+                e = (resample_rows(f32, *a, axis=axis) - resample_rows_ref(f32, *a, axis=axis)).abs().max().item()
+                _check(e <= 1e-3, f"K4 f32 {shape} axis {axis} {kind}: max err {e:.3g} <= 1e-3")
+                err = max(err, e)
+                row = {"shape": list(shape), "axis": axis, "offsets": kind,
+                       "alpha_abs_max": a[1].abs().max().item(),
+                       "bound_ms": _bound_ms(_nbytes(u8, *a, u8), OPS_PER_ELEMENT["resample_rows"] * u8.numel())[0],
+                       "u8_ms_b2b": _b2b_ms(lambda im, *t: resample_rows(im, *t, axis=axis), _rotations((u8, *a))),
+                       "f32_ms_b2b": _b2b_ms(lambda im, *t: resample_rows(im, *t, axis=axis), _rotations((f32, *a)))}
+                if shape == SHAPE and axis == 2 and kind == "random ±20":
+                    stat = _stat("resample_rows", lambda im, *t: resample_rows(im, *t, axis=2), (u8, *a),
+                                 lambda: resample_rows_ref(u8, *a, axis=2), _nbytes(u8, *a, u8), u8.numel())
+                    stat.update(f32_ms_b2b=row["f32_ms_b2b"])
+                detail.append(row)
+                print(f"  K4 {shape} axis {axis} {kind} (|alpha| <= {row['alpha_abs_max']:.3f}): b2b u8 "
+                      f"{row['u8_ms_b2b']:.4f}, f32 {row['f32_ms_b2b']:.4f} ms, bound (u8) {row['bound_ms'] * 1e3:.2f} us")
+    stat["detail"] = detail
+    return [("resample_rows", err, stat)]
 
 
-def _check_photometric(torch, dev, x, xf, gen):
-    """K5 on rows that are identity, brightness/contrast, HSV, noise at
-    σ = √5 and √15, dropout, and all members at once (repeated over B)."""
-    from mmtrs_tpu_torch.ops.kernels.photometric import photometric, photometric_ref
-
+def _photometric_rows(torch, dev, gen):
+    """K5's arguments at SHAPE: rows that are identity, brightness/contrast,
+    HSV, noise at σ = √5 and √15, dropout, and all members at once (repeated
+    over B); a seed per image; the dropout hole."""
     B = SHAPE[0]
     kinds = np.zeros((7, 10), np.float32)
     kinds[1, :2] = (0.12, -0.09)
@@ -482,35 +545,91 @@ def _check_photometric(torch, dev, x, xf, gen):
     kinds[6] = (-0.07, 0.11, -3.0, 9.0, -5.0, 1.0, np.sqrt(15.0), 1.0, 40.0, 90.0)
     params = torch.from_numpy(kinds[np.arange(B) % 7]).to(dev)
     seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32).to(dev)
-    hole = 512 // 24
+    return params, seeds, SHAPE[1] // 24
+
+
+def _check_photometric(torch, dev, x, xf, gen):
+    """K5 on :func:`_photometric_rows`."""
+    from mmtrs_tpu_torch.ops.kernels.photometric import photometric, photometric_ref
+
+    params, seeds, hole = _photometric_rows(torch, dev, gen)
     err = _u8_bar("K5", photometric(x, params, seeds, hole), photometric_ref(x, params, seeds, hole))
     st = _stat("photometric", photometric, (x, params, seeds, hole),
                lambda: photometric_ref(x, params, seeds, hole), _nbytes(x, params, seeds, x), x.numel() // 3)
     return [("photometric", err, st)]
 
 
+def _random_passes(torch, gen, B, lines, n, amp=20.0, alphas=(0.9, -1.05)):
+    """K4's (off, alpha, r) with random ±amp per line on the host: α
+    alphas[0], or alphas[1] with r near n − 1 on every second image (a
+    flip)."""
+    flip = torch.arange(B) % 2 == 1
+    alpha = torch.where(flip, alphas[1], alphas[0]).float()
+    beta = torch.rand((B, lines), generator=gen) * 2.0 * amp - amp + torch.where(flip, n - 1.0, 0.0)[:, None]
+    r = beta.mean(dim=1)
+    return beta - r[:, None], alpha, r
+
+
 def _check_windowed(torch, dev, x, xf, gen):
-    """K6 on both axes, u8 and f32, per-pixel offsets |off| ≤ 11 (the
-    elastic pass's bound)."""
+    """K6 on both axes, u8 and f32, window m = 11 (the elastic pass's), at
+    [16, 512, 512, 3] and the MM trainer's randaug batch [12, 380, 380, 3]
+    with uniform ±11 offsets and ±14 (beyond the window: the TPU kernel's
+    windowed sum), and at an elastic sub-batch [4, 512, 512, 3] with
+    ``elastic``'s own smoothed fields (α 10, σ 5): u8 bit-equal to plain,
+    f32 within 1e-3; back-to-back times at u8 and f32, and ``grid_sample``'s
+    f32 one call and back to back on the same offsets (it computes the
+    bilinear shift, which K6's result is within the window). The JSON line's
+    numbers are the vertical pass (elastic's first) at u8 [16, 512, 512, 3]
+    with ±11."""
+    from mmtrs_tpu_torch.ops.augment import elastic_offsets
     from mmtrs_tpu_torch.ops.kernels.shift import shift_rows_windowed, shift_rows_windowed_ref
 
-    B, H, W, _ = SHAPE
-    off = (torch.rand((B, H, W), generator=gen) * 22.0 - 11.0).to(dev)
-    err = 0.0
-    for axis in (1, 2):
-        e = (shift_rows_windowed(xf, off, 11, axis) - shift_rows_windowed_ref(xf, off, axis)).abs().max().item()
-        _check(e <= 1e-3, f"K6 f32 axis {axis} max err {e:.3g} <= 1e-3")
-        err = max(err, e, _u8_bar(f"K6 axis {axis}", shift_rows_windowed(x, off, 11, axis),
-                                  shift_rows_windowed_ref(x, off, axis)))
-    # u8 NHWC, the elastic transform's first (vertical) pass; grid_sample
-    # computes it at f32, so K6's f32 times stand beside it
-    lib = _grid_sample_shift(torch, xf.permute(0, 3, 1, 2).contiguous(), off, 1)
-    st = _stat("shift_rows_windowed", shift_rows_windowed, (x, off, 11, 1),
-               lambda: shift_rows_windowed_ref(x, off, 1), _nbytes(x, off, x), x.numel(), library=lib)
-    st.update(f32_ms=_time_ms(lambda: shift_rows_windowed(xf, off, 11, 1)),
-              f32_ms_b2b=_b2b_ms(shift_rows_windowed, _rotations((xf, off, 11, 1))))
-    print(f"  K6 f32 axis 1: one call {st['f32_ms']:.4f}, b2b {st['f32_ms_b2b']:.4f} ms (grid_sample's yardstick)")
-    return [("shift_rows_windowed", err, st)]
+    m = 11
+    cases = [(SHAPE, "uniform ±11"), (SHAPE, "uniform ±14"), ((4, *SHAPE[1:]), "elastic"),
+             (MM_SHAPE, "uniform ±11"), (MM_SHAPE, "uniform ±14")]
+    detail, err, stat = [], 0.0, None
+    for shape, kind in cases:
+        B, H, W, C = shape
+        u8 = _teeth_at(torch, dev, x, shape)
+        f32 = (u8.float() + torch.rand(shape, generator=gen).to(dev) * 0.99).contiguous()
+        if kind == "elastic":
+            dx, dy, win = elastic_offsets((torch.rand((B, 2, H, W), generator=gen) * 2.0 - 1.0).to(dev), 10.0, 5.0)
+            _check(win == m and max(dx.abs().max().item(), dy.abs().max().item()) <= m,
+                   f"elastic's offsets within its window {win}")
+        else:
+            amp = float(kind.split("±")[1])
+            dx, dy = ((torch.rand((B, H, W), generator=gen) * 2.0 * amp - amp).to(dev) for _ in range(2))
+        for axis, off in ((1, dy.contiguous()), (2, dx.contiguous())):
+            got = shift_rows_windowed(u8, off, m, axis)
+            _check(torch.equal(got, shift_rows_windowed_ref(u8, off, m, axis)),
+                   f"K6 u8 {shape} axis {axis} {kind}: bit-equal to plain")
+            e = (shift_rows_windowed(f32, off, m, axis) - shift_rows_windowed_ref(f32, off, m, axis)).abs().max().item()
+            _check(e <= 1e-3, f"K6 f32 {shape} axis {axis} {kind}: max err {e:.3g} <= 1e-3")
+            err = max(err, e)
+            lib_fn, lib_args = _grid_sample_shift(torch, f32.permute(0, 3, 1, 2).contiguous(), off, axis)
+            row = {"shape": list(shape), "axis": axis, "offsets": kind,
+                   "bound_ms": _bound_ms(_nbytes(u8, off, u8), OPS_PER_ELEMENT["shift_rows_windowed"] * u8.numel())[0],
+                   "u8_ms_b2b": _b2b_ms(lambda im, o: shift_rows_windowed(im, o, m, axis), _rotations((u8, off))),
+                   "f32_ms_b2b": _b2b_ms(lambda im, o: shift_rows_windowed(im, o, m, axis), _rotations((f32, off))),
+                   "grid_sample_ms": _time_ms(lambda: lib_fn(*lib_args)),
+                   "grid_sample_ms_b2b": _b2b_ms(lib_fn, _rotations(lib_args))}
+            if kind != "uniform ±14":
+                row["grid_sample_max_diff"] = (lib_fn(*lib_args).permute(0, 2, 3, 1)
+                                               - shift_rows_windowed(f32, off, m, axis)).abs().max().item()
+            if shape == SHAPE and axis == 1 and kind == "uniform ±11":
+                stat = _stat("shift_rows_windowed", shift_rows_windowed, (u8, off, m, 1),
+                             lambda: shift_rows_windowed_ref(u8, off, m, 1), _nbytes(u8, off, u8), u8.numel(),
+                             library=(lib_fn, lib_args))
+                stat.update(f32_ms=_time_ms(lambda: shift_rows_windowed(f32, off, m, 1)),
+                            f32_ms_b2b=row["f32_ms_b2b"])
+            detail.append(row)
+            diff = ("" if "grid_sample_max_diff" not in row
+                    else f" (max diff from K6 f32 {row['grid_sample_max_diff']:.3g})")
+            print(f"  K6 {shape} axis {axis} {kind}: b2b u8 {row['u8_ms_b2b']:.4f}, f32 {row['f32_ms_b2b']:.4f} ms, "
+                  f"bound (u8) {row['bound_ms'] * 1e3:.2f} us; grid_sample f32 {row['grid_sample_ms']:.4f} / b2b "
+                  f"{row['grid_sample_ms_b2b']:.4f} ms{diff}")
+    stat["detail"] = detail
+    return [("shift_rows_windowed", err, stat)]
 
 
 def _check_scatter(torch, dev, x, xf, gen):

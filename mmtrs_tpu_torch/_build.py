@@ -50,8 +50,8 @@ _SIGNATURES = {
     "mmtrs_clahe_hist_lut": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "mmtrs_clahe_apply": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_shift_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_photometric": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "mmtrs_scatter_rows": (_P, _P, _P, _L, _L, _L, _P),
 }

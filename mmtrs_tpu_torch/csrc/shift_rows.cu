@@ -34,114 +34,49 @@
 //   that is at most TY + TX + 4 rows; a tile whose offsets spread further
 //   reads global memory directly instead (the same arithmetic).
 //
-// K6 mmtrs_shift_rows_windowed: per-pixel bounded shift of an NHWC batch.
+// K6 mmtrs_shift_rows_windowed: per-pixel windowed shift of an NHWC batch.
 //
 // Replaces mmtrs_tpu/ops/pallas/shift_kernel.py:_shift_rows_pp_kernel, the
 // elastic transform's two passes (ops/augment.py elastic →
 // ops/warp.py shift_axis_windowed). off [B, H, W] is shared by the
-// channels; along the line:
-//   src = clip(p + off, 0, n - 1), out = (1 - w) in[floor(src)] + w in[floor(src) + 1]
-// The TPU sums 2m + 2 hat taps of a static window with lane rolls because it
-// has no gather; the two non-zero taps are read directly here, and the
-// clipped source already gives the replicate border. |off| <= max_shift is
-// checked by the wrapper. Bound: bytes (4 B of offset per pixel besides the
-// image); one thread per element.
+// channels. The TPU sums the 2m + 2 hat taps k = -m..m + 1 around
+// rel = clip(p + off, 0, n - 1) - p with lane rolls, because it has no
+// gather, then takes the first (last) sample where the clipped source sits
+// at 0 (n - 1). Here the two non-zero taps are read directly:
+//   src = clip(p + off, 0, n - 1), i0 = floor(src), w = src - i0,
+//   out = (1 - w) in[i0] + w in[min(i0 + 1, n - 1)],
+// a tap whose index relative to p falls outside [-m, m + 1] weighs 0, and
+// src <= 0 (>= n - 1) takes in[0] (in[n - 1]). Within the window that is the
+// bilinear shift with a replicate border; beyond it, the TPU kernel's sum.
+// Bound: bytes (4 B of offset per pixel besides the image read and written).
+// The design is K3's: the grid carries rows (axis 2) or tiles (axis 1), the
+// lines are staged in shared memory with 16-byte loads and go out in
+// 16-byte stores, an offset is read once per pixel (four at a time) for all
+// its channels, and nothing is divided per element. On axis 1 the window
+// bounds the source rows a tile reads, so it stages exactly those.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <climits>
 #include <cstdint>
 
-#include "pixel_io.cuh"
+#include "line_stage.cuh"
 
 namespace {
 
-using mmtrs::Line;
-using mmtrs::line_of;
-using mmtrs::load;
-using mmtrs::store;
-
-constexpr int kChunk = 16;             // bytes of one vector load or store
-constexpr int kStaticSmem = 48 * 1024;  // dynamic shared memory without an opt-in
-constexpr int kMaxSmem = 200 * 1024;    // the most a launch opts in to
-
-__host__ __device__ __forceinline__ int round16(int v) { return (v + kChunk - 1) / kChunk * kChunk; }
-
-// Chunk q of the 16-byte chunks that cover [g, g + nbytes) on g's aligned
-// grid, copied from global g to shared s (stage) or back (flush): a whole
-// chunk as one uint4, a partial one (a misaligned start or end) byte by
-// byte. s[shift + i] pairs with g[i], shift = g mod 16; s is 16-aligned.
-__device__ __forceinline__ void stage_chunk(unsigned char* __restrict__ s,
-                                            const unsigned char* __restrict__ g, int nbytes,
-                                            int q) {
-  const int shift = (int)((uintptr_t)g & (kChunk - 1));
-  const int lo = q * kChunk - shift;  // the chunk's first byte, from g
-  if (lo >= 0 && lo + kChunk <= nbytes) {
-    *reinterpret_cast<uint4*>(s + q * kChunk) = *reinterpret_cast<const uint4*>(g + lo);
-  } else {
-    const int hi = min(lo + kChunk, nbytes);
-    for (int i = max(lo, 0); i < hi; ++i) s[shift + i] = g[i];
-  }
-}
-
-__device__ __forceinline__ void flush_chunk(const unsigned char* __restrict__ s,
-                                            unsigned char* __restrict__ g, int nbytes, int q) {
-  const int shift = (int)((uintptr_t)g & (kChunk - 1));
-  const int lo = q * kChunk - shift;
-  if (lo >= 0 && lo + kChunk <= nbytes) {
-    *reinterpret_cast<uint4*>(g + lo) = *reinterpret_cast<const uint4*>(s + q * kChunk);
-  } else {
-    const int hi = min(lo + kChunk, nbytes);
-    for (int i = max(lo, 0); i < hi; ++i) g[i] = s[shift + i];
-  }
-}
-
-// u8 <-> f32 without the conversion unit (a quarter-rate pipe on the card):
-// b | 0x4B000000 is the float 2^23 + b, so subtracting 2^23 gives b
-// exactly; and the u8 store floor(clip(v, 0, 255) + 0.5) (mmtrs::q8) is
-// the low byte of (clip(v, 0, 255) + 0.5) + 2^23 added rounding down, which
-// is 2^23 + that floor. Bit for bit what pixel_io.cuh's load and store do.
-__device__ __forceinline__ float tap_of(const uint8_t* p) {
-  return __uint_as_float(0x4B000000u | (uint32_t)*p) - 8388608.0f;
-}
-__device__ __forceinline__ float tap_of(const float* p) { return *p; }
-__device__ __forceinline__ void put(uint8_t* p, float v) {
-  const float y = fminf(fmaxf(v, 0.0f), 255.0f) + 0.5f;
-  *p = (uint8_t)__float_as_uint(__fadd_rd(y, 8388608.0f));
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-
-// The samples p = 0..n-1 of a line with offset o that take the blend are
-// [lo, hi): below lo the source p + o lies before 0 (the first sample is
-// taken), from hi on after n - 1 (the last). These are the plain version's
-// own float tests, (float)p + o < 0 and (float)p + o > n - 1, which are
-// monotone in p, so each threshold is an estimate moved until the test
-// flips.
-struct Border {
-  int lo, hi;
-};
-
-__device__ __forceinline__ Border border_of(float o, int n) {
-  const float last = (float)(n - 1);
-  int lo = min(max((int)ceilf(fminf(fmaxf(-o, -1.0f), (float)n + 1.0f)), 0), n);
-  while (lo < n && (float)lo + o < 0.0f) ++lo;
-  while (lo > 0 && !((float)(lo - 1) + o < 0.0f)) --lo;
-  int hi = min(max((int)floorf(fminf(fmaxf(last - o, -2.0f), (float)n)) + 1, 0), n);
-  while (hi < n && !((float)hi + o > last)) ++hi;
-  while (hi > 0 && (float)(hi - 1) + o > last) --hi;
-  return {lo, hi};
-}
-
-// The 4 bytes at p (any alignment) of shared memory, from its two words.
-__device__ __forceinline__ uint32_t word_at(const unsigned char* p) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>((uintptr_t)p & ~(uintptr_t)3);
-  return __funnelshift_r(w[0], w[1], ((uint32_t)(uintptr_t)p & 3u) * 8u);
-}
-
-// Byte j of x as a float: 0x4B0000xx is 2^23 + x_j (see tap_of).
-__device__ __forceinline__ float byte_f(uint32_t x, int j) {
-  return __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + j)) - 8388608.0f;
-}
+using mmtrs::Border;
+using mmtrs::border_of;
+using mmtrs::byte_f;
+using mmtrs::chunks_of;
+using mmtrs::flush_chunk;
+using mmtrs::kChunk;
+using mmtrs::line_pitch;
+using mmtrs::put;
+using mmtrs::round16;
+using mmtrs::smem_fits;
+using mmtrs::stage_chunk;
+using mmtrs::tap_of;
+using mmtrs::word_at;
 
 // Axis 2: one block per image row (b, y) of W*C values. The row is copied
 // to shared memory first (with its first C + 8 bytes again after its end,
@@ -353,18 +288,6 @@ __global__ void shift_h_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-// Whether `kernel` may take `bytes` of dynamic shared memory, opting in
-// above the 48 KB default.
-template <typename K>
-bool smem_fits(K* kernel, size_t bytes) {
-  if (bytes <= (size_t)kStaticSmem) return true;
-  if (bytes > (size_t)kMaxSmem) return false;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) == cudaSuccess)
-    return true;
-  cudaGetLastError();  // the refusal is not the launch's error
-  return false;
-}
-
 template <typename T, int TX, int TY>
 int launch_h(const void* in, void* out, const float* off, int B, int H, int W, int C,
              cudaStream_t stream) {
@@ -395,35 +318,203 @@ int launch_w(const void* in, void* out, const float* off, int B, int H, int W, i
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-__global__ void shift_pp_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                const float* __restrict__ off, int B, int H, int W,
-                                int C, int axis) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * H * W * C) return;
-  const int c = (int)(i % C);
-  const int x = (int)((i / C) % W);
-  const int y = (int)((i / ((size_t)C * W)) % H);
-  const int b = (int)(i / ((size_t)C * W * H));
+// K6's window rule at sample p of a line of n samples with offset o: the
+// taps i0, i1 and their weights (0 for a tap outside the window), and
+// whether the first (edge < 0) or last (edge > 0) sample is taken instead.
+// The plain version's own float steps, in its order.
+struct Window {
+  int i0, i1;
+  bool in0, in1;
+  float w0, w1;
+  int edge;
+};
 
-  const Line l = line_of(b, y, x, c, H, W, C, axis);
-  const float o = off[((size_t)b * H + y) * W + x];
-  const float src = fminf(fmaxf((float)l.pos + o, 0.0f), (float)(l.n - 1));
+__device__ __forceinline__ Window window_of(int p, float o, int n, int m) {
+  const float last = (float)(n - 1);
+  const float src = fminf(fmaxf((float)p + o, 0.0f), last);
   const float f0 = floorf(src);
   const float w = src - f0;
-  const int i0 = (int)f0;
-  const int i1 = min(i0 + 1, l.n - 1);
-  const float v = (1.0f - w) * load(in + l.base + i0 * l.stride) + w * load(in + l.base + i1 * l.stride);
-  store(out + l.base + l.pos * l.stride, v);
+  Window t;
+  t.i0 = (int)f0;
+  t.i1 = min(t.i0 + 1, n - 1);
+  const int k = t.i0 - p;
+  t.in0 = k >= -m && k <= m + 1;
+  t.in1 = k >= -m - 1 && k <= m;
+  t.w0 = t.in0 ? 1.0f - w : 0.0f;
+  t.w1 = t.in1 ? w : 0.0f;
+  t.edge = src >= last ? 1 : (src <= 0.0f ? -1 : 0);
+  return t;
+}
+
+// The offsets of up to four neighbouring pixels from p (n of them valid):
+// one 16-byte load where the offset rows are 16-byte aligned.
+__device__ __forceinline__ void offsets4(const float* __restrict__ p, int n, int vec, float o[4]) {
+  if (vec && n >= 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = j < n ? p[j] : 0.0f;
+  }
+}
+
+// Axis 2: one block per image row (b, y) of W pixels. The row's W*C values
+// are staged with 16-byte loads; thread t takes pixels 4t..4t+3 (and the
+// groups 4*blockDim.x further on), reads their four offsets at once and
+// blends each channel's two taps from the staged row into a shared output
+// row, which goes out in 16-byte stores. Every tap index lies in the row,
+// so the window only sets weights on this axis; the taps are read as the
+// plain version reads them (a zero weight times the sample).
+template <typename T>
+__global__ void window_w_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                const float* __restrict__ off, int W, int C, int m, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nE = W * C, nbytes = nE * (int)sizeof(T);
+  const int t = threadIdx.x, nt = blockDim.x;
+  const size_t base = (size_t)blockIdx.x * nE;
+  const unsigned char* g = reinterpret_cast<const unsigned char*>(in + base);
+  T* dst = out + base;
+  const int ishift = (int)((uintptr_t)g & (kChunk - 1));
+  const int oshift = (int)((uintptr_t)dst & (kChunk - 1));
+  unsigned char* s_out = smem + line_pitch(nbytes);
+  for (int q = t; q < chunks_of(ishift, nbytes); q += nt) stage_chunk(smem, g, nbytes, q);
+  __syncthreads();
+  const T* row = reinterpret_cast<const T*>(smem + ishift);
+  T* res = reinterpret_cast<T*>(s_out + oshift);
+  const float* offs = off + (size_t)blockIdx.x * W;
+  for (int p0 = 4 * t; p0 < W; p0 += 4 * nt) {
+    float o[4];
+    offsets4(offs + p0, W - p0, vec, o);
+    for (int j = 0; j < 4 && p0 + j < W; ++j) {
+      const int p = p0 + j;
+      const Window tw = window_of(p, o[j], W, m);
+      const T* a = row + tw.i0 * C;
+      const T* b = row + tw.i1 * C;
+      for (int c = 0; c < C; ++c) {
+        float v;
+        if (tw.edge > 0) {
+          v = tap_of(row + (nE - C) + c);
+        } else if (tw.edge < 0) {
+          v = tap_of(row + c);
+        } else {
+          v = tw.w0 * tap_of(a + c) + tw.w1 * tap_of(b + c);
+        }
+        put(res + p * C + c, v);
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = t; q < chunks_of(oshift, nbytes); q += nt)
+    flush_chunk(s_out, reinterpret_cast<unsigned char*>(dst), nbytes, q);
+}
+
+// Axis 1: a block takes TX columns x TY output rows of image blockIdx.z.
+// Output row y reads source rows y - m .. y + m + 1 of its column (a tap
+// beyond them weighs 0) and rows 0 and H - 1 (the edges), so the block
+// stages rows y0 - m .. y0 + TY + m, clamped to the image, of its TX*C-value
+// column strip, then rows 0 and H - 1: every sample it reads is staged, and
+// the launcher refuses an m whose strip does not fit (`rows` slots of
+// `pitch` bytes). After them come TY output segments and the `rows` slots'
+// alignment shifts (all 0 when `aligned`). Thread t takes four neighbouring
+// pixels of one row (one 16-byte offset load) and all their channels.
+template <typename T, int TX, int TY>
+__global__ void window_h_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                const float* __restrict__ off, int H, int W, int C, int m,
+                                int rows, int pitch, int aligned, int vec) {
+  static_assert(TX % 4 == 0, "four pixels per thread");
+  constexpr int G = TX / 4;  // pixel groups of a tile row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_oshift[TY];
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, t = threadIdx.x, nt = blockDim.x;
+  const int nx = min(TX, W - x0), ny = min(TY, H - y0);
+  const size_t img = (size_t)blockIdx.z * H;
+  const int seg = nx * C * (int)sizeof(T);
+  const int lo = max(0, y0 - m), hi = min(H - 1, y0 + ny + m);
+  const int span = hi - lo + 1;  // + 2 <= rows (the launcher's bound)
+  const int nq = (seg + 2 * kChunk - 2) / kChunk;  // chunks of a segment at any alignment
+  unsigned char* s_out = smem + (size_t)rows * pitch;
+  int* s_shift = reinterpret_cast<int*>(s_out + (size_t)TY * pitch);
+
+  if (t < ny)
+    s_oshift[t] = aligned ? 0 : (int)((uintptr_t)(out + ((img + y0 + t) * W + x0) * C) & (kChunk - 1));
+  // slot i < span holds source row lo + i; slots span and span + 1 rows 0 and H - 1
+  for (int j = t; j < (span + 2) * nq; j += nt) {
+    const int i = j / nq, q = j - i * nq;
+    const int r = i < span ? lo + i : (i == span ? 0 : H - 1);
+    const unsigned char* g = reinterpret_cast<const unsigned char*>(in + ((img + r) * W + x0) * C);
+    const int shift = (int)((uintptr_t)g & (kChunk - 1));
+    if (q == 0) s_shift[i] = shift;
+    if (q * kChunk < shift + seg) stage_chunk(smem + (size_t)i * pitch, g, seg, q);
+  }
+  __syncthreads();
+  const auto tap = [&](int i, int e) {
+    const int sh = aligned ? 0 : s_shift[i];
+    return tap_of(reinterpret_cast<const T*>(smem + (size_t)i * pitch + sh) + e);
+  };
+
+  const float* offs = off + (img + y0) * W + x0;
+  for (int j = t; j < ny * G; j += nt) {
+    const int yy = j / G, px = (j - yy * G) * 4;
+    if (px >= nx) continue;
+    const int y = y0 + yy;
+    float o[4];
+    offsets4(offs + (size_t)yy * W + px, nx - px, vec, o);
+    T* res = reinterpret_cast<T*>(s_out + (size_t)yy * pitch + s_oshift[yy]);
+    for (int jj = 0; jj < 4 && px + jj < nx; ++jj) {
+      const Window tw = window_of(y, o[jj], H, m);
+      const int e = (px + jj) * C;
+      const int i0 = tw.i0 - lo, i1 = tw.i1 - lo;
+      for (int c = 0; c < C; ++c) {
+        float v;
+        if (tw.edge > 0) {
+          v = tap(span + 1, e + c);
+        } else if (tw.edge < 0) {
+          v = tap(span, e + c);
+        } else {
+          // a tap outside the window weighs 0 and is not staged
+          const float a = tw.in0 ? tap(i0, e + c) : 0.0f;
+          const float b = tw.in1 ? tap(i1, e + c) : 0.0f;
+          v = tw.w0 * a + tw.w1 * b;
+        }
+        put(res + e + c, v);
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = t; j < ny * nq; j += nt) {
+    const int r = j / nq, q = j - r * nq;
+    unsigned char* g = reinterpret_cast<unsigned char*>(out + ((img + y0 + r) * W + x0) * C);
+    if (q * kChunk < s_oshift[r] + seg) flush_chunk(s_out + (size_t)r * pitch, g, seg, q);
+  }
 }
 
 template <typename T>
-int launch_pp(const void* in, void* out, const float* off, int B, int H, int W, int C, int axis,
-              cudaStream_t stream) {
-  const size_t n = (size_t)B * H * W * C;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  shift_pp_kernel<T><<<blocks, threads, 0, stream>>>((const T*)in, (T*)out, off, B, H, W, C, axis);
+int launch_window_w(const void* in, void* out, const float* off, int B, int H, int W, int C, int m,
+                    cudaStream_t stream) {
+  const int nbytes = W * C * (int)sizeof(T);
+  const size_t smem = 2 * (size_t)line_pitch(nbytes);
+  const int threads = std::min(256, ((W + 3) / 4 + 31) / 32 * 32);
+  const int vec = (uintptr_t)off % kChunk == 0 && W % 4 == 0;
+  const unsigned rows = (unsigned)((size_t)B * H);
+  if (!smem_fits(window_w_kernel<T>, smem)) return (int)cudaErrorInvalidValue;  // a row too long
+  window_w_kernel<T><<<rows, threads, smem, stream>>>((const T*)in, (T*)out, off, W, C, m, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TX, int TY>
+int launch_window_h(const void* in, void* out, const float* off, int B, int H, int W, int C, int m,
+                    cudaStream_t stream) {
+  const int pitch = line_pitch(TX * C * (int)sizeof(T));
+  const int rows = (int)std::min<long long>(TY + 2LL * m + 1, H) + 2;  // the strip and the edges
+  const size_t smem = (size_t)(rows + TY) * pitch + (size_t)rows * sizeof(int);
+  const int aligned = (uintptr_t)in % kChunk == 0 && (uintptr_t)out % kChunk == 0 &&
+                      (size_t)W * C * sizeof(T) % kChunk == 0;
+  const int vec = (uintptr_t)off % kChunk == 0 && W % 4 == 0;
+  const dim3 grid((unsigned)((W + TX - 1) / TX), (unsigned)((H + TY - 1) / TY), (unsigned)B);
+  // an m (or C) whose strip does not fit
+  if (!smem_fits(window_h_kernel<T, TX, TY>, smem)) return (int)cudaErrorInvalidValue;
+  window_h_kernel<T, TX, TY><<<grid, 256, smem, stream>>>((const T*)in, (T*)out, off, H, W, C, m,
+                                                          rows, pitch, aligned, vec);
   return (int)cudaGetLastError();
 }
 
@@ -451,12 +542,26 @@ extern "C" int mmtrs_shift_rows(const void* in, void* out, const void* off, int 
   return launch_h<float, 32, 32>(in, out, o, B, H, W, C, s);
 }
 
+// in, out [B, H, W, C] u8 (is_u8) or f32, off f32 [B, H, W], on the device;
+// max_shift >= 0 (the window's m; a larger one than the line is the line).
+// B*H rows at most 2^31 - 1 (axis 2), B at most 65535 (axis 1). Shared
+// memory must hold the staged lines (200 KB at most): axis 2 a row in and
+// out, W*C*sizeof(T) up to ~100 KB; axis 1 a strip of min(TY + 2m + 1, H)
+// + 2 rows of 32 pixels and TY output rows (TY 64 at u8, 32 at f32): at
+// C = 3, m up to ~800 at u8 and ~220 at f32. A shape past these returns
+// cudaErrorInvalidValue.
 extern "C" int mmtrs_shift_rows_windowed(const void* in, void* out, const void* off,
                                          int B, int H, int W, int C, int axis,
-                                         int is_u8, void* stream) {
+                                         int max_shift, int is_u8, void* stream) {
   const float* o = (const float*)off;
   cudaStream_t s = (cudaStream_t)stream;
-  if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
-  if (is_u8) return launch_pp<uint8_t>(in, out, o, B, H, W, C, axis, s);
-  return launch_pp<float>(in, out, o, B, H, W, C, axis, s);
+  if ((axis != 1 && axis != 2) || max_shift < 0) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * H * W * C == 0) return (int)cudaSuccess;
+  const int m = std::min(max_shift, axis == 2 ? W : H);
+  if (axis == 2) {
+    if (is_u8) return launch_window_w<uint8_t>(in, out, o, B, H, W, C, m, s);
+    return launch_window_w<float>(in, out, o, B, H, W, C, m, s);
+  }
+  if (is_u8) return launch_window_h<uint8_t, 32, 64>(in, out, o, B, H, W, C, m, s);
+  return launch_window_h<float, 32, 32>(in, out, o, B, H, W, C, m, s);
 }

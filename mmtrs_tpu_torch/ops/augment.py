@@ -235,6 +235,21 @@ def _gauss_band(n: int, sigma: float, radius: int) -> torch.Tensor:
     return torch.from_numpy(m)
 
 
+def elastic_offsets(fields: torch.Tensor, alpha: float = 10.0, sigma: float = 5.0):
+    """ElasticTransform(α, σ)'s per-pixel offsets from raw uniform(−1, 1)
+    fields [B, 2, H, W] (dx, dy) on their device: each smoothed by a
+    separable Gaussian and scaled by α, f32 [B, H, W] each; and the window
+    ⌈α⌉ + 1 that bounds them (a normalised Gaussian of values in (−1, 1)
+    stays in (−1, 1))."""
+    _, _, H, W = fields.shape
+    radius = int(3 * sigma)
+    my = _gauss_band(H, sigma, radius).to(fields.device)
+    mx = _gauss_band(W, sigma, radius).to(fields.device)
+    f = fields.float()
+    smooth = lambda g: torch.matmul(torch.matmul(my, g), mx.T)
+    return smooth(f[:, 0]) * alpha, smooth(f[:, 1]) * alpha, int(math.ceil(alpha)) + 1
+
+
 def elastic(imgs: torch.Tensor, fields: torch.Tensor, alpha: float = 10.0, sigma: float = 5.0):
     """ElasticTransform(α, σ): raw uniform(−1, 1) displacement fields
     ``fields`` [B, 2, H, W] (dx, dy) smoothed by a separable Gaussian, scaled
@@ -242,14 +257,7 @@ def elastic(imgs: torch.Tensor, fields: torch.Tensor, alpha: float = 10.0, sigma
     stand-in for joint bilinear sampling, as in the JAX package), then a
     constant zero border. u8 stays u8."""
     B, H, W, C = imgs.shape
-    radius = int(3 * sigma)
-    my = _gauss_band(H, sigma, radius).to(imgs.device)
-    mx = _gauss_band(W, sigma, radius).to(imgs.device)
-    f = fields.to(device=imgs.device, dtype=torch.float32)
-    smooth = lambda g: torch.matmul(torch.matmul(my, g), mx.T)
-    dx = smooth(f[:, 0]) * alpha
-    dy = smooth(f[:, 1]) * alpha
-    win = int(math.ceil(alpha)) + 1
+    dx, dy, win = elastic_offsets(fields.to(imgs.device), alpha, sigma)
     out = shift_axis_windowed(imgs, dy, win, axis=1)
     out = shift_axis_windowed(out, dx, win, axis=2)
     ys = torch.arange(H, dtype=torch.float32, device=imgs.device)[None, :, None] + dy

@@ -25,7 +25,7 @@ from mmtrs_tpu_torch.ops.kernels.shift import shift_rows_ref
 
 def resample_rows_ref(
     img: torch.Tensor, off: torch.Tensor, alpha: torch.Tensor, r: torch.Tensor,
-    axis: int = 2, out_dtype: torch.dtype | None = None,
+    axis: int = 2,
 ) -> torch.Tensor:
     """Plain version of :func:`resample_rows` (the same taps, any device)."""
     tmp = shift_rows_ref(img.float(), off, axis)
@@ -42,19 +42,18 @@ def resample_rows_ref(
     out = (1.0 - w) * torch.gather(tmp, 2, idx(i0)) + w * torch.gather(tmp, 2, idx(i1))
     if axis == 1:
         out = out.transpose(1, 2)
-    if (out_dtype or img.dtype) == torch.uint8:
+    if img.dtype == torch.uint8:
         return (torch.clamp(out, 0.0, 255.0) + 0.5).to(torch.uint8).contiguous()
     return out.contiguous()
 
 
 def resample_rows(
     img: torch.Tensor, off: torch.Tensor, alpha: torch.Tensor, r: torch.Tensor,
-    axis: int = 2, out_dtype: torch.dtype | None = None,
+    axis: int = 2,
 ) -> torch.Tensor:
     """K4: img [B, H, W, C] u8 or f32; off f32 [B, H] (axis 2) or [B, W]
-    (axis 1); alpha, r f32 [B] → the resampled batch. ``out_dtype``
-    defaults to the input's; u8 input may ask for f32, f32 input stays f32.
-    u8 out is the round-half-up store."""
+    (axis 1); alpha, r f32 [B] → the resampled batch in img's dtype (u8 is
+    the round-half-up store)."""
     name = "resample_rows"
     require(name, img, (torch.uint8, torch.float32), 4)
     require(name, off, torch.float32, 2)
@@ -62,22 +61,16 @@ def resample_rows(
     require(name, r, torch.float32, 1)
     if axis not in (1, 2):
         raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
-    out_dtype = out_dtype or img.dtype
-    if out_dtype not in (torch.uint8, torch.float32) or (
-        out_dtype == torch.uint8 and img.dtype != torch.uint8
-    ):
-        raise ValueError(f"{name}: {img.dtype} input cannot store {out_dtype}")
     B, H, W, C = img.shape
     require_shape(name, "off", off, (B, H if axis == 2 else W))
     require_shape(name, "alpha", alpha, (B,))
     require_shape(name, "r", r, (B,))
     if not on_cuda(name, img, off, alpha, r):
-        return resample_rows_ref(img, off, alpha, r, axis, out_dtype)
-    out = torch.empty(img.shape, dtype=out_dtype, device=img.device)
+        return resample_rows_ref(img, off, alpha, r, axis)
+    out = torch.empty_like(img)
     code = _build.kernel("mmtrs_resample_rows")(
         img.data_ptr(), out.data_ptr(), off.data_ptr(), alpha.data_ptr(), r.data_ptr(),
-        B, H, W, C, axis, int(img.dtype == torch.uint8), int(out_dtype == torch.uint8),
-        _build.stream_handle(),
+        B, H, W, C, axis, int(img.dtype == torch.uint8), _build.stream_handle(),
     )
     _build.check_launch(name, code)
     LAUNCHES[name] += 1

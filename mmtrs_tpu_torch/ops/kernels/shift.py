@@ -5,7 +5,8 @@ K6 (csrc/shift_rows.cu) and their plain PyTorch versions.
   shift_rows_pallas (``_shift_rows_kernel``): one offset per line,
   ``out[m, x] = in[m, x + off[m]]``, bilinear, replicate border;
 - K6 :func:`shift_rows_windowed`, port of ``shift_rows_windowed_pallas``
-  (``_shift_rows_pp_kernel``): one offset per pixel, |off| ≤ max_shift.
+  (``_shift_rows_pp_kernel``): one offset per pixel, summed over a window of
+  taps [−max_shift, max_shift + 1] as the TPU kernel sums them.
 
 The TPU kernels work on planar rows ``[B·C·H, W]`` behind an NHWC→planar
 transpose, and their callers swap H and W for the other axis; these read
@@ -75,22 +76,33 @@ def shift_rows(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Ten
     return out
 
 
-def shift_rows_windowed_ref(img: torch.Tensor, off: torch.Tensor, axis: int = 2) -> torch.Tensor:
+def shift_rows_windowed_ref(
+    img: torch.Tensor, off: torch.Tensor, max_shift: int, axis: int = 2
+) -> torch.Tensor:
     """Plain version of :func:`shift_rows_windowed` (the same two taps, any
-    device). The clipped source gives the replicate border: at src = 0 or
-    n − 1 the second tap's weight is 0."""
+    device): ``src = clip(p + off, 0, n − 1)`` blends samples
+    ``i0 = floor(src)`` and ``min(i0 + 1, n − 1)``; a tap whose index relative
+    to p lies outside the window [−m, m + 1] weighs 0; ``src ≤ 0`` takes the
+    first sample and ``src ≥ n − 1`` the last."""
     x = img.float()
     if axis == 1:
         x, off = x.transpose(1, 2), off.transpose(1, 2)
     B, R, n, C = x.shape
+    m = int(max_shift)
     pos = torch.arange(n, dtype=torch.float32, device=x.device)
     src = torch.clamp(pos + off, 0.0, n - 1.0)
     f0 = torch.floor(src)
-    w = (src - f0)[..., None]
+    w = src - f0
     i0 = f0.long()
     i1 = torch.clamp_max(i0 + 1, n - 1)
+    k = i0 - torch.arange(n, device=x.device)  # the first tap's index relative to p
+    zero = torch.zeros((), device=x.device)
+    w0 = torch.where((k >= -m) & (k <= m + 1), 1.0 - w, zero)[..., None]
+    w1 = torch.where((k >= -m - 1) & (k <= m), w, zero)[..., None]
     idx = lambda i: i[..., None].expand(B, R, n, C)
-    out = (1.0 - w) * torch.gather(x, 2, idx(i0)) + w * torch.gather(x, 2, idx(i1))
+    out = w0 * torch.gather(x, 2, idx(i0)) + w1 * torch.gather(x, 2, idx(i1))
+    out = torch.where((src <= 0.0)[..., None], x[:, :, :1, :], out)
+    out = torch.where((src >= n - 1.0)[..., None], x[:, :, -1:, :], out)
     if axis == 1:
         out = out.transpose(1, 2)
     if img.dtype == torch.uint8:
@@ -102,24 +114,25 @@ def shift_rows_windowed(
     img: torch.Tensor, off: torch.Tensor, max_shift: int, axis: int = 2
 ) -> torch.Tensor:
     """K6: img [B, H, W, C] u8 or f32, off f32 [B, H, W] per pixel (shared by
-    the channels) with |off| ≤ max_shift → ``out = in[.., p + off, ..]``
+    the channels), window ``max_shift`` ≥ 0 → ``out = in[.., p + off, ..]``
     along ``axis``, bilinear, replicate border, in the input's dtype (u8 out
-    is the round-half-up store). An offset beyond ``max_shift`` raises."""
+    is the round-half-up store). An offset beyond the window gives what the
+    TPU kernel's windowed sum gives: the taps outside [−m, m + 1] weigh 0,
+    and a source clipped to the first or last sample takes it."""
     name = "shift_rows_windowed"
     require(name, img, (torch.uint8, torch.float32), 4)
     require(name, off, torch.float32, 3)
     if axis not in (1, 2):
         raise ValueError(f"{name}: axis must be 1 or 2, got {axis}")
+    if int(max_shift) < 0:
+        raise ValueError(f"{name}: max_shift must be >= 0, got {max_shift}")
     B, H, W, C = img.shape
     require_shape(name, "off", off, (B, H, W))
-    cuda = on_cuda(name, img, off)
-    if off.numel() and bool((off.abs() > max_shift).any()):
-        raise ValueError(f"{name}: |off| exceeds max_shift={max_shift}")
-    if not cuda:
-        return shift_rows_windowed_ref(img, off, axis)
+    if not on_cuda(name, img, off):
+        return shift_rows_windowed_ref(img, off, max_shift, axis)
     out = torch.empty_like(img)
     code = _build.kernel("mmtrs_shift_rows_windowed")(
-        img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis,
+        img.data_ptr(), out.data_ptr(), off.data_ptr(), B, H, W, C, axis, int(max_shift),
         int(img.dtype == torch.uint8), _build.stream_handle(),
     )
     _build.check_launch(name, code)

@@ -162,10 +162,13 @@ def shift_axis_windowed(
     imgs: torch.Tensor, off: torch.Tensor, max_shift: int, axis: int = 2
 ) -> torch.Tensor:
     """Per-pixel fractional shift along one spatial axis:
-    ``out[b, y, x] = in[b, y, x + off[b, y, x]]`` (axis 2; axis 1 along H)
-    with |off| ≤ max_shift (raises beyond it); bilinear, edge-replicate
-    sourcing, dtype-preserving (u8 in, u8 round-half-up out). Combine with an
-    explicit mask for constant borders."""
+    ``out[b, y, x] = in[b, y, x + off[b, y, x]]`` (axis 2; axis 1 along H),
+    bilinear, edge-replicate sourcing, dtype-preserving (u8 in, u8
+    round-half-up out), exact for |off| ≤ max_shift. Beyond that it gives the
+    TPU kernel's windowed sum: taps more than ``max_shift`` (+ 1) samples
+    from the output position weigh 0, and a source clipped to the first or
+    last sample takes it. Combine with an explicit mask for constant
+    borders."""
     if imgs.dtype != torch.uint8:
         imgs = imgs.float()
     return shift_rows_windowed(imgs.contiguous(), off.float().contiguous(), int(max_shift), axis)
@@ -198,6 +201,20 @@ def _warp_shear_params(H, W, a, b, c, d, e_safe, f):
     return alpha_h, r_h, off_h, r_v, off_v
 
 
+def warp_passes(matrices: torch.Tensor, H: int, W: int):
+    """The inverse map's coefficients (a, b, c, d, e, f) of forward maps
+    ``matrices`` [B, 2, 3] / [B, 3, 3], and K4's (off, alpha, r) for the
+    warp's two passes: along W (off [B, H], alpha = a − bd/e) and along H
+    (off [B, W], alpha = e, held at |e| ≥ 1e-3)."""
+    a, b, c, d, e, f = invert_affine_params(matrices)
+    lim = torch.where(e < 0, torch.full_like(e, -1e-3), torch.full_like(e, 1e-3))
+    e_safe = torch.where(e.abs() < 1e-3, lim, e)
+    alpha_h, r_h, off_h, r_v, off_v = _warp_shear_params(H, W, a, b, c, d, e_safe, f)
+    pass_h = (off_h.contiguous(), alpha_h.contiguous(), r_h.contiguous())
+    pass_v = (off_v.contiguous(), e_safe.contiguous(), r_v.contiguous())
+    return (a, b, c, d, e, f), pass_h, pass_v
+
+
 def warp_affine_shear(
     imgs: torch.Tensor, matrices: torch.Tensor, border: str = "constant", cval: float = 0.0
 ) -> torch.Tensor:
@@ -216,13 +233,10 @@ def warp_affine_shear(
     if border not in ("constant", "replicate"):
         raise ValueError(f"warp_affine_shear: border must be 'constant' or 'replicate', got {border!r}")
     B, H, W, C = imgs.shape
-    a, b, c, d, e, f = invert_affine_params(matrices.to(device=imgs.device, dtype=torch.float32))
-    lim = torch.where(e < 0, torch.full_like(e, -1e-3), torch.full_like(e, 1e-3))
-    e_safe = torch.where(e.abs() < 1e-3, lim, e)
-    alpha_h, r_h, off_h, r_v, off_v = _warp_shear_params(H, W, a, b, c, d, e_safe, f)
+    (a, b, c, d, e, f), pass_h, pass_v = warp_passes(matrices.to(device=imgs.device, dtype=torch.float32), H, W)
     x = (imgs if imgs.dtype == torch.uint8 else imgs.float()).contiguous()
-    tmp = resample_rows(x, off_h.contiguous(), alpha_h.contiguous(), r_h.contiguous(), axis=2)
-    out = resample_rows(tmp, off_v.contiguous(), e_safe.contiguous(), r_v.contiguous(), axis=1)
+    tmp = resample_rows(x, *pass_h, axis=2)
+    out = resample_rows(tmp, *pass_v, axis=1)
     if border == "replicate":
         return out
     yy = torch.arange(H, dtype=torch.float32, device=imgs.device)[None, :, None]

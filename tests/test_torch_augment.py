@@ -88,24 +88,26 @@ def test_hsv_matches_jax(name):
 
 
 @pytest.mark.parametrize("axis", [2, 1])
-@pytest.mark.parametrize("kind", ["f32", "u8", "u8_to_f32"])
+@pytest.mark.parametrize("kind", ["f32", "u8", "u8_steep"])
 def test_resample_rows_plain_matches_pallas_interpret(axis, kind):
     """K4's plain version against resample_rows_pallas(interpret=True) on the
     planar rows its caller builds, one image per block, with a flipped α
-    (−1.1) beside 0.8. f32 out: atol 1e-2 (the interpret kernel's [n, n]
-    f32 dot sums in another order, as tests/test_ops.py:518 bounds it);
-    u8 out: max ≤ 1 level (the same sums on either side of a .5)."""
+    (−1.1) beside 0.8 and offsets in ±20; ``u8_steep`` takes α 2.9 and −3.1
+    with offsets in ±n/2 (lines whose sources spread far apart). f32 out:
+    atol 1e-2 (the interpret kernel's [n, n] f32 dot sums in another order,
+    as tests/test_ops.py:518 bounds it); u8 out: max ≤ 1 level (the same
+    sums on either side of a .5)."""
     from mmtrs_tpu.ops.pallas.shift_kernel import resample_rows_pallas
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
 
     rng = np.random.default_rng(5)
     B, H, W, C = 2, 32, 64, 3
     dtype = np.float32 if kind == "f32" else np.uint8
-    out_dt = torch.uint8 if kind == "u8" else torch.float32
     img = rng.integers(0, 256, (B, H, W, C)).astype(dtype)
     lines, n = (H, W) if axis == 2 else (W, H)
-    alpha = np.array([0.8, -1.1], np.float32)
-    beta = rng.uniform(-20, 20, (B, lines)).astype(np.float32) + np.array([[0.0], [n - 1.0]], np.float32)
+    alpha = np.array([2.9, -3.1] if kind == "u8_steep" else [0.8, -1.1], np.float32)
+    amp = n / 2 if kind == "u8_steep" else 20
+    beta = rng.uniform(-amp, amp, (B, lines)).astype(np.float32) + np.array([[0.0], [n - 1.0]], np.float32)
     r = beta.mean(axis=1).astype(np.float32)
     off = (beta - r[:, None]).astype(np.float32)
 
@@ -116,14 +118,14 @@ def test_resample_rows_plain_matches_pallas_interpret(axis, kind):
     want = np.asarray(resample_rows_pallas(
         jnp.asarray(planar), jnp.asarray(off_r), jnp.asarray(rep(alpha)), jnp.asarray(rep(r)),
         block_rows=lines, interpret=True,
-        out_dtype=jnp.uint8 if out_dt == torch.uint8 else jnp.float32,
+        out_dtype=jnp.uint8 if dtype == np.uint8 else jnp.float32,
     )).reshape(B, C, lines, n).transpose(0, 2, 3, 1)
     if axis == 1:
         want = want.transpose(0, 2, 1, 3)
 
-    got = resample_rows(_t(img), _t(off), _t(alpha), _t(r), axis=axis, out_dtype=out_dt).numpy()
+    got = resample_rows(_t(img), _t(off), _t(alpha), _t(r), axis=axis).numpy()
     assert got.dtype == want.dtype
-    if out_dt == torch.uint8:
+    if dtype == np.uint8:
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
     else:
         np.testing.assert_allclose(got, want, atol=1e-2, rtol=0)
@@ -203,6 +205,57 @@ def test_shift_axis_windowed_matches_jax_xla(axis, dtype):
         assert np.abs(got.astype(float) - _q(want)).max() <= 1
     else:
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def _pallas_windowed(img, off, m, axis):
+    """``_shift_rows_pp_kernel`` through ``pl.pallas_call(..., interpret=True)``
+    on the planar rows ``mmtrs_tpu.ops.warp.shift_axis_windowed`` builds for
+    it (axis 1 inside that function's swapaxes pair); f32 out, NHWC."""
+    import functools
+
+    from jax.experimental import pallas as pl
+    from mmtrs_tpu.ops.pallas.shift_kernel import _shift_rows_pp_kernel
+
+    x, o = jnp.asarray(img), jnp.asarray(off)
+    if axis == 1:
+        x, o = jnp.swapaxes(x, 1, 2), jnp.swapaxes(o, 1, 2)
+    B, H, W, C = x.shape
+    planar = x.transpose(0, 3, 1, 2).reshape(B * C * H, W)
+    off_r = jnp.broadcast_to(o[:, None], (B, C, H, W)).reshape(-1, W)
+    out = pl.pallas_call(
+        functools.partial(_shift_rows_pp_kernel, W=W, max_shift=m),
+        out_shape=jax.ShapeDtypeStruct((B * C * H, W), jnp.float32),
+        interpret=True,
+    )(planar, off_r)
+    out = np.asarray(out).reshape(B, C, H, W).transpose(0, 2, 3, 1)
+    return out.swapaxes(1, 2) if axis == 1 else out
+
+
+@pytest.mark.parametrize("axis", [2, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_shift_windowed_beyond_its_window_matches_pallas_kernel(axis, dtype):
+    """Offsets in ±(m + 3), half of them beyond the window m = 3: K6's plain
+    version and ``shift_axis_windowed`` give the TPU kernel's windowed sum
+    (taps outside [−m, m + 1] weigh 0, a clipped source takes the edge
+    sample), not the bilinear shift. f32 within 1e-3 (the kernel's hat
+    weights round differently), u8 within 1 level of the quantised Pallas
+    result."""
+    from mmtrs_tpu_torch.ops.kernels.shift import shift_rows_windowed_ref
+    from mmtrs_tpu_torch.ops.warp import shift_axis_windowed
+
+    m = 3
+    rng = np.random.default_rng(41)
+    img = rng.integers(0, 256, (2, 24, 32, 3)).astype(dtype)
+    off = rng.uniform(-(m + 3), m + 3, (2, 24, 32)).astype(np.float32)
+    assert (np.abs(off) > m + 1).mean() > 0.25
+    want = _pallas_windowed(img, off, m, axis)
+    for got in (shift_rows_windowed_ref(_t(img), _t(off), m, axis).numpy(),
+                shift_axis_windowed(_t(img), _t(off), m, axis=axis).numpy()):
+        assert got.dtype == dtype
+        if dtype == np.uint8:
+            assert np.abs(got.astype(float) - _q(want)).max() <= 1
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
 # -- K5 photometric ----------------------------------------------------------------

@@ -178,7 +178,8 @@ def test_wrappers_reject_bad_inputs():
 
 def _bad_input_cases():
     """(wrapper, arguments, message) for K4, K5 and K6: a wrong dtype, a
-    non-contiguous input, a shape mismatch, and K6's offset bound."""
+    non-contiguous input, a shape mismatch, an axis K4 does not take, and a
+    negative K6 window."""
     from mmtrs_tpu_torch.ops.kernels.photometric import photometric
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
     from mmtrs_tpu_torch.ops.kernels.shift import shift_rows_windowed
@@ -191,7 +192,7 @@ def _bad_input_cases():
         "resample_dtype": (resample_rows, (f32.double(), torch.zeros((2, 16)), v, v), "contiguous"),
         "resample_noncontig": (resample_rows, (f32.transpose(1, 2), torch.zeros((2, 8)), v, v), "contiguous"),
         "resample_shape": (resample_rows, (f32, torch.zeros((2, 16)), v, v, 1), "does not fit"),
-        "resample_f32_to_u8": (resample_rows, (f32, torch.zeros((2, 16)), v, v, 2, torch.uint8), "cannot store"),
+        "resample_axis": (resample_rows, (f32, torch.zeros((2, 16)), v, v, 3), "axis must be 1 or 2"),
         "photometric_dtype": (photometric, (f32, torch.zeros((2, 10)), seeds, 2), "uint8"),
         "photometric_noncontig": (photometric, (u8.transpose(1, 2), torch.zeros((2, 10)), seeds, 2), "contiguous"),
         "photometric_shape": (photometric, (u8, torch.zeros((2, 9)), seeds, 2), "does not fit"),
@@ -199,7 +200,7 @@ def _bad_input_cases():
         "windowed_dtype": (shift_rows_windowed, (u8.int(), torch.zeros((2, 16, 8)), 11), "contiguous"),
         "windowed_noncontig": (shift_rows_windowed, (u8, torch.zeros((2, 8, 16)).transpose(1, 2), 11), "contiguous"),
         "windowed_shape": (shift_rows_windowed, (u8, torch.zeros((2, 8, 16)), 11), "does not fit"),
-        "windowed_beyond_max_shift": (shift_rows_windowed, (u8, torch.full((2, 16, 8), 11.5), 11), "max_shift"),
+        "windowed_negative_max_shift": (shift_rows_windowed, (u8, torch.zeros((2, 16, 8)), -1), "max_shift"),
     }
 
 
@@ -233,9 +234,9 @@ def test_clahe_l_wrappers_reject_bad_inputs(case):
 
 @pytest.mark.parametrize(
     "case",
-    ["resample_dtype", "resample_noncontig", "resample_shape", "resample_f32_to_u8",
+    ["resample_dtype", "resample_noncontig", "resample_shape", "resample_axis",
      "photometric_dtype", "photometric_noncontig", "photometric_shape", "photometric_seed_dtype",
-     "windowed_dtype", "windowed_noncontig", "windowed_shape", "windowed_beyond_max_shift"],
+     "windowed_dtype", "windowed_noncontig", "windowed_shape", "windowed_negative_max_shift"],
 )
 def test_slice2_wrappers_reject_bad_inputs(case):
     fn, args, msg = _bad_input_cases()[case]
