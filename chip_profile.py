@@ -25,15 +25,22 @@ object of the numbers as its last line.
 
     python3 chip_profile.py --line-times
 
-times only the line kernels K3-K6 (see ``line_times``), at arguments that
-every tree of the port takes: copy this file and chip_smoke.py into an
+times the kernels K1-K6, K8 and K9 (see ``line_times``), at arguments
+that every tree of the port takes: copy this file and chip_smoke.py into an
 older commit's checkout and run it there and here in turns to compare two
 commits' kernels in one call.
+
+    python3 chip_profile.py --sass
+
+counts the SASS instructions of K1's and K2's per-pixel loops in the
+library the tree builds (``sass_counts``); it too runs on an older
+checkout.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -155,13 +162,19 @@ def legacy_profile(torch, dev, batches=3):
     }
 
 
-# the device functions of each line kernel, in this tree and in older ones
-# (csrc/shift_rows.cu, csrc/resample_rows.cu, csrc/photometric.cu)
+# the device functions of each kernel, in this tree and in older ones
+# (csrc/shift_rows.cu, csrc/resample_rows.cu, csrc/photometric.cu,
+# csrc/clahe_lab.cu: K1 and K2 in their one-thread-a-pixel and their banded
+# layouts; csrc/clahe_l.cu)
 LINE_KERNEL_NAMES = {
+    "K1": ("fwd_lut_kernel", "lab_fwd_hist_kernel"),
+    "K2": ("apply_bwd_kernel", "lab_bwd_blend_kernel"),
     "K3": ("shift_w_kernel", "shift_h_kernel"),
     "K4": ("resample_",),
     "K5": ("photometric_kernel",),
     "K6": ("shift_pp_kernel", "window_w_kernel", "window_h_kernel"),
+    "K8": ("hist_lut_kernel",),
+    "K9": ("apply_kernel",),
 }
 
 
@@ -183,8 +196,9 @@ def _kernel_ms(torch, tags, fn, argsets, launches=20):
 
 
 def line_times(torch, dev):
-    """The line kernels K3-K6 through their wrappers, at arguments that
-    every tree of the port takes: K3 with deskew's offsets at
+    """The kernels through their wrappers, at arguments that every tree of
+    the port takes: first K1 and K2, with K8 and K9 as controls (see
+    :func:`clahe_times`); then K3 with deskew's offsets at
     [16, 512, 512, 3]; K4 with random ±20 per line (half flipped) and K6
     with uniform ±11 (window 11) at [16, 512, 512, 3] and [12, 380, 380, 3],
     u8 and f32, both axes; K5 on chip_smoke.py phase 2's rows. For each,
@@ -208,6 +222,7 @@ def line_times(torch, dev):
         sets = _rotations(args)
         times[key] = {"b2b": _b2b_ms(fn, sets), "kernel": _kernel_ms(torch, LINE_KERNEL_NAMES[kernel], fn, sets)}
 
+    mismatches = clahe_times(torch, dev, x, both, host_us)
     for axis in (2, 1):
         off = _deskew_offsets(torch, gen, SHAPE[0], SHAPE[1], axis).to(dev)
         both(f"K3 {list(SHAPE)} axis {axis} deskew u8", "K3", shift_rows, (x, off, axis))
@@ -228,7 +243,53 @@ def line_times(torch, dev):
                 host_us["K6"] = _host_us(lambda: shift_rows_windowed(u8, off, 11, 1), ())
     params, seeds, hole = _photometric_rows(torch, dev, gen)
     both(f"K5 {list(SHAPE)} u8", "K5", photometric, (x, params, seeds, hole))
-    return {"line_times_ms": times, "host_us": host_us}
+    return {"line_times_ms": times, "host_us": host_us, "mismatches": mismatches}
+
+
+def clahe_times(torch, dev, x, both, host_us):
+    """For :func:`line_times`, before its other kernels: K1 and K2 on teeth at
+    [16, 512, 512, 3] and a served upload's [1, 512, 512, 3] (each wrapper's
+    host µs, taken before the profiler first runs, then the times), K8
+    and K9 (u8 store), the controls, on serving's L planes [16, 512, 688].
+    Returns each kernel's count of bytes that differ from its plain version
+    there, and K1's on the every-colour image and K2's on the every-triple
+    planes with identity LUTs (chip_smoke.py phase 2 checks them)."""
+    from chip_smoke import L_SHAPE, SERVE_SHAPE, SHAPE, _host_us, _l_planes, every_byte_triple
+    from mmtrs_tpu_torch.ops.kernels import clahe as C
+    from mmtrs_tpu_torch.ops.kernels import clahe_lab as K
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    clip, tiles = 3.0, (8, 8)
+    differ = lambda got, want: sum(int((g != w).sum()) for g, w in zip(got, want))
+    fwd = lambda im: K.clahe_lab_fwd_lut(im, clip, tiles)
+    bwd = lambda *planes: K.clahe_apply_lab_bwd(*planes, tiles)
+    mismatches = {}
+    for shape in (SHAPE, SERVE_SHAPE):  # host µs first, before the profiler first runs
+        teeth = x[: shape[0]]
+        planes = fwd(teeth)
+        host_us[f"K1 {list(shape)}"] = _host_us(lambda: fwd(teeth), ())
+        host_us[f"K2 {list(shape)}"] = _host_us(lambda: bwd(*planes), ())
+    for shape in (SHAPE, SERVE_SHAPE):
+        teeth = x[: shape[0]]
+        planes = fwd(teeth)
+        both(f"K1 {list(shape)}", "K1", fwd, (teeth,))
+        both(f"K2 {list(shape)}", "K2", bwd, planes)
+        mismatches[f"K1 {list(shape)}"] = differ(planes, K.clahe_lab_fwd_lut_ref(teeth, clip, tiles))
+        mismatches[f"K2 {list(shape)}"] = differ([bwd(*planes)], [K.clahe_apply_lab_bwd_ref(*planes, tiles)])
+    every = torch.from_numpy(every_byte_triple()).to(dev)[None]
+    mismatches["K1 every colour"] = differ(fwd(every), K.clahe_lab_fwd_lut_ref(every, clip, tiles))
+    lq, da, db = (every[..., c].contiguous() for c in range(3))
+    ident = torch.arange(256, dtype=torch.uint8, device=dev).expand(1, 64, 256).contiguous()
+    triple = (lq, da.view(torch.int8), db.view(torch.int8), ident)
+    mismatches["K2 every triple"] = differ([bwd(*triple)], [K.clahe_apply_lab_bwd_ref(*triple, tiles)])
+    l = _l_planes(torch, dev, torch.from_numpy(synth_teeth(L_SHAPE[0], L_SHAPE[1:], seed=SEED + 5)))
+    lut = C.clahe_hist_lut(l, clip, tiles)
+    both(f"K8 {list(L_SHAPE)}", "K8", lambda p: C.clahe_hist_lut(p, clip, tiles), (l,))
+    both(f"K9 {list(L_SHAPE)} u8", "K9", lambda p, t: C.clahe_apply(p, t, tiles, torch.uint8), (l, lut))
+    mismatches[f"K8 {list(L_SHAPE)}"] = differ([lut], [C.clahe_hist_lut_ref(l, clip, tiles)])
+    mismatches[f"K9 {list(L_SHAPE)}"] = differ([C.clahe_apply(l, lut, tiles, torch.uint8)],
+                                               [C.clahe_apply_ref(l, lut, tiles, torch.uint8)])
+    return mismatches
 
 
 def kernel_launch_costs(torch, dev, host):
@@ -268,6 +329,86 @@ def serving_request(torch, dev):
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
+def _cuobjdump() -> str | None:
+    """The toolkit's cuobjdump: on PATH, or beside the nvcc that builds the
+    kernels."""
+    import shutil
+
+    from mmtrs_tpu_torch import _build
+
+    cand = Path(_build._nvcc()).parent / "cuobjdump"
+    return shutil.which("cuobjdump") or (str(cand) if cand.exists() else None)
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def loop_bodies(sass: str) -> list[int]:
+    """Instruction counts of the loops of one function's SASS listing, the
+    largest first: each backward branch closes a loop from its target to
+    itself. Branch targets are printed as addresses or as ``.L_x_N``
+    labels, depending on the toolkit."""
+    addrs, labels, branches, pending = [], {}, [], []
+    for line in sass.splitlines():
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_LINE.search(line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        addrs.append(addr)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        if re.search(r"\bBRA\b", text):
+            t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if t:
+                branches.append((addr, t.group(1) or int(t.group(2), 16)))
+    loops = []
+    for addr, target in branches:
+        t = labels.get(target) if isinstance(target, str) else target
+        if t is not None and t <= addr:
+            loops.append(sum(1 for a in addrs if t <= a <= addr))
+    return sorted(loops, reverse=True)
+
+
+def sass_counts(torch):
+    """SASS instructions of K1's and K2's device functions in the library
+    this tree builds: each function's total, and its largest loop (the
+    per-pixel loop of a kernel that walks pixels: 4 pixels an iteration in
+    this tree's, 1 in the parent's K1; the parent's K2 has no loop, one
+    thread a pixel, so its total is its per-pixel body). The static counts
+    leave out the division's slow path, a subroutine outside the loop.
+    Also ``nvcc -Xptxas -v`` of csrc/clahe_lab.cu (registers, spills) and
+    the SM clocks ``nvidia-smi`` reads."""
+    from mmtrs_tpu_torch import _build
+
+    lib = _build.library()
+    tool = _cuobjdump()
+    res = {"cuobjdump": tool, "functions": {}}
+    if tool:
+        dump = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True).stdout
+        for chunk in dump.split("Function : ")[1:]:
+            name = chunk.split(None, 1)[0]
+            if any(t in name for k in ("K1", "K2") for t in LINE_KERNEL_NAMES[k]):
+                loops = loop_bodies(chunk)
+                res["functions"][name] = {"instructions": len(_SASS_LINE.findall(chunk)),
+                                          "largest_loop": loops[0] if loops else None, "loops": loops[:6]}
+    obj = _build.BUILD_DIR / "ptxas_probe.o"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_build.CSRC / "clahe_lab.cu"), "-o", str(obj)]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    obj.unlink(missing_ok=True)
+    res["ptxas"] = [ln.strip() for ln in (out.stdout + out.stderr).splitlines() if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
+    res["clocks_sm_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.strip()
+    return res
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         print("chip_profile: run from the repository", file=sys.stderr)
@@ -283,8 +424,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    if sys.argv[1:] == ["--line-times"]:
-        result = line_times(torch, dev)
+    modes = {"--line-times": line_times, "--sass": lambda torch, dev: sass_counts(torch)}
+    if sys.argv[1:2] and sys.argv[1] in modes:
+        result = modes[sys.argv[1]](torch, dev)
         print(smi)
         print(json.dumps(result))
         return 0

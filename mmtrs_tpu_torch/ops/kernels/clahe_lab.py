@@ -16,6 +16,9 @@ floor(clip(x) + 0.5).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from mmtrs_tpu_torch import _build
@@ -95,32 +98,93 @@ def _check_imgs(name: str, imgs: torch.Tensor, tiles) -> None:
     check_tiles(imgs.shape[1], imgs.shape[2], tiles)
 
 
-def clahe_lab_fwd_lut(imgs: torch.Tensor, clip: float = 3.0, tiles=(8, 8)):
-    """K1: u8 RGB [B, H, W, 3] → (lq u8, da i8, db i8 [B, H, W], lut u8 [B, ty·tx, 256])."""
-    _check_imgs("clahe_lab_fwd_lut", imgs, tiles)
-    if not on_cuda("clahe_lab_fwd_lut", imgs):
-        return clahe_lab_fwd_lut_ref(imgs, clip, tiles)
-    B, H, W, _ = imgs.shape
+def fwd_split(n_tiles: int, th: int, sms: int) -> int:
+    """K1's blocks per tile: 1, or a thread-block cluster of 2 or 4 while
+    ``n_tiles`` (B·ty·tx) blocks would give the card's ``sms`` SMs fewer
+    than two each (a served 512² upload has 64 tiles); never more than the
+    tile's ``th`` rows."""
+    split = 1
+    while split < 4 and n_tiles * split < 2 * sms:
+        split *= 2
+    while split > th:
+        split //= 2
+    return split
+
+
+def bwd_band(B: int, H: int, W: int, th: int, sms: int) -> int:
+    """Rows each K2 block walks: the most, a power of two up to 16, that
+    still give the card's ``sms`` SMs 512 threads each (a thread takes 4
+    pixels of a row) and divide ``th // 2``. A row's lower tile row changes
+    at rows th/2 + k·th, so such a band reads two tile rows of LUTs, which
+    the kernel stages (another band reads them from global memory)."""
+    threads = B * H * ((W + 3) // 4)
+    band = 16
+    while band > 1 and (threads // band < 512 * sms or (th // 2) % band):
+        band //= 2
+    return band
+
+
+@functools.cache
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class FwdLaunch(ctypes.Structure):
+    """K1's launch constants past the pointers (csrc/clahe_lab.cu:FwdLaunch)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in ("B", "H", "W", "ty", "tx", "limit")] + [
+        ("lut_scale", ctypes.c_float), ("split", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_args(B: int, H: int, W: int, tiles: tuple, clip: float, device: int) -> FwdLaunch:
+    """K1's launch constants for one shape on one card: the clip limit, the
+    LUT scale 255 / area and the blocks per tile. Raises off the tile grid."""
+    check_tiles(H, W, tiles)
     ty, tx = tiles
     area = (H // ty) * (W // tx)
-    dev = imgs.device
-    lq = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    da = torch.empty((B, H, W), dtype=torch.int8, device=dev)
-    db = torch.empty((B, H, W), dtype=torch.int8, device=dev)
-    lut = torch.empty((B, ty * tx, N_BINS), dtype=torch.uint8, device=dev)
+    split = fwd_split(B * ty * tx, H // ty, _sms(device))
+    return FwdLaunch(B, H, W, ty, tx, clip_limit(clip, area), (N_BINS - 1) / area, split)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_args(B: int, H: int, W: int, tiles: tuple, device: int) -> tuple:
+    """K2's launch constants past the pointers: (B, H, W, ty, tx, band)."""
+    check_tiles(H, W, tiles)
+    ty, tx = tiles
+    return B, H, W, ty, tx, bwd_band(B, H, W, H // ty, _sms(device))
+
+
+def clahe_lab_fwd_lut(imgs: torch.Tensor, clip: float = 3.0, tiles=(8, 8)):
+    """K1: u8 RGB [B, H, W, 3] → (lq u8, da i8, db i8 [B, H, W], lut u8 [B, ty·tx, 256]).
+
+    The launch path is lean, since a served request is bound by host
+    launches: one expression accepts a contiguous u8 RGB batch on a card,
+    the launch constants are one cached struct, and the three planes are one
+    allocation. Anything else goes through the full check, which raises or
+    takes the plain version for a CPU tensor."""
+    name = "clahe_lab_fwd_lut"
+    fast = (imgs.is_cuda and imgs.dtype == torch.uint8 and imgs.dim() == 4 and imgs.shape[3] == 3
+            and imgs.is_contiguous())
+    if not fast:
+        _check_imgs(name, imgs, tiles)
+        if not on_cuda(name, imgs):
+            return clahe_lab_fwd_lut_ref(imgs, clip, tiles)
+    B, H, W, _ = imgs.shape
+    args = _fwd_args(B, H, W, tuple(tiles), clip, imgs.get_device())
+    planes = imgs.new_empty((3, B, H, W), dtype=torch.int8)  # lq, da, db
+    lut = imgs.new_empty((B, args.ty * args.tx, N_BINS))
     code = _build.kernel("mmtrs_clahe_lab_fwd_lut")(
-        imgs.data_ptr(), lq.data_ptr(), da.data_ptr(), db.data_ptr(), lut.data_ptr(),
-        B, H, W, ty, tx, clip_limit(clip, area), (N_BINS - 1) / area,
+        imgs.data_ptr(), planes.data_ptr(), lut.data_ptr(), ctypes.addressof(args),
         _build.stream_handle(),
     )
-    _build.check_launch("clahe_lab_fwd_lut", code)
-    LAUNCHES["clahe_lab_fwd_lut"] += 1
-    return lq, da, db, lut
+    _build.check_launch(name, code)
+    LAUNCHES[name] += 1
+    lq, da, db = planes.unbind(0)
+    return lq.view(torch.uint8), da, db, lut
 
 
-def clahe_apply_lab_bwd(lq, da, db, lut, tiles=(8, 8)) -> torch.Tensor:
-    """K2: planes [B, H, W] + LUTs [B, ty·tx, 256] → u8 RGB [B, H, W, 3]."""
-    name = "clahe_apply_lab_bwd"
+def _check_planes(name: str, lq, da, db, lut, tiles) -> None:
     require(name, lq, torch.uint8, 3)
     require(name, da, torch.int8, 3)
     require(name, db, torch.int8, 3)
@@ -130,12 +194,29 @@ def clahe_apply_lab_bwd(lq, da, db, lut, tiles=(8, 8)) -> torch.Tensor:
     ty, tx = tiles
     if da.shape != lq.shape or db.shape != lq.shape or lut.shape != (B, ty * tx, N_BINS):
         raise ValueError(f"{name}: mismatched plane / LUT shapes")
-    if not on_cuda(name, lq, da, db, lut):
-        return clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles)
-    out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=lq.device)
+
+
+def clahe_apply_lab_bwd(lq, da, db, lut, tiles=(8, 8)) -> torch.Tensor:
+    """K2: planes [B, H, W] + LUTs [B, ty·tx, 256] → u8 RGB [B, H, W, 3],
+    with K1's lean launch path."""
+    name = "clahe_apply_lab_bwd"
+    fast = (
+        lq.is_cuda and lq.get_device() == da.get_device() == db.get_device() == lut.get_device()
+        and lq.dtype == torch.uint8 and da.dtype == torch.int8 and db.dtype == torch.int8
+        and lut.dtype == torch.uint8 and lq.dim() == 3 and lq.shape == da.shape == db.shape
+        and lut.shape == (lq.shape[0], tiles[0] * tiles[1], N_BINS)
+        and lq.is_contiguous() and da.is_contiguous() and db.is_contiguous() and lut.is_contiguous()
+    )
+    if not fast:
+        _check_planes(name, lq, da, db, lut, tiles)
+        if not on_cuda(name, lq, da, db, lut):
+            return clahe_apply_lab_bwd_ref(lq, da, db, lut, tiles)
+    B, H, W = lq.shape
+    args = _bwd_args(B, H, W, tuple(tiles), lq.get_device())
+    out = lq.new_empty((B, H, W, 3))
     code = _build.kernel("mmtrs_clahe_apply_lab_bwd")(
-        lq.data_ptr(), da.data_ptr(), db.data_ptr(), lut.data_ptr(), out.data_ptr(),
-        B, H, W, ty, tx, _build.stream_handle(),
+        lq.data_ptr(), da.data_ptr(), db.data_ptr(), lut.data_ptr(), out.data_ptr(), *args,
+        _build.stream_handle(),
     )
     _build.check_launch(name, code)
     LAUNCHES[name] += 1
