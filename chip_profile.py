@@ -7,7 +7,7 @@ Three paths, on the inputs chip_smoke.py drives them with:
   1. the archive pass, ``preprocess_stream`` over 3 batches of u8
      [4, 3024, 4032, 3] synthetic 12 MP teeth: host-clock time of each
      stage of one batch (pinning, the copy to the card, the CLAHE stage, its
-     float LAB and K8/K9 parts, deskew, the segmenter, the crop, the copy
+     float LAB, u8 L, K8 and K9 parts, deskew, the segmenter, the crop, the copy
      back), each ended by a synchronise; then ``torch.profiler`` over the
      stream: device busy share of the wall and the largest device items;
   2. one phone-shaped serving request's preprocessing (a 768x1024 upload,
@@ -79,7 +79,7 @@ def archive_stages(torch, dev, host):
     from mmtrs_tpu_torch.ops.clahe import quantize_u8
     from mmtrs_tpu_torch.ops.color import lab_to_rgb, rgb_to_lab
     from mmtrs_tpu_torch.ops.deskew import deskew_batch
-    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_l
+    from mmtrs_tpu_torch.ops.kernels.clahe import clahe_apply, clahe_hist_lut, quantize_l
     from mmtrs_tpu_torch.ops.resize import crop_box_resize
     from mmtrs_tpu_torch.preprocess import _clahe_lab_stage
 
@@ -87,10 +87,12 @@ def archive_stages(torch, dev, host):
     pinned, ms["pin_memory"] = _sync_ms(torch, lambda: torch.from_numpy(host).pin_memory())
     x, ms["copy_to_card"] = _sync_ms(torch, lambda: pinned.to(dev, non_blocking=True))
     lab, ms["clahe.rgb_to_lab"] = _sync_ms(torch, lambda: rgb_to_lab(x.float()))
-    l2, ms["clahe.k8_k9"] = _sync_ms(torch, lambda: clahe_l(lab[..., 0], 3.0, (8, 8), torch.uint8))
+    l, ms["clahe.quantize_l"] = _sync_ms(torch, lambda: quantize_l(lab[..., 0]).contiguous())
+    lut, ms["clahe.k8"] = _sync_ms(torch, lambda: clahe_hist_lut(l, 3.0, (8, 8)))
+    l2, ms["clahe.k9_u8"] = _sync_ms(torch, lambda: clahe_apply(l, lut, (8, 8), torch.uint8))
     _, ms["clahe.lab_to_rgb_u8"] = _sync_ms(
         torch, lambda: quantize_u8(lab_to_rgb(torch.cat([l2.float()[..., None], lab[..., 1:]], dim=-1))))
-    del lab, l2
+    del lab, l, lut, l2
     c, ms["clahe_stage"] = _sync_ms(torch, lambda: _clahe_lab_stage(x, 3.0, (8, 8)))
     # in place, as the archive pass runs it: c is the CLAHE stage's fresh output
     (d, _), ms["deskew"] = _sync_ms(torch, lambda: deskew_batch(c))
@@ -173,9 +175,11 @@ LINE_KERNEL_NAMES = {
     "K4": ("resample_",),
     "K5": ("photometric_kernel",),
     "K6": ("shift_pp_kernel", "window_w_kernel", "window_h_kernel"),
-    "K8": ("hist_lut_kernel",),
-    "K9": ("apply_kernel",),
+    "K8": ("hist_lut_kernel",),  # hist_lut_kernel, plane_hist_lut_kernel
+    "K9": ("apply_kernel", "plane_blend_kernel"),
 }
+# K8 and K9 at a served request, serving's bucket at b16 and the archive's batch
+L_PROFILE_SHAPES = ((16, 512, 688), (1, 512, 688), (4, 3024, 4032))
 
 
 def _kernel_ms(torch, tags, fn, argsets, launches=20):
@@ -249,15 +253,15 @@ def line_times(torch, dev):
 def clahe_times(torch, dev, x, both, host_us):
     """For :func:`line_times`, before its other kernels: K1 and K2 on teeth at
     [16, 512, 512, 3] and a served upload's [1, 512, 512, 3] (each wrapper's
-    host µs, taken before the profiler first runs, then the times), K8
-    and K9 (u8 store), the controls, on serving's L planes [16, 512, 688].
-    Returns each kernel's count of bytes that differ from its plain version
-    there, and K1's on the every-colour image and K2's on the every-triple
-    planes with identity LUTs (chip_smoke.py phase 2 checks them)."""
-    from chip_smoke import L_SHAPE, SERVE_SHAPE, SHAPE, _host_us, _l_planes, every_byte_triple
+    host µs, taken before the profiler first runs, then the times); K8 and
+    K9 (u8 and f32 stores) on the L planes of teeth at ``L_PROFILE_SHAPES``
+    (their host µs at [16, 512, 688] first too). Returns each kernel's
+    count of values that differ from its plain version there, and K1's on
+    the every-colour image and K2's on the every-triple planes with
+    identity LUTs (chip_smoke.py phase 2 checks them)."""
+    from chip_smoke import L_SHAPE, SERVE_SHAPE, SHAPE, _host_us, _l_teeth, every_byte_triple
     from mmtrs_tpu_torch.ops.kernels import clahe as C
     from mmtrs_tpu_torch.ops.kernels import clahe_lab as K
-    from mmtrs_tpu_torch.synth import synth_teeth
 
     clip, tiles = 3.0, (8, 8)
     differ = lambda got, want: sum(int((g != w).sum()) for g, w in zip(got, want))
@@ -269,6 +273,10 @@ def clahe_times(torch, dev, x, both, host_us):
         planes = fwd(teeth)
         host_us[f"K1 {list(shape)}"] = _host_us(lambda: fwd(teeth), ())
         host_us[f"K2 {list(shape)}"] = _host_us(lambda: bwd(*planes), ())
+    l = _l_teeth(torch, dev, x, L_SHAPE)
+    lut = C.clahe_hist_lut(l, clip, tiles)
+    host_us[f"K8 {list(L_SHAPE)}"] = _host_us(lambda: C.clahe_hist_lut(l, clip, tiles), ())
+    host_us[f"K9 {list(L_SHAPE)} uint8"] = _host_us(lambda: C.clahe_apply(l, lut, tiles, torch.uint8), ())
     for shape in (SHAPE, SERVE_SHAPE):
         teeth = x[: shape[0]]
         planes = fwd(teeth)
@@ -282,13 +290,16 @@ def clahe_times(torch, dev, x, both, host_us):
     ident = torch.arange(256, dtype=torch.uint8, device=dev).expand(1, 64, 256).contiguous()
     triple = (lq, da.view(torch.int8), db.view(torch.int8), ident)
     mismatches["K2 every triple"] = differ([bwd(*triple)], [K.clahe_apply_lab_bwd_ref(*triple, tiles)])
-    l = _l_planes(torch, dev, torch.from_numpy(synth_teeth(L_SHAPE[0], L_SHAPE[1:], seed=SEED + 5)))
-    lut = C.clahe_hist_lut(l, clip, tiles)
-    both(f"K8 {list(L_SHAPE)}", "K8", lambda p: C.clahe_hist_lut(p, clip, tiles), (l,))
-    both(f"K9 {list(L_SHAPE)} u8", "K9", lambda p, t: C.clahe_apply(p, t, tiles, torch.uint8), (l, lut))
-    mismatches[f"K8 {list(L_SHAPE)}"] = differ([lut], [C.clahe_hist_lut_ref(l, clip, tiles)])
-    mismatches[f"K9 {list(L_SHAPE)}"] = differ([C.clahe_apply(l, lut, tiles, torch.uint8)],
-                                               [C.clahe_apply_ref(l, lut, tiles, torch.uint8)])
+    for shape in L_PROFILE_SHAPES:
+        l = _l_teeth(torch, dev, x, shape)
+        lut = C.clahe_hist_lut(l, clip, tiles)
+        both(f"K8 {list(shape)}", "K8", lambda p: C.clahe_hist_lut(p, clip, tiles), (l,))
+        mismatches[f"K8 {list(shape)}"] = differ([lut], [C.clahe_hist_lut_ref(l, clip, tiles)])
+        for dt in (torch.uint8, torch.float32):
+            key = f"K9 {list(shape)} {str(dt)[6:]}"
+            both(key, "K9", lambda p, t, dt=dt: C.clahe_apply(p, t, tiles, dt), (l, lut))
+            mismatches[key] = differ([C.clahe_apply(l, lut, tiles, dt)], [C.clahe_apply_ref(l, lut, tiles, dt)])
+        del l, lut
     return mismatches
 
 
@@ -299,7 +310,7 @@ def kernel_launch_costs(torch, dev, host):
 
     res = {}
     for what, rgb in (("serving_16x512x688", synth_teeth(16, (512, 688), seed=SEED + 5)),
-                      ("archive_2x3024x4032", host[:2])):
+                      ("archive_4x3024x4032", host)):
         l = quantize_l(rgb_to_lab(torch.from_numpy(rgb).to(dev).float())[..., 0]).contiguous()
         lut = clahe_hist_lut(l)
         for name, fn in (("clahe_hist_lut", lambda: clahe_hist_lut(l)),

@@ -29,10 +29,15 @@ Phases (each raises on failure, so the script exits non-zero):
      elastic's own fields: u8 bit-equal to plain, f32 within 1e-3; K7 at
      u8 and f32 [32, 512, 512, 3] with a random
      7-row subset: written rows bit-equal to plain, untouched rows
-     byte-identical; K8 and K9 on the u8 L planes of synthetic teeth at
-     [16, 512, 688] (serving's tiles, 64 × 86 px) and [2, 3024, 4032] (the
-     archive's, 378 × 504 px): K8's LUTs bit-equal, K9's f32 blend within
-     1e-4 and its u8 store bit-equal; K3 also at [16, 512, 512, 3] and one
+     byte-identical; K8 and K9 at every shape the L-plane route gives them
+     (a served request [1, 512, 688], serving's buckets [16, 512, 688],
+     [16, 688, 512] and [16, 512, 912], the archive's [4, 3024, 4032] and
+     [2, 3024, 4032], and the padded [2, 752, 1000], tw = 125), on the L
+     planes of teeth, one value a tile, a two-value checkerboard and
+     uniform random values, K9 also on 256 planes where every position
+     sees every value (random LUTs) at serving's buckets, and both at
+     [1, 40, 50] with 5 × 10 tiles: K8's LUTs, K9's u8 store and its f32
+     blend torch.equal to plain; K3 also at [16, 512, 512, 3] and one
      archive image [1, 3024, 4032, 3] on both axes, and at phase 7's
      [2, 752, 1000, 3] (rows of 3000 bytes, not 16-byte aligned), with
      deskew's shear offsets (±45°) and random ±40: u8 bit-equal, f32 within
@@ -122,6 +127,12 @@ AUG_MEMBERS = ("hflip", "vflip", "ssr", "persp", "clahe", "bc", "hsv", "noise", 
 PRESET_SHAPE = AUG_SHAPE
 RANDAUG_SHAPE = (12, 512, 512, 3)  # the MM trainer's batch_size (config.py:276)
 L_SHAPE = (16, 512, 688)  # serving's L plane: a 4:3 phone photo's bucket
+# every shape the L-plane route gives K8 and K9: a served request, serving's
+# buckets at b16, the archive's batch (and the b2 that PR 5-8 timed), and a
+# 750x1000 archive padded to /8; the timed ones
+L_CHECK_SHAPES = ((1, 512, 688), L_SHAPE, (16, 688, 512), (16, 512, 912), (4, 3024, 4032), (2, 3024, 4032),
+                  (2, 752, 1000))
+L_TIMED_SHAPES = (L_SHAPE, (1, 512, 688), (4, 3024, 4032), (2, 3024, 4032))
 # serving's uploads: shapes the fused route takes, and phone photos' shapes,
 # which bucket to 512x688, 688x512 and 512x912 and take the L-plane route
 FUSED_UPLOADS = [(512, 512), (512, 768), (640, 512), (512, 1024)]
@@ -753,38 +764,119 @@ def _l_planes(torch, dev, rgb):
     return quantize_l(rgb_to_lab(rgb.to(dev).float())[..., 0]).contiguous()
 
 
-def _check_clahe_l(torch, dev, x, xf, gen):
-    """K8 and K9 on the L planes of synthetic teeth at serving's shape
-    [16, 512, 688] and at the archive's [2, 3024, 4032]: K8's LUTs and K9's
-    u8 store bit-equal to plain, K9's f32 blend within 1e-4. The JSON line
-    takes serving's times; the archive's are printed."""
-    from mmtrs_tpu_torch.ops.kernels import clahe as C
+@functools.cache
+def _serving_teeth():
+    """u8 [16, 512, 688, 3]: serving's batch of synthetic teeth (host)."""
     from mmtrs_tpu_torch.synth import synth_teeth
 
+    return synth_teeth(L_SHAPE[0], L_SHAPE[1:], seed=SEED + 5)
+
+
+def _l_teeth(torch, dev, x, shape):
+    """The u8 L planes of synthetic teeth at ``shape`` [B, H, W]: serving's
+    batch or its first image, the archive's images, or other teeth
+    (``_teeth_at``)."""
+    B, H, W = shape
+    if (H, W) == L_SHAPE[1:] and B <= L_SHAPE[0]:
+        return _l_planes(torch, dev, torch.from_numpy(_serving_teeth()[:B]))
+    return _l_planes(torch, dev, _teeth_at(torch, dev, x, (B, H, W, 3)))
+
+
+def _l_adversarial(torch, dev, shape, gen, tiles):
+    """(what, u8 L) at ``shape``: one value a tile, (37 · tile) mod 256, so
+    that a batch of 256 tiles or more holds all 256 values (all of a tile's
+    counts in one bin: the most contention, and the largest excess to
+    redistribute); two values in a checkerboard (half of a word's bytes on
+    each); and uniform random values."""
+    B, H, W = shape
+    ty, tx = tiles
+    ys, xs = torch.arange(H, device=dev)[:, None], torch.arange(W, device=dev)[None, :]
+    tile = torch.arange(B, device=dev)[:, None, None] * (ty * tx) + ((ys // (H // ty)) * tx + xs // (W // tx))[None]
+    flat = (tile * 37 % 256).to(torch.uint8)
+    two = torch.where((ys + xs) % 2 == 1, 200, 60).to(torch.uint8).expand(B, H, W).contiguous()
+    rnd = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+    return [("flat", flat), ("two-colour", two), ("uniform random", rnd)]
+
+
+def _every_value_planes(torch, dev, H, W, k0, n):
+    """u8 [n, H, W], plane k0 + i = (k0 + i + x + y) mod 256: over 256 planes
+    every position sees every L value."""
+    k = torch.arange(k0, k0 + n, device=dev)[:, None, None]
+    ys, xs = torch.arange(H, device=dev)[None, :, None], torch.arange(W, device=dev)[None, None, :]
+    return ((k + ys + xs) % 256).to(torch.uint8).contiguous()
+
+
+def _check_l_pair(torch, C, what, l, tiles, clip=3.0):
+    """K8's LUTs of ``l`` and K9's u8 and f32 blends of them, each
+    ``torch.equal`` to its plain version."""
+    lut = C.clahe_hist_lut(l, clip, tiles)
+    _check(torch.equal(lut, C.clahe_hist_lut_ref(l, clip, tiles)), f"K8 {what}: LUTs equal to plain")
+    for dt in (torch.uint8, torch.float32):
+        got, want = C.clahe_apply(l, lut, tiles, dt), C.clahe_apply_ref(l, lut, tiles, dt)
+        _check(torch.equal(got, want), f"K9 {what} {str(dt)[6:]}: equal to plain "
+                                        f"({int((got != want).sum())} values differ)")
+
+
+def _check_clahe_l(torch, dev, x, xf, gen):
+    """K8 and K9 at every shape the L-plane route gives them: a served
+    request [1, 512, 688], serving's buckets at b16 ([16, 512, 688],
+    [16, 688, 512], [16, 512, 912]), the archive's [4, 3024, 4032] and
+    [2, 3024, 4032], and the padded [2, 752, 1000] (rows not 16-byte
+    aligned, tw = 125); on the L planes of teeth, one value a tile, two in
+    a checkerboard and uniform random ones: K8's LUTs, K9's u8 store and
+    its f32 blend ``torch.equal`` to plain. At serving's three buckets K9
+    also on 256 planes where every position sees every value, with random
+    LUTs; and both at [1, 40, 50] with 5 x 10 tiles (rows of a width not a
+    multiple of 8, so byte loads; more than 8 tiles across, so K9's LUTs
+    from global memory). Times on teeth: the JSON line takes
+    [16, 512, 688]'s (K9 with its u8 store, what the preprocessing stage
+    runs); its ``detail`` the other timed shapes and K9's f32 store."""
+    from mmtrs_tpu_torch.ops.kernels import clahe as C
+
     clip, tiles = 3.0, (8, 8)
-    res = {}
-    serving = synth_teeth(L_SHAPE[0], L_SHAPE[1:], seed=SEED + 5)
-    for what, rgb in (("serving", serving), ("archive", _archive_batch()[:2])):
-        l = _l_planes(torch, dev, torch.from_numpy(rgb))
-        lut = C.clahe_hist_lut(l, clip, tiles)
-        _check(torch.equal(lut, C.clahe_hist_lut_ref(l, clip, tiles)), f"K8 {what} {tuple(l.shape)} LUTs bit-equal to plain")
-        f32 = C.clahe_apply(l, lut, tiles)
-        e = (f32 - C.clahe_apply_ref(l, lut, tiles)).abs().max().item()
-        _check(e <= 1e-4, f"K9 {what} f32 max err {e:.3g} <= 1e-4")
-        u8 = C.clahe_apply(l, lut, tiles, torch.uint8)
-        _check(torch.equal(u8, C.clahe_apply_ref(l, lut, tiles, torch.uint8)), f"K9 {what} u8 bit-equal to plain")
-        px = l.numel()
-        res[what] = [
-            ("clahe_hist_lut", 0.0, _stat("clahe_hist_lut", C.clahe_hist_lut, (l, clip, tiles),
-                                          lambda: C.clahe_hist_lut_ref(l, clip, tiles), _nbytes(l, lut), px)),
-            # the u8 store: what the preprocessing stage runs
-            ("clahe_apply", e, _stat("clahe_apply", C.clahe_apply, (l, lut, tiles, torch.uint8),
-                                     lambda: C.clahe_apply_ref(l, lut, tiles, torch.uint8), _nbytes(l, lut, u8), px)),
-        ]
-    for name, _, st in res["archive"]:
-        print(f"  {name} at the archive's {ARCHIVE_SHAPE[1:3]} x2: kernel {st['ms']:.4f} / b2b {st['ms_b2b']:.4f} ms, "
-              f"plain {st['plain_ms']:.4f} ms; bound {st['bound_ms'] * 1e3:.2f} us by {st['bound_by']}")
-    return res["serving"]
+    small = torch.randint(0, 256, (1, 40, 50), generator=gen, dtype=torch.uint8).to(dev)
+    _check_l_pair(torch, C, "[1, 40, 50] tiles (5, 10)", small, (5, 10))
+    res, detail = {}, []
+    for shape in L_CHECK_SHAPES:
+        teeth = _l_teeth(torch, dev, x, shape)
+        for what, l in [("teeth", teeth)] + _l_adversarial(torch, dev, shape, gen, tiles):
+            _check_l_pair(torch, C, f"{list(shape)} {what}", l, tiles, clip)
+        if shape[0] == 16:
+            _, H, W = shape
+            for k0 in range(0, 256, 64):
+                planes = _every_value_planes(torch, dev, H, W, k0, 64)
+                lut = torch.randint(0, 256, (64, 64, 256), generator=gen, dtype=torch.uint8).to(dev)
+                for dt in (torch.uint8, torch.float32):
+                    got, want = C.clahe_apply(planes, lut, tiles, dt), C.clahe_apply_ref(planes, lut, tiles, dt)
+                    _check(torch.equal(got, want), f"K9 {[H, W]} planes {k0}..{k0 + 63} (every value), random LUTs, "
+                                                    f"{str(dt)[6:]}: equal to plain ({int((got != want).sum())} differ)")
+            del planes, lut, got, want
+        if shape not in L_TIMED_SHAPES:
+            continue
+        lut = C.clahe_hist_lut(teeth, clip, tiles)
+        u8, px = C.clahe_apply(teeth, lut, tiles, torch.uint8), teeth.numel()
+        stats = {
+            "clahe_hist_lut": _stat("clahe_hist_lut", C.clahe_hist_lut, (teeth, clip, tiles),
+                                    lambda: C.clahe_hist_lut_ref(teeth, clip, tiles), _nbytes(teeth, lut), px),
+            "clahe_apply": _stat("clahe_apply", C.clahe_apply, (teeth, lut, tiles, torch.uint8),
+                                 lambda: C.clahe_apply_ref(teeth, lut, tiles, torch.uint8),
+                                 _nbytes(teeth, lut, u8), px),
+        }
+        if shape == L_SHAPE:
+            f32 = C.clahe_apply(teeth, lut, tiles)
+            stats["clahe_apply f32"] = _stat("clahe_apply", C.clahe_apply, (teeth, lut, tiles, torch.float32),
+                                             lambda: C.clahe_apply_ref(teeth, lut, tiles), _nbytes(teeth, lut, f32), px)
+            res = stats
+        keys = ("ms", "ms_b2b", "host_us", "plain_ms", "bound_ms")
+        for name, st in stats.items():
+            if shape != L_SHAPE or name.endswith("f32"):
+                detail.append({"name": name, "shape": list(shape), **{k: st[k] for k in keys}})
+            print(f"  {name} at {list(shape)}: kernel {st['ms']:.4f} / b2b {st['ms_b2b']:.4f} ms, host "
+                  f"{st['host_us']:.2f} us; plain {st['plain_ms']:.4f} ms; bound {st['bound_ms'] * 1e3:.2f} us")
+        del teeth, lut, u8
+    for name in L_KERNELS:
+        res[name]["detail"] = [d for d in detail if d["name"].split()[0] == name]
+    return [(name, 0.0, res[name]) for name in L_KERNELS]
 
 
 @functools.cache

@@ -47,8 +47,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "mmtrs_clahe_lab_fwd_lut": (_P, _P, _P, _P, _P),
     "mmtrs_clahe_apply_lab_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mmtrs_clahe_hist_lut": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    "mmtrs_clahe_apply": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmtrs_clahe_hist_lut": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "mmtrs_clahe_apply": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_shift_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

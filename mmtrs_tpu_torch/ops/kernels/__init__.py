@@ -9,6 +9,8 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 LAUNCHES: dict[str, int] = {
@@ -22,6 +24,12 @@ LAUNCHES: dict[str, int] = {
     "clahe_hist_lut": 0,
     "clahe_apply": 0,
 }
+
+
+@functools.cache
+def sm_count(device: int) -> int:
+    """The card's SMs, which the launch plans of K1, K2, K8 and K9 fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:

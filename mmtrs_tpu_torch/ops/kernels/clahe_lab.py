@@ -39,7 +39,7 @@ from mmtrs_tpu_torch.ops.color import (
     _srgb_to_linear,
     fdiv,
 )
-from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require
+from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require, sm_count
 
 
 def _q_i8_lattice(v: torch.Tensor) -> torch.Tensor:
@@ -124,11 +124,6 @@ def bwd_band(B: int, H: int, W: int, th: int, sms: int) -> int:
     return band
 
 
-@functools.cache
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 class FwdLaunch(ctypes.Structure):
     """K1's launch constants past the pointers (csrc/clahe_lab.cu:FwdLaunch)."""
 
@@ -143,7 +138,7 @@ def _fwd_args(B: int, H: int, W: int, tiles: tuple, clip: float, device: int) ->
     check_tiles(H, W, tiles)
     ty, tx = tiles
     area = (H // ty) * (W // tx)
-    split = fwd_split(B * ty * tx, H // ty, _sms(device))
+    split = fwd_split(B * ty * tx, H // ty, sm_count(device))
     return FwdLaunch(B, H, W, ty, tx, clip_limit(clip, area), (N_BINS - 1) / area, split)
 
 
@@ -152,7 +147,7 @@ def _bwd_args(B: int, H: int, W: int, tiles: tuple, device: int) -> tuple:
     """K2's launch constants past the pointers: (B, H, W, ty, tx, band)."""
     check_tiles(H, W, tiles)
     ty, tx = tiles
-    return B, H, W, ty, tx, bwd_band(B, H, W, H // ty, _sms(device))
+    return B, H, W, ty, tx, bwd_band(B, H, W, H // ty, sm_count(device))
 
 
 def clahe_lab_fwd_lut(imgs: torch.Tensor, clip: float = 3.0, tiles=(8, 8)):

@@ -69,7 +69,7 @@ def test_launch_constants(monkeypatch):
     from mmtrs_tpu_torch.ops.clahe import clip_limit
     from mmtrs_tpu_torch.ops.kernels import clahe_lab as K
 
-    monkeypatch.setattr(K, "_sms", lambda device: 132)
+    monkeypatch.setattr(K, "sm_count", lambda device: 132)
     K._fwd_args.cache_clear()
     K._bwd_args.cache_clear()
     try:
