@@ -17,7 +17,8 @@ Three paths, on the inputs chip_smoke.py drives them with:
      ``legacy`` preset on chip_smoke.py phase 5's u8 [32, 512, 512, 3] batch
      and draws (every gated member firing among the first 8): under
      ``torch.profiler`` over 3 batches, the device busy share and the
-     device ms of the warp's resample (K4) and the elastic shift (K6).
+     device ms of the warp's resample (K4), the photometric pass (K5) and
+     the elastic shift (K6).
 K8 and K9 are also timed back to back (100 launches between two CUDA
 events) against one call between events, which separates a launch's host
 cost from the kernel. Prints the card's name and power limit, then one JSON
@@ -25,16 +26,17 @@ object of the numbers as its last line.
 
     python3 chip_profile.py --line-times
 
-times the kernels K1-K6, K8 and K9 (see ``line_times``), at arguments
-that every tree of the port takes: copy this file and chip_smoke.py into an
-older commit's checkout and run it there and here in turns to compare two
-commits' kernels in one call.
+times the kernels K1-K6, K8 and K9 (see ``line_times``; K5 on the four
+mixes of chip_smoke.py's K5_MIXES), at arguments that every tree of the
+port takes: copy this file and chip_smoke.py into an older commit's
+checkout and run it there and here in turns to compare two commits'
+kernels in one call.
 
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
-library the tree builds (``sass_counts``); it too runs on an older
-checkout.
+library the tree builds (``sass_counts``) and K5's per path (``k5_sass``);
+it too runs on an older checkout.
 """
 
 from __future__ import annotations
@@ -149,17 +151,20 @@ def legacy_profile(torch, dev, batches=3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_items = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_items) / 1e3
-    # the kernels by their device function names (csrc/resample_rows.cu, csrc/shift_rows.cu)
+    # the kernels by their device function names (csrc/resample_rows.cu,
+    # csrc/shift_rows.cu, csrc/photometric.cu)
     own = lambda tag: sum(e.self_device_time_total for e in dev_items if tag in e.key) / 1e3 / batches
-    k4, k6 = own("resample_"), own("window_")
+    k4, k5, k6 = own("resample_"), own("photometric"), own("window_")
     return {
         "elastic_images": int(draws.elastic_on.sum()),
         "wall_ms_per_batch": wall_ms / batches,
         "device_busy_ms_per_batch": busy_ms / batches,
         "busy_share": busy_ms / wall_ms,
         "k4_ms_per_batch": k4,
+        "k5_ms_per_batch": k5,
         "k6_ms_per_batch": k6,
         "k4_k6_share_of_busy": (k4 + k6) * batches / busy_ms if busy_ms else None,
+        "k5_share_of_busy": k5 * batches / busy_ms if busy_ms else None,
         "k4_k6_share_of_wall": (k4 + k6) * batches / wall_ms,
     }
 
@@ -205,15 +210,19 @@ def line_times(torch, dev):
     :func:`clahe_times`); then K3 with deskew's offsets at
     [16, 512, 512, 3]; K4 with random ±20 per line (half flipped) and K6
     with uniform ±11 (window 11) at [16, 512, 512, 3] and [12, 380, 380, 3],
-    u8 and f32, both axes; K5 on chip_smoke.py phase 2's rows. For each,
+    u8 and f32, both axes; K5 on chip_smoke.py's four mixes (K5_MIXES:
+    phase 2's rows, the chain's draws, brightness/contrast alone and every
+    member, its host µs on phase 2's rows before the profiler first runs),
+    with each mix's bound and count of values that differ from the plain
+    version. For each,
     the wrapper's ms per launch back to back between two CUDA events
     (``b2b``: whatever the wrapper launches or waits for included) and the
     kernel's own device ms per launch under ``torch.profiler`` (``kernel``);
     each wrapper's host µs at u8 [16, 512, 512, 3] (axis 1). Checks nothing
     (chip_smoke.py phase 2 does)."""
-    from chip_smoke import (MM_SHAPE, SEED, SHAPE, _b2b_ms, _deskew_offsets, _host_us, _photometric_rows,
-                            _random_passes, _rotations, _teeth_at)
-    from mmtrs_tpu_torch.ops.kernels.photometric import photometric
+    from chip_smoke import (K5_MIXES, MM_SHAPE, OPS_PER_ELEMENT, SEED, SHAPE, _b2b_ms, _bound_ms, _deskew_offsets,
+                            _host_us, _nbytes, _photometric_mix, _random_passes, _rotations, _teeth_at)
+    from mmtrs_tpu_torch.ops.kernels.photometric import photometric, photometric_ref
     from mmtrs_tpu_torch.ops.kernels.resample import resample_rows
     from mmtrs_tpu_torch.ops.kernels.shift import shift_rows, shift_rows_windowed
     from mmtrs_tpu_torch.synth import synth_teeth
@@ -226,6 +235,9 @@ def line_times(torch, dev):
         sets = _rotations(args)
         times[key] = {"b2b": _b2b_ms(fn, sets), "kernel": _kernel_ms(torch, LINE_KERNEL_NAMES[kernel], fn, sets)}
 
+    k5_args = {mix: _photometric_mix(torch, dev, x, mix, torch.Generator().manual_seed(SEED + 11))
+               for mix in K5_MIXES}
+    host_us[f"K5 {list(SHAPE)}"] = _host_us(lambda: photometric(*k5_args["a"]), ())
     mismatches = clahe_times(torch, dev, x, both, host_us)
     for axis in (2, 1):
         off = _deskew_offsets(torch, gen, SHAPE[0], SHAPE[1], axis).to(dev)
@@ -245,8 +257,13 @@ def line_times(torch, dev):
             if shape == SHAPE and axis == 1:
                 host_us["K4"] = _host_us(lambda: resample_rows(u8, *a, axis=1), ())
                 host_us["K6"] = _host_us(lambda: shift_rows_windowed(u8, off, 11, 1), ())
-    params, seeds, hole = _photometric_rows(torch, dev, gen)
-    both(f"K5 {list(SHAPE)} u8", "K5", photometric, (x, params, seeds, hole))
+    for mix, args in k5_args.items():
+        key = f"K5 mix ({mix}) {list(args[0].shape)}"
+        both(key, "K5", photometric, args)
+        imgs = args[0]
+        times[key]["bound_ms"] = _bound_ms(_nbytes(imgs, *args[1:3], imgs),
+                                           OPS_PER_ELEMENT["photometric"] * (imgs.numel() // 3))[0]
+        mismatches[key] = int((photometric(*args) != photometric_ref(*args)).sum())
     return {"line_times_ms": times, "host_us": host_us, "mismatches": mismatches}
 
 
@@ -420,6 +437,102 @@ def sass_counts(torch):
     return res
 
 
+_NVDISASM_LOC = re.compile(r'"([^"]+)", line (\d+)')
+
+
+def _spans(src: Path, names) -> dict:
+    """Source lines [first, last] of each function in ``names`` in ``src``:
+    from the line that defines it to the first later line that is a lone
+    closing brace at column 0."""
+    lines = src.read_text().splitlines()
+    spans = {}
+    for name in names:
+        for i, ln in enumerate(lines):
+            if re.search(rf"\b{name}\(", ln) and not ln.startswith((" ", "/")) and ln.rstrip().endswith(("{", ",")):
+                end = next(j for j in range(i, len(lines)) if lines[j] == "}")
+                spans[name] = (i + 1, end + 1)
+                break
+    return spans
+
+
+def k5_sass():
+    """K5's static SASS instruction counts per path, from ``nvdisasm -gi`` of
+    csrc/photometric.cu compiled to a cubin with ``-lineinfo`` (which leaves
+    the code as the library builds it). An instruction counts for each
+    function of the file in its chain of inlined source lines. A kernel
+    that walks a chunk's pixels in loops (this tree's) has one loop a pixel
+    for each mix of stages: ``hsv_path`` is the largest loop with
+    ``hsv_shift`` and without ``normal_of``, ``noise_path`` the reverse,
+    ``hsv_noise_path`` the largest with both; ``light_stage1`` is the
+    instructions of ``map_word`` a pixel (stage 1 on a chunk in registers).
+    A kernel of one thread a pixel (the parent's) has no such loop: its
+    whole body is one pixel, less ``normal_of`` on the HSV path and less
+    ``hsv_shift`` on the noise path. Static counts include branches a
+    pixel never takes (fmodf's and cosf's slow paths)."""
+    import shutil
+
+    from mmtrs_tpu_torch import _build
+
+    src = _build.CSRC / "photometric.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = _build.BUILD_DIR / "k5_sass_probe.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    res = subprocess.run([_build._nvcc(), *flags, "-lineinfo", "-cubin", str(src), "-o", str(cubin)],
+                         capture_output=True, text=True)
+    tool = shutil.which("nvdisasm") or str(Path(_build._nvcc()).parent / "nvdisasm")
+    if res.returncode != 0 or not Path(tool).exists():
+        return {"error": (res.stdout + res.stderr)[-2000:] or "no nvdisasm"}
+    dump = subprocess.run([tool, "-gi", "-c", str(cubin)], capture_output=True, text=True).stdout
+    cubin.unlink(missing_ok=True)
+    spans = _spans(src, ("hsv_shift", "normal_of", "map_word", "run_pixel", "heavy_chunk"))
+    # (address, functions) of each instruction, and the backward branches
+    instrs, labels, branches, chain, fresh = [], {}, [], [], True
+    pending = []
+    for line in dump.splitlines():
+        if "//##" in line:  # a chain of inlined locations, one comment line a level
+            chain = (chain if not fresh else []) + [
+                int(n) for f, n in _NVDISASM_LOC.findall(line) if f.endswith("photometric.cu")]
+            fresh = False
+            continue
+        fresh = True
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_LINE.search(line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        instrs.append((addr, {k for k, (a, b) in spans.items() if any(a <= n <= b for n in chain)}))
+        if re.search(r"\bBRA\b", text):
+            t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if t:
+                branches.append((addr, t.group(1) or int(t.group(2), 16)))
+    loops = []
+    for addr, target in branches:
+        lo = labels.get(target) if isinstance(target, str) else target
+        if lo is not None and lo <= addr:
+            body = [fns for a, fns in instrs if lo <= a <= addr]
+            loops.append({"instructions": len(body), **{k: sum(k in fns for fns in body) for k in spans}})
+    loops.sort(key=lambda lp: -lp["instructions"])
+    total = {k: sum(k in fns for _, fns in instrs) for k in spans}
+    px = re.search(r"constexpr int kPx = (\d+);", src.read_text())
+    largest = lambda hsv, noise: max((lp["instructions"] for lp in loops
+                                      if (lp.get("hsv_shift", 0) > 0) == hsv and (lp.get("normal_of", 0) > 0) == noise),
+                                     default=None)
+    if "heavy_chunk" in spans:
+        per_pixel = {"hsv_path": largest(True, False), "noise_path": largest(False, True),
+                     "hsv_noise_path": largest(True, True),
+                     "light_stage1": total.get("map_word", 0) / int(px.group(1)) if px else None}
+    else:
+        per_pixel = {"all_stages": len(instrs), "hsv_path": len(instrs) - total.get("normal_of", 0),
+                     "noise_path": len(instrs) - total.get("hsv_shift", 0)}
+    return {"instructions": len(instrs), "by_function": total, "loops": loops[:8], "per_pixel": per_pixel}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         print("chip_profile: run from the repository", file=sys.stderr)
@@ -435,7 +548,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    modes = {"--line-times": line_times, "--sass": lambda torch, dev: sass_counts(torch)}
+    modes = {"--line-times": line_times,
+             "--sass": lambda torch, dev: {**sass_counts(torch), "K5": k5_sass()}}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)
         print(smi)

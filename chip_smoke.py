@@ -16,9 +16,15 @@ Phases (each raises on failure, so the script exits non-zero):
      image, K1, K2 and the K1+K2 chain (K2's first call on the card fills
      its sRGB encode table and waits for it, once, before any timing); K3
      f32 within 1e-3 and its u8 store equal to
-     round-half-up of the f32 result; K5 (rows of identity,
-     brightness/contrast, HSV, noise σ = √5 and √15, dropout, all at once)
-     u8 bit-equal to plain, or max ≤ 1 level on ≥ 99.99 % of values; K4 and
+     round-half-up of the f32 result; K5 torch.equal to plain on rows of
+     identity, brightness/contrast, HSV, noise σ = √5 and √15, dropout and
+     all at once, on the every-colour image under HSV rows that wrap the
+     hue both ways and clip S and V (two after brightness/contrast ±0.15),
+     on noise over seeds with 0, ±1 and the int32 extremes, on holes
+     touching each edge, at [32, 512, 512, 3], [12, 380, 380, 3],
+     [2, 752, 1000, 3] and [3, 97, 101, 3] (heads and tails off the 8-byte
+     grid), on a view of the last that starts off it and on 40 images with
+     the kinds shuffled; K4 and
      K6 on both axes at [16, 512, 512, 3] and the MM trainer's randaug
      batch [12, 380, 380, 3] (rows of 1140 bytes, not 16-byte aligned): K4
      with the chains' warps (legacy / randaug, ten, crop∘augment, half
@@ -165,6 +171,9 @@ K3_SHAPES = ((16, 512, 512, 3), (1, 3024, 4032, 3), SMALL_ARCHIVE_SHAPE)
 # (mmtrs_tpu/config.py:268,276), whose rows (W·C = 1140 bytes) are not
 # 16-byte aligned
 MM_SHAPE = (12, 380, 380, 3)
+# K5 also at images of 29,391 bytes (97 x 101 x 3), so that their heads and
+# tails fall off the 8-byte grid, and a view of them that starts off it
+K5_ODD_SHAPE = (3, 97, 101, 3)
 # f32 operations per output element of each kernel's formula, each exp, log
 # and division counted as one (so the least the card must issue): the LAB
 # conversions, pows and blends of csrc/*.cu counted line by line. The card
@@ -535,17 +544,6 @@ def _stat(name, fn, args, plain, nbytes, elements, library=None):
     return st
 
 
-def _u8_bar(name, got, want):
-    """u8 kernel output against its plain version: bit-equal expected; the
-    stated fallback bar is max ≤ 1 level on ≥ 99.99 % of values (a
-    transcendental of the card's libm against PyTorch's). Returns the max."""
-    d = (got.int() - want.int()).abs()
-    eq = (d == 0).float().mean().item()
-    err = d.max().item()
-    _check(err == 0 or (err <= 1 and eq >= 0.9999), f"{name} u8 {eq:.6f} bit-equal to plain, max {err}")
-    return float(err)
-
-
 def _warp_mats(torch, B, S, first: str):
     """Forward maps [B, 3, 3] of the warps the chains draw at S²: a third
     from ``first`` (the ``legacy`` or ``randaug`` preset's draws), a third
@@ -623,32 +621,141 @@ def _check_resample(torch, dev, x, xf, gen):
     return [("resample_rows", err, stat)]
 
 
-def _photometric_rows(torch, dev, gen):
-    """K5's arguments at SHAPE: rows that are identity, brightness/contrast,
-    HSV, noise at σ = √5 and √15, dropout, and all members at once (repeated
-    over B); a seed per image; the dropout hole."""
-    B = SHAPE[0]
+def _k5_kinds(hole5, hole6) -> np.ndarray:
+    """K5's seven kinds of rows: identity, brightness/contrast, HSV, noise at
+    σ = √5 and √15, dropout with its hole at ``hole5``, and all members at
+    once with its hole at ``hole6`` ((y0, x0) each)."""
     kinds = np.zeros((7, 10), np.float32)
     kinds[1, :2] = (0.12, -0.09)
     kinds[2, 2:6] = (4.0, -6.0, 8.0, 1.0)
     kinds[3, 6] = np.sqrt(5.0)
     kinds[4, 6] = np.sqrt(15.0)
-    kinds[5, 7:10] = (1.0, 200.0, 301.0)
-    kinds[6] = (-0.07, 0.11, -3.0, 9.0, -5.0, 1.0, np.sqrt(15.0), 1.0, 40.0, 90.0)
-    params = torch.from_numpy(kinds[np.arange(B) % 7]).to(dev)
+    kinds[5, 7:10] = (1.0, *hole5)
+    kinds[6] = (-0.07, 0.11, -3.0, 9.0, -5.0, 1.0, np.sqrt(15.0), 1.0, *hole6)
+    return kinds
+
+
+def _photometric_rows(torch, dev, gen):
+    """K5's arguments at SHAPE: the seven kinds repeated over B, holes at
+    (200, 301) and (40, 90); a seed per image; the dropout hole."""
+    B = SHAPE[0]
+    params = torch.from_numpy(_k5_kinds((200.0, 301.0), (40.0, 90.0))[np.arange(B) % 7]).to(dev)
     seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32).to(dev)
     return params, seeds, SHAPE[1] // 24
 
 
+# K5's mixes, each at u8 [B, 512, 512, 3] synthetic teeth: (a) phase 2's
+# rows; (b) the ``legacy`` chain's own draws for lineages 0..31, the table
+# builder's batch and gate mix; (c) brightness/contrast on every image (the
+# byte floor); (d) every member on every image (the worst case)
+K5_MIXES = ("a", "b", "c", "d")
+
+
+def _photometric_mix(torch, dev, x, mix, gen):
+    """(imgs, params, seeds, hole) of K5's mix ``mix`` (see K5_MIXES); ``x``
+    is phase 2's batch."""
+    from mmtrs_tpu_torch.ops.augment import draw_legacy
+
+    if mix == "a":
+        return (x, *_photometric_rows(torch, dev, gen))
+    B, S = AUG_SHAPE[0], AUG_SHAPE[1]
+    hole = S // 24
+    imgs = _teeth_at(torch, dev, x, AUG_SHAPE)
+    if mix == "b":
+        d = draw_legacy(SEED, range(B), 0, S, S, img_size=S)
+        return imgs, d.params.to(dev), d.seeds.to(dev), hole
+    u = torch.rand((B, 10), generator=gen)
+    p = torch.zeros((B, 10))
+    p[:, 0:2] = u[:, 0:2] * 0.3 - 0.15
+    if mix == "d":
+        p[:, 2] = u[:, 2] * 10.0 - 5.0
+        p[:, 3] = u[:, 3] * 24.0 - 12.0
+        p[:, 4] = u[:, 4] * 16.0 - 8.0
+        p[:, 5] = 1.0
+        p[:, 6] = torch.sqrt(5.0 + 10.0 * u[:, 6])
+        p[:, 7] = 1.0
+        p[:, 8:10] = torch.floor(u[:, 8:10] * (S - hole))
+    seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32)
+    return imgs, p.to(dev), seeds.to(dev), hole
+
+
+def _k5_rows(torch, B, H, W, hole, gen):
+    """(params, seeds) at any shape: the seven kinds cycled, with the holes
+    at the bottom-right corner (dropout) and the top-right one (all)."""
+    kinds = _k5_kinds((H - hole, W - hole), (0.0, W - hole))
+    seeds = torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32)
+    return torch.from_numpy(kinds[np.arange(B) % 7]), seeds
+
+
+def _k5_cases(torch, dev, x, gen):
+    """(what, imgs, params, seeds, hole) of K5's checks besides phase 2's
+    rows: the every-colour image [1, 4096, 4096, 3] under HSV rows that
+    wrap the hue both ways (dh ±5) and clip S (ds ±12) and V (dv ±8), two
+    of them after brightness/contrast ±0.15, one image a row; noise at σ √5
+    and √15 over seeds that include 0, ±1 and the int32 extremes; holes
+    touching each edge; phase 2's kinds (:func:`_k5_rows`) at [32, 512, 512,
+    3], [12, 380, 380, 3], [2, 752, 1000, 3] and [3, 97, 101, 3] (images of
+    29,391 bytes: heads and tails off the 8-byte grid); the view
+    ``imgs[1:]`` of the last, whose input starts at an odd byte, off the
+    grid its output is on; and 40 images of [64, 64] with the kinds shuffled (the
+    kernel ranks the images by their stages, 32 a ballot, and takes the
+    heaviest first). A generator, so that one case is on the card at a time."""
+    B, H, W, _ = SHAPE
+    hole = H // 24
+    every = torch.from_numpy(every_byte_triple()).to(dev)[None]
+    rows = [(dh, ds, dv, 0.0, 0.0) for dh in (-5.0, 5.0) for ds in (-12.0, 12.0) for dv in (-8.0, 8.0)]
+    rows += [(5.0, 12.0, 8.0, 0.15, 0.15), (-5.0, -12.0, -8.0, -0.15, -0.15)]
+    for dh, ds, dv, br, ct in rows:
+        p = torch.tensor([[br, ct, dh, ds, dv, 1.0, 0.0, 0.0, 0.0, 0.0]], device=dev)
+        yield (f"every colour {tuple(every.shape)} HSV ({dh}, {ds}, {dv}), bc ({br}, {ct})",
+               every, p, torch.zeros(1, dtype=torch.int32, device=dev), hole)
+    del every
+    seeds = torch.tensor([0, 1, -1, 2**31 - 1, -(2**31), 12345, -7, 99], dtype=torch.int32)
+    seeds = torch.cat([seeds, torch.randint(-(2**31), 2**31 - 1, (B,), generator=gen, dtype=torch.int32)])[:B]
+    p = torch.zeros((B, 10))
+    p[:, 6] = torch.where(torch.arange(B) % 2 == 0, 5.0, 15.0).sqrt()
+    p[B // 2:, 0:2] = torch.tensor([0.1, -0.12])
+    yield "noise σ √5 / √15, seeds 0, ±1, int32 extremes", x, p.to(dev), seeds.to(dev), hole
+    corners = [(0, 0), (0, W - hole), (H - hole, 0), (H - hole, W - hole),
+               (0, 200), (H - hole, 300), (100, 0), (50, W - hole)]
+    p = torch.zeros((B, 10))
+    p[:, 7] = 1.0
+    p[:, 8:10] = torch.tensor([corners[i % len(corners)] for i in range(B)], dtype=torch.float32)
+    p[1::2, 6] = 15.0**0.5
+    yield "holes touching each edge", x, p.to(dev), seeds.to(dev), hole
+    for shape in (AUG_SHAPE, MM_SHAPE, SMALL_ARCHIVE_SHAPE, K5_ODD_SHAPE):
+        b, h, w, _ = shape
+        imgs, ph = _teeth_at(torch, dev, x, shape), max(1, h // 24)
+        p, s = _k5_rows(torch, b, h, w, ph, gen)
+        yield f"{shape} phase 2's kinds", imgs, p.to(dev), s.to(dev), ph
+    view = imgs[1:]
+    _check(view.data_ptr() % 8 != 0 and view.is_contiguous(), f"the view starts at byte {view.data_ptr() % 8} of 8")
+    yield f"view imgs[1:] of {K5_ODD_SHAPE}", view, p[1:].to(dev), s[1:].to(dev), ph
+    shape = (40, 64, 64, 3)  # more images than a warp ranks in one ballot
+    p, s = _k5_rows(torch, 40, 64, 64, 2, gen)
+    p = p[torch.randperm(40, generator=gen)]
+    yield f"{shape} phase 2's kinds shuffled", _teeth_at(torch, dev, x, shape), p.to(dev), s.to(dev), 2
+
+
 def _check_photometric(torch, dev, x, xf, gen):
-    """K5 on :func:`_photometric_rows`."""
+    """K5 ``torch.equal`` to its plain version on phase 2's rows and on
+    :func:`_k5_cases`; its times on phase 2's rows."""
     from mmtrs_tpu_torch.ops.kernels.photometric import photometric, photometric_ref
 
     params, seeds, hole = _photometric_rows(torch, dev, gen)
-    err = _u8_bar("K5", photometric(x, params, seeds, hole), photometric_ref(x, params, seeds, hole))
+    _equal_u8("K5 phase 2's rows", photometric(x, params, seeds, hole), photometric_ref(x, params, seeds, hole))
+    for what, imgs, p, s, h in _k5_cases(torch, dev, x, gen):
+        _equal_u8(f"K5 {what}", photometric(imgs, p, s, h), photometric_ref(imgs, p, s, h))
     st = _stat("photometric", photometric, (x, params, seeds, hole),
                lambda: photometric_ref(x, params, seeds, hole), _nbytes(x, params, seeds, x), x.numel() // 3)
-    return [("photometric", err, st)]
+    return [("photometric", 0.0, st)]
+
+
+def _equal_u8(what, got, want):
+    """``torch.equal``, with the count of values that differ and the largest
+    difference in the message."""
+    d = (got.int() - want.int()).abs()
+    _check(got.equal(want), f"{what}: equal to plain ({int((d != 0).sum())} values differ, max {int(d.max())})")
 
 
 def _random_passes(torch, gen, B, lines, n, amp=20.0, alphas=(0.9, -1.05)):

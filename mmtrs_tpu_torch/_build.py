@@ -52,7 +52,7 @@ _SIGNATURES = {
     "mmtrs_shift_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_shift_rows_windowed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmtrs_resample_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mmtrs_photometric": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "mmtrs_photometric": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "mmtrs_scatter_rows": (_P, _P, _P, _L, _L, _L, _P),
 }
 

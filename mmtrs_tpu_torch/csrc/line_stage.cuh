@@ -7,7 +7,8 @@
 // be a multiple of 16), so a copy runs on the pointer's aligned 16-byte grid
 // and moves the partial chunks at either end byte by byte. Values go between
 // u8 and f32 by exact magic numbers, not the conversion unit (a quarter-rate
-// pipe on the card), bit for bit what a conversion gives.
+// pipe on the card), bit for bit what a conversion gives; K5
+// (photometric.cu) takes those conversions too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,18 +61,19 @@ __device__ __forceinline__ int chunks_of(int shift, int nbytes) {
 }
 
 // u8 <-> f32 without the conversion unit: b | 0x4B000000 is the float
-// 2^23 + b, so subtracting 2^23 gives b exactly; and the u8 store
-// floor(clip(v, 0, 255) + 0.5) (pixel_io.cuh's q8) is the low byte of
-// (clip(v, 0, 255) + 0.5) + 2^23 added rounding down, which is 2^23 + that
-// floor.
+// 2^23 + b, so subtracting 2^23 gives b exactly; and the chain's u8 store
+// floor(clip(v, 0, 255) + 0.5) (round-half-up, the Pallas kernels'
+// _quant_u8) is the low byte of (clip(v, 0, 255) + 0.5) + 2^23 added
+// rounding down, which is 2^23 + that floor.
 __device__ __forceinline__ float tap_of(const uint8_t* p) {
   return __uint_as_float(0x4B000000u | (uint32_t)*p) - 8388608.0f;
 }
 __device__ __forceinline__ float tap_of(const float* p) { return *p; }
-__device__ __forceinline__ void put(uint8_t* p, float v) {
+__device__ __forceinline__ uint32_t q8_bits(float v) {
   const float y = fminf(fmaxf(v, 0.0f), 255.0f) + 0.5f;
-  *p = (uint8_t)__float_as_uint(__fadd_rd(y, 8388608.0f));
+  return __float_as_uint(__fadd_rd(y, 8388608.0f)) & 0xFFu;
 }
+__device__ __forceinline__ void put(uint8_t* p, float v) { *p = (uint8_t)q8_bits(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // The 4 bytes at p (any alignment) of shared memory, from its two words.

@@ -17,6 +17,7 @@ overflows.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -96,11 +97,41 @@ def supports(H: int, W: int) -> bool:
     return (W * 3) % 128 == 0 and H % 8 == 0
 
 
-def photometric(
-    imgs: torch.Tensor, params: torch.Tensor, seeds: torch.Tensor, hole: int
-) -> torch.Tensor:
-    """K5: u8 RGB [B, H, W, 3], params f32 [B, 10], seeds i32 [B], the
-    dropout hole's side → u8 [B, H, W, 3]."""
+_THREADS = 256  # a K5 block's threads
+_PX = 8  # pixels a K5 thread owns: 24 bytes, three 8-byte words
+_MAX_GRID = 65535  # K5 puts the images on a grid dimension of this size
+
+
+def launch_blocks(H: int, W: int) -> int:
+    """K5's blocks per image: one job per 8-pixel chunk, and room for the
+    job that takes the head and tail (:func:`image_split`) whenever they
+    hold a pixel."""
+    return -(-H * W // (_PX * _THREADS))
+
+
+def image_split(out_addr: int, n: int) -> tuple[int, int, int]:
+    """(head, chunks, tail) of an image of ``n`` pixels whose output starts
+    at byte address ``out_addr``, as the kernel computes them: the ``head``
+    pixels bring the output to its 8-byte grid (3·head = −out_addr mod 8),
+    then ``chunks`` runs of 8 pixels go as whole 8-byte words, then the
+    ``tail`` (< 8 pixels). Head and tail go byte by byte in one thread."""
+    head = min(((8 - out_addr % 8) * 3) % 8, n)
+    chunks = (n - head) // _PX
+    return head, chunks, n - head - _PX * chunks
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_args(B: int, H: int, W: int) -> tuple:
+    """K5's (B, H, W, blocks per image); raises where the grid or an image's
+    32-bit byte offsets do not reach."""
+    if B > _MAX_GRID or 3 * H * W >= 2**31:
+        raise ValueError(f"photometric: at most {_MAX_GRID} images of < 2^31 bytes, got {(B, H, W)}")
+    return B, H, W, launch_blocks(H, W)
+
+
+def _check(imgs: torch.Tensor, params: torch.Tensor, seeds: torch.Tensor, hole: int) -> bool:
+    """Every check of :func:`photometric`, raising with its reason; True
+    when the kernel must launch, False for the CPU plain version."""
     name = "photometric"
     require(name, imgs, torch.uint8, 4)
     require(name, params, torch.float32, 2)
@@ -112,14 +143,34 @@ def photometric(
     require_shape(name, "seeds", seeds, (B,))
     if int(hole) < 1:
         raise ValueError(f"{name}: hole must be >= 1, got {hole}")
-    if not on_cuda(name, imgs, params, seeds):
+    return on_cuda(name, imgs, params, seeds)
+
+
+def photometric(
+    imgs: torch.Tensor, params: torch.Tensor, seeds: torch.Tensor, hole: int
+) -> torch.Tensor:
+    """K5: u8 RGB [B, H, W, 3], params f32 [B, 10], seeds i32 [B], the
+    dropout hole's side → u8 [B, H, W, 3]. The launch path is lean, as
+    K7's: one expression accepts the arguments the kernel takes (every
+    check of :func:`_check`); anything else goes through :func:`_check`,
+    which raises or picks the plain version for CPU tensors."""
+    B = imgs.shape[0] if imgs.dim() == 4 else -1
+    fast = (  # get_device() is an int, where .device builds an object
+        imgs.is_cuda and imgs.get_device() == params.get_device() == seeds.get_device()
+        and imgs.dtype == torch.uint8 and imgs.dim() == 4 and imgs.shape[3] == 3
+        and params.dtype == torch.float32 and params.shape == (B, N_PARAMS)
+        and seeds.dtype == torch.int32 and seeds.shape == (B,) and hole >= 1
+        and imgs.is_contiguous() and params.is_contiguous() and seeds.is_contiguous()
+    )
+    if not fast and not _check(imgs, params, seeds, hole):
         return photometric_ref(imgs, params, seeds, int(hole))
     out = torch.empty_like(imgs)
-    if B:
+    _, H, W, _ = imgs.shape
+    if B and H * W:
         code = _build.kernel("mmtrs_photometric")(
             imgs.data_ptr(), out.data_ptr(), params.data_ptr(), seeds.data_ptr(),
-            B, H, W, float(hole), _build.stream_handle(),
+            *_launch_args(B, H, W), float(hole), _build.stream_handle(),
         )
-        _build.check_launch(name, code)
-        LAUNCHES[name] += 1
+        _build.check_launch("photometric", code)
+        LAUNCHES["photometric"] += 1
     return out
