@@ -32,6 +32,19 @@ port takes: copy this file and chip_smoke.py into an older commit's
 checkout and run it there and here in turns to compare two commits'
 kernels in one call.
 
+    python3 chip_profile.py --service
+
+writes chip_smoke.py phase 8's weights folder, builds the full service
+from it (MM, MIL, Tab, the Stacker) and reads one fused-route request with
+all 9 fields, and its MM and MIL stages alone, under ``torch.profiler``:
+wall and device busy ms, the busy share, the device events launched and
+the largest of them (``full_service``).
+
+    python3 chip_profile.py --bf16-spread
+
+holds that service's bf16 image streams against the same folds read onto
+the CPU, in bf16 and in f32, on phase 4's seven uploads (``bf16_spread``).
+
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
@@ -41,6 +54,7 @@ it too runs on an older checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -357,6 +371,109 @@ def serving_request(torch, dev):
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
+def _busy(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the device's busy
+    ms (DeviceType.CUDA events only: host ops carry a device time too), the
+    share, the device events launched and the 3 largest by device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    items = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in items) / 1e3
+    top = sorted(items, key=lambda e: -e.self_device_time_total)[:3]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "device_events": sum(e.count for e in items),
+            "top_device_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top}}
+
+
+@contextlib.contextmanager
+def _phase8_service(torch, dev):
+    """(weights folder, service): chip_smoke.py phase 8's folder, written
+    anew under build/ (5 bf16 B4 MM folds at 380, 5 bf16 B0 MIL folds, 5
+    forests, the repo's OOF CSVs), and the service built from it on the
+    card; the folder is removed on exit."""
+    import tempfile
+
+    from chip_smoke import _write_weights
+    from mmtrs_tpu_torch.serve.ensembles import build_service_from_weights
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _write_weights(torch, dev, Path(tmp))
+        yield Path(tmp), build_service_from_weights(tmp)
+
+
+def full_service(torch, dev):
+    """Phase 8's service: after a warm-up, one fused-route 512x512 request
+    with all 9 fields, then its MM and MIL stages alone, each under
+    torch.profiler (``_busy``)."""
+    from chip_smoke import FUSED_UPLOADS, _field_rows
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    with _phase8_service(torch, dev) as (_, svc):
+        img = synth_teeth(1, FUSED_UPLOADS[0], seed=SEED + 10, angles_deg=[25.0])[0]
+        fields = _field_rows(1, SEED + 50)[0]
+        tab = encode_fields(fields)
+        for _ in range(2):  # warm-up: cuDNN plans, allocator
+            svc.predict_one(img, fields=fields)
+        proc = svc.preprocess(img)
+        return {"request": _busy(torch, lambda: svc.predict_one(img, fields=fields)),
+                "mm_stage": _busy(torch, lambda: svc.mm_predict(proc, tab)),
+                "mil_stage": _busy(torch, lambda: svc.mil_predict(proc))}
+
+
+def bf16_spread(torch, dev):
+    """Phase 8's image streams on each of phase 4's seven uploads (processed
+    as served): |dp| of the served bf16 MM (with all 9 fields, and
+    without) and MIL streams against the same folds read onto the CPU in
+    bf16 and in f32, and of the MM ensemble in f32 on the card against
+    the CPU (TF32 off): what chip_smoke.py's SERVE_BF16_BAR and
+    SERVE_F32_BAR stand on."""
+    from chip_smoke import FUSED_UPLOADS, PHONE_UPLOADS, _field_rows, _recipe
+    from mmtrs_tpu_torch.models.mil import MILNet
+    from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.serve.ensembles import MILEnsemble, MMEnsemble
+    from mmtrs_tpu_torch.synth import synth_teeth
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tab = encode_fields(_field_rows(1, SEED + 50)[0])
+    with _phase8_service(torch, dev) as (root, svc):
+        mm, mil = svc.mm_predict.__self__, svc.mil_predict.__self__
+        mm16 = MMEnsemble.from_folder(root / "mm_dualtask_v1", device="cpu")
+        mil16 = MILEnsemble.from_folder(root / "mil_v1", device="cpu")
+        mm_r, mil_r = _recipe("mm", "mm_dualtask_fold0"), _recipe("mil", "mil_v1_fold0")
+        f32 = MMJointDualHead(mm_r["model_name"], dtype=torch.float32)
+        mm32, mm32_card = MMEnsemble(mm16.folds, f32, device="cpu"), MMEnsemble(mm.folds, f32, device=dev)
+        mil32 = MILEnsemble([n.state_dict() for n in mil16.nets],
+                            MILNet(mil_r["model_name"], mil_r["attn_dim"], dtype=torch.float32), device="cpu")
+        rows = []
+        for i, shape in enumerate(FUSED_UPLOADS + PHONE_UPLOADS):
+            img = synth_teeth(1, shape, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
+            proc = svc.preprocess(img)
+            row = {"upload": list(shape)}
+            for name, ens, e16, e32, args in (("mm_fields", mm, mm16, mm32, (proc, tab)),
+                                              ("mm_no_fields", mm, mm16, mm32, (proc, None)),
+                                              ("mil", mil, mil16, mil32, (proc,))):
+                p, p16, p32 = ens.predict(*args), e16.predict(*args), e32.predict(*args)
+                row[name] = {"p_card_bf16": p, "dp_cpu_bf16": abs(p - p16), "dp_cpu_f32": abs(p - p32),
+                             "dp_cpu_bf16_vs_f32": abs(p16 - p32)}
+                if e32 is mm32:
+                    row[name]["dp_f32_card_vs_cpu"] = abs(mm32_card.predict(*args) - p32)
+            rows.append(row)
+    streams = ("mm_fields", "mm_no_fields", "mil")
+    return {"uploads": rows,
+            "max_dp_card_vs_cpu_bf16": {k: max(r[k]["dp_cpu_bf16"] for r in rows) for k in streams},
+            "max_dp_f32_card_vs_cpu": max(r[k]["dp_f32_card_vs_cpu"] for r in rows for k in streams[:2])}
+
+
 def _cuobjdump() -> str | None:
     """The toolkit's cuobjdump: on PATH, or beside the nvcc that builds the
     kernels."""
@@ -549,7 +666,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     modes = {"--line-times": line_times,
-             "--sass": lambda torch, dev: {**sass_counts(torch), "K5": k5_sass()}}
+             "--sass": lambda torch, dev: {**sass_counts(torch), "K5": k5_sass()},
+             "--service": full_service,
+             "--bf16-spread": bf16_spread}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)
         print(smi)

@@ -95,10 +95,38 @@ Phases (each raises on failure, so the script exits non-zero):
      the L-plane route (K8, K9, K3 launched, K1/K2 not), metas in order,
      the host batches byte-identical, imgs/s; and a [2, 752, 1000, 3]
      batch (a 750×1000 archive padded to /8) against the same port on the
-     CPU with phase 3's bars.
+     CPU with phase 3's bars;
+  8. the full service from a weights folder: the phase writes one into a
+     temporary directory under build/ through the port's own code, with
+     no JAX: 5 folds of MMJointDualHead("efficientnet_b4") and 5 of
+     MILNet("efficientnet_b0", 128), each a seeded Flax-default init with
+     BatchNorm statistics from synthetic teeth as served (MM: its
+     residual branches scaled by MM_RESIDUAL_SCALE, then at 380² through
+     the three views; its tabular MLP's BatchNorms from seeded rows of
+     encode_fields), written as npz (mm_joint_to_flax /
+     milnet_to_flax + save_npz_checkpoint) beside the repo's recipes
+     (results/rehearsal_r5/{mm,mil}/*.recipe.json) and OOF CSVs, and 5
+     seeded forests shaped like GBDTConfig.stack_tab_like() (700 trees,
+     depth 5, 16 features). build_service_from_weights on its default
+     device, the card, then answers phase 4's seven uploads, without and
+     with all 9 fields (a warm-up, then 3 repetitions): the route's
+     kernels rise and the other route's do not, the streams are
+     {prob_mm, prob_mil} or {prob_mm, prob_mil, prob_tab}, p_indirect lies
+     in [0, 1]; the Stacker's thresholds equal a CPU fit's on the same
+     CSVs (youden within 1e-6); the served MM folds equal the written
+     ones, fold 0 in f32 on the card agrees with the CPU within 1e-3
+     relative on both logits, and the Tab stream within 1e-6; the served
+     bf16 MM and MIL streams (every fold, the three views, the division
+     by T) agree, on one processed upload with and without fields, with
+     ensembles read from the same folder onto the CPU within
+     SERVE_BF16_BAR in p, and the MM ensemble in f32 from the service's
+     folds with the CPU's within SERVE_F32_BAR; prints serve p50 per
+     route with and without fields, and one request's stages
+     (preprocess, MM, MIL, Tab, fuse) on the host clock, a synchronise
+     after each, beside the card's name and power limit.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, and 7); the JSON line of kernels reports K1-K3's and K8-K9's
+preset of 6, 7 and 8); the JSON line of kernels reports K1-K3's and K8-K9's
 launches from the serving run (phase 4), K4-K6's from the augmentation run
 (phase 5) and K7's from the preset runs (phase 6).
 The last line is {"ok": true, "device": {...}}.
@@ -1345,6 +1373,306 @@ def phase_archive(torch, dev):
     return counts, ips
 
 
+# phase 8: the full service from a weights folder, at the repo's recipes
+REHEARSAL = ROOT / "results" / "rehearsal_r5"
+N_FOLDS = 5
+# GBDTConfig.stack_tab_like(): 700 trees, 31 leaves → depth 5 (31 split
+# slots, 32 leaves a tree), on the 16 engineered features
+TAB_TREES, TAB_DEPTH, TAB_FEATURES = 700, 5, 16
+# the scale of each residual MBConv's last BatchNorm in the random MM folds
+# (Flax's init: 1). At 1 the 32 residual branches of a random B4 add up to
+# a net that amplifies small changes of its input: logits in the hundreds,
+# p of 0 or 1 in most folds whatever their T, and bf16 rounding moves p by
+# tenths. Trained residual branches are small; at 0.2 the folds give
+# logits of order 1
+MM_RESIDUAL_SCALE = 0.2
+# |Δp| of an image stream on the card against the same folds on the CPU.
+# In bf16 the two devices round differently through B4's 32 blocks and
+# B0's 16: over phase 4's seven uploads they differ by up to 8.1e-3
+# (`chip_profile.py --bf16-spread` on an H100), where
+# tests/test_torch_service_weights.py's three-layer nets keep the port
+# within 1e-3 of JAX. In f32 (TF32 off) they differ by under 1e-6
+SERVE_BF16_BAR = 2e-2
+SERVE_F32_BAR = 1e-5
+
+
+def _field_rows(n: int, seed: int) -> list[dict]:
+    """n seeded sets of all 9 UI fields."""
+    from mmtrs_tpu_torch.serve.choices import CHOICES_MAP
+
+    rng = np.random.default_rng(seed)
+    return [{k: list(v)[rng.integers(len(v))] for k, v in CHOICES_MAP.items()} for _ in range(n)]
+
+
+def _recipe(stream: str, name: str) -> dict:
+    return json.loads((REHEARSAL / stream / f"{name}.recipe.json").read_text())
+
+
+def _random_forest(torch, rng):
+    """A forest shaped like stack_tab_like's: seeded splits over seeded edges
+    (midpoints of the encodings' values), leaves with the learning rate
+    folded in, a third of the features' edges few and one in eight none."""
+    from mmtrs_tpu_torch.models.gbdt import Forest
+
+    cuts = np.array([-0.5, 0.5, 1.5, 2.5], np.float32)
+    edges = tuple(
+        np.empty(0, np.float32) if rng.random() < 0.125
+        else np.unique(rng.choice(cuts, rng.integers(1, 5))).astype(np.float32)
+        for _ in range(TAB_FEATURES)
+    )
+    n_nodes = 2**TAB_DEPTH - 1
+    sf = rng.integers(0, TAB_FEATURES, (TAB_TREES, n_nodes))
+    n_edges = np.array([len(e) for e in edges])[sf]
+    sb = rng.integers(0, np.maximum(n_edges, 1))
+    return Forest(
+        split_feat=torch.from_numpy(sf), split_bin=torch.from_numpy(sb),
+        leaf_value=torch.from_numpy(rng.normal(0, 0.03, (TAB_TREES, 2**TAB_DEPTH)).astype(np.float32)),
+        depth=TAB_DEPTH, base_score=float(rng.normal(-0.6, 0.1)), n_trees_used=TAB_TREES,
+        objective="binary_logistic", bin_edges=edges,
+    )
+
+
+def _write_weights(torch, dev, root: Path):
+    """The weights folder, through the port's own code: 5 MM folds of
+    MMJointDualHead(efficientnet_b4) and 5 MIL folds of MILNet(efficientnet_b0,
+    128), each a seeded Flax init with BatchNorm statistics from synthetic
+    teeth as served (the MM folds' residual branches scaled down first,
+    MM_RESIDUAL_SCALE), written as npz + the repo's recipes; the repo's
+    OOF CSVs; 5 seeded forests. Returns the MM folds' state dicts."""
+    import shutil
+
+    from mmtrs_tpu_torch.models.backbones.efficientnet import MBConv, calibrate_batchnorm_, lecun_init_
+    from mmtrs_tpu_torch.models.convert import milnet_to_flax, mm_joint_to_flax
+    from mmtrs_tpu_torch.models.mil import MILNet, make_eval_bag
+    from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
+    from mmtrs_tpu_torch.ops.resize import resize_bilinear
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.common import normalize_imagenet
+    from mmtrs_tpu_torch.utils.checkpoint import save_npz_checkpoint
+
+    teeth = torch.from_numpy(synth_teeth(4, 512, seed=SEED + 40, angles_deg=[0.0] * 4)).to(dev)
+    rows = np.array([encode_fields(f) for f in _field_rows(256, SEED + 41)], np.float32)
+    mm_states = []
+    for f in range(N_FOLDS):
+        recipe = _recipe("mm", f"mm_dualtask_fold{f}")
+        s = recipe["img_size"]
+        x = normalize_imagenet(resize_bilinear(teeth.float(), (s, s)))
+        gen = torch.Generator().manual_seed(SEED + 100 + f)
+        net = lecun_init_(MMJointDualHead(recipe["model_name"], dtype=torch.float32), gen).to(dev)
+        with torch.no_grad():
+            for blk in net.backbone.modules():
+                if isinstance(blk, MBConv) and blk.residual:
+                    blk.bn2.weight.fill_(MM_RESIDUAL_SCALE)
+        calibrate_batchnorm_(net.backbone, torch.cat([x, x.flip(2), x.flip(1)]))
+        t = (rows - np.float32(recipe["scaler_mean"])) / np.float32(recipe["scaler_scale"])
+        calibrate_batchnorm_(net.tab_mlp, torch.from_numpy(t).to(dev))
+        sd = {k: v.cpu() for k, v in net.state_dict().items()}
+        save_npz_checkpoint(root / "mm_dualtask_v1" / f"mm_dualtask_fold{f}", mm_joint_to_flax(sd), recipe)
+        mm_states.append(sd)
+    bag = normalize_imagenet(make_eval_bag(teeth))
+    for f in range(N_FOLDS):
+        recipe = _recipe("mil", f"mil_v1_fold{f}")
+        gen = torch.Generator().manual_seed(SEED + 200 + f)
+        net = lecun_init_(MILNet(recipe["model_name"], recipe["attn_dim"], dtype=torch.float32), gen).to(dev)
+        calibrate_batchnorm_(net.encoder, bag)
+        sd = {k: v.cpu() for k, v in net.state_dict().items()}
+        save_npz_checkpoint(root / "mil_v1" / f"mil_v1_fold{f}", milnet_to_flax(sd), recipe)
+    for stream, folder in (("mm", "mm_dualtask_v1"), ("mil", "mil_v1")):
+        shutil.copy(REHEARSAL / stream / "oof_val.csv", root / folder / "oof_val.csv")
+    rng = np.random.default_rng(SEED + 300)
+    for f in range(N_FOLDS):
+        _random_forest(torch, rng).save(root / "tab_v1" / f"tab_fold{f}")
+    return mm_states
+
+
+def phase_serve_weights(torch, dev, smi: str):
+    import tempfile
+
+    from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.ops.resize import resize_bilinear
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.serve.ensembles import MILEnsemble, MMEnsemble, TabEnsemble, build_service_from_weights
+    from mmtrs_tpu_torch.serve.service import Stacker, read_oof_csv
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.common import normalize_imagenet
+
+    t_phase = time.perf_counter()
+    mm_r, mil_r = _recipe("mm", "mm_dualtask_fold0"), _recipe("mil", "mil_v1_fold0")
+    print(f"phase 8: build_service_from_weights: {N_FOLDS} MM folds ({mm_r['model_name']} at "
+          f"{mm_r['img_size']}, bf16, 3 views), {N_FOLDS} MIL folds ({mil_r['model_name']}, bf16), "
+          f"{N_FOLDS} forests ({TAB_TREES} trees, depth {TAB_DEPTH}) and the Stacker")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        mm_states = _write_weights(torch, dev, root)
+        torch.cuda.synchronize()
+        mb = sum(p.stat().st_size for p in root.rglob("*")) / 1e6
+        print(f"  weights folder written in {time.perf_counter() - t0:.2f} s ({mb:.1f} MB)")
+        t0 = time.perf_counter()
+        svc = build_service_from_weights(root)
+        torch.cuda.synchronize()
+        print(f"  service built in {time.perf_counter() - t0:.2f} s (npz reads, 10 nets and 5 forests "
+              f"to the card, the Stacker's Newton on the card)")
+        mm, mil, tab = (getattr(svc, k).__self__ for k in ("mm_predict", "mil_predict", "tab_predict"))
+        _check(svc.device.type == mm.device.type == mil.device.type == tab.device.type == dev.type
+               and len(mm.nets) == len(mil.nets) == len(tab.forests) == N_FOLDS and svc.stacker is not None,
+               f"{N_FOLDS} MM, {N_FOLDS} MIL folds and {N_FOLDS} forests on the card, the Stacker fitted")
+
+        # the Stacker against a CPU fit on the same CSVs: grid thresholds
+        # equal; youden is one of the scores, within the golden test's 1e-6
+        t0 = time.perf_counter()
+        cpu_st = Stacker.fit(*(read_oof_csv(root / d / "oof_val.csv") for d in ("mm_dualtask_v1", "mil_v1")),
+                             device="cpu")
+        cpu_s = time.perf_counter() - t0
+        th, cth = svc.stacker.thresholds, cpu_st.thresholds
+        _check(th["max_f1"] == cth["max_f1"] and th["max_acc"] == cth["max_acc"]
+               and abs(th["youden"] - cth["youden"]) <= 1e-6,
+               f"Stacker thresholds {th} == CPU fit's {cth} (youden within 1e-6); meta2 coef "
+               f"{svc.stacker.meta2.coef_.tolist()} intercept {svc.stacker.meta2.intercept_:.6f} "
+               f"({svc.stacker.meta2.n_iter_} Newton steps; the CPU fit took {cpu_s:.3f} s)")
+        t0 = time.perf_counter()
+        Stacker.fit(*(read_oof_csv(root / d / "oof_val.csv") for d in ("mm_dualtask_v1", "mil_v1")), device=dev)
+        print(f"  the Stacker's fit on the card: {time.perf_counter() - t0:.3f} s "
+              f"({svc.stacker.meta2.n_iter_} steps, one sync each)")
+
+        # every upload of phase 4, on its route, without and with all 9 fields
+        uploads = [
+            synth_teeth(1, s, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
+            for i, s in enumerate(FUSED_UPLOADS + PHONE_UPLOADS)
+        ]
+        fields = _field_rows(1, SEED + 50)[0]
+        for call in ({}, {"fields": fields}):  # warm-up: cuDNN plans, allocator
+            svc.predict_one(uploads[0], **call)
+            svc.predict_one(uploads[-1], **call)
+        torch.cuda.synchronize()
+
+        reset_launches()
+        lat, results = {}, []
+        for rep in range(3):
+            for img in uploads:
+                route, rise, stay = (("fused", SERVE_KERNELS, L_KERNELS) if img.shape[:2] in FUSED_UPLOADS
+                                     else ("L-plane", L_ROUTE_KERNELS, FUSED_KERNELS))
+                for tabular, call in ((False, {}), (True, {"fields": fields})):
+                    before = dict(LAUNCHES)
+                    t0 = time.perf_counter()
+                    r = svc.predict_one(img, **call)
+                    torch.cuda.synchronize()
+                    lat.setdefault((route, tabular), []).append(time.perf_counter() - t0)
+                    if not (all(LAUNCHES[k] > before[k] for k in rise) and all(LAUNCHES[k] == before[k] for k in stay)):
+                        raise AssertionError(f"{route} route not taken for {img.shape}: {before} -> {LAUNCHES}")
+                    if "error" in r:
+                        raise AssertionError(f"request {img.shape} failed: {r['error']}")
+                    want = {"prob_mm", "prob_mil"} | ({"prob_tab"} if tabular else set())
+                    if set(r["streams"]) != want or r["used_tabular"] != tabular:
+                        raise AssertionError(f"streams {sorted(r['streams'])}, wanted {sorted(want)}")
+                    p = r["p_indirect"]
+                    if not (np.isfinite(p) and 0.0 <= p <= 1.0 and r["label"] in ("Direct", "Indirect")
+                            and all(0.0 <= v <= 1.0 for v in r["streams"].values())):
+                        raise AssertionError(f"bad answer {r}")
+                    if r["processed_image"].shape != (512, 512, 3) or r["processed_image"].dtype != np.uint8:
+                        raise AssertionError("processed image is not u8 512x512x3")
+                    if rep == 0:
+                        results.append((img.shape, route, tabular, r))
+        launches = dict(LAUNCHES)
+        for shape, route, tabular, r in results:
+            streams = " ".join(f"{k}={v:.6f}" for k, v in r["streams"].items())
+            print(f"  upload {shape} ({route}, {'fields' if tabular else 'no fields'}): {r['label']} "
+                  f"p_indirect={r['p_indirect']:.6f} thr={r['threshold']:.6f} {streams}")
+        n = sum(len(v) for v in lat.values())
+        _check(True, f"{n} requests answered with the right streams; K1-K3 rose on every fused-route "
+                     f"request and K8, K9, K3 on every L-plane one, the other route's counters unchanged: "
+                     f"{launches}")
+        p50s = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+        for (route, tabular), ms in sorted(p50s.items()):
+            print(f"  serve p50 {route} route, {'all 9 fields' if tabular else 'no fields'}: {ms:.2f} ms "
+                  f"(host clock, {len(lat[(route, tabular)])} requests; {smi})")
+
+        # one request's stages, each ended by a synchronise (3 repetitions,
+        # the median of each stage), per route, with all 9 fields
+        tab_vec = encode_fields(fields)
+        stages = {}
+        for route, img in (("fused", uploads[0]), ("L-plane", uploads[-1])):
+            times = []
+            for _ in range(3):
+                t = [time.perf_counter()]
+                proc = svc.preprocess(img)
+                t.append(time.perf_counter())
+                p_mm = svc.mm_predict(proc, tab_vec)
+                t.append(time.perf_counter())
+                p_mil = svc.mil_predict(proc)
+                t.append(time.perf_counter())
+                p_tab = svc.tab_predict(tab_vec)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                svc.stacker.fuse(p_mm, p_mil, p_tab)
+                t.append(time.perf_counter())
+                times.append(np.diff(t) * 1e3)
+            med = np.median(times, axis=0)
+            stages[route] = dict(zip(("preprocess", "mm", "mil", "tab", "fuse"), med.tolist()))
+            print(f"  stages of one {route} request with fields (host clock, median of 3): "
+                  + ", ".join(f"{k} {v:.2f} ms" for k, v in stages[route].items())
+                  + f"; sum {med.sum():.2f} ms; {smi}")
+
+        # the service's MM folds are the written ones, bit for bit; fold 0 in
+        # f32 on the card against the CPU (TF32 off), both logits of the
+        # three views of one processed upload
+        _check(all(torch.equal(net.state_dict()[k].cpu(), v)
+                   for net, sd in zip(mm.nets, mm_states) for k, v in sd.items()),
+               f"MM folds 0-{N_FOLDS - 1} served == the folds written, through npz and the Flax tree")
+        f0 = mm.folds[0]
+        net = MMJointDualHead(mm_r["model_name"], dtype=torch.float32).eval()
+        net.load_state_dict(mm_states[0])
+        x = torch.from_numpy(svc.preprocess(uploads[1])).float()[None]
+        v = normalize_imagenet(resize_bilinear(x, (f0["img_size"],) * 2))
+        v = torch.cat([v, v.flip(2), v.flip(1)])
+        t = torch.from_numpy(np.tile((np.float32(tab_vec) - f0["mean"]) / f0["scale"], (3, 1)))
+        with torch.no_grad():
+            cpu = net(v, t)
+            gpu = net.to(dev)(v.to(dev), t.to(dev))
+        for name, c, g in zip(("logit_cls", "logit_reg"), cpu, gpu):
+            c, g = c.numpy(), g.cpu().numpy()
+            rel = float(np.max(np.abs(g - c) / np.maximum(1.0, np.abs(c))))
+            _check(rel <= 1e-3, f"MM fold 0 f32 {name} on the card {g.round(6).tolist()} vs CPU "
+                                f"{c.round(6).tolist()}: {rel:.3g} relative")
+
+        # the Tab stream on the card against the CPU on seeded field rows
+        cpu_tab = TabEnsemble.from_folder(root / "tab_v1", device="cpu")
+        d = max(abs(tab.predict_one(encode_fields(f)) - cpu_tab.predict_one(encode_fields(f)))
+                for f in _field_rows(32, SEED + 51))
+        _check(d <= 1e-6, f"TabEnsemble on the card vs CPU on 32 field rows: max |dp| {d:.3g}")
+
+        # the image streams against the same folds read from the folder onto
+        # the CPU, on one processed upload: as served (bf16, every fold, the
+        # three views, the [F, 3] copy and the division by T) within
+        # SERVE_BF16_BAR; and the MM ensemble in f32 from the folds as the
+        # service read them, on the card, against the CPU's within
+        # SERVE_F32_BAR
+        t0 = time.perf_counter()
+        cpu_mm = MMEnsemble.from_folder(root / "mm_dualtask_v1", device="cpu")
+        cpu_mil = MILEnsemble.from_folder(root / "mil_v1", device="cpu")
+        f32 = MMJointDualHead(mm_r["model_name"], dtype=torch.float32)
+        f32_card, f32_cpu = MMEnsemble(mm.folds, f32, device=dev), MMEnsemble(cpu_mm.folds, f32, device="cpu")
+        proc = svc.preprocess(uploads[0])
+        for what, ens, ref, args, bar in (
+            ("MM bf16, fields", mm, cpu_mm, (proc, tab_vec), SERVE_BF16_BAR),
+            ("MM bf16, no fields", mm, cpu_mm, (proc, None), SERVE_BF16_BAR),
+            ("MIL bf16", mil, cpu_mil, (proc,), SERVE_BF16_BAR),
+            ("MM f32, fields", f32_card, f32_cpu, (proc, tab_vec), SERVE_F32_BAR),
+            ("MM f32, no fields", f32_card, f32_cpu, (proc, None), SERVE_F32_BAR),
+        ):
+            got, want = ens.predict(*args), ref.predict(*args)
+            _check(abs(got - want) <= bar,
+                   f"{what} ({N_FOLDS} folds) p {got:.6f} on the card vs {want:.6f} on the CPU: "
+                   f"|dp| {abs(got - want):.3g}, bar {bar}")
+        print(f"  the CPU ensembles' reads and predictions took {time.perf_counter() - t0:.1f} s")
+    _check(not root.exists(), "the weights folder removed")
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, p50s
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -1379,6 +1707,7 @@ def main() -> int:
     aug_launches, aug_ips, legacy_ips = phase_augment(torch, dev)
     preset_launches, preset_rates = phase_presets(torch, dev)
     archive_launches, archive_ips = phase_archive(torch, dev)
+    full_launches, full_p50s = phase_serve_weights(torch, dev, smi)
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -1418,7 +1747,9 @@ def main() -> int:
           f"simple {preset_rates['simple'][0]:.1f} imgs/s at b{PRESET_SHAPE[0]} 512^2, randaug "
           f"{preset_rates['randaug'][0]:.1f} imgs/s at b{RANDAUG_SHAPE[0]} 512^2; preprocess_stream "
           f"{archive_ips:.2f} imgs/s at b{ARCHIVE_SHAPE[0]} {ARCHIVE_SHAPE[1]}x{ARCHIVE_SHAPE[2]} (launches "
-          f"{archive_launches}); total {time.perf_counter() - T_START:.1f} s")
+          f"{archive_launches}); full service (MM B4 x5, MIL B0 x5, Tab, Stacker) p50 "
+          + ", ".join(f"{r} {'fields' if t else 'no fields'} {ms:.2f} ms" for (r, t), ms in sorted(full_p50s.items()))
+          + f" (launches {full_launches}); total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,9 @@ Slice 3 (the other presets and the table builder's device loop):
 Slice 4 (CLAHE on the L plane): the JAX package's second CLAHE route, which
 phone-shaped uploads and native-resolution archives take, and the archive
 pass ``preprocess.preprocess_stream``.
+Slice 10 (the full ensemble): the MM dual-head stream, the tabular GBDT
+stream and the LR Stacker, wired from a weights folder of npz checkpoints
+by ``serve.ensembles.build_service_from_weights``.
 
 The entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

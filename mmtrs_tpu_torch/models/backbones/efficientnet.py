@@ -78,8 +78,9 @@ class ConvSame(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with Flax's arithmetic: (x − mean)·(rsqrt(var + ε)·scale)
-    + bias in f32, cast back to the input dtype."""
+    """Eval-mode BatchNorm over axis 1 (NCHW maps, or [B, C] rows) with Flax's
+    arithmetic: (x − mean)·(rsqrt(var + ε)·scale) + bias in f32, cast back
+    to the input dtype."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -90,7 +91,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
@@ -194,8 +195,9 @@ def calibrate_batchnorm_(module: nn.Module, x: torch.Tensor) -> nn.Module:
 
     def hook(bn, args):
         a = args[0].float()
-        bn.running_mean.copy_(a.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(a.var(dim=(0, 2, 3), unbiased=False))
+        dims = (0,) + tuple(range(2, a.ndim))  # every axis but the channels'
+        bn.running_mean.copy_(a.mean(dim=dims))
+        bn.running_var.copy_(a.var(dim=dims, unbiased=False))
 
     handles = [m.register_forward_pre_hook(hook) for m in module.modules()
                if isinstance(m, BatchNorm)]

@@ -1,12 +1,14 @@
 """Model factory (port of mmtrs_tpu/models/backbones/factory.py) — name →
-backbone module. EfficientNet B0–B5 so far; ConvNeXt and the test net come
-with a later slice."""
+backbone module: EfficientNet B0–B5 and the test net ``test_cnn``
+(TinyNet). ConvNeXt comes with a later slice."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 
 from mmtrs_tpu_torch.models.backbones import efficientnet as _en
+from mmtrs_tpu_torch.models.backbones import tinynet as _tn
 
 MODEL_REGISTRY: dict[str, dict] = {
     **{
@@ -17,6 +19,8 @@ MODEL_REGISTRY: dict[str, dict] = {
         f"tf_efficientnet_{v}_ns": {"family": "efficientnet", "variant": v}
         for v in ("b0", "b1", "b2", "b3", "b4", "b5")
     },
+    # test/CI-only minimal backbone (see tinynet.py)
+    "test_cnn": {"family": "tinynet"},
 }
 
 
@@ -30,9 +34,15 @@ def _spec(model_name: str) -> dict:
 
 def create_model(
     model_name: str, num_classes: int = 2, dtype: torch.dtype = torch.bfloat16
-) -> _en.EfficientNet:
-    return _en.EfficientNet(_spec(model_name)["variant"], num_classes=num_classes, dtype=dtype)
+) -> nn.Module:
+    spec = _spec(model_name)
+    if spec["family"] == "tinynet":
+        return _tn.TinyNet(num_classes=num_classes, dtype=dtype)
+    return _en.EfficientNet(spec["variant"], num_classes=num_classes, dtype=dtype)
 
 
 def feature_dim(model_name: str) -> int:
-    return _en.feature_dim(_spec(model_name)["variant"])
+    spec = _spec(model_name)
+    if spec["family"] == "tinynet":
+        return _tn.feature_dim()
+    return _en.feature_dim(spec["variant"])

@@ -1,11 +1,18 @@
-"""Flax variables → port state dicts (the inverse of
-mmtrs_tpu/models/backbones/convert.py's layout mapping).
+"""Flax variables ↔ port state dicts (the inverse of
+mmtrs_tpu/models/backbones/convert.py's layout mapping, and back).
 
 Input is the JAX package's variables with every leaf already a numpy array
-(``jax.tree.map(np.asarray, variables)``), so this module imports no JAX.
-Layouts: conv HWIO → OIHW, depthwise (kh, kw, 1, C) → (C, 1, kh, kw) (the
-same transpose), Dense [in, out] → Linear [out, in], BatchNorm
-scale/bias/mean/var → weight/bias/running_mean/running_var.
+(``jax.tree.map(np.asarray, variables)``, or a checkpoint read by
+utils/checkpoint.py), so this module imports no JAX. Layouts: conv HWIO →
+OIHW, depthwise (kh, kw, 1, C) → (C, 1, kh, kw) (the same transpose), Dense
+[in, out] → Linear [out, in], BatchNorm scale/bias/mean/var →
+weight/bias/running_mean/running_var. ``*_to_flax`` undoes each step, so a
+round trip gives the Flax tree back bit for bit.
+
+Flax names a backbone built inside a compact module after its class
+(``EfficientNet_0``, ``TinyNet_0``); the port keeps it under one attribute
+(``encoder`` in MILNet, ``backbone`` in MMJointDualHead), and EfficientNet's
+``stage{i}_block{j}`` blocks under ``blocks``.
 """
 
 from __future__ import annotations
@@ -13,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
 _PARAM_NAMES = {"scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_BACKBONES = ("EfficientNet", "TinyNet")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -49,34 +56,81 @@ def _convert_stat(path: str, leaf) -> tuple[str, torch.Tensor]:
     return f"{mod}.{_STAT_NAMES[parts[-1]]}", _tensor(leaf)
 
 
-def _efficientnet_key(key: str, prefix: str) -> str:
-    # Flax names the blocks stage{i}_block{j} at the top level; the port
-    # keeps them in the ``blocks`` ModuleDict
+def _backbone_key(key: str, prefix: str) -> str:
+    # Flax names EfficientNet's blocks stage{i}_block{j} at the top level;
+    # the port keeps them in the ``blocks`` ModuleDict
     head = key.split(".", 1)[0]
     return prefix + ("blocks." + key if head.startswith("stage") else key)
 
 
-def efficientnet_from_flax(variables: dict, prefix: str = "") -> dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of Flax ``EfficientNet`` (numpy leaves) →
-    state dict of the port's ``EfficientNet``."""
+def _from_flax(variables: dict, backbone_attr: str | None = None) -> dict[str, torch.Tensor]:
+    """Every leaf of ``params`` and ``batch_stats``; with ``backbone_attr``
+    the auto-named backbone's leaves go under that attribute."""
     sd = {}
-    for path, leaf in _flatten(variables["params"]).items():
-        k, t = _convert_param(path, leaf)
-        sd[_efficientnet_key(k, prefix)] = t
-    for path, leaf in _flatten(variables["batch_stats"]).items():
-        k, t = _convert_stat(path, leaf)
-        sd[_efficientnet_key(k, prefix)] = t
+    for coll, convert in (("params", _convert_param), ("batch_stats", _convert_stat)):
+        for path, leaf in _flatten(variables.get(coll, {})).items():
+            head, _, rest = path.partition("/")
+            if backbone_attr is not None and head.startswith(_BACKBONES):
+                k, t = convert(rest, leaf)
+                sd[_backbone_key(k, backbone_attr + ".")] = t
+            else:
+                k, t = convert(path, leaf)
+                sd[_backbone_key(k, "") if backbone_attr is None else k] = t
     return sd
+
+
+def efficientnet_from_flax(variables: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of Flax ``EfficientNet`` or ``TinyNet``
+    (numpy leaves) → state dict of the port's module."""
+    return {prefix + k: t for k, t in _from_flax(variables).items()}
+
+
+# TinyNet's Flax tree has the port's names and no blocks to regroup, so
+# the EfficientNet conversion serves it unchanged
+tinynet_from_flax = efficientnet_from_flax
 
 
 def milnet_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """{"params", "batch_stats"} of Flax ``MILNet`` (numpy leaves) → state
     dict of the port's ``MILNet``."""
-    params = dict(variables["params"])
-    enc_name = next(k for k in params if k.startswith("EfficientNet"))
-    enc = {"params": params.pop(enc_name), "batch_stats": variables["batch_stats"][enc_name]}
-    sd = efficientnet_from_flax(enc, prefix="encoder.")
-    for path, leaf in _flatten(params).items():
-        k, t = _convert_param(path, leaf)
-        sd[k] = t
-    return sd
+    return _from_flax(variables, "encoder")
+
+
+def mm_joint_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of Flax ``MMJointDualHead`` (numpy leaves)
+    → state dict of the port's ``MMJointDualHead``."""
+    return _from_flax(variables, "backbone")
+
+
+def _to_flax(sd: dict[str, torch.Tensor], backbone_attr: str) -> dict:
+    name = ("EfficientNet_0" if f"{backbone_attr}.conv_stem.weight" in sd else "TinyNet_0")
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        if mods[0] == backbone_attr:
+            mods = [name] + mods[2:] if mods[1] == "blocks" else [name] + mods[1:]
+        a = t.detach().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and a.ndim > 1:
+            coll, leaf = "params", "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            coll, leaf = "params", "scale" if leaf == "weight" else leaf
+        node = tree[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return tree
+
+
+def milnet_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """State dict of the port's ``MILNet`` → {"params", "batch_stats"} of
+    Flax ``MILNet`` with numpy leaves (the inverse of milnet_from_flax)."""
+    return _to_flax(sd, "encoder")
+
+
+def mm_joint_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """State dict of the port's ``MMJointDualHead`` → {"params",
+    "batch_stats"} of Flax ``MMJointDualHead`` with numpy leaves."""
+    return _to_flax(sd, "backbone")

@@ -38,12 +38,21 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.models.segmenter",
     "mmtrs_tpu_torch.models.backbones.efficientnet",
     "mmtrs_tpu_torch.models.backbones.factory",
+    "mmtrs_tpu_torch.models.backbones.tinynet",
     "mmtrs_tpu_torch.models.mil",
+    "mmtrs_tpu_torch.models.mm_joint",
+    "mmtrs_tpu_torch.models.gbdt",
+    "mmtrs_tpu_torch.models.linear",
     "mmtrs_tpu_torch.models.convert",
+    "mmtrs_tpu_torch.metrics",
+    "mmtrs_tpu_torch.metrics.thresholds",
+    "mmtrs_tpu_torch.utils.checkpoint",
     "mmtrs_tpu_torch.train.common",
+    "mmtrs_tpu_torch.train.tabular",
     "mmtrs_tpu_torch.preprocess",
     "mmtrs_tpu_torch.data",
     "mmtrs_tpu_torch.data.records",
+    "mmtrs_tpu_torch.data.features",
     "mmtrs_tpu_torch.serve.choices",
     "mmtrs_tpu_torch.serve.ensembles",
     "mmtrs_tpu_torch.serve.service",

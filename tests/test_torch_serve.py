@@ -107,7 +107,8 @@ def test_predict_one_matches_jax_mil_service():
 
     flax_net, v = _mil_pair(seed=4)
     jsvc = JaxService(mil_predict=JaxEnsemble([{"variables": v}], flax_net).predict)
-    ens = MILEnsemble([milnet_from_flax(v)], MILNet("efficientnet_b0", 128, dtype=torch.float32))
+    ens = MILEnsemble([milnet_from_flax(v)], MILNet("efficientnet_b0", 128, dtype=torch.float32),
+                      device="cpu")
     svc = PredictService(mil_predict=ens.predict, device="cpu")
 
     upload = synth_teeth(1, 512, seed=8)[0]
@@ -135,7 +136,7 @@ def test_mil_ensemble_matches_jax_with_calibrated_weights():
     proc = preprocess_numpy(synth_teeth(1, 512, seed=8), device="cpu")[0][0]
     want = JaxEnsemble([{"variables": v} for _, v in pairs], flax_net).predict(proc)
     got = MILEnsemble([milnet_from_flax(v) for _, v in pairs],
-                      MILNet("efficientnet_b0", 128, dtype=torch.float32)).predict(proc)
+                      MILNet("efficientnet_b0", 128, dtype=torch.float32), device="cpu").predict(proc)
     assert 0.01 < want < 0.99, want
     assert abs(got - want) <= 1e-4, (got, want)
 
