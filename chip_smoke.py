@@ -6,7 +6,8 @@
 Phases (each raises on failure, so the script exits non-zero):
   0. device: a CUDA card is required (there is no CPU path); prints the
      card's name and power limit, and the torch / CUDA versions;
-  1. build: compiles mmtrs_tpu_torch/csrc/*.cu with nvcc into build/;
+  1. build: compiles mmtrs_tpu_torch/csrc/*.cu with nvcc into build/
+     (phase 9 builds the codec's csrc/host libraries);
   2. kernels vs their plain PyTorch versions on the card, at u8 / f32
      [16, 512, 512, 3]: K1 and K2 torch.equal to plain on every input their
      per-pixel halves can see (K1 on an image of every colour,
@@ -123,12 +124,30 @@ Phases (each raises on failure, so the script exits non-zero):
      folds with the CPU's within SERVE_F32_BAR; prints serve p50 per
      route with and without fields, and one request's stages
      (preprocess, MM, MIL, Tab, fuse) on the host clock, a synchronise
-     after each, beside the card's name and power limit.
+     after each, beside the card's name and power limit;
+  9. the entry points on phase 8's service, before its folder is removed:
+     the codec (nvJPEG on the card, which has no libjpeg: its decode of the
+     committed Pillow goldens within the NVJPEG_* bar, a q95 round trip
+     stable over two runs, PNG exact, the libjpeg backend's build refused
+     by name; decode ms of a 12 MP JPEG, encode ms of a 512² one); the CLI
+     twin (``cli.run_pipeline.main`` on its default device, batch 4) over 9
+     synthetic 12 MP teeth written as JPEGs under build/, one image below
+     400 px and one garbage file: 9 outputs, the two rejects logged, each
+     output before encoding torch.equal to ``preprocess_numpy`` on its
+     decoded, padded batch, K8, K9, K3 and K7 launched and K1/K2 not; its
+     images/s beside phase 7's; the app (``serve.app.make_server`` on an
+     ephemeral port in a thread, stopped after): GET / and /ui, POST
+     /predict with phase 8's seven uploads as JPEG and as PNG, without and
+     with all 9 fields, each answer equal to ``predict_one`` on the decoded
+     upload and each preview PNG to its ``processed_image``, the 300×300
+     and partial-fields refusals with the JAX service's words; HTTP p50
+     beside ``predict_one``'s.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, 7 and 8); the JSON line of kernels reports K1-K3's and K8-K9's
-launches from the serving run (phase 4), K4-K6's from the augmentation run
-(phase 5) and K7's from the preset runs (phase 6).
+preset of 6, 7, 8, and 9's CLI and app runs); the JSON line of kernels
+reports K1-K3's and K8-K9's launches from the serving run (phase 4),
+K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
+(phase 6).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1486,7 +1505,10 @@ def _write_weights(torch, dev, root: Path):
     return mm_states
 
 
-def phase_serve_weights(torch, dev, smi: str):
+def phase_serve_weights(torch, dev, smi: str, then):
+    """Phase 8; ``then(svc, uploads, fields, results)``, phase 9, runs on
+    its service before the weights folder is removed, and its result is
+    returned third."""
     import tempfile
 
     from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
@@ -1668,9 +1690,273 @@ def phase_serve_weights(torch, dev, smi: str):
                    f"{what} ({N_FOLDS} folds) p {got:.6f} on the card vs {want:.6f} on the CPU: "
                    f"|dp| {abs(got - want):.3g}, bar {bar}")
         print(f"  the CPU ensembles' reads and predictions took {time.perf_counter() - t0:.1f} s")
+        print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+        after = then(svc, uploads, fields, results)
     _check(not root.exists(), "the weights folder removed")
-    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, p50s
+    return launches, p50s, after
+
+
+# phase 9: the codec, the CLI twin and the app on the card. The card's
+# machine has no libjpeg, so its JPEG codec is nvJPEG, whose IDCT and
+# chroma upsampling are not libjpeg's. The bar for its decode of the
+# committed goldens against Pillow's, set from a first measurement on the
+# card (PERF.md §6): on every golden a mean |d| of at most NVJPEG_MEAN_BAR
+# levels, at least NVJPEG_EQUAL of the values equal and NVJPEG_WITHIN8
+# within 8 levels; where no chroma is upsampled (4:4:4, grayscale) |d| at
+# most NVJPEG_444_MAX
+GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "codec_goldens.npz"
+NVJPEG_MEAN_BAR = 2.5
+NVJPEG_EQUAL = 0.25
+NVJPEG_WITHIN8 = 0.97
+NVJPEG_444_MAX = 4
+CLI_TEETH = 9  # 12 MP JPEGs through the CLI, beside one small image and one garbage file
+CLI_BATCH = 4
+# PredictService's refusals, as the JAX package's service words them
+# (mmtrs_tpu/serve/service.py)
+LOW_RES_ERROR = "image resolution too low (min edge 300 < 512)"
+PARTIAL_ERROR = "provide all tabular fields or none; missing: "
+
+
+def _codec_checks(torch, dev, smi: str) -> dict:
+    """The goldens against Pillow's decode within the nvJPEG bar, a q95
+    round trip stable over two runs, PNG exact both ways, the CPU backend's
+    build refused by name; decode ms of a 12 MP JPEG, encode ms of a 512²."""
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.utils.codec import decode_image, encode_jpeg, encode_png
+
+    t0 = time.perf_counter()
+    _build.nvjpeg_library()
+    _build.png_library()
+    print(f"  codec libraries built in {time.perf_counter() - t0:.2f} s (nvJPEG by nvcc, PNG by g++)")
+    try:
+        _build.jpeg_library()
+        raise AssertionError("the libjpeg backend built on the card's machine, which has no libjpeg")
+    except RuntimeError as e:
+        _check("libjpeg" in str(e), f"the CPU backend's build raises by name here: {e}")
+    with np.load(GOLDENS) as z:
+        names = sorted({f.rsplit(".", 1)[0] for f in z.files})
+        for name in names:
+            got = decode_image(z[f"{name}.jpg"].tobytes(), dev)
+            want = z[f"{name}.pil"]
+            _check(got.device.type == "cuda" and got.dtype == torch.uint8 and tuple(got.shape) == want.shape,
+                   f"golden {name}: decoded on the card, u8 {tuple(got.shape)}")
+            d = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
+            no_chroma = "444" in name or "gray" in name
+            _check(d.mean() <= NVJPEG_MEAN_BAR and (d == 0).mean() >= NVJPEG_EQUAL
+                   and (d <= 8).mean() >= NVJPEG_WITHIN8 and (d.max() <= NVJPEG_444_MAX or not no_chroma),
+                   f"golden {name} vs Pillow: max |d| {d.max()}, equal {(d == 0).mean():.4f}, within 8 "
+                   f"{(d <= 8).mean():.5f}, mean {d.mean():.4f} (bar: mean <= {NVJPEG_MEAN_BAR}, equal >= "
+                   f"{NVJPEG_EQUAL}, within 8 >= {NVJPEG_WITHIN8}" + (f", max <= {NVJPEG_444_MAX})" if no_chroma else ")"))
+    teeth = _archive_batch()
+    x = torch.from_numpy(teeth[0, :512, 1500:2012]).to(dev).contiguous()
+    a, b = encode_jpeg(x, 95), encode_jpeg(x, 95)
+    da, db = decode_image(a, dev), decode_image(b, dev)
+    _check(a == b and torch.equal(da, db), f"encode_jpeg(x, 95) twice: the same {len(a)} bytes, the same decode")
+    png = encode_png(x)
+    _check(torch.equal(decode_image(png, dev), x), "PNG round trip exact")
+    big = encode_jpeg(torch.from_numpy(teeth[0]).to(dev), 95)
+    timed = {"decode_12mp_ms": (lambda: decode_image(big, dev)), "encode_512_ms": (lambda: encode_jpeg(x, 95)),
+             "png_encode_512_ms": (lambda: encode_png(x)), "png_decode_512_ms": (lambda: decode_image(png, dev))}
+    out = {}
+    for key, fn in timed.items():
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[key] = float(np.median(ts))
+    print(f"  nvJPEG decode of a 12 MP JPEG ({len(big)} bytes, q95 4:2:0) {out['decode_12mp_ms']:.2f} ms, "
+          f"encode of a 512² u8 image {out['encode_512_ms']:.2f} ms; PNG encode {out['png_encode_512_ms']:.2f} ms, "
+          f"decode {out['png_decode_512_ms']:.2f} ms at 512² (host clock, median of 5; {smi})")
+    return out
+
+
+def _cli_check(torch, dev, tmp: Path, archive_ips: float) -> dict:
+    """``cli.run_pipeline.main`` on 9 synthetic 12 MP teeth, one small image
+    and one garbage file, batch 4, on its default device."""
+    from mmtrs_tpu_torch.cli import run_pipeline
+    from mmtrs_tpu_torch.config import PreprocessConfig
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.preprocess import preprocess_numpy
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.utils.codec import encode_jpeg
+    from mmtrs_tpu_torch.utils.images import iter_batches, list_images
+
+    in_dir = tmp / "in"
+    in_dir.mkdir()
+    teeth = torch.from_numpy(_archive_batch()).to(dev)
+    variants = [teeth, teeth.flip(2), teeth[:1].flip(1)]  # as taken, mirrored, upside down
+    for i, img in enumerate(torch.cat(variants)[:CLI_TEETH]):
+        (in_dir / f"tooth_{i}.jpg").write_bytes(encode_jpeg(img.contiguous(), 95))
+    small = torch.from_numpy(synth_teeth(1, (300, 400), seed=SEED + 60)[0]).to(dev)
+    (in_dir / "small.jpg").write_bytes(encode_jpeg(small, 95))
+    (in_dir / "garbage.jpg").write_bytes(np.random.default_rng(SEED).integers(0, 256, 5000, np.uint8).tobytes())
+
+    kept = {}
+    save = run_pipeline.save_jpeg
+
+    def keep(path, img, quality=95):  # the outputs before encoding
+        kept[Path(path).stem] = img.clone()
+        return save(path, img, quality)
+
+    run_pipeline.save_jpeg = keep
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = run_pipeline.main(["--input_dir", str(in_dir), "--output_dir", str(tmp / "out"),
+                                "--log_dir", str(tmp / "logs"), "--batch_size", str(CLI_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        run_pipeline.save_jpeg = save
+    (log_path,) = list((tmp / "logs").glob("preprocess_*.json"))
+    log = json.loads(log_path.read_text())
+    status = {e["file"]: e["status"] for e in log["entries"]}
+    outs = sorted(p.name for p in (tmp / "out").iterdir())
+    _check(rc == 0 and outs == [f"tooth_{i}.jpg" for i in range(CLI_TEETH)] and log["processed"] == CLI_TEETH,
+           f"the CLI wrote {len(outs)} outputs and logged processed {log['processed']} of {log['total']}")
+    _check(status == {"garbage.jpg": "rejected_decode_error", "small.jpg": "rejected_min_edge",
+                      **{f"tooth_{i}.jpg": "ok" for i in range(CLI_TEETH)}}, f"log statuses {status}")
+    _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS + ("scatter_rows",)) and all(counts[k] == 0 for k in FUSED_KERNELS),
+           f"the CLI's run took the L-plane route with deskew's write-back: K8, K9, K3, K7 launched, K1/K2 not: "
+           f"{counts}")
+    _check(all(v.device == torch.device(dev) for v in kept.values()), f"the outputs reached the encoder on {dev}")
+
+    cfg, n = PreprocessConfig(), 0
+    for ok, batch, _ in iter_batches(list_images(in_dir), CLI_BATCH, min_edge=cfg.min_edge_px, device=dev):
+        if not len(batch):
+            continue
+        real = len(batch)
+        batch = torch.cat([batch, batch[-1:].expand(CLI_BATCH - real, -1, -1, -1)])
+        want, _ = preprocess_numpy(batch.cpu().numpy(), cfg, device=dev)
+        for i, path in enumerate(ok[:real]):
+            got = kept[path.stem]
+            _check(torch.equal(got.cpu(), torch.from_numpy(want[i])),
+                   f"{path.name}: the CLI's u8 output == preprocess_numpy on its decoded, padded batch")
+            n += 1
+    _check(n == CLI_TEETH, f"{n} outputs held against preprocess_numpy")
+    print(f"  the CLI: {log['imgs_per_sec']:.2f} imgs/s over its loop (nvJPEG decode, the Pillow-route feed, "
+          f"preprocess_stream, nvJPEG encode, file writes), {CLI_TEETH / wall:.2f} imgs/s for the whole main() "
+          f"({wall:.2f} s); preprocess_stream alone (phase 7) {archive_ips:.2f} imgs/s")
+    return {"imgs_per_sec": log["imgs_per_sec"], "main_imgs_per_sec": CLI_TEETH / wall, "launches": counts}
+
+
+def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
+    """``serve_http`` on an ephemeral port over phase 8's service: GET / and
+    /ui; POST /predict with phase 8's seven uploads as JPEG and as PNG,
+    without and with all 9 fields, each answer against ``predict_one`` on
+    the decoded upload (a PNG decodes to the upload itself, so phase 8's
+    answers are the reference) and its preview against
+    ``processed_image``; the two refusals."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.serve import app
+    from mmtrs_tpu_torch.utils.codec import decode_image, decode_png, encode_jpeg, encode_png
+
+    httpd = app.make_server(svc, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def post(body: dict) -> tuple[int, dict, float]:
+        req = urllib.request.Request(f"{url}/predict", data=json.dumps(body).encode(), method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req) as r:
+                code, out = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, out = e.code, json.loads(e.read())
+        return code, out, time.perf_counter() - t0
+
+    try:
+        with urllib.request.urlopen(f"{url}/") as r:
+            schema = json.loads(r.read())
+        _check(set(schema) == {"fields", "threshold_modes", "metrics"} and len(schema["fields"]) == 9,
+               f"GET / answers the schema ({len(schema['fields'])} fields, {schema['threshold_modes']})")
+        with urllib.request.urlopen(f"{url}/ui") as r:
+            page = r.read().decode()
+        _check("<title>Tooth Restoration Selection (H100)</title>" in page and 'id="proc"' in page,
+               f"GET /ui answers the page ({len(page)} bytes)")
+
+        ref = {(shape, tabular): r for shape, _, tabular, r in results}
+        http_ms, one_ms = {}, []
+        reset_launches()
+        for img in uploads:
+            x = torch.from_numpy(img).to(dev)
+            for fmt, raw in (("jpeg", encode_jpeg(x, 95)), ("png", encode_png(img))):
+                b64 = base64.b64encode(raw).decode()
+                decoded = decode_image(raw, dev)
+                if fmt == "png":
+                    _check(torch.equal(decoded, x), f"{img.shape} as PNG decodes to the upload itself")
+                for tabular, call in ((False, {}), (True, {"fields": fields})):
+                    code, got, dt = post({"image_b64": b64, "include_processed": True, **call})
+                    http_ms.setdefault(fmt, []).append(dt * 1e3)
+                    if fmt == "png":
+                        want = ref[(img.shape, tabular)]
+                    else:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        want = svc.predict_one(decoded, **call)
+                        torch.cuda.synchronize()
+                        one_ms.append((time.perf_counter() - t0) * 1e3)
+                    same = code == 200 and all(got[k] == want[k] for k in ("p_indirect", "threshold", "label", "streams"))
+                    if not same:
+                        raise AssertionError(f"{img.shape} {fmt} {'fields' if tabular else 'no fields'}: HTTP {code} "
+                                             f"{ {k: v for k, v in got.items() if k != 'processed_image_b64'} } "
+                                             f"!= predict_one {want['p_indirect']} {want['streams']}")
+                    preview = decode_png(base64.b64decode(got["processed_image_b64"]))
+                    if not np.array_equal(preview, want["processed_image"]):
+                        raise AssertionError(f"{img.shape} {fmt}: the preview PNG is not processed_image")
+        counts = dict(LAUNCHES)
+        n = sum(len(v) for v in http_ms.values())
+        _check(True, f"{n} POST /predict answers == predict_one on the decoded upload (p_indirect, threshold, "
+                     f"label, streams) and {n} previews == processed_image")
+        _check(all(counts[k] > 0 for k in SERVE_KERNELS + L_KERNELS + ("scatter_rows",)),
+               f"the app's requests ran K1-K3 (fused route), K8/K9 (L-plane route), K7: {counts}")
+
+        code, low, _ = post({"image_b64": base64.b64encode(encode_png(uploads[0][:300, :300])).decode()})
+        _check(code == 400 and low == {"error": LOW_RES_ERROR}, f"a 300x300 upload: {code} {low}")
+        partial = {k: fields[k] for k in list(fields)[:2]}
+        code, part, _ = post({"image_b64": base64.b64encode(encode_png(uploads[0])).decode(), "fields": partial})
+        missing = [k for k in fields if k not in partial]
+        _check(code == 400 and part == {"error": PARTIAL_ERROR + str(missing)}, f"two of 9 fields: {code} {part}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    _check(not thread.is_alive(), "the server thread stopped")
+    p50 = {fmt: float(np.median(v)) for fmt, v in http_ms.items()}
+    p50["predict_one"] = float(np.median(one_ms))
+    print(f"  HTTP p50: JPEG uploads {p50['jpeg']:.2f} ms, PNG uploads {p50['png']:.2f} ms (base64, decode on the "
+          f"card, predict_one, PNG preview, JSON); predict_one alone on the decoded JPEG uploads "
+          f"{p50['predict_one']:.2f} ms (host clock, {len(http_ms['jpeg'])} requests each; {smi})")
+    return {"http_p50_ms": p50, "launches": counts}
+
+
+def phase_entry_points(torch, dev, smi: str, archive_ips: float):
+    """Phase 9, run by phase 8 on its service (``then``)."""
+    import tempfile
+
+    def run(svc, uploads, fields, results):
+        t_phase = time.perf_counter()
+        print("phase 9: the codec (nvJPEG on the card, PNG on the host), the CLI twin and the app on the card")
+        codec = _codec_checks(torch, dev, smi)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            cli = _cli_check(torch, dev, Path(tmp), archive_ips)
+        served = _app_check(torch, dev, svc, uploads, fields, results, smi)
+        seconds = time.perf_counter() - t_phase
+        print(f"  phase 9 took {seconds:.1f} s")
+        return {"codec": codec, "cli": cli, "app": served, "seconds": seconds}
+
+    return run
 
 
 def main() -> int:
@@ -1707,7 +1993,8 @@ def main() -> int:
     aug_launches, aug_ips, legacy_ips = phase_augment(torch, dev)
     preset_launches, preset_rates = phase_presets(torch, dev)
     archive_launches, archive_ips = phase_archive(torch, dev)
-    full_launches, full_p50s = phase_serve_weights(torch, dev, smi)
+    full_launches, full_p50s, entry = phase_serve_weights(
+        torch, dev, smi, then=phase_entry_points(torch, dev, smi, archive_ips))
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -1749,7 +2036,11 @@ def main() -> int:
           f"{archive_ips:.2f} imgs/s at b{ARCHIVE_SHAPE[0]} {ARCHIVE_SHAPE[1]}x{ARCHIVE_SHAPE[2]} (launches "
           f"{archive_launches}); full service (MM B4 x5, MIL B0 x5, Tab, Stacker) p50 "
           + ", ".join(f"{r} {'fields' if t else 'no fields'} {ms:.2f} ms" for (r, t), ms in sorted(full_p50s.items()))
-          + f" (launches {full_launches}); total {time.perf_counter() - T_START:.1f} s")
+          + f" (launches {full_launches}); the CLI twin {entry['cli']['imgs_per_sec']:.2f} imgs/s at 12 MP; "
+          f"HTTP p50 JPEG {entry['app']['http_p50_ms']['jpeg']:.2f} ms, PNG {entry['app']['http_p50_ms']['png']:.2f} "
+          f"ms; nvJPEG decode 12 MP {entry['codec']['decode_12mp_ms']:.2f} ms, encode 512² "
+          f"{entry['codec']['encode_512_ms']:.2f} ms; phase 9 {entry['seconds']:.1f} s; "
+          f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,12 @@ pass ``preprocess.preprocess_stream``.
 Slice 10 (the full ensemble): the MM dual-head stream, the tabular GBDT
 stream and the LR Stacker, wired from a weights folder of npz checkpoints
 by ``serve.ensembles.build_service_from_weights``.
+Slice 11 (the entry points and their codec): ``utils/codec.py``, JPEG and
+PNG without Pillow (nvJPEG on the card, the system libjpeg on the CPU,
+host C in ``csrc/host/``), ``utils/images.py`` and two user entry points:
+
+    python -m mmtrs_tpu_torch.serve.app --weights <dir>      # the HTTP app
+    python -m mmtrs_tpu_torch.cli.run_pipeline --input_dir <in> --output_dir <out>
 
 The entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

@@ -57,6 +57,24 @@ _SIGNATURES = {
 }
 
 
+# C entry points of the codec's host libraries (csrc/host/*.cpp); each
+# returns a status, and a pointer or a 64-bit length is never cut to a C int
+_HOST_SIGNATURES = {
+    "mmtrs_png_unfilter": (_P, _I, _L, _I, _P),
+    "mmtrs_jpeg_info": (_P, _L, _P),
+    "mmtrs_jpeg_decode": (_P, _L, _P, _I, _I),
+    "mmtrs_jpeg_decode_paths": (_P, _I, _I, _I, _P, _P, _P),
+    "mmtrs_jpeg_encode": (_P, _I, _I, _I, _P, _P),
+    "mmtrs_codec_free": (_P,),
+    "mmtrs_nvjpeg_info": (_P, _L, _P),
+    "mmtrs_nvjpeg_decode": (_P, _L, _P, _I, _I, _I, _P),
+    "mmtrs_nvjpeg_encode": (_P, _I, _I, _I, _P, _P, _P),
+    "mmtrs_nvjpeg_free": (_P,),
+}
+HOST_CSRC = CSRC / "host"
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # g++; nvcc passes -fPIC on with -Xcompiler
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -126,6 +144,81 @@ def library() -> ctypes.CDLL:
 
 
 library.build_seconds = 0.0  # seconds the last nvcc run took (0: cached)
+
+
+def _build_host(name: str, source: str, compiler: list[str], libs: tuple[str, ...]) -> ctypes.CDLL:
+    """Compile ``csrc/host/<source>`` with ``compiler`` (the program and its
+    flags) into ``build/.../lib<name>_<hash>.so`` once per source hash, load
+    it and bind its ``_HOST_SIGNATURES``."""
+    src = HOST_CSRC / source
+    h = hashlib.sha256(" ".join((*compiler[1:], *libs)).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [*compiler, str(src), "-o", str(tmp), *libs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"building {source} failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for fn_name, argtypes in _HOST_SIGNATURES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("the image codec's host code needs g++, which is not on PATH")
+    return found
+
+
+def _find_header(header: str, dirs: list[Path]) -> None:
+    if not any((d / header).exists() for d in dirs):
+        raise RuntimeError(f"{header} not found under {', '.join(map(str, dirs))}")
+
+
+@functools.cache
+def png_library() -> ctypes.CDLL:
+    """The PNG row unfilter (``csrc/host/png.cpp``); needs only g++."""
+    return _build_host("mmtrs_png", "png.cpp", [_gxx(), *HOST_FLAGS], ())
+
+
+@functools.cache
+def jpeg_library() -> ctypes.CDLL:
+    """The CPU backend's JPEG codec on the system libjpeg
+    (``csrc/host/codec.cpp``, ``-ljpeg``); raises naming libjpeg when its
+    header or library is missing."""
+    gxx = _gxx()
+    try:
+        _find_header("jpeglib.h", [Path("/usr/include"), Path("/usr/local/include")])
+    except RuntimeError as e:
+        raise RuntimeError(f"the CPU JPEG codec needs libjpeg: {e}") from None
+    return _build_host("mmtrs_codec", "codec.cpp", [gxx, *HOST_FLAGS], ("-ljpeg",))
+
+
+@functools.cache
+def nvjpeg_library() -> ctypes.CDLL:
+    """The card backend's JPEG codec on the CUDA toolkit's nvJPEG
+    (``csrc/host/nvjpeg.cpp``, built by nvcc with ``-lnvjpeg``); raises
+    without a CUDA device, nvcc or nvJPEG."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the nvJPEG codec needs a CUDA device; none is visible")
+    nvcc = _nvcc()
+    cuda_home = Path(nvcc).resolve().parent.parent
+    try:
+        _find_header("nvjpeg.h", [cuda_home / "include"])
+    except RuntimeError as e:
+        raise RuntimeError(f"the card's JPEG codec needs nvJPEG: {e}") from None
+    flags = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-shared")
+    return _build_host("mmtrs_nvjpeg", "nvjpeg.cpp", [nvcc, *flags], ("-lnvjpeg",))
+
 
 _BOUND: dict[str, ctypes._CFuncPtr] = {}
 

@@ -189,10 +189,12 @@ def pipelined_run(device_fn, host_batches, device: str | torch.device | None = N
       ``device_fn`` on it (the launches are asynchronous on the card);
     - a fetch thread copies batch N−1's results back while batch N runs.
 
-    ``host_batches``: iterator of (meta, np.ndarray). ``device_fn``: tensor
-    on ``device`` → tensor, or a dict / tuple / list of tensors. Yields
-    (meta, the same structure of numpy arrays) in input order; ``depth``
-    bounds the batches in flight. ``device`` None is the card."""
+    ``host_batches``: iterator of (meta, np.ndarray or tensor); a batch
+    the feeder made on ``device`` already (the CLI decodes on the card) is
+    used where it lies. ``device_fn``: tensor on ``device`` → tensor, or a
+    dict / tuple / list of tensors. Yields (meta, the same structure of
+    numpy arrays) in input order; ``depth`` bounds the batches in flight.
+    ``device`` None is the card."""
     dev = resolve_device(device)
     it = iter(host_batches)
 
@@ -201,8 +203,8 @@ def pipelined_run(device_fn, host_batches, device: str | torch.device | None = N
         if item is None:
             return None
         meta, host = item
-        x = torch.from_numpy(np.ascontiguousarray(host))
-        return meta, (x.pin_memory() if dev.type == "cuda" else x)
+        x = host if isinstance(host, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(host))
+        return meta, (x.pin_memory() if dev.type == "cuda" and x.device.type == "cpu" else x)
 
     with ThreadPoolExecutor(1) as feeder, ThreadPoolExecutor(1) as fetcher:
         pending: list = []
@@ -229,9 +231,10 @@ def preprocess_stream(
     device: str | torch.device | None = None,
 ):
     """Pipelined preprocessing over a stream of (meta, uint8 [B, H, W, 3])
-    host batches (mmtrs_tpu/preprocess.py:293-321): the u8 cast happens on
-    the device before the copy back. Yields (meta, out_u8 [B, out, out, 3],
-    info dict of numpy arrays) in input order. ``device`` None is the card."""
+    batches, host numpy or tensors (mmtrs_tpu/preprocess.py:293-321): the
+    u8 cast happens on the device before the copy back. Yields (meta,
+    out_u8 [B, out, out, 3], info dict of numpy arrays) in input order.
+    ``device`` None is the card."""
     fn = lambda x: preprocess_u8(x, cfg, segmenter)
     for meta, (out_u8, info) in pipelined_run(fn, host_batches, device=device):
         yield meta, out_u8, info

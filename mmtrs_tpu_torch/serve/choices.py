@@ -2,7 +2,8 @@
 ui/gradio_app/app.py:50-86 CHOICES_MAP).
 
 Kept in the port so that it imports nothing of the JAX package;
-tests/test_torch_hygiene.py holds the two to the same maps.
+tests/test_torch_hygiene.py holds the two to the same maps, and
+tests/test_torch_app.py to the same threshold modes.
 """
 
 CHOICES_MAP: dict[str, dict[str, int]] = {
@@ -23,6 +24,8 @@ CHOICES_MAP: dict[str, dict[str, int]] = {
 }
 
 FIELD_ORDER = list(CHOICES_MAP.keys())
+
+THRESHOLD_MODES = ["max_f1", "max_acc", "youden", "target_prec", "target_rec"]
 
 
 def encode_fields(fields: dict[str, str]) -> list[float]:

@@ -143,8 +143,11 @@ class PredictService:
 
     # -- pipeline ------------------------------------------------------------
 
-    def preprocess(self, image: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+    def preprocess(self, image: np.ndarray | torch.Tensor) -> np.ndarray:
+        """One upload, a host array or a tensor (an upload the codec decoded
+        on the card stays there) → u8 [512, 512, 3] numpy."""
+        x = image if isinstance(image, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(image))
+        x = x.to(self.device)
         if self.bucket_shapes:
             h, w = image.shape[:2]
             bh, bw = serve_bucket_shape(h, w)
@@ -155,7 +158,7 @@ class PredictService:
 
     def predict_one(
         self,
-        image: np.ndarray,
+        image: np.ndarray | torch.Tensor,
         fields: dict[str, str | None] | None = None,
         thr_mode: str = "max_f1",
         threshold: float | None = None,
@@ -172,7 +175,7 @@ class PredictService:
         if missing:
             return {"error": f"provide all tabular fields or none; missing: {missing}"}
 
-        proc = self.preprocess(np.ascontiguousarray(image))
+        proc = self.preprocess(image)
 
         streams: dict[str, float] = {}
         tab_vec = encode_fields(fields) if use_tab else None

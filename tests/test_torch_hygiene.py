@@ -56,6 +56,12 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.serve.choices",
     "mmtrs_tpu_torch.serve.ensembles",
     "mmtrs_tpu_torch.serve.service",
+    "mmtrs_tpu_torch.utils.codec",
+    "mmtrs_tpu_torch.utils.images",
+    "mmtrs_tpu_torch.utils.io",
+    "mmtrs_tpu_torch.serve.app",
+    "mmtrs_tpu_torch.cli",
+    "mmtrs_tpu_torch.cli.run_pipeline",
 ]
 
 
@@ -272,6 +278,22 @@ def test_signatures_match_the_c_entry_points():
     assert set(found) == set(_build._SIGNATURES)
     for name, types in found.items():
         assert list(_build._SIGNATURES[name]) == types, name
+
+
+def test_host_signatures_match_the_codec_entry_points():
+    """Every ``extern "C"`` entry point of csrc/host/*.cpp (the codec's host
+    libraries) has a ``_HOST_SIGNATURES`` entry with one ctypes type per
+    parameter, in order, and no entry names a function the sources lack."""
+    from mmtrs_tpu_torch import _build
+
+    found = {}
+    for src in sorted(_build.HOST_CSRC.glob("*.cpp")):
+        text = " ".join(src.read_text().split())
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = [_CTYPES[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert set(found) == set(_build._HOST_SIGNATURES)
+    for name, types in found.items():
+        assert list(_build._HOST_SIGNATURES[name]) == types, name
 
 
 @pytest.mark.parametrize("preset", ["none", "legacy", "ten", "simple", "randaug"])
