@@ -45,6 +45,15 @@ the largest of them (``full_service``).
 holds that service's bf16 image streams against the same folds read onto
 the CPU, in bf16 and in f32, on phase 4's seven uploads (``bf16_spread``).
 
+    python3 chip_profile.py --train
+
+one bf16 train step of the MM trainer at MMJointConfig's widths (B4 at
+380, batch 12, randaug on 512² u8 rows, as chip_smoke.py phase 10 runs
+it): each stage's host-clock ms (prep, forward, backward, AdamW; median of
+5, each ending in a synchronise), then the prep and the step under
+``torch.profiler`` (``_busy``: wall and device busy ms, the device events,
+the largest items) and the host syncs a step makes (``train_step``).
+
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
@@ -371,10 +380,11 @@ def serving_request(torch, dev):
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
-def _busy(torch, fn) -> dict:
+def _busy(torch, fn, top_n: int = 3) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, the device's busy
     ms (DeviceType.CUDA events only: host ops carry a device time too), the
-    share, the device events launched and the 3 largest by device ms."""
+    share, the device events launched and the ``top_n`` largest by device
+    ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -385,7 +395,7 @@ def _busy(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     items = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in items) / 1e3
-    top = sorted(items, key=lambda e: -e.self_device_time_total)[:3]
+    top = sorted(items, key=lambda e: -e.self_device_time_total)[:top_n]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "device_events": sum(e.count for e in items),
             "top_device_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top}}
@@ -426,6 +436,79 @@ def full_service(torch, dev):
         return {"request": _busy(torch, lambda: svc.predict_one(img, fields=fields)),
                 "mm_stage": _busy(torch, lambda: svc.mm_predict(proc, tab)),
                 "mil_stage": _busy(torch, lambda: svc.mil_predict(proc))}
+
+
+def train_step(torch, dev):
+    """The MM trainer's bf16 step on chip_smoke.py phase 10's widths: 24
+    synthetic 512² teeth on the card, random fields and labels, after 3
+    warm-up steps: stage ms on the host clock, then ``_busy`` of the prep
+    and of forward + backward + AdamW, and the host syncs of one whole step
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+
+    from mmtrs_tpu_torch.config import MMJointConfig
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.common import bce_logits
+    from mmtrs_tpu_torch.train.mm import MMTrainer
+
+    cfg = MMJointConfig()
+    rng = np.random.default_rng(SEED + 70)
+    n = 24
+    imgs = torch.from_numpy(synth_teeth(n, 512, seed=SEED + 71)).to(dev)
+    tab = torch.from_numpy(rng.normal(0, 1, (n, 9)).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)).to(dev)
+    p = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    tr = MMTrainer(cfg)
+    tr.init_state(100)
+    batches = [np.sort(rng.choice(n, cfg.batch_size, replace=False)) for _ in range(12)]
+
+    def args(i):
+        sel = batches[i % len(batches)]
+        sel_d = torch.from_numpy(sel).to(dev)
+        return sel, sel_d
+
+    def prep(i):
+        sel, sel_d = args(i)
+        return tr._prep_train(imgs.index_select(0, sel_d), sel, 0), sel_d
+
+    for i in range(3):  # warm-up: cuDNN plans, allocator, lazy modules
+        x, sel_d = prep(i)
+        tr.train_step(x, tab[sel_d], y[sel_d], p[sel_d])
+    stages = {"prep": [], "forward": [], "backward": [], "adamw": []}
+    for i in range(5):
+        t = [time.perf_counter()]
+        x, sel_d = prep(i)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        lc, lr_ = tr.model(x, tab[sel_d], generator=tr.gen)
+        loss = cfg.alpha_hard * bce_logits(lc, y[sel_d]) + cfg.beta_soft * bce_logits(lr_, p[sel_d])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tr.opt.zero_grad()
+        loss.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tr.opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, b in zip(stages, t, t[1:]):
+            stages[k].append((b - a) * 1e3)
+    x, sel_d = prep(5)
+    out = {"stage_ms": {k: float(np.median(v)) for k, v in stages.items()},
+           "prep": _busy(torch, lambda: prep(6)),
+           "step": _busy(torch, lambda: tr.train_step(x, tab[sel_d], y[sel_d], p[sel_d]), top_n=8)}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            x, sel_d = prep(7)
+            tr.train_step(x, tab[sel_d], y[sel_d], p[sel_d])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs_per_step"] = sum("synchroniz" in str(w.message) for w in caught)
+    out["params"] = sum(q.numel() for q in tr.model.parameters())
+    return out
 
 
 def bf16_spread(torch, dev):
@@ -668,6 +751,7 @@ def main() -> int:
     modes = {"--line-times": line_times,
              "--sass": lambda torch, dev: {**sass_counts(torch), "K5": k5_sass()},
              "--service": full_service,
+             "--train": train_step,
              "--bf16-spread": bf16_spread}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)

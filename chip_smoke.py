@@ -141,10 +141,25 @@ Phases (each raises on failure, so the script exits non-zero):
      with all 9 fields, each answer equal to ``predict_one`` on the decoded
      upload and each preview PNG to its ``processed_image``, the 300×300
      and partial-fields refusals with the JAX service's words; HTTP p50
-     beside ``predict_one``'s.
+     beside ``predict_one``'s;
+ 10. training the MM stream (the rehearsal's stages 2-4 at
+     MMJointConfig's widths: B4 at 380, batch 12, bf16, randaug; depth cut
+     to 24 cases, 2 folds, 1 epoch): 24 raw 512² synthetic teeth with 9
+     seeded fields and labels through preprocess_batch (K1-K3),
+     build_augmented_table(n_aug=2, legacy) (K4, K5, K7, and K1/K2, K6 as
+     drawn), run_mm_kfold with save_ckpts into a temporary folder (randaug:
+     K4, K7): every step loss finite, every fold's parameters and running
+     statistics moved, the npz folds, recipes, CSVs, summary.json and
+     metrics.jsonl written; build_service_from_weights on that folder
+     answers phase 4's seven uploads without and with fields, each p within
+     SERVE_BF16_BAR of trainer.predict_proba on the same processed image;
+     6 bf16 steps timed one by one (prep and step ms, imgs/s) and the run's
+     peak memory; one f32 step of B4 at 380 (batch 2, no augmentation or
+     dropout) on the card against the CPU within the F32_* bars; its
+     seconds per stage and kernel launches per stage on earlier lines.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, 7, 8, and 9's CLI and app runs); the JSON line of kernels
+preset of 6, 7, 8, 9's CLI and app runs, and each stage of 10); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -1959,6 +1974,303 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
     return run
 
 
+# phase 10: train the MM stream on the card, the rehearsal's stages 2-4
+# (scripts/rehearsal.py:172-216) at the MMJointConfig defaults' widths (B4 at
+# 380, batch 12, bf16 activations, f32 parameters and AdamW state, randaug),
+# depth cut to TRAIN_CASES cases, TRAIN_FOLDS folds and 1 epoch
+TRAIN_CASES = 24
+TRAIN_AUG = 2
+TRAIN_FOLDS = 2
+TRAIN_TIMED_STEPS = 6  # bf16 steps timed one by one after the k-fold run
+# one f32 step of B4 at 380 (batch 2, no augmentation, every dropout and
+# drop-path rate 0) on the card (TF32 off) against the same step on the CPU:
+# the loss within F32_LOSS_BAR relative (phase 8's f32 logits bar is 1e-3);
+# every gradient leaf within F32_GRAD_BAR of its max |g|, except the biases
+# whose gradient is 0 in exact arithmetic (_zero_grad_leaves: both
+# devices give rounding noise, held under F32_ZERO_GRAD_BAR of the largest
+# gradient); the
+# running statistics within F32_STATS_BAR relative; after the AdamW step,
+# every parameter element whose gradient exceeds 1e-3 of its leaf's max on
+# both devices within F32_PARAM_BAR (elsewhere AdamW's g / (|g| + eps) may
+# move the two by up to 2 lr)
+F32_STEP_BATCH = 2
+F32_LOSS_BAR = 1e-4
+F32_GRAD_BAR = 1e-2
+F32_STATS_BAR = 1e-3
+F32_PARAM_BAR = 1e-5
+F32_ZERO_GRAD_BAR = 1e-3  # measured 9.07e-5 on an H100 (B4's summed spatial maps cancel in f32)
+TRAIN_KERNELS = ("resample_rows", "scatter_rows")  # randaug: K4 warp, K7 erasing write-back
+# the legacy table's chain on every batch: K4 warp, K5 photometric, K7
+# gated write-backs (K1/K2's CLAHE member and K6's elastic fire by draw)
+LEGACY_TABLE_KERNELS = ("resample_rows", "photometric", "scatter_rows")
+
+
+def _zero_grad_leaves(model) -> set[str]:
+    """The parameters of MMJointDualHead whose gradient is 0 in exact
+    arithmetic in train mode: TabMLP's Dense biases (each before a
+    BatchNorm), and each MBConv's last BatchNorm bias whose output reaches
+    only 1×1 convolutions (the blocks that read it up to the next block
+    without a residual all expand first, or it is the last block, before
+    conv_head) and then a BatchNorm, which subtracts it again. A block
+    without expansion convolves it depthwise with zero padding first (B4's
+    stage0_block1 reads stage0_block0's), which does not cancel it."""
+    out = {"tab_mlp.fc0.bias", "tab_mlp.fc1.bias"}
+    blocks = list(getattr(model.backbone, "blocks", {}).items())
+    for i, (name, _) in enumerate(blocks):
+        readers = []
+        for _, nxt in blocks[i + 1:]:
+            readers.append(nxt)
+            if not nxt.residual:
+                break
+        if all(hasattr(r, "pw_expand") for r in readers):
+            out.add(f"backbone.blocks.{name}.bn2.bias")
+    return out
+
+
+def _train_cohort(n: int):
+    """n raw 512² synthetic teeth (a third rotated past deskew's gate), 9
+    seeded fields each (encode_fields), seeded labels and soft targets: the
+    port's Table of one row per case."""
+    from mmtrs_tpu_torch.data.features import BASE_FEATURES
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.utils.table import Table
+
+    rng = np.random.default_rng(SEED + 60)
+    angles = [25.0 if i % 3 == 0 else 0.0 for i in range(n)]
+    raw = synth_teeth(n, 512, seed=SEED + 61, angles_deg=angles)
+    tab = np.array([encode_fields(f) for f in _field_rows(n, SEED + 62)], np.float64)
+    y = (rng.random(n) < 0.5).astype(np.int64)
+    p = np.clip(y * 0.6 + rng.random(n) * 0.4, 0.0, 1.0)
+    cols = {"image_name": [f"{i + 1}.jpg" for i in range(n)]}
+    cols.update({c: tab[:, j] for j, c in enumerate(BASE_FEATURES)})
+    cols.update({"y_majority": y, "p_indirect": p})
+    return Table(cols), raw
+
+
+def _f32_step_check(torch, dev, cfg, imgs, tab, y, p):
+    """One f32 train step of the same seed-built B4 on the card and on the
+    CPU; returns the measured gaps."""
+    from mmtrs_tpu_torch.models.backbones.efficientnet import MBConv
+    from mmtrs_tpu_torch.train.mm import MMTrainer
+
+    out = {}
+    for where in ("cpu", dev):
+        tr = MMTrainer(cfg, device=where, dtype=torch.float32)
+        for m in tr.model.modules():
+            if isinstance(m, MBConv):
+                m.drop_path = 0.0
+        tr.init_state(10)
+        args = [torch.from_numpy(a).to(where) for a in (imgs, tab, y, p)]
+        x = tr._prep_train(args[0], np.arange(len(imgs)), 0)
+        loss = tr.train_step(x, *args[1:])
+        grads = {k: v.grad.detach().cpu().clone() for k, v in tr.model.named_parameters()}
+        state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+        out[str(where)] = (float(loss), grads, state)
+    zero = _zero_grad_leaves(tr.model)
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(dev)]
+    # the grads the trainer leaves are clipped in place: the same factor on
+    # both devices up to the norm's rounding, which the bars absorb
+    gaps = {"loss": abs(lg - lc) / abs(lc)}
+    gaps["grad"] = max(float((gg[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                       for k, g in gc.items() if k not in zero)
+    noise = max(float(torch.maximum(gg[k].abs().max(), g.abs().max())) for k, g in gc.items() if k in zero)
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    gaps["zero_grad_leaves"] = noise / gmax
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    gaps["stats"] = max(float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1e-3)).max()) for k in stats)
+    firm_gap, loose_gap = 0.0, 0.0
+    for k, g in gc.items():
+        d = (sg[k] - sc[k]).abs()
+        firm = torch.minimum(g.abs(), gg[k].abs()) > 1e-3 * g.abs().max()
+        if k in zero:
+            firm[...] = False
+        if firm.any():
+            firm_gap = max(firm_gap, float(d[firm].max()))
+        loose_gap = max(loose_gap, float(d.max()))
+    gaps["params_firm"], gaps["params_all"] = firm_gap, loose_gap
+    return lc, lg, gaps
+
+
+def phase_train(torch, dev, smi: str):
+    """Phase 10: preprocess raw teeth, build the legacy lineage table, train
+    the MM stream k-fold (run_mm_kfold at B4 380, randaug, save_ckpts), serve
+    the folds it wrote (build_service_from_weights) on phase 4's uploads, and
+    hold one f32 train step on the card against the CPU."""
+    import tempfile
+
+    from mmtrs_tpu_torch.config import MMJointConfig
+    from mmtrs_tpu_torch.data.features import BASE_FEATURES
+    from mmtrs_tpu_torch.data.records import build_augmented_table, quantize_round_half_even
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.preprocess import preprocess_batch
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.serve.ensembles import build_service_from_weights
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.common import Throughput
+    from mmtrs_tpu_torch.train.mm import MMTrainer, run_mm_kfold
+
+    t_phase = time.perf_counter()
+    cfg = MMJointConfig(n_folds=TRAIN_FOLDS, epochs=1)
+    print(f"phase 10: train the MM stream: {TRAIN_CASES} raw teeth -> preprocess_batch -> "
+          f"build_augmented_table(n_aug={TRAIN_AUG}, legacy) -> run_mm_kfold({cfg.model_name} at "
+          f"{cfg.img_size}, batch {cfg.batch_size}, {cfg.n_folds} folds, 1 epoch, train_aug={cfg.train_aug}, "
+          f"bf16) -> build_service_from_weights")
+    table, raw = _train_cohort(TRAIN_CASES)
+    launches, seconds = {}, {}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    proc, _ = preprocess_batch(torch.from_numpy(raw).to(dev))
+    proc = quantize_round_half_even(proc)
+    torch.cuda.synchronize()
+    seconds["preprocess"] = time.perf_counter() - t0
+    launches["preprocess"] = dict(LAUNCHES)
+    _check(all(launches["preprocess"][k] > 0 for k in SERVE_KERNELS),
+           f"preprocess_batch launched {SERVE_KERNELS}: {launches['preprocess']}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    aug_table, aug_imgs = build_augmented_table(table, proc, n_aug=TRAIN_AUG, preset="legacy", seed=42,
+                                                test_frac=0.19)
+    torch.cuda.synchronize()
+    seconds["table"] = time.perf_counter() - t0
+    launches["table"] = dict(LAUNCHES)
+    n_rows = TRAIN_CASES * (1 + TRAIN_AUG)
+    _check(len(aug_table) == n_rows and aug_imgs.shape == (n_rows, 512, 512, 3) and aug_imgs.device.type == dev.type,
+           f"lineage table of {len(aug_table)} rows ({sorted(set(aug_table['split']))}), images on the card; "
+           f"legacy launches {launches['table']}")
+    _check(all(launches["table"][k] > 0 for k in LEGACY_TABLE_KERNELS),
+           f"the legacy build launched {LEGACY_TABLE_KERNELS}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out_dir = Path(tmp) / "mm_dualtask_v1"
+        stamps = []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_mm_kfold(aug_imgs, aug_table, cfg, outdir=out_dir, epochs=1, save_ckpts=True,
+                           log=lambda msg: stamps.append((time.perf_counter(), msg)))
+        torch.cuda.synchronize()
+        seconds["run_mm_kfold"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches["train"] = dict(LAUNCHES)
+        for _, msg in stamps:
+            print(f"  {msg}")
+        start = t0
+        for fold in range(TRAIN_FOLDS):
+            fit_end = [t for t, m in stamps if m.startswith("[mm ep")][fold]
+            fold_end = [t for t, m in stamps if m.startswith("[mm fold")][fold]
+            seconds[f"fold{fold}_fit"], seconds[f"fold{fold}_eval"] = fit_end - start, fold_end - fit_end
+            start = fold_end
+        _check(all(launches["train"][k] > 0 for k in TRAIN_KERNELS),
+               f"randaug in the trainer launched {TRAIN_KERNELS}: {launches['train']}")
+        losses = np.concatenate([h["losses"] for f in res["folds"] for h in f["history"]])
+        _check(len(losses) > 0 and bool(np.isfinite(losses).all()),
+               f"{len(losses)} step losses, all finite: {np.round(losses, 4).tolist()}")
+        ref = MMTrainer(cfg, device="cpu")  # the fold's start, built from cfg.seed as the run's was
+        params = [n for n, _ in ref.model.named_parameters()]
+        stats = [n for n in ref._init if n.endswith(("running_mean", "running_var"))]
+        for k, f in enumerate(res["folds"]):
+            sd = f["state"]["model"]
+            moved_p = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in params)
+            moved_s = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in stats)
+            n_s = len(stats)
+            _check(moved_p > 0 and moved_s == n_s,
+                   f"fold {k}: {moved_p} parameter tensors and {moved_s}/{n_s} running statistics changed")
+        names = sorted(p.name for p in out_dir.iterdir())
+        want = {f"mm_dualtask_fold{k}{e}" for k in range(TRAIN_FOLDS) for e in (".npz", ".recipe.json")}
+        want |= {"oof_val.csv", "pred_test.csv", "summary.json", "metrics.jsonl"}
+        _check(set(names) == want, f"outputs {names}")
+        print(f"  summary: {json.dumps(res['summary'])}")
+
+        # the service from the folds it wrote, on phase 4's uploads
+        reset_launches()
+        t0 = time.perf_counter()
+        svc = build_service_from_weights(Path(tmp))
+        torch.cuda.synchronize()
+        seconds["service_build"] = time.perf_counter() - t0
+        uploads = [synth_teeth(1, s, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
+                   for i, s in enumerate(FUSED_UPLOADS + PHONE_UPLOADS)]
+        fields = _field_rows(1, SEED + 50)[0]
+        trainer = MMTrainer(cfg)
+        worst = 0.0
+        t0 = time.perf_counter()
+        for img in uploads:
+            for call in ({}, {"fields": fields}):
+                r = svc.predict_one(img, **call)
+                if "error" in r or set(r["streams"]) != {"prob_mm"}:
+                    raise AssertionError(f"request {img.shape}: {r.get('error', r.get('streams'))}")
+                x = torch.from_numpy(r["processed_image"]).to(dev)[None]
+                ps = []
+                for f in res["folds"]:
+                    raw9 = np.float32(encode_fields(fields))[None] if call else f["scaler"].mean[None]
+                    ps.append(trainer.predict_proba(f, x, raw9)[0])
+                worst = max(worst, abs(r["p_indirect"] - float(np.mean(ps))))
+        seconds["serve"] = time.perf_counter() - t0
+        launches["serve"] = dict(LAUNCHES)
+        _check(worst <= SERVE_BF16_BAR,
+               f"served p (MM only, {TRAIN_FOLDS} folds read from npz) on {len(uploads)} uploads without and with "
+               f"fields vs trainer.predict_proba on the same processed image: max |dp| {worst:.3g}, bar "
+               f"{SERVE_BF16_BAR}; launches {launches['serve']}")
+    _check(not out_dir.exists(), "the training folder removed")
+
+    # the bf16 step, timed one by one on the same device dataset
+    tv = np.nonzero(aug_table["split"] != "test")[0]
+    tab = np.stack([aug_table[c] for c in BASE_FEATURES], 1).astype(np.float32)
+    tab_d = torch.from_numpy(tab).to(dev)
+    y_d = torch.from_numpy(aug_table["y_majority"].astype(np.float32)).to(dev)
+    p_d = torch.from_numpy(aug_table["p_indirect"].astype(np.float32)).to(dev)
+    trainer.init_state(TRAIN_TIMED_STEPS)
+    thr = Throughput()
+    prep_ms, step_ms = [], []
+    rng = np.random.default_rng(SEED + 63)
+    for i in range(TRAIN_TIMED_STEPS):
+        sel = rng.choice(tv, cfg.batch_size, replace=False)
+        sel_d = torch.from_numpy(sel).to(dev)
+        torch.cuda.synchronize()
+        thr.start()
+        t0 = time.perf_counter()
+        x = trainer._prep_train(aug_imgs.index_select(0, sel_d), sel, 0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(x, tab_d[sel_d], y_d[sel_d], p_d[sel_d])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        thr.stop(cfg.batch_size)
+        prep_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+    step = {"prep_ms": float(np.median(prep_ms[1:])), "step_ms": float(np.median(step_ms[1:])),
+            "first_step_ms": step_ms[0], "imgs_per_sec": thr.imgs_per_sec, "peak_gb": peak / 1e9}
+    print(f"  bf16 train step at b{cfg.batch_size} {cfg.img_size}^2 (median of {TRAIN_TIMED_STEPS - 1} after the "
+          f"first, host clock, each ending in a synchronise): randaug + resize + normalise "
+          f"{step['prep_ms']:.2f} ms, forward + backward + AdamW {step['step_ms']:.2f} ms (first "
+          f"{step_ms[0]:.2f} ms); Throughput {thr.imgs_per_sec:.2f} imgs/s over all {TRAIN_TIMED_STEPS}; peak "
+          f"memory of run_mm_kfold {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); {smi}")
+
+    # one f32 step on the card against the CPU
+    f32_cfg = MMJointConfig(train_aug="none", tab_dropout=0.0, head_dropout=0.0)
+    sel = tv[:F32_STEP_BATCH]
+    t0 = time.perf_counter()
+    lc, lg, gaps = _f32_step_check(torch, dev, f32_cfg, aug_imgs[torch.from_numpy(sel).to(dev)].cpu().numpy(),
+                                   tab[sel], aug_table["y_majority"][sel].astype(np.float32),
+                                   aug_table["p_indirect"][sel].astype(np.float32))
+    seconds["f32_step_check"] = time.perf_counter() - t0
+    _check(gaps["loss"] <= F32_LOSS_BAR and gaps["grad"] <= F32_GRAD_BAR and gaps["stats"] <= F32_STATS_BAR
+           and gaps["params_firm"] <= F32_PARAM_BAR and gaps["params_all"] <= 2 * cfg.lr
+           and gaps["zero_grad_leaves"] <= F32_ZERO_GRAD_BAR,
+           f"f32 B4 train step at b{F32_STEP_BATCH} {f32_cfg.img_size}^2, card vs CPU: loss {lg:.7f} vs {lc:.7f} "
+           f"({gaps['loss']:.3g} relative, bar {F32_LOSS_BAR}); gradients {gaps['grad']:.3g} of their leaf's max "
+           f"(bar {F32_GRAD_BAR}), the zero-gradient biases {gaps['zero_grad_leaves']:.3g} of the largest "
+           f"(bar {F32_ZERO_GRAD_BAR}); running statistics {gaps['stats']:.3g} relative (bar {F32_STATS_BAR}); parameters "
+           f"after AdamW {gaps['params_firm']:.3g} where the gradient is firm (bar {F32_PARAM_BAR}), "
+           f"{gaps['params_all']:.3g} anywhere (bar 2 lr)")
+    seconds["phase"] = time.perf_counter() - t_phase
+    print("  phase 10 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; {smi}")
+    print("  phase 10 kernel launches: " + json.dumps(launches))
+    return {"launches": launches, "seconds": seconds, "step": step, "summary": res["summary"]}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -1995,6 +2307,7 @@ def main() -> int:
     archive_launches, archive_ips = phase_archive(torch, dev)
     full_launches, full_p50s, entry = phase_serve_weights(
         torch, dev, smi, then=phase_entry_points(torch, dev, smi, archive_ips))
+    train = phase_train(torch, dev, smi)
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -2039,8 +2352,10 @@ def main() -> int:
           + f" (launches {full_launches}); the CLI twin {entry['cli']['imgs_per_sec']:.2f} imgs/s at 12 MP; "
           f"HTTP p50 JPEG {entry['app']['http_p50_ms']['jpeg']:.2f} ms, PNG {entry['app']['http_p50_ms']['png']:.2f} "
           f"ms; nvJPEG decode 12 MP {entry['codec']['decode_12mp_ms']:.2f} ms, encode 512² "
-          f"{entry['codec']['encode_512_ms']:.2f} ms; phase 9 {entry['seconds']:.1f} s; "
-          f"total {time.perf_counter() - T_START:.1f} s")
+          f"{entry['codec']['encode_512_ms']:.2f} ms; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
+          f"b12 bf16 randaug) step {train['step']['step_ms']:.2f} ms + prep {train['step']['prep_ms']:.2f} ms, "
+          f"{train['step']['imgs_per_sec']:.2f} imgs/s, peak {train['step']['peak_gb']:.2f} GB, phase 10 "
+          f"{train['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,12 +33,21 @@ host C in ``csrc/host/``), ``utils/images.py`` and two user entry points:
     python -m mmtrs_tpu_torch.serve.app --weights <dir>      # the HTTP app
     python -m mmtrs_tpu_torch.cli.run_pipeline --input_dir <in> --output_dir <out>
 
+Slice 12 (MM training): the pandas-free lineage table
+(``utils.table.Table``, ``data.records.build_augmented_table``, the CLI
+twin ``python -m mmtrs_tpu_torch.cli.run_augment_records``) and
+``train.mm.run_mm_kfold``: the MM dual-head trained k-fold (train-mode
+BatchNorm, dropout and drop-path in ``models/``, optax's AdamW chain in
+``train.common``, on-line ``randaug``), writing npz fold checkpoints that
+``build_service_from_weights`` serves.
+
 The entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``).
 
 It imports ``torch`` and never ``jax``, and nothing of ``mmtrs_tpu``: the
-two small jax-free pieces it shares with it (``config.PreprocessConfig``,
-``serve/choices.py``) are copies, held equal to the originals by the tests.
+small jax-free pieces it shares with it (``config.PreprocessConfig``,
+``config.MMJointConfig``, ``serve/choices.py``) are copies, held equal to
+the originals by the tests.
 """
 
 __version__ = "0.1.0"

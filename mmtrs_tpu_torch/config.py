@@ -1,8 +1,8 @@
-"""Preprocessing configuration (the port's copy of
-``mmtrs_tpu.config.PreprocessConfig``).
+"""Configurations (the port's copies of ``PreprocessConfig`` and
+``MMJointConfig`` in mmtrs_tpu/config.py).
 
 Kept in the port so that it imports nothing of the JAX package;
-tests/test_torch_hygiene.py holds the two classes to the same fields and
+tests/test_torch_hygiene.py holds each copy to the original's fields and
 defaults.
 """
 
@@ -32,3 +32,31 @@ class PreprocessConfig:
     canny_low: float = 50.0
     canny_high: float = 150.0
     deskew_min_edge_points: int = 10
+
+
+@dataclass(frozen=True)
+class MMJointConfig:
+    """Joint image+tabular dual-task model
+    (reference: train_mm_joint_dualtask.py:135-160,375-376)."""
+
+    model_name: str = "efficientnet_b4"
+    img_size: int = 380
+    tab_dim: int = 9
+    tab_hidden: int = 64
+    tab_dropout: float = 0.2
+    head_dropout: float = 0.2
+    alpha_hard: float = 1.0
+    beta_soft: float = 0.3
+    epochs: int = 25
+    batch_size: int = 12
+    lr: float = 3e-4
+    weight_decay: float = 1e-4
+    grad_clip: float = 1.0
+    n_folds: int = 5
+    seed: int = 42
+    thr_grid: tuple[float, float, int] = (0.2, 0.8, 61)
+    # train-time augmentation (reference trains under timm create_transform
+    # with RandAugment rand-m9-mstd0.5-inc1 + random-erasing 0.2 —
+    # train_mm_joint_dualtask.py:72-93); "none" disables (eval is never
+    # augmented either way)
+    train_aug: str = "randaug"

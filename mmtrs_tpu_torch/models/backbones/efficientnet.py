@@ -1,15 +1,23 @@
-"""EfficientNet B0–B5 for inference (port of
-mmtrs_tpu/models/backbones/efficientnet.py).
+"""EfficientNet B0–B5 (port of mmtrs_tpu/models/backbones/efficientnet.py).
 
 Layer-for-layer the Flax module: the same block table and width/depth
 scaling, BatchNorm ε = 1e-3 computed in f32 as Flax does, SE width
 ``max(1, block_in_ch // 4)``, TF "SAME" padding (asymmetric at stride 2:
-lo = total // 2, hi = the rest, so it is padded explicitly), drop-path and
-dropout off (eval only; training comes with a later slice). Public input is
+lo = total // 2, hi = the rest, so it is padded explicitly). Public input is
 NHWC ``[B, H, W, 3]``; convolutions run on a channels-last NCHW view in the
 compute ``dtype`` (bf16 by default), parameters stay f32, and pooled
 features come out f32. Parameter names follow the Flax tree (see
 models/convert.py).
+
+``module.eval()`` normalises with the running statistics and drops nothing.
+``module.train()`` is Flax's ``train=True``: each BatchNorm normalises with
+its batch's mean and biased variance (f32, E[x²] − E[x]² clipped at 0, as
+Flax's fast variance) and moves its running statistics to
+``0.9·running + 0.1·batch``; residual branches are dropped per sample at
+``drop_path_rate·block/blocks`` (stochastic depth) and the classifier's
+input at ``drop_rate``, where there is a classifier. The random bits come
+from the ``generator`` the caller passes to ``forward`` (on the module's
+device); training with a rate above 0 and no generator raises.
 """
 
 from __future__ import annotations
@@ -78,13 +86,17 @@ class ConvSame(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over axis 1 (NCHW maps, or [B, C] rows) with Flax's
+    """BatchNorm over axis 1 (NCHW maps, or [B, C] rows) with Flax's
     arithmetic: (x − mean)·(rsqrt(var + ε)·scale) + bias in f32, cast back
-    to the input dtype."""
+    to the input dtype. Eval: the running statistics. Train: the batch's
+    mean and biased variance over every axis but 1, computed in f32 as
+    E[x²] − E[x]² clipped at 0, and the running statistics updated to
+    ``momentum·running + (1 − momentum)·batch`` (Flax's convention, the
+    biased variance in both; ``F.batch_norm`` keeps the unbiased one)."""
 
-    def __init__(self, c: int, eps: float = 1e-3):
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -92,9 +104,41 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def _keep_mask(shape, rate: float, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("training with dropout or drop-path needs a torch.Generator (forward(..., generator=g))")
+    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``DropPath``: each sample kept with probability 1 − rate, the
+    kept ones scaled by 1/keep."""
+    keep = 1.0 - rate
+    mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate, x, generator)
+    return x * mask.to(x.dtype) / keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: each element kept with probability 1 − rate and
+    scaled by 1/keep, the others 0."""
+    keep = 1.0 - rate
+    return torch.where(_keep_mask(x.shape, rate, x, generator), x / keep, torch.zeros_like(x))
 
 
 class SqueezeExcite(nn.Module):
@@ -110,9 +154,11 @@ class SqueezeExcite(nn.Module):
 
 
 class MBConv(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, expand: int, stride: int, kernel: int):
+    def __init__(self, in_ch: int, out_ch: int, expand: int, stride: int, kernel: int,
+                 drop_path: float = 0.0):
         super().__init__()
         mid = in_ch * expand
+        self.drop_path = drop_path
         self.residual = stride == 1 and in_ch == out_ch
         if expand != 1:
             self.pw_expand = ConvSame(in_ch, mid, 1)
@@ -123,31 +169,37 @@ class MBConv(nn.Module):
         self.pw_project = ConvSame(mid, out_ch, 1)
         self.bn2 = BatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = x
         if hasattr(self, "pw_expand"):
             h = F.silu(self.bn0(self.pw_expand(h)))
         h = F.silu(self.bn1(self.dw(h)))
         h = self.bn2(self.pw_project(self.se(h)))
-        return h + x if self.residual else h
+        if not self.residual:
+            return h
+        if self.training and self.drop_path > 0.0:
+            h = drop_path(h, self.drop_path, generator)
+        return h + x
 
 
 class EfficientNet(nn.Module):
     """Returns pooled f32 features [B, num_features] (num_classes=0) or logits."""
 
-    def __init__(self, variant: str = "b0", num_classes: int = 0,
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, variant: str = "b0", num_classes: int = 0, drop_rate: float = 0.2,
+                 drop_path_rate: float = 0.1, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         wm, dm, _, _ = _SCALING[variant]
-        self.variant, self.dtype = variant, dtype
+        self.variant, self.dtype, self.drop_rate = variant, dtype, drop_rate
         stem = _round_channels(32 * wm)
         self.conv_stem = ConvSame(3, stem, 3, stride=2)
         self.bn_stem = BatchNorm(stem)
         blocks, cin = {}, stem
+        total = sum(_round_repeats(r * dm) for _, _, r, _, _ in _BASE_BLOCKS)
         for si, (e, c, r, s, k) in enumerate(_BASE_BLOCKS):
             out_ch = _round_channels(c * wm)
             for j in range(_round_repeats(r * dm)):
-                blocks[f"stage{si}_block{j}"] = MBConv(cin, out_ch, e, s if j == 0 else 1, k)
+                dp = drop_path_rate * len(blocks) / max(total, 1)
+                blocks[f"stage{si}_block{j}"] = MBConv(cin, out_ch, e, s if j == 0 else 1, k, dp)
                 cin = out_ch
         self.blocks = nn.ModuleDict(blocks)
         self.num_features = _round_channels(1280 * wm)
@@ -155,15 +207,20 @@ class EfficientNet(nn.Module):
         self.bn_head = BatchNorm(self.num_features)
         self.classifier = nn.Linear(self.num_features, num_classes) if num_classes else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: NHWC [B, H, W, 3] (ImageNet-normalised float)."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: NHWC [B, H, W, 3] (ImageNet-normalised float); ``generator``
+        draws the drop-path and dropout bits in train mode."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = F.silu(self.bn_stem(self.conv_stem(x)))
         for blk in self.blocks.values():
-            x = blk(x)
+            x = blk(x, generator)
         x = F.silu(self.bn_head(self.conv_head(x)))
         x = x.mean(dim=(2, 3)).float()  # global average pool
-        return x if self.classifier is None else self.classifier(x)
+        if self.classifier is None:
+            return x
+        if self.training and self.drop_rate > 0.0:
+            x = dropout(x, self.drop_rate, generator)
+        return self.classifier(x)
 
 
 def feature_dim(variant: str) -> int:
@@ -188,10 +245,11 @@ def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 @torch.no_grad()
 def calibrate_batchnorm_(module: nn.Module, x: torch.Tensor) -> nn.Module:
     """Set every BatchNorm's running statistics to those of its input on the
-    batch ``x`` (one forward pass in which each layer normalises by its batch
-    statistics), so a randomly initialised network keeps unit-scale
-    activations the way a trained one does; with identity BatchNorms the
-    pooled features of a random B0 fade to ~1e-7."""
+    batch ``x`` (one eval-mode forward pass in which each layer normalises
+    by its batch statistics), so a randomly initialised network keeps
+    unit-scale activations the way a trained one does; with identity
+    BatchNorms the pooled features of a random B0 fade to ~1e-7. The
+    module's train/eval mode is restored afterwards."""
 
     def hook(bn, args):
         a = args[0].float()
@@ -201,9 +259,12 @@ def calibrate_batchnorm_(module: nn.Module, x: torch.Tensor) -> nn.Module:
 
     handles = [m.register_forward_pre_hook(hook) for m in module.modules()
                if isinstance(m, BatchNorm)]
+    was_training = module.training
+    module.eval()
     try:
         module(x)
     finally:
         for h in handles:
             h.remove()
+        module.train(was_training)
     return module

@@ -33,12 +33,16 @@ def _spec(model_name: str) -> dict:
 
 
 def create_model(
-    model_name: str, num_classes: int = 2, dtype: torch.dtype = torch.bfloat16
+    model_name: str, num_classes: int = 2, drop_rate: float = 0.2, drop_path: float = 0.1,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> nn.Module:
+    """The JAX factory's defaults: dropout 0.2 before a classifier,
+    drop-path 0.1 (EfficientNet; TinyNet has no residual branch)."""
     spec = _spec(model_name)
     if spec["family"] == "tinynet":
-        return _tn.TinyNet(num_classes=num_classes, dtype=dtype)
-    return _en.EfficientNet(spec["variant"], num_classes=num_classes, dtype=dtype)
+        return _tn.TinyNet(num_classes=num_classes, drop_rate=drop_rate, dtype=dtype)
+    return _en.EfficientNet(spec["variant"], num_classes=num_classes, drop_rate=drop_rate,
+                            drop_path_rate=drop_path, dtype=dtype)
 
 
 def feature_dim(model_name: str) -> int:

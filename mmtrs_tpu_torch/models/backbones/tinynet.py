@@ -15,16 +15,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mmtrs_tpu_torch.models.backbones.efficientnet import BatchNorm, ConvSame
+from mmtrs_tpu_torch.models.backbones.efficientnet import BatchNorm, ConvSame, dropout
 
 
 class TinyNet(nn.Module):
     """Returns pooled f32 features [B, 4·width] (num_classes=0) or logits."""
 
-    def __init__(self, num_classes: int = 0, width: int = 16,
+    def __init__(self, num_classes: int = 0, width: int = 16, drop_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.drop_rate = dtype, drop_rate
         cin = 3
         for i, mult in enumerate((1, 2, 4)):
             setattr(self, f"conv{i}", ConvSame(cin, width * mult, 3, stride=2))
@@ -32,13 +32,17 @@ class TinyNet(nn.Module):
             cin = width * mult
         self.classifier = nn.Linear(cin, num_classes) if num_classes else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """x: NHWC [B, H, W, 3] (ImageNet-normalised float)."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         for i in range(3):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
         x = x.mean(dim=(2, 3)).float()
-        return x if self.classifier is None else self.classifier(x)
+        if self.classifier is None:
+            return x
+        if self.training and self.drop_rate > 0.0:
+            x = dropout(x, self.drop_rate, generator)
+        return self.classifier(x)
 
 
 def feature_dim(width: int = 16) -> int:

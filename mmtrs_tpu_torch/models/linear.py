@@ -1,5 +1,6 @@
-"""Binary logistic regression (port of ``LogisticRegression`` in
-mmtrs_tpu/models/linear.py, penalties ``l2`` and ``none``).
+"""Binary logistic regression and temperature scaling (port of
+``LogisticRegression``, penalties ``l2`` and ``none``, and
+``TemperatureScaler`` in mmtrs_tpu/models/linear.py).
 
 ``fit`` is the JAX package's Newton solver in float32 (that package runs
 without x64): the intercept is not regularised, ``s = w·p·(1−p) + 1e-12``,
@@ -7,8 +8,13 @@ and the loop runs while ``i < max_iter and max|step| > tol``. In f32 the
 step may never fall below ``tol = 1e-8``, and then all ``max_iter`` steps
 run, as they do in JAX. The stop reads ``max|step|`` on the host, one sync a
 step on the card. Prediction is float64 numpy on the fitted coefficients.
-The L1 solver, Platt, isotonic and temperature scaling come with the fusion
-slice.
+The L1 solver, Platt and isotonic calibration come with the fusion slice.
+
+``TemperatureScaler.fit`` minimises the same loss as the JAX package, the
+mean BCE of ``logits / T`` over log T, but by Newton's method in float64 to
+convergence where the JAX package runs 50 steps of ``optax.lbfgs`` in f32.
+The loss is convex in 1/T, so it has at most one minimum, and both reach
+it (the tests hold T within 1e-4 relative).
 """
 
 from __future__ import annotations
@@ -96,3 +102,53 @@ def _newton_logistic(X, y, w, lam, reg_mask, max_iter, tol) -> tuple[torch.Tenso
         i += 1
         delta = step.abs().max().item()
     return beta, i
+
+
+@dataclass
+class TemperatureScaler:
+    """Single-parameter temperature on binary logits; fit minimizes BCE
+    (train_mm_joint_dualtask.py:162-174 semantics)."""
+
+    temperature: float = 1.0
+
+    def fit(self, logits, y, max_iter: int = 100, tol: float = 1e-12) -> "TemperatureScaler":
+        """Newton on u = log T from u = 0 (T = 1), host float64. With
+        s = z·e^(−u): loss = mean(softplus(s) − y·s), d/du = −mean((σ(s) − y)·s),
+        d²/du² = mean(σ(s)(1 − σ(s))·s² + (σ(s) − y)·s); a step that does
+        not lower the loss is halved. It stops when the step or the slope
+        falls below ``tol``: where the logits carry no signal the loss falls
+        towards T → ∞ and T ends large (~1e11; JAX's f32 LBFGS ends ~1e14),
+        p = 0.5 either way."""
+        z = np.asarray(logits, dtype=np.float32).reshape(-1).astype(np.float64)
+        t = np.asarray(y, dtype=np.float32).reshape(-1).astype(np.float64)
+
+        def loss(u):
+            s = z * np.exp(-u)
+            return float(np.mean(np.logaddexp(0.0, s) - t * s))
+
+        u, f = 0.0, loss(0.0)
+        for _ in range(max_iter):
+            s = z * np.exp(-u)
+            p = 0.5 * (1.0 + np.tanh(0.5 * s))  # σ(s) without overflow
+            g = -np.mean((p - t) * s)
+            if abs(g) < tol:  # converged, or the loss flat towards T → ∞ (uninformative logits)
+                break
+            h = np.mean(p * (1.0 - p) * s * s + (p - t) * s)
+            step = -g / h if h > 0 else -np.sign(g)
+            while True:
+                f_new = loss(u + step)
+                if f_new <= f or abs(step) < tol:
+                    break
+                step *= 0.5
+            u, f = u + step, f_new
+            if abs(step) < tol:
+                break
+        self.temperature = float(np.exp(u))
+        return self
+
+    def transform_logits(self, logits) -> np.ndarray:
+        return np.asarray(logits) / self.temperature
+
+    def transform(self, logits) -> np.ndarray:
+        z = self.transform_logits(logits)
+        return 1.0 / (1.0 + np.exp(-z))

@@ -1,18 +1,208 @@
-"""Shared training/serving helpers (port of mmtrs_tpu/train/common.py).
-Only ``normalize_imagenet`` so far; the trainers come with the training slice."""
+"""Shared training machinery (port of mmtrs_tpu/train/common.py): ImageNet
+normalisation, the BCE loss, the epoch sampler, the imgs/s tracker, the
+device-resident dataset, the best-epoch snapshot and the optimiser.
+
+The optimiser is optax's, not ``torch.optim``'s:
+``make_optimizer(lr, wd, total, grad_clip)`` is
+``chain(clip_by_global_norm(grad_clip), adamw(schedule, weight_decay=wd))``
+with the schedule ``warmup_cosine_decay_schedule(init=lr, peak=lr,
+warmup_steps=1, decay_steps=max(total, 2), end=lr·1e-2)`` (no warmup), each
+part written out with optax's arithmetic:
+
+- the schedule is evaluated in f32 at the step count before the step (the
+  first step takes ``lr``);
+- the clip leaves the gradients alone when their global norm is below
+  ``grad_clip`` and scales them by ``grad_clip / norm`` otherwise
+  (``clip_grad_norm_`` divides by ``norm + 1e-6`` and differs);
+- AdamW with b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
+  correction, and the decoupled decay ``lr·wd·p`` on every parameter
+  (optax's ``adamw`` here has no mask; BatchNorm's running statistics are
+  buffers, not parameters, and get none).
+
+Mixed precision is the JAX package's: bf16 activations inside the backbone,
+f32 parameters, gradients and optimiser state, no loss scaling.
+"""
 
 from __future__ import annotations
 
+import copy
+import functools
+import math
+import time
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.cache
+def _imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    # made once per device: a copy to the card per call would wait for it
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize_imagenet(imgs: torch.Tensor) -> torch.Tensor:
     """uint8/float 0..255 [B, H, W, 3] → ImageNet-normalised float32
     (datasets.py:21-22)."""
     x = imgs.float() / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card from pinned memory without
+    waiting for it (a pageable copy synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def device_put_dataset(x, device: torch.device) -> torch.Tensor:
+    """Move a whole (u8) image dataset to ``device`` once per run, so the
+    trainers' per-step ``images[sel]`` is a gather there; a tensor already
+    on that device is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def bce_logits(logit: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean BCE on a single logit, the JAX package's stable form
+    max(z, 0) − z·t + log1p(exp(−|z|))."""
+    loss = torch.clamp_min(logit, 0) - logit * target + torch.log1p(torch.exp(-torch.abs(logit)))
+    return loss.mean()
+
+
+def epoch_batches(
+    n: int,
+    batch_size: int,
+    rng: np.random.Generator,
+    indices: np.ndarray | None = None,
+    drop_last: bool = True,
+) -> Iterator[np.ndarray]:
+    """The JAX package's sampler: the same numpy ``Generator`` calls, so the
+    batches are the same."""
+    idx = np.arange(n) if indices is None else np.asarray(indices)
+    idx = idx[rng.permutation(len(idx))]
+    end = (len(idx) // batch_size) * batch_size if drop_last else len(idx)
+    for s in range(0, max(end, 0), batch_size):
+        yield idx[s : s + batch_size]
+
+
+@dataclass
+class Throughput:
+    """imgs/s tracker (train_hard_kfold_v2.py:175-187 parity)."""
+
+    images: int = 0
+    seconds: float = 0.0
+    _t0: float = 0.0
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, n_images: int):
+        self.seconds += time.perf_counter() - self._t0
+        self.images += n_images
+
+    @property
+    def imgs_per_sec(self) -> float:
+        return self.images / self.seconds if self.seconds > 0 else 0.0
+
+
+def snapshot(model: torch.nn.Module, optimizer: "AdamW | None" = None) -> dict:
+    """A copy of the model's state dict (parameters and BatchNorm
+    statistics) and of the optimiser's state, on their device, that later
+    steps do not change."""
+    return {
+        "model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+        "optimizer": None if optimizer is None else copy.deepcopy(optimizer.state_dict()),
+    }
+
+
+def warmup_cosine_lr(lr: float, total_steps: int, count: int) -> float:
+    """optax ``warmup_cosine_decay_schedule(init_value=lr, peak_value=lr,
+    warmup_steps=1, decay_steps=max(total_steps, 2), end_value=lr·1e-2)``
+    at ``count``, in f32 with optax's operations: step 0 is the (flat)
+    warmup's ``lr``; from step 1 the cosine over ``decay_steps − 1`` steps
+    at ``count − 1``. Near the end of the decay 1 + cos cancels, so one ulp
+    of the cosine is ~1e-7 of the rate."""
+    if count < 1:
+        return float(np.float32(lr))
+    f = np.float32
+    decay = max(total_steps, 2) - 1
+    alpha = lr * 1e-2 / lr  # end_value / peak_value, in double as optax takes it
+    c = f(min(float(count - 1), float(decay)))
+    arg = f(math.pi) * c / f(decay)
+    cosine = f(0.5) * (f(1) + f(math.cos(float(arg))))  # cos rounded once from double, as XLA's f32 cos is
+    return float(f(lr) * (f(1 - alpha) * cosine + f(alpha)))
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place: g unchanged where
+    ‖g‖ < max_norm, else g / ‖g‖ · max_norm; returns ‖g‖ (a device
+    scalar, never read on the host)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class AdamW:
+    """optax ``chain(clip_by_global_norm(clip), adamw(schedule, b1, b2, eps,
+    weight_decay))`` over a list of parameters, stepped after ``backward``.
+    Nothing is read on the host: the step count and learning rate are host
+    numbers, the clip is a device-side select."""
+
+    def __init__(self, params, lr: float, weight_decay: float, total_steps: int,
+                 grad_clip: float = 0.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr, self.weight_decay, self.total_steps = lr, weight_decay, total_steps
+        self.grad_clip, self.b1, self.b2, self.eps = grad_clip, b1, b2, eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def lr_at(self, count: int) -> float:
+        return warmup_cosine_lr(self.lr, self.total_steps, count)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        if self.grad_clip > 0:
+            clip_by_global_norm_(grads, self.grad_clip)
+        b1, b2 = self.b1, self.b2
+        # mu ← (1 − b1)·g + b1·mu, nu ← (1 − b2)·g² + b2·nu
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+        n = self.count + 1
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
+        # u = mu_hat / (sqrt(nu_hat) + eps) + wd·p, p ← p − lr·u
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_mul_(upd, -self.lr_at(self.count))
+        torch._foreach_add_(self.params, upd)
+        self.count = n
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+
+def make_optimizer(params, lr: float, weight_decay: float = 1e-4, total_steps: int = 1000,
+                   grad_clip: float = 0.0) -> AdamW:
+    """The JAX package's ``make_optimizer(lr, weight_decay, total_steps,
+    warmup_steps=0, grad_clip)`` over ``params``."""
+    return AdamW(params, lr, weight_decay, total_steps, grad_clip)

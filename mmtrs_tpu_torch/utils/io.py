@@ -1,7 +1,11 @@
-"""Artifact IO helpers (the port's copy of ``ensure_dir``, ``timestamp`` and
-``save_json`` from mmtrs_tpu/utils/io.py, with its numpy-aware JSON
-encoder). The pandas table readers are not copied: nothing ported reads a
-table yet.
+"""Artifact IO helpers (the port's copy of ``ensure_dir``, ``timestamp``,
+``save_json``, ``read_table`` and ``write_table`` from
+mmtrs_tpu/utils/io.py, with its numpy-aware JSON encoder).
+
+Tables are the port's pandas-free :class:`~mmtrs_tpu_torch.utils.table.Table`
+and go through the ``csv`` module. XLSX is neither read nor written: the
+JAX package's ``write_table`` also writes an ``.xlsx`` beside the CSV where
+openpyxl exists; the port writes the CSV only.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+from mmtrs_tpu_torch.utils.table import Table, from_csv, to_csv
 
 
 def ensure_dir(path: str | Path) -> Path:
@@ -44,3 +50,18 @@ def save_json(obj: Any, path: str | Path, indent: int = 2) -> Path:
     with open(p, "w") as f:
         json.dump(obj, f, indent=indent, cls=_NumpyEncoder)
     return p
+
+
+def read_table(path: str | Path) -> Table:
+    """Read a metadata table from .csv (reference: augment_records.py:45-52).
+    An .xlsx or .xls table raises: re-export it as CSV."""
+    p = Path(path)
+    if p.suffix.lower() in (".xlsx", ".xls"):
+        raise ValueError(f"{p}: XLSX tables are not read by the port; re-export the table as CSV")
+    return from_csv(p)
+
+
+def write_table(table: Table, path: str | Path) -> list[Path]:
+    """Write ``table`` as ``<path stem>.csv``, byte for byte what pandas'
+    ``to_csv(index=False)`` writes (CSV only: no .xlsx beside it)."""
+    return [to_csv(table, Path(path).with_suffix(".csv"))]

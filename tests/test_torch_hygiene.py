@@ -62,17 +62,24 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.serve.app",
     "mmtrs_tpu_torch.cli",
     "mmtrs_tpu_torch.cli.run_pipeline",
+    "mmtrs_tpu_torch.utils.table",
+    "mmtrs_tpu_torch.utils.profiling",
+    "mmtrs_tpu_torch.data.splits",
+    "mmtrs_tpu_torch.metrics.binary",
+    "mmtrs_tpu_torch.train.mm",
+    "mmtrs_tpu_torch.cli.run_augment_records",
 ]
 
 
 def test_slice_imports_no_jax_pandas_pil_or_jax_package():
-    """The card has no JAX and may have no pandas or Pillow: importing every
-    slice module in a fresh interpreter loads none of them, nor mmtrs_tpu."""
+    """The card has no JAX and may have no pandas, Pillow, optax or sklearn:
+    importing every slice module in a fresh interpreter loads none of them,
+    nor mmtrs_tpu."""
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pandas', 'PIL', 'mmtrs_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'pandas', 'PIL', 'mmtrs_tpu'))\n"
         "print(','.join(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -89,6 +96,26 @@ def test_config_copy_matches_jax_package():
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
     assert spec(PreprocessConfig) == spec(Orig)
+
+
+def test_mm_joint_config_copy_matches_jax_package():
+    from mmtrs_tpu.config import MMJointConfig as Orig
+    from mmtrs_tpu_torch.config import MMJointConfig
+
+    def spec(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert spec(MMJointConfig) == spec(Orig)
+
+
+def test_port_sources_name_no_jax_side_package():
+    """No module of the port names jax, flax, optax, sklearn, pandas, PIL or
+    mmtrs_tpu in an import statement, even one inside a function that the
+    import test above never calls."""
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sklearn|pandas|PIL|mmtrs_tpu)\b", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+            for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py")) for m in pat.finditer(p.read_text())]
+    assert hits == []
 
 
 def test_supports_copy_matches_jax_package():
