@@ -49,10 +49,19 @@ the CPU, in bf16 and in f32, on phase 4's seven uploads (``bf16_spread``).
 
 one bf16 train step of the MM trainer at MMJointConfig's widths (B4 at
 380, batch 12, randaug on 512² u8 rows, as chip_smoke.py phase 10 runs
-it): each stage's host-clock ms (prep, forward, backward, AdamW; median of
-5, each ending in a synchronise), then the prep and the step under
+it): each stage's host-clock ms (prep, forward, backward, AdamW, through
+the trainer's own stages; median of 5, each ending in a synchronise), then
+the prep and the step under
 ``torch.profiler`` (``_busy``: wall and device busy ms, the device events,
 the largest items) and the host syncs a step makes (``train_step``).
+
+    python3 chip_profile.py --f32-step
+
+reads chip_smoke.py phase 10's f32 card-vs-CPU train step
+(``_f32_step_check``) on F32_READ_BATCHES batches of phase 10's lineage
+table, the first (phase 10's own) twice, with TF32 off, then phase 10's
+batch once with TF32 allowed in cuDNN and matmuls: a control that the
+F32_* bars must fail (``f32_step``).
 
     python3 chip_profile.py --sass
 
@@ -448,7 +457,6 @@ def train_step(torch, dev):
 
     from mmtrs_tpu_torch.config import MMJointConfig
     from mmtrs_tpu_torch.synth import synth_teeth
-    from mmtrs_tpu_torch.train.common import bce_logits
     from mmtrs_tpu_torch.train.mm import MMTrainer
 
     cfg = MMJointConfig()
@@ -480,12 +488,10 @@ def train_step(torch, dev):
         x, sel_d = prep(i)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        lc, lr_ = tr.model(x, tab[sel_d], generator=tr.gen)
-        loss = cfg.alpha_hard * bce_logits(lc, y[sel_d]) + cfg.beta_soft * bce_logits(lr_, p[sel_d])
+        loss = tr.loss(x, tab[sel_d], y[sel_d], p[sel_d])
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        tr.opt.zero_grad()
-        loss.backward()
+        tr.backward(loss)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         tr.opt.step()
@@ -509,6 +515,40 @@ def train_step(torch, dev):
     out["host_syncs_per_step"] = sum("synchroniz" in str(w.message) for w in caught)
     out["params"] = sum(q.numel() for q in tr.model.parameters())
     return out
+
+
+F32_READ_BATCHES = 8
+
+
+def f32_step(torch, dev):
+    """The gaps of chip_smoke.py phase 10's f32 step, card vs CPU, each with
+    whether it meets the F32_* bars (``_f32_step_ok``): see the module's
+    docstring."""
+    from chip_smoke import (F32_STEP_BATCH, TRAIN_AUG, TRAIN_CASES, _f32_step_check, _f32_step_ok,
+                            _train_cohort)
+    from mmtrs_tpu_torch.data.records import build_augmented_table, quantize_round_half_even
+    from mmtrs_tpu_torch.preprocess import preprocess_batch
+
+    table, raw = _train_cohort(TRAIN_CASES)  # phase 10's lineage table, built as phase 10 builds it
+    proc, _ = preprocess_batch(torch.from_numpy(raw).to(dev))
+    aug_table, aug_imgs = build_augmented_table(table, quantize_round_half_even(proc), n_aug=TRAIN_AUG,
+                                                preset="legacy", seed=42, test_frac=0.19)
+    tv = np.nonzero(aug_table["split"] != "test")[0]
+    runs = [(b, False) for b in [0] + list(range(F32_READ_BATCHES))] + [(0, True)]
+    readings = []
+    for b, tf32 in runs:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            lc, lg, gaps = _f32_step_check(torch, dev, aug_table, aug_imgs,
+                                           tv[b * F32_STEP_BATCH:(b + 1) * F32_STEP_BATCH])
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        by_leaf = gaps.pop("grad_by_leaf")
+        worst = sorted(by_leaf.items(), key=lambda kv: -kv[1][0])[:5]
+        readings.append({"batch": b, "tf32": tf32, "loss_cpu": lc, "loss_card": lg, **gaps,
+                         "meets_bars": _f32_step_ok(gaps), "worst_grad_leaves": dict(worst)})
+        print(json.dumps(readings[-1]))
+    return {"readings": readings}
 
 
 def bf16_spread(torch, dev):
@@ -752,6 +792,7 @@ def main() -> int:
              "--sass": lambda torch, dev: {**sass_counts(torch), "K5": k5_sass()},
              "--service": full_service,
              "--train": train_step,
+             "--f32-step": f32_step,
              "--bf16-spread": bf16_spread}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)

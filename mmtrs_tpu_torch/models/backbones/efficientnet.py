@@ -91,12 +91,12 @@ class BatchNorm(nn.Module):
     to the input dtype. Eval: the running statistics. Train: the batch's
     mean and biased variance over every axis but 1, computed in f32 as
     E[x²] − E[x]² clipped at 0, and the running statistics updated to
-    ``momentum·running + (1 − momentum)·batch`` (Flax's convention, the
-    biased variance in both; ``F.batch_norm`` keeps the unbiased one)."""
+    ``0.9·running + 0.1·batch`` (Flax's default momentum and convention,
+    the biased variance in both; ``F.batch_norm`` keeps the unbiased one)."""
 
-    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.9):
+    def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -110,7 +110,7 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=dims)
             var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
             with torch.no_grad():
-                m = self.momentum
+                m = 0.9  # Flax BatchNorm's default momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:

@@ -44,13 +44,13 @@ class TabMLP(nn.Module):
 
 class MMJointDualHead(nn.Module):
     def __init__(self, model_name: str = "efficientnet_b4", tab_hidden: int = 64,
-                 tab_dropout: float = 0.2, head_dropout: float = 0.2, drop_path: float = 0.1,
+                 tab_dropout: float = 0.2, head_dropout: float = 0.2,
                  dtype: torch.dtype = torch.bfloat16):
-        """The JAX module's rates by default (its backbone's drop-path is
-        the factory's 0.1); ``drop_path`` is the port's handle on it."""
+        """The JAX module's rates by default; the backbone's drop-path is
+        the factory's 0.1, as in the JAX module."""
         super().__init__()
         self.head_dropout = head_dropout
-        self.backbone = create_model(model_name, num_classes=0, drop_path=drop_path, dtype=dtype)
+        self.backbone = create_model(model_name, num_classes=0, dtype=dtype)
         self.tab_mlp = TabMLP(9, tab_hidden, tab_dropout)
         d = feature_dim(model_name) + tab_hidden
         self.head_cls = nn.Linear(d, 1)

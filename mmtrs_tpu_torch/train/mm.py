@@ -113,14 +113,24 @@ class MMTrainer:
                                   grad_clip=cfg.grad_clip)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
+    def loss(self, img: torch.Tensor, tab: torch.Tensor, y: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The train-mode forward of a prepared batch and its loss,
+        α·BCE(hard) + β·BCE(soft) in f32: the step's first stage."""
+        lc, lr_ = self.model(img, tab, generator=self.gen)
+        return self.cfg.alpha_hard * bce_logits(lc, y) + self.cfg.beta_soft * bce_logits(lr_, p)
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """The step's second stage: the gradients of ``loss``; the third is
+        ``self.opt.step()``."""
+        self.opt.zero_grad()
+        loss.backward()
+
     def train_step(self, img: torch.Tensor, tab: torch.Tensor, y: torch.Tensor,
                    p: torch.Tensor) -> torch.Tensor:
         """One step on a prepared batch (all on the device) → its loss, a
         device scalar (not read here)."""
-        lc, lr_ = self.model(img, tab, generator=self.gen)
-        loss = self.cfg.alpha_hard * bce_logits(lc, y) + self.cfg.beta_soft * bce_logits(lr_, p)
-        self.opt.zero_grad()
-        loss.backward()
+        loss = self.loss(img, tab, y, p)
+        self.backward(loss)
         self.opt.step()
         return loss.detach()
 
