@@ -63,6 +63,21 @@ table, the first (phase 10's own) twice, with TF32 off, then phase 10's
 batch once with TF32 allowed in cuDNN and matmuls: a control that the
 F32_* bars must fail (``f32_step``).
 
+    python3 chip_profile.py --mil-train
+
+one bf16 train step of the MIL trainer at chip_smoke.py phase 11's widths
+(B0, bag 12 at 320, batch 16, on 512² u8 rows): each stage's host-clock ms
+(make_bags + normalise, forward, backward, AdamW; median of 5), the bags
+and the step under ``torch.profiler`` (``_busy``) and the host syncs a
+step makes (``mil_train_step``).
+
+    python3 chip_profile.py --gbdt
+
+``train_gbdt`` at stack_tab_like on chip_smoke.py phase 11's seeded table:
+the seconds of a 700-tree forest on the host clock, a 20-tree fit under
+``torch.profiler`` (``_busy``: busy share, device events a tree, the
+largest items) and the host syncs a fit makes (``gbdt_fit``).
+
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
@@ -517,6 +532,111 @@ def train_step(torch, dev):
     return out
 
 
+def _host_syncs(torch, fn) -> int:
+    """The host syncs one call of ``fn`` makes
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def mil_train_step(torch, dev):
+    """The MIL trainer's bf16 step on chip_smoke.py phase 11's widths: 24
+    synthetic 512² teeth on the card, random labels, after 3 warm-up steps:
+    stage ms on the host clock, then ``_busy`` of the bags and of forward +
+    backward + AdamW, and the host syncs of one whole step."""
+    from mmtrs_tpu_torch.config import MILConfig
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.mil import MILTrainer
+
+    cfg = MILConfig(batch_size=16)
+    rng = np.random.default_rng(SEED + 91)
+    n = 24
+    imgs = torch.from_numpy(synth_teeth(n, 512, seed=SEED + 92)).to(dev)
+    y = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)).to(dev)
+    tr = MILTrainer(cfg)
+    tr.init_state(100)
+    batches = [np.sort(rng.choice(n, cfg.batch_size, replace=False)) for _ in range(12)]
+
+    def bags(i):
+        sel = batches[i % len(batches)]
+        sel_d = torch.from_numpy(sel).to(dev)
+        return tr.train_bags(imgs.index_select(0, sel_d), cfg.seed, sel), sel_d
+
+    for i in range(3):  # warm-up: cuDNN plans, allocator
+        b, sel_d = bags(i)
+        tr.train_step(b, y[sel_d])
+    stages = {"bags": [], "forward": [], "backward": [], "adamw": []}
+    for i in range(5):
+        t = [time.perf_counter()]
+        b, sel_d = bags(i)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss = tr.loss(b, y[sel_d])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tr.backward(loss)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        tr.opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, c in zip(stages, t, t[1:]):
+            stages[k].append((c - a) * 1e3)
+    b, sel_d = bags(5)
+    out = {"stage_ms": {k: float(np.median(v)) for k, v in stages.items()},
+           "bags": _busy(torch, lambda: bags(6)),
+           "step": _busy(torch, lambda: tr.train_step(b, y[sel_d]), top_n=8)}
+
+    def one_step():
+        b2, s2 = bags(7)
+        tr.train_step(b2, y[s2])
+
+    out["host_syncs_per_step"] = _host_syncs(torch, one_step)
+    out["params"] = sum(q.numel() for q in tr.model.parameters())
+    return out
+
+
+def gbdt_fit(torch, dev):
+    """``train_gbdt(stack_tab_like)`` on chip_smoke.py phase 11's table
+    (3,010 + 752 rows × 9): a 700-tree forest on the host clock (after a
+    5-tree warm-up), a 20-tree fit under ``_busy``, and the host syncs of
+    a 20-tree fit."""
+    import chip_smoke as cs
+    from mmtrs_tpu_torch.config import GBDTConfig
+    from mmtrs_tpu_torch.models.gbdt import GBDTDraws, train_gbdt
+
+    cfg = GBDTConfig.stack_tab_like()
+    X, y = cs._gbdt_table(cs.GBDT_ROWS)
+    n_tr = int(cs.GBDT_ROWS * 0.8)
+    draws = GBDTDraws.draw(cfg, n_tr, X.shape[1])
+
+    def fit(trees):
+        c = GBDTConfig(**{**cfg.__dict__, "n_estimators": trees})
+        return train_gbdt(X[:n_tr], y[:n_tr], c, X_val=X[n_tr:], y_val=y[n_tr:],
+                          draws=GBDTDraws(draws.col_keep[:trees], draws.row_keep[:trees]), device=dev)
+
+    fit(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(cfg.n_estimators)
+    torch.cuda.synchronize()
+    out = {"forest_s": time.perf_counter() - t0, "trees": cfg.n_estimators, "rows": [n_tr, cs.GBDT_ROWS - n_tr]}
+    busy = _busy(torch, lambda: fit(20), top_n=8)
+    out["fit20"] = busy
+    out["device_events_per_tree"] = busy["device_events"] / 20
+    out["host_syncs_per_fit"] = _host_syncs(torch, lambda: fit(20))
+    return out
+
+
 F32_READ_BATCHES = 8
 
 
@@ -793,6 +913,8 @@ def main() -> int:
              "--service": full_service,
              "--train": train_step,
              "--f32-step": f32_step,
+             "--mil-train": mil_train_step,
+             "--gbdt": gbdt_fit,
              "--bf16-spread": bf16_spread}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)

@@ -158,9 +158,20 @@ Phases (each raises on failure, so the script exits non-zero):
      peak memory; one f32 step of B4 at 380 (batch 4, no augmentation or
      dropout) on the card against the CPU within the F32_* bars; its
      seconds per stage and kernel launches per stage on earlier lines.
+ 11. the rest of the rehearsal (steps 5-6) on phase 10's table and folder:
+     make_bags card vs CPU; run_mil_kfold at MILConfig's widths (B0, bag
+     12 at 320, batch 16, bf16; 2 folds, 1 epoch, save_ckpts), 6 bf16 steps
+     timed (bags/s, peak memory) and one f32 B0 MIL step card vs CPU
+     within the F32_* bars; train_gbdt at stack_tab_like on a seeded
+     3,762 × 9 table twice (equal forests) and on the CPU (GBDT_* bars),
+     with its seconds, device events a tree and host syncs;
+     run_final_stack card vs CPU (STACK_* bars); train_tab_kfold;
+     cli.run_fusion train and infer-batch card vs CPU (FUSION_BAR); then
+     build_service_from_weights on the folders phases 10-11 trained,
+     each served stream within SERVE_ALL_BAR of its trained model.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, 7, 8, 9's CLI and app runs, and each stage of 10); the JSON line of kernels
+preset of 6, 7, 8, 9's CLI and app runs, and each stage of 10 and 11); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -2113,13 +2124,13 @@ def _f32_step_ok(gaps: dict) -> bool:
             and max(gaps["zero_grad_card"], gaps["zero_grad_cpu"]) <= F32_ZERO_GRAD_BAR)
 
 
-def phase_train(torch, dev, smi: str):
+def phase_train(torch, dev, smi: str, work: Path):
     """Phase 10: preprocess raw teeth, build the legacy lineage table, train
-    the MM stream k-fold (run_mm_kfold at B4 380, randaug, save_ckpts), serve
-    the folds it wrote (build_service_from_weights) on phase 4's uploads, and
-    hold one f32 train step on the card against the CPU."""
-    import tempfile
-
+    the MM stream k-fold (run_mm_kfold at B4 380, randaug, save_ckpts) into
+    ``work``/mm_dualtask_v1, serve the folds it wrote
+    (build_service_from_weights) on phase 4's uploads, and hold one f32
+    train step on the card against the CPU. Phase 11 goes on from the table
+    and the folder."""
     from mmtrs_tpu_torch.config import MMJointConfig
     from mmtrs_tpu_torch.data.features import BASE_FEATURES
     from mmtrs_tpu_torch.data.records import build_augmented_table, quantize_round_half_even
@@ -2164,78 +2175,76 @@ def phase_train(torch, dev, smi: str):
     _check(all(launches["table"][k] > 0 for k in LEGACY_TABLE_KERNELS),
            f"the legacy build launched {LEGACY_TABLE_KERNELS}")
 
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        out_dir = Path(tmp) / "mm_dualtask_v1"
-        stamps = []
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = run_mm_kfold(aug_imgs, aug_table, cfg, outdir=out_dir, epochs=1, save_ckpts=True,
-                           log=lambda msg: stamps.append((time.perf_counter(), msg)))
-        torch.cuda.synchronize()
-        seconds["run_mm_kfold"] = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        launches["train"] = dict(LAUNCHES)
-        for _, msg in stamps:
-            print(f"  {msg}")
-        start = t0
-        for fold in range(TRAIN_FOLDS):
-            fit_end = [t for t, m in stamps if m.startswith("[mm ep")][fold]
-            fold_end = [t for t, m in stamps if m.startswith("[mm fold")][fold]
-            seconds[f"fold{fold}_fit"], seconds[f"fold{fold}_eval"] = fit_end - start, fold_end - fit_end
-            start = fold_end
-        _check(all(launches["train"][k] > 0 for k in TRAIN_KERNELS),
-               f"randaug in the trainer launched {TRAIN_KERNELS}: {launches['train']}")
-        losses = np.concatenate([h["losses"] for f in res["folds"] for h in f["history"]])
-        _check(len(losses) > 0 and bool(np.isfinite(losses).all()),
-               f"{len(losses)} step losses, all finite: {np.round(losses, 4).tolist()}")
-        ref = MMTrainer(cfg, device="cpu")  # the fold's start, built from cfg.seed as the run's was
-        params = [n for n, _ in ref.model.named_parameters()]
-        stats = [n for n in ref._init if n.endswith(("running_mean", "running_var"))]
-        for k, f in enumerate(res["folds"]):
-            sd = f["state"]["model"]
-            moved_p = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in params)
-            moved_s = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in stats)
-            n_s = len(stats)
-            _check(moved_p > 0 and moved_s == n_s,
-                   f"fold {k}: {moved_p} parameter tensors and {moved_s}/{n_s} running statistics changed")
-        names = sorted(p.name for p in out_dir.iterdir())
-        want = {f"mm_dualtask_fold{k}{e}" for k in range(TRAIN_FOLDS) for e in (".npz", ".recipe.json")}
-        want |= {"oof_val.csv", "pred_test.csv", "summary.json", "metrics.jsonl"}
-        _check(set(names) == want, f"outputs {names}")
-        print(f"  summary: {json.dumps(res['summary'])}")
+    out_dir = work / "mm_dualtask_v1"
+    stamps = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_mm_kfold(aug_imgs, aug_table, cfg, outdir=out_dir, epochs=1, save_ckpts=True,
+                       log=lambda msg: stamps.append((time.perf_counter(), msg)))
+    torch.cuda.synchronize()
+    seconds["run_mm_kfold"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["train"] = dict(LAUNCHES)
+    for _, msg in stamps:
+        print(f"  {msg}")
+    start = t0
+    for fold in range(TRAIN_FOLDS):
+        fit_end = [t for t, m in stamps if m.startswith("[mm ep")][fold]
+        fold_end = [t for t, m in stamps if m.startswith("[mm fold")][fold]
+        seconds[f"fold{fold}_fit"], seconds[f"fold{fold}_eval"] = fit_end - start, fold_end - fit_end
+        start = fold_end
+    _check(all(launches["train"][k] > 0 for k in TRAIN_KERNELS),
+           f"randaug in the trainer launched {TRAIN_KERNELS}: {launches['train']}")
+    losses = np.concatenate([h["losses"] for f in res["folds"] for h in f["history"]])
+    _check(len(losses) > 0 and bool(np.isfinite(losses).all()),
+           f"{len(losses)} step losses, all finite: {np.round(losses, 4).tolist()}")
+    ref = MMTrainer(cfg, device="cpu")  # the fold's start, built from cfg.seed as the run's was
+    params = [n for n, _ in ref.model.named_parameters()]
+    stats = [n for n in ref._init if n.endswith(("running_mean", "running_var"))]
+    for k, f in enumerate(res["folds"]):
+        sd = f["state"]["model"]
+        moved_p = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in params)
+        moved_s = sum(not torch.equal(sd[n].cpu(), ref._init[n]) for n in stats)
+        n_s = len(stats)
+        _check(moved_p > 0 and moved_s == n_s,
+               f"fold {k}: {moved_p} parameter tensors and {moved_s}/{n_s} running statistics changed")
+    names = sorted(p.name for p in out_dir.iterdir())
+    want = {f"mm_dualtask_fold{k}{e}" for k in range(TRAIN_FOLDS) for e in (".npz", ".recipe.json")}
+    want |= {"oof_val.csv", "pred_test.csv", "summary.json", "metrics.jsonl"}
+    _check(set(names) == want, f"outputs {names}")
+    print(f"  summary: {json.dumps(res['summary'])}")
 
-        # the service from the folds it wrote, on phase 4's uploads
-        reset_launches()
-        t0 = time.perf_counter()
-        svc = build_service_from_weights(Path(tmp))
-        torch.cuda.synchronize()
-        seconds["service_build"] = time.perf_counter() - t0
-        uploads = [synth_teeth(1, s, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
-                   for i, s in enumerate(FUSED_UPLOADS + PHONE_UPLOADS)]
-        fields = _field_rows(1, SEED + 50)[0]
-        trainer = MMTrainer(cfg)
-        worst = 0.0
-        t0 = time.perf_counter()
-        for img in uploads:
-            for call in ({}, {"fields": fields}):
-                r = svc.predict_one(img, **call)
-                if "error" in r or set(r["streams"]) != {"prob_mm"}:
-                    raise AssertionError(f"request {img.shape}: {r.get('error', r.get('streams'))}")
-                x = torch.from_numpy(r["processed_image"]).to(dev)[None]
-                ps = []
-                for f in res["folds"]:
-                    raw9 = np.float32(encode_fields(fields))[None] if call else f["scaler"].mean[None]
-                    ps.append(trainer.predict_proba(f, x, raw9)[0])
-                worst = max(worst, abs(r["p_indirect"] - float(np.mean(ps))))
-        seconds["serve"] = time.perf_counter() - t0
-        launches["serve"] = dict(LAUNCHES)
-        _check(worst <= min(SERVE_BF16_BAR, SERVE_SAME_DEVICE_BAR),
-               f"served p (MM only, {TRAIN_FOLDS} folds read from npz) on {len(uploads)} uploads without and with "
-               f"fields vs trainer.predict_proba on the same processed image: max |dp| {worst:.3g}, bars "
-               f"{SERVE_BF16_BAR} (phase 8's bf16) and {SERVE_SAME_DEVICE_BAR} (the same bf16 model on the same "
-               f"card: the npz round trip of the parameters, T, thr and the scaler); launches {launches['serve']}")
-    _check(not out_dir.exists(), "the training folder removed")
+    # the service from the folds it wrote, on phase 4's uploads
+    reset_launches()
+    t0 = time.perf_counter()
+    svc = build_service_from_weights(work)
+    torch.cuda.synchronize()
+    seconds["service_build"] = time.perf_counter() - t0
+    uploads = [synth_teeth(1, s, seed=SEED + 10 + i, angles_deg=[25.0 + 5 * i])[0]
+               for i, s in enumerate(FUSED_UPLOADS + PHONE_UPLOADS)]
+    fields = _field_rows(1, SEED + 50)[0]
+    trainer = MMTrainer(cfg)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for img in uploads:
+        for call in ({}, {"fields": fields}):
+            r = svc.predict_one(img, **call)
+            if "error" in r or set(r["streams"]) != {"prob_mm"}:
+                raise AssertionError(f"request {img.shape}: {r.get('error', r.get('streams'))}")
+            x = torch.from_numpy(r["processed_image"]).to(dev)[None]
+            ps = []
+            for f in res["folds"]:
+                raw9 = np.float32(encode_fields(fields))[None] if call else f["scaler"].mean[None]
+                ps.append(trainer.predict_proba(f, x, raw9)[0])
+            worst = max(worst, abs(r["p_indirect"] - float(np.mean(ps))))
+    seconds["serve"] = time.perf_counter() - t0
+    launches["serve"] = dict(LAUNCHES)
+    _check(worst <= min(SERVE_BF16_BAR, SERVE_SAME_DEVICE_BAR),
+           f"served p (MM only, {TRAIN_FOLDS} folds read from npz) on {len(uploads)} uploads without and with "
+           f"fields vs trainer.predict_proba on the same processed image: max |dp| {worst:.3g}, bars "
+           f"{SERVE_BF16_BAR} (phase 8's bf16) and {SERVE_SAME_DEVICE_BAR} (the same bf16 model on the same "
+           f"card: the npz round trip of the parameters, T, thr and the scaler); launches {launches['serve']}")
 
     # the bf16 step, timed one by one on the same device dataset
     tv = np.nonzero(aug_table["split"] != "test")[0]
@@ -2284,7 +2293,422 @@ def phase_train(torch, dev, smi: str):
     seconds["phase"] = time.perf_counter() - t_phase
     print("  phase 10 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; {smi}")
     print("  phase 10 kernel launches: " + json.dumps(launches))
-    return {"launches": launches, "seconds": seconds, "step": step, "summary": res["summary"]}
+    return {"launches": launches, "seconds": seconds, "step": step, "summary": res["summary"], "mm": res,
+            "table": aug_table, "imgs": aug_imgs, "trainer": trainer, "cfg": cfg, "uploads": uploads,
+            "fields": fields}
+
+
+# phase 11: the rest of the rehearsal on the card (scripts/rehearsal.py:218-243:
+# step 5 run_mil_kfold, step 6 run_final_stack with the stack_tab_like tab
+# stream), then train_tab_kfold, the fusion CLI twin, and a service built from
+# the folders phases 10-11 trained. MIL at MILConfig's widths as the rehearsal
+# runs them (B0, bag 12, 320², attn 128, batch 16, bf16), depth cut to phase
+# 10's table, TRAIN_FOLDS folds and 1 epoch; the GBDT at stack_tab_like's 700
+# trees, 31 leaves (depth 5), 64 bins, subsample and colsample 0.85.
+MIL_BATCH = 16  # scripts/rehearsal.py:220 (MILConfig's default is 8)
+
+MIL_TIMED_STEPS = 6
+# one f32 MIL step (B0 at 320, 2 bags of 12, every dropout and drop-path
+# rate 0) on the card against the CPU, held as phase 10's B4 step is
+# (_f32_step_ok's bars, whose readings are B4's; PERF.md has B0's)
+MIL_F32_BAGS = 2
+GBDT_ROWS = 3762  # the rehearsal's train+val rows (results/rehearsal_r5/mm/oof_val.csv)
+# the card's forest against the CPU's from the same GBDTDraws, held by
+# their probabilities on the table's rows and their share of trees split
+# alike: at reg_lambda 0 a last-bit difference of the two devices' sigmoid
+# can pick between splits whose gains agree to the last bits
+# (tests/test_torch_gbdt_train.py). On this table every tree split alike
+# and the probabilities read 1.79e-7 apart (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md), so the bars stand at 1 % of the trees and 56x the reading
+GBDT_PROBA_BAR = 1e-5
+GBDT_ALIKE_BAR = 0.99
+# the stack on the card against the same call on the CPU: over phase 10's
+# ~29 rows a fold its forests did not split alike, the meta_coef read 1.34e-2
+# of the largest apart, the CSVs' probabilities 1.08e-2, the threshold 0 steps
+STACK_COEF_BAR = 5e-2  # relative to the largest meta coefficient
+STACK_THR_STEPS = 1  # steps of the stack grid (0.0049)
+STACK_PROB_BAR = 5e-2
+FUSION_BAR = 1e-6  # the CLI on one CSV, card vs CPU: read 0 (weights and p)
+SERVE_ALL_BAR = 1e-5  # each served stream against the same model, same card
+
+
+def _mil_zero_grad_leaves(model) -> set[str]:
+    """MILNet's parameters whose gradient is 0 in exact arithmetic in train
+    mode: the encoder's MBConv last BatchNorm biases that reach only 1×1
+    convolutions and then a BatchNorm (``_zero_grad_leaves``' rule)."""
+    class _View:
+        backbone = model.encoder
+
+    return {k.replace("backbone.", "encoder.", 1) for k in _zero_grad_leaves(_View)
+            if k.startswith("backbone.")}
+
+
+def _mil_f32_step_check(torch, dev, imgs, origin, y):
+    """One f32 MIL step of the same seed-built B0 at MILConfig's widths on
+    the card and on the CPU, the same bags (made on each device from one
+    BagDraws); returns the gaps ``_f32_step_ok`` reads."""
+    from mmtrs_tpu_torch.config import MILConfig
+    from mmtrs_tpu_torch.models.mil import BagDraws, make_bags
+    from mmtrs_tpu_torch.train.common import normalize_imagenet
+    from mmtrs_tpu_torch.train.mil import MILTrainer
+
+    cfg = MILConfig(batch_size=MIL_F32_BAGS)
+    draws = BagDraws.draw(cfg.seed, origin, cfg.bag_size, cfg.crop_scale)
+    out = {}
+    for where in ("cpu", dev):
+        tr = MILTrainer(cfg, device=where, dtype=torch.float32, drop_rate=0.0, drop_path=0.0)
+        tr.init_state(10)
+        bags = normalize_imagenet(make_bags(imgs.to(where), draws, cfg.img_size))
+        loss = tr.train_step(bags, torch.from_numpy(y.astype(np.float32)).to(where))
+        grads = {k: v.grad.detach().cpu().clone() for k, v in tr.model.named_parameters()}
+        state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+        out[str(where)] = (float(loss), grads, state)
+    zero = _mil_zero_grad_leaves(tr.model)
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(dev)]
+    gaps = {"loss": abs(lg - lc) / abs(lc)}
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    gaps["grad"] = max(float((gg[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                       for k, g in gc.items() if k not in zero)
+    for name, gs in (("card", gg), ("cpu", gc)):
+        gaps[f"zero_grad_{name}"] = max((float(gs[k].abs().max()) for k in zero), default=0.0) / gmax
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    gaps["stats"] = max(float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1e-3)).max()) for k in stats)
+    gaps["params_firm"] = 0.0
+    for k, g in gc.items():
+        firm = torch.minimum(g.abs(), gg[k].abs()) > 1e-3 * g.abs().max()
+        if k not in zero and firm.any():
+            gaps["params_firm"] = max(gaps["params_firm"], float((sg[k] - sc[k]).abs()[firm].max()))
+    return lc, lg, gaps
+
+
+def _gbdt_table(n: int):
+    """n seeded cases of the 9 encoded fields and a label from a logistic
+    model of them (the rehearsal's train+val size)."""
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+
+    rng = np.random.default_rng(SEED + 80)
+    X = np.array([encode_fields(f) for f in _field_rows(n, SEED + 81)], np.float32)
+    z = X @ rng.normal(0, 0.8, X.shape[1]).astype(np.float32) + rng.normal(0, 1, n)
+    y = (z > np.median(z)).astype(np.float32)
+    return X, y
+
+
+def _forest_gap(a, b, X) -> dict:
+    from mmtrs_tpu_torch.models.gbdt import predict_proba
+
+    alike = ((a.split_feat.cpu() == b.split_feat.cpu()) & (a.split_bin.cpu() == b.split_bin.cpu())).all(1)
+    pa, pb = (predict_proba(f.to("cpu"), X).double().numpy() for f in (a, b))
+    return {"max_dp": float(np.abs(pa - pb).max()), "trees_alike": float(alike.double().mean())}
+
+
+def _forests_equal(torch, a, b) -> bool:
+    return (torch.equal(a.split_feat, b.split_feat) and torch.equal(a.split_bin, b.split_bin)
+            and torch.equal(a.leaf_value.nan_to_num(7.0), b.leaf_value.nan_to_num(7.0))
+            and np.array_equal(a.val_history, b.val_history) and a.n_trees_used == b.n_trees_used)
+
+
+def _gbdt_checks(torch, dev, smi: str) -> dict:
+    """train_gbdt at stack_tab_like on a seeded GBDT_ROWS × 9 table (80/20
+    train/val), twice on the card and once on the CPU from the same draws;
+    the seconds a forest, the host syncs of a fit (the same at 700 trees as
+    at 20: none inside the tree loop), and the device events of a 20-tree
+    fit under torch.profiler."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtrs_tpu_torch.config import GBDTConfig
+    from mmtrs_tpu_torch.models.gbdt import GBDTDraws, train_gbdt
+
+    cfg = GBDTConfig.stack_tab_like()
+    X, y = _gbdt_table(GBDT_ROWS)
+    n_tr = int(GBDT_ROWS * 0.8)
+    fit = lambda device, c=cfg, d=None: train_gbdt(X[:n_tr], y[:n_tr], c, X_val=X[n_tr:], y_val=y[n_tr:],
+                                                    draws=d, device=device)
+    draws = GBDTDraws.draw(cfg, n_tr, X.shape[1])
+    fit(dev, GBDTConfig(**{**cfg.__dict__, "n_estimators": 5}),
+        GBDTDraws(draws.col_keep[:5], draws.row_keep[:5]))  # warm-up
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return result, sum("synchroniz" in str(w.message) for w in caught)
+
+    out = {"seconds": []}
+    forests = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forest, out["host_syncs"] = syncs(lambda: fit(dev, d=draws))
+        forests.append(forest)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cpu = fit("cpu", d=draws)
+    out["cpu_seconds"] = time.perf_counter() - t0
+    small = GBDTConfig(**{**cfg.__dict__, "n_estimators": 20})
+    d20 = GBDTDraws(draws.col_keep[:20], draws.row_keep[:20])
+    out["host_syncs_20_trees"] = syncs(lambda: fit(dev, small, d20))[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit(dev, small, d20)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["device_events_per_tree"] = sum(e.count for e in events) / 20
+    out["device_ms_per_tree"] = sum(e.self_device_time_total for e in events) / 1e3 / 20
+    out["repeat_equal"] = _forests_equal(torch, forests[0], forests[1])
+    out["vs_cpu"] = _forest_gap(forests[0], cpu, X)
+    _check(out["repeat_equal"], "two stack_tab_like forests grown on the card from the same draws are equal "
+           "(splits, leaves, val history, n_trees_used)")
+    _check(out["vs_cpu"]["max_dp"] <= GBDT_PROBA_BAR and out["vs_cpu"]["trees_alike"] >= GBDT_ALIKE_BAR,
+           f"the card's forest vs the CPU's from the same draws: max |dp| {out['vs_cpu']['max_dp']:.3g} on the "
+           f"{GBDT_ROWS} rows (bar {GBDT_PROBA_BAR}), {out['vs_cpu']['trees_alike']:.3f} of the trees split "
+           f"alike (bar {GBDT_ALIKE_BAR})")
+    _check(out["host_syncs"] == out["host_syncs_20_trees"],
+           f"no host sync inside the tree loop: {out['host_syncs']} syncs a 700-tree fit, "
+           f"{out['host_syncs_20_trees']} a 20-tree fit (set-up uploads and the val history's one read)")
+    print(f"  train_gbdt stack_tab_like ({cfg.n_estimators} trees, depth 5, {cfg.max_bins} bins) on "
+          f"{n_tr}+{GBDT_ROWS - n_tr} rows x 9: {out['seconds'][0]:.2f} s and {out['seconds'][1]:.2f} s a forest "
+          f"on the card, {out['cpu_seconds']:.2f} s on the CPU; {out['device_events_per_tree']:.0f} device events "
+          f"and {out['device_ms_per_tree']:.3f} device ms a tree (20-tree fit under torch.profiler); "
+          f"{out['host_syncs']} host syncs a fit; {smi}")
+    return out
+
+
+def _stack_gap(a: dict, b: dict) -> dict:
+    coef = np.abs(np.subtract(a["meta_coef"], b["meta_coef"])).max() / np.abs(b["meta_coef"]).max()
+    return {"coef": float(coef), "thr_steps": abs(a["thr"] - b["thr"]) / 0.0049}
+
+
+def _csv_gap(a: Path, b: Path, col: str) -> float:
+    from mmtrs_tpu_torch.utils.table import from_csv
+
+    ta, tb = from_csv(a), from_csv(b)
+    if ta.columns != tb.columns or len(ta) != len(tb) or list(ta["image_name"]) != list(tb["image_name"]):
+        return float("inf")
+    return float(np.abs(ta[col] - tb[col]).max()) if len(ta) else 0.0
+
+
+def phase_rest(torch, dev, smi: str, work: Path, train: dict):
+    """Phase 11: on phase 10's table and MM folds, train the MIL stream
+    (run_mil_kfold, save_ckpts) into ``work``/mil_v1, grow stack_tab_like
+    forests (_gbdt_checks), fit the final stack on the MM and MIL frames
+    just trained (card and CPU), train_tab_kfold into ``work``/tab_v1, run
+    the fusion CLI twin, and serve a service built from ``work``."""
+    from mmtrs_tpu_torch.cli import run_fusion
+    from mmtrs_tpu_torch.config import FusionConfig, GBDTConfig, MILConfig
+    from mmtrs_tpu_torch.fusion.stack import fit_tab_oof, merge_inner, run_final_stack
+    from mmtrs_tpu_torch.models.mil import BagDraws, MILNet, make_bags, make_eval_bag
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.serve.choices import encode_fields
+    from mmtrs_tpu_torch.serve.ensembles import build_service_from_weights
+    from mmtrs_tpu_torch.train.common import Throughput, normalize_imagenet
+    from mmtrs_tpu_torch.train.mil import MILTrainer, run_mil_kfold
+    from mmtrs_tpu_torch.train.tabular import predict_tab_ensemble, train_tab_kfold
+    from mmtrs_tpu_torch.utils.table import Table, to_csv
+
+    t_phase = time.perf_counter()
+    table, imgs = train["table"], train["imgs"]
+    cfg = MILConfig(batch_size=MIL_BATCH, n_folds=TRAIN_FOLDS, epochs=1)
+    print(f"phase 11: the rest of the rehearsal: run_mil_kfold({cfg.model_name}, bag {cfg.bag_size} at "
+          f"{cfg.img_size}, attn {cfg.attn_dim}, batch {cfg.batch_size}, {cfg.n_folds} folds, 1 epoch, bf16) on "
+          f"phase 10's {len(table)}-row table -> train_gbdt(stack_tab_like) x3 -> run_final_stack (MM + MIL + "
+          f"tab) -> train_tab_kfold -> cli.run_fusion train / infer-batch -> build_service_from_weights")
+    seconds, launches = {}, {}
+
+    # make_bags on the card against the CPU, at the trainer's widths
+    tv = np.nonzero(table["split"] != "test")[0]
+    sel = tv[:MIL_BATCH]
+    draws = BagDraws.draw(cfg.seed, table["origin_id"][sel], cfg.bag_size, cfg.crop_scale)
+    batch = imgs.index_select(0, torch.from_numpy(sel).to(dev))
+    got = make_bags(batch, draws, cfg.img_size)
+    want = make_bags(batch.cpu(), draws, cfg.img_size)
+    bag_err = float((got.cpu() - want).abs().max())
+    _check(got.shape == (MIL_BATCH, cfg.bag_size, cfg.img_size, cfg.img_size, 3) and bag_err <= 1e-4,
+           f"make_bags at b{MIL_BATCH} x {cfg.bag_size} x {cfg.img_size}^2 from 512^2, card vs CPU: max |d| "
+           f"{bag_err:.3g} (bar 1e-4)")
+    del got, want
+
+    mil_dir = work / "mil_v1"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    t0 = time.perf_counter()
+    mil = run_mil_kfold(imgs, table, cfg, outdir=mil_dir, epochs=1, save_ckpts=True,
+                        log=lambda msg: stamps.append(msg))
+    torch.cuda.synchronize()
+    seconds["run_mil_kfold"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["mil"] = dict(LAUNCHES)
+    for msg in stamps:
+        print(f"  {msg}")
+    names = sorted(p.name for p in mil_dir.iterdir())
+    want_names = {f"mil_v1_fold{k}{e}" for k in range(TRAIN_FOLDS) for e in (".npz", ".recipe.json")}
+    want_names |= {"oof_val.csv", "pred_test.csv", "summary.json"}
+    _check(set(names) == want_names, f"MIL outputs {names}")
+    probs = np.concatenate([mil["oof"]["prob"], mil["test"]["prob"]])
+    _check(bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1,
+           f"MIL OOF and test probabilities finite in [0, 1]: {len(probs)} rows; summary "
+           f"{json.dumps(mil['summary'])}")
+    ref = MILTrainer(cfg, device="cpu")
+    for k, st in enumerate(mil["states"]):
+        moved = sum(not torch.equal(st["model"][n].cpu(), ref._init[n]) for n, _ in ref.model.named_parameters())
+        _check(moved > 0, f"MIL fold {k}: {moved} parameter tensors changed")
+
+    # the bf16 MIL step, timed one by one
+    trainer = MILTrainer(cfg)
+    trainer.init_state(MIL_TIMED_STEPS)
+    y_d = torch.from_numpy(table["y_majority"].astype(np.float32)).to(dev)
+    rng = np.random.default_rng(SEED + 90)
+    thr = Throughput()
+    bag_ms, step_ms = [], []
+    for i in range(MIL_TIMED_STEPS):
+        s = rng.choice(tv, cfg.batch_size, replace=False)
+        s_d = torch.from_numpy(s).to(dev)
+        torch.cuda.synchronize()
+        thr.start()
+        t0 = time.perf_counter()
+        bags = trainer.train_bags(imgs.index_select(0, s_d), cfg.seed, table["origin_id"][s])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(bags, y_d[s_d])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        thr.stop(cfg.batch_size)
+        bag_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+    mil_step = {"bags_ms": float(np.median(bag_ms[1:])), "step_ms": float(np.median(step_ms[1:])),
+                "first_step_ms": step_ms[0], "bags_per_sec": thr.imgs_per_sec, "peak_gb": peak / 1e9}
+    print(f"  bf16 MIL step at b{cfg.batch_size} x {cfg.bag_size} x {cfg.img_size}^2 (median of "
+          f"{MIL_TIMED_STEPS - 1} after the first, host clock, each ending in a synchronise): make_bags + "
+          f"normalise {mil_step['bags_ms']:.2f} ms, forward + backward + AdamW {mil_step['step_ms']:.2f} ms "
+          f"(first {step_ms[0]:.2f} ms); {thr.imgs_per_sec:.2f} bags/s over all {MIL_TIMED_STEPS}; peak memory "
+          f"of run_mil_kfold {peak / 1e9:.2f} GB; {smi}")
+    del trainer
+
+    # one f32 MIL step on the card against the CPU
+    t0 = time.perf_counter()
+    s = tv[:MIL_F32_BAGS]
+    lc, lg, gaps = _mil_f32_step_check(torch, dev, imgs.index_select(0, torch.from_numpy(s).to(dev)).cpu(),
+                                       table["origin_id"][s], table["y_majority"][s])
+    seconds["mil_f32_step_check"] = time.perf_counter() - t0
+    _check(_f32_step_ok(gaps),
+           f"f32 B0 MIL step at {MIL_F32_BAGS} bags of {cfg.bag_size} at {cfg.img_size}^2, card vs CPU: loss "
+           f"{lg:.7f} vs {lc:.7f} ({gaps['loss']:.3g} relative, bar {F32_LOSS_BAR}); gradients {gaps['grad']:.3g} "
+           f"of their leaf's max (bar {F32_GRAD_BAR}), the zero-gradient biases {gaps['zero_grad_card']:.3g} "
+           f"(card) and {gaps['zero_grad_cpu']:.3g} (CPU) of the largest (bar {F32_ZERO_GRAD_BAR}); running "
+           f"statistics {gaps['stats']:.3g} relative (bar {F32_STATS_BAR}); parameters after AdamW "
+           f"{gaps['params_firm']:.3g} where the gradient is firm (bar {F32_PARAM_BAR})")
+
+    # the GBDT at the recipe's widths
+    t0 = time.perf_counter()
+    gbdt = _gbdt_checks(torch, dev, smi)
+    seconds["gbdt"] = time.perf_counter() - t0
+
+    # the final stack on the frames phases 10-11 trained, card and CPU
+    mm_oof, mm_test = train["mm"]["oof"], train["mm"]["test"]
+    mil_oof, mil_test = mil["oof"], mil["test"]
+    fcfg = FusionConfig(n_folds=TRAIN_FOLDS, thr_mode="max_acc")  # scripts/rehearsal.py:233
+    stack = {}
+    for where in (None, "cpu"):
+        t0 = time.perf_counter()
+        out = work / ("stack" if where is None else "stack_cpu")
+        stack[where or "card"] = run_final_stack(table, mm_oof, mm_test, mil_oof, mil_test, outdir=out, cfg=fcfg,
+                                                 tab_cfg=GBDTConfig.stack_tab_like(), device=where)
+        seconds[f"run_final_stack_{where or 'card'}"] = time.perf_counter() - t0
+    sg = _stack_gap(stack["card"], stack["cpu"])
+    csv_gap = max(_csv_gap(work / "stack" / n, work / "stack_cpu" / n, "prob") for n in ("stack_oof.csv", "stack_test.csv"))
+    _check(sg["coef"] <= STACK_COEF_BAR and sg["thr_steps"] <= STACK_THR_STEPS + 1e-6 and csv_gap <= STACK_PROB_BAR,
+           f"run_final_stack card vs CPU: meta_coef {stack['card']['meta_coef']} vs {stack['cpu']['meta_coef']} "
+           f"({sg['coef']:.3g} of the largest, bar {STACK_COEF_BAR}), thr {stack['card']['thr']} vs "
+           f"{stack['cpu']['thr']} ({sg['thr_steps']:.2f} grid steps, bar {STACK_THR_STEPS}); the written CSVs' "
+           f"probabilities {csv_gap:.3g} apart (bar {STACK_PROB_BAR}); summary {json.dumps(stack['card'])}")
+
+    # train_tab_kfold into tab_v1, as the service reads it
+    t0 = time.perf_counter()
+    tab = train_tab_kfold(table, work / "tab_v1", n_folds=N_FOLDS)
+    torch.cuda.synchronize()
+    seconds["train_tab_kfold"] = time.perf_counter() - t0
+    _check(len(tab["forests"]) == N_FOLDS and len(list((work / "tab_v1").glob("tab_fold*.npz"))) == N_FOLDS,
+           f"train_tab_kfold wrote {N_FOLDS} forests")
+
+    # the fusion CLI twin on a CSV of the three streams, card and CPU
+    tab_oof, tab_test = fit_tab_oof(table, folds=TRAIN_FOLDS)
+    rows = []
+    for part, (t, m, l) in (("train", (tab_oof, mm_oof, mil_oof)), ("test", (tab_test, mm_test, mil_test))):
+        ren = lambda x, name: Table({("prob_" + name if c == "prob" else c): x[c] for c in x.columns})
+        j = merge_inner(merge_inner(ren(t, "tab"), ren(m, "mm")), ren(l, "mil"))
+        rows.append(Table({"image_name": j["image_name"], "y_majority": j["y"].astype(np.int64),
+                           "split": [part] * len(j), "prob_tab": j["prob_tab"], "prob_mm": j["prob_mm"],
+                           "prob_mil": j["prob_mil"]}))
+    csv = work / "streams.csv"
+    to_csv(Table.concat(rows), csv)
+    t0 = time.perf_counter()
+    for where, d in (("cuda", "fusion"), ("cpu", "fusion_cpu")):
+        code = run_fusion.main(["train", "--data", str(csv), "--out_dir", str(work / d), "--device", where])
+        code |= run_fusion.main(["infer-batch", "--fusion_dir", str(work / d), "--data", str(csv),
+                                 "--out_dir", str(work / d)])
+        _check(code == 0, f"cli.run_fusion train + infer-batch on {where}")
+    seconds["fusion_cli"] = time.perf_counter() - t0
+    fa, fb = (json.loads((work / d / "fusion_summary.json").read_text()) for d in ("fusion", "fusion_cpu"))
+    wgap = max(float(np.abs(np.subtract(fa[p]["weights"], fb[p]["weights"])).max()) for p in ("stack", "blend"))
+    hyb = _csv_gap(work / "fusion" / "hybrid_test_predictions.csv", work / "fusion_cpu" / "hybrid_test_predictions.csv",
+                   "p_indirect")
+    _check(fa["choice"] == fb["choice"] and fa["threshold"] == fb["threshold"] and wgap <= FUSION_BAR
+           and hyb <= FUSION_BAR,
+           f"fusion CLI card vs CPU on {len(Table.concat(rows))} rows of 3 streams: choice {fa['choice']} / "
+           f"{fb['choice']}, threshold {fa['threshold']} / {fb['threshold']}, weights {wgap:.3g} apart, "
+           f"hybrid_test_predictions.csv p {hyb:.3g} apart (bar {FUSION_BAR})")
+
+    # serve what phases 10-11 trained: MM, MIL, Tab and the Stacker from work
+    reset_launches()
+    t0 = time.perf_counter()
+    svc = build_service_from_weights(work)
+    torch.cuda.synchronize()
+    seconds["service_build"] = time.perf_counter() - t0
+    nets = []
+    for st in mil["states"]:
+        net = MILNet(cfg.model_name, cfg.attn_dim).to(dev)
+        net.load_state_dict(st["model"])
+        nets.append(net.eval())
+    fields = train["fields"]
+    tab_p = float(predict_tab_ensemble(tab["forests"], Table(
+        {c: [v] for c, v in zip(("depth", "width", "enamel_cracks", "occlusal_load", "carious_lesion",
+                                  "opposing_type", "adjacent_teeth", "age_range", "cervical_lesion"),
+                                 encode_fields(fields))}))[0])
+    worst = {"prob_mm": 0.0, "prob_mil": 0.0, "prob_tab": 0.0}
+    mm_trainer, mm_folds = train["trainer"], train["mm"]["folds"]
+    t0 = time.perf_counter()
+    for img in train["uploads"]:
+        r = svc.predict_one(img, fields=fields)
+        if "error" in r or set(r["streams"]) != set(worst):
+            raise AssertionError(f"request {img.shape}: {r.get('error', r.get('streams'))}")
+        x = torch.from_numpy(r["processed_image"]).to(dev)[None]
+        raw9 = np.float32(encode_fields(fields))[None]
+        p_mm = float(np.mean([mm_trainer.predict_proba(f, x, raw9)[0] for f in mm_folds]))
+        with torch.no_grad():
+            bag = normalize_imagenet(make_eval_bag(x))[None]
+            logit = torch.stack([n(bag)[0][0] for n in nets]).double().mean().item()
+        p_mil = 1.0 / (1.0 + np.exp(-logit))
+        for k, v in (("prob_mm", p_mm), ("prob_mil", p_mil), ("prob_tab", tab_p)):
+            worst[k] = max(worst[k], abs(r["streams"][k] - v))
+        _check(0.0 <= r["p_indirect"] <= 1.0, f"served p {r['p_indirect']}")
+    seconds["serve"] = time.perf_counter() - t0
+    launches["serve"] = dict(LAUNCHES)
+    _check(max(worst.values()) <= SERVE_ALL_BAR,
+           f"a service built from the folders the port trained (MM x{TRAIN_FOLDS}, MIL x{TRAIN_FOLDS}, Tab x{N_FOLDS}, "
+           f"the Stacker on both OOF CSVs) on {len(train['uploads'])} uploads with fields: each stream against "
+           f"its trained model on the same processed image, max |dp| {json.dumps(worst)} (bar {SERVE_ALL_BAR}); "
+           f"launches {launches['serve']}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    print("  phase 11 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; {smi}")
+    print("  phase 11 kernel launches: " + json.dumps(launches))
+    return {"launches": launches, "seconds": seconds, "mil_step": mil_step, "gbdt": gbdt,
+            "stack": stack["card"], "mil_summary": mil["summary"]}
 
 
 def main() -> int:
@@ -2323,7 +2747,13 @@ def main() -> int:
     archive_launches, archive_ips = phase_archive(torch, dev)
     full_launches, full_p50s, entry = phase_serve_weights(
         torch, dev, smi, then=phase_entry_points(torch, dev, smi, archive_ips))
-    train = phase_train(torch, dev, smi)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = Path(tmp)
+        train = phase_train(torch, dev, smi, work)
+        rest = phase_rest(torch, dev, smi, work, train)
+    _check(not work.exists(), "the training folder removed")
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
 
@@ -2371,7 +2801,11 @@ def main() -> int:
           f"{entry['codec']['encode_512_ms']:.2f} ms; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
           f"b12 bf16 randaug) step {train['step']['step_ms']:.2f} ms + prep {train['step']['prep_ms']:.2f} ms, "
           f"{train['step']['imgs_per_sec']:.2f} imgs/s, peak {train['step']['peak_gb']:.2f} GB, phase 10 "
-          f"{train['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
+          f"{train['seconds']['phase']:.1f} s; MIL training (B0 bag 12 at 320 "
+          f"b{MIL_BATCH} bf16) step {rest['mil_step']['step_ms']:.2f} ms + bags {rest['mil_step']['bags_ms']:.2f} ms, "
+          f"{rest['mil_step']['bags_per_sec']:.2f} bags/s, peak {rest['mil_step']['peak_gb']:.2f} GB; "
+          f"train_gbdt(stack_tab_like) {rest['gbdt']['seconds'][1]:.2f} s a forest; phase 11 "
+          f"{rest['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Threshold selection over the whole grid at once (the port's copy of
-``threshold_grid``, ``sweep_thresholds`` and ``choose_threshold`` in
-mmtrs_tpu/metrics/thresholds.py; host numpy, as there).
+``threshold_grid``, ``sweep_thresholds``, ``choose_threshold`` and
+``tune_threshold`` in mmtrs_tpu/metrics/thresholds.py; host numpy, as there).
 
 stack_blend.py:50-85 parity: grid ``linspace(0.01, 0.99, 199)``; modes
 max_f1 / max_acc / youden (over the distinct scores, descending, like
@@ -13,6 +13,8 @@ sorted positive and negative scores.
 from __future__ import annotations
 
 import numpy as np
+
+from mmtrs_tpu_torch.metrics.binary import average_precision
 
 
 def threshold_grid(kind: str = "stack") -> np.ndarray:
@@ -79,3 +81,20 @@ def choose_threshold(y, p, mode: str = "max_f1", target: float = 0.80) -> float:
         ok = np.nonzero(s["rec"] >= target)[0]
         return float(ts[ok[-1]]) if ok.size else 0.5
     return 0.5
+
+
+def tune_threshold(y, p, metric: str = "f1") -> tuple[float, float]:
+    """src/fusion/metrics.py:27-45 + xgboost_model.py:86-101 parity over
+    the fusion grid: f1, accuracy, balanced_accuracy; youden and pr_auc are
+    threshold-free in the reference, whose loop then returns the first grid
+    point (kept)."""
+    ts = threshold_grid("fusion")
+    if metric in ("youden", "pr_auc"):
+        if metric == "pr_auc":
+            return float(ts[0]), float(average_precision(y, p))
+        s = sweep_thresholds(y, p, np.unique(np.asarray(p))[::-1])
+        return float(ts[0]), float(np.max(s["youden_j"]))
+    s = sweep_thresholds(y, p, ts)
+    key = {"f1": "f1", "accuracy": "acc", "balanced_accuracy": "bal_acc"}[metric]
+    i = int(np.argmax(s[key]))
+    return float(ts[i]), float(s[key][i])

@@ -1,6 +1,6 @@
-"""Histogram gradient-boosted decision trees, inference (port of
-mmtrs_tpu/models/gbdt.py: ``BinSpec``, ``apply_bins``, ``Forest``,
-``predict_raw``, ``predict_proba``).
+"""Histogram gradient-boosted decision trees (port of mmtrs_tpu/models/gbdt.py:
+``BinSpec``, ``fit_bins``, ``apply_bins``, ``Forest``, ``train_gbdt``,
+``predict_raw``, ``predict_proba``, ``consensus_sample_weights``).
 
 A forest is rectangular: every tree has ``2^depth − 1`` split slots and
 ``2^depth`` leaves (the learning rate folded in). A row is quantised with
@@ -10,8 +10,23 @@ over [trees, rows]. The sum of the leaves is taken in one f32 reduction,
 where the JAX package adds the trees one after another in a scan, so the
 two round differently (tests/test_torch_tab.py states the bar). Forests are
 npz + json files, the JAX package's own format; their arrays are uploaded
-to the device once, at load. Fitting (``train_gbdt``) comes with the
-tabular training slice.
+to the device once, at load.
+
+Fitting is the JAX package's level-wise growth, in f32, one tree after
+another on the device (JAX scans the trees in one compiled program). Each
+level's gradient and hessian histograms per (node, feature, bin) are sums
+over segments of a stable sort: the (feature, node, bin) key of every
+(row, feature) pair is sorted, rows keep their order within a key, and
+``torch.segment_reduce`` adds each segment in that order, one thread a
+segment. No float is added by atomics, so every run on a card grows the
+same forest, and the order is the one in which the JAX package's
+``segment_sum`` adds on the CPU. A row's prediction takes its leaf by a
+gather ``leaf[node]``: with ``reg_lambda`` 0 a leaf that no row reaches
+is 0/0 = NaN, which a one-hot product would spread to every row. The
+per-tree validation losses stay on the device and are read once, after
+the last tree. Row and column subsampling come from :class:`GBDTDraws`,
+drawn from a ``torch.Generator`` (not the JAX package's ``jax.random``
+bits; ``GBDTDraws.from_numpy`` takes those).
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mmtrs_tpu_torch.config import GBDTConfig
 from mmtrs_tpu_torch.device import resolve_device
 
 
@@ -32,6 +48,29 @@ class BinSpec:
     """Per-feature bin edges; bin index = searchsorted(edges, x, 'right')."""
 
     edges: tuple[np.ndarray, ...]  # each [n_edges_f] float32
+
+
+def fit_bins(X: np.ndarray, max_bins: int = 64) -> BinSpec:
+    """Per feature: the midpoints of its distinct finite values when there
+    are at most ``max_bins`` of them, else its distinct quantiles at
+    ``max_bins − 1`` inner levels; no edges for a constant feature (host
+    numpy, the JAX package's code)."""
+    X = np.asarray(X, dtype=np.float32)
+    edges = []
+    for f in range(X.shape[1]):
+        col = X[:, f]
+        col = col[np.isfinite(col)]
+        uniq = np.unique(col)
+        if uniq.size <= 1:
+            edges.append(np.empty(0, dtype=np.float32))
+            continue
+        if uniq.size <= max_bins:
+            cuts = (uniq[:-1] + uniq[1:]) / 2.0
+        else:
+            qs = np.quantile(col, np.linspace(0, 1, max_bins + 1)[1:-1])
+            cuts = np.unique(qs)
+        edges.append(cuts.astype(np.float32))
+    return BinSpec(tuple(edges))
 
 
 def _edge_table(edges, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -153,3 +192,204 @@ def predict_proba(forest: Forest, X) -> torch.Tensor:
         return 1.0 / (1.0 + torch.exp(-raw))
     # soft regression clipped to [0, 1] (lightgbm_model.py:37-49)
     return torch.clamp(raw, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GBDTDraws:
+    """The random part of a fit: per tree the columns it may split on and
+    the rows it sees."""
+
+    col_keep: torch.Tensor  # [T, F] bool, at least one True a tree
+    row_keep: torch.Tensor | None  # [T, n] float32 0/1; None: every row
+
+    @staticmethod
+    def draw(cfg: GBDTConfig, n: int, n_feat: int, generator: torch.Generator | None = None) -> "GBDTDraws":
+        """Uniforms from ``generator`` (default: a CPU generator seeded with
+        ``cfg.seed``): a row is kept where its draw is below
+        ``cfg.subsample``, a column where below ``cfg.colsample``; each
+        tree's first kept column (column 0 when none is) is kept, as the
+        JAX package guarantees one."""
+        g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
+        T = cfg.n_estimators
+        row = (torch.rand((T, n), generator=g) < cfg.subsample).float() if cfg.subsample < 1.0 else None
+        if cfg.colsample < 1.0:
+            col = torch.rand((T, n_feat), generator=g) < cfg.colsample
+        else:
+            col = torch.ones((T, n_feat), dtype=torch.bool)
+        col[torch.arange(T), col.to(torch.uint8).argmax(1)] = True
+        return GBDTDraws(col, row)
+
+    @staticmethod
+    def from_numpy(col_keep: np.ndarray, row_keep: np.ndarray | None = None) -> "GBDTDraws":
+        """Masks made elsewhere (the tests feed in the JAX package's)."""
+        return GBDTDraws(torch.from_numpy(np.array(col_keep, dtype=bool)),
+                         None if row_keep is None else torch.from_numpy(np.array(row_keep, np.float32)))
+
+
+def _effective_depth(cfg: GBDTConfig) -> int:
+    if cfg.max_depth and cfg.max_depth > 0:
+        return int(cfg.max_depth)
+    # leaf-wise recipes (num_leaves): nearest power-of-two depth
+    return max(1, int(np.ceil(np.log2(max(cfg.num_leaves, 2)))))
+
+
+def _soft(g: torch.Tensor, alpha: float) -> torch.Tensor:
+    return torch.sign(g) * torch.clamp_min(torch.abs(g) - alpha, 0.0)
+
+
+def _segment_sums(keys: torch.Tensor, values: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Per segment 0..n_segments−1 the sum of the ``values`` rows [m, c]
+    whose key is that segment, added in row order by one thread each
+    (a stable sort and ``segment_reduce``; no atomics)."""
+    sk, perm = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(sk, torch.arange(n_segments + 1, device=keys.device))
+    return torch.segment_reduce(values[perm], "sum", lengths=bounds.diff(), unsafe=True)
+
+
+def _walk(sf: torch.Tensor, sb: torch.Tensor, bins: torch.Tensor, depth: int) -> torch.Tensor:
+    """Each row's leaf under one tree."""
+    node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    for level in range(depth):
+        at = node + (2**level - 1)
+        fbin = bins.gather(1, sf[at][:, None])[:, 0]
+        node = node * 2 + (fbin > sb[at])
+    return node
+
+
+def train_gbdt(
+    X_train: np.ndarray,
+    y_train: np.ndarray,
+    cfg: GBDTConfig,
+    sample_weight: np.ndarray | None = None,
+    X_val: np.ndarray | None = None,
+    y_val: np.ndarray | None = None,
+    max_bins: int | None = None,
+    draws: GBDTDraws | None = None,
+    device: str | torch.device | None = None,
+) -> Forest:
+    """Fit a forest on ``device`` (None: the card). With a validation set,
+    ``n_trees_used`` is the best-loss prefix when early stopping is on (all
+    trees still grow); else all trees are used. ``draws``: the subsampling
+    (default ``GBDTDraws.draw(cfg, ...)``)."""
+    from mmtrs_tpu_torch.train.common import host_to_device
+
+    dev = resolve_device(device)
+    spec = fit_bins(X_train, max_bins or cfg.max_bins)
+    table, counts = _edge_table(spec.edges, dev)
+    to_dev = lambda a: host_to_device(np.asarray(a), dev)  # pinned: no wait for the card
+    Xb = _bin_rows(to_dev(np.asarray(X_train, np.float32)), table, counts)
+    y = to_dev(np.asarray(y_train, dtype=np.float32))
+    n, n_feat = Xb.shape
+    B = int(cfg.max_bins if max_bins is None else max_bins)
+
+    w = np.ones(n, dtype=np.float32) if sample_weight is None else np.asarray(sample_weight, dtype=np.float32)
+    w = to_dev(w / max(w.mean(), 1e-12))
+
+    has_val = X_val is not None and y_val is not None
+    if has_val:
+        Xb_val = _bin_rows(to_dev(np.asarray(X_val, np.float32)), table, counts)
+        yv = to_dev(np.asarray(y_val, dtype=np.float32))
+    else:  # a one-row stand-in, as the JAX package's static scan has
+        Xb_val, yv = Xb[:1], y[:1]
+
+    depth = _effective_depth(cfg)
+    n_nodes, n_leaves = 2**depth - 1, 2**depth
+    if cfg.objective == "binary_logistic":
+        p0 = float(np.clip(np.average(np.asarray(y_train)), 1e-6, 1 - 1e-6))
+        base = float(np.log(p0 / (1 - p0)))
+    elif cfg.objective == "soft_regression":
+        base = float(np.average(np.asarray(y_train)))
+    else:
+        raise ValueError(cfg.objective)
+    mono = torch.tensor(cfg.monotone_constraints or (0,) * n_feat, dtype=torch.float32, device=dev)[:n_feat]
+    mono = mono[None, :, None]
+    lr, lam, alpha, gamma, mcw = cfg.learning_rate, cfg.reg_lambda, cfg.reg_alpha, cfg.gamma, cfg.min_child_weight
+
+    T = cfg.n_estimators
+    draws = draws if draws is not None else GBDTDraws.draw(cfg, n, n_feat)
+    if draws.col_keep.shape != (T, n_feat) or (draws.row_keep is not None and draws.row_keep.shape != (T, n)):
+        raise ValueError(f"draws do not fit {T} trees over {n} rows and {n_feat} features")
+    col_keep = to_dev(draws.col_keep.numpy())
+    row_keep = None if draws.row_keep is None else to_dev(draws.row_keep.numpy())
+    feat = torch.arange(n_feat, device=dev)
+    score = lambda G, H: _soft(G, alpha) ** 2 / (H + lam)
+    leaf_w = lambda G, H: -_soft(G, alpha) / (H + lam)
+
+    def grow_tree(gh: torch.Tensor, col: torch.Tensor):
+        node = torch.zeros(n, dtype=torch.int64, device=dev)
+        split_feat = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+        split_bin = torch.full((n_nodes,), B - 1, dtype=torch.int64, device=dev)
+        gh_rows = gh.repeat(n_feat, 1)  # [F·n, 2], feature-major as the keys
+        for level in range(depth):
+            n_level = 2**level
+            K = n_level * B
+            keys = ((node[None, :] * B + Xb.T) + feat[:, None] * K).reshape(-1)  # [F·n]
+            hist = _segment_sums(keys, gh_rows, n_feat * K).reshape(n_feat, n_level, B, 2)
+            HG, HH = hist[..., 0].transpose(0, 1), hist[..., 1].transpose(0, 1)  # [n_level, F, B]
+            GL, HL = torch.cumsum(HG, dim=-1), torch.cumsum(HH, dim=-1)
+            G, H = GL[..., -1:], HL[..., -1:]
+            GR, HR = G - GL, H - HL
+            gain = 0.5 * (score(GL, HL) + score(GR, HR) - score(G, H)) - gamma
+            valid = (HL >= mcw) & (HR >= mcw) & col[None, :, None]
+            wL, wR = leaf_w(GL, HL), leaf_w(GR, HR)
+            mono_ok = torch.where(mono > 0, wL <= wR, torch.where(mono < 0, wL >= wR, True))
+            gain = torch.where(valid & mono_ok, gain, -torch.inf)
+            gain[..., B - 1] = -torch.inf  # never split on the last bin (empty right child)
+            flat = gain.reshape(n_level, -1)
+            best = torch.argmax(flat, dim=-1)
+            do_split = flat.gather(1, best[:, None])[:, 0] > 0.0
+            bf = torch.where(do_split, best // B, 0)
+            bb = torch.where(do_split, best % B, B - 1)  # all-left when not splitting
+            split_feat[n_level - 1 : 2 * n_level - 1] = bf
+            split_bin[n_level - 1 : 2 * n_level - 1] = bb
+            fbin = Xb.gather(1, bf[node][:, None])[:, 0]
+            node = node * 2 + (fbin > bb[node])
+        leaf_gh = _segment_sums(node, gh, n_leaves)
+        leaf = -lr * _soft(leaf_gh[:, 0], alpha) / (leaf_gh[:, 1] + lam)
+        return split_feat, split_bin, leaf, node
+
+    SF = torch.empty((T, n_nodes), dtype=torch.int64, device=dev)
+    SB = torch.empty((T, n_nodes), dtype=torch.int64, device=dev)
+    LV = torch.empty((T, n_leaves), dtype=torch.float32, device=dev)
+    VL = torch.empty(T, dtype=torch.float32, device=dev)
+    pred_tr = torch.full((n,), base, dtype=torch.float32, device=dev)
+    pred_va = torch.full((Xb_val.shape[0],), base, dtype=torch.float32, device=dev)
+    for t in range(T):
+        if cfg.objective == "binary_logistic":
+            p = torch.sigmoid(pred_tr)
+            g, h = p - y, p * (1.0 - p)
+        else:
+            g, h = pred_tr - y, torch.ones_like(pred_tr)
+        sw = w if row_keep is None else w * row_keep[t]
+        SF[t], SB[t], LV[t], node_tr = grow_tree(torch.stack([g * sw, h * sw], dim=1), col_keep[t])
+        pred_tr = pred_tr + LV[t][node_tr]
+        pred_va = pred_va + LV[t][_walk(SF[t], SB[t], Xb_val, depth)]
+        if cfg.objective == "binary_logistic":
+            VL[t] = torch.mean(torch.logaddexp(torch.zeros_like(pred_va), pred_va) - yv * pred_va)
+        else:
+            VL[t] = torch.mean((pred_va - yv) ** 2)
+
+    vl = VL.cpu().numpy()  # the one read of the fit
+    n_used = int(np.argmin(vl)) + 1 if has_val and cfg.early_stopping_rounds else T
+    return Forest(split_feat=SF, split_bin=SB, leaf_value=LV, depth=depth, base_score=base,
+                  n_trees_used=n_used, objective=cfg.objective, bin_edges=spec.edges,
+                  val_history=vl if has_val else None)
+
+
+def consensus_sample_weights(weight: np.ndarray, y: np.ndarray, consensus_power: float,
+                             class_balanced: bool) -> np.ndarray:
+    """w^p × balanced class weights, mean-normalised (xgboost_model.py:131-135)."""
+    w = np.power(np.clip(np.asarray(weight, dtype=np.float64), 0, None), consensus_power)
+    if class_balanced:
+        y = np.asarray(y).astype(int)
+        n = y.size
+        for cls in (0, 1):
+            m = y == cls
+            if m.any():
+                w[m] *= n / (2.0 * m.sum())
+    return (w / max(w.mean(), 1e-12)).astype(np.float32)

@@ -1,6 +1,7 @@
-"""Binary logistic regression and temperature scaling (port of
-``LogisticRegression``, penalties ``l2`` and ``none``, and
-``TemperatureScaler`` in mmtrs_tpu/models/linear.py).
+"""Binary logistic regression, calibration and temperature scaling (port of
+mmtrs_tpu/models/linear.py: ``LogisticRegression`` with penalties ``l2``,
+``none`` and ``l1``, ``platt_calibrate``, ``isotonic_calibrate``,
+``make_calibrator`` and ``TemperatureScaler``).
 
 ``fit`` is the JAX package's Newton solver in float32 (that package runs
 without x64): the intercept is not regularised, ``s = w·p·(1−p) + 1e-12``,
@@ -53,9 +54,9 @@ class LogisticRegression:
 
     def fit(self, X, y, sample_weight=None,
             device: str | torch.device | None = None) -> "LogisticRegression":
-        """Newton on ``device`` (None: the card)."""
-        if self.penalty not in ("none", "l2"):
-            raise ValueError(f"penalty {self.penalty!r}: the port fits 'l2' and 'none'")
+        """Newton (or FISTA for ``l1``) on ``device`` (None: the card)."""
+        if self.penalty not in ("none", "l2", "l1"):
+            raise ValueError(f"unknown penalty {self.penalty!r}: 'l2', 'none' or 'l1'")
         dev = resolve_device(device)
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64).reshape(-1)
@@ -66,11 +67,17 @@ class LogisticRegression:
         Xd = f32(np.c_[X, np.ones(len(X))] if self.fit_intercept else X)
         d = Xd.shape[1]
         lam = 0.0 if self.penalty == "none" else 1.0 / self.C
+        # lbfgs-style solvers don't regularise the intercept; liblinear (the
+        # reference's L1 solver, meta_learner.py:12) does: match each
         reg_mask = torch.ones(d, device=dev)
-        if self.fit_intercept:
+        if self.fit_intercept and self.penalty != "l1":
             reg_mask[-1] = 0.0
-        beta, self.n_iter_ = _newton_logistic(Xd, f32(y), f32(w), lam, reg_mask,
-                                              self.max_iter, self.tol)
+        if self.penalty == "l1":
+            beta, self.n_iter_ = _prox_logistic(Xd, f32(y), f32(w), lam, reg_mask,
+                                                max(self.max_iter, 2000), self.tol)
+        else:
+            beta, self.n_iter_ = _newton_logistic(Xd, f32(y), f32(w), lam, reg_mask,
+                                                  self.max_iter, self.tol)
         beta = beta.cpu().numpy().astype(np.float64)
         if self.fit_intercept:
             self.coef_, self.intercept_ = beta[:-1], float(beta[-1])
@@ -87,6 +94,17 @@ class LogisticRegression:
         p = 1.0 / (1.0 + np.exp(-z))
         return np.c_[1 - p, p]
 
+    def predict(self, X, threshold: float = 0.5) -> np.ndarray:
+        return (self.predict_proba(X)[:, 1] >= threshold).astype(int)
+
+    @property
+    def weights_simplex(self) -> np.ndarray:
+        """Clipped-nonnegative, sum-1 coefficient view
+        (MetaStacker.weights parity, meta_learner.py:20-28)."""
+        w = np.clip(self.coef_, 0, None)
+        s = w.sum()
+        return w / s if s > 0 else np.full_like(w, 1.0 / max(w.size, 1))
+
 
 def _newton_logistic(X, y, w, lam, reg_mask, max_iter, tol) -> tuple[torch.Tensor, int]:
     beta = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
@@ -102,6 +120,144 @@ def _newton_logistic(X, y, w, lam, reg_mask, max_iter, tol) -> tuple[torch.Tenso
         i += 1
         delta = step.abs().max().item()
     return beta, i
+
+
+_FISTA_BLOCK = 50
+
+
+def _prox_logistic(X, y, w, lam, reg_mask, max_iter, tol) -> tuple[torch.Tensor, int]:
+    """FISTA with soft-thresholding (L1), the JAX package's iteration in f32.
+    A block of ``_FISTA_BLOCK`` iterations runs without reading the device;
+    once ``max|β_new − β| <= tol`` the state stops changing, as JAX's
+    ``while_loop`` stops there."""
+    dev = X.device
+    L = 0.25 * torch.linalg.matrix_norm(X * torch.sqrt(w)[:, None], ord=2) ** 2 + 1e-9
+    step = 1.0 / L
+    thr = step * lam * reg_mask
+    beta = torch.zeros(X.shape[1], dtype=X.dtype, device=dev)
+    z = beta.clone()
+    t = torch.ones((), dtype=X.dtype, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(0, max_iter, _FISTA_BLOCK):
+        for _ in range(_FISTA_BLOCK):
+            live = ~done & (i < max_iter)
+            g = X.T @ (w * (torch.sigmoid(X @ z) - y))
+            raw = z - step * g
+            beta_new = torch.sign(raw) * torch.clamp_min(torch.abs(raw) - thr, 0.0)
+            t_new = 0.5 * (1 + torch.sqrt(1 + 4 * t * t))
+            z_new = beta_new + (t - 1) / t_new * (beta_new - beta)
+            delta = torch.max(torch.abs(beta_new - beta))
+            beta = torch.where(live, beta_new, beta)
+            z = torch.where(live, z_new, z)
+            t = torch.where(live, t_new, t)
+            i = i + live.long()
+            done = done | (live & ~(delta > tol))
+        if bool(done | (i >= max_iter)):  # one read a block
+            break
+    return beta, int(i)
+
+
+# ---------------------------------------------------------------------------
+# Calibration (host numpy, but Platt's Newton fit)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PlattCalibrator:
+    a: float = 1.0
+    b: float = 0.0
+
+    def transform(self, p) -> np.ndarray:
+        z = np.asarray(p, dtype=np.float64)
+        return 1.0 / (1.0 + np.exp(-(self.a * z + self.b)))
+
+
+def platt_calibrate(scores, y, prior_correction: bool = True,
+                    device: str | torch.device | None = None) -> PlattCalibrator:
+    """Sigmoid calibration on scores: the Newton solver in f32 (100
+    steps at most, tol 1e-10, unregularised) on [s, 1] with Platt's
+    (n+1)/(n+2) targets when ``prior_correction`` (sklearn's
+    _SigmoidCalibration), else the labels; on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    s = np.asarray(scores, dtype=np.float64).reshape(-1, 1)
+    y = np.asarray(y, dtype=np.float64).reshape(-1)
+    if prior_correction:
+        n_pos, n_neg = y.sum(), (1 - y).sum()
+        t = np.where(y > 0, (n_pos + 1) / (n_pos + 2), 1.0 / (n_neg + 2))
+    else:
+        t = y
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    beta, _ = _newton_logistic(f32(np.c_[s, np.ones(len(s))]), f32(t), torch.ones(len(s), device=dev),
+                               0.0, torch.zeros(2, device=dev), 100, 1e-10)
+    a, b = beta.cpu().tolist()
+    return PlattCalibrator(a=float(a), b=float(b))
+
+
+@dataclass
+class IsotonicCalibrator:
+    x_thresholds: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    y_thresholds: np.ndarray = field(default_factory=lambda: np.zeros(0))
+
+    def transform(self, p) -> np.ndarray:
+        # out_of_bounds='clip' + linear interpolation (sklearn parity)
+        return np.interp(np.asarray(p, dtype=np.float64), self.x_thresholds, self.y_thresholds)
+
+
+def _pava(y: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Pool-adjacent-violators: the isotonic fit of y with weights w."""
+    n = y.size
+    start = list(range(n))
+    vals = list(y.astype(np.float64))
+    ws = list(w.astype(np.float64))
+    i = 0
+    while i < len(vals) - 1:
+        if vals[i] > vals[i + 1] + 1e-15:
+            new_w = ws[i] + ws[i + 1]
+            new_v = (vals[i] * ws[i] + vals[i + 1] * ws[i + 1]) / new_w
+            vals[i : i + 2] = [new_v]
+            ws[i : i + 2] = [new_w]
+            start.pop(i + 1)
+            i = max(i - 1, 0)
+        else:
+            i += 1
+    out = np.empty(n)
+    bounds = start + [n]
+    for k in range(len(vals)):
+        out[bounds[k] : bounds[k + 1]] = vals[k]
+    return out
+
+
+def isotonic_calibrate(scores, y) -> IsotonicCalibrator:
+    s = np.asarray(scores, dtype=np.float64).reshape(-1)
+    t = np.asarray(y, dtype=np.float64).reshape(-1)
+    order = np.argsort(s, kind="mergesort")
+    s_s, t_s = s[order], t[order]
+    # merge duplicate x by their mean (sklearn make_unique)
+    ux, inv, counts = np.unique(s_s, return_inverse=True, return_counts=True)
+    ty = np.zeros(ux.size)
+    np.add.at(ty, inv, t_s)
+    ty /= counts
+    return IsotonicCalibrator(x_thresholds=ux, y_thresholds=_pava(ty, counts.astype(np.float64)))
+
+
+class IdentityCalibrator:
+    def transform(self, p) -> np.ndarray:
+        return np.asarray(p)
+
+
+def make_calibrator(kind: str, scores, y, device: str | torch.device | None = None):
+    """'platt' | 'sigmoid' | 'isotonic' | 'none' (src/fusion/calibration.py:7-32);
+    the Platt fits run on ``device`` (None: the card)."""
+    if kind == "platt":
+        return platt_calibrate(scores, y, prior_correction=False, device=device)
+    if kind == "sigmoid":
+        return platt_calibrate(scores, y, prior_correction=True, device=device)
+    if kind == "isotonic":
+        return isotonic_calibrate(scores, y)
+    if kind in ("none", None):
+        return IdentityCalibrator()
+    raise ValueError(kind)
 
 
 @dataclass

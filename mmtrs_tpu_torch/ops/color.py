@@ -45,9 +45,33 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
     return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
 
 
+# Elements a CPU call of a transcendental takes at once: below ATen's grain
+# of 2048, so each call runs on the calling thread.
+_SERIAL_CHUNK = 1024
+
+
+def serial_cpu(op, x: torch.Tensor) -> torch.Tensor:
+    """``op(x, out=...)`` (``torch.log``, ``torch.exp``) with every element
+    computed on the calling thread when ``x`` lies on the CPU.
+
+    PyTorch's CPU log (MKL's vector math) split over the intra-op threads
+    now and then gives one thread's whole share other last bits than the
+    calling thread gives the same values, so a plain version's u8 result
+    changed from run to run. Calls of at most ``_SERIAL_CHUNK`` elements run
+    where they are made, and give one answer under any thread count. A
+    CUDA tensor takes ``op`` whole, as the kernels' bit-equality needs."""
+    if x.device.type != "cpu" or x.numel() <= _SERIAL_CHUNK:
+        return op(x)
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty_like(flat)
+    for s in range(0, flat.numel(), _SERIAL_CHUNK):
+        op(flat[s : s + _SERIAL_CHUNK], out=out[s : s + _SERIAL_CHUNK])
+    return out.reshape(x.shape)
+
+
 def _pow_el(x: torch.Tensor, p: float) -> torch.Tensor:
     """x**p for x > 0 as exp(p·log(max(x, 1e-12))); the caller guards the domain."""
-    return torch.exp(p * torch.log(torch.clamp_min(x, 1e-12)))
+    return serial_cpu(torch.exp, p * serial_cpu(torch.log, torch.clamp_min(x, 1e-12)))
 
 
 def _f_lab(t: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,7 @@ import torch
 
 from mmtrs_tpu_torch import _build
 from mmtrs_tpu_torch.ops.clahe import quantize_u8
-from mmtrs_tpu_torch.ops.color import hsv_shift
+from mmtrs_tpu_torch.ops.color import hsv_shift, serial_cpu
 from mmtrs_tpu_torch.ops.kernels import LAUNCHES, on_cuda, require, require_shape
 
 P_BRIGHT, P_CONTRAST, P_DH, P_DS, P_DV, P_USE_HSV, P_SIGMA, P_DROP, P_Y0, P_X0 = range(10)
@@ -57,7 +57,7 @@ def noise_normals_ref(seeds: torch.Tensor, n: int) -> torch.Tensor:
     bits = fmix32_ref((_mul32(e, _GOLDEN)[None, :] + key[:, None]) & _M32)
     u1 = (bits & 0xFFFF).float() * (1.0 / 65536.0)
     u2 = ((bits >> 16) & 0xFFFF).float() * (1.0 / 65536.0)
-    rad = torch.sqrt(-2.0 * torch.log(1.0 - u1))
+    rad = torch.sqrt(-2.0 * serial_cpu(torch.log, 1.0 - u1))
     return rad * torch.cos((2.0 * math.pi) * u2)
 
 

@@ -68,6 +68,14 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.metrics.binary",
     "mmtrs_tpu_torch.train.mm",
     "mmtrs_tpu_torch.cli.run_augment_records",
+    "mmtrs_tpu_torch.train.mil",
+    "mmtrs_tpu_torch.fusion",
+    "mmtrs_tpu_torch.fusion.stack",
+    "mmtrs_tpu_torch.fusion.meta",
+    "mmtrs_tpu_torch.fusion.weight_search",
+    "mmtrs_tpu_torch.fusion.fuse",
+    "mmtrs_tpu_torch.fusion.infer",
+    "mmtrs_tpu_torch.cli.run_fusion",
 ]
 
 
@@ -106,6 +114,23 @@ def test_mm_joint_config_copy_matches_jax_package():
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
 
     assert spec(MMJointConfig) == spec(Orig)
+
+
+@pytest.mark.parametrize("name", ["GBDTConfig", "MILConfig", "FusionConfig"])
+def test_training_config_copies_match_jax_package(name):
+    """The copies of GBDTConfig (and its two recipes), MILConfig and
+    FusionConfig have the originals' fields, types and defaults."""
+    import mmtrs_tpu.config as orig
+    import mmtrs_tpu_torch.config as port
+
+    def spec(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert spec(getattr(port, name)) == spec(getattr(orig, name))
+    if name == "GBDTConfig":
+        for recipe in ("lgbm_like", "stack_tab_like"):
+            assert dataclasses.asdict(getattr(port.GBDTConfig, recipe)()) == \
+                dataclasses.asdict(getattr(orig.GBDTConfig, recipe)())
 
 
 def test_port_sources_name_no_jax_side_package():

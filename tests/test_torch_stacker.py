@@ -61,7 +61,7 @@ def test_logistic_regression_matches_jax(penalty, weighting):
     assert 1 <= got.n_iter_ <= 1000
     np.testing.assert_allclose(got.predict_proba(X), want.predict_proba(X), atol=1e-5)
     with pytest.raises(ValueError, match="penalty"):
-        LogisticRegression(penalty="l1").fit(X, y, device="cpu")
+        LogisticRegression(penalty="elasticnet").fit(X, y, device="cpu")
 
 
 def _oof_rows(stream):
