@@ -169,9 +169,30 @@ Phases (each raises on failure, so the script exits non-zero):
      cli.run_fusion train and infer-batch card vs CPU (FUSION_BAR); then
      build_service_from_weights on the folders phases 10-11 trained,
      each served stream within SERVE_ALL_BAR of its trained model.
+ 12. the vision trainers on phase 10's table and images at the recipes'
+     widths (depth cut to 24 cases x 3 rows, 1-2 epochs, 2 folds, 1 seed):
+     (a) the rows written as JPEGs (nvJPEG) and a CSV, then
+     cli.run_train_images --task hard (efficientnet_b3, 512, b16, legacy)
+     and --task soft (convnext_tiny, 512, b16, ten), 1 epoch each, their
+     augmentation kernels launched; each checkpoint served through
+     fusion.streams._predict_vision_ckpt (f32) on the card and the CPU
+     within VISION_CKPT_BAR; (b) collect_base_preds on those and on
+     xgb_like / lgbm_like forests (STREAM_TREES trees): four streams; (c)
+     train_progressive(efficientnet_b4, 384 b16 -> 512 b8, 1 epoch each,
+     legacy) and progressive_ensemble_probs; (d) run_hard_kfold
+     (convnextv2_base 512 b8 f32, 2 folds x 2 epochs, freeze 1, MixUp, EMA
+     .99, accumulation 2): every backbone parameter bit-equal through the
+     frozen epoch, then run_threshold_sweep on the folds' logits; (e)
+     finalize_mm_from_ckpts on phase 10's folds within FINALIZE_BAR of its
+     run; (f) one f32 step of convnext_tiny and convnextv2_base (b2, 224²,
+     LayerScale and GRN randomised) card vs CPU within the F32_* bars; (g)
+     6 bf16 steps each of B3 hard b16, ConvNeXt-tiny soft b16 and
+     ConvNeXtV2-base k-fold b8 at 512², timed with the prep apart, and the
+     peak memory of each.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, 7, 8, 9's CLI and app runs, and each stage of 10 and 11); the JSON line of kernels
+preset of 6, 7, 8, 9's CLI and app runs, each stage of 10 and 11, and 12's CLI
+and progressive runs); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -2096,10 +2117,21 @@ def _f32_step_check(torch, dev, aug_table, aug_imgs, sel):
         grads = {k: v.grad.detach().cpu().clone() for k, v in tr.model.named_parameters()}
         state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
         out[str(where)] = (float(loss), grads, state)
-    zero = _zero_grad_leaves(tr.model)
-    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(dev)]
     # the grads the trainer leaves are clipped in place: the same factor on
     # both devices up to the norm's rounding, which the bars absorb
+    return out["cpu"][0], out[str(dev)][0], _step_gaps(torch, out, dev, _zero_grad_leaves(tr.model))
+
+
+def _step_gaps(torch, out: dict, dev, zero=frozenset()) -> dict:
+    """The gaps of one f32 train step, card vs CPU, from out[device] =
+    (loss, gradients, state dict after the step): the loss relative; each
+    gradient leaf's gap over its max |g| ("grad_by_leaf", with its max over
+    the largest, and its worst "grad"), but the leaves ``zero`` whose
+    gradient is 0 in exact arithmetic, held apart as each device's largest
+    over the largest |g|; the running statistics relative (0 where there
+    are none); after AdamW, every parameter element whose gradient exceeds
+    1e-3 of its leaf's max on both devices."""
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(dev)]
     gaps = {"loss": abs(lg - lc) / abs(lc)}
     gmax = max(float(g.abs().max()) for g in gc.values())
     # each leaf: (its gap over its max |g|, its max |g| over the largest)
@@ -2107,15 +2139,16 @@ def _f32_step_check(torch, dev, aug_table, aug_imgs, sel):
                                 float(g.abs().max()) / gmax) for k, g in gc.items() if k not in zero}
     gaps["grad"] = max(v[0] for v in gaps["grad_by_leaf"].values())
     for name, gs in (("card", gg), ("cpu", gc)):
-        gaps[f"zero_grad_{name}"] = max(float(gs[k].abs().max()) for k in zero) / gmax
+        gaps[f"zero_grad_{name}"] = max((float(gs[k].abs().max()) for k in zero), default=0.0) / gmax
     stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
-    gaps["stats"] = max(float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1e-3)).max()) for k in stats)
+    gaps["stats"] = max((float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1e-3)).max()) for k in stats),
+                        default=0.0)
     gaps["params_firm"] = 0.0
     for k, g in gc.items():
         firm = torch.minimum(g.abs(), gg[k].abs()) > 1e-3 * g.abs().max()
         if k not in zero and firm.any():
             gaps["params_firm"] = max(gaps["params_firm"], float((sg[k] - sc[k]).abs()[firm].max()))
-    return lc, lg, gaps
+    return gaps
 
 
 def _f32_step_ok(gaps: dict) -> bool:
@@ -2363,22 +2396,7 @@ def _mil_f32_step_check(torch, dev, imgs, origin, y):
         grads = {k: v.grad.detach().cpu().clone() for k, v in tr.model.named_parameters()}
         state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
         out[str(where)] = (float(loss), grads, state)
-    zero = _mil_zero_grad_leaves(tr.model)
-    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(dev)]
-    gaps = {"loss": abs(lg - lc) / abs(lc)}
-    gmax = max(float(g.abs().max()) for g in gc.values())
-    gaps["grad"] = max(float((gg[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
-                       for k, g in gc.items() if k not in zero)
-    for name, gs in (("card", gg), ("cpu", gc)):
-        gaps[f"zero_grad_{name}"] = max((float(gs[k].abs().max()) for k in zero), default=0.0) / gmax
-    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
-    gaps["stats"] = max(float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp_min(1e-3)).max()) for k in stats)
-    gaps["params_firm"] = 0.0
-    for k, g in gc.items():
-        firm = torch.minimum(g.abs(), gg[k].abs()) > 1e-3 * g.abs().max()
-        if k not in zero and firm.any():
-            gaps["params_firm"] = max(gaps["params_firm"], float((sg[k] - sc[k]).abs()[firm].max()))
-    return lc, lg, gaps
+    return out["cpu"][0], out[str(dev)][0], _step_gaps(torch, out, dev, _mil_zero_grad_leaves(tr.model))
 
 
 def _gbdt_table(n: int):
@@ -2711,6 +2729,305 @@ def phase_rest(torch, dev, smi: str, work: Path, train: dict):
             "stack": stack["card"], "mil_summary": mil["summary"]}
 
 
+# phase 12: the vision trainers on the card at the recipes' widths
+# (run_train_images.py:79 and its hard default; train/kfold.py:110;
+# ProgressiveConfig's B4 stages), depth cut to phase 10's 24 cases x 3 rows,
+# 1-2 epochs, 2 folds, 1 seed
+VISION_HARD = ("efficientnet_b3", 512, 16, "legacy")  # run_train_images.py's hard default, --aug legacy
+VISION_SOFT = ("convnext_tiny", 512, 16, "ten")  # its soft default (run_train_images.py:79), --aug ten
+PROG_MODEL = "efficientnet_b4"  # ProgressiveConfig's
+PROG_STAGES = ((384, 1, 16, 3e-4), (512, 1, 8, 1e-4))  # its stages, 1 epoch each
+KFOLD_MODEL = ("convnextv2_base", 512, 8)  # KFoldConfig's
+STREAM_TREES = 200  # the xgb_like / lgbm_like forests of (b), cut from 1200 / their recipe's
+VISION_CHECK_ROWS = 8  # images a checkpoint predicts on the card and on the CPU
+VISION_CKPT_BAR = 1e-5  # max |dp| of a served checkpoint (f32), card vs CPU
+FINALIZE_BAR = 1e-6  # finalize_mm_from_ckpts vs phase 10's run_mm_kfold, same card
+F32_CONVNEXT = ("convnext_tiny", "convnextv2_base")
+F32_CONVNEXT_SIZE = 224  # a spatial cut only: the CPU pays for the widths
+F32_CONVNEXT_BATCH = 2
+VISION_TIMED_STEPS = 6
+VISION_TRAIN_KERNELS = {"legacy": LEGACY_TABLE_KERNELS, "ten": ("resample_rows",)}
+
+
+def _randomize_convnext_(torch, net, seed: int):
+    """LayerScale gammas and GRN gamma/beta to seeded values of order 0.3,
+    so each block is far from the identity it starts as."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith((".gamma", ".beta")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    return net
+
+
+def _convnext_f32_step_check(torch, dev, name: str, imgs):
+    """One f32 hard train step (CE, no dropout or drop-path) of ``name`` at
+    F32_CONVNEXT_SIZE, batch F32_CONVNEXT_BATCH, from the same seeded init
+    (LayerScale and GRN randomised) on the card and on the CPU → the loss
+    pair and the gaps ``_f32_step_ok`` reads (no BatchNorm, so no running
+    statistics and no zero-gradient leaves)."""
+    from mmtrs_tpu_torch.config import VisionTrainConfig
+    from mmtrs_tpu_torch.models.backbones.efficientnet import lecun_init_
+    from mmtrs_tpu_torch.models.backbones.factory import create_model
+    from mmtrs_tpu_torch.train.vision import VisionTrainer
+
+    cfg = VisionTrainConfig(model_name=name, img_size=F32_CONVNEXT_SIZE, task="hard", batch_size=F32_CONVNEXT_BATCH,
+                            drop_rate=0.0, drop_path=0.0, bf16=False)
+    net = lecun_init_(create_model(name, num_classes=2, dtype=torch.float32), torch.Generator().manual_seed(SEED + 100))
+    init = _randomize_convnext_(torch, net, SEED + 101).state_dict()
+    y = torch.arange(F32_CONVNEXT_BATCH) % 2
+    out = {}
+    for where in ("cpu", dev):
+        tr = VisionTrainer(cfg, device=where, init=init)
+        tr.init_state(10)
+        x = tr._prep_images(imgs.to(where), False, 0)
+        loss = tr.train_step(x, y.to(where))
+        grads = {k: v.grad.detach().cpu().clone() for k, v in tr.model.named_parameters()}
+        state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+        out[str(where)] = (float(loss), grads, state)
+        del tr
+    return out["cpu"][0], out[str(dev)][0], _step_gaps(torch, out, dev)
+
+
+def _timed_steps(torch, prep, step, batch: int, n: int = VISION_TIMED_STEPS) -> dict:
+    """``n`` steps timed one by one on the host clock, a synchronise after
+    the prep and after the step; medians after the first."""
+    from mmtrs_tpu_torch.train.common import Throughput
+
+    thr = Throughput()
+    prep_ms, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n):
+        torch.cuda.synchronize()
+        thr.start()
+        t0 = time.perf_counter()
+        args = prep(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        thr.stop(batch)
+        prep_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+    return {"prep_ms": float(np.median(prep_ms[1:])), "step_ms": float(np.median(step_ms[1:])),
+            "first_step_ms": step_ms[0], "imgs_per_sec": thr.imgs_per_sec,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_vision(torch, dev, smi: str, work: Path, train: dict):
+    """Phase 12: on phase 10's table and images, (a) the CLI twin
+    cli.run_train_images (hard and soft) from JPEGs it writes, its
+    checkpoints served card vs CPU; (b) collect_base_preds on them and on
+    two forests; (c) train_progressive; (d) run_hard_kfold with the freeze,
+    MixUp, EMA and accumulation, then run_threshold_sweep; (e)
+    finalize_mm_from_ckpts on phase 10's folds; (f) an f32 ConvNeXt step card
+    vs CPU; (g) bf16 steps timed."""
+    from mmtrs_tpu_torch.cli import run_train_images
+    from mmtrs_tpu_torch.config import GBDTConfig, ProgressiveConfig, ProgressiveStage, VisionTrainConfig
+    from mmtrs_tpu_torch.data.splits import grouped_train_test_split, stratified_group_kfold
+    from mmtrs_tpu_torch.eval.threshold_sweep import run_threshold_sweep
+    from mmtrs_tpu_torch.fusion.streams import _predict_vision_ckpt, collect_base_preds
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.train.kfold import KFoldConfig, KFoldHardTrainer, apply_mixup_cutmix, run_hard_kfold
+    from mmtrs_tpu_torch.train.mm import finalize_mm_from_ckpts
+    from mmtrs_tpu_torch.train.progressive import progressive_ensemble_probs, train_progressive
+    from mmtrs_tpu_torch.train.tabular import train_lgbm_like, train_xgb_like
+    from mmtrs_tpu_torch.train.vision import VisionData, VisionTrainer
+    from mmtrs_tpu_torch.utils.images import save_jpeg
+    from mmtrs_tpu_torch.utils.table import to_csv
+
+    t_phase = time.perf_counter()
+    table, imgs = train["table"].copy(), train["imgs"]
+    rng = np.random.default_rng(SEED + 110)
+    table["weight"] = rng.uniform(0.5, 1.0, len(table))  # consensus weights of the soft task and the forests
+    print(f"phase 12: the vision trainers on phase 10's {len(table)}-row table: cli.run_train_images "
+          f"({VISION_HARD[0]} hard {VISION_HARD[3]}, {VISION_SOFT[0]} soft {VISION_SOFT[3]}, {VISION_HARD[1]}^2 "
+          f"b{VISION_HARD[2]}, 1 epoch) -> collect_base_preds -> train_progressive({PROG_MODEL}, {PROG_STAGES}) -> run_hard_kfold("
+          f"{KFOLD_MODEL[0]} {KFOLD_MODEL[1]}^2 b{KFOLD_MODEL[2]}, 2 folds x 2 epochs, freeze 1, MixUp, EMA .99, "
+          f"accum 2) -> run_threshold_sweep -> finalize_mm_from_ckpts -> f32 steps -> timed bf16 steps")
+    seconds, launches, peaks = {}, {}, {}
+    tv = np.nonzero(table["split"] != "test")[0]
+    te = np.nonzero(table["split"] == "test")[0]
+    take = lambda idx: imgs.index_select(0, torch.from_numpy(np.asarray(idx)).to(dev))
+
+    # (a) the CLI twin from JPEGs and a CSV written by the port's codec
+    t0 = time.perf_counter()
+    img_dir, csv = work / "vision_images", work / "vision_meta.csv"
+    for i, name in enumerate(table["image_name"]):
+        save_jpeg(img_dir / str(name), imgs[i])
+    to_csv(table.select(["image_name", "y_majority", "p_indirect", "weight", "origin_id", "aug_idx", "split"]), csv)
+    seconds["jpegs"] = time.perf_counter() - t0
+    check = torch.from_numpy(np.stack([imgs[int(i)].cpu().numpy() for i in te[:VISION_CHECK_ROWS]]))
+    ckpt_gap = {}
+    for task, (model, size, bs, aug) in (("hard", VISION_HARD), ("soft", VISION_SOFT)):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        code = run_train_images.main(["--task", task, "--model", model, "--img_size", str(size), "--data", str(csv),
+                                      "--image_dir", str(img_dir), "--epochs", "1", "--batch_size", str(bs),
+                                      "--aug", aug, "--out", str(work / "vision" / task)])
+        torch.cuda.synchronize()
+        seconds[f"cli_{task}"] = time.perf_counter() - t0
+        launches[f"cli_{task}"] = dict(LAUNCHES)
+        peaks[f"cli_{task}"] = torch.cuda.max_memory_allocated() / 1e9
+        want = VISION_TRAIN_KERNELS[aug]
+        _check(code == 0 and all(launches[f"cli_{task}"][k] > 0 for k in want),
+               f"cli.run_train_images --task {task} --model {model} --aug {aug}: exit {code}, launches "
+               f"{launches[f'cli_{task}']} (each of {want} > 0)")
+        base = work / "vision" / task / f"vision_{task}_best"
+        t0 = time.perf_counter()
+        p_card = _predict_vision_ckpt(base, check.to(dev))
+        p_cpu = _predict_vision_ckpt(base, check, device="cpu")
+        seconds[f"ckpt_{task}_card_cpu"] = time.perf_counter() - t0
+        ckpt_gap[task] = float(np.abs(p_card - p_cpu).max())
+        _check(ckpt_gap[task] <= VISION_CKPT_BAR and np.isfinite(p_card).all(),
+               f"vision_{task}_best ({model}, npz + recipe) served through _predict_vision_ckpt (f32, hflip TTA) on "
+               f"{len(check)} images, card vs CPU: max |dp| {ckpt_gap[task]:.3g} (bar {VISION_CKPT_BAR})")
+    summaries = {t: json.loads((work / "vision" / t / f"{t}_summary.json").read_text()) for t in ("hard", "soft")}
+    print(f"  CLI summaries: " + json.dumps({t: {"thr": v["thr"], "history": v["history"]} for t, v in summaries.items()}))
+
+    # (b) the four streams from what (a) wrote and two forests
+    t0 = time.perf_counter()
+    trees = lambda c: GBDTConfig(**{**c.__dict__, "n_estimators": STREAM_TREES})
+    # no Platt calibration: collect_base_preds reads the raw forest, and on ~12 val
+    # rows of random labels a forest may score them all alike (a singular fit)
+    train_xgb_like(table, work / "ml", cfg=trees(GBDTConfig()), calibration="none")
+    train_lgbm_like(table, work / "ml", cfg=trees(GBDTConfig.lgbm_like()))
+    seconds["forests"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streams = collect_base_preds(table.take(tv), table.take(te), take(tv), take(te), weight_dir=work / "vision",
+                                 ml_dir=work / "ml")
+    seconds["collect_base_preds"] = time.perf_counter() - t0
+    shapes = {s: {k: None if v is None else len(v) for k, v in d.items()} for s, d in streams.items()}
+    _check(all(v is not None and np.isfinite(v).all() and len(v) == (len(tv) if s == "val" else len(te))
+               for s, d in streams.items() for v in d.values()),
+           f"collect_base_preds on the card: all four streams found and finite, rows {shapes}")
+
+    # (c) the progressive trainer, one seed, legacy augmentation
+    sub = table.take(tv)
+    tr_rel, va_rel = grouped_train_test_split(sub, 0.15, 42)
+    data = lambda rel: VisionData(images=take(tv[rel]), y=np.asarray(sub["y_majority"])[rel].astype(int),
+                                  origin_id=np.asarray(sub["origin_id"])[rel], aug_idx=np.asarray(sub["aug_idx"])[rel])
+    pcfg = ProgressiveConfig(model_name=PROG_MODEL, stages=tuple(ProgressiveStage(*s) for s in PROG_STAGES), seeds=(42,))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states = train_progressive(pcfg, data(tr_rel), data(va_rel), aug_preset="legacy", log=lambda m: None)
+    p_prog = progressive_ensemble_probs(states, data(va_rel))
+    torch.cuda.synchronize()
+    seconds["progressive"] = time.perf_counter() - t0
+    launches["progressive"] = dict(LAUNCHES)
+    peaks["progressive"] = torch.cuda.max_memory_allocated() / 1e9
+    _check(len(p_prog) == len(va_rel) and np.isfinite(p_prog).all() and p_prog.min() >= 0 and p_prog.max() <= 1
+           and all(launches["progressive"][k] > 0 for k in LEGACY_TABLE_KERNELS),
+           f"train_progressive ({len(tr_rel)} train / {len(va_rel)} val rows) and progressive_ensemble_probs: "
+           f"{len(p_prog)} probabilities in [0, 1]; launches {launches['progressive']}")
+    del states
+
+    # (d) the k-fold trainer with the freeze, MixUp, EMA and accumulation
+    kcfg = KFoldConfig(model_name=KFOLD_MODEL[0], img_size=KFOLD_MODEL[1], batch_size=KFOLD_MODEL[2], n_folds=2,
+                       epochs=2, freeze_epochs=1, use_mixup=True, ema_decay=0.99, grad_accum=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kf = run_hard_kfold(imgs, table, kcfg, outdir=work / "kfold", log=lambda m: None)
+    torch.cuda.synchronize()
+    seconds["run_hard_kfold"] = time.perf_counter() - t0
+    peaks["run_hard_kfold"] = torch.cuda.max_memory_allocated() / 1e9
+    moved = [f["frozen_moved"] for f in kf["fits"]]
+    _check(all(m == [] for m in moved),
+           f"run_hard_kfold({kcfg.model_name}, freeze_epochs 1): every backbone parameter bit-equal before and after "
+           f"the frozen epoch in each fold (moved: {moved}); summary {json.dumps({k: kf[k] for k in ('folds', 'mean_val_auc', 'test_auc')})}")
+    y = np.asarray(table["y_majority"]).astype(int)
+    probe = KFoldHardTrainer(kcfg, init=kf["fits"][0]["state"]["model"])
+    logit = lambda p: np.log(np.clip(p, 1e-7, 1 - 1e-7) / (1 - np.clip(p, 1e-7, 1 - 1e-7)))
+    lv, yv, lt = [], [], []
+    for (_, va_rel), fit in zip(stratified_group_kfold(y[tv], np.asarray(table["origin_id"])[tv], 2, kcfg.seed),
+                                kf["fits"]):
+        lv.append(logit(probe.predict_proba(fit["state"], take(tv[va_rel]))))
+        yv.append(y[tv[va_rel]])
+        lt.append(logit(probe.predict_proba(fit["state"], take(te))))
+    sweep = run_threshold_sweep(lv, yv, lt, y[te], outdir=work / "sweep", make_plots=False)
+    _check(all(np.isfinite(r["T"]) and r["T"] > 0 and 0 <= r["thr"] <= 1 for r in sweep["folds"]),
+           f"run_threshold_sweep on the folds' logits: {json.dumps(sweep['aggregate'])}")
+    del probe, kf
+
+    # (e) finalize phase 10's MM folds from their npz
+    t0 = time.perf_counter()
+    fin = finalize_mm_from_ckpts(imgs, train["table"], work / "mm_dualtask_v1", train["cfg"], outdir=work / "mm_final",
+                                 log=lambda m: None)
+    seconds["finalize"] = time.perf_counter() - t0
+    fin_gap = max(float(np.abs(fin[k]["prob"] - train["mm"][k]["prob"]).max()) for k in ("oof", "test"))
+    _check(fin_gap <= FINALIZE_BAR, f"finalize_mm_from_ckpts vs phase 10's run_mm_kfold OOF and test "
+           f"probabilities: max |dp| {fin_gap:.3g} (bar {FINALIZE_BAR}); summary {json.dumps(fin['summary'])}")
+
+    # (f) one f32 ConvNeXt step, card vs CPU
+    f32 = {}
+    for name in F32_CONVNEXT:
+        t0 = time.perf_counter()
+        lc, lg, gaps = _convnext_f32_step_check(torch, dev, name, take(tv[:F32_CONVNEXT_BATCH]).cpu())
+        seconds[f"f32_{name}"] = time.perf_counter() - t0
+        f32[name] = gaps
+        _check(_f32_step_ok(gaps),
+               f"f32 {name} train step at b{F32_CONVNEXT_BATCH} {F32_CONVNEXT_SIZE}^2 (LayerScale and GRN randomised), "
+               f"card vs CPU: loss {lg:.7f} vs {lc:.7f} ({gaps['loss']:.3g} relative, bar {F32_LOSS_BAR}); gradients "
+               f"{gaps['grad']:.3g} of their leaf's max (bar {F32_GRAD_BAR}); parameters after AdamW "
+               f"{gaps['params_firm']:.3g} where the gradient is firm (bar {F32_PARAM_BAR})")
+
+    # (g) bf16 steps timed: B3 hard, ConvNeXt-tiny soft, ConvNeXtV2-base k-fold
+    steps = {}
+    y_d = torch.from_numpy(y).to(dev)
+    p_d = torch.from_numpy(np.asarray(table["p_indirect"], np.float32)).to(dev)
+    w_d = torch.from_numpy(np.asarray(table["weight"], np.float32)).to(dev)
+    origin, aug_idx = np.asarray(table["origin_id"]), np.asarray(table["aug_idx"])
+    pick = np.random.default_rng(SEED + 111)
+    for task, (model, size, bs, aug) in (("hard", VISION_HARD), ("soft", VISION_SOFT)):
+        tr = VisionTrainer(VisionTrainConfig(model_name=model, img_size=size, task=task, batch_size=bs),
+                           aug_preset=aug)
+        tr.init_state(VISION_TIMED_STEPS)
+        cw = torch.ones(2, device=dev)
+        sels = [pick.choice(tv, bs, replace=False) for _ in range(VISION_TIMED_STEPS)]
+
+        def prep(i, tr=tr, sels=sels):
+            s = sels[i]
+            sd = torch.from_numpy(s).to(dev)
+            return tr._prep_images(imgs.index_select(0, sd), True, 42, origin[s], aug_idx[s]), sd
+
+        def step(x, sd, tr=tr, task=task):
+            if task == "hard":
+                tr.train_step(x, y_d[sd], class_weights=cw)
+            else:
+                tr.train_step(x, y_d[sd], p_d[sd], w_d[sd])
+
+        steps[f"{model} {task}"] = _timed_steps(torch, prep, step, bs)
+        del tr
+    model, size, bs = KFOLD_MODEL
+    kt = KFoldHardTrainer(KFoldConfig(model_name=model, img_size=size, batch_size=bs, bf16=True, use_mixup=True))
+    kt.init_state(VISION_TIMED_STEPS)
+    sels = [pick.choice(tv, bs, replace=False) for _ in range(VISION_TIMED_STEPS)]
+
+    def kprep(i):
+        sd = torch.from_numpy(sels[i]).to(dev)
+        return apply_mixup_cutmix(kt._prep(imgs.index_select(0, sd)), y_d[sd].float(), kt._mix_draws(i, bs))
+
+    steps[f"{model} kfold"] = _timed_steps(torch, kprep, kt.train_step, bs)
+    del kt
+    torch.cuda.empty_cache()
+    for name, st in steps.items():
+        print(f"  bf16 {name} step at {size}^2 (median of {VISION_TIMED_STEPS - 1} after the first, host clock, each "
+              f"ending in a synchronise): prep {st['prep_ms']:.2f} ms, forward + backward + AdamW {st['step_ms']:.2f} ms "
+              f"(first {st['first_step_ms']:.2f} ms); {st['imgs_per_sec']:.2f} imgs/s over all {VISION_TIMED_STEPS}; "
+              f"peak {st['peak_gb']:.2f} GB; {smi}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 12 served checkpoints card vs CPU max |dp|: {json.dumps(ckpt_gap)}; finalize {fin_gap:.3g}; f32 "
+          f"ConvNeXt steps: " + json.dumps({n: {k: g[k] for k in ('loss', 'grad', 'params_firm')} for n, g in f32.items()}))
+    print("  phase 12 peak GB: " + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
+    print("  phase 12 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; {smi}")
+    print("  phase 12 kernel launches: " + json.dumps(launches))
+    return {"launches": launches, "seconds": seconds, "steps": steps, "peaks": peaks, "ckpt_gap": ckpt_gap,
+            "finalize_gap": fin_gap, "f32": f32}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -2753,6 +3070,7 @@ def main() -> int:
         work = Path(tmp)
         train = phase_train(torch, dev, smi, work)
         rest = phase_rest(torch, dev, smi, work, train)
+        vision = phase_vision(torch, dev, smi, work, train)
     _check(not work.exists(), "the training folder removed")
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
@@ -2805,7 +3123,10 @@ def main() -> int:
           f"b{MIL_BATCH} bf16) step {rest['mil_step']['step_ms']:.2f} ms + bags {rest['mil_step']['bags_ms']:.2f} ms, "
           f"{rest['mil_step']['bags_per_sec']:.2f} bags/s, peak {rest['mil_step']['peak_gb']:.2f} GB; "
           f"train_gbdt(stack_tab_like) {rest['gbdt']['seconds'][1]:.2f} s a forest; phase 11 "
-          f"{rest['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
+          f"{rest['seconds']['phase']:.1f} s; vision training steps "
+          + ", ".join(f"{k} {v['step_ms']:.2f} ms + prep {v['prep_ms']:.2f} ms, {v['imgs_per_sec']:.2f} imgs/s, "
+                      f"peak {v['peak_gb']:.2f} GB" for k, v in vision["steps"].items())
+          + f"; phase 12 {vision['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

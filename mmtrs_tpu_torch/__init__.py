@@ -41,12 +41,19 @@ BatchNorm, dropout and drop-path in ``models/``, optax's AdamW chain in
 ``train.common``, on-line ``randaug``), writing npz fold checkpoints that
 ``build_service_from_weights`` serves.
 
+Slice 13 (MIL, Tab and the stack trained): ``train.mil``, ``train.tabular``,
+``models.gbdt.train_gbdt``, ``fusion.stack`` and the fusion CLI twin.
+Slice 14 (the vision streams trained): ConvNeXt/ConvNeXtV2 in the factory,
+``train.vision.VisionTrainer`` behind ``cli.run_train_images``,
+``train.progressive``, ``train.kfold``, ``eval.threshold_sweep``,
+``fusion.streams.collect_base_preds`` and ``train.mm.finalize_mm_from_ckpts``.
+
 The entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``).
 
 It imports ``torch`` and never ``jax``, and nothing of ``mmtrs_tpu``: the
 small jax-free pieces it shares with it (``config.PreprocessConfig``,
-``config.MMJointConfig``, ``serve/choices.py``) are copies, held equal to
+``config.MMJointConfig``, ``serve/choices.py``, the vision configs) are copies, held equal to
 the originals by the tests.
 """
 

@@ -1,5 +1,6 @@
 """Configurations (the port's copies of ``PreprocessConfig``,
-``GBDTConfig``, ``MILConfig``, ``MMJointConfig`` and ``FusionConfig`` in
+``GBDTConfig``, ``MILConfig``, ``MMJointConfig``, ``FusionConfig``,
+``VisionTrainConfig``, ``ProgressiveStage`` and ``ProgressiveConfig`` in
 mmtrs_tpu/config.py).
 
 Kept in the port so that it imports nothing of the JAX package;
@@ -166,3 +167,52 @@ class FusionConfig:
     seed: int = 42
     meta_l1: bool = False
     meta_max_iter: int = 1000
+
+
+# ---------------------------------------------------------------------------
+# Vision trainers (reference: models/vision/train_hard.py,
+#                  experiments/vision_v2/train_hard_v2.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class VisionTrainConfig:
+    model_name: str = "efficientnet_b3"
+    img_size: int = 512
+    task: str = "hard"  # hard | soft
+    epochs: int = 30
+    batch_size: int = 16
+    lr: float = 3e-4
+    weight_decay: float = 1e-4
+    label_smoothing: float = 0.05
+    drop_rate: float = 0.2
+    drop_path: float = 0.1
+    warmup_steps: int = 0
+    seed: int = 42
+    group_col: str = "origin_id"
+    val_frac: float = 0.15
+    tta_hflip: bool = True
+    bf16: bool = True
+    num_devices: int = 0  # 0 = all available
+
+
+@dataclass(frozen=True)
+class ProgressiveStage:
+    img_size: int
+    epochs: int
+    batch_size: int
+    lr: float
+
+
+@dataclass(frozen=True)
+class ProgressiveConfig:
+    """Progressive multi-seed trainer (reference: train_hard_v2.py:175-280)."""
+
+    model_name: str = "efficientnet_b4"
+    stages: tuple[ProgressiveStage, ...] = (
+        ProgressiveStage(384, 12, 16, 3e-4),
+        ProgressiveStage(512, 8, 8, 1e-4),
+    )
+    seeds: tuple[int, ...] = (42, 43, 44)
+    label_smoothing: float = 0.10
+    warmup_steps: int = 100

@@ -1,4 +1,5 @@
-"""Folds and splits (the port's ``group_kfold`` and ``stratified_kfold`` of
+"""Folds and splits (the port's ``group_kfold``, ``stratified_kfold``,
+``grouped_train_test_split`` and ``stratified_group_kfold`` of
 mmtrs_tpu/data/splits.py, and the one ``StratifiedShuffleSplit`` draw of
 mmtrs_tpu/train/tabular.py, without sklearn).
 
@@ -14,11 +15,19 @@ argsort, so there groups of equal size may land in other folds.
 ``stratified_kfold`` and ``stratified_shuffle_split`` are scikit-learn
 1.9.0's ``StratifiedKFold(shuffle=True)._make_test_folds`` and
 ``StratifiedShuffleSplit._iter_indices`` (with ``_approximate_mode``) on the
-same ``RandomState`` calls, so a seed gives sklearn's indices.
+same ``RandomState`` calls, so a seed gives sklearn's indices; likewise
+``grouped_train_test_split`` (``GroupShuffleSplit(1)._iter_indices``: a
+``ShuffleSplit`` permutation of the sorted unique groups) and
+``stratified_group_kfold`` (``StratifiedGroupKFold(shuffle=True)
+._iter_test_indices``: the groups shuffled, then taken in order of falling
+class-count std, stable, each into the fold whose per-class std of the
+class shares grows least, the fold with fewer rows on an ``np.isclose``
+tie).
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from math import ceil
 
 import numpy as np
@@ -112,3 +121,68 @@ def stratified_shuffle_split(y, test_size: float = 0.2, seed: int = 42) -> tuple
         train.extend(perm[: n_i[i]])
         test.extend(perm[n_i[i] : n_i[i] + t_i[i]])
     return rng.permutation(train), rng.permutation(test)
+
+
+def grouped_train_test_split(table, test_frac: float = 0.2, seed: int = 42,
+                             group_col: str = "origin_id") -> tuple[np.ndarray, np.ndarray]:
+    """Row indices (train, test) of a group-exclusive split of ``table``'s
+    rows (augment_records.py:427-432), as ``next(GroupShuffleSplit(1,
+    test_size=test_frac, random_state=seed).split(df, groups=df[group_col]
+    .astype(str)))``: the groups are compared as strings."""
+    if not 0.0 < test_frac < 1.0:
+        raise ValueError(f"test_size={test_frac} should be a float in the (0, 1) range")
+    groups = np.asarray(table[group_col]).astype(str)
+    classes, group_indices = np.unique(groups, return_inverse=True)
+    n = len(classes)
+    n_test = ceil(test_frac * n)
+    n_train = n - n_test
+    if n_train == 0:
+        raise ValueError(f"With n_samples={n} and test_size={test_frac} the train set is empty")
+    perm = np.random.RandomState(seed).permutation(n)
+    test_groups, train_groups = perm[:n_test], perm[n_test:n_test + n_train]
+    return (np.flatnonzero(np.isin(group_indices, train_groups)),
+            np.flatnonzero(np.isin(group_indices, test_groups)))
+
+
+def stratified_group_kfold(y, groups, n_folds: int = 5, seed: int = 42):
+    """Yield (train_idx, test_idx) per fold, as sklearn's
+    ``StratifiedGroupKFold(n_folds, shuffle=True, random_state=seed)`` on
+    labels ``y`` and ``groups``."""
+    rng = np.random.RandomState(seed)
+    y = np.asarray(y).astype(int)
+    _, y_inv, y_cnt = np.unique(y, return_inverse=True, return_counts=True)
+    if np.all(n_folds > y_cnt):
+        raise ValueError(f"n_splits={n_folds} cannot be greater than the number of members in each class.")
+    n_classes = len(y_cnt)
+    _, groups_inv, groups_cnt = np.unique(np.asarray(groups), return_inverse=True, return_counts=True)
+    if n_folds > len(groups_cnt):
+        raise ValueError(f"Cannot have number of splits n_splits={n_folds} greater than the number of groups: "
+                         f"{len(groups_cnt)}.")
+    y_counts_per_group = np.zeros((len(groups_cnt), n_classes))
+    for class_idx, group_idx in zip(y_inv, groups_inv):
+        y_counts_per_group[group_idx, class_idx] += 1
+    y_counts_per_fold = np.zeros((n_folds, n_classes))
+    groups_per_fold = defaultdict(set)
+    perm = np.arange(len(groups_cnt))
+    rng.shuffle(perm)
+    y_counts_per_group = y_counts_per_group[perm]
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(perm.size)
+    groups_inv = inv_perm[groups_inv]
+    for group_idx in np.argsort(-np.std(y_counts_per_group, axis=1), kind="stable"):
+        group_y_counts = y_counts_per_group[group_idx]
+        best_fold, min_eval, min_samples = None, np.inf, np.inf
+        for i in range(n_folds):
+            y_counts_per_fold[i] += group_y_counts
+            std_per_class = np.std(y_counts_per_fold / y_cnt.reshape(1, -1), axis=0)
+            y_counts_per_fold[i] -= group_y_counts
+            fold_eval = np.mean(std_per_class)
+            samples_in_fold = np.sum(y_counts_per_fold[i])
+            if fold_eval < min_eval or (np.isclose(fold_eval, min_eval) and samples_in_fold < min_samples):
+                best_fold, min_eval, min_samples = i, fold_eval, samples_in_fold
+        y_counts_per_fold[best_fold] += group_y_counts
+        groups_per_fold[best_fold].add(group_idx)
+    idx = np.arange(len(y))
+    for i in range(n_folds):
+        test = np.isin(groups_inv, list(groups_per_fold[i]))
+        yield idx[~test], idx[test]

@@ -186,10 +186,12 @@ class EfficientNet(nn.Module):
     """Returns pooled f32 features [B, num_features] (num_classes=0) or logits."""
 
     def __init__(self, variant: str = "b0", num_classes: int = 0, drop_rate: float = 0.2,
-                 drop_path_rate: float = 0.1, dtype: torch.dtype = torch.bfloat16):
+                 drop_path_rate: float = 0.1, dtype: torch.dtype = torch.bfloat16,
+                 head_bias_init: float = 0.0):
         super().__init__()
         wm, dm, _, _ = _SCALING[variant]
         self.variant, self.dtype, self.drop_rate = variant, dtype, drop_rate
+        self.head_bias_init = head_bias_init
         stem = _round_channels(32 * wm)
         self.conv_stem = ConvSame(3, stem, 3, stride=2)
         self.bn_stem = BatchNorm(stem)
@@ -205,7 +207,7 @@ class EfficientNet(nn.Module):
         self.num_features = _round_channels(1280 * wm)
         self.conv_head = ConvSame(cin, self.num_features, 1)
         self.bn_head = BatchNorm(self.num_features)
-        self.classifier = nn.Linear(self.num_features, num_classes) if num_classes else None
+        self.classifier = head(self.num_features, num_classes, head_bias_init)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """x: NHWC [B, H, W, 3] (ImageNet-normalised float); ``generator``
@@ -227,11 +229,24 @@ def feature_dim(variant: str) -> int:
     return _round_channels(1280 * _SCALING[variant][0])
 
 
+def head(features: int, num_classes: int, bias_init: float = 0.0) -> nn.Linear | None:
+    """The classifier Dense of the backbones (None for num_classes 0), its
+    bias filled with ``bias_init`` as Flax's ``bias_init`` makes it."""
+    if not num_classes:
+        return None
+    fc = nn.Linear(features, num_classes)
+    with torch.no_grad():
+        fc.bias.fill_(bias_init)
+    return fc
+
+
 @torch.no_grad()
 def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax's default initialisation, drawn from ``generator``: LeCun-normal
-    conv/dense weights (std 1/sqrt(fan_in)), zero biases, BatchNorm as the
-    identity (scale 1, bias 0, mean 0, var 1)."""
+    conv/dense weights (std 1/sqrt(fan_in)), zero biases (a backbone's
+    classifier bias its ``head_bias_init``), BatchNorm as the identity
+    (scale 1, bias 0, mean 0, var 1); the other parameters (LayerNorm,
+    LayerScale, GRN) keep their constructors' Flax values."""
     for m in module.modules():
         if isinstance(m, (ConvSame, nn.Linear)):
             w = m.weight
@@ -239,6 +254,9 @@ def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
+    for m in module.modules():
+        if getattr(m, "classifier", None) is not None and hasattr(m, "head_bias_init"):
+            m.classifier.bias.fill_(m.head_bias_init)
     return module
 
 

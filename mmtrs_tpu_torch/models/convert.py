@@ -6,13 +6,17 @@ Input is the JAX package's variables with every leaf already a numpy array
 utils/checkpoint.py), so this module imports no JAX. Layouts: conv HWIO →
 OIHW, depthwise (kh, kw, 1, C) → (C, 1, kh, kw) (the same transpose), Dense
 [in, out] → Linear [out, in], BatchNorm scale/bias/mean/var →
-weight/bias/running_mean/running_var. ``*_to_flax`` undoes each step, so a
-round trip gives the Flax tree back bit for bit.
+weight/bias/running_mean/running_var, LayerNorm scale/bias →
+weight/bias, and ConvNeXt's LayerScale ``gamma`` and GRN ``gamma``/``beta``
+by their own names. ``*_to_flax`` undoes each step, so a round trip gives
+the Flax tree back bit for bit.
 
 Flax names a backbone built inside a compact module after its class
-(``EfficientNet_0``, ``TinyNet_0``); the port keeps it under one attribute
-(``encoder`` in MILNet, ``backbone`` in MMJointDualHead), and EfficientNet's
-``stage{i}_block{j}`` blocks under ``blocks``.
+(``EfficientNet_0``, ``ConvNeXt_0``, ``TinyNet_0``); the port keeps it under
+one attribute (``encoder`` in MILNet, ``backbone`` in MMJointDualHead), and
+EfficientNet's and ConvNeXt's ``stage{i}_block{j}`` blocks under ``blocks``.
+A vision model (``VisionTrainer``'s) is the backbone itself, its classifier
+at the top level.
 """
 
 from __future__ import annotations
@@ -20,9 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_PARAM_NAMES = {"scale": "weight", "bias": "bias"}
+_PARAM_NAMES = {"scale": "weight", "bias": "bias", "gamma": "gamma", "beta": "beta"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
-_BACKBONES = ("EfficientNet", "TinyNet")
+_BACKBONES = ("EfficientNet", "ConvNeXt", "TinyNet")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -102,12 +106,21 @@ def mm_joint_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     return _from_flax(variables, "backbone")
 
 
-def _to_flax(sd: dict[str, torch.Tensor], backbone_attr: str) -> dict:
-    name = ("EfficientNet_0" if f"{backbone_attr}.conv_stem.weight" in sd else "TinyNet_0")
+def _backbone_name(sd: dict, prefix: str) -> str:
+    if f"{prefix}conv_stem.weight" in sd:
+        return "EfficientNet_0"
+    return "ConvNeXt_0" if f"{prefix}stem_conv.weight" in sd else "TinyNet_0"
+
+
+def _to_flax(sd: dict[str, torch.Tensor], backbone_attr: str | None) -> dict:
+    """``backbone_attr`` None: the model is the backbone (a vision model)."""
+    name = None if backbone_attr is None else _backbone_name(sd, backbone_attr + ".")
     tree: dict = {"params": {}, "batch_stats": {}}
     for key, t in sd.items():
         *mods, leaf = key.split(".")
-        if mods[0] == backbone_attr:
+        if backbone_attr is None:
+            mods = mods[1:] if mods[0] == "blocks" else mods
+        elif mods[0] == backbone_attr:
             mods = [name] + mods[2:] if mods[1] == "blocks" else [name] + mods[1:]
         a = t.detach().cpu().numpy()
         if leaf in ("running_mean", "running_var"):
@@ -134,3 +147,33 @@ def mm_joint_to_flax(sd: dict[str, torch.Tensor]) -> dict:
     """State dict of the port's ``MMJointDualHead`` → {"params",
     "batch_stats"} of Flax ``MMJointDualHead`` with numpy leaves."""
     return _to_flax(sd, "backbone")
+
+
+def vision_from_flax(variables: dict, model_name: str) -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of the JAX factory's ``create_model(model_name,
+    num_classes)`` (numpy leaves; ConvNeXt has no batch_stats) → state dict
+    of the port's ``create_model(model_name, num_classes)``."""
+    from mmtrs_tpu_torch.models.backbones.factory import MODEL_REGISTRY
+
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model '{model_name}'")
+    return _from_flax(variables)
+
+
+def vision_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """State dict of a port vision model → {"params", "batch_stats"} of the
+    Flax one with numpy leaves (the inverse of vision_from_flax)."""
+    return _to_flax(sd, None)
+
+
+def merge_pretrained(state: dict[str, torch.Tensor], pretrained: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The JAX package's ``merge_pretrained`` on port state dicts: every
+    leaf of ``pretrained`` (backbone weights, port names) replaces the one of
+    the same name in ``state`` (a fresh init), the others (the head) are
+    kept. A leaf that ``state`` lacks, or one of another shape, raises."""
+    bad = sorted(k for k, v in pretrained.items() if k not in state or tuple(state[k].shape) != tuple(v.shape))
+    if bad:
+        raise ValueError(f"pretrained weights do not fit the model: {bad[:5]}{' ...' if len(bad) > 5 else ''}")
+    out = dict(state)
+    out.update({k: v.to(state[k].dtype) for k, v in pretrained.items()})
+    return out

@@ -1,16 +1,19 @@
 """Shared training machinery (port of mmtrs_tpu/train/common.py): ImageNet
-normalisation, the BCE loss, the epoch sampler, the imgs/s tracker, the
-device-resident dataset, the best-epoch snapshot and the optimiser.
+normalisation, the losses (BCE with optional sample weights, two-class CE
+with label smoothing and class weights), the samplers (epoch batches,
+inverse-class-count sampling), the imgs/s tracker, the device-resident
+dataset, the best-epoch snapshot and the optimiser.
 
 The optimiser is optax's, not ``torch.optim``'s:
-``make_optimizer(lr, wd, total, grad_clip)`` is
+``make_optimizer(lr, wd, total, grad_clip, warmup)`` is
 ``chain(clip_by_global_norm(grad_clip), adamw(schedule, weight_decay=wd))``
 with the schedule ``warmup_cosine_decay_schedule(init=lr, peak=lr,
-warmup_steps=1, decay_steps=max(total, 2), end=lr·1e-2)`` (no warmup), each
-part written out with optax's arithmetic:
+warmup_steps=1, decay_steps=max(total, 2), end=lr·1e-2)`` without warmup,
+or ``(init=0, peak=lr, warmup_steps=w, ...)`` with ``w = min(warmup,
+total − 1)`` steps of it, each part written out with optax's arithmetic:
 
-- the schedule is evaluated in f32 at the step count before the step (the
-  first step takes ``lr``);
+- the schedule is evaluated in f32 at the step count before the step
+  (without warmup the first step takes ``lr``, with it 0);
 - the clip leaves the gradients alone when their global norm is below
   ``grad_clip`` and scales them by ``grad_clip / norm`` otherwise
   (``clip_grad_norm_`` divides by ``norm + 1e-6`` and differs);
@@ -70,11 +73,38 @@ def device_put_dataset(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def bce_logits(logit: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean BCE on a single logit, the JAX package's stable form
-    max(z, 0) − z·t + log1p(exp(−|z|))."""
+def bce_logits(logit: torch.Tensor, target: torch.Tensor, sample_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """BCE on a single logit, the JAX package's stable form
+    max(z, 0) − z·t + log1p(exp(−|z|)): the mean, or with ``sample_weight``
+    Σ l·w / max(Σ w, 1e-8)."""
     loss = torch.clamp_min(logit, 0) - logit * target + torch.log1p(torch.exp(-torch.abs(logit)))
+    if sample_weight is not None:
+        return (loss * sample_weight).sum() / torch.clamp_min(sample_weight.sum(), 1e-8)
     return loss.mean()
+
+
+def ce_two_class(logits: torch.Tensor, y: torch.Tensor, label_smoothing: float = 0.05,
+                 class_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """2-class CE on [B, 2] logits (train_hard.py:195): one-hot targets
+    smoothed to (1 − ls)·onehot + ls/2, each row's loss weighted by
+    ``class_weights[y]`` when given, the mean."""
+    y = y.long()
+    oh = torch.nn.functional.one_hot(y, 2).to(logits.dtype) * (1 - label_smoothing) + label_smoothing / 2
+    loss = -(oh * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+    if class_weights is not None:
+        loss = loss * class_weights[y]
+    return loss.mean()
+
+
+def weighted_sampler_indices(y: np.ndarray, n: int, rng: np.random.Generator) -> np.ndarray:
+    """WeightedRandomSampler equivalent: ``n`` rows drawn with replacement
+    with inverse-class-count weights (train_hard.py:64-69), the JAX
+    package's ``rng.choice`` call on the caller's generator."""
+    y = np.asarray(y).astype(int)
+    counts = np.bincount(y, minlength=2).astype(np.float64)
+    w = 1.0 / np.maximum(counts[y], 1.0)
+    p = w / w.sum()
+    return rng.choice(len(y), size=n, replace=True, p=p)
 
 
 def epoch_batches(
@@ -123,19 +153,27 @@ def snapshot(model: torch.nn.Module, optimizer: "AdamW | None" = None) -> dict:
     }
 
 
-def warmup_cosine_lr(lr: float, total_steps: int, count: int) -> float:
-    """optax ``warmup_cosine_decay_schedule(init_value=lr, peak_value=lr,
-    warmup_steps=1, decay_steps=max(total_steps, 2), end_value=lr·1e-2)``
-    at ``count``, in f32 with optax's operations: step 0 is the (flat)
-    warmup's ``lr``; from step 1 the cosine over ``decay_steps − 1`` steps
-    at ``count − 1``. Near the end of the decay 1 + cos cancels, so one ulp
-    of the cosine is ~1e-7 of the rate."""
-    if count < 1:
-        return float(np.float32(lr))
+def warmup_cosine_lr(lr: float, total_steps: int, count: int, warmup_steps: int = 0) -> float:
+    """The JAX ``make_optimizer``'s schedule at ``count``, in f32 with
+    optax's operations. Without warmup, ``warmup_cosine_decay_schedule(
+    init_value=lr, peak_value=lr, warmup_steps=1, decay_steps=max(total, 2),
+    end_value=lr·1e-2)``: step 0 is the (flat) warmup's ``lr``. With
+    ``warmup_steps`` > 0, w = min(warmup_steps, total − 1) steps rise
+    linearly from 0 (init_value 0): step c < w takes lr − lr·(1 − c/w).
+    From step w the cosine over ``decay_steps − w`` steps at ``count − w``.
+    Near the end of the decay 1 + cos cancels, so one ulp of the cosine is
+    ~1e-7 of the rate."""
     f = np.float32
-    decay = max(total_steps, 2) - 1
+    warmup = min(warmup_steps, max(total_steps - 1, 0))
+    w = warmup if warmup else 1
+    if count < w:
+        if not warmup:
+            return float(f(lr))
+        frac = f(1) - f(count) / f(w)
+        return float(f(-lr) * frac + f(lr))
+    decay = max(total_steps, 2) - w
     alpha = lr * 1e-2 / lr  # end_value / peak_value, in double as optax takes it
-    c = f(min(float(count - 1), float(decay)))
+    c = f(min(float(count - w), float(decay)))
     arg = f(math.pi) * c / f(decay)
     cosine = f(0.5) * (f(1) + f(math.cos(float(arg))))  # cos rounded once from double, as XLA's f32 cos is
     return float(f(lr) * (f(1 - alpha) * cosine + f(alpha)))
@@ -158,16 +196,18 @@ class AdamW:
     numbers, the clip is a device-side select."""
 
     def __init__(self, params, lr: float, weight_decay: float, total_steps: int,
-                 grad_clip: float = 0.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 grad_clip: float = 0.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 warmup_steps: int = 0):
         self.params = [p for p in params if p.requires_grad]
         self.lr, self.weight_decay, self.total_steps = lr, weight_decay, total_steps
+        self.warmup_steps = warmup_steps
         self.grad_clip, self.b1, self.b2, self.eps = grad_clip, b1, b2, eps
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     def lr_at(self, count: int) -> float:
-        return warmup_cosine_lr(self.lr, self.total_steps, count)
+        return warmup_cosine_lr(self.lr, self.total_steps, count, self.warmup_steps)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -202,7 +242,7 @@ class AdamW:
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 1e-4, total_steps: int = 1000,
-                   grad_clip: float = 0.0) -> AdamW:
+                   grad_clip: float = 0.0, warmup_steps: int = 0) -> AdamW:
     """The JAX package's ``make_optimizer(lr, weight_decay, total_steps,
-    warmup_steps=0, grad_clip)`` over ``params``."""
-    return AdamW(params, lr, weight_decay, total_steps, grad_clip)
+    warmup_steps, grad_clip)`` over ``params``."""
+    return AdamW(params, lr, weight_decay, total_steps, grad_clip, warmup_steps=warmup_steps)

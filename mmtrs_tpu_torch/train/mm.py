@@ -11,7 +11,8 @@ as a copy with its {thr, T, scaler}, 3-view TTA prediction (as is, flipped
 along W, flipped along H) with sigmoid(logit / T); then oof_val.csv,
 pred_test.csv, summary.json, metrics.jsonl and, with ``save_ckpts``, one
 npz checkpoint per fold that ``serve.ensembles.MMEnsemble.from_folder``
-reads.
+reads, and ``finalize_mm_from_ckpts`` predicts again from without
+training.
 
 Everything runs on the card unless the caller passes ``device="cpu"``. The
 dataset moves there once; a step gathers its rows there. The host reads
@@ -325,3 +326,67 @@ def run_mm_kfold(
         to_csv(test_t, outdir / "pred_test.csv")
         save_json(summary, outdir / "summary.json")
     return {"summary": summary, "oof": oof_t, "test": test_t, "folds": folds}
+
+
+def finalize_mm_from_ckpts(
+    images,
+    table: Table,
+    ckpt_dir,
+    cfg: MMJointConfig = MMJointConfig(),
+    outdir=None,
+    log=print,
+    device: str | torch.device | None = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> dict:
+    """The finalized OOF and test predictions from saved fold checkpoints,
+    without training (finalize_mm_dualtask_from_ckpts.py): the same
+    GroupKFold as ``run_mm_kfold``, each fold's ``mm_dualtask_fold{k}.npz``
+    with its recipe (scaler, T) read back, the 3-view TTA prediction; writes
+    ``outdir``/finalized/oof_val.csv, pred_test.csv and summary.json. →
+    {"summary", "oof", "test"} (Tables). On ``device`` (None: the card)."""
+    from mmtrs_tpu_torch.models.convert import mm_joint_from_flax
+    from mmtrs_tpu_torch.utils.checkpoint import load_npz_checkpoint
+    from mmtrs_tpu_torch.utils.io import save_json
+    from mmtrs_tpu_torch.utils.table import to_csv
+
+    ckpt_dir = Path(ckpt_dir)
+    y = table["y_majority"].astype(int)
+    tab_raw = np.stack([table[c] for c in BASE_FEATURES], axis=1).astype(np.float32)
+    is_test = table["split"] == "test"
+    tv = np.nonzero(~is_test)[0]
+    te = np.nonzero(is_test)[0]
+
+    trainer = MMTrainer(cfg, device=device, dtype=dtype)
+    images = device_put_dataset(images, trainer.device)
+    te_d = torch.as_tensor(te, device=trainer.device)
+    oof = np.full(len(tv), np.nan)
+    test_probs = []
+    for fold, (_, va_rel) in enumerate(mm_fold_splits(table.take(tv), cfg.n_folds)):
+        va = tv[va_rel]
+        tree, recipe = load_npz_checkpoint(ckpt_dir / f"mm_dualtask_fold{fold}")
+        # the scaler as training fitted it: f32 statistics of the f32 features
+        # (the JAX finalize reads them as float64, one rounding away)
+        scaler = StandardScaler(mean=np.asarray(recipe["scaler_mean"], np.float32),
+                                scale=np.asarray(recipe["scaler_scale"], np.float32))
+        bundle = {"state": {"model": mm_joint_from_flax(tree)}, "T": recipe["T"], "scaler": scaler}
+        va_d = torch.as_tensor(va, device=trainer.device)
+        oof[va_rel] = trainer.predict_proba(bundle, images.index_select(0, va_d), tab_raw[va])
+        if len(te):
+            test_probs.append(trainer.predict_proba(bundle, images.index_select(0, te_d), tab_raw[te]))
+        log(f"[finalize fold {fold}] T={recipe['T']:.3f}")
+
+    p_test = np.mean(test_probs, axis=0) if test_probs else np.zeros(0)
+    summary = {
+        "oof_auc": roc_auc(y[tv], oof),
+        "test_auc": roc_auc(y[te], p_test) if len(te) else None,
+        "finalized_from": str(ckpt_dir),
+    }
+    oof_t = Table({"image_name": table["image_name"][tv], "y": y[tv].astype(float), "prob": oof})
+    test_t = Table({"image_name": table["image_name"][te], "y": y[te].astype(float), "prob": p_test})
+    if outdir is not None:
+        fdir = Path(outdir) / "finalized"
+        fdir.mkdir(parents=True, exist_ok=True)
+        to_csv(oof_t, fdir / "oof_val.csv")
+        to_csv(test_t, fdir / "pred_test.csv")
+        save_json(summary, fdir / "summary.json")
+    return {"summary": summary, "oof": oof_t, "test": test_t}

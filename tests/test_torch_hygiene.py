@@ -78,6 +78,20 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.cli.run_fusion",
 ]
 
+# the vision-training slice: none of these may load matplotlib either (the
+# threshold sweep imports it inside its plot functions)
+VISION_MODULES = [
+    "mmtrs_tpu_torch.models.backbones.convnext",
+    "mmtrs_tpu_torch.train.vision",
+    "mmtrs_tpu_torch.train.progressive",
+    "mmtrs_tpu_torch.train.kfold",
+    "mmtrs_tpu_torch.cli.run_train_images",
+    "mmtrs_tpu_torch.fusion.streams",
+    "mmtrs_tpu_torch.eval",
+    "mmtrs_tpu_torch.eval.threshold_sweep",
+]
+SLICE_MODULES += VISION_MODULES
+
 
 def test_slice_imports_no_jax_pandas_pil_or_jax_package():
     """The card has no JAX and may have no pandas, Pillow, optax or sklearn:
@@ -92,6 +106,22 @@ def test_slice_imports_no_jax_pandas_pil_or_jax_package():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", res.stdout
+
+
+def test_vision_modules_import_no_matplotlib_sklearn_pandas_or_pil():
+    """Importing every module of the vision-training slice in a fresh
+    interpreter loads no matplotlib, sklearn, pandas or PIL (the card's
+    machine may lack them)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {VISION_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('matplotlib', 'sklearn', 'pandas', 'PIL', 'jax', 'mmtrs_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", res.stdout
 
@@ -116,16 +146,23 @@ def test_mm_joint_config_copy_matches_jax_package():
     assert spec(MMJointConfig) == spec(Orig)
 
 
-@pytest.mark.parametrize("name", ["GBDTConfig", "MILConfig", "FusionConfig"])
+@pytest.mark.parametrize("name", ["GBDTConfig", "MILConfig", "FusionConfig", "VisionTrainConfig",
+                                  "ProgressiveStage", "ProgressiveConfig"])
 def test_training_config_copies_match_jax_package(name):
-    """The copies of GBDTConfig (and its two recipes), MILConfig and
-    FusionConfig have the originals' fields, types and defaults."""
+    """The copies of GBDTConfig (and its two recipes), MILConfig,
+    FusionConfig, VisionTrainConfig, ProgressiveStage and ProgressiveConfig
+    have the originals' fields, types and defaults (ProgressiveConfig's
+    default stages compared field by field)."""
     import mmtrs_tpu.config as orig
     import mmtrs_tpu_torch.config as port
 
     def spec(cls):
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
 
+    if name == "ProgressiveConfig":
+        pa, oa = port.ProgressiveConfig(), orig.ProgressiveConfig()
+        assert [dataclasses.asdict(s) for s in pa.stages] == [dataclasses.asdict(s) for s in oa.stages]
+        spec = lambda cls: [(f.name, f.type, f.default) for f in dataclasses.fields(cls) if f.name != "stages"]
     assert spec(getattr(port, name)) == spec(getattr(orig, name))
     if name == "GBDTConfig":
         for recipe in ("lgbm_like", "stack_tab_like"):
