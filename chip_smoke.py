@@ -189,10 +189,22 @@ Phases (each raises on failure, so the script exits non-zero):
      6 bf16 steps each of B3 hard b16, ConvNeXt-tiny soft b16 and
      ConvNeXtV2-base k-fold b8 at 512², timed with the prep apart, and the
      peak memory of each.
+ 13. the pipeline's last entry points: (a) cli.rehearsal at its widths
+     (MM efficientnet_b4 380 b16 randaug, MIL B0 bag 12 at 320,
+     stack_tab_like), depth cut to 26 cases x 3 rows, 2 folds, 1 epoch:
+     every summary.json key present and finite, then cli.stack_from_streams
+     on a copy of its folder writing the same stack byte for byte; (b)
+     cli.run_augment --strength strong and medium and cli.run_augment_simple
+     on 8 teeth written as JPEG, PNG and BMP (one 768x1024, one 600x520);
+     (c) cli.make_balanced_splits and cli.make_group_splits on phase 10's
+     table, no group across splits; (d) cli.eval_vision on phase 12's
+     vision_hard_best within EVAL_VISION_BAR of _predict_vision_ckpt on the
+     same decoded images; (e) cli.evaluate_models --which blend on phase
+     12's forests (xgb_like Platt-calibrated).
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
-preset of 6, 7, 8, 9's CLI and app runs, each stage of 10 and 11, and 12's CLI
-and progressive runs); the JSON line of kernels
+preset of 6, 7, 8, 9's CLI and app runs, each stage of 10 and 11, 12's CLI
+and progressive runs, and 13's rehearsal and augmentation CLIs); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -2890,9 +2902,7 @@ def phase_vision(torch, dev, smi: str, work: Path, train: dict):
     # (b) the four streams from what (a) wrote and two forests
     t0 = time.perf_counter()
     trees = lambda c: GBDTConfig(**{**c.__dict__, "n_estimators": STREAM_TREES})
-    # no Platt calibration: collect_base_preds reads the raw forest, and on ~12 val
-    # rows of random labels a forest may score them all alike (a singular fit)
-    train_xgb_like(table, work / "ml", cfg=trees(GBDTConfig()), calibration="none")
+    train_xgb_like(table, work / "ml", cfg=trees(GBDTConfig()))
     train_lgbm_like(table, work / "ml", cfg=trees(GBDTConfig.lgbm_like()))
     seconds["forests"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3028,6 +3038,199 @@ def phase_vision(torch, dev, smi: str, work: Path, train: dict):
             "finalize_gap": fin_gap, "f32": f32}
 
 
+# 26 cases: the fewest from 24 up whose grouped test split (seed 42, 0.19) holds both labels, so every
+# AUC of the summary is finite (at 24 and 25 the test cases are all negative)
+REHEARSAL_SMOKE = ["--n", "26", "--n_aug", "2", "--folds", "2", "--mm_epochs", "1", "--mil_epochs", "1"]
+REPLAY_FLAGS = ("--n", "--n_aug", "--folds", "--raw_size")  # what stack_from_streams shares with the run
+LAST_TEETH = 8  # run_augment*'s folder: JPEG, PNG and BMP, one phone-shaped
+LAST_TARGET = 6  # run_augment's target rows a class (labels 5 / 3: 1 + 3 children)
+LAST_SIMPLE_N = 3
+EVAL_VISION_BAR = 1e-6  # cli.eval_vision vs _predict_vision_ckpt on the same decoded images, same card
+REHEARSAL_KERNELS = SERVE_KERNELS + LEGACY_TABLE_KERNELS  # preprocess_batch, the legacy table, randaug
+AUGMENT_CLI_KERNELS = {"strong": ("resample_rows", "photometric"), "medium": ("resample_rows",),
+                       "simple": ("resample_rows",)}
+
+
+def _bmp_bytes(img: np.ndarray) -> bytes:
+    """A 24-bit bottom-up BI_RGB BMP of u8 [H, W, 3] (rows padded to 4 bytes)."""
+    import struct
+
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return head + info + rows.tobytes()
+
+
+def _finite_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite_tree(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite_tree(v) for v in x)
+    return not isinstance(x, float) or np.isfinite(x)
+
+
+def phase_last_entry_points(torch, dev, smi: str, work: Path, train: dict):
+    """Phase 13: the pipeline's last entry points on the card. (a) The
+    rehearsal twin at its widths (MM B4 380 b16, MIL B0 bag 12 at 320,
+    stack_tab_like), depth cut to 26 cases x 3 rows, 2 folds, 1 epoch, then
+    stack_from_streams on a copy of its folder; (b) run_augment (strong,
+    medium) and run_augment_simple on a folder of JPEG, PNG and BMP teeth;
+    (c) both split CLIs on phase 10's table; (d) eval_vision on phase 12's
+    vision_hard_best; (e) evaluate_models --which blend on phase 12's
+    forests (xgb_like Platt-calibrated)."""
+    import shutil
+
+    from mmtrs_tpu_torch.cli import (eval_vision, evaluate_models, make_balanced_splits, make_group_splits, rehearsal,
+                                     run_augment, run_augment_simple, stack_from_streams)
+    from mmtrs_tpu_torch.cli.run_train_images import load_vision_dataset
+    from mmtrs_tpu_torch.data.splits import assert_no_group_leakage
+    from mmtrs_tpu_torch.fusion.streams import _predict_vision_ckpt
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.utils.codec import encode_png
+    from mmtrs_tpu_torch.utils.io import read_table
+    from mmtrs_tpu_torch.utils.images import save_jpeg
+    from mmtrs_tpu_torch.utils.table import Table, to_csv
+
+    t_phase = time.perf_counter()
+    print(f"phase 13: the last entry points: cli.rehearsal {' '.join(REHEARSAL_SMOKE)} at its widths -> "
+          f"cli.stack_from_streams; cli.run_augment (strong, medium), cli.run_augment_simple; the split CLIs; "
+          f"cli.eval_vision; cli.evaluate_models --which blend")
+    seconds, launches = {}, {}
+    quiet = lambda *a, **k: None
+
+    # (a) the rehearsal twin and its replay
+    run_dir = work / "rehearsal"
+    reset_launches()
+    t0 = time.perf_counter()
+    code = rehearsal.main(REHEARSAL_SMOKE + ["--out", str(run_dir)], log=quiet)
+    torch.cuda.synchronize()
+    seconds["rehearsal"] = time.perf_counter() - t0
+    launches["rehearsal"] = dict(LAUNCHES)
+    rec = json.loads((run_dir / "summary.json").read_text())
+    want = json.loads((ROOT / "results" / "rehearsal_r5" / "summary.json").read_text())
+    missing = sorted(set(want) - set(rec)) + sorted(f"timings.{k}" for k in set(want["timings"]) - set(rec["timings"]))
+    numbers = {k: rec[k] for k in ("timings", "streams", "stack", "best_stream_test_auc")}
+    n_rows = 3 * int(REHEARSAL_SMOKE[1])
+    _check(code == 0 and not missing and _finite_tree(numbers) and rec["n_rows_augmented"] == n_rows
+           and rec["config"]["mm"]["img"] == 380 and rec["config"]["mil"]["bag"] == 12,
+           f"cli.rehearsal: exit {code}, every summary key present (missing {missing}), all numbers finite, {n_rows} rows; "
+           f"stack {json.dumps(rec['stack'])}, platform {rec['platform']!r}, timings {json.dumps(rec['timings'])}")
+    _check(all(launches["rehearsal"][k] > 0 for k in REHEARSAL_KERNELS),
+           f"the rehearsal launched {REHEARSAL_KERNELS}: {launches['rehearsal']}")
+    replay = work / "replay"
+    shutil.copytree(run_dir, replay)
+    t0 = time.perf_counter()
+    flags = [x for k, v in zip(REHEARSAL_SMOKE[::2], REHEARSAL_SMOKE[1::2]) if k in REPLAY_FLAGS for x in (k, v)]
+    code = stack_from_streams.main(["--dir", str(replay)] + flags, log=quiet)
+    seconds["stack_from_streams"] = time.perf_counter() - t0
+    again = json.loads((replay / "summary.json").read_text())
+    same = all((replay / "stack" / f).read_bytes() == (run_dir / "stack" / f).read_bytes()
+               for f in ("stack_oof.csv", "stack_test.csv", "summary.json"))
+    _check(code == 0 and same and again["stack"] == rec["stack"]
+           and again["stack_beats_streams"] == rec["stack_beats_streams"],
+           f"cli.stack_from_streams on a copy of the run: the stack's files byte for byte and the summary's stack "
+           f"block equal ({json.dumps(again['stack'])})")
+
+    # (b) the augmentation CLIs on a folder of JPEG, PNG and BMP teeth
+    src = work / "augment_in"
+    src.mkdir()
+    shapes = [(512, 512)] * (LAST_TEETH - 2) + [(600, 520), (768, 1024)]  # one off-size, one phone-shaped
+    names = []
+    for i, hw in enumerate(shapes):
+        img = synth_teeth(1, hw, seed=SEED + 130 + i)[0]
+        kind = ("jpg", "png", "bmp")[i % 3]
+        name = f"tooth_{i}.{kind}"
+        if kind == "jpg":
+            save_jpeg(src / name, torch.from_numpy(img).to(dev))
+        else:
+            (src / name).write_bytes(encode_png(img) if kind == "png" else _bmp_bytes(img))
+        names.append(name)
+    to_csv(Table({"image_name": names, "y_majority": [0, 1] * (LAST_TEETH // 2 - 1) + [0, 0]}), work / "augment.csv")
+    aug_runs = {}
+    for strength in ("strong", "medium"):
+        out = work / f"augment_{strength}"
+        reset_launches()
+        t0 = time.perf_counter()
+        code = run_augment.main(["--table", str(work / "augment.csv"), "--image_dir", str(src), "--out_dir", str(out),
+                                 "--target_per_class", str(LAST_TARGET), "--strength", strength])
+        torch.cuda.synchronize()
+        seconds[f"run_augment_{strength}"] = time.perf_counter() - t0
+        launches[f"run_augment_{strength}"] = dict(LAUNCHES)
+        rows = read_table(out / "data_balanced.csv")
+        kids = [n for n in rows["image_name"] if "_bal" in str(n)]
+        aug_runs[strength] = (code, len(rows), len(kids))
+        _check(code == 0 and len(rows) == 2 * LAST_TARGET and all((out / "images" / n).exists() for n in kids)
+               and all(launches[f"run_augment_{strength}"][k] > 0 for k in AUGMENT_CLI_KERNELS[strength]),
+               f"cli.run_augment --strength {strength}: {len(rows)} rows, {len(kids)} children written; launches "
+               f"{launches[f'run_augment_{strength}']}")
+    out = work / "augment_simple"
+    reset_launches()
+    t0 = time.perf_counter()
+    code = run_augment_simple.main(["--input_dir", str(src), "--output_dir", str(out), "--n", str(LAST_SIMPLE_N)])
+    torch.cuda.synchronize()
+    seconds["run_augment_simple"] = time.perf_counter() - t0
+    launches["run_augment_simple"] = dict(LAUNCHES)
+    written = sorted(p.name for p in out.iterdir())
+    _check(code == 0 and len(written) == LAST_TEETH * LAST_SIMPLE_N
+           and all(launches["run_augment_simple"][k] > 0 for k in AUGMENT_CLI_KERNELS["simple"]),
+           f"cli.run_augment_simple --n {LAST_SIMPLE_N}: {len(written)} children of {LAST_TEETH} JPEG/PNG/BMP teeth; "
+           f"launches {launches['run_augment_simple']}")
+
+    # (c) the split CLIs on phase 10's table
+    t0 = time.perf_counter()
+    base = train["table"]
+    to_csv(base.select([c for c in base.columns if c != "split"]), work / "splits_in.csv")
+    code_b = make_balanced_splits.main(["--table", str(work / "splits_in.csv"), "--out", str(work / "splits_balanced")])
+    code_g = make_group_splits.main(["--csv", str(work / "splits_in.csv"), "--outdir", str(work / "splits_group")])
+    balanced = read_table(work / "splits_balanced.csv")
+    group = read_table(work / "splits_group" / "folds_group.csv")
+    assert_no_group_leakage(balanced)
+    assert_no_group_leakage(group)
+    seconds["split_clis"] = time.perf_counter() - t0
+    counts = lambda t: {s: int((np.asarray(t["split"]) == s).sum()) for s in ("train", "val", "test")}
+    _check(code_b == 0 and code_g == 0 and len(balanced) == len(group) == len(base),
+           f"cli.make_balanced_splits {counts(balanced)} and cli.make_group_splits {counts(group)} on phase 10's "
+           f"{len(base)}-row table: no group spans two splits")
+
+    # (d) eval_vision on phase 12's hard checkpoint
+    ckpt = work / "vision" / "hard" / "vision_hard_best"
+    t0 = time.perf_counter()
+    code = eval_vision.main(["--ckpt", str(ckpt), "--data", str(work / "vision_meta.csv"), "--image_dir",
+                             str(work / "vision_images"), "--outdir", str(work / "eval_vision")])
+    seconds["eval_vision"] = time.perf_counter() - t0
+    pred = read_table(work / "eval_vision" / "vision_hard_test_predictions.csv")
+    meta = read_table(work / "vision_meta.csv")
+    test = meta.take(np.asarray([str(s).lower() == "test" for s in meta["split"]]))
+    size = json.loads(ckpt.with_suffix(".recipe.json").read_text())["img_size"]
+    data, _ = load_vision_dataset(test, work / "vision_images", int(size), dev)
+    ref = _predict_vision_ckpt(ckpt, data.images)
+    gap = float(np.abs(np.asarray(pred["prob"]) - ref).max())
+    _check(code == 0 and len(pred) == len(ref) and gap <= EVAL_VISION_BAR,
+           f"cli.eval_vision on vision_hard_best ({len(pred)} test rows from JPEG): max |dp| {gap:.3g} against "
+           f"_predict_vision_ckpt on the same decoded images (bar {EVAL_VISION_BAR})")
+
+    # (e) evaluate_models --which blend on phase 12's forests
+    t0 = time.perf_counter()
+    to_csv(train["table"], work / "forest_data.csv")
+    (work / "evaluate").mkdir()
+    code = evaluate_models.main(["--data", str(work / "forest_data.csv"), "--xgb", str(work / "ml" / "xgb_forest"),
+                                 "--lgbm", str(work / "ml" / "lgbm_forest"), "--which", "blend", "--outdir",
+                                 str(work / "evaluate")])
+    seconds["evaluate_models"] = time.perf_counter() - t0
+    blend = json.loads((work / "evaluate" / "metrics_blend.json").read_text())
+    _check(code == 0 and _finite_tree({k: v for k, v in blend.items() if k != "auc"}) and 0 <= blend["alpha"] <= 1,
+           f"cli.evaluate_models --which blend on phase 12's xgb_like (Platt) and lgbm_like forests: {json.dumps(blend)}")
+    torch.cuda.empty_cache()
+    seconds["phase"] = time.perf_counter() - t_phase
+    print("  phase 13 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f"; {smi}")
+    print("  phase 13 kernel launches: " + json.dumps(launches))
+    return {"seconds": seconds, "launches": launches, "rehearsal": rec, "eval_vision_gap": gap, "blend": blend}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -3071,6 +3274,7 @@ def main() -> int:
         train = phase_train(torch, dev, smi, work)
         rest = phase_rest(torch, dev, smi, work, train)
         vision = phase_vision(torch, dev, smi, work, train)
+        last = phase_last_entry_points(torch, dev, smi, work, train)
     _check(not work.exists(), "the training folder removed")
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
@@ -3126,7 +3330,9 @@ def main() -> int:
           f"{rest['seconds']['phase']:.1f} s; vision training steps "
           + ", ".join(f"{k} {v['step_ms']:.2f} ms + prep {v['prep_ms']:.2f} ms, {v['imgs_per_sec']:.2f} imgs/s, "
                       f"peak {v['peak_gb']:.2f} GB" for k, v in vision["steps"].items())
-          + f"; phase 12 {vision['seconds']['phase']:.1f} s; total {time.perf_counter() - T_START:.1f} s")
+          + f"; phase 12 {vision['seconds']['phase']:.1f} s; the rehearsal twin at its widths (26 cases, 2 folds, 1 "
+          f"epoch) {last['seconds']['rehearsal']:.1f} s, phase 13 {last['seconds']['phase']:.1f} s; total "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

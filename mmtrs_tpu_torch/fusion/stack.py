@@ -38,7 +38,7 @@ from mmtrs_tpu_torch.metrics.thresholds import choose_threshold, sweep_threshold
 from mmtrs_tpu_torch.models.gbdt import GBDTDraws, consensus_sample_weights, predict_proba, train_gbdt
 from mmtrs_tpu_torch.models.linear import LogisticRegression
 from mmtrs_tpu_torch.utils.io import save_json
-from mmtrs_tpu_torch.utils.table import Table, to_csv
+from mmtrs_tpu_torch.utils.table import Table, join_key, to_csv
 
 # stack_blend.py:88-92: the raw-feature view of the final tab stream
 CONT_ALL = ["depth", "width"]
@@ -67,7 +67,7 @@ def merge_inner(left: Table, right: Table, on=("image_name", "y")) -> Table:
     """pandas ``left.merge(right, on=on, how="inner")``: each left row in
     turn with each of its matches in right's order; the key columns are
     left's, numbers compared as floats (1 matches 1.0)."""
-    key = lambda t, i: tuple(float(t[c][i]) if t[c].dtype.kind in "biuf" else t[c][i] for c in on)
+    key = lambda t, i: tuple(join_key(t[c][i]) for c in on)
     matches: dict = {}
     for j in range(len(right)):
         matches.setdefault(key(right, j), []).append(j)

@@ -350,7 +350,10 @@ def train_gbdt(
             fbin = Xb.gather(1, bf[node][:, None])[:, 0]
             node = node * 2 + (fbin > bb[node])
         leaf_gh = _segment_sums(node, gh, n_leaves)
-        leaf = -lr * _soft(leaf_gh[:, 0], alpha) / (leaf_gh[:, 1] + lam)
+        den = leaf_gh[:, 1] + lam
+        # a leaf no training row reaches has LH + λ = 0 (at reg_lambda 0,
+        # stack_tab_like's): its value is 0, where the JAX package's is 0/0
+        leaf = torch.where(den == 0, 0.0, -lr * _soft(leaf_gh[:, 0], alpha) / den)
         return split_feat, split_bin, leaf, node
 
     SF = torch.empty((T, n_nodes), dtype=torch.int64, device=dev)

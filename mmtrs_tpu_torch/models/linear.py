@@ -64,21 +64,20 @@ class LogisticRegression:
         if sample_weight is not None:
             w = w * np.asarray(sample_weight, dtype=np.float64)
         f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-        Xd = f32(np.c_[X, np.ones(len(X))] if self.fit_intercept else X)
-        d = Xd.shape[1]
+        Xh = np.c_[X, np.ones(len(X))] if self.fit_intercept else X
         lam = 0.0 if self.penalty == "none" else 1.0 / self.C
         # lbfgs-style solvers don't regularise the intercept; liblinear (the
         # reference's L1 solver, meta_learner.py:12) does: match each
-        reg_mask = torch.ones(d, device=dev)
+        reg_mask = torch.ones(Xh.shape[1], device=dev)
         if self.fit_intercept and self.penalty != "l1":
             reg_mask[-1] = 0.0
         if self.penalty == "l1":
-            beta, self.n_iter_ = _prox_logistic(Xd, f32(y), f32(w), lam, reg_mask,
+            beta, self.n_iter_ = _prox_logistic(f32(Xh), f32(y), f32(w), lam, reg_mask,
                                                 max(self.max_iter, 2000), self.tol)
+            beta = beta.cpu().numpy().astype(np.float64)
         else:
-            beta, self.n_iter_ = _newton_logistic(Xd, f32(y), f32(w), lam, reg_mask,
+            beta, self.n_iter_ = _newton_min_norm(Xh, f32, f32(y), f32(w), lam, reg_mask,
                                                   self.max_iter, self.tol)
-        beta = beta.cpu().numpy().astype(np.float64)
         if self.fit_intercept:
             self.coef_, self.intercept_ = beta[:-1], float(beta[-1])
         else:
@@ -120,6 +119,39 @@ def _newton_logistic(X, y, w, lam, reg_mask, max_iter, tol) -> tuple[torch.Tenso
         i += 1
         delta = step.abs().max().item()
     return beta, i
+
+
+def _newton_min_norm(Xh: np.ndarray, f32, y, w, lam, reg_mask, max_iter, tol) -> tuple[np.ndarray, int]:
+    """``_newton_logistic`` on the design ``Xh`` (host f64, intercept column
+    included) → (f64 coefficients, steps). Where unregularised columns are
+    constant over the rows (all-zero, or two or more of them, as a constant
+    feature beside the intercept) the Hessian is singular, and the JAX
+    package's solve returns NaN: here those columns are replaced by one
+    column of ones, the regular problem is solved, and its coefficient ``b``
+    is spread as the minimum-norm solution ``β_k = v_k·b / Σ v_j²`` (a zero
+    column gets 0). Gradient descent from zero, scikit-learn's lbfgs for
+    ``penalty=None``, stays in that row space and ends there too. The
+    predictions equal the fit without the constant columns. A design with
+    no such columns takes the plain path, bit for bit."""
+    free = (reg_mask == 0).cpu().numpy() if lam else np.ones(Xh.shape[1], bool)
+    const = free & (Xh.max(axis=0) == Xh.min(axis=0)) if len(Xh) else np.zeros(Xh.shape[1], bool)
+    v = Xh[0] if len(Xh) else np.zeros(Xh.shape[1])
+    if not ((const & (v == 0)).any() or const.sum() >= 2):
+        beta, it = _newton_logistic(f32(Xh), y, w, lam, reg_mask, max_iter, tol)
+        return beta.cpu().numpy().astype(np.float64), it
+    keep = np.nonzero(~const)[0]
+    ones = (const & (v != 0)).any()
+    Xr = np.c_[Xh[:, keep], np.ones(len(Xh))] if ones else Xh[:, keep]
+    mask_r = torch.cat([reg_mask[torch.as_tensor(keep, device=reg_mask.device)],
+                        reg_mask.new_zeros(int(ones))])
+    beta_r, it = _newton_logistic(f32(Xr), y, w, lam, mask_r, max_iter, tol)
+    beta_r = beta_r.cpu().numpy().astype(np.float64)
+    beta = np.zeros(Xh.shape[1])
+    beta[keep] = beta_r[: len(keep)]
+    if ones:
+        vc = np.where(const, v, 0.0)
+        beta[const] = (vc * beta_r[-1] / (vc**2).sum())[const]
+    return beta, it
 
 
 _FISTA_BLOCK = 50
@@ -187,6 +219,12 @@ def platt_calibrate(scores, y, prior_correction: bool = True,
         t = np.where(y > 0, (n_pos + 1) / (n_pos + 2), 1.0 / (n_neg + 2))
     else:
         t = y
+    if len(s) and s.max() == s.min():
+        # a constant score column (a forest that scores every row alike):
+        # the fit along b alone, so every row's p is the mean target; the
+        # JAX package's solve returns NaN here
+        m = float(np.mean(t))
+        return PlattCalibrator(a=0.0, b=float(np.log(m) - np.log1p(-m)))
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     beta, _ = _newton_logistic(f32(np.c_[s, np.ones(len(s))]), f32(t), torch.ones(len(s), device=dev),
                                0.0, torch.zeros(2, device=dev), 100, 1e-10)

@@ -17,9 +17,13 @@ and inflated here with ``zlib``, the rows unfiltered in C
 (``csrc/host/png.cpp``), and the image moved to the device; the encoder is
 ``zlib`` and ``struct`` alone.
 
+BMP is host work too (``decode_bmp``): uncompressed (``BI_RGB``) files at
+24 and 32 bits a pixel and 8-bit palette files, rows bottom-up or top-down.
+
 What Pillow opens and this codec refuses, with an error that names the
-format: CMYK and YCCK JPEGs, interlaced or 16-bit PNGs, and BMP, WebP, GIF
-and TIFF files.
+format: CMYK and YCCK JPEGs, interlaced or 16-bit PNGs, BMPs compressed
+(RLE, bit fields) or at 1, 4 or 16 bits a pixel, and WebP, GIF and TIFF
+files.
 """
 
 from __future__ import annotations
@@ -76,9 +80,11 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
         return _decode_jpeg_cuda(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
     if kind == "png":
         return torch.from_numpy(decode_png(data)).to(dev)
+    if kind == "BMP":
+        return torch.from_numpy(decode_bmp(data)).to(dev)
     if kind == "unknown":
-        raise ValueError("cannot identify the image data: the port's codec reads JPEG and PNG")
-    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG and PNG only)")
+        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG and BMP")
+    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG and BMP only)")
 
 
 def _jpeg_error(status: int, backend: str) -> Exception:
@@ -217,6 +223,55 @@ def encode_png(img) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (PNG_MAGIC + _png_chunk(b"IHDR", ihdr) + _png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
+
+
+_BMP_COMPRESSION = {1: "BI_RLE8", 2: "BI_RLE4", 3: "BI_BITFIELDS", 4: "BI_JPEG", 5: "BI_PNG",
+                    6: "BI_ALPHABITFIELDS", 11: "BI_CMYK", 12: "BI_CMYKRLE8", 13: "BI_CMYKRLE4"}
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes → RGB u8 [H, W, 3] numpy, as Pillow's ``convert("RGB")``:
+    uncompressed (``BI_RGB``) at 24 bits (BGR) or 32 bits (BGRX, the fourth
+    byte dropped) a pixel, or 8-bit indices into a BGRX palette; rows
+    padded to 4 bytes, bottom-up (positive height) or top-down (negative).
+    Raises ValueError for a corrupt file and, naming it, for any other
+    compression or bit depth."""
+    if data[:2] != b"BM" or len(data) < 30:
+        raise ValueError("corrupt or truncated BMP: no file header")
+    offset = struct.unpack("<I", data[10:14])[0]
+    dib = struct.unpack("<I", data[14:18])[0]
+    if dib < 40:
+        raise ValueError(f"BMP with a {dib}-byte (OS/2) header is not supported by the port's codec")
+    if len(data) < 14 + 40:
+        raise ValueError("corrupt or truncated BMP: short info header")
+    w, h, _, bpp, comp, _, _, _, n_colors, _ = struct.unpack("<iiHHIIiiII", data[18:54])
+    if comp != 0:
+        name = _BMP_COMPRESSION.get(comp, f"type {comp}")
+        raise ValueError(f"BMP compression {comp} ({name}) is not supported by the port's codec (BI_RGB only)")
+    if bpp not in (8, 24, 32):
+        raise ValueError(f"{bpp}-bit BMP images are not supported by the port's codec (8, 24 and 32 bits)")
+    top_down, h = h < 0, abs(h)
+    if w <= 0 or h == 0:
+        raise ValueError(f"corrupt BMP: size {w}x{h}")
+    stride = (w * bpp + 31) // 32 * 4
+    if len(data) < offset + stride * (h - 1) + (w * bpp + 7) // 8:
+        raise ValueError("corrupt or truncated BMP: the pixel data ends early")
+    buf = np.frombuffer(data, np.uint8, count=min(stride * h, len(data) - offset), offset=offset)
+    rows = np.zeros((h, stride), np.uint8)
+    rows.reshape(-1)[: buf.size] = buf
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 8:
+        n = n_colors or 256
+        pal = np.frombuffer(data, np.uint8, count=4 * n, offset=14 + dib) if 14 + dib + 4 * n <= offset \
+            else None
+        if pal is None:
+            raise ValueError("corrupt BMP: the palette overlaps the pixel data")
+        lut = np.zeros((256, 3), np.uint8)
+        lut[: min(n, 256)] = pal.reshape(n, 4)[:256, 2::-1]
+        return lut[rows[:, :w]]
+    px = rows[:, : w * (bpp // 8)].reshape(h, w, bpp // 8)
+    return np.ascontiguousarray(px[..., 2::-1])
 
 
 def decode_png(data: bytes) -> np.ndarray:

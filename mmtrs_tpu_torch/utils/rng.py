@@ -40,3 +40,13 @@ def generators_for_batch(seed: int, origin_ids, aug_idxs) -> list[torch.Generato
     if len(aug_idxs) != len(origin_ids):
         raise ValueError(f"{len(origin_ids)} origin ids but {len(aug_idxs)} aug indices")
     return [generator_for_origin(seed, o, a) for o, a in zip(origin_ids, aug_idxs)]
+
+
+def stem_id(stem: str) -> int:
+    """A file stem's lineage id, the same in every process: CRC-32 of its
+    UTF-8 bytes, mod 2³¹. The JAX package's augmentation CLIs take
+    ``hash(stem) % 2**31``, which Python salts per process
+    (``PYTHONHASHSEED``), so their children change from run to run."""
+    import zlib
+
+    return zlib.crc32(str(stem).encode("utf-8")) % (2**31)

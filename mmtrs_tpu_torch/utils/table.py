@@ -3,9 +3,10 @@ the JAX package's lineage tables and trainer outputs (the card's machine
 may have no pandas).
 
 A :class:`Table` is ordered columns of equal-length 1-d numpy arrays:
-integers int64, floats float64 (or float32), booleans bool, and text as
+integers int64, floats float64 (or float32), booleans bool, text as
 object arrays of ``str`` (never numpy's fixed-width strings, which cut
-longer values on assignment). Rows are taken with an index or a boolean
+longer values on assignment), and nullable integers (pandas' ``Int64``) as
+int64 masked arrays (:func:`int_na`). Rows are taken with an index or a boolean
 mask. :func:`to_csv` writes what pandas' ``to_csv(index=False)`` writes for
 such columns, and :func:`from_csv` reads what pandas' ``read_csv`` reads from the same
 cells: each column's type as pandas infers it, its default missing-value
@@ -24,7 +25,21 @@ from pathlib import Path
 import numpy as np
 
 
+def int_na(values) -> np.ma.MaskedArray:
+    """A nullable integer column, pandas' ``Int64``: ints, and None (or
+    NaN) where a value is missing → int64 masked where missing. A missing
+    cell is written to CSV as the empty cell pandas writes for ``pd.NA``."""
+    vals = list(values)
+    miss = np.array([v is None or (isinstance(v, float) and math.isnan(v)) for v in vals], dtype=bool)
+    data = np.array([0 if m else int(v) for v, m in zip(vals, miss)], dtype=np.int64)
+    return np.ma.MaskedArray(data, mask=miss)
+
+
 def _column(values, n: int | None = None) -> np.ndarray:
+    if isinstance(values, np.ma.MaskedArray):
+        if values.dtype.kind not in "iu" or np.ndim(values) != 1:
+            raise ValueError("a masked column must be 1-d integers (a nullable Int64 column)")
+        return np.ma.MaskedArray(values.data.astype(np.int64), mask=np.ma.getmaskarray(values).copy())
     if isinstance(values, (str, bytes)) or np.ndim(values) == 0:
         if n is None:
             raise ValueError("a scalar column needs a table with rows")
@@ -89,7 +104,58 @@ class Table:
         for t in tables[1:]:
             if t.columns != names:
                 raise ValueError(f"columns differ: {names} vs {t.columns}")
-        return Table({k: np.concatenate([t[k] for t in tables]) for k in names})
+        cat = lambda cols: (np.ma.concatenate(cols) if any(isinstance(c, np.ma.MaskedArray) for c in cols)
+                            else np.concatenate(cols))
+        return Table({k: cat([t[k] for t in tables]) for k in names})
+
+
+def join_key(v):
+    """A join key as pandas compares it: numbers as floats (1 matches 1.0)."""
+    return float(v) if isinstance(v, (int, float, np.integer, np.floating, np.bool_)) else v
+
+
+def drop_duplicates(table: Table) -> Table:
+    """pandas ``drop_duplicates()``: the first row of each distinct row, in
+    order."""
+    seen, keep = set(), []
+    for i, row in enumerate(zip(*(table[c].tolist() for c in table.columns))):
+        k = tuple(join_key(v) for v in row)
+        if k not in seen:
+            seen.add(k)
+            keep.append(i)
+    return table.take(np.asarray(keep, dtype=np.int64))
+
+
+def merge_left(left: Table, right: Table, on: str) -> Table:
+    """pandas ``left.merge(right, on=on, how="left")``: each left row in
+    turn with each of its matches in right's order (a key that repeats in
+    right repeats the left row), or once with right's columns missing (NaN
+    for numbers, which makes an integer column float64; None for text);
+    the key column is left's."""
+    matches: dict = {}
+    for j, v in enumerate(right[on].tolist()):
+        matches.setdefault(join_key(v), []).append(j)
+    li, ri = [], []
+    for i, v in enumerate(left[on].tolist()):
+        for j in matches.get(join_key(v), [-1]):
+            li.append(i)
+            ri.append(j)
+    out = left.take(np.asarray(li, dtype=np.int64))
+    ri = np.asarray(ri, dtype=np.int64)
+    miss = ri < 0
+    for c in right.columns:
+        if c == on:
+            continue
+        col = np.ma.getdata(right[c])[np.where(miss, 0, ri)] if len(right) else np.empty(len(ri), right[c].dtype)
+        if miss.any():
+            if col.dtype.kind in "biuf":
+                col = col.astype(np.float64)
+                col[miss] = np.nan
+            else:
+                col = col.astype(object)
+                col[miss] = None
+        out[c] = col
+    return out
 
 
 def _cell(v, kind: str) -> str:
@@ -103,16 +169,16 @@ def _cell(v, kind: str) -> str:
 def to_csv(table: Table, path: str | Path) -> Path:
     """Write ``table`` as pandas' ``to_csv(index=False)`` writes it: the
     csv module's minimal quoting, "\\n" line ends, floats as numpy's
-    shortest repr of their own type (``1.0``, ``1e-05``), NaN and None as
-    empty cells."""
+    shortest repr of their own type (``1.0``, ``1e-05``), NaN, None and a
+    nullable integer's missing cells as empty cells."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     buf = io.StringIO()
     w = csv.writer(buf, lineterminator="\n")
     w.writerow(table.columns)
-    cols = [(table[k], table[k].dtype.kind) for k in table.columns]
+    cols = [(np.ma.getdata(table[k]), table[k].dtype.kind, np.ma.getmaskarray(table[k])) for k in table.columns]
     for i in range(len(table)):
-        w.writerow([_cell(c[i], kind) for c, kind in cols])
+        w.writerow(["" if miss[i] else _cell(c[i], kind) for c, kind, miss in cols])
     path.write_text(buf.getvalue())
     return path
 

@@ -214,7 +214,7 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
     ihdr = png[16:29][:12] + b"\x01"
     interlaced = png[:16] + ihdr + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr)) + png[33:]
     Image.fromarray((teeth[..., 0].astype(np.uint16) * 257)).save(deep, "PNG")
-    Image.fromarray(teeth).save(bmp, "BMP")
+    Image.fromarray(teeth[..., 0]).save(bmp, "BMP")  # 8-bit; its compression field set to BI_RLE8 below
     Image.fromarray(teeth).save(webp, "WEBP")
     return {
         "garbage": (b"not an image at all", "cannot identify"),
@@ -226,7 +226,7 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
         "jpeg_cmyk": (cmyk.getvalue(), "CMYK"),
         "png_interlaced": (interlaced, "interlaced"),
         "png_16bit": (deep.getvalue(), "16-bit"),
-        "bmp": (bmp.getvalue(), "BMP"),
+        "bmp": (bmp.getvalue()[:30] + struct.pack("<I", 1) + bmp.getvalue()[34:], "BMP compression 1"),
         "webp": (webp.getvalue(), "WebP"),
     }
 

@@ -91,6 +91,18 @@ VISION_MODULES = [
     "mmtrs_tpu_torch.eval.threshold_sweep",
 ]
 SLICE_MODULES += VISION_MODULES
+# the pipeline's last entry points and their data helpers
+SLICE_MODULES += [
+    "mmtrs_tpu_torch.data.standardize",
+    "mmtrs_tpu_torch.cli.make_balanced_splits",
+    "mmtrs_tpu_torch.cli.make_group_splits",
+    "mmtrs_tpu_torch.cli.run_augment",
+    "mmtrs_tpu_torch.cli.run_augment_simple",
+    "mmtrs_tpu_torch.cli.eval_vision",
+    "mmtrs_tpu_torch.cli.evaluate_models",
+    "mmtrs_tpu_torch.cli.rehearsal",
+    "mmtrs_tpu_torch.cli.stack_from_streams",
+]
 
 
 def test_slice_imports_no_jax_pandas_pil_or_jax_package():
@@ -101,7 +113,7 @@ def test_slice_imports_no_jax_pandas_pil_or_jax_package():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'pandas', 'PIL', 'mmtrs_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'pandas', 'PIL', 'openpyxl', 'mmtrs_tpu'))\n"
         "print(','.join(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -174,7 +186,8 @@ def test_port_sources_name_no_jax_side_package():
     """No module of the port names jax, flax, optax, sklearn, pandas, PIL or
     mmtrs_tpu in an import statement, even one inside a function that the
     import test above never calls."""
-    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sklearn|pandas|PIL|mmtrs_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|sklearn|pandas|PIL|openpyxl|mmtrs_tpu)\b",
+                     re.M)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py")) for m in pat.finditer(p.read_text())]
     assert hits == []
@@ -223,6 +236,48 @@ def test_choices_copy_matches_jax_package():
     for fields in (full, {}, {"depth": "> 4mm"}):
         assert choices.validate_all_or_none(fields) == orig.validate_all_or_none(fields)
     assert choices.encode_fields(full) == orig.encode_fields(full)
+
+
+def test_standardize_copies_match_jax_package():
+    """``_norm``, the ordered rules and the field list of the standardiser
+    are copies: the rules' encodings in order, and each predicate agrees
+    with the original on every case string of tests/test_torch_standardize.py."""
+    from mmtrs_tpu.data import standardize as orig
+    from mmtrs_tpu_torch.data import standardize as port
+    from tests.test_torch_standardize import CASES
+
+    strings = [port._norm(v) for vals in CASES.values() for v in vals] + ["", "low high", "one side presence"]
+    assert list(port.FIELD_MAPPERS) == list(orig.FIELD_MAPPERS)
+    assert list(port._ORDERED_RULES) == list(orig._ORDERED_RULES)
+    for field, rules in orig._ORDERED_RULES.items():
+        assert [enc for _, enc in port._ORDERED_RULES[field]] == [enc for _, enc in rules], field
+        for (pp, _), (op, _) in zip(port._ORDERED_RULES[field], rules):
+            assert [pp(s) for s in strings] == [op(s) for s in strings], field
+    assert [port._norm(s) for s in strings + [None, 3, "A\u2013B \u2264 4MM"]] == \
+        [orig._norm(s) for s in strings + [None, 3, "A\u2013B \u2264 4MM"]]
+    assert (port._YES("yes"), port._NO("absent")) == (orig._YES("yes"), orig._NO("absent"))
+
+
+def test_three_way_split_config_copy_matches_jax_package():
+    from mmtrs_tpu.data.splits import ThreeWaySplitConfig as Orig
+    from mmtrs_tpu_torch.data.splits import ThreeWaySplitConfig
+
+    spec = lambda cls: [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+    assert spec(ThreeWaySplitConfig) == spec(Orig)
+    assert ThreeWaySplitConfig.__dataclass_params__.frozen and Orig.__dataclass_params__.frozen
+
+
+def test_new_entry_points_resolve_to_the_card():
+    """Every CLI of the slice takes ``--device`` with default None (the
+    card, through ``resolve_device``)."""
+    import importlib
+
+    for name in ("make_balanced_splits", "make_group_splits", "run_augment", "run_augment_simple", "eval_vision",
+                 "evaluate_models", "rehearsal", "stack_from_streams"):
+        mod = importlib.import_module(f"mmtrs_tpu_torch.cli.{name}")
+        dev = [a for a in mod.build_parser()._actions if a.dest == "device"]
+        assert len(dev) == 1 and dev[0].default is None, name
+        assert "resolve_device" in (ROOT / "mmtrs_tpu_torch" / "cli" / f"{name}.py").read_text(), name
 
 
 def test_build_without_card_raises():
