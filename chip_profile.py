@@ -78,6 +78,16 @@ the seconds of a 700-tree forest on the host clock, a 20-tree fit under
 ``torch.profiler`` (``_busy``: busy share, device events a tree, the
 largest items) and the host syncs a fit makes (``gbdt_fit``).
 
+    python3 chip_profile.py --detector
+
+the learned segmenter as chip_smoke.py phase 14 builds it (MaskRCNN at
+DetectorConfig(), random weights, biases planted) at b16 512², f32 and
+bf16: each stage's host-clock ms (features, the RPN head, the proposals,
+the heads; median of 5, each ending in a synchronise), the forward under
+``torch.profiler`` (``_busy``) and the host syncs it makes; then
+``propose_boxes`` at b16 512² and at chip_smoke.py's 12 MP archive batch
+under ``torch.profiler`` (``detector``).
+
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
@@ -717,6 +727,42 @@ def bf16_spread(torch, dev):
             "max_dp_f32_card_vs_cpu": max(r[k]["dp_f32_card_vs_cpu"] for r in rows for k in streams[:2])}
 
 
+def detector(torch, dev):
+    """The detector's stages at b16 512² in f32 and bf16, then
+    propose_boxes at 512² and at 12 MP, as the module docstring says."""
+    import chip_smoke as c
+    from mmtrs_tpu_torch.models.detection import MaskRCNNSegmenter
+
+    x = torch.from_numpy(c._det_scenes(c.DET_BATCH)).to(dev)
+    x01 = x.float() / 255.0
+    S = x.shape[1]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        m = c._detector(torch, dev, dtype)
+        with torch.no_grad():
+            m(x01)  # warm-up
+            stages = {k: [] for k in ("features", "rpn_head", "rpn_proposals", "detection_heads")}
+            for _ in range(5):
+                feats, t = _sync_ms(torch, lambda: m.features(x01))
+                stages["features"].append(t)
+                (lg, dl), t = _sync_ms(torch, lambda: m.rpn_head(feats))
+                stages["rpn_head"].append(t)
+                (props, pv), t = _sync_ms(torch, lambda: m.rpn_proposals(feats, lg, dl, S))
+                stages["rpn_proposals"].append(t)
+                _, t = _sync_ms(torch, lambda: m.detection_heads(feats, props, pv, S))
+                stages["detection_heads"].append(t)
+            out[dtype] = {"stage_ms": {k: float(np.median(v)) for k, v in stages.items()},
+                          "forward": _busy(torch, lambda: m(x01), top_n=6),
+                          "host_syncs": _host_syncs(torch, lambda: m(x01))}
+    seg = MaskRCNNSegmenter(c._detector(torch, dev).state_dict(), device=dev)
+    seg.propose_boxes(x)
+    out["propose_boxes_b16_512"] = _busy(torch, lambda: seg.propose_boxes(x), top_n=6)
+    big = torch.from_numpy(c._archive_batch()).to(dev)
+    seg.propose_boxes(big)
+    out["propose_boxes_b4_12mp"] = _busy(torch, lambda: seg.propose_boxes(big), top_n=6)
+    return out
+
+
 def _cuobjdump() -> str | None:
     """The toolkit's cuobjdump: on PATH, or beside the nvcc that builds the
     kernels."""
@@ -915,7 +961,8 @@ def main() -> int:
              "--f32-step": f32_step,
              "--mil-train": mil_train_step,
              "--gbdt": gbdt_fit,
-             "--bf16-spread": bf16_spread}
+             "--bf16-spread": bf16_spread,
+             "--detector": detector}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)
         print(smi)

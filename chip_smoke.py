@@ -127,7 +127,11 @@ Phases (each raises on failure, so the script exits non-zero):
      after each, beside the card's name and power limit;
   9. the entry points on phase 8's service, before its folder is removed:
      the codec (nvJPEG on the card, which has no libjpeg: its decode of the
-     committed Pillow goldens within the NVJPEG_* bar, a q95 round trip
+     committed Pillow goldens within the NVJPEG_* bar, the CMYK and YCCK
+     ones through nvJPEG's four planes and the port's CMYK arithmetic on
+     the card among them; the host goldens (interlaced and 16-bit PNG,
+     OS/2, bit-field and RLE BMP, GIF, tiled, planar and predicted TIFF)
+     decoded to the card equal to Pillow's decode; a q95 round trip
      stable over two runs, PNG exact, the libjpeg backend's build refused
      by name; decode ms of a 12 MP JPEG, encode ms of a 512² one); the CLI
      twin (``cli.run_pipeline.main`` on its default device, batch 4) over 9
@@ -201,10 +205,26 @@ Phases (each raises on failure, so the script exits non-zero):
      vision_hard_best within EVAL_VISION_BAR of _predict_vision_ckpt on the
      same decoded images; (e) cli.evaluate_models --which blend on phase
      12's forests (xgb_like Platt-calibrated).
+ 14. the learned segmenter: MaskRCNN (ResNet-50-FPN at DetectorConfig(),
+     512², 91 classes) from the port's fake_state_dict(seed=0) with biases
+     planted in cls_score and mask_fcn_logits; card vs CPU in f32 (TF32
+     off) stage by stage on 4 scenes (FPN maps, RPN logits and deltas, the
+     box head and masks on the CPU's proposals: the DET_* bars; the
+     detections those heads select, equal and within DET_BOX_PX);
+     propose_boxes at b16 512² (8 saturated scenes valid, 8 gray ones the
+     centre square; card vs CPU within DET_BOX_PX); the forward at b16 in
+     f32 and bf16 and propose_boxes timed with their peak memory;
+     preprocess_stream with the detector at b4 3024x4032 (K8, K9, K3
+     launched; imgs/s, peak); the CLI twin run_pipeline --model_path on 8
+     12 MP JPEGs from a checkpoint the phase writes (detector_to_flax +
+     save_npz_checkpoint): K8, K9, K3 launched, the first batch's crops
+     equal to preprocess_numpy with the same detector; the
+     segmenter-equivalence twin once (300 scenes at 512², 40 metal).
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
 preset of 6, 7, 8, 9's CLI and app runs, each stage of 10 and 11, 12's CLI
-and progressive runs, and 13's rehearsal and augmentation CLIs); the JSON line of kernels
+and progressive runs, 13's rehearsal and augmentation CLIs, and 14's archive
+pass and CLI run); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -1782,9 +1802,11 @@ PARTIAL_ERROR = "provide all tabular fields or none; missing: "
 
 
 def _codec_checks(torch, dev, smi: str) -> dict:
-    """The goldens against Pillow's decode within the nvJPEG bar, a q95
-    round trip stable over two runs, PNG exact both ways, the CPU backend's
-    build refused by name; decode ms of a 12 MP JPEG, encode ms of a 512²."""
+    """The JPEG goldens (CMYK and YCCK among them) against Pillow's decode
+    within the nvJPEG bar, the host goldens (PNG, BMP, GIF, TIFF) equal to
+    it, a q95 round trip stable over two runs, PNG exact both ways, the CPU
+    backend's build refused by name; decode ms of a 12 MP JPEG, encode ms
+    of a 512²."""
     from mmtrs_tpu_torch import _build
     from mmtrs_tpu_torch.utils.codec import decode_image, encode_jpeg, encode_png
 
@@ -1798,7 +1820,12 @@ def _codec_checks(torch, dev, smi: str) -> dict:
     except RuntimeError as e:
         _check("libjpeg" in str(e), f"the CPU backend's build raises by name here: {e}")
     with np.load(GOLDENS) as z:
-        names = sorted({f.rsplit(".", 1)[0] for f in z.files})
+        names = sorted({f.rsplit(".", 1)[0] for f in z.files if not f.startswith("host/")})
+        hosts = sorted(f for f in z.files if f.startswith("host/") and not f.endswith(".pil"))
+        for name in hosts:  # PNG, BMP, GIF and TIFF: host work, equal to Pillow's decode
+            got = decode_image(z[name].tobytes(), dev)
+            _check(got.device.type == "cuda" and torch.equal(got.cpu(), torch.from_numpy(z[f"{name}.pil"])),
+                   f"golden {name[len('host/'):]}: decoded to the card, equal to Pillow's decode")
         for name in names:
             got = decode_image(z[f"{name}.jpg"].tobytes(), dev)
             want = z[f"{name}.pil"]
@@ -3231,6 +3258,239 @@ def phase_last_entry_points(torch, dev, smi: str, work: Path, train: dict):
     return {"seconds": seconds, "launches": launches, "rehearsal": rec, "eval_vision_gap": gap, "blend": blend}
 
 
+# phase 14: the learned segmenter, Mask R-CNN ResNet-50-FPN at DetectorConfig()'s
+# widths (512², 91 classes) with random weights: the port's fake_state_dict(seed=0)
+# with biases planted in cls_score and mask_fcn_logits (_detector), so that
+# detections clear the 0.05 gate and masks 0.5 (random weights alone give scores
+# near 1/91). The card's f32 forward (TF32 off in cuDNN and
+# cuBLAS) against the same model on the CPU, stage by stage, each gap relative to the
+# stage's largest |value|: DET_FEATURE_BAR (FPN maps), DET_RPN_BAR (RPN logits and
+# deltas), DET_HEAD_BAR (box-head logits and deltas, mask probabilities, both fed the
+# CPU's proposals and detections); the detections selected on the CPU's proposals
+# and the whole selection (propose_boxes) within DET_BOX_PX pixels with valid equal
+DET_BATCH = 16
+DET_CPU_BATCH = 4  # images of the stage-by-stage parity (the CPU runs them)
+DET_FEATURE_BAR = 1e-4
+DET_RPN_BAR = 1e-4
+DET_HEAD_BAR = 1e-4
+DET_BOX_PX = 1.0
+DET_CLI_TEETH = 8  # 12 MP JPEGs through the CLI twin with --model_path, batch CLI_BATCH
+DET_TIMED = 5
+
+
+def _detector(torch, dev, dtype: str = "float32"):
+    """MaskRCNN at DetectorConfig() from fake_state_dict(seed=0), with label
+    1's class-logit bias raised by 6 and its mask-logit bias by 4, so that
+    random weights give detections that clear the 0.05 score gate and masks
+    that clear 0.5."""
+    from dataclasses import replace
+
+    from mmtrs_tpu_torch.models.detection import DetectorConfig, MaskRCNN, fake_state_dict, load_torchvision
+
+    sd = fake_state_dict(DetectorConfig(), seed=0)
+    sd["roi_heads.box_predictor.cls_score.bias"][1] += 6.0
+    sd["roi_heads.mask_predictor.mask_fcn_logits.bias"][1] += 4.0
+    cfg = replace(DetectorConfig(), compute_dtype=dtype)
+    return load_torchvision(MaskRCNN(cfg), sd).to(dev).eval()
+
+
+def _det_scenes(n: int, size: int = 512) -> np.ndarray:
+    """u8 [n, size, size, 3]: the first half the equivalence twin's saturated
+    tooth scenes, the second half gray (every channel equal)."""
+    from mmtrs_tpu_torch.cli.segmenter_equivalence import make_scene
+
+    rng = np.random.default_rng(SEED + 14)
+    sat = [make_scene(rng, size)[0] for _ in range(n - n // 2)]
+    gray = [np.repeat(rng.uniform(60, 200) + rng.normal(0, 6, (size, size, 1)), 3, axis=2) for _ in range(n // 2)]
+    return np.clip(np.stack(sat + gray), 0, 255).astype(np.uint8)
+
+
+def _rel_gap(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def _det_parity(torch, dev, gpu, cpu, x01) -> dict:
+    """Stage by stage, card vs CPU, on the same inputs: FPN maps, RPN logits and
+    deltas, then the heads fed the CPU's proposals: their outputs, and the
+    detections they select (valid and labels equal, boxes within DET_BOX_PX).
+    The card's own proposals are not held equal to the CPU's (near-equal
+    scores may swap at the top-k and NMS cut-offs); phase_detector holds the
+    whole selection, propose_boxes, within DET_BOX_PX."""
+    from mmtrs_tpu_torch.models.detection.ops import roi_align_multilevel
+
+    S = x01.shape[1]
+    with torch.no_grad():
+        f_c = cpu.features(x01)
+        f_g = gpu.features(x01.to(dev))
+        feat = max(_rel_gap(g, c) for g, c in zip(f_g, f_c))
+        (l_c, d_c), (l_g, d_g) = cpu.rpn_head(f_c), gpu.rpn_head(f_g)
+        rpn = max(max(_rel_gap(g, c) for g, c in zip(l_g, l_c)), max(_rel_gap(g, c) for g, c in zip(d_g, d_c)))
+        props, pvalid = cpu.rpn_proposals(f_c, l_c, d_c, S)
+        B, R = props.shape[:2]
+        h_c, h_g = cpu.roi_heads, gpu.roi_heads
+        roi_c = roi_align_multilevel(f_c[:4], [4, 8, 16, 32], props, 7).reshape(B * R, -1)
+        roi_g = roi_align_multilevel(f_g[:4], [4, 8, 16, 32], props.to(dev), 7).reshape(B * R, -1)
+        sc_c, dl_c = h_c.box_predictor(h_c.box_head(roi_c))
+        sc_g, dl_g = h_g.box_predictor(h_g.box_head(roi_g))
+        out_c = cpu.detection_heads(f_c, props, pvalid, S)
+        out_g = gpu.detection_heads(f_g, props.to(dev), pvalid.to(dev), S)
+        heads = max(_rel_gap(roi_g, roi_c), _rel_gap(sc_g, sc_c), _rel_gap(dl_g, dl_c))
+        masks = _rel_gap(out_g[4], out_c[4])
+        same_dets = bool(torch.equal(out_g[3].cpu(), out_c[3]) and torch.equal(out_g[2].cpu(), out_c[2]))
+        box_px = float((out_g[0].cpu() - out_c[0]).abs().max())
+    out = {"features": feat, "rpn": rpn, "heads": heads, "masks": masks, "detections_equal": same_dets,
+           "det_box_px": box_px, "valid": int(out_c[3].sum())}
+    print(f"  card vs CPU (f32, TF32 off), {B} images: FPN maps {feat:.3g} (bar {DET_FEATURE_BAR}), RPN logits "
+          f"and deltas {rpn:.3g} (bar {DET_RPN_BAR}), RoIAlign + box head on the CPU's proposals {heads:.3g}, "
+          f"masks on them {masks:.3g} (bar {DET_HEAD_BAR}); detections on them (valid, labels) equal {same_dets}, "
+          f"boxes {box_px:.3g} px apart (bar {DET_BOX_PX}), {out['valid']} valid detections")
+    _check(feat <= DET_FEATURE_BAR and rpn <= DET_RPN_BAR, "FPN maps and RPN outputs within their bars")
+    _check(heads <= DET_HEAD_BAR and masks <= DET_HEAD_BAR, "the heads on the CPU's proposals within their bar")
+    _check(same_dets and box_px <= DET_BOX_PX, "the detections on the CPU's proposals: valid and labels equal, "
+           f"boxes within {DET_BOX_PX} px")
+    _check(out["valid"] > 0, "the planted biases give valid detections")
+    return out
+
+
+def phase_detector(torch, dev, smi: str, work: Path) -> dict:
+    """Phase 14: the learned segmenter on the card."""
+    from mmtrs_tpu_torch.cli import run_pipeline, segmenter_equivalence
+    from mmtrs_tpu_torch.config import PreprocessConfig
+    from mmtrs_tpu_torch.models.detection import MaskRCNNSegmenter, detector_to_flax
+    from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mmtrs_tpu_torch.preprocess import preprocess_numpy, preprocess_stream
+    from mmtrs_tpu_torch.utils.checkpoint import save_npz_checkpoint
+    from mmtrs_tpu_torch.utils.codec import encode_jpeg
+    from mmtrs_tpu_torch.utils.images import iter_batches, list_images
+
+    t_phase = time.perf_counter()
+    print(f"phase 14: the learned segmenter (Mask R-CNN R50-FPN, 512², 91 classes) on the card; cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}, cuBLAS TF32 {torch.backends.cuda.matmul.allow_tf32} (the detector "
+          "turns both off in f32)")
+    gpu = _detector(torch, dev)
+    cpu = _detector(torch, "cpu")
+    imgs = _det_scenes(DET_BATCH)
+    n_sat = DET_BATCH - DET_BATCH // 2
+    k = DET_CPU_BATCH // 2  # saturated and gray scenes alike
+    x01 = torch.from_numpy(np.concatenate([imgs[:k], imgs[-k:]])).float() / 255.0
+    parity = _det_parity(torch, dev, gpu, cpu, x01)
+
+    # propose_boxes at b16: saturated scenes valid, gray ones the centre box
+    seg = MaskRCNNSegmenter(gpu.state_dict(), gpu.cfg, device=dev)
+    seg_cpu = MaskRCNNSegmenter(cpu.state_dict(), cpu.cfg, device="cpu")
+    x = torch.from_numpy(imgs).to(dev)
+    boxes, valid = seg.propose_boxes(x)
+    valid = valid.cpu()
+    _check(bool(valid[:n_sat].all()) and not bool(valid[n_sat:].any()),
+           f"propose_boxes at b{DET_BATCH} 512²: the {n_sat} saturated scenes valid, the {DET_BATCH - n_sat} gray "
+           f"ones not ({valid.int().tolist()})")
+    _check(bool((boxes[n_sat:].cpu() == torch.tensor([0.0, 0.0, 512.0, 512.0])).all()),
+           "the gray scenes' boxes are the centre square")
+    sel = torch.cat([torch.arange(k), torch.arange(DET_BATCH - k, DET_BATCH)])
+    b_c, v_c = seg_cpu.propose_boxes(torch.from_numpy(imgs[sel.numpy()]))
+    box_px = float((boxes.cpu()[sel] - b_c).abs().max())
+    _check(torch.equal(valid[sel], v_c) and box_px <= DET_BOX_PX,
+           f"propose_boxes card vs CPU on {len(sel)} scenes: valid equal, boxes {box_px:.3g} px apart "
+           f"(bar {DET_BOX_PX})")
+
+    # the forward timed at b16, f32 and bf16, and propose_boxes; peak memory
+    times = {}
+    x01_b = x.float() / 255.0
+    for name, model in (("f32", gpu), ("bf16", _detector(torch, dev, "bfloat16"))):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times[name] = _time_ms(lambda: model(x01_b), reps=DET_TIMED, warmup=2)
+            times[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    times["propose_boxes"] = _time_ms(lambda: seg.propose_boxes(x), reps=DET_TIMED, warmup=1)
+    times["propose_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  MaskRCNN forward at b{DET_BATCH} 512²: f32 {times['f32']:.2f} ms (peak {times['f32_peak_gb']:.2f} "
+          f"GB), bf16 {times['bf16']:.2f} ms (peak {times['bf16_peak_gb']:.2f} GB); propose_boxes f32 "
+          f"{times['propose_boxes']:.2f} ms (peak {times['propose_peak_gb']:.2f} GB); CUDA events, median of "
+          f"{DET_TIMED} ({smi})")
+
+    # the archive pass with the detector: preprocess_stream at b4 12 MP
+    host = _archive_batch()
+    list(preprocess_stream(iter([("warm-up", host)]), segmenter=seg, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(preprocess_stream(((i, host) for i in range(ARCHIVE_BATCHES)), segmenter=seg, device=dev))
+    torch.cuda.synchronize()
+    archive = {"imgs_per_sec": ARCHIVE_BATCHES * ARCHIVE_SHAPE[0] / (time.perf_counter() - t0),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": dict(LAUNCHES),
+               "seg_valid": [int(o[2]["seg_valid"].sum()) for o in outs]}
+    _check(all(archive["launches"][k] > 0 for k in L_ROUTE_KERNELS),
+           f"the archive pass with the detector: K8, K9, K3 launched: {archive['launches']}")
+    print(f"  preprocess_stream with the detector: {archive['imgs_per_sec']:.2f} imgs/s at b{ARCHIVE_SHAPE[0]} "
+          f"{ARCHIVE_SHAPE[1]}x{ARCHIVE_SHAPE[2]}, peak {archive['peak_gb']:.2f} GB, valid crops per batch "
+          f"{archive['seg_valid']} (host clock, {ARCHIVE_BATCHES} batches)")
+
+    # the CLI twin with --model_path on 12 MP JPEGs, from a checkpoint written here
+    base = work / "detector" / "mask_rcnn_molar"
+    save_npz_checkpoint(base, detector_to_flax(gpu.state_dict()),
+                        {"kind": "maskrcnn_resnet50_fpn", "img_size": 512, "num_classes": 91})
+    in_dir = work / "det_in"
+    in_dir.mkdir()
+    teeth = torch.from_numpy(host).to(dev)
+    for i, img in enumerate(torch.cat([teeth, teeth.flip(2)])[:DET_CLI_TEETH]):
+        (in_dir / f"tooth_{i}.jpg").write_bytes(encode_jpeg(img.contiguous(), 95))
+    kept = {}
+    save = run_pipeline.save_jpeg
+
+    def keep(path, img, quality=95):
+        kept[Path(path).stem] = img.clone()
+        return save(path, img, quality)
+
+    run_pipeline.save_jpeg = keep
+    try:
+        reset_launches()
+        rc = run_pipeline.main(["--input_dir", str(in_dir), "--output_dir", str(work / "det_out"),
+                                "--log_dir", str(work / "det_logs"), "--batch_size", str(CLI_BATCH),
+                                "--model_path", str(base)])
+        torch.cuda.synchronize()
+        cli_counts = dict(LAUNCHES)
+    finally:
+        run_pipeline.save_jpeg = save
+    (log_path,) = list((work / "det_logs").glob("preprocess_*.json"))
+    log = json.loads(log_path.read_text())
+    _check(rc == 0 and log["processed"] == DET_CLI_TEETH,
+           f"run_pipeline --model_path: exit {rc}, processed {log['processed']} of {log['total']}")
+    _check(all(cli_counts[k] > 0 for k in L_ROUTE_KERNELS),
+           f"the CLI's run with the detector took the L-plane route: K8, K9, K3 launched: {cli_counts}")
+    cfg = PreprocessConfig()
+    ok, batch, _ = next(iter(iter_batches(list_images(in_dir), CLI_BATCH, min_edge=cfg.min_edge_px, device=dev)))
+    want, info = preprocess_numpy(batch.cpu().numpy(), cfg, segmenter=seg, device=dev)
+    for i, path in enumerate(ok):
+        _check(torch.equal(kept[path.stem].cpu(), torch.from_numpy(want[i])),
+               f"{path.name}: the CLI's crop == preprocess_numpy with the same detector")
+    n_valid = sum(e.get("seg_valid", False) for e in log["entries"])
+    print(f"  the CLI twin with --model_path: {log['imgs_per_sec']:.2f} imgs/s over its loop at 12 MP, {n_valid} "
+          f"of {DET_CLI_TEETH} crops from the detector; launches {cli_counts}")
+
+    # the segmenter-equivalence twin, once
+    t0 = time.perf_counter()
+    segmenter_equivalence.main(["--out", str(work / "segmenter_equivalence_torch.json")])
+    eq = json.loads((work / "segmenter_equivalence_torch.json").read_text())
+    ref = json.loads((ROOT / "reports" / "segmenter_equivalence.json").read_text())
+    eq_s = time.perf_counter() - t0
+    print(f"  segmenter_equivalence twin ({eq['n_scenes']} scenes at {eq['img_px']}², {eq['metal_gate']['n_scenes']} "
+          f"metal) in {eq_s:.1f} s: valid rate {eq['saliency_valid_rate']} (TPU report {ref['saliency_valid_rate']}), "
+          f"box IoU mean {eq['box_iou']['mean']} ({ref['box_iou']['mean']}), crop IoU mean "
+          f"{eq['crop_window_iou']['mean']} ({ref['crop_window_iou']['mean']}), metal rejected "
+          f"{eq['metal_gate']['rejected_by_saliency_path']} ({ref['metal_gate']['rejected_by_saliency_path']})")
+    _check(eq["metal_gate"]["rejected_by_saliency_path"] == ref["metal_gate"]["rejected_by_saliency_path"]
+           and abs(eq["box_iou"]["mean"] - ref["box_iou"]["mean"]) <= 0.02,
+           "the twin's report agrees with the JAX script's (metal gate equal, box IoU mean within 0.02)")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 14 took {seconds:.1f} s")
+    return {"parity": parity, "times": times, "archive": archive, "cli": {"imgs_per_sec": log["imgs_per_sec"],
+            "launches": cli_counts, "valid": n_valid}, "equivalence": eq, "seconds": seconds}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -3275,6 +3535,7 @@ def main() -> int:
         rest = phase_rest(torch, dev, smi, work, train)
         vision = phase_vision(torch, dev, smi, work, train)
         last = phase_last_entry_points(torch, dev, smi, work, train)
+        det = phase_detector(torch, dev, smi, work)
     _check(not work.exists(), "the training folder removed")
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
@@ -3331,7 +3592,10 @@ def main() -> int:
           + ", ".join(f"{k} {v['step_ms']:.2f} ms + prep {v['prep_ms']:.2f} ms, {v['imgs_per_sec']:.2f} imgs/s, "
                       f"peak {v['peak_gb']:.2f} GB" for k, v in vision["steps"].items())
           + f"; phase 12 {vision['seconds']['phase']:.1f} s; the rehearsal twin at its widths (26 cases, 2 folds, 1 "
-          f"epoch) {last['seconds']['rehearsal']:.1f} s, phase 13 {last['seconds']['phase']:.1f} s; total "
+          f"epoch) {last['seconds']['rehearsal']:.1f} s, phase 13 {last['seconds']['phase']:.1f} s; MaskRCNN at b"
+          f"{DET_BATCH} 512² f32 {det['times']['f32']:.2f} ms, bf16 {det['times']['bf16']:.2f} ms, the archive pass "
+          f"with it {det['archive']['imgs_per_sec']:.2f} imgs/s (peak {det['archive']['peak_gb']:.2f} GB), phase 14 "
+          f"{det['seconds']:.1f} s; total "
           f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

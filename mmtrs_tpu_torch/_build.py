@@ -61,6 +61,9 @@ _SIGNATURES = {
 # returns a status, and a pointer or a 64-bit length is never cut to a C int
 _HOST_SIGNATURES = {
     "mmtrs_png_unfilter": (_P, _I, _L, _I, _P),
+    "mmtrs_lzw_decode": (_P, _L, _I, _I, _P, _L, _P),
+    "mmtrs_packbits": (_P, _L, _P, _L, _P),
+    "mmtrs_bmp_rle": (_P, _L, _I, _I, _I, _I, _P),
     "mmtrs_jpeg_info": (_P, _L, _P),
     "mmtrs_jpeg_decode": (_P, _L, _P, _I, _I),
     "mmtrs_jpeg_decode_paths": (_P, _I, _I, _I, _P, _P, _P),
@@ -68,6 +71,7 @@ _HOST_SIGNATURES = {
     "mmtrs_codec_free": (_P,),
     "mmtrs_nvjpeg_info": (_P, _L, _P),
     "mmtrs_nvjpeg_decode": (_P, _L, _P, _I, _I, _I, _P),
+    "mmtrs_nvjpeg_decode_planes": (_P, _L, _P, _P),
     "mmtrs_nvjpeg_encode": (_P, _I, _I, _I, _P, _P, _P),
     "mmtrs_nvjpeg_free": (_P,),
 }
@@ -186,7 +190,8 @@ def _find_header(header: str, dirs: list[Path]) -> None:
 
 @functools.cache
 def png_library() -> ctypes.CDLL:
-    """The PNG row unfilter (``csrc/host/png.cpp``); needs only g++."""
+    """The host decoders' sequential loops (``csrc/host/png.cpp``: PNG's
+    row unfilter, LZW, PackBits, BMP RLE); needs only g++."""
     return _build_host("mmtrs_png", "png.cpp", [_gxx(), *HOST_FLAGS], ())
 
 

@@ -2,13 +2,13 @@
 
 Usage:
   python -m mmtrs_tpu_torch.cli.run_pipeline --input_dir data/raw/images \\
-      --output_dir data/processed/images [--no_crop] [--no_rotate] \\
-      [--batch_size 16] [--log_dir logs] [--device cuda]
+      --output_dir data/processed/images [--model_path weights/mask_rcnn_molar] \\
+      [--no_crop] [--no_rotate] [--batch_size 16] [--log_dir logs] [--device cuda]
 
 Images are decoded on the device (nvJPEG on the card, libjpeg on the CPU;
 PNG on the host), resized to each batch's maximum rounded to /8 with
 Pillow's BILINEAR arithmetic, padded to ``batch_size`` with the last image,
-and pushed through ``preprocess_stream`` (CLAHE → deskew → saliency crop
+and pushed through ``preprocess_stream`` (CLAHE → deskew → segment-crop
 with centre fallback → 512²); each output is written as ``<stem>.jpg`` at
 the config's JPEG quality, encoded on the device, one after another.
 
@@ -16,9 +16,13 @@ Preserves the JAX CLI's contract: the JSON log ``preprocess_<ts>.json``
 with the same keys and statuses (``rejected_min_edge``,
 ``rejected_decode_error``, ``ok``, ``fallback_enhanced``, ``fallback_copy``,
 ``failed``), the <400 px rejection, and the layered host fallback
-(enhanced copy → raw copy) when the pipeline yields nothing. The learned
-Mask R-CNN segmenter is not ported: ``--model_path`` pointing at a
-directory exits with code 2.
+(enhanced copy → raw copy) when the pipeline yields nothing, and its
+segmenter choice: ``--model_path`` naming a converted Mask R-CNN checkpoint
+(``<path>.npz`` with ``<path>.recipe.json``, models/detection's
+``load_detector``; the JAX CLI takes the Orbax directory ``<path>`` beside
+them) crops with the learned detector on the device, and one that fails to
+load prints the JAX CLI's warning and crops with the saliency segmenter.
+A CUDA error while the detector moves to the card is not caught.
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_dir", required=True)
     p.add_argument("--output_dir", required=True)
     p.add_argument("--model_path", default=None,
-                   help="a converted Mask R-CNN checkpoint directory: the learned "
-                        "segmenter is not ported, so this exits with code 2")
+                   help="converted Mask R-CNN checkpoint base (<path>.npz + <path>.recipe.json); "
+                        "falls back to the saliency segmenter when absent/unloadable")
     p.add_argument("--no_crop", action="store_true")
     p.add_argument("--no_rotate", action="store_true")
     p.add_argument("--batch_size", type=int, default=16)
@@ -76,14 +80,28 @@ def _fallback(paths: list[Path], out_dir: Path, dev: torch.device, logs: list) -
     return n_ok
 
 
+def _load_segmenter(path: str, dev: torch.device):
+    """The learned segmenter from ``path`` on ``dev``, or None (the saliency
+    segmenter) when the checkpoint does not load. It loads on the host
+    first, so only a checkpoint's fault is caught, never the card's."""
+    from mmtrs_tpu_torch.models.detection import load_detector
+
+    try:
+        seg = load_detector(path, device="cpu")
+    except Exception as e:  # graceful degradation (pipeline contract)
+        print(f"[warn] could not load detector ({e}); using saliency segmenter")
+        return None
+    seg.to(dev)
+    print(f"[info] learned Mask R-CNN segmenter loaded from {path}")
+    return seg
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model_path and Path(args.model_path).is_dir():
-        print(f"[error] --model_path {args.model_path}: the learned Mask R-CNN segmenter is not "
-              "ported to this package yet; run without --model_path for the saliency segmenter",
-              file=sys.stderr)
-        return 2
     dev = resolve_device(args.device)
+    segmenter = None
+    if args.model_path and (Path(args.model_path).is_dir() or Path(args.model_path + ".npz").exists()):
+        segmenter = _load_segmenter(args.model_path, dev)
     cfg = PreprocessConfig(do_crop=not args.no_crop, do_rotate=not args.no_rotate)
     in_dir, out_dir = Path(args.input_dir), Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -110,7 +128,7 @@ def main(argv=None) -> int:
                 batch = torch.cat([batch, batch[-1:].expand(args.batch_size - n_real, -1, -1, -1)])
             yield (ok_paths, n_real), batch
 
-    for (ok_paths, n_real), out, info in preprocess_stream(feed(), cfg, device=dev):
+    for (ok_paths, n_real), out, info in preprocess_stream(feed(), cfg, segmenter=segmenter, device=dev):
         out = torch.from_numpy(out).to(dev)  # the encoder reads the device's copy
         for i, p in enumerate(ok_paths[:n_real]):
             dst = out_dir / f"{p.stem}.jpg"

@@ -3,14 +3,17 @@
 // gives it (JDCT_ISLOW, fancy upsampling: libjpeg's defaults, which Pillow
 // keeps), and encode RGB u8 as Pillow's ``save(..., quality=q)`` does
 // (jpeg_set_defaults, then jpeg_set_quality(q, TRUE): baseline, 4:2:0).
+// A CMYK or YCCK JPEG decodes to CMYK (libjpeg converts YCCK), which
+// Pillow inverts ("CMYK;I", whatever the Adobe marker says) and converts
+// with its cmyk2rgb: nk = 255 - k, r = nk - MULDIV255(c, nk).
 //
 // C API (ctypes, plain C; every call returns a status):
 //   int mmtrs_jpeg_info(const void* buf, long long n, void* dims);
 //     dims: int[3] <- height, width, components. 0 ok, 2 not a decodable
-//     JPEG, 3 a CMYK or YCCK JPEG (not supported).
+//     JPEG.
 //   int mmtrs_jpeg_decode(const void* buf, long long n, void* out, int h, int w);
 //     out: h x w x 3 bytes. 0 ok, 2 decode error (a truncated stream
-//     included, as Pillow refuses one), 3 CMYK/YCCK, 4 size differs.
+//     included, as Pillow refuses one), 4 size differs.
 //   int mmtrs_jpeg_decode_paths(const void* paths, int n, int min_edge,
 //                               int threads, void* pixels, void* dims,
 //                               void* status);
@@ -58,8 +61,20 @@ void emit_message(j_common_ptr cinfo, int level) {
     if (level < 0 && cinfo->err->msg_code == JWRN_JPEG_EOF) err_exit(cinfo);
 }
 
-bool unsupported_colour(const jpeg_decompress_struct& cinfo) {
+bool four_components(const jpeg_decompress_struct& cinfo) {
     return cinfo.jpeg_color_space == JCS_CMYK || cinfo.jpeg_color_space == JCS_YCCK;
+}
+
+// Pillow's "CMYK;I" unpacking then its cmyk2rgb (libImaging/Convert.c)
+void cmyk_row_to_rgb(const unsigned char* in, unsigned char* out, int w) {
+    for (int x = 0; x < w; ++x, in += 4, out += 3) {
+        const int nk = in[3];  // 255 - (255 - k)
+        for (int c = 0; c < 3; ++c) {
+            const int t = (255 - in[c]) * nk + 128;
+            const int v = nk - (((t >> 8) + t) >> 8);
+            out[c] = static_cast<unsigned char>(v < 0 ? 0 : v > 255 ? 255 : v);
+        }
+    }
 }
 
 // Decode one JPEG stream from memory. With ``out`` null, reads the header
@@ -78,10 +93,6 @@ int decode(const unsigned char* buf, size_t n, unsigned char* out, int want_h, i
     if (n == 0) err_exit(reinterpret_cast<j_common_ptr>(&cinfo));  // jpeg_mem_src refuses an empty buffer
     jpeg_mem_src(&cinfo, buf, static_cast<unsigned long>(n));
     jpeg_read_header(&cinfo, TRUE);
-    if (unsupported_colour(cinfo)) {
-        jpeg_destroy_decompress(&cinfo);
-        return 3;
-    }
     if (dims) {
         dims[0] = static_cast<int>(cinfo.image_height);
         dims[1] = static_cast<int>(cinfo.image_width);
@@ -91,16 +102,24 @@ int decode(const unsigned char* buf, size_t n, unsigned char* out, int want_h, i
         jpeg_destroy_decompress(&cinfo);
         return 0;
     }
-    cinfo.out_color_space = JCS_RGB;
+    const bool cmyk = four_components(cinfo);
+    cinfo.out_color_space = cmyk ? JCS_CMYK : JCS_RGB;
     jpeg_start_decompress(&cinfo);
     if (static_cast<int>(cinfo.output_height) != want_h || static_cast<int>(cinfo.output_width) != want_w) {
         jpeg_destroy_decompress(&cinfo);
         return 4;
     }
     const size_t row_bytes = static_cast<size_t>(want_w) * 3;
+    std::vector<unsigned char> cmyk_row(cmyk ? static_cast<size_t>(want_w) * 4 : 0);
     while (cinfo.output_scanline < cinfo.output_height) {
         unsigned char* row = out + static_cast<size_t>(cinfo.output_scanline) * row_bytes;
-        jpeg_read_scanlines(&cinfo, &row, 1);
+        if (cmyk) {
+            unsigned char* src = cmyk_row.data();
+            jpeg_read_scanlines(&cinfo, &src, 1);
+            cmyk_row_to_rgb(src, row, want_w);
+        } else {
+            jpeg_read_scanlines(&cinfo, &row, 1);
+        }
     }
     jpeg_finish_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);

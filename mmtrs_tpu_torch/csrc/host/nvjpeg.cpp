@@ -12,13 +12,21 @@
 //
 // C API (ctypes, plain C; every call returns a status):
 //   int mmtrs_nvjpeg_info(const void* buf, long long n, void* dims);
-//     dims: int[3] <- height, width, components. 0 ok, 2 not a decodable
-//     JPEG, 3 four components (CMYK or YCCK: not supported).
+//     dims: int[11] <- height, width, components, then (height, width) of
+//     each of four components (0 past the last). 0 ok, 2 not a decodable
+//     JPEG.
 //   int mmtrs_nvjpeg_decode(const void* buf, long long n, void* out, int h,
 //                           int w, int gray, void* stream);
 //     out: device h x w x 3 bytes (interleaved RGB), or h x w with
 //     ``gray`` (the Y plane of a one-component JPEG). 0 ok, 2 decode error,
 //     4 size differs, 100 + nvjpegStatus_t, 200 + cudaError_t.
+//   int mmtrs_nvjpeg_decode_planes(const void* buf, long long n,
+//                                  void* planes, void* stream);
+//     A four-component (CMYK or YCCK) JPEG with NVJPEG_OUTPUT_UNCHANGED:
+//     planes: void*[4] <- each component's samples as stored, on the
+//     device, at its own size (info's), rows packed. 0 ok, 2 decode error,
+//     100 + nvjpegStatus_t (nvJPEG's refusal of the scan included),
+//     200 + cudaError_t.
 //   int mmtrs_nvjpeg_encode(const void* rgb, int h, int w, int quality,
 //                           void* out, void* out_len, void* stream);
 //     rgb: device h x w x 3 bytes; out: void*[1] <- a malloc'd JPEG
@@ -69,17 +77,21 @@ extern "C" int mmtrs_nvjpeg_info(const void* buf, long long n, void* dims) {
     if (n <= 0 || nvjpegGetImageInfo(g_handle, static_cast<const unsigned char*>(buf), static_cast<size_t>(n),
                                      &comps, &css, widths, heights) != NVJPEG_STATUS_SUCCESS)
         return 2;
-    if (comps == 4) return 3;
-    if (comps != 1 && comps != 3) return 2;
+    if (comps != 1 && comps != 3 && comps != 4) return 2;
     int* d = static_cast<int*>(dims);
     d[0] = heights[0];
     d[1] = widths[0];
     d[2] = comps;
+    for (int c = 0; c < 4; ++c) {
+        d[3 + 2 * c] = c < comps ? heights[c] : 0;
+        d[4 + 2 * c] = c < comps ? widths[c] : 0;
+    }
     return 0;
 }
 
-extern "C" int mmtrs_nvjpeg_decode(const void* buf, long long n, void* out, int h, int w, int gray, void* stream) {
-    std::lock_guard<std::mutex> lock(g_mu);
+namespace {
+
+int ensure_decoder() {
     if (const int e = ensure_handle()) return e;
     if (!g_dec) {
         const nvjpegStatus_t s = nvjpegJpegStateCreate(g_handle, &g_dec);
@@ -88,6 +100,40 @@ extern "C" int mmtrs_nvjpeg_decode(const void* buf, long long n, void* out, int 
             return fail(s);
         }
     }
+    return 0;
+}
+
+}  // namespace
+
+extern "C" int mmtrs_nvjpeg_decode_planes(const void* buf, long long n, void* planes, void* stream) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (const int e = ensure_decoder()) return e;
+    const unsigned char* data = static_cast<const unsigned char*>(buf);
+    int comps = 0;
+    nvjpegChromaSubsampling_t css;
+    int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+    if (n <= 0 || nvjpegGetImageInfo(g_handle, data, static_cast<size_t>(n), &comps, &css, widths, heights) !=
+                      NVJPEG_STATUS_SUCCESS || comps != 4)
+        return 2;
+    nvjpegImage_t img;
+    std::memset(&img, 0, sizeof img);
+    void* const* p = static_cast<void* const*>(planes);
+    for (int c = 0; c < 4; ++c) {
+        img.channel[c] = static_cast<unsigned char*>(p[c]);
+        img.pitch[c] = static_cast<size_t>(widths[c]);
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const nvjpegStatus_t s = nvjpegDecode(g_handle, g_dec, data, static_cast<size_t>(n), NVJPEG_OUTPUT_UNCHANGED,
+                                          &img, st);
+    if (s == NVJPEG_STATUS_BAD_JPEG) return 2;
+    if (s != NVJPEG_STATUS_SUCCESS) return fail(s);
+    const cudaError_t c = cudaStreamSynchronize(st);
+    return c == cudaSuccess ? 0 : 200 + static_cast<int>(c);
+}
+
+extern "C" int mmtrs_nvjpeg_decode(const void* buf, long long n, void* out, int h, int w, int gray, void* stream) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (const int e = ensure_decoder()) return e;
     const unsigned char* data = static_cast<const unsigned char*>(buf);
     int comps = 0;
     nvjpegChromaSubsampling_t css;

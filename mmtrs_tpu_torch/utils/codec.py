@@ -1,4 +1,5 @@
-"""The port's image codec, without Pillow: JPEG and PNG, decode and encode.
+"""The port's image codec, without Pillow: JPEG and PNG decode and encode,
+BMP, GIF and TIFF decode.
 
 JPEG runs on the device's backend, chosen when the library is built and
 never switched at run time:
@@ -11,19 +12,45 @@ never switched at run time:
   decode lands in a CUDA tensor and an encode reads one. Its IDCT and
   chroma upsampling are its own, so its pixels are near Pillow's, not equal.
 
+Four-component (CMYK and YCCK) JPEGs decode as Pillow decodes them: libjpeg
+gives CMYK (converting YCCK itself), Pillow inverts every sample (it assumes
+Adobe's inverted CMYK, with or without the APP14 marker) and converts with
+its ``cmyk2rgb``. On the card nvJPEG decodes the four planes as they are
+stored; libjpeg's fixed-point YCC → RGB turns a YCCK's first three into
+CMY, and the same inversion and conversion follow in torch on the card.
+
 A missing compiler, header or library raises with its name; nothing moves to
-another backend. PNG is host work on either device: the chunks are parsed
-and inflated here with ``zlib``, the rows unfiltered in C
-(``csrc/host/png.cpp``), and the image moved to the device; the encoder is
-``zlib`` and ``struct`` alone.
+another backend. PNG, BMP, GIF and TIFF are host work on either device: the
+files are parsed here, deflated streams inflated with ``zlib``, and the
+sequential loops (PNG's row unfilter, LZW, PackBits, BMP's RLE) run in C
+(``csrc/host/png.cpp``); the image then moves to the device. The PNG encoder
+is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
+``convert("RGB")`` gives:
 
-BMP is host work too (``decode_bmp``): uncompressed (``BI_RGB``) files at
-24 and 32 bits a pixel and 8-bit palette files, rows bottom-up or top-down.
+- PNG at every colour type and depth, interlaced (Adam7) or not: gray
+  repeated, alpha dropped (not composited), the palette looked up (tRNS
+  ignored), 16-bit RGB and alpha samples cut to their high byte, 16-bit gray
+  clipped at 255;
+- BMP with Windows (40–124-byte) and OS/2 v1 (12-byte) headers at 1, 4, 8,
+  16 (5-5-5), 24 and 32 bits, ``BI_BITFIELDS`` at 16 and 32 bits,
+  ``BI_RLE8`` and ``BI_RLE4`` as Pillow reads them, rows bottom-up or
+  top-down;
+- GIF's first frame: LZW, global and local colour tables, interlaced rows,
+  a frame smaller than the screen at its offset on a canvas of the
+  transparency index (else index 0), transparency otherwise ignored;
+- baseline TIFF (the first image): either byte order, strips or tiles,
+  ``PlanarConfiguration`` 1 and 2, no compression, LZW, Adobe deflate
+  (8 and 32946) or PackBits, the horizontal-difference predictor (with LZW
+  and deflate, as libtiff applies it), 8-bit RGB
+  (alpha unassociated or premultiplied, or other extra samples), gray and
+  gray + alpha, and 1-, 2-, 4- and 8-bit gray (either photometric) and
+  palette.
 
-What Pillow opens and this codec refuses, with an error that names the
-format: CMYK and YCCK JPEGs, interlaced or 16-bit PNGs, BMPs compressed
-(RLE, bit fields) or at 1, 4 or 16 bits a pixel, and WebP, GIF and TIFF
-files.
+What Pillow opens and this codec refuses, with a ValueError that names the
+format and the feature: WebP, and TIFF with JPEG or CCITT compression,
+16-bit or floating-point samples, or CMYK and YCbCr photometrics. A host
+format whose header asks for more than ``MAX_PIXELS`` pixels is refused
+before anything is allocated, as Pillow refuses it (DecompressionBombError).
 """
 
 from __future__ import annotations
@@ -42,20 +69,28 @@ from mmtrs_tpu_torch import _build
 from mmtrs_tpu_torch.device import resolve_device
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_OTHER_FORMATS = (  # (magic, name) of formats Pillow reads and this codec does not
+_OTHER_FORMATS = (  # (magic, name) of the host formats
     (b"BM", "BMP"),
-    (b"GIF8", "GIF"),
+    (b"GIF87a", "GIF"),
+    (b"GIF89a", "GIF"),
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
 )
 # PNG colour type -> channels (PNG specification, table 11.1)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Pillow's DecompressionBombError limit: twice Image.MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * 89_478_485
+
+
+def _check_pixels(fmt: str, w: int, h: int, what: str = "image") -> None:
+    """Refuse a header that asks for more than MAX_PIXELS pixels."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"{fmt} {what} of {w}x{h} = {w * h} pixels exceeds the limit of {MAX_PIXELS} pixels")
 
 
 def sniff(data: bytes) -> str:
-    """The format of an encoded image by its magic bytes: "jpeg", "png", or
-    the name of a format the codec does not read ("BMP", "WebP", ...;
-    "unknown" when nothing matches)."""
+    """The format of an encoded image by its magic bytes: "jpeg", "png",
+    "BMP", "GIF", "TIFF", "WebP" (refused), or "unknown"."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_MAGIC:
@@ -78,20 +113,16 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
     kind = sniff(data)
     if kind == "jpeg":
         return _decode_jpeg_cuda(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
-    if kind == "png":
-        return torch.from_numpy(decode_png(data)).to(dev)
-    if kind == "BMP":
-        return torch.from_numpy(decode_bmp(data)).to(dev)
+    if kind in _HOST_DECODERS:
+        return torch.from_numpy(_HOST_DECODERS[kind](data)).to(dev)
     if kind == "unknown":
-        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG and BMP")
-    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG and BMP only)")
+        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG, BMP, GIF and TIFF")
+    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG, BMP, GIF and TIFF only)")
 
 
 def _jpeg_error(status: int, backend: str) -> Exception:
     if status == 2:
         return ValueError(f"corrupt or truncated JPEG ({backend})")
-    if status == 3:
-        return ValueError("CMYK/YCCK JPEG images are not supported by the port's codec")
     if status >= 200:
         return RuntimeError(f"{backend}: CUDA error {status - 200}")
     if status >= 100:
@@ -123,14 +154,83 @@ def jpeg_has_end(data: bytes) -> bool:
     return sos >= 0 and data.find(b"\xff\xd9", sos + 2) >= 0
 
 
+def adobe_transform(data: bytes) -> int | None:
+    """The colour transform of a JPEG's Adobe APP14 marker (0 none, 1
+    YCbCr, 2 YCCK), or None without one: the markers before the first scan
+    are walked as libjpeg reads them."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            break
+        if marker == 0xFF:
+            pos += 1
+            continue
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos + 4:pos + 2 + n]
+        if marker == 0xEE and seg.startswith(b"Adobe") and len(seg) >= 12:
+            return seg[11]
+        pos += 2 + n
+    return None
+
+
+def _ycc_tables(dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """libjpeg's fixed-point YCbCr → RGB tables (jdcolor.c,
+    build_ycc_rgb_table): Cr → R, Cb → B, and the two G terms in 16.16."""
+    one_half, fix = 1 << 15, lambda v: int(v * (1 << 16) + 0.5)
+    x = torch.arange(256, dtype=torch.int64, device=dev) - 128
+    cr_r = (fix(1.40200) * x + one_half) >> 16
+    cb_b = (fix(1.77200) * x + one_half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + one_half
+    return cr_r, cb_b, cr_g, cb_g
+
+
+def cmyk_to_rgb(cmyk: torch.Tensor, ycck: bool) -> torch.Tensor:
+    """u8 [H, W, 4] as stored in a four-component JPEG → RGB u8 as Pillow
+    gives it: a YCCK's Y, Cb, Cr become C, M, Y = 255 − libjpeg's RGB (K
+    kept), then Pillow inverts every sample ("CMYK;I") and applies its
+    cmyk2rgb: nk = 255 − k, r = nk − MULDIV255(c, nk)."""
+    x = cmyk.to(torch.int64)
+    if ycck:
+        cr_r, cb_b, cr_g, cb_g = _ycc_tables(x.device)
+        y, cb, cr = x[..., 0], x[..., 1], x[..., 2]
+        rgb = torch.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], dim=-1)
+        x = torch.cat([255 - rgb.clamp(0, 255), x[..., 3:]], dim=-1)
+    x = 255 - x
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).clamp(0, 255).to(torch.uint8)
+
+
+def _decode_cmyk_cuda(data: bytes, dims: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A four-component JPEG on the card: nvJPEG's planes as stored, each
+    brought to full size by repetition, then cmyk_to_rgb."""
+    lib = _build.nvjpeg_library()
+    h, w = int(dims[0]), int(dims[1])
+    with torch.cuda.device(dev):
+        planes = [torch.empty((int(dims[3 + 2 * c]), int(dims[4 + 2 * c])), dtype=torch.uint8, device=dev)
+                  for c in range(4)]
+        ptrs = (ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes])
+        status = lib.mmtrs_nvjpeg_decode_planes(data, len(data), ctypes.addressof(ptrs), _build.stream_handle())
+        if status:
+            raise _jpeg_error(status, "nvJPEG")
+        full = [p.repeat_interleave(-(-h // p.shape[0]), 0)[:h].repeat_interleave(-(-w // p.shape[1]), 1)[:, :w]
+                for p in planes]
+        # libjpeg's rule: an Adobe marker whose transform is not 0 means YCCK
+        return cmyk_to_rgb(torch.stack(full, dim=-1), ycck=adobe_transform(data) not in (None, 0))
+
+
 def _decode_jpeg_cuda(data: bytes, dev: torch.device) -> torch.Tensor:
     if not jpeg_has_end(data):
         raise _jpeg_error(2, "nvJPEG")
     lib = _build.nvjpeg_library()
-    dims = np.zeros(3, np.int32)
+    dims = np.zeros(11, np.int32)
     status = lib.mmtrs_nvjpeg_info(data, len(data), dims.ctypes.data)
     if status:
         raise _jpeg_error(status, "nvJPEG")
+    if int(dims[2]) == 4:
+        return _decode_cmyk_cuda(data, dims, dev)
     h, w, gray = int(dims[0]), int(dims[1]), int(dims[2]) == 1
     with torch.cuda.device(dev):
         out = torch.empty((h, w) if gray else (h, w, 3), dtype=torch.uint8, device=dev)
@@ -225,60 +325,179 @@ def encode_png(img) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
+
+
+# ---------------------------------------------------------------------------
+# Host formats: the C loops
+# ---------------------------------------------------------------------------
+
+
+def _lzw(data: bytes, min_bits: int, tiff: bool, size: int) -> np.ndarray:
+    """LZW-decoded bytes, at most ``size`` (fewer when the stream ends
+    early); GIF's variant or TIFF's (``tiff``)."""
+    out = np.zeros(max(size, 1), np.uint8)
+    n = np.zeros(1, np.int64)
+    status = _build.png_library().mmtrs_lzw_decode(data, len(data), min_bits, int(tiff), out.ctypes.data, size,
+                                                   n.ctypes.data)
+    if status:
+        raise ValueError(f"corrupt {'TIFF' if tiff else 'GIF'}: an LZW code outside the table")
+    return out[: int(n[0])]
+
+
+def _packbits(data: bytes, size: int) -> np.ndarray:
+    out = np.zeros(max(size, 1), np.uint8)
+    n = np.zeros(1, np.int64)
+    _build.png_library().mmtrs_packbits(data, len(data), out.ctypes.data, size, n.ctypes.data)
+    return out[: int(n[0])]
+
+
+def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """Rows of packed samples, high bits first → [rows, width] u8 values."""
+    if depth == 8:
+        return rows[:, :width]
+    bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(rows.shape[0], width, depth)
+    return (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint8)
+
+
+def _lookup(index: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Palette rows [n, 3] looked up; an index beyond them gives black."""
+    lut = np.zeros((256, 3), np.uint8)
+    lut[: min(len(palette), 256)] = palette[:256]
+    return lut[index]
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+
 _BMP_COMPRESSION = {1: "BI_RLE8", 2: "BI_RLE4", 3: "BI_BITFIELDS", 4: "BI_JPEG", 5: "BI_PNG",
                     6: "BI_ALPHABITFIELDS", 11: "BI_CMYK", 12: "BI_CMYKRLE8", 13: "BI_CMYKRLE4"}
 
 
+def _bmp_masked(px: np.ndarray, masks: tuple[int, int, int]) -> np.ndarray:
+    """Little-endian pixel words → RGB by bit masks, each field scaled to 8
+    bits as Pillow's unpackers do (v · 255 / (2^bits − 1))."""
+    out = []
+    for m in masks:
+        shift = (m & -m).bit_length() - 1 if m else 0
+        bits = bin(m).count("1")
+        v = (px & m) >> shift if m else np.zeros_like(px)
+        out.append(v if bits == 8 else (v * 255 // max((1 << bits) - 1, 1)))
+    return np.stack(out, axis=-1).astype(np.uint8)
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
-    """BMP bytes → RGB u8 [H, W, 3] numpy, as Pillow's ``convert("RGB")``:
-    uncompressed (``BI_RGB``) at 24 bits (BGR) or 32 bits (BGRX, the fourth
-    byte dropped) a pixel, or 8-bit indices into a BGRX palette; rows
-    padded to 4 bytes, bottom-up (positive height) or top-down (negative).
-    Raises ValueError for a corrupt file and, naming it, for any other
-    compression or bit depth."""
+    """BMP bytes → RGB u8 [H, W, 3] numpy, as Pillow's ``convert("RGB")``
+    (see the module docstring). Raises ValueError for a corrupt file and,
+    naming it, for another header, compression or bit depth."""
     if data[:2] != b"BM" or len(data) < 30:
         raise ValueError("corrupt or truncated BMP: no file header")
     offset = struct.unpack("<I", data[10:14])[0]
     dib = struct.unpack("<I", data[14:18])[0]
-    if dib < 40:
-        raise ValueError(f"BMP with a {dib}-byte (OS/2) header is not supported by the port's codec")
-    if len(data) < 14 + 40:
-        raise ValueError("corrupt or truncated BMP: short info header")
-    w, h, _, bpp, comp, _, _, _, n_colors, _ = struct.unpack("<iiHHIIiiII", data[18:54])
-    if comp != 0:
+    if dib == 12:  # OS/2 v1: 16-bit sizes, 3-byte palette entries, no compression
+        w, h, _, bpp = struct.unpack("<HHHH", data[18:26])
+        comp, n_colors, entry, top_down = 0, 0, 3, False
+    elif dib in (40, 52, 56, 64, 108, 124):
+        if len(data) < 14 + dib:
+            raise ValueError("corrupt or truncated BMP: short info header")
+        w, h, _, bpp, comp, _, _, _, n_colors, _ = struct.unpack("<iiHHIIiiII", data[18:54])
+        entry, top_down = 4, data[25] == 0xFF
+        if top_down:
+            h = 2 ** 32 - (h & 0xFFFFFFFF)
+    else:
+        raise ValueError(f"BMP with a {dib}-byte header is not supported by the port's codec")
+    if comp not in (0, 1, 2, 3):
         name = _BMP_COMPRESSION.get(comp, f"type {comp}")
-        raise ValueError(f"BMP compression {comp} ({name}) is not supported by the port's codec (BI_RGB only)")
-    if bpp not in (8, 24, 32):
-        raise ValueError(f"{bpp}-bit BMP images are not supported by the port's codec (8, 24 and 32 bits)")
-    top_down, h = h < 0, abs(h)
-    if w <= 0 or h == 0:
+        raise ValueError(f"BMP compression {comp} ({name}) is not supported by the port's codec")
+    if bpp not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{bpp}-bit BMP images are not supported by the port's codec")
+    if (comp == 3 and bpp not in (16, 32)) or (comp in (1, 2) and bpp != (8 if comp == 1 else 4)):
+        raise ValueError(f"BMP compression {comp} ({_BMP_COMPRESSION[comp]}) at {bpp} bits is not supported by the "
+                         "port's codec")
+    if w <= 0 or h <= 0:
         raise ValueError(f"corrupt BMP: size {w}x{h}")
-    stride = (w * bpp + 31) // 32 * 4
-    if len(data) < offset + stride * (h - 1) + (w * bpp + 7) // 8:
-        raise ValueError("corrupt or truncated BMP: the pixel data ends early")
-    buf = np.frombuffer(data, np.uint8, count=min(stride * h, len(data) - offset), offset=offset)
-    rows = np.zeros((h, stride), np.uint8)
-    rows.reshape(-1)[: buf.size] = buf
+    _check_pixels("BMP", w, h)
+    pal_at = 14 + dib
+    masks = None
+    if comp == 3:
+        if dib >= 52:
+            masks = struct.unpack("<III", data[54:66])
+        else:
+            masks, pal_at = struct.unpack("<III", data[54:66]), pal_at + 12
+    n_colors = n_colors or (1 << bpp if bpp <= 8 else 0)
+    if offset == 14 + dib and bpp <= 8:  # Pillow: a palette the offset left out follows the header
+        offset += 4 * n_colors
+
+    if comp in (1, 2):
+        flat = np.empty(w * h, np.uint8)
+        body = data[offset:]
+        _build.png_library().mmtrs_bmp_rle(body, len(body), int(comp == 2), offset % 2, w, h, flat.ctypes.data)
+        index = flat.reshape(h, w)
+    else:
+        stride = (w * bpp + 31) // 32 * 4
+        if len(data) < offset + stride * (h - 1) + (w * bpp + 7) // 8:
+            raise ValueError("corrupt or truncated BMP: the pixel data ends early")
+        buf = np.frombuffer(data, np.uint8, count=min(stride * h, len(data) - offset), offset=offset)
+        rows = np.zeros((h, stride), np.uint8)
+        rows.reshape(-1)[: buf.size] = buf
+        if bpp > 8:
+            if bpp == 24:
+                px = rows[:, : w * 3].reshape(h, w, 3)[..., ::-1]
+            else:
+                words = rows[:, : w * bpp // 8].view("<u2" if bpp == 16 else "<u4").astype(np.int64)
+                if masks is None or masks == (0, 0, 0):  # BI_RGB: 5-5-5, BGRX
+                    masks = (0x7C00, 0x3E0, 0x1F) if bpp == 16 else (0xFF0000, 0xFF00, 0xFF)
+                px = _bmp_masked(words, masks)
+            out = px if top_down else px[::-1]
+            return np.ascontiguousarray(out)
+        index = _unpack_bits(rows, w, bpp)
     if not top_down:
-        rows = rows[::-1]
-    if bpp == 8:
-        n = n_colors or 256
-        pal = np.frombuffer(data, np.uint8, count=4 * n, offset=14 + dib) if 14 + dib + 4 * n <= offset \
-            else None
-        if pal is None:
-            raise ValueError("corrupt BMP: the palette overlaps the pixel data")
-        lut = np.zeros((256, 3), np.uint8)
-        lut[: min(n, 256)] = pal.reshape(n, 4)[:256, 2::-1]
-        return lut[rows[:, :w]]
-    px = rows[:, : w * (bpp // 8)].reshape(h, w, bpp // 8)
-    return np.ascontiguousarray(px[..., 2::-1])
+        index = index[::-1]
+    if pal_at + entry * n_colors > max(offset, pal_at) or n_colors > 65536:
+        raise ValueError("corrupt BMP: the palette overlaps the pixel data")
+    pal = np.frombuffer(data, np.uint8, count=entry * n_colors, offset=pal_at).reshape(n_colors, entry)
+    grays = (0, 255) if n_colors == 2 else range(n_colors)
+    if all(tuple(pal[i, :3]) == (g, g, g) for i, g in enumerate(grays)):
+        # Pillow drops a gray palette: mode "1" (2 colours) or "L", whose
+        # values are the indices themselves
+        g = np.where(index > 0, 255, 0).astype(np.uint8) if n_colors == 2 else index
+        return np.repeat(g[..., None], 3, axis=2)
+    return _lookup(index, pal[:, 2::-1])
+
+
+# ---------------------------------------------------------------------------
+# PNG
+# ---------------------------------------------------------------------------
+
+
+# (x0, y0, dx, dy) of the seven Adam7 passes (PNG specification, 8.2)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_pass(raw: bytes, pos: int, w: int, h: int, channels: int, depth: int) -> tuple[np.ndarray, int]:
+    """One (sub-)image's filtered rows from ``raw[pos:]`` → ([h, w,
+    channels] samples, u8 or big-endian u16 as u16; the next position)."""
+    stride = (w * channels * depth + 7) // 8
+    need = h * (stride + 1)
+    if len(raw) < pos + need:
+        raise ValueError("truncated PNG: the image data ends early")
+    rows = np.empty((h, stride), np.uint8)
+    bad = _build.png_library().mmtrs_png_unfilter(raw[pos:pos + need], h, stride,
+                                                  max(1, channels * depth // 8), rows.ctypes.data)
+    if bad:
+        raise ValueError(f"corrupt PNG: row {bad - 1} has an unknown filter type")
+    if depth == 16:
+        px = rows.view(">u2").reshape(h, w, channels)
+    else:
+        px = _unpack_bits(rows, w * channels, depth).reshape(h, w, channels) if depth < 8 \
+            else rows.reshape(h, w, channels)
+    return px, pos + need
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes → RGB u8 [H, W, 3] numpy, as Pillow's ``convert("RGB")``:
-    gray repeated, alpha dropped (not composited), palette looked up.
-    Raises ValueError for a corrupt file, an interlaced one or 16 bits a
-    sample."""
+    """PNG bytes → RGB u8 [H, W, 3] numpy, as Pillow's ``convert("RGB")``
+    (see the module docstring). Raises ValueError for a corrupt file."""
     if data[:8] != PNG_MAGIC:
         raise ValueError("not a PNG file")
     pos, header, palette, idat = 8, None, None, []
@@ -302,37 +521,243 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("corrupt PNG: no IHDR or IDAT chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG images are not supported by the port's codec")
-    if depth == 16:
-        raise ValueError("16-bit PNG images are not supported by the port's codec")
-    if ctype not in _PNG_CHANNELS or (depth != 8 and ctype not in (0, 3)) or depth not in (1, 2, 4, 8):
-        raise ValueError(f"corrupt PNG: colour type {ctype} at {depth} bits")
+    _check_pixels("PNG", w, h)
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) \
+            or (depth < 8 and ctype not in (0, 3)) or (depth == 16 and ctype == 3) or interlace > 1:
+        raise ValueError(f"corrupt PNG: colour type {ctype} at {depth} bits, interlace {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError("corrupt PNG: a palette image without PLTE")
     channels = _PNG_CHANNELS[ctype]
-    stride = (w * channels * depth + 7) // 8
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG: {e}") from None
-    if len(raw) < h * (stride + 1):
-        raise ValueError("truncated PNG: the image data ends early")
-    rows = np.empty((h, stride), np.uint8)
-    bad = _build.png_library().mmtrs_png_unfilter(raw, h, stride, max(1, channels * depth // 8), rows.ctypes.data)
-    if bad:
-        raise ValueError(f"corrupt PNG: row {bad - 1} has an unknown filter type")
-    if depth < 8:  # one sample a pixel, packed from the high bits down
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
-        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint8)
-        px = vals if ctype == 3 else vals * np.uint8(255 // ((1 << depth) - 1))
-        px = px[..., None]
+    if interlace:
+        px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                px[y0::dy, x0::dx], pos = _png_pass(raw, pos, pw, ph, channels, depth)
     else:
-        px = rows.reshape(h, w, channels)
+        px, _ = _png_pass(raw, 0, w, h, channels, depth)
     if ctype == 3:
-        lut = np.zeros((256, 3), np.uint8)
-        lut[:len(palette)] = palette[:256]
-        return lut[px[..., 0]]
+        return _lookup(px[..., 0], palette)
+    if depth == 16:  # Pillow: gray as "I;16", clipped at 255; the others' high bytes
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+# ---------------------------------------------------------------------------
+# GIF (the first frame)
+# ---------------------------------------------------------------------------
+
+
+def _gif_blocks(data: bytes, pos: int) -> tuple[bytes, int]:
+    """The data sub-blocks from ``pos`` joined, and the position after
+    their terminator."""
+    out = []
+    while pos < len(data):
+        n = data[pos]
+        pos += 1
+        if n == 0:
+            break
+        out.append(data[pos:pos + n])
+        pos += n
+    return b"".join(out), pos
+
+
+def decode_gif(data: bytes) -> np.ndarray:
+    """GIF bytes → RGB u8 [H, W, 3] of the first frame, as Pillow's
+    ``convert("RGB")`` (see the module docstring)."""
+    if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
+        raise ValueError("not a GIF file")
+    sw, sh, flags = struct.unpack("<HHB", data[6:11])
+    pos, palette, transparency = 13, None, None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        palette, pos = np.frombuffer(data, np.uint8, count=min(n, len(data) - pos), offset=pos), pos + n
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError("corrupt GIF: no image")
+        kind = data[pos]
+        if kind == 0x21:  # extension: the graphic control's transparency index
+            label = data[pos + 1]
+            first = data[pos + 2:pos + 3 + data[pos + 2]] if pos + 2 < len(data) else b""
+            if label == 0xF9 and len(first) >= 5 and first[1] & 1:
+                transparency = first[4]
+            _, pos = _gif_blocks(data, pos + 2)
+        elif kind == 0x2C:
+            break
+        else:
+            raise ValueError(f"corrupt GIF: block type {kind:#x}")
+    if pos + 10 > len(data):
+        raise ValueError("truncated GIF")
+    x0, y0, fw, fh, fflags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+    pos += 10
+    if fflags & 0x80:
+        n = 3 << ((fflags & 7) + 1)
+        palette, pos = np.frombuffer(data, np.uint8, count=min(n, len(data) - pos), offset=pos), pos + n
+    if pos >= len(data):
+        raise ValueError("truncated GIF")
+    min_bits = data[pos]
+    if not 1 <= min_bits <= 11:
+        raise ValueError(f"corrupt GIF: LZW code size {min_bits}")
+    H, W = max(sh, y0 + fh), max(sw, x0 + fw)
+    _check_pixels("GIF", W, H, "canvas")  # covers the frame, which lies inside it
+    stream, _ = _gif_blocks(data, pos + 1)
+    pixels = _lzw(stream, min_bits, False, fw * fh)
+    frame = np.zeros(fw * fh, np.uint8)
+    frame[: pixels.size] = pixels
+    frame = frame.reshape(fh, fw)
+    if fflags & 0x40:  # interlaced: rows stored by passes 0::8, 4::8, 2::4, 1::2
+        order = np.concatenate([np.arange(s, fh, d) for s, d in ((0, 8), (4, 8), (2, 4), (1, 2))])
+        rows = np.empty_like(frame)
+        rows[order] = frame
+        frame = rows
+    index = np.full((H, W), transparency or 0, np.uint8)
+    index[y0:y0 + fh, x0:x0 + fw] = frame
+    if palette is None or all(palette[i] == i // 3 for i in range(len(palette))):
+        return np.repeat(index[..., None], 3, axis=2)  # Pillow's "L": the index is the gray level
+    return _lookup(index, palette[: len(palette) // 3 * 3].reshape(-1, 3))
+
+
+# ---------------------------------------------------------------------------
+# TIFF (the first image)
+# ---------------------------------------------------------------------------
+
+
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q", 17: "q"}
+_TIFF_COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
+                     6: "old-style JPEG", 7: "JPEG", 8: "Adobe deflate", 32773: "PackBits",
+                     32946: "deflate"}
+_TIFF_PHOTOMETRIC = {0: "WhiteIsZero", 1: "BlackIsZero", 2: "RGB", 3: "palette", 4: "transparency mask",
+                     5: "CMYK", 6: "YCbCr", 8: "CIELab"}
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
+    """The byte order and the first IFD's tags (tag → tuple of values)."""
+    bo = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(bo + "I", data[4:8])[0]
+    if ifd + 2 > len(data):
+        raise ValueError("corrupt TIFF: the IFD lies beyond the file")
+    n = struct.unpack(bo + "H", data[ifd:ifd + 2])[0]
+    tags = {}
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+        if typ not in _TIFF_TYPES:
+            continue
+        fmt = _TIFF_TYPES[typ]
+        size = struct.calcsize(fmt) * count
+        at = e + 8 if size <= 4 else struct.unpack(bo + "I", data[e + 8:e + 12])[0]
+        if at + size > len(data):
+            raise ValueError(f"corrupt TIFF: tag {tag}'s values lie beyond the file")
+        tags[tag] = struct.unpack(f"{bo}{count}{fmt}", data[at:at + size])
+    return bo, tags
+
+
+def _tiff_chunk(data: bytes, offset: int, count: int, comp: int, size: int) -> np.ndarray:
+    """One strip or tile, decompressed to ``size`` bytes (zero-padded)."""
+    raw = data[offset:offset + count]
+    if comp == 1:
+        out = np.frombuffer(raw, np.uint8)
+    elif comp == 5:
+        out = _lzw(raw, 8, True, size)
+    elif comp in (8, 32946):
+        try:
+            out = np.frombuffer(zlib.decompressobj().decompress(raw, size), np.uint8)
+        except zlib.error as e:
+            raise ValueError(f"corrupt TIFF: {e}") from None
+    else:
+        out = _packbits(raw, size)
+    full = np.zeros(size, np.uint8)
+    full[: min(size, out.size)] = out[:size]
+    return full
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """TIFF bytes → RGB u8 [H, W, 3] of the first image, as Pillow's
+    ``convert("RGB")`` (see the module docstring). Raises ValueError,
+    naming it, for a compression, sample format or photometric outside
+    baseline 8-bit (and 1-, 2-, 4-bit gray and palette)."""
+    _, t = _tiff_tags(data)
+    one = lambda tag, default=None: t.get(tag, (default,))[0]
+    w, h = one(256), one(257)
+    if not w or not h:
+        raise ValueError("corrupt TIFF: no ImageWidth or ImageLength")
+    _check_pixels("TIFF", w, h)
+    comp, photo = one(259, 1), one(262)
+    spp = one(277, 1)
+    bps = t.get(258, (1,) * spp)
+    if comp not in (1, 5, 8, 32773, 32946):
+        name = _TIFF_COMPRESSION.get(comp, f"type {comp}")
+        kind = "JPEG-in-TIFF" if comp in (6, 7) else "CCITT" if comp in (2, 3, 4) else "compression"
+        raise ValueError(f"TIFF {kind} ({name}, compression {comp}) is not supported by the port's codec")
+    if one(339, 1) == 3:
+        raise ValueError("floating-point TIFF samples are not supported by the port's codec")
+    if any(b == 16 for b in bps):
+        raise ValueError("16-bit TIFF samples are not supported by the port's codec")
+    if photo not in (0, 1, 2, 3) or any(b != bps[0] for b in bps) or one(339, 1) not in (1, 2) \
+            or (bps[0] != 8 and (photo == 2 or spp > 1)) or bps[0] not in (1, 2, 4, 8):
+        name = _TIFF_PHOTOMETRIC.get(photo, f"photometric {photo}")
+        raise ValueError(f"TIFF {name} images at {'/'.join(map(str, bps))} bits are not supported by the "
+                         "port's codec")
+    depth, planar, predictor = bps[0], one(284, 1), one(317, 1)
+    if predictor not in (1, 2):
+        raise ValueError(f"TIFF predictor {predictor} is not supported by the port's codec")
+    per_chunk = 1 if planar == 2 else spp  # samples a strip or tile holds
+    if 322 in t:
+        cw, ch = one(322), one(323)
+        offsets, counts = t[324], t[325]
+    else:
+        cw, ch = w, min(one(278, h), h)
+        offsets, counts = t[273], t.get(279, (len(data),) * len(t[273]))
+    if not cw or not ch:
+        raise ValueError("corrupt TIFF: a tile or strip of size 0")
+    across, down = -(-w // cw), -(-h // ch)
+    _check_pixels("TIFF", across * cw, down * ch, "grid of strips or tiles")
+    stride = (cw * per_chunk * depth + 7) // 8
+    planes = spp if planar == 2 else 1
+    if len(offsets) < across * down * planes:
+        raise ValueError("corrupt TIFF: fewer strips or tiles than the image needs")
+    img = np.zeros((planes, down * ch, across * cw, per_chunk), np.uint8)
+    for p in range(planes):
+        for k in range(across * down):
+            i = p * across * down + k
+            chunk = _tiff_chunk(data, offsets[i], counts[i], comp, stride * ch).reshape(ch, stride)
+            if one(266, 1) == 2:
+                chunk = _BIT_REVERSE[chunk]
+            px = _unpack_bits(chunk, cw * per_chunk, depth).reshape(ch, cw, per_chunk)
+            if predictor == 2 and comp in (5, 8, 32946):  # libtiff's codecs with a predictor
+                px = np.cumsum(px, axis=1, dtype=np.uint8)
+            r, c = divmod(k, across)
+            img[p, r * ch:(r + 1) * ch, c * cw:(c + 1) * cw] = px
+    px = img[0] if planes == 1 else np.concatenate(list(img), axis=-1)
+    px = px[:h, :w]
+    if photo == 3:
+        cmap = np.asarray(t[320], np.int64).reshape(3, -1).T // 256  # Pillow keeps the high byte
+        return _lookup(px[..., 0], cmap.astype(np.uint8))
+    if photo == 2:
+        rgb = px[..., :3]
+        extra = t.get(338, ())
+        if spp >= 4 and extra[:1] == (1,):  # premultiplied alpha: Pillow's "RGBa" unpremultiplies
+            a = px[..., 3:4].astype(np.int64)
+            un = np.minimum(rgb.astype(np.int64) * 255 // np.maximum(a, 1), 255)
+            rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un)).astype(np.uint8)
+        return np.ascontiguousarray(rgb)
+    g = px[..., 0]
+    if depth < 8:
+        g = g * np.uint8(255 // ((1 << depth) - 1))
+    if photo == 0:
+        g = 255 - g
+    return np.repeat(g[..., None], 3, axis=2)
+
+
+_HOST_DECODERS = {"png": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "TIFF": decode_tiff}

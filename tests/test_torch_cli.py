@@ -204,17 +204,6 @@ def test_fallback_layers_match_jax(tmp_path, monkeypatch):
                                   np.asarray(Image.open(tmp_path / "jax" / "small.jpg")))
 
 
-def test_model_path_directory_exits_2(tmp_path, capsys):
-    from mmtrs_tpu_torch.cli import run_pipeline as port_cli
-
-    (tmp_path / "in").mkdir()
-    (tmp_path / "detector").mkdir()
-    rc = port_cli.main(["--input_dir", str(tmp_path / "in"), "--output_dir", str(tmp_path / "out"),
-                        "--model_path", str(tmp_path / "detector"), "--device", "cpu"])
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 def test_empty_input_dir_and_default_device(tmp_path):
     from mmtrs_tpu_torch.cli import run_pipeline as port_cli
 

@@ -27,12 +27,19 @@ from mmtrs_tpu_torch.synth import synth_teeth
 ROOT = Path(__file__).resolve().parents[1]
 GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "codec_goldens.npz"
 GOLDEN_KINDS = ("teeth_q75_420", "teeth_q95_420", "teeth_q95_444", "teeth_q90_422", "teeth_progressive",
-                "teeth_gray", "smooth_q95_420", "smooth_progressive_444", "phone_strip_q95_420")
+                "teeth_gray", "smooth_q95_420", "smooth_progressive_444", "phone_strip_q95_420", "teeth_cmyk",
+                "teeth_ycck")
 
 
 def _pil_jpeg(a: np.ndarray, **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _pil_cmyk_jpeg(a: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(a).convert("CMYK").save(buf, "JPEG", quality=90)
     return buf.getvalue()
 
 
@@ -51,8 +58,16 @@ def _smooth(h: int, w: int) -> np.ndarray:
 def make_goldens() -> dict[str, bytes]:
     """JPEG bytes of every golden kind, from Pillow: odd sizes (97×101,
     121×163, 45×61), q75 / q90 / q95, 4:2:0, 4:2:2, 4:4:4, progressive,
-    grayscale, and a 48-row strip of a 3024×4032 synthetic tooth."""
+    grayscale, a 48-row strip of a 3024×4032 synthetic tooth, and CMYK
+    (Pillow's) and YCCK (libjpeg's, through the small program of
+    tests/test_torch_codec_formats.py) four-component files."""
+    import tempfile
+
+    from tests.test_torch_codec_formats import four_component_jpeg
+
     teeth = synth_teeth(1, (97, 101), seed=31, angles_deg=[20.0])[0]
+    with tempfile.TemporaryDirectory() as d:
+        ycck = four_component_jpeg(Path(d), teeth, "ycck")
     smooth = _smooth(121, 163)
     phone = synth_teeth(1, (3024, 4032), seed=32, angles_deg=[0.0])[0][1488:1536]
     return {
@@ -65,6 +80,8 @@ def make_goldens() -> dict[str, bytes]:
         "smooth_q95_420": _pil_jpeg(smooth, quality=95),
         "smooth_progressive_444": _pil_jpeg(_smooth(45, 61), quality=85, subsampling=0, progressive=True),
         "phone_strip_q95_420": _pil_jpeg(np.ascontiguousarray(phone), quality=95),
+        "teeth_cmyk": _pil_cmyk_jpeg(teeth),
+        "teeth_ycck": ycck,
     }
 
 
@@ -209,12 +226,16 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
     Image.fromarray(teeth).save(png, "PNG")
     png = png.getvalue()
     cmyk, deep, bmp, webp = (io.BytesIO() for _ in range(4))
-    Image.fromarray(teeth).convert("CMYK").save(cmyk, "JPEG")
-    # Pillow writes no Adam7 file: the same PNG with IHDR's interlace flag set
+    Image.fromarray(teeth).convert("CMYK").save(cmyk, "JPEG")  # cut in half below
+    # a non-interlaced stream under IHDR's interlace flag: Adam7's passes
+    # need more rows than it holds
     ihdr = png[16:29][:12] + b"\x01"
     interlaced = png[:16] + ihdr + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr)) + png[33:]
     Image.fromarray((teeth[..., 0].astype(np.uint16) * 257)).save(deep, "PNG")
-    Image.fromarray(teeth[..., 0]).save(bmp, "BMP")  # 8-bit; its compression field set to BI_RLE8 below
+    # 16 bits a sample under colour type 3 (palette), which PNG forbids
+    ihdr16 = deep.getvalue()[16:29][:9] + b"\x03" + deep.getvalue()[16:29][10:]
+    deep = deep.getvalue()[:16] + ihdr16 + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr16)) + deep.getvalue()[33:]
+    Image.fromarray(teeth[..., 0]).save(bmp, "BMP")  # 8-bit; its compression field set to BI_JPEG below
     Image.fromarray(teeth).save(webp, "WEBP")
     return {
         "garbage": (b"not an image at all", "cannot identify"),
@@ -223,10 +244,10 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
         "jpeg_header_only": (jpg[:20], "corrupt or truncated JPEG"),
         "png_truncated": (png[: len(png) // 2], "PNG"),
         "png_bad_crc": (png[:40] + bytes([png[40] ^ 1]) + png[41:], "CRC"),
-        "jpeg_cmyk": (cmyk.getvalue(), "CMYK"),
-        "png_interlaced": (interlaced, "interlaced"),
-        "png_16bit": (deep.getvalue(), "16-bit"),
-        "bmp": (bmp.getvalue()[:30] + struct.pack("<I", 1) + bmp.getvalue()[34:], "BMP compression 1"),
+        "jpeg_cmyk": (cmyk.getvalue()[: len(cmyk.getvalue()) // 2], "corrupt or truncated JPEG"),
+        "png_interlaced": (interlaced, "truncated PNG|unknown filter type"),
+        "png_16bit": (deep, "colour type 3 at 16 bits"),
+        "bmp": (bmp.getvalue()[:30] + struct.pack("<I", 4) + bmp.getvalue()[34:], "BMP compression 4"),
         "webp": (webp.getvalue(), "WebP"),
     }
 
@@ -234,8 +255,9 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
 @pytest.mark.parametrize("case", ["garbage", "empty", "jpeg_truncated", "jpeg_header_only", "png_truncated",
                                   "png_bad_crc", "jpeg_cmyk", "png_interlaced", "png_16bit", "bmp", "webp"])
 def test_corrupt_and_unsupported_inputs_raise(case):
-    """Corrupt bytes raise; a format Pillow reads and the codec does not
-    raises with the format's name."""
+    """Corrupt bytes raise (a cut CMYK JPEG, an interlace flag on a
+    non-interlaced stream, 16-bit palette samples); a format or
+    compression Pillow reads and the codec does not raises with its name."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, msg = _bad_inputs()[case]
@@ -272,11 +294,19 @@ def test_decode_wants_the_card_by_default():
 
 
 if __name__ == "__main__":
+    import tempfile
+
+    from tests.test_torch_codec_formats import host_goldens
+
     goldens = make_goldens()
     arrays = {}
     for k in GOLDEN_KINDS:
         arrays[f"{k}.jpg"] = np.frombuffer(goldens[k], np.uint8)
         arrays[f"{k}.pil"] = _pil_decode(goldens[k])
+    with tempfile.TemporaryDirectory() as d:  # the host formats, under host/
+        for name, data in host_goldens(Path(d)).items():
+            arrays[f"host/{name}"] = np.frombuffer(data, np.uint8)
+            arrays[f"host/{name}.pil"] = _pil_decode(data)
     GOLDENS.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(GOLDENS, **arrays)
     print(f"wrote {GOLDENS} ({GOLDENS.stat().st_size} bytes)")

@@ -103,6 +103,18 @@ SLICE_MODULES += [
     "mmtrs_tpu_torch.cli.rehearsal",
     "mmtrs_tpu_torch.cli.stack_from_streams",
 ]
+# the learned segmenter, the HF converter and the equivalence twin: none of
+# these may load transformers or torchvision either
+DETECTION_MODULES = [
+    "mmtrs_tpu_torch.models.detection",
+    "mmtrs_tpu_torch.models.detection.ops",
+    "mmtrs_tpu_torch.models.detection.modules",
+    "mmtrs_tpu_torch.models.detection.convert_torchvision",
+    "mmtrs_tpu_torch.models.detection.segmenter",
+    "mmtrs_tpu_torch.models.backbones.convert",
+    "mmtrs_tpu_torch.cli.segmenter_equivalence",
+]
+SLICE_MODULES += DETECTION_MODULES
 
 
 def test_slice_imports_no_jax_pandas_pil_or_jax_package():
@@ -136,6 +148,53 @@ def test_vision_modules_import_no_matplotlib_sklearn_pandas_or_pil():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", res.stdout
+
+
+def test_detection_modules_import_no_transformers_or_torchvision():
+    """The detector's modules and the HF converter load neither transformers
+    nor torchvision (nor timm) in a fresh interpreter: only the CPU tests
+    use transformers."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {DETECTION_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('transformers', 'torchvision', 'timm', 'jax', 'PIL', 'mmtrs_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", res.stdout
+
+
+def test_detector_copies_match_jax_package():
+    """DetectorConfig (fields, types, defaults, strides), the anchors,
+    expected_torch_keys and fake_state_dict are copies of the JAX package's:
+    the same values, bit for bit, at the default config and at the JAX
+    tests' TINY."""
+    from mmtrs_tpu.models.detection import convert_torchvision as jconv
+    from mmtrs_tpu.models.detection import modules as jmod
+    from mmtrs_tpu.models.detection import ops as jops
+    from mmtrs_tpu_torch.models.detection import convert_torchvision as conv
+    from mmtrs_tpu_torch.models.detection import modules as mod
+    from mmtrs_tpu_torch.models.detection import ops
+
+    spec = lambda cls: [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+    assert spec(mod.DetectorConfig) == spec(jmod.DetectorConfig)
+    assert mod.DetectorConfig.__dataclass_params__.frozen and jmod.DetectorConfig.__dataclass_params__.frozen
+    tiny = dict(img_size=64, base_width=8, layers=(1, 1, 1, 1), fpn_channels=16, num_classes=5)
+    for kw in ({}, tiny):
+        cfg, jcfg = mod.DetectorConfig(**kw), jmod.DetectorConfig(**kw)
+        assert cfg.strides == jcfg.strides
+        assert conv.expected_torch_keys(cfg) == jconv.expected_torch_keys(jcfg)
+        got, want = conv.fake_state_dict(cfg, seed=3), jconv.fake_state_dict(jcfg, seed=3)
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    for hw, stride, size, ratios in (((1, 1), 16, 32.0, (0.5, 1.0, 2.0)), ((128, 128), 4, 32.0, (0.5, 1.0, 2.0)),
+                                     ((3, 5), 64, 512.0, (0.5, 1.0, 2.0)), ((7, 2), 8, 17.0, (0.25, 1.0, 3.0))):
+        a, b = ops.make_anchors_per_level(hw, stride, size, ratios), jops.make_anchors_per_level(hw, stride, size,
+                                                                                                  ratios)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_config_copy_matches_jax_package():
@@ -273,7 +332,7 @@ def test_new_entry_points_resolve_to_the_card():
     import importlib
 
     for name in ("make_balanced_splits", "make_group_splits", "run_augment", "run_augment_simple", "eval_vision",
-                 "evaluate_models", "rehearsal", "stack_from_streams"):
+                 "evaluate_models", "rehearsal", "stack_from_streams", "segmenter_equivalence", "run_pipeline"):
         mod = importlib.import_module(f"mmtrs_tpu_torch.cli.{name}")
         dev = [a for a in mod.build_parser()._actions if a.dest == "device"]
         assert len(dev) == 1 and dev[0].default is None, name

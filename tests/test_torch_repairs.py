@@ -205,21 +205,29 @@ def test_bmp_decodes_as_pillow(case, order):
 
 @pytest.mark.parametrize("comp,name", [(1, "BI_RLE8"), (2, "BI_RLE4"), (3, "BI_BITFIELDS"), (4, "BI_JPEG")])
 def test_compressed_bmp_raises_naming_its_compression(comp, name):
+    """A compression the codec does not read (BI_JPEG), or one at a depth
+    it does not apply to (RLE8, RLE4 and bit fields on a 24-bit file),
+    raises naming it."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
-    data = _pil_bmp(np.zeros((8, 8), np.uint8))
+    data = _pil_bmp(np.zeros((8, 8, 3), np.uint8))
     data = data[:30] + struct.pack("<I", comp) + data[34:]
     with pytest.raises(ValueError, match=f"BMP compression {comp} \\({name}\\)"):
         decode_image(data, "cpu")
 
 
 def test_bmp_other_depths_and_truncation_raise():
+    """A 1-bit BMP decodes as Pillow's; a 2-bit one (no BMP depth) and a
+    truncated one raise."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     one_bit = io.BytesIO()
     Image.fromarray(np.eye(8, dtype=bool)).save(one_bit, "BMP")
-    with pytest.raises(ValueError, match="1-bit BMP"):
-        decode_image(one_bit.getvalue(), "cpu")
+    np.testing.assert_array_equal(decode_image(one_bit.getvalue(), "cpu").numpy(),
+                                  np.asarray(Image.open(one_bit).convert("RGB")))
+    two_bit = one_bit.getvalue()[:28] + struct.pack("<H", 2) + one_bit.getvalue()[30:]
+    with pytest.raises(ValueError, match="2-bit BMP"):
+        decode_image(two_bit, "cpu")
     data = _pil_bmp(np.zeros((16, 16, 3), np.uint8))
     with pytest.raises(ValueError, match="truncated BMP"):
         decode_image(data[: len(data) // 2], "cpu")
