@@ -88,6 +88,24 @@ the heads; median of 5, each ending in a synchronise), the forward under
 ``propose_boxes`` at b16 512² and at chip_smoke.py's 12 MP archive batch
 under ``torch.profiler`` (``detector``).
 
+    python3 chip_profile.py --parallel
+
+chip_smoke.py phase 15 alone (``phase_parallel``, after the kernel build
+and with TF32 off, as chip_smoke.py's main sets it): entry() against f32
+and its ms, ``dryrun_multichip(1)`` over nccl, and 2 ranks sharing the card
+over gloo held to one process, the rehearsal-width MM steps with the gloo
+all-reduce's ms and each rank's peak memory (``parallel``).
+
+    python3 chip_profile.py --batch-split
+
+the augmentation chain (``preprocess_augment_batch``'s stages: the CLAHE
+stage, deskew and its angles, the segmenter's boxes, the warp, the
+photometrics) on chip_smoke.py phase 15's family-2 batch, b4 at 64² and
+512², against the same stages on its two halves: for each stage whether the
+halves concatenated equal the batch, the largest difference and how many
+values differ (``batch_split``). A stage whose reductions follow the
+batch's shape on the card shows here. It runs on an older checkout too.
+
     python3 chip_profile.py --sass
 
 counts the SASS instructions of K1's and K2's per-pixel loops in the
@@ -939,6 +957,54 @@ def k5_sass():
     return {"instructions": len(instrs), "by_function": total, "loops": loops[:8], "per_pixel": per_pixel}
 
 
+def batch_split(torch, dev) -> dict:
+    """The chain's stages on a batch of 4 against its halves."""
+    from mmtrs_tpu_torch.models.segmenter import SaliencySegmenter
+    from mmtrs_tpu_torch.ops.augment import draw_legacy, legacy_photometrics
+    from mmtrs_tpu_torch.ops.deskew import deskew_batch
+    from mmtrs_tpu_torch.ops.resize import crop_warp_fused
+    from mmtrs_tpu_torch.preprocess import _clahe_lab_stage
+
+    def stages(x, ids, size):  # parallel.dryrun's draws (seed 7; written out so that older checkouts run it)
+        draws = draw_legacy(7, list(ids), [1] * len(ids), size, size, img_size=size).to(dev)
+        out = {"clahe": _clahe_lab_stage(x, 3.0, (8, 8))}
+        out["deskew"], out["angle"] = deskew_batch(out["clahe"].clone())
+        out["boxes"], out["valid"] = SaliencySegmenter().propose_boxes(out["deskew"])
+        out["warp"] = crop_warp_fused(out["deskew"], out["boxes"], draws.mats, size, margin=15.0)
+        out["final"] = legacy_photometrics(out["warp"].clone(), draws, size)
+        return out
+
+    result = {}
+    for size in (64, 512):
+        rng = np.random.default_rng(1)  # parallel.dryrun's family-2 batch
+        imgs = torch.from_numpy(rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)).to(dev)
+        whole = stages(imgs, range(4), size)
+        halves = [stages(imgs[i : i + 2].contiguous(), range(i, i + 2), size) for i in (0, 2)]
+        for k, want in whole.items():
+            got = torch.cat([h[k] for h in halves])
+            result[f"{size}_{k}"] = {"equal": bool(torch.equal(got, want)),
+                                     "max_diff": float((got.double() - want.double()).abs().max()),
+                                     "n_diff": int((got != want).sum())}
+    return result
+
+
+def parallel(torch, dev) -> dict:
+    """chip_smoke.py phase 15 on its own."""
+    import tempfile
+
+    import chip_smoke
+    from mmtrs_tpu_torch import _build
+
+    _build.library()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        return chip_smoke.phase_parallel(torch, dev, smi, Path(tmp))
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         print("chip_profile: run from the repository", file=sys.stderr)
@@ -962,7 +1028,9 @@ def main() -> int:
              "--mil-train": mil_train_step,
              "--gbdt": gbdt_fit,
              "--bf16-spread": bf16_spread,
-             "--detector": detector}
+             "--detector": detector,
+             "--parallel": parallel,
+             "--batch-split": batch_split}
     if sys.argv[1:2] and sys.argv[1] in modes:
         result = modes[sys.argv[1]](torch, dev)
         print(smi)

@@ -220,11 +220,28 @@ Phases (each raises on failure, so the script exits non-zero):
      save_npz_checkpoint): K8, K9, K3 launched, the first batch's crops
      equal to preprocess_numpy with the same detector; the
      segmenter-equivalence twin once (300 scenes at 512², 40 metal).
+ 15. the graft entry and data parallelism: entry() (MMJointDualHead B4 at
+     380, bf16, b4, JAX's zero arguments) against the same weights in f32
+     on its arguments and, residual branches scaled and BatchNorm
+     calibrated, on teeth (SERVE_BF16_BAR in p), and its forward ms;
+     dryrun_multichip(1) over nccl (world = the one card); then
+     parallel.dryrun in 2 rank processes sharing the card over gloo,
+     against the same families run in this process: the MM (test_cnn, as
+     JAX's spawn smoke) and MIL families' 3 f32 steps and ragged evals
+     within the CPU bars, preprocess_augment_batch sharded by batch at
+     64² (the L-plane route: K8, K9, K4, K5 launched per rank) and 512²
+     (the fused route: K1, K2, K4, K5) gathered torch.equal to one
+     process, and the MM trainer at the rehearsal's widths (B4 380 bf16
+     randaug, global b12 as 2 × 6, 3 steps) within REHEARSAL_MM_BAR of one
+     process at b12, one gradient all-reduce a step; the step's ms, the gloo
+     all-reduce's ms for B4's gradient and each rank's peak memory. A rank
+     that fails fails the phase.
 
 The counters are reset just before each driven path (phases 3, 4, 5, each
 preset of 6, 7, 8, 9's CLI and app runs, each stage of 10 and 11, 12's CLI
 and progressive runs, 13's rehearsal and augmentation CLIs, and 14's archive
-pass and CLI run); the JSON line of kernels
+pass and CLI run; phase 15's ranks count their own from 0 before family
+2); the JSON line of kernels
 reports K1-K3's and K8-K9's launches from the serving run (phase 4),
 K4-K6's from the augmentation run (phase 5) and K7's from the preset runs
 (phase 6).
@@ -3491,6 +3508,131 @@ def phase_detector(torch, dev, smi: str, work: Path) -> dict:
             "launches": cli_counts, "valid": n_valid}, "equivalence": eq, "seconds": seconds}
 
 
+PARALLEL_RANKS = 2  # ranks sharing the one card over gloo
+# family 2 at JAX's dryrun shape (the L-plane route: K8, K9) and at 512² (the fused route: K1, K2)
+PARALLEL_AUG_SIZES = (64, 512)
+PARALLEL_AUG_KERNELS = {64: ("clahe_hist_lut", "clahe_apply", "resample_rows", "photometric"),
+                        512: ("clahe_lab_fwd_lut", "clahe_apply_lab_bwd", "resample_rows", "photometric")}
+PARALLEL_LOSS_RTOL, PARALLEL_LOSS_ATOL, PARALLEL_EVAL_BAR = 1e-3, 5e-5, 2e-3  # the CPU bars (JAX's mesh test)
+REHEARSAL_MM_BAR = 2e-2  # bf16 B4 steps at 2 x 6 vs 1 x 12: relative loss gap
+ENTRY_TIMED = 20
+
+
+def _entry_checks(torch, dev, smi: str) -> dict:
+    """entry() on the card: its outputs on its own arguments and on
+    calibrated teeth against the same weights in f32, and its forward ms."""
+    from mmtrs_tpu_torch import graft_entry
+    from mmtrs_tpu_torch.models.backbones.efficientnet import MBConv, calibrate_batchnorm_
+    from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
+    from mmtrs_tpu_torch.ops.resize import resize_bilinear
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.train.common import normalize_imagenet
+
+    forward, (img, tab) = graft_entry.entry()
+    model = forward.args[0]
+    _check(img.is_cuda and tuple(img.shape) == (4, 380, 380, 3) and tuple(tab.shape) == (4, 9)
+           and model.backbone.dtype == torch.bfloat16, "entry(): B4 bf16 on the card, img [4, 380, 380, 3], tab [4, 9]")
+    f32 = MMJointDualHead("efficientnet_b4", dtype=torch.float32).to(dev).eval()
+    f32.load_state_dict(model.state_dict())
+    sig = lambda outs: torch.sigmoid(torch.stack(outs)).float()
+    with torch.no_grad():
+        gap_args = float((sig(forward(img, tab)) - sig(f32(img, tab))).abs().max())
+        # the same weights with their residual branches scaled and BatchNorm calibrated on teeth, as phase 8's folds
+        for blk in f32.backbone.modules():
+            if isinstance(blk, MBConv) and blk.residual:
+                blk.bn2.weight.fill_(MM_RESIDUAL_SCALE)
+    teeth = torch.from_numpy(synth_teeth(4, 512, seed=SEED + 150, angles_deg=[0.0] * 4)).to(dev)
+    x = normalize_imagenet(resize_bilinear(teeth.float(), (380, 380)))
+    t = torch.randn((4, 9), generator=torch.Generator().manual_seed(SEED + 151)).to(dev)
+    calibrate_batchnorm_(f32.backbone, x)
+    calibrate_batchnorm_(f32.tab_mlp, t)
+    bf16 = MMJointDualHead("efficientnet_b4", dtype=torch.bfloat16).to(dev).eval()
+    bf16.load_state_dict(f32.state_dict())
+    with torch.no_grad():
+        gap_teeth = float((sig(bf16(x, t)) - sig(f32(x, t))).abs().max())
+    _check(gap_args <= SERVE_BF16_BAR and gap_teeth <= SERVE_BF16_BAR,
+           f"entry()'s bf16 forward vs the same weights in f32: max |dp| {gap_args:.3g} on its arguments, "
+           f"{gap_teeth:.3g} calibrated on teeth (bar {SERVE_BF16_BAR})")
+    ms = _time_ms(lambda: forward(img, tab), reps=ENTRY_TIMED)
+    print(f"  entry() forward at b4 380² bf16: {ms:.2f} ms (CUDA events, median of {ENTRY_TIMED}; {smi})")
+    return {"ms": ms, "gap_args": gap_args, "gap_teeth": gap_teeth}
+
+
+def _hold_family(name: str, got: dict, one: dict, rank: int) -> dict:
+    l, w = np.array(got[f"{name}_losses"]), np.array(one[f"{name}_losses"])
+    ev = float(np.max(np.abs(np.asarray(got[f"{name}_eval"]) - np.asarray(one[f"{name}_eval"]))))
+    rel = float(np.max(np.abs(l - w) / np.maximum(np.abs(w), 1e-12)))
+    _check(bool(np.all(np.abs(l - w) <= PARALLEL_LOSS_ATOL + PARALLEL_LOSS_RTOL * np.abs(w)))
+           and ev < PARALLEL_EVAL_BAR,
+           f"rank {rank}: the {name.upper()} family's {len(l)} f32 losses within rtol {PARALLEL_LOSS_RTOL} / atol "
+           f"{PARALLEL_LOSS_ATOL} of one process (max relative {rel:.3g}), its ragged eval within "
+           f"{PARALLEL_EVAL_BAR} ({ev:.3g})")
+    return {"loss_rel": rel, "eval": ev}
+
+
+def phase_parallel(torch, dev, smi: str, work: Path) -> dict:
+    """Phase 15: the graft entry and data parallelism on the card."""
+    from mmtrs_tpu_torch import graft_entry
+    from mmtrs_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    print("phase 15: entry() and the data-parallel dryrun on the card: NCCL at world 1, "
+          f"{PARALLEL_RANKS} ranks sharing the card over gloo")
+    entry = _entry_checks(torch, dev, smi)
+
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    nccl_s = time.perf_counter() - t0
+    print(f"  dryrun_multichip(1) over nccl: {nccl_s:.1f} s")
+
+    out = work / "parallel"
+    out.mkdir()
+    t0 = time.perf_counter()
+    dryrun.spawn(PARALLEL_RANKS, device="cuda", backend="gloo", model_name="test_cnn", aug_sizes=PARALLEL_AUG_SIZES,
+                 rehearsal=True, out=out, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ranks = [dryrun.load_result(out / f"rank{r}") for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    one = dryrun.run(None, dev, world=PARALLEL_RANKS, model_name="test_cnn", aug_sizes=PARALLEL_AUG_SIZES,
+                     rehearsal=True)
+    one_s = time.perf_counter() - t0
+    held = {}
+    for r, res in enumerate(ranks):
+        held[r] = {name: _hold_family(name, res, one, r) for name in ("mm", "mil")}
+        _check(res["pad_ok"], f"rank {r}: pad_to_multiple pads a ragged batch to a multiple of {PARALLEL_RANKS}")
+        for size in PARALLEL_AUG_SIZES:
+            _check(np.array_equal(res[f"aug{size}"], one[f"aug{size}"]),
+                   f"rank {r}: preprocess_augment_batch sharded b{2 * PARALLEL_RANKS}@{size} gathered == one process "
+                   f"(u8, bit for bit)")
+            seen = res[f"launches{size}"]
+            _check(all(seen[k] > 0 for k in PARALLEL_AUG_KERNELS[size]),
+                   f"rank {r}: at {size}² its shard launched {', '.join(PARALLEL_AUG_KERNELS[size])}: {seen}")
+    reh = [res["rehearsal"] for res in ranks]
+    want = np.array(one["rehearsal"]["losses"])
+    reh_gap = max(float(np.max(np.abs(np.array(r["losses"]) - want) / np.abs(want))) for r in reh)
+    _check(reh_gap <= REHEARSAL_MM_BAR and all(r["grad_syncs"] == dryrun.STEPS for r in reh),
+           f"the MM trainer at the rehearsal's widths (B4 380 bf16 randaug) as {PARALLEL_RANKS} x "
+           f"{12 // PARALLEL_RANKS}: {dryrun.STEPS} losses within {REHEARSAL_MM_BAR} relative of one process at b12 "
+           f"({reh_gap:.3g}), one gradient all-reduce a step")
+    steps = lambda ms: [round(t, 2) for t in ms[1:]]
+    print(f"  rehearsal-width MM step: {PARALLEL_RANKS} ranks {[steps(r['step_ms']) for r in reh]} ms, one process "
+          f"{steps(one['rehearsal']['step_ms'])} ms (steps 2-{dryrun.STEPS}; the first, with the process's first use of "
+          f"B4, {[round(r['step_ms'][0]) for r in reh]} / {round(one['rehearsal']['step_ms'][0])} ms); gloo "
+          f"all-reduce of the {reh[0]['params']:,}-parameter gradient "
+          f"{[round(float(np.median(r['all_reduce_ms'])), 2) for r in reh]} ms (median of {dryrun.ALL_REDUCE_REPS}); "
+          f"peak {[round(r.get('peak_gb', np.nan), 2) for r in reh]} GB a rank, one process "
+          f"{one['rehearsal'].get('peak_gb', np.nan):.2f} GB "
+          f"(host clock, synchronised; {smi})")
+    for size in PARALLEL_AUG_SIZES:
+        print(f"  launches at {size}² per rank: " + "; ".join(f"rank {r} {res[f'launches{size}']}"
+                                                             for r, res in enumerate(ranks)))
+    seconds = time.perf_counter() - t_phase
+    print(f"  the {PARALLEL_RANKS}-rank spawn {spawn_s:.1f} s, one process {one_s:.1f} s; phase 15 took {seconds:.1f} s")
+    return {"entry": entry, "nccl_s": nccl_s, "held": held, "rehearsal": {"ranks": reh, "one": one["rehearsal"],
+            "gap": reh_gap}, "launches": {size: [res[f"launches{size}"] for res in ranks] for size in PARALLEL_AUG_SIZES},
+            "seconds": seconds}
+
+
 def main() -> int:
     if not (ROOT / "mmtrs_tpu_torch" / "csrc").is_dir():
         return _fail(f"mmtrs_tpu_torch/ not found beside {Path(__file__).name}; run from the repository")
@@ -3536,6 +3678,7 @@ def main() -> int:
         vision = phase_vision(torch, dev, smi, work, train)
         last = phase_last_entry_points(torch, dev, smi, work, train)
         det = phase_detector(torch, dev, smi, work)
+        par = phase_parallel(torch, dev, smi, work)
     _check(not work.exists(), "the training folder removed")
     if "jax" in sys.modules or "mmtrs_tpu" in sys.modules:
         return _fail("the port pulled in jax or the JAX package")
@@ -3595,7 +3738,9 @@ def main() -> int:
           f"epoch) {last['seconds']['rehearsal']:.1f} s, phase 13 {last['seconds']['phase']:.1f} s; MaskRCNN at b"
           f"{DET_BATCH} 512² f32 {det['times']['f32']:.2f} ms, bf16 {det['times']['bf16']:.2f} ms, the archive pass "
           f"with it {det['archive']['imgs_per_sec']:.2f} imgs/s (peak {det['archive']['peak_gb']:.2f} GB), phase 14 "
-          f"{det['seconds']:.1f} s; total "
+          f"{det['seconds']:.1f} s; entry() {par['entry']['ms']:.2f} ms at b4 380² bf16, rehearsal-width MM step at "
+          f"{PARALLEL_RANKS} ranks over gloo {float(np.mean(par['rehearsal']['ranks'][0]['step_ms'][1:])):.2f} ms (one "
+          f"process {float(np.mean(par['rehearsal']['one']['step_ms'][1:])):.2f}), phase 15 {par['seconds']:.1f} s; total "
           f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

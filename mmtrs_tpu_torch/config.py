@@ -1,7 +1,7 @@
 """Configurations (the port's copies of ``PreprocessConfig``,
 ``GBDTConfig``, ``MILConfig``, ``MMJointConfig``, ``FusionConfig``,
-``VisionTrainConfig``, ``ProgressiveStage`` and ``ProgressiveConfig`` in
-mmtrs_tpu/config.py).
+``VisionTrainConfig``, ``ProgressiveStage``, ``ProgressiveConfig`` and
+``MeshConfig`` in mmtrs_tpu/config.py).
 
 Kept in the port so that it imports nothing of the JAX package;
 tests/test_torch_hygiene.py holds each copy to the original's fields and
@@ -216,3 +216,17 @@ class ProgressiveConfig:
     seeds: tuple[int, ...] = (42, 43, 44)
     label_smoothing: float = 0.10
     warmup_steps: int = 100
+
+
+# ---------------------------------------------------------------------------
+# Mesh / parallelism
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """1-D data mesh is the designed parallelism for these model scales
+    (SURVEY.md §2.12). Axis names kept general for future TP axes."""
+
+    data_axis: str = "data"
+    num_devices: int = 0  # 0 = all

@@ -18,6 +18,12 @@ Flax's fast variance) and moves its running statistics to
 input at ``drop_rate``, where there is a classifier. The random bits come
 from the ``generator`` the caller passes to ``forward`` (on the module's
 device); training with a rate above 0 and no generator raises.
+
+Under ``parallel.mesh.sharded(group)`` a rank's forward is its shard's part
+of the global batch's: train-mode BatchNorm takes Σx and Σx² over the
+group (the gradient flowing back through the sum), and a dropout or
+drop-path mask is the rank's rows of the global batch's, drawn from the
+generator state every rank shares. Outside such a block nothing changes.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mmtrs_tpu_torch.parallel.mesh import active_group
 
 # (expand_ratio, channels, num_blocks, stride, kernel)
 _BASE_BLOCKS = [
@@ -107,8 +115,16 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            group = active_group()
+            if group is None:
+                mean = xf.mean(dim=dims)
+                var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            else:  # the global batch's moments: Σx and Σx² over the group's equal shards
+                c = xf.shape[1]
+                sums = group.all_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+                count = xf.numel() // c * group.size
+                mean = sums[:c] / count
+                var = torch.clamp_min(sums[c:] / count - mean * mean, 0.0)
             with torch.no_grad():
                 m = 0.9  # Flax BatchNorm's default momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -123,7 +139,12 @@ class BatchNorm(nn.Module):
 def _keep_mask(shape, rate: float, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
     if generator is None:
         raise ValueError("training with dropout or drop-path needs a torch.Generator (forward(..., generator=g))")
-    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    group = active_group()
+    if group is None:
+        return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    # the global batch's mask from the generator state every rank shares; this rank's rows
+    full = torch.rand((shape[0] * group.size,) + tuple(shape[1:]), generator=generator, device=x.device)
+    return full[group.rows(full.shape[0])] < 1.0 - rate
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

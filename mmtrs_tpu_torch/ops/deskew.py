@@ -53,23 +53,23 @@ def estimate_skew_angle(
         B, H, W = gray.shape
         h4, w4 = (H // 4) * 4, (W // 4) * 4
         gray = gray[:, :h4, :w4].reshape(B, h4 // 4, 4, w4 // 4, 4).mean(dim=(2, 4))
-    m = canny_lite(gray, low, high).float()
+    m = canny_lite(gray, low, high).long()
     B, H, W = m.shape
-    ys = torch.arange(H, dtype=torch.float32, device=m.device)[None, :, None]
-    xs = torch.arange(W, dtype=torch.float32, device=m.device)[None, None, :]
+    # the edge mass's moments as exact int64 sums, then f64: an image's angle
+    # does not depend on the other images of its batch (on the card a float
+    # sum's order follows the batch's shape, which moved angles by ~4e-5°)
+    ys = torch.arange(H, device=m.device)[None, :, None]
+    xs = torch.arange(W, device=m.device)[None, None, :]
+    my_, mx_ = m * ys, m * xs
     n = m.sum(dim=(1, 2))
-    safe_n = torch.clamp_min(n, 1.0)
-    my = (m * ys).sum(dim=(1, 2)) / safe_n
-    mx = (m * xs).sum(dim=(1, 2)) / safe_n
-    dy = ys - my[:, None, None]
-    dx = xs - mx[:, None, None]
-    # covariance of (y, x) like np.cov of the coordinate list (ddof=1)
-    denom = torch.clamp_min(n - 1.0, 1.0)
-    vyy = (m * dy * dy).sum(dim=(1, 2)) / denom
-    vxx = (m * dx * dx).sum(dim=(1, 2)) / denom
-    vyx = (m * dy * dx).sum(dim=(1, 2)) / denom
+    sy, sx = (s.sum(dim=(1, 2)).double() for s in (my_, mx_))
+    syy, sxx, syx = ((a * b).sum(dim=(1, 2)).double() for a, b in ((my_, ys), (mx_, xs), (my_, xs)))
+    safe_n = torch.clamp_min(n, 1).double()
+    # covariance of (y, x) like np.cov of the coordinate list; its 1/(n − 1)
+    # cancels in the angle
+    vyy, vxx, vyx = syy - sy * sy / safe_n, sxx - sx * sx / safe_n, syx - sy * sx / safe_n
     # angle (from the x-axis) of the eigenvector with the larger eigenvalue
-    angle = torch.atan2(2.0 * vyx, vxx - vyy) * 0.5 * (180.0 / math.pi)
+    angle = (torch.atan2(2.0 * vyx, vxx - vyy) * (0.5 * 180.0 / math.pi)).float()
     return torch.where(n < min_points, torch.zeros_like(angle), angle)
 
 

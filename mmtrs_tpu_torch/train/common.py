@@ -38,6 +38,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from mmtrs_tpu_torch.parallel.mesh import all_reduce_grads_
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -73,12 +75,19 @@ def device_put_dataset(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def bce_logits(logit: torch.Tensor, target: torch.Tensor, sample_weight: torch.Tensor | None = None) -> torch.Tensor:
+def bce_logits(logit: torch.Tensor, target: torch.Tensor, sample_weight: torch.Tensor | None = None,
+               group=None) -> torch.Tensor:
     """BCE on a single logit, the JAX package's stable form
     max(z, 0) − z·t + log1p(exp(−|z|)): the mean, or with ``sample_weight``
-    Σ l·w / max(Σ w, 1e-8)."""
+    Σ l·w / max(Σ w, 1e-8). With a data ``group`` (``parallel.mesh``) the
+    rank's term of the global loss, whose mean over the ranks is that loss:
+    the shard's mean (the shards are equal), or size · Σ_shard l·w /
+    max(Σ_group w, 1e-8)."""
     loss = torch.clamp_min(logit, 0) - logit * target + torch.log1p(torch.exp(-torch.abs(logit)))
     if sample_weight is not None:
+        if group is not None:
+            wsum = group.all_sum(sample_weight.sum().reshape(1))[0]
+            return group.size * (loss * sample_weight).sum() / torch.clamp_min(wsum, 1e-8)
         return (loss * sample_weight).sum() / torch.clamp_min(sample_weight.sum(), 1e-8)
     return loss.mean()
 
@@ -187,6 +196,18 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def average_grads(params, group, loss: torch.Tensor) -> torch.Tensor:
+    """Between backward and the optimiser step (so before its global-norm
+    clip): with a data group (``parallel.mesh``), the gradients of
+    ``params`` averaged over it, one gradient all-reduce that the loss rides
+    in; → the loss detached, with a group the ranks' mean (the global
+    batch's loss). Without one, the loss as it is."""
+    loss = loss.detach()
+    if group is None:
+        return loss
+    return all_reduce_grads_(params, group, loss.reshape(1).float())[0]
 
 
 class AdamW:

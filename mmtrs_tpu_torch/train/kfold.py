@@ -56,6 +56,7 @@ from mmtrs_tpu_torch.metrics.thresholds import sweep_thresholds, threshold_grid
 from mmtrs_tpu_torch.models.backbones.efficientnet import lecun_init_
 from mmtrs_tpu_torch.models.backbones.factory import create_model
 from mmtrs_tpu_torch.ops.resize import resize_bilinear
+from mmtrs_tpu_torch.parallel.mesh import all_mean_, all_reduce_grads_, data_parallel_eval, replicate, sharded
 from mmtrs_tpu_torch.train.common import (
     Throughput,
     device_put_dataset,
@@ -178,13 +179,20 @@ class KFoldConfig:
 class KFoldHardTrainer:
     """Single-logit BCE k-fold trainer with the v2/v3 training tricks."""
 
-    def __init__(self, cfg: KFoldConfig, device: str | torch.device | None = None, init: dict | None = None):
+    def __init__(self, cfg: KFoldConfig, device: str | torch.device | None = None, init: dict | None = None,
+                 group=None):
         """``device`` None: the card. ``init``: the state dict every fold
         starts from (the JAX trainer's ``model.init(key(cfg.seed))``);
         without one, a Flax-default init drawn from
         ``torch.Generator().manual_seed(cfg.seed)``. The model has the
-        factory's dropout 0.2 and drop-path 0.1."""
+        factory's dropout 0.2 and drop-path 0.1. ``group``: a
+        ``parallel.mesh.DataGroup`` (JAX's ``mesh=``): each rank preps and
+        mixes the global batch (MixUp's partners cross the shards), steps
+        on its rows, and scores its shard of every eval batch."""
         self.cfg = cfg
+        self.group = group
+        if group is not None and cfg.batch_size % group.size != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the group's size {group.size}")
         self.device = resolve_device(device)
         model = create_model(cfg.model_name, num_classes=1, dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
         if init is None:
@@ -201,6 +209,8 @@ class KFoldHardTrainer:
         generator, the optimiser for ``total_steps`` (the classifier alone
         while ``freeze_epochs``), the EMA copies and the step count."""
         self.model.load_state_dict(self._init)
+        if self.group is not None:
+            replicate(self.group, self.model)
         self.model.train()
         self.pos_weight = pos_weight
         self.gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
@@ -230,6 +240,8 @@ class KFoldHardTrainer:
         if n == self.cfg.grad_accum - 1:
             for a, p in zip(self._acc, self.opt.params):
                 p.grad = a.clone()
+            if self.group is not None:  # the window's one gradient all-reduce
+                all_reduce_grads_(self.opt.params, self.group)
             self.opt.step()
             for a in self._acc:
                 a.zero_()
@@ -239,16 +251,29 @@ class KFoldHardTrainer:
         """One micro step on a prepared batch → [loss, grad norm (over every
         parameter), logit std], device scalars (not read here). The loss is
         BCEWithLogits with pos_weight: Σ l·w / Σ w, w = pos_weight where
-        t > 0.5, else 1."""
-        logit = self.model(x, generator=self.gen)[..., 0]
+        t > 0.5, else 1. With a group the batch is the rank's rows, Σ w and
+        the statistics are the global batch's, and the gradients are
+        averaged once per optimiser step: every step without accumulation
+        (the grad norm then the averaged gradient's), once a window with it
+        (then no micro step's global gradient exists, and its grad norm is
+        NaN)."""
+        with sharded(self.group):
+            logit = self.model(x, generator=self.gen)[..., 0]
         l = torch.clamp_min(logit, 0) - logit * t + torch.log1p(torch.exp(-torch.abs(logit)))
         w = torch.where(t > 0.5, torch.full_like(t, self.pos_weight), torch.ones_like(t))
-        loss = (l * w).sum() / w.sum()
+        if self.group is None:
+            loss = (l * w).sum() / w.sum()
+        else:  # this rank's term of the global Σ l·w / Σ w (the ranks' mean is it)
+            loss = self.group.size * (l * w).sum() / self.group.all_sum(w.sum().reshape(1))[0]
         for p in self.model.parameters():
             p.grad = None
         loss.backward()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.group is None:
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            stats = [loss.detach(), gnorm, logit.detach().std(unbiased=False)]
+        else:
+            stats = self._group_stats(loss, logit)
         self._apply()
         self.step += 1
         if self._ema is not None:
@@ -257,7 +282,24 @@ class KFoldHardTrainer:
                 torch._foreach_mul_(self._ema, d)
                 torch._foreach_add_(self._ema, torch._foreach_mul([p.detach() for p in self.model.parameters()],
                                                                   1 - d))
-        return torch.stack([loss.detach(), gnorm, logit.detach().std(unbiased=False)])
+        return torch.stack(stats)
+
+    def _group_stats(self, loss: torch.Tensor, logit: torch.Tensor) -> list[torch.Tensor]:
+        """Under a group, before the optimiser's part: the global loss and
+        logit moments averaged with the gradients (without accumulation), or
+        alone (inside an accumulation window); → [loss, grad norm, logit
+        std] of the global batch."""
+        z = logit.detach().float()
+        local = torch.stack([loss.detach().float(), z.sum(), (z * z).sum()])
+        if self._acc is None:
+            loss_g, zsum, z2sum = all_reduce_grads_(self.model.parameters(), self.group, local)
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        else:
+            loss_g, zsum, z2sum = all_mean_(local, self.group)
+            gnorm = torch.full((), float("nan"), device=loss.device)
+        mean = zsum / z.numel()  # the ranks' mean of shard sums over a shard's rows: the global mean
+        return [loss_g, gnorm, torch.sqrt(torch.clamp_min(z2sum / z.numel() - mean * mean, 0.0))]
 
     def _mix_draws(self, step: int, batch: int) -> MixDraws:
         return MixDraws.draw(np.random.default_rng([self.cfg.seed, step]), batch)
@@ -289,23 +331,27 @@ class KFoldHardTrainer:
         """sigmoid of the logit of ``state`` (a copy of the model in eval
         mode; the training model is untouched), with ``tta`` the mean of the
         image's and its W-flip's logits. The last batch is padded by
-        repeating its last row; one device→host copy."""
+        repeating its last row; with a group each rank scores its shard of a
+        batch, gathered in rank order (``data_parallel_eval``). One
+        device→host copy."""
         net = self._eval_model
         net.load_state_dict(state["model"])
         net.eval()
         bs = self.cfg.batch_size
         images = device_put_dataset(images, self.device)
+
+        def score(imgs):
+            x = self._prep(imgs)
+            l = net(x)[..., 0]
+            return 0.5 * (l + net(x.flip(2))[..., 0]) if tta else l
+
         out, pads = [], []
         for s in range(0, len(images), bs):
             imgs = images[s : s + bs]
             pad = bs - len(imgs)
             if pad:
                 imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
-            x = self._prep(imgs)
-            l = net(x)[..., 0]
-            if tta:
-                l = 0.5 * (l + net(x.flip(2))[..., 0])
-            out.append(l)
+            out.append(data_parallel_eval(self.group, score, imgs))
             pads.append(pad)
         host = torch.cat(out).float().cpu().numpy()
         chunks, ofs = [], 0
@@ -360,6 +406,9 @@ class KFoldHardTrainer:
                 t = y_d[sel_d]
                 if cfg.use_mixup:
                     x, t = apply_mixup_cutmix(x, t, self._mix_draws(self.step, len(bidx)))
+                if self.group is not None:  # mixed over the global batch, then this rank's rows
+                    rows = self.group.rows(len(bidx))
+                    x, t = x[rows], t[rows]
                 stats.append(self.train_step(x, t))
                 seen += len(bidx)
             stats = torch.stack(stats).cpu().numpy() if stats else np.full((1, 3), np.nan)  # one read an epoch
@@ -407,10 +456,13 @@ def run_hard_kfold(
     log=print,
     device: str | torch.device | None = None,
     init: dict | None = None,
+    group=None,
 ) -> dict:
     """StratifiedGroupKFold over the train+val rows' ``origin_id`` (or the
     ``fold`` column of a pre-exported ``via_folds`` table, groupcv_v3
-    --via-folds-dir) on ``device`` (None: the card). ``images``: u8
+    --via-folds-dir) on ``device`` (None: the card); with a data ``group``
+    every rank runs it, the steps and evals divided
+    (``KFoldHardTrainer``), and rank 0 writes ``outdir``. ``images``: u8
     [N, H, W, 3] aligned with ``table``'s rows (``y_majority``, ``split``,
     ``origin_id``, ``image_name``). Writes to ``outdir`` oof_val.csv and
     pred_test.csv (image_name, y, prob_vis_hard) and summary.json, for the
@@ -424,7 +476,9 @@ def run_hard_kfold(
     is_test = np.asarray(table["split"]) == "test"
     tv = np.nonzero(~is_test)[0]
     te = np.nonzero(is_test)[0]
-    trainer = KFoldHardTrainer(cfg, device=device, init=init)
+    trainer = KFoldHardTrainer(cfg, device=device, init=init, group=group)
+    if group is not None and group.rank != 0:
+        outdir = None
     # the dataset lives on the device for the run: a step's rows are a gather there
     images = device_put_dataset(images, trainer.device)
     if via_folds is not None:

@@ -38,7 +38,9 @@ from mmtrs_tpu_torch.device import resolve_device
 from mmtrs_tpu_torch.metrics.binary import roc_auc
 from mmtrs_tpu_torch.models.backbones.efficientnet import lecun_init_
 from mmtrs_tpu_torch.models.mil import BagDraws, MILNet, make_bags
+from mmtrs_tpu_torch.parallel.mesh import data_parallel_eval, replicate, sharded
 from mmtrs_tpu_torch.train.common import (
+    average_grads,
     bce_logits,
     device_put_dataset,
     epoch_batches,
@@ -55,12 +57,19 @@ EVAL_BAG_SEED = 999
 class MILTrainer:
     def __init__(self, cfg: MILConfig = MILConfig(), device: str | torch.device | None = None,
                  init: dict | None = None, dtype: torch.dtype = torch.bfloat16,
-                 drop_rate: float = 0.2, drop_path: float = 0.1):
+                 drop_rate: float = 0.2, drop_path: float = 0.1, group=None):
         """``device`` None: the card. ``dtype`` is the encoder's compute
         type (bf16, as the JAX trainer's; the tests take f32). ``init``: the
         state dict every fold starts from. ``drop_rate``, ``drop_path``:
-        the JAX module's rates by default (the tests set 0)."""
+        the JAX module's rates by default (the tests set 0). ``group``: a
+        ``parallel.mesh.DataGroup`` (JAX's ``mesh=``): each rank makes and
+        steps on its rows' bags (the bag draws are per origin id) and scores
+        its shard of every eval batch; the steps are the one-process
+        steps on the whole batch."""
         self.cfg = cfg
+        self.group = group
+        if group is not None and cfg.batch_size % group.size != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the group's size {group.size}")
         self.device = resolve_device(device)
         model = MILNet(cfg.model_name, cfg.attn_dim, dtype=dtype, drop_rate=drop_rate, drop_path=drop_path)
         if init is None:
@@ -74,6 +83,8 @@ class MILTrainer:
         ``total_steps`` and the dropout generator."""
         cfg = self.cfg
         self.model.load_state_dict(self._init)
+        if self.group is not None:
+            replicate(self.group, self.model)
         self.model.train()
         self.opt = make_optimizer(self.model.parameters(), cfg.lr, cfg.weight_decay, total_steps)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -93,8 +104,9 @@ class MILTrainer:
 
     def loss(self, bags: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """The train-mode forward of prepared bags and its BCE: the step's
-        first stage."""
-        logit, _ = self.model(bags, generator=self.gen)
+        first stage (with a group, of the rank's rows)."""
+        with sharded(self.group):
+            logit, _ = self.model(bags, generator=self.gen)
         return bce_logits(logit, y)
 
     def backward(self, loss: torch.Tensor) -> None:
@@ -103,12 +115,14 @@ class MILTrainer:
         loss.backward()
 
     def train_step(self, bags: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """One step on prepared bags (on the device) → its loss, a device
-        scalar (not read here)."""
+        """One step on prepared bags (on the device; with a group the rank's
+        rows, the gradients averaged over it) → its loss (the global
+        batch's), a device scalar (not read here)."""
         loss = self.loss(bags, y)
         self.backward(loss)
+        loss = average_grads(self.opt.params, self.group, loss)
         self.opt.step()
-        return loss.detach()
+        return loss
 
     def fit(self, images: torch.Tensor, y: np.ndarray, origin_ids: np.ndarray, train_idx: np.ndarray,
             val_idx: np.ndarray, epochs: int | None = None, log=print) -> tuple[dict, float]:
@@ -125,6 +139,8 @@ class MILTrainer:
             losses = []
             for bidx in epoch_batches(len(train_idx), cfg.batch_size, rng):
                 sel = train_idx[bidx]
+                if self.group is not None:  # this rank's rows: the bag draws are per origin id
+                    sel = sel[self.group.rows(len(sel))]
                 sel_d = host_to_device(sel, self.device)
                 bags = self.train_bags(images.index_select(0, sel_d), cfg.seed + ep, origin_ids[sel])
                 losses.append(self.train_step(bags, y_d[sel_d]))
@@ -142,8 +158,10 @@ class MILTrainer:
                       tta: bool | None = None) -> np.ndarray:
         """sigmoid of the (hflip-TTA) mean logit on the eval bags, with
         ``state`` (a ``snapshot``; None: the model as it is) loaded. The
-        last batch is padded by repeating its last image; the logits are
-        copied to the host once."""
+        last batch is padded by repeating its last image; with a group each
+        rank makes and scores the bags of its shard of a batch, gathered in
+        rank order (``data_parallel_eval``). The logits are copied to the
+        host once."""
         cfg = self.cfg
         tta = cfg.tta_hflip if tta is None else tta
         if state is not None:
@@ -152,6 +170,12 @@ class MILTrainer:
         self.model.eval()
         origin_ids = np.asarray(origin_ids)
         bs = cfg.batch_size
+
+        def score(imgs, oid):
+            bags = self.eval_bags(imgs, oid)
+            logit = self.model(bags)[0]
+            return 0.5 * (logit + self.model(bags.flip(3))[0]) if tta else logit
+
         out = []
         for s in range(0, len(images), bs):
             imgs, oid = images[s : s + bs], origin_ids[s : s + bs]
@@ -159,11 +183,7 @@ class MILTrainer:
             if pad:
                 imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
                 oid = np.concatenate([oid, np.repeat(oid[-1:], pad)])
-            bags = self.eval_bags(imgs, oid)
-            logit = self.model(bags)[0]
-            if tta:
-                logit = 0.5 * (logit + self.model(bags.flip(3))[0])
-            out.append(logit[: bs - pad])
+            out.append(data_parallel_eval(self.group, score, imgs, oid)[: bs - pad])
         self.model.train(was_training)
         if not out:
             return np.zeros(0, dtype=np.float32)
@@ -184,9 +204,11 @@ def run_mil_kfold(
     dtype: torch.dtype = torch.bfloat16,
     drop_rate: float = 0.2,
     drop_path: float = 0.1,
+    group=None,
 ) -> dict:
     """The k-fold loop (train_mil_attention_v1.py:152-295) on ``device``
-    (None: the card). ``images``: u8 [N, H, W, 3] aligned with ``table``'s
+    (None: the card); with a data ``group`` every rank runs it, the steps
+    and evals divided (``MILTrainer``), and rank 0 writes ``outdir``. ``images``: u8 [N, H, W, 3] aligned with ``table``'s
     rows (numpy, or a tensor already on the device); ``table`` with
     ``y_majority``, ``origin_id``, ``split`` and ``image_name``. Writes to
     ``outdir`` oof_val.csv and pred_test.csv (image_name, y, prob) and
@@ -205,7 +227,10 @@ def run_mil_kfold(
     tv = np.nonzero(~is_test)[0]
     te = np.nonzero(is_test)[0]
 
-    trainer = MILTrainer(cfg, device=device, init=init, dtype=dtype, drop_rate=drop_rate, drop_path=drop_path)
+    trainer = MILTrainer(cfg, device=device, init=init, dtype=dtype, drop_rate=drop_rate, drop_path=drop_path,
+                         group=group)
+    if group is not None and group.rank != 0:
+        outdir = None
     dev = trainer.device
     images = device_put_dataset(images, dev)
     te_d = torch.as_tensor(te, device=dev)

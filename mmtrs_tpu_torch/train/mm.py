@@ -48,7 +48,9 @@ from mmtrs_tpu_torch.models.linear import TemperatureScaler
 from mmtrs_tpu_torch.models.mm_joint import MMJointDualHead
 from mmtrs_tpu_torch.ops.augment import augment_batch, draw_batch
 from mmtrs_tpu_torch.ops.resize import resize_bilinear
+from mmtrs_tpu_torch.parallel.mesh import data_parallel_eval, replicate, sharded
 from mmtrs_tpu_torch.train.common import (
+    average_grads,
     bce_logits,
     device_put_dataset,
     epoch_batches,
@@ -83,11 +85,18 @@ def mm_fold_splits(table_tv: Table, n_folds: int):
 
 class MMTrainer:
     def __init__(self, cfg: MMJointConfig = MMJointConfig(), device: str | torch.device | None = None,
-                 init: dict | None = None, dtype: torch.dtype = torch.bfloat16):
+                 init: dict | None = None, dtype: torch.dtype = torch.bfloat16, group=None):
         """``device`` None: the card. ``dtype`` is the backbone's compute
         type (bf16, as the JAX trainer's; the tests take f32). ``init``: the
-        state dict every fold starts from (see the module's docstring)."""
+        state dict every fold starts from (see the module's docstring).
+        ``group``: a ``parallel.mesh.DataGroup`` (JAX's ``mesh=``): each
+        rank steps on its rows of every batch and scores its shard of every
+        eval batch, and the steps are the one-process steps on the whole
+        batch."""
         self.cfg = cfg
+        self.group = group
+        if group is not None and cfg.batch_size % group.size != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the group's size {group.size}")
         self.device = resolve_device(device)
         model = MMJointDualHead(cfg.model_name, cfg.tab_hidden, cfg.tab_dropout, cfg.head_dropout,
                                 dtype=dtype)
@@ -109,6 +118,8 @@ class MMTrainer:
                 self.model.backbone.load_state_dict(pretrained, strict=True)
             except RuntimeError as e:
                 raise ValueError(f"pretrained weights do not fit {cfg.model_name}'s backbone: {e}") from e
+        if self.group is not None:
+            replicate(self.group, self.model)
         self.model.train()
         self.opt = make_optimizer(self.model.parameters(), cfg.lr, cfg.weight_decay, total_steps,
                                   grad_clip=cfg.grad_clip)
@@ -116,8 +127,10 @@ class MMTrainer:
 
     def loss(self, img: torch.Tensor, tab: torch.Tensor, y: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         """The train-mode forward of a prepared batch and its loss,
-        α·BCE(hard) + β·BCE(soft) in f32: the step's first stage."""
-        lc, lr_ = self.model(img, tab, generator=self.gen)
+        α·BCE(hard) + β·BCE(soft) in f32: the step's first stage (with a
+        group, of the rank's rows)."""
+        with sharded(self.group):
+            lc, lr_ = self.model(img, tab, generator=self.gen)
         return self.cfg.alpha_hard * bce_logits(lc, y) + self.cfg.beta_soft * bce_logits(lr_, p)
 
     def backward(self, loss: torch.Tensor) -> None:
@@ -128,12 +141,14 @@ class MMTrainer:
 
     def train_step(self, img: torch.Tensor, tab: torch.Tensor, y: torch.Tensor,
                    p: torch.Tensor) -> torch.Tensor:
-        """One step on a prepared batch (all on the device) → its loss, a
-        device scalar (not read here)."""
+        """One step on a prepared batch (all on the device; with a group the
+        rank's rows, the gradients averaged over it before the clip) → its
+        loss (the global batch's), a device scalar (not read here)."""
         loss = self.loss(img, tab, y, p)
         self.backward(loss)
+        loss = average_grads(self.opt.params, self.group, loss)
         self.opt.step()
-        return loss.detach()
+        return loss
 
     def _prep(self, imgs: torch.Tensor) -> torch.Tensor:
         x = imgs
@@ -162,12 +177,19 @@ class MMTrainer:
     def logits(self, images: torch.Tensor, tab: np.ndarray, tta: bool = True) -> np.ndarray:
         """3-way TTA (none/hflip/vflip) mean logit of the model in eval mode
         (trainer _predict :321-345). The last batch is padded by repeating
-        its last row; the view means stay on the device and are copied to
-        the host once."""
+        its last row; with a group each rank scores its shard of a batch
+        and the logits are gathered (``data_parallel_eval``). The view means
+        stay on the device and are copied to the host once."""
         bs = self.cfg.batch_size
         was_training = self.model.training
         self.model.eval()
         tab = torch.as_tensor(np.asarray(tab, np.float32), device=self.device)  # one copy
+
+        def score(imgs, t):
+            x = self._prep(imgs)
+            views = [x, x.flip(2), x.flip(1)] if tta else [x]
+            return sum(self.model(v, t)[0] for v in views) / len(views)
+
         out = []
         for s in range(0, len(images), bs):
             imgs, t = images[s : s + bs], tab[s : s + bs]
@@ -175,9 +197,7 @@ class MMTrainer:
             if pad:
                 imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
                 t = torch.cat([t, t[-1:].expand(pad, -1)])
-            x = self._prep(imgs)
-            views = [x, x.flip(2), x.flip(1)] if tta else [x]
-            l = sum(self.model(v, t)[0] for v in views) / len(views)
+            l = data_parallel_eval(self.group, score, imgs, t)
             out.append(l[: bs - pad])
         self.model.train(was_training)
         return torch.cat(out).cpu().numpy()  # the one device→host copy
@@ -205,6 +225,8 @@ class MMTrainer:
             losses = []
             for bidx in epoch_batches(len(train_idx), cfg.batch_size, rng):
                 sel = train_idx[bidx]
+                if self.group is not None:  # this rank's rows: the randaug draws are per row
+                    sel = sel[self.group.rows(len(sel))]
                 sel_d = host_to_device(sel, dev)
                 img = self._prep_train(images.index_select(0, sel_d), sel, ep)
                 losses.append(self.train_step(img, tab_d[sel_d], y_d[sel_d], p_d[sel_d]))
@@ -247,9 +269,12 @@ def run_mm_kfold(
     device: str | torch.device | None = None,
     init: dict | None = None,
     dtype: torch.dtype = torch.bfloat16,
+    group=None,
 ) -> dict:
     """The k-fold loop (train_mm_joint_dualtask.py:362-437) on ``device``
-    (None: the card). ``images``: u8 [N, H, W, 3] aligned with ``table``'s
+    (None: the card); with a data ``group`` (JAX's ``mesh=``) every rank
+    runs it, the steps and evals divided (``MMTrainer``), and rank 0
+    writes ``outdir``. ``images``: u8 [N, H, W, 3] aligned with ``table``'s
     rows (numpy, or a tensor already on the device), ``table`` with
     ``y_majority``, ``p_indirect``, the 9 base features, ``split``,
     ``origin_id`` and ``image_name``. Writes to ``outdir`` (when given)
@@ -272,7 +297,9 @@ def run_mm_kfold(
     tv = np.nonzero(~is_test)[0]
     te = np.nonzero(is_test)[0]
 
-    trainer = MMTrainer(cfg, device=device, init=init, dtype=dtype)
+    trainer = MMTrainer(cfg, device=device, init=init, dtype=dtype, group=group)
+    if group is not None and group.rank != 0:
+        outdir = None
     # the dataset lives on the device for the whole run: a step's
     # images[sel] is a gather there, not a host copy
     images = device_put_dataset(images, trainer.device)

@@ -27,11 +27,13 @@ def train_progressive(
     log=print,
     device: str | torch.device | None = None,
     inits: dict | None = None,
+    group=None,
 ) -> list:
     """→ one (trainer, best state) per seed, each trained through all
     stages. ``inits``: {seed: state dict} that each seed's first stage starts
     from (the JAX trainer's ``model.init(key(seed))``); without it, the
-    trainer's seeded init."""
+    trainer's seeded init. ``group``: a ``parallel.mesh.DataGroup`` (JAX's
+    ``mesh=``) that every stage's trainer steps and evaluates over."""
     states = []
     prior = float(np.clip(train.y.mean(), 1e-3, 1 - 1e-3))
     head_bias = float(np.log(prior / (1 - prior)))
@@ -51,7 +53,7 @@ def train_progressive(
                 seed=seed,
             )
             init = inits.get(seed) if inits is not None and si == 0 else None
-            trainer = VisionTrainer(vcfg, aug_preset=aug_preset, device=device, init=init)
+            trainer = VisionTrainer(vcfg, aug_preset=aug_preset, device=device, init=init, group=group)
             steps = max(len(train) // stage.batch_size, 1) * stage.epochs
             if state is None:
                 state = trainer.init_state(steps, head_bias=head_bias)

@@ -49,8 +49,10 @@ from mmtrs_tpu_torch.models.backbones.factory import create_model
 from mmtrs_tpu_torch.models.convert import merge_pretrained
 from mmtrs_tpu_torch.ops.augment import augment_batch, draw_batch
 from mmtrs_tpu_torch.ops.resize import resize_bilinear
+from mmtrs_tpu_torch.parallel.mesh import data_parallel_eval, replicate, sharded
 from mmtrs_tpu_torch.train.common import (
     Throughput,
+    average_grads,
     bce_logits,
     ce_two_class,
     device_put_dataset,
@@ -81,13 +83,20 @@ class VisionData:
 
 class VisionTrainer:
     def __init__(self, cfg: VisionTrainConfig, aug_preset: str = "none", device: str | torch.device | None = None,
-                 init: dict | None = None):
+                 init: dict | None = None, group=None):
         """``device`` None: the card. The backbone computes in bf16 when
         ``cfg.bf16``, else f32. ``init``: the state dict ``init_state``
         starts from (the JAX trainer's ``model.init(key(cfg.seed))``);
         without one, a Flax-default init drawn from
-        ``torch.Generator().manual_seed(cfg.seed)``."""
+        ``torch.Generator().manual_seed(cfg.seed)``. ``group``: a
+        ``parallel.mesh.DataGroup`` (JAX's ``mesh=``): each rank preps and
+        steps on its rows of every batch (the draws are per lineage) and
+        scores its shard of every eval batch; the steps are the
+        one-process steps on the whole batch."""
         self.cfg = cfg
+        self.group = group
+        if group is not None and cfg.batch_size % group.size != 0:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the group's size {group.size}")
         self.aug_preset = aug_preset
         self.device = resolve_device(device)
         model = create_model(cfg.model_name, num_classes=2 if cfg.task == "hard" else 1, drop_rate=cfg.drop_rate,
@@ -115,6 +124,8 @@ class VisionTrainer:
         if head_bias:
             with torch.no_grad():
                 self.model.classifier.bias.fill_(head_bias)
+        if self.group is not None:
+            replicate(self.group, self.model)
         self.model.train()
         self.opt = make_optimizer(self.model.parameters(), cfg.lr, cfg.weight_decay, total_steps,
                                   warmup_steps=cfg.warmup_steps)
@@ -127,16 +138,19 @@ class VisionTrainer:
         forward, its loss in f32 (``hard``: CE with ``cfg.label_smoothing``
         and ``class_weights``; ``soft``: BCE of the one logit on ``p``
         weighted by ``w``), backward and AdamW → the loss, a device scalar
-        (not read here)."""
-        out = self.model(x, generator=self.gen)
+        (not read here). With a group: the rank's rows, the weight sum and
+        the gradients over the group, the global batch's loss."""
+        with sharded(self.group):
+            out = self.model(x, generator=self.gen)
         if self.cfg.task == "hard":
             loss = ce_two_class(out, y, self.cfg.label_smoothing, class_weights)
         else:
-            loss = bce_logits(out[..., 0], p, w)
+            loss = bce_logits(out[..., 0], p, w, self.group)
         self.opt.zero_grad()
         loss.backward()
+        loss = average_grads(self.opt.params, self.group, loss)
         self.opt.step()
-        return loss.detach()
+        return loss
 
     # -- batch prep ----------------------------------------------------------
 
@@ -206,11 +220,14 @@ class VisionTrainer:
             losses, seen = [], 0
             tp.start()
             for bidx in epoch_batches(n, cfg.batch_size, rng, indices=idx_stream, drop_last=True):
-                b_d = host_to_device(bidx, dev)
+                sel, oids = bidx, None if train.origin_id is None else train.origin_id[bidx]
+                if self.group is not None:  # this rank's rows, each with its batch position's lineage
+                    rows = self.group.rows(len(bidx))
+                    sel, oids = bidx[rows], np.arange(len(bidx))[rows] if oids is None else oids[rows]
+                b_d = host_to_device(sel, dev)
                 x = self._prep_images(
-                    images.index_select(0, b_d), True, cfg.seed + ep,
-                    None if train.origin_id is None else train.origin_id[bidx],
-                    None if train.aug_idx is None else train.aug_idx[bidx],
+                    images.index_select(0, b_d), True, cfg.seed + ep, oids,
+                    None if train.aug_idx is None else train.aug_idx[sel],
                 )
                 take = lambda t: None if t is None else t[b_d]
                 losses.append(self.train_step(x, y_d[b_d], take(p_d), take(w_d), class_weights))
@@ -236,8 +253,9 @@ class VisionTrainer:
         """P(class 1) per row of ``data`` with ``state`` loaded into the
         model (None: the model as it is), in eval mode; with ``tta`` (None:
         ``cfg.tta_hflip``) the mean of the probabilities of the image and its
-        W-flip. The last batch is padded by repeating its last row; the
-        logits are copied to the host once."""
+        W-flip. The last batch is padded by repeating its last row; with a
+        group each rank scores its shard of a batch, gathered in rank order
+        (``data_parallel_eval``). The logits are copied to the host once."""
         cfg = self.cfg
         tta = cfg.tta_hflip if tta is None else tta
         bs = batch_size or cfg.batch_size
@@ -246,15 +264,19 @@ class VisionTrainer:
         images = device_put_dataset(data.images, self.device)
         was_training = self.model.training
         self.model.eval()
+
+        def score(imgs):
+            x = self._prep_images(imgs, False, 0)
+            views = [x, x.flip(2)] if tta else [x]
+            return torch.stack([self.model(v) for v in views], dim=1)  # [b, views, out]
+
         outs, pads = [], []
         for s in range(0, len(images), bs):
             imgs = images[s : s + bs]
             pad = bs - len(imgs)
             if pad:
                 imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
-            x = self._prep_images(imgs, False, 0)
-            views = [x, x.flip(2)] if tta else [x]
-            outs.append(torch.stack([self.model(v) for v in views]))
+            outs.append(data_parallel_eval(self.group, score, imgs).transpose(0, 1))
             pads.append(pad)
         self.model.train(was_training)
         host = torch.cat(outs, dim=1).float().cpu().numpy()  # the one device→host copy

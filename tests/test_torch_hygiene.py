@@ -115,6 +115,13 @@ DETECTION_MODULES = [
     "mmtrs_tpu_torch.cli.segmenter_equivalence",
 ]
 SLICE_MODULES += DETECTION_MODULES
+# data parallelism and the graft entry's twin
+SLICE_MODULES += [
+    "mmtrs_tpu_torch.parallel",
+    "mmtrs_tpu_torch.parallel.mesh",
+    "mmtrs_tpu_torch.parallel.dryrun",
+    "mmtrs_tpu_torch.graft_entry",
+]
 
 
 def test_slice_imports_no_jax_pandas_pil_or_jax_package():
@@ -239,6 +246,35 @@ def test_training_config_copies_match_jax_package(name):
         for recipe in ("lgbm_like", "stack_tab_like"):
             assert dataclasses.asdict(getattr(port.GBDTConfig, recipe)()) == \
                 dataclasses.asdict(getattr(orig.GBDTConfig, recipe)())
+
+
+def test_mesh_config_copy_matches_jax_package():
+    from mmtrs_tpu.config import MeshConfig as Orig
+    from mmtrs_tpu_torch.config import MeshConfig
+
+    spec = lambda cls: [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+    assert spec(MeshConfig) == spec(Orig)
+    assert MeshConfig.__dataclass_params__.frozen and Orig.__dataclass_params__.frozen
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py names no jax, flax, optax or mmtrs_tpu module in an
+    import statement, and importing it (and the modules its phases import
+    at call time, the parallel ones among them) in a fresh interpreter loads
+    none of them."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|mmtrs_tpu)\b", re.M)
+    assert pat.findall(src) == []
+    code = (
+        "import importlib, sys\n"
+        "import chip_smoke\n"
+        "for m in ('mmtrs_tpu_torch.parallel.dryrun', 'mmtrs_tpu_torch.graft_entry'): importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'mmtrs_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", res.stdout
 
 
 def test_port_sources_name_no_jax_side_package():
