@@ -1812,6 +1812,14 @@ NVJPEG_WITHIN8 = 0.97
 NVJPEG_444_MAX = 4
 CLI_TEETH = 9  # 12 MP JPEGs through the CLI, beside one small image and one garbage file
 CLI_BATCH = 4
+# the WebP goldens (python -m tests.test_torch_codec_webp), each equal to
+# Pillow 12.1's decode: small files against their arrays, the 1024x768
+# upload and the 12 MP photo by SHA-256 and shape
+WEBP_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "webp_goldens.npz"
+WEBP_UPLOAD = "phone_1024x768_q90.webp"
+WEBP_ARCHIVE = "archive_3024x4032_q80.webp"
+WEBP_SMALL = "lossy_q80_97x101.webp"
+WEBP_CLI_COPIES = 4  # copies of the 12 MP WebP through the CLI, beside the small one and a cut one
 # PredictService's refusals, as the JAX package's service words them
 # (mmtrs_tpu/serve/service.py)
 LOW_RES_ERROR = "image resolution too low (min edge 300 < 512)"
@@ -1882,26 +1890,19 @@ def _codec_checks(torch, dev, smi: str) -> dict:
     return out
 
 
-def _cli_check(torch, dev, tmp: Path, archive_ips: float) -> dict:
-    """``cli.run_pipeline.main`` on 9 synthetic 12 MP teeth, one small image
-    and one garbage file, batch 4, on its default device."""
+def _run_cli(torch, dev, in_dir: Path, work: Path, status_want: dict, what: str) -> tuple[dict, dict, float]:
+    """``cli.run_pipeline.main`` over ``in_dir`` at batch CLI_BATCH on its
+    default device, writing under ``work``, its outputs kept before
+    encoding; checks the logged statuses against ``status_want``, one
+    output per ``ok`` file, the L-plane route with deskew's write-back
+    (K8, K9, K3, K7 launched, K1/K2 not), the outputs on ``dev`` and each
+    equal to ``preprocess_numpy`` on its decoded, padded batch → (the log,
+    the launch counts, the wall seconds)."""
     from mmtrs_tpu_torch.cli import run_pipeline
     from mmtrs_tpu_torch.config import PreprocessConfig
     from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from mmtrs_tpu_torch.preprocess import preprocess_numpy
-    from mmtrs_tpu_torch.synth import synth_teeth
-    from mmtrs_tpu_torch.utils.codec import encode_jpeg
     from mmtrs_tpu_torch.utils.images import iter_batches, list_images
-
-    in_dir = tmp / "in"
-    in_dir.mkdir()
-    teeth = torch.from_numpy(_archive_batch()).to(dev)
-    variants = [teeth, teeth.flip(2), teeth[:1].flip(1)]  # as taken, mirrored, upside down
-    for i, img in enumerate(torch.cat(variants)[:CLI_TEETH]):
-        (in_dir / f"tooth_{i}.jpg").write_bytes(encode_jpeg(img.contiguous(), 95))
-    small = torch.from_numpy(synth_teeth(1, (300, 400), seed=SEED + 60)[0]).to(dev)
-    (in_dir / "small.jpg").write_bytes(encode_jpeg(small, 95))
-    (in_dir / "garbage.jpg").write_bytes(np.random.default_rng(SEED).integers(0, 256, 5000, np.uint8).tobytes())
 
     kept = {}
     save = run_pipeline.save_jpeg
@@ -1914,25 +1915,25 @@ def _cli_check(torch, dev, tmp: Path, archive_ips: float) -> dict:
     try:
         reset_launches()
         t0 = time.perf_counter()
-        rc = run_pipeline.main(["--input_dir", str(in_dir), "--output_dir", str(tmp / "out"),
-                                "--log_dir", str(tmp / "logs"), "--batch_size", str(CLI_BATCH)])
+        rc = run_pipeline.main(["--input_dir", str(in_dir), "--output_dir", str(work / "out"),
+                                "--log_dir", str(work / "logs"), "--batch_size", str(CLI_BATCH)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
     finally:
         run_pipeline.save_jpeg = save
-    (log_path,) = list((tmp / "logs").glob("preprocess_*.json"))
+    (log_path,) = list((work / "logs").glob("preprocess_*.json"))
     log = json.loads(log_path.read_text())
     status = {e["file"]: e["status"] for e in log["entries"]}
-    outs = sorted(p.name for p in (tmp / "out").iterdir())
-    _check(rc == 0 and outs == [f"tooth_{i}.jpg" for i in range(CLI_TEETH)] and log["processed"] == CLI_TEETH,
-           f"the CLI wrote {len(outs)} outputs and logged processed {log['processed']} of {log['total']}")
-    _check(status == {"garbage.jpg": "rejected_decode_error", "small.jpg": "rejected_min_edge",
-                      **{f"tooth_{i}.jpg": "ok" for i in range(CLI_TEETH)}}, f"log statuses {status}")
+    n_ok = sum(v == "ok" for v in status_want.values())
+    outs = sorted(p.name for p in (work / "out").iterdir())
+    _check(rc == 0 and outs == sorted(Path(f).stem + ".jpg" for f, v in status_want.items() if v == "ok")
+           and log["processed"] == n_ok,
+           f"{what} wrote {len(outs)} outputs and logged processed {log['processed']} of {log['total']}")
+    _check(status == status_want, f"{what}: log statuses {status}")
     _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS + ("scatter_rows",)) and all(counts[k] == 0 for k in FUSED_KERNELS),
-           f"the CLI's run took the L-plane route with deskew's write-back: K8, K9, K3, K7 launched, K1/K2 not: "
-           f"{counts}")
-    _check(all(v.device == torch.device(dev) for v in kept.values()), f"the outputs reached the encoder on {dev}")
+           f"{what} took the L-plane route with deskew's write-back: K8, K9, K3, K7 launched, K1/K2 not: {counts}")
+    _check(all(v.device == torch.device(dev) for v in kept.values()), f"{what}: the outputs reached the encoder on {dev}")
 
     cfg, n = PreprocessConfig(), 0
     for ok, batch, _ in iter_batches(list_images(in_dir), CLI_BATCH, min_edge=cfg.min_edge_px, device=dev):
@@ -1942,15 +1943,98 @@ def _cli_check(torch, dev, tmp: Path, archive_ips: float) -> dict:
         batch = torch.cat([batch, batch[-1:].expand(CLI_BATCH - real, -1, -1, -1)])
         want, _ = preprocess_numpy(batch.cpu().numpy(), cfg, device=dev)
         for i, path in enumerate(ok[:real]):
-            got = kept[path.stem]
-            _check(torch.equal(got.cpu(), torch.from_numpy(want[i])),
+            _check(torch.equal(kept[path.stem].cpu(), torch.from_numpy(want[i])),
                    f"{path.name}: the CLI's u8 output == preprocess_numpy on its decoded, padded batch")
             n += 1
-    _check(n == CLI_TEETH, f"{n} outputs held against preprocess_numpy")
+    _check(n == n_ok, f"{what}: {n} outputs held against preprocess_numpy")
+    return log, counts, wall
+
+
+def _cli_check(torch, dev, tmp: Path, archive_ips: float) -> dict:
+    """``cli.run_pipeline.main`` on 9 synthetic 12 MP teeth, one small image
+    and one garbage file, batch 4, on its default device."""
+    from mmtrs_tpu_torch.synth import synth_teeth
+    from mmtrs_tpu_torch.utils.codec import encode_jpeg
+
+    in_dir = tmp / "in"
+    in_dir.mkdir()
+    teeth = torch.from_numpy(_archive_batch()).to(dev)
+    variants = [teeth, teeth.flip(2), teeth[:1].flip(1)]  # as taken, mirrored, upside down
+    for i, img in enumerate(torch.cat(variants)[:CLI_TEETH]):
+        (in_dir / f"tooth_{i}.jpg").write_bytes(encode_jpeg(img.contiguous(), 95))
+    small = torch.from_numpy(synth_teeth(1, (300, 400), seed=SEED + 60)[0]).to(dev)
+    (in_dir / "small.jpg").write_bytes(encode_jpeg(small, 95))
+    (in_dir / "garbage.jpg").write_bytes(np.random.default_rng(SEED).integers(0, 256, 5000, np.uint8).tobytes())
+
+    status = {"garbage.jpg": "rejected_decode_error", "small.jpg": "rejected_min_edge",
+              **{f"tooth_{i}.jpg": "ok" for i in range(CLI_TEETH)}}
+    log, counts, wall = _run_cli(torch, dev, in_dir, tmp, status, "the CLI")
     print(f"  the CLI: {log['imgs_per_sec']:.2f} imgs/s over its loop (nvJPEG decode, the Pillow-route feed, "
           f"preprocess_stream, nvJPEG encode, file writes), {CLI_TEETH / wall:.2f} imgs/s for the whole main() "
           f"({wall:.2f} s); preprocess_stream alone (phase 7) {archive_ips:.2f} imgs/s")
     return {"imgs_per_sec": log["imgs_per_sec"], "main_imgs_per_sec": CLI_TEETH / wall, "launches": counts}
+
+
+def _webp_goldens() -> dict[str, bytes]:
+    with np.load(WEBP_GOLDENS) as z:
+        return {f: z[f].tobytes() for f in z.files if f.endswith(".webp")}
+
+
+def _webp_checks(torch, dev, tmp: Path, smi: str) -> dict:
+    """WebP on the card's machine: every golden decoded by the port's C
+    (g++, no Pillow, no libwebp) equal to Pillow's decode, the decode ms of
+    the 12 MP lossy file, then ``cli.run_pipeline.main`` over copies of that
+    file, the small golden and the file cut in half."""
+    import hashlib
+
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.utils.codec import decode_image, decode_webp
+
+    t0 = time.perf_counter()
+    _build.webp_library()
+    print(f"  WebP decoder built in {time.perf_counter() - t0:.2f} s (g++, csrc/host/webp.cpp)")
+    files = _webp_goldens()
+    with np.load(WEBP_GOLDENS) as z:
+        for name, data in sorted(files.items()):
+            got = decode_image(data, dev)
+            if f"{name}.pil" in z.files:
+                same = torch.equal(got.cpu(), torch.from_numpy(z[f"{name}.pil"]))
+            else:
+                same = (hashlib.sha256(got.cpu().numpy().tobytes()).digest() == z[f"{name}.sha256"].tobytes()
+                        and tuple(got.shape) == tuple(z[f"{name}.shape"]))
+            _check(got.device.type == "cuda" and same, f"WebP golden {name}: decoded to the card, equal to Pillow's "
+                                                        f"decode {tuple(got.shape)}")
+    big = files[WEBP_ARCHIVE]
+    timed = {"decode_12mp_ms": lambda: decode_image(big, dev), "host_decode_12mp_ms": lambda: decode_webp(big)}
+    out = {}
+    for key, fn in timed.items():
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[key] = float(np.median(ts))
+    print(f"  WebP decode of a 12 MP lossy photo ({len(big)} bytes, q80) {out['host_decode_12mp_ms']:.2f} ms on the "
+          f"host, {out['decode_12mp_ms']:.2f} ms to a CUDA tensor (host clock, median of 5; {smi})")
+
+    work = tmp / "webp"
+    in_dir = work / "in"
+    in_dir.mkdir(parents=True)
+    for i in range(WEBP_CLI_COPIES):
+        (in_dir / f"tooth_{i}.webp").write_bytes(big)
+    (in_dir / "small.webp").write_bytes(files[WEBP_SMALL])
+    (in_dir / "cut.webp").write_bytes(big[: len(big) // 2])
+    status = {"cut.webp": "rejected_decode_error", "small.webp": "rejected_min_edge",
+              **{f"tooth_{i}.webp": "ok" for i in range(WEBP_CLI_COPIES)}}
+    log, counts, wall = _run_cli(torch, dev, in_dir, work, status, "the CLI on WebP")
+    print(f"  the CLI on WebP: {log['imgs_per_sec']:.2f} imgs/s over its loop (the port's WebP decode on the host, "
+          f"preprocess_stream, nvJPEG encode, file writes), {WEBP_CLI_COPIES / wall:.2f} imgs/s for the whole main() "
+          f"({wall:.2f} s; {smi}); launches {counts}")
+    return {**out, "cli": {"imgs_per_sec": log["imgs_per_sec"], "main_imgs_per_sec": WEBP_CLI_COPIES / wall,
+                           "launches": counts}}
 
 
 def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
@@ -2030,6 +2114,23 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
         _check(all(counts[k] > 0 for k in SERVE_KERNELS + L_KERNELS + ("scatter_rows",)),
                f"the app's requests ran K1-K3 (fused route), K8/K9 (L-plane route), K7: {counts}")
 
+        # one WebP upload at a phone bucket: decoded on the host by the port's C
+        raw = _webp_goldens()[WEBP_UPLOAD]
+        b64 = base64.b64encode(raw).decode()
+        decoded = decode_image(raw, dev)
+        reset_launches()
+        code, got, dt = post({"image_b64": b64, "include_processed": True, "fields": fields})
+        torch.cuda.synchronize()
+        webp_counts = dict(LAUNCHES)
+        want = svc.predict_one(decoded, fields=fields)
+        same = code == 200 and all(got[k] == want[k] for k in ("p_indirect", "threshold", "label", "streams"))
+        same = same and np.array_equal(decode_png(base64.b64decode(got["processed_image_b64"])), want["processed_image"])
+        _check(same,
+               f"a {tuple(decoded.shape)} WebP upload: HTTP {code}, the answer == predict_one on the decoded array "
+               f"({got.get('p_indirect')}), its preview == processed_image; {dt * 1e3:.2f} ms ({smi})")
+        _check(all(webp_counts[k] > 0 for k in L_ROUTE_KERNELS) and all(webp_counts[k] == 0 for k in FUSED_KERNELS),
+               f"the WebP upload took the L-plane route: K8, K9, K3 launched, K1/K2 not: {webp_counts}")
+
         code, low, _ = post({"image_b64": base64.b64encode(encode_png(uploads[0][:300, :300])).decode()})
         _check(code == 400 and low == {"error": LOW_RES_ERROR}, f"a 300x300 upload: {code} {low}")
         partial = {k: fields[k] for k in list(fields)[:2]}
@@ -2043,10 +2144,11 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
     _check(not thread.is_alive(), "the server thread stopped")
     p50 = {fmt: float(np.median(v)) for fmt, v in http_ms.items()}
     p50["predict_one"] = float(np.median(one_ms))
+    p50["webp"] = dt * 1e3
     print(f"  HTTP p50: JPEG uploads {p50['jpeg']:.2f} ms, PNG uploads {p50['png']:.2f} ms (base64, decode on the "
           f"card, predict_one, PNG preview, JSON); predict_one alone on the decoded JPEG uploads "
           f"{p50['predict_one']:.2f} ms (host clock, {len(http_ms['jpeg'])} requests each; {smi})")
-    return {"http_p50_ms": p50, "launches": counts}
+    return {"http_p50_ms": p50, "launches": counts, "webp_launches": webp_counts}
 
 
 def phase_entry_points(torch, dev, smi: str, archive_ips: float):
@@ -2055,14 +2157,16 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
 
     def run(svc, uploads, fields, results):
         t_phase = time.perf_counter()
-        print("phase 9: the codec (nvJPEG on the card, PNG on the host), the CLI twin and the app on the card")
+        print("phase 9: the codec (nvJPEG on the card, PNG and WebP on the host), the CLI twin and the app on the "
+              "card")
         codec = _codec_checks(torch, dev, smi)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             cli = _cli_check(torch, dev, Path(tmp), archive_ips)
+            webp = _webp_checks(torch, dev, Path(tmp), smi)
         served = _app_check(torch, dev, svc, uploads, fields, results, smi)
         seconds = time.perf_counter() - t_phase
         print(f"  phase 9 took {seconds:.1f} s")
-        return {"codec": codec, "cli": cli, "app": served, "seconds": seconds}
+        return {"codec": codec, "cli": cli, "webp": webp, "app": served, "seconds": seconds}
 
     return run
 
@@ -3724,7 +3828,9 @@ def main() -> int:
           + f" (launches {full_launches}); the CLI twin {entry['cli']['imgs_per_sec']:.2f} imgs/s at 12 MP; "
           f"HTTP p50 JPEG {entry['app']['http_p50_ms']['jpeg']:.2f} ms, PNG {entry['app']['http_p50_ms']['png']:.2f} "
           f"ms; nvJPEG decode 12 MP {entry['codec']['decode_12mp_ms']:.2f} ms, encode 512² "
-          f"{entry['codec']['encode_512_ms']:.2f} ms; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
+          f"{entry['codec']['encode_512_ms']:.2f} ms; WebP decode 12 MP {entry['webp']['host_decode_12mp_ms']:.2f} "
+          f"ms on the host, the CLI twin on WebP {entry['webp']['cli']['imgs_per_sec']:.2f} imgs/s, a WebP upload "
+          f"{entry['app']['http_p50_ms']['webp']:.2f} ms; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
           f"b12 bf16 randaug) step {train['step']['step_ms']:.2f} ms + prep {train['step']['prep_ms']:.2f} ms, "
           f"{train['step']['imgs_per_sec']:.2f} imgs/s, peak {train['step']['peak_gb']:.2f} GB, phase 10 "
           f"{train['seconds']['phase']:.1f} s; MIL training (B0 bag 12 at 320 "

@@ -74,6 +74,9 @@ _HOST_SIGNATURES = {
     "mmtrs_nvjpeg_decode_planes": (_P, _L, _P, _P),
     "mmtrs_nvjpeg_encode": (_P, _I, _I, _I, _P, _P, _P),
     "mmtrs_nvjpeg_free": (_P,),
+    "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
+    "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
+    "mmtrs_webp_alpha_check": (_P, _L, _I, _I),
 }
 HOST_CSRC = CSRC / "host"
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # g++; nvcc passes -fPIC on with -Xcompiler
@@ -150,13 +153,15 @@ def library() -> ctypes.CDLL:
 library.build_seconds = 0.0  # seconds the last nvcc run took (0: cached)
 
 
-def _build_host(name: str, source: str, compiler: list[str], libs: tuple[str, ...]) -> ctypes.CDLL:
+def _build_host(name: str, source: str, compiler: list[str], libs: tuple[str, ...],
+                headers: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``csrc/host/<source>`` with ``compiler`` (the program and its
-    flags) into ``build/.../lib<name>_<hash>.so`` once per source hash, load
-    it and bind its ``_HOST_SIGNATURES``."""
+    flags) into ``build/.../lib<name>_<hash>.so`` once per hash of the source
+    and the ``headers`` it includes, load it and bind its ``_HOST_SIGNATURES``."""
     src = HOST_CSRC / source
     h = hashlib.sha256(" ".join((*compiler[1:], *libs)).encode())
-    h.update(src.read_bytes())
+    for path in (src, *(HOST_CSRC / hdr for hdr in headers)):
+        h.update(path.read_bytes())
     out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -193,6 +198,13 @@ def png_library() -> ctypes.CDLL:
     """The host decoders' sequential loops (``csrc/host/png.cpp``: PNG's
     row unfilter, LZW, PackBits, BMP RLE); needs only g++."""
     return _build_host("mmtrs_png", "png.cpp", [_gxx(), *HOST_FLAGS], ())
+
+
+@functools.cache
+def webp_library() -> ctypes.CDLL:
+    """The WebP decoders (``csrc/host/webp.cpp``: VP8 and VP8L, with the
+    tables of ``webp_tables.h``); needs only g++."""
+    return _build_host("mmtrs_webp", "webp.cpp", [_gxx(), *HOST_FLAGS], (), ("webp_tables.h",))
 
 
 @functools.cache

@@ -65,11 +65,16 @@ def _rank_devices(n: int, device: str, backend: str) -> list[str]:
     return [f"cuda:{r % count}" for r in range(n)]
 
 
+LAUNCH_GRACE_S = 5.0  # how long the other ranks get to exit after one fails
+
+
 def launch(n: int, module: str, args=(), device: str = "cpu", backend: str = "gloo",
            timeout: float = 3600.0, workdir: str | os.PathLike | None = None) -> list[str]:
     """Run ``python -m module *args`` in n rank processes of one group and
-    wait for them; → each rank's stdout. A rank that exits non-zero (or the
-    timeout) stops the others and raises with that rank's stderr tail. The
+    wait for them; → each rank's stdout. A rank that exits non-zero stops
+    the others, after LAUNCH_GRACE_S for them to exit, and raises with the
+    stderr tail of every rank that failed; at the timeout, of every rank
+    still running. The
     store and the ranks' logs live in a temporary folder (in ``workdir``
     when given), removed after."""
     devices = _rank_devices(n, device, backend)
@@ -92,13 +97,22 @@ def launch(n: int, module: str, args=(), device: str = "cpu", backend: str = "gl
             deadline = time.monotonic() + timeout
             while True:
                 codes = [p.poll() for p in procs]
-                failed = next((r for r, c in enumerate(codes) if c not in (None, 0)), None)
-                if failed is not None or all(c == 0 for c in codes):
+                if any(c not in (None, 0) for c in codes) or all(c == 0 for c in codes):
                     break
-                if time.monotonic() > deadline:  # the first rank still running
-                    failed = codes.index(None)
+                if time.monotonic() > deadline:
                     break
                 time.sleep(0.05)
+            # a rank that fails takes its peers down (their collectives see the
+            # closed connection), often within one poll: wait a moment for
+            # them, so that the error shows every rank that failed, the cause
+            # among them, whichever exited first
+            grace = time.monotonic() + LAUNCH_GRACE_S
+            while any(c not in (None, 0) for c in codes) and None in codes and time.monotonic() < grace:
+                time.sleep(0.05)
+                codes = [p.poll() for p in procs]
+            # the ranks that failed, else (at the timeout) the ranks still running
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)] or \
+                [r for r, c in enumerate(codes) if c is None]
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -110,9 +124,9 @@ def launch(n: int, module: str, args=(), device: str = "cpu", backend: str = "gl
             texts.append(f.read())
             f.close()
         stdout, stderr = texts[:n], texts[n:]
-        if failed is not None:
-            raise RuntimeError(f"rank {failed} of {n} ({module}, {devices[failed]}, {backend}) failed "
-                               f"(exit {procs[failed].returncode}):\n{stderr[failed][-4000:]}")
+        if failed:
+            raise RuntimeError("\n".join(f"rank {r} of {n} ({module}, {devices[r]}, {backend}) failed "
+                                         f"(exit {procs[r].returncode}):\n{stderr[r][-4000:]}" for r in failed))
         return stdout
 
 

@@ -1,5 +1,5 @@
 """The port's image codec, without Pillow: JPEG and PNG decode and encode,
-BMP, GIF and TIFF decode.
+BMP, GIF, TIFF and WebP decode.
 
 JPEG runs on the device's backend, chosen when the library is built and
 never switched at run time:
@@ -20,10 +20,11 @@ stored; libjpeg's fixed-point YCC → RGB turns a YCCK's first three into
 CMY, and the same inversion and conversion follow in torch on the card.
 
 A missing compiler, header or library raises with its name; nothing moves to
-another backend. PNG, BMP, GIF and TIFF are host work on either device: the
-files are parsed here, deflated streams inflated with ``zlib``, and the
+another backend. PNG, BMP, GIF, TIFF and WebP are host work on either device:
+the files are parsed here, deflated streams inflated with ``zlib``, and the
 sequential loops (PNG's row unfilter, LZW, PackBits, BMP's RLE) run in C
-(``csrc/host/png.cpp``); the image then moves to the device. The PNG encoder
+(``csrc/host/png.cpp``), WebP's bitstreams in ``csrc/host/webp.cpp``; the
+image then moves to the device. The PNG encoder
 is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
 ``convert("RGB")`` gives:
 
@@ -44,13 +45,28 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
   and deflate, as libtiff applies it), 8-bit RGB
   (alpha unassociated or premultiplied, or other extra samples), gray and
   gray + alpha, and 1-, 2-, 4- and 8-bit gray (either photometric) and
-  palette.
+  palette;
+- WebP as Pillow 12.1 reads it through libwebp 1.6's WebPAnimDecoder, bit
+  for bit: the RIFF container is walked here as libwebp's demuxer walks it
+  (simple lossy ``VP8 ``, simple lossless ``VP8L``, extended ``VP8X``), and
+  the first frame's bitstream is decoded in C. Lossy: RFC 6386 up to the
+  YUV planes (intra prediction, dequantisation, the WHT and IDCT, both loop
+  filters), then libwebp's fancy chroma upsampler and 14-bit fixed-point
+  YUV → RGB. Lossless: RFC 9649 (the four transforms, colour cache, meta
+  prefix codes, LZ77 with the 120-code distance map). An ``ALPH`` chunk is
+  checked as libwebp checks it and dropped (Pillow's RGBA is not
+  premultiplied, so alpha never changes RGB); ``ICCP``, ``EXIF`` and
+  ``XMP `` are skipped; an animation's first frame sits at its offset on a
+  black canvas.
 
 What Pillow opens and this codec refuses, with a ValueError that names the
-format and the feature: WebP, and TIFF with JPEG or CCITT compression,
-16-bit or floating-point samples, or CMYK and YCbCr photometrics. A host
-format whose header asks for more than ``MAX_PIXELS`` pixels is refused
-before anything is allocated, as Pillow refuses it (DecompressionBombError).
+format and the feature: TIFF with JPEG or CCITT compression, 16-bit or
+floating-point samples, or CMYK and YCbCr photometrics; AVIF, JPEG 2000,
+PPM (and the PNM family), ICO, QOI, DDS, PSD and SGI by their magic bytes.
+Data of no known format is not identified. A host format whose header asks for more than ``MAX_PIXELS``
+pixels is refused before anything is allocated, as Pillow refuses it
+(DecompressionBombError); a corrupt or truncated file raises a ValueError
+that names its format.
 """
 
 from __future__ import annotations
@@ -76,6 +92,18 @@ _OTHER_FORMATS = (  # (magic, name) of the host formats
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
 )
+# (offset, magic, name) of formats Pillow opens that the codec does not read
+_REFUSED_FORMATS = (
+    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (0, b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (4, b"ftypavif", "AVIF"),
+    (4, b"ftypavis", "AVIF"),
+    (0, b"\x00\x00\x01\x00", "ICO"),
+    (0, b"qoif", "QOI"),
+    (0, b"DDS ", "DDS"),
+    (0, b"8BPS", "PSD"),
+    (0, b"\x01\xda", "SGI"),
+)
 # PNG colour type -> channels (PNG specification, table 11.1)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # Pillow's DecompressionBombError limit: twice Image.MAX_IMAGE_PIXELS
@@ -90,7 +118,9 @@ def _check_pixels(fmt: str, w: int, h: int, what: str = "image") -> None:
 
 def sniff(data: bytes) -> str:
     """The format of an encoded image by its magic bytes: "jpeg", "png",
-    "BMP", "GIF", "TIFF", "WebP" (refused), or "unknown"."""
+    "BMP", "GIF", "TIFF", "WebP", the name of a format the codec refuses
+    (one of ``_REFUSED_FORMATS``, or "PPM" for the PNM family), or
+    "unknown"."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_MAGIC:
@@ -100,6 +130,11 @@ def sniff(data: bytes) -> str:
     for magic, name in _OTHER_FORMATS:
         if data.startswith(magic):
             return name
+    for offset, magic, name in _REFUSED_FORMATS:
+        if data[offset:offset + len(magic)] == magic:
+            return name
+    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7") and data[2:3].isspace():
+        return "PPM"
     return "unknown"
 
 
@@ -116,8 +151,8 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
     if kind in _HOST_DECODERS:
         return torch.from_numpy(_HOST_DECODERS[kind](data)).to(dev)
     if kind == "unknown":
-        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG, BMP, GIF and TIFF")
-    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG, BMP, GIF and TIFF only)")
+        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG, BMP, GIF, TIFF and WebP")
+    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG, BMP, GIF, TIFF and WebP only)")
 
 
 def _jpeg_error(status: int, backend: str) -> Exception:
@@ -760,4 +795,211 @@ def decode_tiff(data: bytes) -> np.ndarray:
     return np.repeat(g[..., None], 3, axis=2)
 
 
-_HOST_DECODERS = {"png": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "TIFF": decode_tiff}
+# ---------------------------------------------------------------------------
+# WebP (the first frame)
+# ---------------------------------------------------------------------------
+
+
+_WEBP_MAX_CHUNK = 2 ** 32 - 10  # libwebp's MAX_CHUNK_PAYLOAD
+_WEBP_MAX_AREA = 2 ** 32  # libwebp's MAX_IMAGE_AREA: a larger canvas or frame is corrupt
+_WEBP_VP8X_FLAGS = 0x3E  # ICC profile, alpha, EXIF, XMP, animation
+_WEBP_ALPHA_FLAG, _WEBP_ANIMATION_FLAG = 0x10, 0x02
+_WEBP_STATUS = {1: "truncated WebP: the {} bitstream ends early", 2: "corrupt WebP: a bad {} bitstream",
+                3: "corrupt WebP: the VP8 bitstream is an inter frame (a WebP holds key frames only)"}
+
+
+def _le(data: bytes, pos: int, n: int) -> int:
+    return int.from_bytes(data[pos:pos + n], "little")
+
+
+def _webp_chunk(data: bytes, pos: int, end: int) -> tuple[bytes, int, int, int]:
+    """The chunk at ``pos`` → (fourcc, payload offset, payload size, offset
+    after its padding); raises when it runs past the RIFF chunk's ``end``."""
+    if end - pos < 8:
+        raise ValueError("truncated WebP: a chunk header runs past the RIFF chunk")
+    fourcc, size = data[pos:pos + 4], _le(data, pos + 4, 4)
+    padded = size + (size & 1)
+    if size > _WEBP_MAX_CHUNK or padded > end - pos - 8:
+        raise ValueError(f"corrupt WebP: the {fourcc!r} chunk of {size} bytes runs past the RIFF chunk")
+    return fourcc, pos + 8, size, pos + 8 + padded
+
+
+def _webp_image_size(fourcc: bytes, payload: bytes, size: int) -> tuple[int, int]:
+    """The width and height in a VP8 or VP8L bitstream's header, checked as
+    libwebp's VP8GetInfo and VP8LGetInfo check it."""
+    if fourcc == b"VP8 ":
+        if len(payload) < 10:
+            raise ValueError("truncated WebP: a VP8 frame header of fewer than 10 bytes")
+        bits = _le(payload, 0, 3)
+        if payload[3:6] != b"\x9d\x01\x2a":
+            raise ValueError(_WEBP_STATUS[3] if bits & 1 else "corrupt WebP: no VP8 start code")
+        if bits & 1:
+            raise ValueError(_WEBP_STATUS[3])
+        if (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 or bits >> 5 >= size:
+            raise ValueError("corrupt WebP: a bad VP8 frame header (profile, show flag or first partition)")
+        w, h = _le(payload, 6, 2) & 0x3FFF, _le(payload, 8, 2) & 0x3FFF
+    else:
+        if len(payload) < 5 or payload[0] != 0x2F or payload[4] >> 5:
+            raise ValueError("corrupt WebP: a bad VP8L header (signature or version)")
+        bits = _le(payload, 1, 4)
+        w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    if not w or not h:
+        raise ValueError(f"corrupt WebP: a {w}x{h} image")
+    return w, h
+
+
+def _webp_frame(data: bytes, pos: int, end: int) -> tuple[dict, int]:
+    """One frame's chunks from ``pos`` as libwebp's demuxer stores them
+    (StoreFrame): an ALPH chunk, then a VP8 or VP8L one; parsing stops at
+    any other chunk. → (frame, position after it)."""
+    frame: dict = {"alpha": None, "image": None, "w": 0, "h": 0, "x": 0, "y": 0}
+    while pos != end:
+        fourcc, start, size, nxt = _webp_chunk(data, pos, end)
+        if fourcc == b"ALPH" and frame["alpha"] is None:
+            frame["alpha"] = (pos, data[start:start + size])
+        elif fourcc in (b"VP8 ", b"VP8L") and frame["image"] is None:
+            if fourcc == b"VP8L" and frame["alpha"] is not None:
+                raise ValueError("corrupt WebP: an ALPH chunk before a VP8L image, which carries its own alpha")
+            frame["w"], frame["h"] = _webp_image_size(fourcc, data[start:nxt], size)
+            frame["image"] = (pos, fourcc, data[start:nxt])  # the padding byte too, as libwebp hands it on
+        else:
+            break
+        pos = nxt
+        if end - pos < 8 and pos != end:
+            raise ValueError("truncated WebP: a chunk header runs past the RIFF chunk")
+    return frame, pos
+
+
+def _webp_parse(data: bytes) -> tuple[int, int, dict]:
+    """The RIFF container as libwebp's demuxer parses it for Pillow's
+    WebPAnimDecoder → (canvas width, canvas height, first frame). Refuses
+    what the demuxer refuses and a canvas or frame over MAX_PIXELS."""
+    if len(data) < 20:
+        raise ValueError("truncated WebP: no RIFF header")
+    riff_size = _le(data, 4, 4)
+    if riff_size < 8 or riff_size > _WEBP_MAX_CHUNK:
+        raise ValueError(f"corrupt WebP: a RIFF size of {riff_size}")
+    end = riff_size + 8
+    if len(data) < end:
+        raise ValueError(f"truncated WebP: the RIFF chunk says {riff_size} bytes, the file holds {len(data) - 8}")
+    first = data[12:16]
+    if first in (b"VP8 ", b"VP8L"):  # simple: one frame, the canvas its size
+        frame, _ = _webp_frame(data, 12, end)
+        if frame["image"] is None:
+            raise ValueError("corrupt WebP: no image chunk")
+        frame["alpha"] = None  # an ALPH chunk after the image: dropped, as without VP8X's alpha flag
+        _check_pixels("WebP", frame["w"], frame["h"])
+        return frame["w"], frame["h"], frame
+    if first != b"VP8X":
+        raise ValueError(f"corrupt WebP: the first chunk is {first!r}")
+    _, start, size, pos = _webp_chunk(data, 12, end)
+    if size < 10:
+        raise ValueError("corrupt WebP: a VP8X chunk of fewer than 10 bytes")
+    flags = data[start]
+    cw, ch = 1 + _le(data, start + 4, 3), 1 + _le(data, start + 7, 3)
+    if cw * ch >= _WEBP_MAX_AREA or flags & ~_WEBP_VP8X_FLAGS & 0xFF:
+        raise ValueError(f"corrupt WebP: a VP8X canvas of {cw}x{ch} with flags {flags:#x}")
+    _check_pixels("WebP", cw, ch, "canvas")
+    animated = bool(flags & _WEBP_ANIMATION_FLAG)
+    frames, anim = [], False
+    if end - pos < 8:
+        raise ValueError("truncated WebP: nothing after the VP8X chunk")
+    while True:
+        fourcc, start, size, nxt = _webp_chunk(data, pos, end)
+        if fourcc == b"VP8X":
+            raise ValueError("corrupt WebP: a second VP8X chunk")
+        if fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
+            if anim or animated or frames:
+                raise ValueError(f"corrupt WebP: a {fourcc!r} chunk outside a frame of the animation")
+            frame, nxt = _webp_frame(data, pos, end)
+            if not flags & _WEBP_ALPHA_FLAG:
+                frame["alpha"] = None  # the demuxer drops ALPH when the canvas has no alpha
+            frames.append(frame)
+        elif fourcc == b"ANIM":
+            if size + (size & 1) < 6:
+                raise ValueError("corrupt WebP: an ANIM chunk of fewer than 6 bytes")
+            anim = True
+        elif fourcc == b"ANMF":
+            if not anim or size + (size & 1) < 16:
+                raise ValueError("corrupt WebP: an ANMF chunk before ANIM, or of fewer than 16 bytes")
+            x, y = 2 * _le(data, start, 3), 2 * _le(data, start + 3, 3)
+            fw, fh = 1 + _le(data, start + 6, 3), 1 + _le(data, start + 9, 3)
+            if fw * fh >= _WEBP_MAX_AREA:
+                raise ValueError(f"corrupt WebP: a {fw}x{fh} frame")
+            payload = size + (size & 1) - 16
+            if end - (start + 16) < max(payload, 8):
+                raise ValueError("truncated WebP: an ANMF frame runs past the RIFF chunk")
+            frame, nxt = _webp_frame(data, start + 16, end)
+            if nxt - (start + 16) > payload:
+                raise ValueError("corrupt WebP: an ANMF frame's chunks run past it")
+            if animated and (frame["image"] or frame["alpha"]):
+                if frames and frames[-1]["image"] is None:
+                    raise ValueError("corrupt WebP: a frame without an image chunk")
+                frame["x"], frame["y"] = x, y
+                frames.append(frame)
+        if nxt == end:
+            break
+        if end - nxt < 8:
+            raise ValueError("truncated WebP: a chunk header runs past the RIFF chunk")
+        pos = nxt
+    if not frames:
+        raise ValueError("corrupt WebP: no frame")
+    for f in frames:
+        if f["image"] is None:
+            raise ValueError("corrupt WebP: a frame without an image chunk")
+        if f["alpha"] is not None and f["alpha"][0] > f["image"][0]:
+            raise ValueError("corrupt WebP: an ALPH chunk after its image")
+        _check_pixels("WebP", f["w"], f["h"], "frame")
+        inside = (f["x"] + f["w"] <= cw and f["y"] + f["h"] <= ch) if animated else \
+            (f["x"], f["y"], f["w"], f["h"]) == (0, 0, cw, ch)
+        if not inside:
+            raise ValueError(f"corrupt WebP: a {f['w']}x{f['h']} frame at ({f['x']}, {f['y']}) on a {cw}x{ch} canvas")
+    return cw, ch, frames[0]
+
+
+def _webp_check(status: int, what: str) -> None:
+    if status == 4:
+        raise MemoryError(f"decoding a WebP {what} bitstream ran out of memory")
+    if status:
+        raise ValueError(_WEBP_STATUS.get(status, "corrupt WebP: a bad {} bitstream").format(what))
+
+
+def _webp_check_alpha(alpha: bytes, w: int, h: int) -> None:
+    """An ALPH chunk's header and plane checked as libwebp checks them
+    before it writes alpha; the plane itself never changes RGB."""
+    if not alpha:
+        raise ValueError("corrupt WebP: an empty ALPH chunk")
+    method, pre, reserved = alpha[0] & 3, (alpha[0] >> 4) & 3, alpha[0] >> 6
+    if method > 1 or pre > 1 or reserved:
+        raise ValueError(f"corrupt WebP: ALPH header byte {alpha[0]:#x}")
+    if method == 0:
+        if len(alpha) - 1 < w * h:
+            raise ValueError("truncated WebP: the ALPH plane is shorter than the image")
+        return
+    _webp_check(_build.webp_library().mmtrs_webp_alpha_check(alpha[1:], len(alpha) - 1, w, h), "ALPH")
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes → RGB u8 [H, W, 3] numpy of the first frame, as Pillow's
+    ``convert("RGB")`` gives it (see the module docstring)."""
+    if data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        raise ValueError("not a WebP file")
+    cw, ch, frame = _webp_parse(data)
+    _, fourcc, payload = frame["image"]
+    w, h = frame["w"], frame["h"]
+    lib = _build.webp_library()
+    if frame["alpha"] is not None:
+        _webp_check_alpha(frame["alpha"][1], w, h)
+    rgb = np.empty((h, w, 3), np.uint8)
+    if fourcc == b"VP8 ":
+        _webp_check(lib.mmtrs_webp_vp8_decode(payload, len(payload), w, h, rgb.ctypes.data), "VP8")
+    else:
+        _webp_check(lib.mmtrs_webp_vp8l_decode(payload, len(payload), w, h, rgb.ctypes.data), "VP8L")
+    if (cw, ch) == (w, h):
+        return rgb
+    canvas = np.zeros((ch, cw, 3), np.uint8)  # WebPAnimDecoder's canvas: transparent black
+    canvas[frame["y"]:frame["y"] + h, frame["x"]:frame["x"] + w] = rgb
+    return canvas
+
+
+_HOST_DECODERS = {"png": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "TIFF": decode_tiff, "WebP": decode_webp}

@@ -163,7 +163,7 @@ def trained(weights_dir):  # noqa: F811
     httpd.server_close()
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP"])
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_predict_equals_predict_one_and_jax(trained, fmt, with_fields):
     from mmtrs_tpu_torch.utils.codec import decode_image

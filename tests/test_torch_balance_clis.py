@@ -79,13 +79,13 @@ def jax_draws(monkeypatch):
     return use
 
 
-def _teeth_dir(path: Path, n: int = 4) -> Path:
+def _teeth_dir(path: Path, n: int = 4, ext: str = "jpg") -> Path:
     from mmtrs_tpu_torch.synth import synth_teeth
 
     path.mkdir()
     for i in range(n):
         size = (SIZE, SIZE) if i != 1 else (SIZE + 16, SIZE + 8)  # one resized by both CLIs
-        Image.fromarray(synth_teeth(1, size, seed=40 + i)[0]).save(path / f"t{i}.jpg", quality=95)
+        Image.fromarray(synth_teeth(1, size, seed=40 + i)[0]).save(path / f"t{i}.{ext}", quality=95)
     return path
 
 
@@ -122,9 +122,21 @@ def test_run_augment_matches_jax(tmp_path, jax_tpu_route, jax_draws, strength): 
 
 
 def test_run_augment_simple_matches_jax(tmp_path, jax_tpu_route, jax_draws):  # noqa: F811
+    _augment_simple_matches_jax(tmp_path, jax_draws, "jpg")
+
+
+def test_run_augment_simple_matches_jax_on_webp(tmp_path, jax_tpu_route, jax_draws):  # noqa: F811
+    """WebP sources: the copied originals byte for byte (the port's WebP
+    decode and libjpeg encode against Pillow's), the children within the
+    bar."""
+    _augment_simple_matches_jax(tmp_path, jax_draws, "webp")
+
+
+def _augment_simple_matches_jax(tmp_path, jax_draws, ext: str):
     from mmtrs_tpu_torch.cli import run_augment_simple as port
 
-    src = _teeth_dir(tmp_path / "in", 3)
+    src = _teeth_dir(tmp_path / "in", 3, ext)
+    assert sorted(p.suffix for p in src.iterdir()) == [f".{ext}"] * 3
     args = ["--input_dir", str(src), "--n", "11", "--seed", "3", "--img_size", str(SIZE), "--copy_originals"]
     assert _jax_cli("run_augment_simple").main(args + ["--output_dir", str(tmp_path / "jax")]) == 0
     jax_draws(port)

@@ -23,6 +23,7 @@ import torch
 from PIL import Image
 
 from mmtrs_tpu_torch.synth import synth_teeth
+from tests.test_torch_codec_webp import _corrupt as _corrupt_webp
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "codec_goldens.npz"
@@ -225,7 +226,7 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
     png = io.BytesIO()
     Image.fromarray(teeth).save(png, "PNG")
     png = png.getvalue()
-    cmyk, deep, bmp, webp = (io.BytesIO() for _ in range(4))
+    cmyk, deep, bmp = (io.BytesIO() for _ in range(3))
     Image.fromarray(teeth).convert("CMYK").save(cmyk, "JPEG")  # cut in half below
     # a non-interlaced stream under IHDR's interlace flag: Adam7's passes
     # need more rows than it holds
@@ -236,7 +237,7 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
     ihdr16 = deep.getvalue()[16:29][:9] + b"\x03" + deep.getvalue()[16:29][10:]
     deep = deep.getvalue()[:16] + ihdr16 + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr16)) + deep.getvalue()[33:]
     Image.fromarray(teeth[..., 0]).save(bmp, "BMP")  # 8-bit; its compression field set to BI_JPEG below
-    Image.fromarray(teeth).save(webp, "WEBP")
+    webp = _corrupt_webp()
     return {
         "garbage": (b"not an image at all", "cannot identify"),
         "empty": (b"", "cannot identify"),
@@ -248,16 +249,19 @@ def _bad_inputs() -> dict[str, tuple[bytes, str]]:
         "png_interlaced": (interlaced, "truncated PNG|unknown filter type"),
         "png_16bit": (deep, "colour type 3 at 16 bits"),
         "bmp": (bmp.getvalue()[:30] + struct.pack("<I", 4) + bmp.getvalue()[34:], "BMP compression 4"),
-        "webp": (webp.getvalue(), "WebP"),
+        "webp": (webp["truncated_vp8"], "truncated WebP"),
+        "webp_truncated_vp8l": (webp["truncated_vp8l"], "truncated WebP"),
     }
 
 
 @pytest.mark.parametrize("case", ["garbage", "empty", "jpeg_truncated", "jpeg_header_only", "png_truncated",
-                                  "png_bad_crc", "jpeg_cmyk", "png_interlaced", "png_16bit", "bmp", "webp"])
+                                  "png_bad_crc", "jpeg_cmyk", "png_interlaced", "png_16bit", "bmp", "webp",
+                                  "webp_truncated_vp8l"])
 def test_corrupt_and_unsupported_inputs_raise(case):
     """Corrupt bytes raise (a cut CMYK JPEG, an interlace flag on a
-    non-interlaced stream, 16-bit palette samples); a format or
-    compression Pillow reads and the codec does not raises with its name."""
+    non-interlaced stream, 16-bit palette samples, lossy and lossless WebP
+    bitstreams that end early); a compression Pillow reads and the codec
+    does not raises with its name."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, msg = _bad_inputs()[case]

@@ -595,9 +595,12 @@ def test_card_cmyk_arithmetic_equals_pillow_on_libjpeg_planes(four_component, ca
 
 
 def _refused() -> dict[str, tuple[bytes, str]]:
-    """Each refused variant (Pillow opens all but BI_JPEG, which it refuses
-    too) and the words its error must hold."""
+    """Each refused variant (Pillow opens all but BI_JPEG and the corrupt
+    WebPs, which it refuses too) and the words its error must hold."""
+    from tests.test_torch_codec_webp import _corrupt
+
     a = _img(16, 16)
+    webp = _corrupt()
     return {
         "tiff_jpeg": (_save(a, "TIFF", compression="jpeg"), "JPEG-in-TIFF"),
         "tiff_ccitt_g4": (_save(a, "TIFF", "1", compression="group4"), "CCITT"),
@@ -606,17 +609,28 @@ def _refused() -> dict[str, tuple[bytes, str]]:
         "tiff_cmyk": (_save(a, "TIFF", "CMYK"), "CMYK"),
         "bmp_jpeg": (bmp_bytes(2, 2, 24, bytes(16), comp=4), "BI_JPEG"),
         "tiff_ccitt_g3": (_save(a, "TIFF", "1", compression="group3"), "CCITT"),
-        "webp": (_save(a, "WEBP"), "WebP"),
+        "webp": (webp["inter_frame"], "WebP.*inter frame"),
+        "webp_bad_riff_size": (webp["bad_riff_size"], "truncated WebP"),
+        "avif": (_save(a, "AVIF"), "AVIF images are not supported"),
+        "jpeg2000": (_save(a, "JPEG2000"), "JPEG 2000 images are not supported"),
+        "ppm": (_save(a, "PPM"), "PPM images are not supported"),
+        "ico": (_save(a, "ICO"), "ICO images are not supported"),
     }
 
 
 @pytest.mark.parametrize("case", ["tiff_jpeg", "tiff_ccitt_g4", "tiff_16bit", "tiff_float", "tiff_cmyk", "bmp_jpeg",
-                                  "tiff_ccitt_g3", "webp"])
+                                  "tiff_ccitt_g3", "webp", "webp_bad_riff_size", "avif", "jpeg2000", "ppm", "ico"])
 def test_refused_variants_name_themselves(case):
+    """A variant or format Pillow reads and the codec does not raises with
+    its name; a corrupt WebP (an inter frame, a RIFF size past the file's
+    end), which Pillow refuses too, raises naming WebP."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, msg = _refused()[case]
-    if case != "bmp_jpeg":
+    if case == "bmp_jpeg" or case.startswith("webp"):
+        with pytest.raises(Exception):  # noqa: B017  (Pillow's own error types)
+            _pil(data)
+    else:
         _pil(data)  # Pillow reads it
     with pytest.raises(ValueError, match=msg):
         decode_image(data, "cpu")

@@ -375,6 +375,40 @@ def test_new_entry_points_resolve_to_the_card():
         assert "resolve_device" in (ROOT / "mmtrs_tpu_torch" / "cli" / f"{name}.py").read_text(), name
 
 
+def test_webp_decoder_is_the_ports_own_code():
+    """The WebP decoder is the port's C: ``webp.cpp`` includes the standard
+    library and its table header alone, the header only <cstdint>, the
+    library is built with g++ and links nothing, and no module of the port
+    names the table generator (scripts/make_webp_tables.py), Pillow's
+    bundled libraries or a system libwebp."""
+    includes = lambda name: re.findall(r'^#include\s*[<"]([^>"]+)[>"]', (ROOT / "mmtrs_tpu_torch" / "csrc" / "host" /
+                                                                      name).read_text(), re.M)
+    assert includes("webp.cpp") == ["cstdint", "cstdlib", "cstring", "memory", "new", "vector", "webp_tables.h"]
+    assert includes("webp_tables.h") == ["cstdint"]
+    build = (ROOT / "mmtrs_tpu_torch" / "_build.py").read_text()
+    assert '_build_host("mmtrs_webp", "webp.cpp", [_gxx(), *HOST_FLAGS], (), ("webp_tables.h",))' in build
+    pat = re.compile(r"make_webp_tables|pillow\.libs|find_library\(\s*[\"']webp|^\s*(?:import|from)\s+scripts\b", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py"))
+            for m in pat.finditer(p.read_text())]
+    assert hits == []
+
+
+def test_webp_library_without_gxx_raises_by_name(monkeypatch):
+    """No g++: the WebP decoder's build raises naming it; nothing falls back
+    to Pillow."""
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.utils.codec import decode_image
+    from tests.test_torch_codec_webp import make_goldens
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    _build.webp_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            decode_image(make_goldens()["lossy_q80_97x101.webp"], "cpu")
+    finally:
+        _build.webp_library.cache_clear()
+
+
 def test_build_without_card_raises():
     """No CUDA device (or no nvcc): asking for the kernel library raises."""
     from mmtrs_tpu_torch import _build
