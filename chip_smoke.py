@@ -252,6 +252,7 @@ from __future__ import annotations
 
 import functools
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -1820,6 +1821,19 @@ WEBP_UPLOAD = "phone_1024x768_q90.webp"
 WEBP_ARCHIVE = "archive_3024x4032_q80.webp"
 WEBP_SMALL = "lossy_q80_97x101.webp"
 WEBP_CLI_COPIES = 4  # copies of the 12 MP WebP through the CLI, beside the small one and a cut one
+# the goldens of every other format Pillow 12.1 opens (python -m
+# tests.test_torch_codec_pillow): each file and Pillow's decode of it. On
+# the card's machine each decodes equal to it, but JPEG-in-TIFF (nvJPEG, held
+# to the JPEG bars above; its RGB and gray files store no subsampled chroma)
+# and the arithmetic-coded JPEGs, which nvJPEG decodes within those bars or
+# the codec refuses naming them
+PILLOW_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "pillow_goldens.npz"
+ARITH_ERROR = "arithmetic-coded JPEG"
+# the side of the BC7 DDS timed
+BC7_SIDE = 4096
+# |card - CPU| of warp_affine / warp_perspective on f32 images in [0, 255]:
+# the same elementwise ops in f32 on each device, no matmul
+WARP_CARD_BAR = 1e-3
 # PredictService's refusals, as the JAX package's service words them
 # (mmtrs_tpu/serve/service.py)
 LOW_RES_ERROR = "image resolution too low (min edge 300 < 512)"
@@ -2037,7 +2051,7 @@ def _webp_checks(torch, dev, tmp: Path, smi: str) -> dict:
                            "launches": counts}}
 
 
-def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
+def _app_check(torch, dev, svc, uploads, fields, results, smi: str, new_uploads: dict) -> dict:
     """``serve_http`` on an ephemeral port over phase 8's service: GET / and
     /ui; POST /predict with phase 8's seven uploads as JPEG and as PNG,
     without and with all 9 fields, each answer against ``predict_one`` on
@@ -2131,6 +2145,28 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
         _check(all(webp_counts[k] > 0 for k in L_ROUTE_KERNELS) and all(webp_counts[k] == 0 for k in FUSED_KERNELS),
                f"the WebP upload took the L-plane route: K8, K9, K3 launched, K1/K2 not: {webp_counts}")
 
+        # one upload per new family: the same phone photo as CMYK TIFF,
+        # JPEG-in-TIFF, RLE TGA, RLE PSD and BC1 DDS
+        family_ms, family_launches = {}, {}
+        for fam, raw in new_uploads.items():
+            b64 = base64.b64encode(raw).decode()
+            decoded = decode_image(raw, dev)
+            want = svc.predict_one(decoded, fields=fields)
+            reset_launches()
+            code, got, dt_fam = post({"image_b64": b64, "include_processed": True, "fields": fields})
+            torch.cuda.synchronize()
+            family_launches[fam] = dict(LAUNCHES)
+            same = code == 200 and all(got[k] == want[k] for k in ("p_indirect", "threshold", "label", "streams"))
+            same = same and np.array_equal(decode_png(base64.b64decode(got["processed_image_b64"])),
+                                           want["processed_image"])
+            fc = family_launches[fam]
+            _check(same and all(fc[k] > 0 for k in L_ROUTE_KERNELS) and all(fc[k] == 0 for k in FUSED_KERNELS),
+                   f"a {tuple(decoded.shape)} {fam} upload: HTTP {code}, the answer == predict_one on the decoded "
+                   f"array, its preview == processed_image; the L-plane route (K3 {fc['shift_rows']}, K7 "
+                   f"{fc['scatter_rows']}, K8 {fc['clahe_hist_lut']}, K9 {fc['clahe_apply']}); "
+                   f"{dt_fam * 1e3:.2f} ms ({smi})")
+            family_ms[fam] = dt_fam * 1e3
+
         code, low, _ = post({"image_b64": base64.b64encode(encode_png(uploads[0][:300, :300])).decode()})
         _check(code == 400 and low == {"error": LOW_RES_ERROR}, f"a 300x300 upload: {code} {low}")
         partial = {k: fields[k] for k in list(fields)[:2]}
@@ -2148,12 +2184,183 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str) -> dict:
     print(f"  HTTP p50: JPEG uploads {p50['jpeg']:.2f} ms, PNG uploads {p50['png']:.2f} ms (base64, decode on the "
           f"card, predict_one, PNG preview, JSON); predict_one alone on the decoded JPEG uploads "
           f"{p50['predict_one']:.2f} ms (host clock, {len(http_ms['jpeg'])} requests each; {smi})")
-    return {"http_p50_ms": p50, "launches": counts, "webp_launches": webp_counts}
+    p50.update({f"{fam}": v for fam, v in family_ms.items()})
+    return {"http_p50_ms": p50, "launches": counts, "webp_launches": webp_counts, "family_launches": family_launches}
+
+
+def _tiff(w: int, h: int, tags: dict, strip: bytes) -> bytes:
+    """A little-endian one-strip TIFF: ``tags`` (tag → (type, values)), the
+    strip after the IFD."""
+    tags = {**tags, 256: (4, [w]), 257: (4, [h]), 278: (4, [h]), 279: (4, [len(strip)]), 273: (4, [0])}
+    fmt = {3: "H", 4: "I"}
+    at = 8 + 2 + 12 * len(tags) + 4
+    blobs = {t: struct.pack(f"<{len(v)}{fmt[ty]}", *v) for t, (ty, v) in tags.items()}
+    extra_at = at
+    tags[273] = (4, [at + sum(len(b) + (len(b) & 1) for b in blobs.values() if len(b) > 4)])
+    blobs[273] = struct.pack("<I", tags[273][1][0])
+    entries, extra = [], b""
+    for t in sorted(tags):
+        ty, v = tags[t]
+        b = blobs[t]
+        if len(b) <= 4:
+            entries.append(struct.pack("<HHI", t, ty, len(v)) + b.ljust(4, b"\0"))
+        else:
+            entries.append(struct.pack("<HHII", t, ty, len(v), extra_at + len(extra)))
+            extra += b + b"\0" * (len(b) & 1)
+    return b"II*\0" + struct.pack("<IH", 8, len(tags)) + b"".join(entries) + b"\0\0\0\0" + extra + strip
+
+
+def _upload_files(torch, dev, rgb: np.ndarray) -> dict[str, bytes]:
+    """``rgb`` as each new family's file, written without Pillow: an
+    uncompressed CMYK TIFF (C, M, Y = 255 − R, G, B; K = 0), a JPEG-in-TIFF
+    strip (nvJPEG's q95 4:2:0 stream, photometric YCbCr), an RLE TGA (raw
+    packets of 128 pixels), an RLE PSD (literal packets of 128 bytes) and a
+    BC1 DDS (each 4×4 block flat at its mean colour)."""
+    from mmtrs_tpu_torch.utils.codec import encode_jpeg
+
+    h, w, _ = rgb.shape
+    cmyk = np.concatenate([255 - rgb, np.zeros((h, w, 1), np.uint8)], -1)
+    out = {"tiff_cmyk": _tiff(w, h, {258: (3, [8] * 4), 259: (3, [1]), 262: (3, [5]), 277: (3, [4])}, cmyk.tobytes())}
+    jpeg = encode_jpeg(torch.from_numpy(rgb).to(dev), 95)
+    out["tiff_jpeg"] = _tiff(w, h, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+                                    530: (3, [2, 2])}, jpeg)
+    flat = rgb[::-1, :, ::-1].reshape(1, -1)  # bottom-up BGR
+    out["tga"] = struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0) + _literals(flat, 128 * 3, 3)
+    planes = rgb.transpose(2, 0, 1).reshape(3 * h, w)
+    rows = _literals(planes, 128, 1)
+    out["psd"] = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3) + bytes(12) + struct.pack(">H", 1)
+                  + struct.pack(f">{3 * h}H", *[len(rows) // (3 * h)] * (3 * h)) + rows)
+    bh, bw = h // 4, w // 4
+    mean = rgb[:bh * 4, :bw * 4].reshape(bh, 4, bw, 4, 3).mean((1, 3)).astype(np.int64)
+    c565 = ((mean[..., 0] >> 3) << 11) | ((mean[..., 1] >> 2) << 5) | (mean[..., 2] >> 3)
+    blocks = np.zeros((bh, bw, 4), np.uint16)
+    blocks[..., 0] = blocks[..., 1] = c565
+    out["dds"] = _dds(bw * 4, bh * 4, b"DXT1", blocks.astype("<u2").tobytes())
+    return out
+
+
+def _literals(rows: np.ndarray, size: int, unit: int) -> bytes:
+    """Each row of bytes as literal packets of ``size`` bytes (the last
+    shorter), each led by its count of ``unit``-byte items less one: TGA's
+    raw packets and PackBits' literal runs."""
+    n, w = rows.shape
+    k, r = divmod(w, size)
+    parts = [np.concatenate([np.full((n, k, 1), size // unit - 1, np.uint8),
+                             rows[:, :k * size].reshape(n, k, size)], -1).reshape(n, -1)]
+    if r:
+        parts.append(np.concatenate([np.full((n, 1), r // unit - 1, np.uint8), rows[:, k * size:]], -1))
+    return np.concatenate(parts, -1).tobytes()
+
+
+def _dds(w: int, h: int, fourcc: bytes, payload: bytes, dxgi: int | None = None) -> bytes:
+    hdr = bytearray(124)
+    struct.pack_into("<IIII", hdr, 0, 124, 0x1007, h, w)
+    struct.pack_into("<II4s", hdr, 72, 32, 4, fourcc)
+    dx10 = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
+    return b"DDS " + bytes(hdr) + dx10 + payload
+
+
+def _median_ms(torch, fn, reps: int = 3) -> float:
+    """The median of ``reps`` calls (the libraries are built by then)."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _pillow_format_checks(torch, dev, smi: str) -> dict:
+    """Every golden of tests/test_torch_codec_pillow.py decoded on the card's
+    machine and held to Pillow's committed decode; the 12 MP host decodes
+    of CMYK TIFF, RLE PSD and RLE TGA, JPEG-in-TIFF on the card, a 4096²
+    BC7 DDS; warp_affine / warp_perspective on the card against the CPU."""
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.ops import warp_affine, warp_perspective
+    from mmtrs_tpu_torch.utils.codec import decode_image, decode_tiff
+
+    t0 = time.perf_counter()
+    _build.raster_library()
+    print(f"  raster decoders built in {time.perf_counter() - t0:.2f} s (g++, csrc/host/rasters.cpp)")
+    exact, nvjpeg, arith = 0, [], {}
+    with np.load(PILLOW_GOLDENS) as z:
+        names = sorted(f for f in z.files if not f.endswith((".pil", ".format")))
+        for name in names:
+            data, want = z[name].tobytes(), z[f"{name}.pil"]
+            if name.startswith(("tiff_jpeg", "jpeg_arithmetic")):
+                try:
+                    got = decode_image(data, dev)
+                except ValueError as e:
+                    _check(name.startswith("jpeg_arithmetic") and ARITH_ERROR in str(e),
+                           f"{name}: refused on the card naming {ARITH_ERROR}: {e}")
+                    arith[name] = f"refused: {e}"
+                    continue
+                _check(got.device.type == "cuda" and tuple(got.shape) == want.shape, f"{name}: decoded on the card")
+                d = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
+                no_chroma = name in ("tiff_jpeg_rgb.tif", "tiff_jpeg_l.tif")
+                _check(d.mean() <= NVJPEG_MEAN_BAR and (d == 0).mean() >= NVJPEG_EQUAL
+                       and (d <= 8).mean() >= NVJPEG_WITHIN8 and (d.max() <= NVJPEG_444_MAX or not no_chroma),
+                       f"{name} (nvJPEG) vs Pillow: max |d| {d.max()}, equal {(d == 0).mean():.4f}, within 8 "
+                       f"{(d <= 8).mean():.5f}, mean {d.mean():.4f}")
+                (arith if name.startswith("jpeg") else {}).setdefault(name, f"decoded, max |d| {d.max()}")
+                nvjpeg.append((name, int(d.max()), float(d.mean())))
+                continue
+            got = decode_image(data, dev)
+            if not (got.device.type == "cuda" and torch.equal(got.cpu(), torch.from_numpy(want))):
+                raise AssertionError(f"golden {name}: not equal to Pillow's decode on the card's machine")
+            exact += 1
+    _check(True, f"{exact} Pillow goldens decoded to the card equal to Pillow's decode, {len(nvjpeg)} through "
+                 f"nvJPEG within its bars ({nvjpeg}); arithmetic-coded JPEGs: {arith}")
+    goldens = f"{exact} exact, nvJPEG (max, mean |d|) " + ", ".join(f"{n} {m} {a:.3f}" for n, m, a in nvjpeg)
+
+    rgb = _archive_batch()[3]  # an upright 12 MP tooth, built once for phase 7
+    files = _upload_files(torch, dev, rgb)
+    rng = np.random.default_rng(SEED)
+    n_blocks = (BC7_SIDE // 4) ** 2
+    blocks = rng.integers(0, 256, (n_blocks, 16), np.uint8)
+    blocks[:, 0] = 1 << rng.integers(0, 8, n_blocks)  # every block a valid BC7 mode
+    bc7 = _dds(BC7_SIDE, BC7_SIDE, b"DX10", blocks.tobytes(), dxgi=98)
+    from mmtrs_tpu_torch.utils import rasters
+
+    host = lambda data: (lambda: rasters.identify(data)[1]())
+    timed = {"cmyk_tiff_12mp_host_ms": lambda: decode_tiff(files["tiff_cmyk"]),
+             "psd_rle_12mp_host_ms": host(files["psd"]), "tga_rle_12mp_host_ms": host(files["tga"]),
+             "jpeg_tiff_12mp_card_ms": lambda: decode_image(files["tiff_jpeg"], dev),
+             "bc7_dds_4096_host_ms": host(bc7)}
+    out = {k: _median_ms(torch, fn) for k, fn in timed.items()}
+    j = decode_image(files["tiff_jpeg"], dev)
+    _check(j.device.type == "cuda" and tuple(j.shape) == rgb.shape
+           and float(np.abs(j.cpu().numpy().astype(int) - rgb).mean()) <= 8.0,
+           "the 12 MP JPEG-in-TIFF decodes on the card near its source (mean |d| <= 8 at q95)")
+    print("  12 MP host decodes: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" (median of 3; {smi})")
+
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 1).uniform(0, 255, (4, 512, 512, 3)).astype(np.float32))
+    a = np.deg2rad(17.0)
+    m = torch.tensor([[np.cos(a) * 1.1, -np.sin(a), 40.0], [np.sin(a), np.cos(a) * 0.9, -25.0], [1e-4, -2e-4, 1.0]],
+                     dtype=torch.float32).expand(4, 3, 3).contiguous()
+    errs = []
+    for fn, mats in ((warp_affine, m[:, :2]), (warp_perspective, m)):
+        for border in ("replicate", "constant"):
+            got = fn(imgs.to(dev), mats.to(dev), (480, 600), border, 9.0)
+            want = fn(imgs, mats, (480, 600), border, 9.0)
+            _check(got.device.type == "cuda", f"{fn.__name__} ran on the card")
+            errs.append(float((got.cpu() - want).abs().max()))
+    _check(max(errs) <= WARP_CARD_BAR, f"warp_affine / warp_perspective on the card vs the CPU: max |d| {max(errs):.3g} "
+                                       f"(bar {WARP_CARD_BAR})")
+    out["warp_card_max_abs"] = max(errs)
+    out["goldens"] = goldens
+    out["arithmetic_jpeg"] = arith
+    out["uploads"] = files
+    return out
 
 
 def phase_entry_points(torch, dev, smi: str, archive_ips: float):
     """Phase 9, run by phase 8 on its service (``then``)."""
     import tempfile
+
+    from mmtrs_tpu_torch.utils.codec import decode_webp
 
     def run(svc, uploads, fields, results):
         t_phase = time.perf_counter()
@@ -2163,10 +2370,17 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             cli = _cli_check(torch, dev, Path(tmp), archive_ips)
             webp = _webp_checks(torch, dev, Path(tmp), smi)
-        served = _app_check(torch, dev, svc, uploads, fields, results, smi)
+        t_formats = time.perf_counter()
+        formats = _pillow_format_checks(torch, dev, smi)
+        phone = decode_webp(_webp_goldens()[WEBP_UPLOAD])
+        new_uploads = _upload_files(torch, dev, phone)
+        formats["seconds"] = time.perf_counter() - t_formats
+        formats.pop("uploads")
+        served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads)
         seconds = time.perf_counter() - t_phase
-        print(f"  phase 9 took {seconds:.1f} s")
-        return {"codec": codec, "cli": cli, "webp": webp, "app": served, "seconds": seconds}
+        print(f"  phase 9 took {seconds:.1f} s ({formats['seconds']:.1f} s of it the other Pillow formats' goldens, "
+              "12 MP decodes and warps; their five uploads are in the app's part)")
+        return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "app": served, "seconds": seconds}
 
     return run
 
@@ -3830,7 +4044,16 @@ def main() -> int:
           f"ms; nvJPEG decode 12 MP {entry['codec']['decode_12mp_ms']:.2f} ms, encode 512² "
           f"{entry['codec']['encode_512_ms']:.2f} ms; WebP decode 12 MP {entry['webp']['host_decode_12mp_ms']:.2f} "
           f"ms on the host, the CLI twin on WebP {entry['webp']['cli']['imgs_per_sec']:.2f} imgs/s, a WebP upload "
-          f"{entry['app']['http_p50_ms']['webp']:.2f} ms; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
+          f"{entry['app']['http_p50_ms']['webp']:.2f} ms; other formats: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in entry["formats"].items() if k.endswith("_ms"))
+          + ", one upload " + ", ".join(f"{k} {entry['app']['http_p50_ms'][k]:.2f} ms"
+                                        for k in ("tiff_cmyk", "tiff_jpeg", "tga", "psd", "dds"))
+          + f" (launches K3/K7/K8/K9 " + ", ".join(
+              f"{k} {c['shift_rows']}/{c['scatter_rows']}/{c['clahe_hist_lut']}/{c['clahe_apply']}"
+              for k, c in entry["app"]["family_launches"].items())
+          + f"), goldens {entry['formats']['goldens']}, arithmetic JPEG {entry['formats']['arithmetic_jpeg']}, "
+          f"warps card vs CPU {entry['formats']['warp_card_max_abs']:.3g}"
+          + f"; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
           f"b12 bf16 randaug) step {train['step']['step_ms']:.2f} ms + prep {train['step']['prep_ms']:.2f} ms, "
           f"{train['step']['imgs_per_sec']:.2f} imgs/s, peak {train['step']['peak_gb']:.2f} GB, phase 10 "
           f"{train['seconds']['phase']:.1f} s; MIL training (B0 bag 12 at 320 "

@@ -67,6 +67,7 @@ _HOST_SIGNATURES = {
     "mmtrs_jpeg_info": (_P, _L, _P),
     "mmtrs_jpeg_decode": (_P, _L, _P, _I, _I),
     "mmtrs_jpeg_decode_paths": (_P, _I, _I, _I, _P, _P, _P),
+    "mmtrs_jpeg_decode_tiff": (_P, _L, _P, _I, _I, _I, _I),
     "mmtrs_jpeg_encode": (_P, _I, _I, _I, _P, _P),
     "mmtrs_codec_free": (_P,),
     "mmtrs_nvjpeg_info": (_P, _L, _P),
@@ -77,6 +78,14 @@ _HOST_SIGNATURES = {
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_alpha_check": (_P, _L, _I, _I),
+    "mmtrs_tga_rle": (_P, _L, _I, _L, _P, _L, _P),
+    "mmtrs_sun_rle": (_P, _L, _P, _L, _P),
+    "mmtrs_pcx_rle": (_P, _L, _L, _I, _P, _P),
+    "mmtrs_sgi_rle": (_P, _L, _I, _I, _I, _I, _P),
+    "mmtrs_qoi_decode": (_P, _L, _I, _I, _I, _P),
+    "mmtrs_bcn_decode": (_P, _L, _I, _I, _I, _I, _P),
+    "mmtrs_ccitt_decode": (_P, _L, _I, _I, _I, _I, _P, _P),
+    "mmtrs_packbits_rows": (_P, _L, _L, _I, _P, _P),
 }
 HOST_CSRC = CSRC / "host"
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # g++; nvcc passes -fPIC on with -Xcompiler
@@ -205,6 +214,14 @@ def webp_library() -> ctypes.CDLL:
     """The WebP decoders (``csrc/host/webp.cpp``: VP8 and VP8L, with the
     tables of ``webp_tables.h``); needs only g++."""
     return _build_host("mmtrs_webp", "webp.cpp", [_gxx(), *HOST_FLAGS], (), ("webp_tables.h",))
+
+
+@functools.cache
+def raster_library() -> ctypes.CDLL:
+    """The other raster formats' sequential loops (``csrc/host/rasters.cpp``:
+    TGA, PCX and SGI run lengths, QOI, BC1-BC7 blocks, CCITT fax, with the
+    tables of ``raster_tables.h``); needs only g++."""
+    return _build_host("mmtrs_rasters", "rasters.cpp", [_gxx(), *HOST_FLAGS], (), ("raster_tables.h",))
 
 
 @functools.cache

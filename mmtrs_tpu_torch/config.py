@@ -1,7 +1,9 @@
-"""Configurations (the port's copies of ``PreprocessConfig``,
-``GBDTConfig``, ``MILConfig``, ``MMJointConfig``, ``FusionConfig``,
-``VisionTrainConfig``, ``ProgressiveStage``, ``ProgressiveConfig`` and
-``MeshConfig`` in mmtrs_tpu/config.py).
+"""Configurations (the port's copies of ``Paths``, ``PreprocessConfig``,
+``AugmentConfig``, ``SplitConfig``, ``GBDTConfig``, ``MILConfig``,
+``MMJointConfig``, ``FusionConfig``, ``VisionTrainConfig``,
+``ProgressiveStage``, ``ProgressiveConfig`` and ``MeshConfig`` in
+mmtrs_tpu/config.py, and of its ``config_to_json`` and
+``config_from_dict``).
 
 Kept in the port so that it imports nothing of the JAX package;
 tests/test_torch_hygiene.py holds each copy to the original's fields and
@@ -10,7 +12,26 @@ defaults.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Mapping
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+@dataclass(frozen=True)
+class Paths:
+    """Directory layout mirroring the reference artifact conventions."""
+
+    root: Path = REPO_ROOT
+    raw_images: Path = REPO_ROOT / "data" / "raw" / "images"
+    processed_images: Path = REPO_ROOT / "data" / "processed" / "images"
+    log_dir: Path = REPO_ROOT / "logs"
+    weights_dir: Path = REPO_ROOT / "weights"
+    results_dir: Path = REPO_ROOT / "results"
+    models_out_dir: Path = REPO_ROOT / "models" / "outputs"
 
 
 @dataclass(frozen=True)
@@ -230,3 +251,62 @@ class MeshConfig:
 
     data_axis: str = "data"
     num_devices: int = 0  # 0 = all
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Record-keeping augmentation parameters (reference:
+    augment_records.py:369-576 and the presets at :335-362)."""
+
+    preset: str = "ten"  # legacy | ten | simple | none
+    n_aug: int = 10
+    seed: int = 42
+    test_frac: float = 0.2
+    val_frac: float = 0.0
+    image_size: int = 512
+    # per-image deterministic RNG stream: seed * 1000003 + origin_id
+    rng_stride: int = 1000003
+
+
+@dataclass(frozen=True)
+class SplitConfig:
+    train_frac: float = 0.70
+    val_frac: float = 0.15
+    test_frac: float = 0.15
+    seed: int = 42
+    n_trials: int = 400
+    group_col: str = "origin_id"
+    n_folds: int = 5
+    test_size: int = 80  # exact test rows (reference: Standraized_dataset.py:210-218)
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, Path):
+        return str(obj)
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    if isinstance(obj, Mapping):
+        return {k: _to_jsonable(v) for k, v in obj.items()}
+    return obj
+
+
+def config_to_json(cfg: Any) -> str:
+    return json.dumps(_to_jsonable(cfg), indent=2, sort_keys=True)
+
+
+def config_from_dict(cls: type, d: Mapping[str, Any]) -> Any:
+    """Rebuild a (possibly nested) frozen dataclass from a plain dict."""
+    kwargs: dict[str, Any] = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        ftype = f.type if isinstance(f.type, type) else None
+        if ftype is not None and dataclasses.is_dataclass(ftype):
+            v = config_from_dict(ftype, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)

@@ -26,6 +26,12 @@
 //                         void* out, void* out_len);
 //     out: void*[1] <- a malloc'd JPEG stream (free with
 //     mmtrs_codec_free); out_len: long long[1]. 0 ok, 2 encode error.
+//   int mmtrs_jpeg_decode_tiff(const void* buf, long long n, void* out,
+//                              int h, int w, int comps, int ycbcr);
+//     A JPEG-in-TIFF strip or tile as libtiff's JPEG codec decodes it:
+//     ycbcr 1, YCbCr converted to RGB (comps 3); ycbcr 0, the components
+//     as stored (JCS_UNKNOWN in and out). out: h x w x comps bytes. 0 ok,
+//     2 decode error, 4 size or component count differs.
 //   int mmtrs_codec_free(void* p);
 //
 // Build: g++ -O3 -fPIC -shared codec.cpp -ljpeg (see mmtrs_tpu_torch/_build.py)
@@ -126,6 +132,43 @@ int decode(const unsigned char* buf, size_t n, unsigned char* out, int want_h, i
     return 0;
 }
 
+int decode_tiff(const unsigned char* buf, size_t n, unsigned char* out, int want_h, int want_w, int comps,
+                bool ycbcr) {
+    jpeg_decompress_struct cinfo;
+    JpegErr jerr;
+    cinfo.err = jpeg_std_error(&jerr.mgr);
+    jerr.mgr.error_exit = err_exit;
+    jerr.mgr.emit_message = emit_message;
+    if (setjmp(jerr.jump)) {
+        jpeg_destroy_decompress(&cinfo);
+        return 2;
+    }
+    jpeg_create_decompress(&cinfo);
+    if (n == 0) err_exit(reinterpret_cast<j_common_ptr>(&cinfo));
+    jpeg_mem_src(&cinfo, buf, static_cast<unsigned long>(n));
+    jpeg_read_header(&cinfo, TRUE);
+    if (cinfo.num_components != comps) {
+        jpeg_destroy_decompress(&cinfo);
+        return 4;
+    }
+    cinfo.jpeg_color_space = ycbcr ? JCS_YCbCr : JCS_UNKNOWN;
+    cinfo.out_color_space = ycbcr ? JCS_RGB : JCS_UNKNOWN;
+    jpeg_start_decompress(&cinfo);
+    if (static_cast<int>(cinfo.output_height) != want_h || static_cast<int>(cinfo.output_width) != want_w
+        || cinfo.output_components != comps) {
+        jpeg_destroy_decompress(&cinfo);
+        return 4;
+    }
+    const size_t row_bytes = static_cast<size_t>(want_w) * comps;
+    while (cinfo.output_scanline < cinfo.output_height) {
+        unsigned char* row = out + static_cast<size_t>(cinfo.output_scanline) * row_bytes;
+        jpeg_read_scanlines(&cinfo, &row, 1);
+    }
+    jpeg_finish_decompress(&cinfo);
+    jpeg_destroy_decompress(&cinfo);
+    return 0;
+}
+
 bool read_file(const char* path, std::vector<unsigned char>& bytes) {
     FILE* f = std::fopen(path, "rb");
     if (!f) return false;
@@ -148,6 +191,11 @@ extern "C" int mmtrs_jpeg_info(const void* buf, long long n, void* dims) {
 extern "C" int mmtrs_jpeg_decode(const void* buf, long long n, void* out, int h, int w) {
     return decode(static_cast<const unsigned char*>(buf), static_cast<size_t>(n),
                   static_cast<unsigned char*>(out), h, w, nullptr);
+}
+
+extern "C" int mmtrs_jpeg_decode_tiff(const void* buf, long long n, void* out, int h, int w, int comps, int ycbcr) {
+    return decode_tiff(static_cast<const unsigned char*>(buf), static_cast<size_t>(n),
+                       static_cast<unsigned char*>(out), h, w, comps, ycbcr != 0);
 }
 
 extern "C" int mmtrs_jpeg_decode_paths(const void* paths, int n, int min_edge, int threads, void* pixels,

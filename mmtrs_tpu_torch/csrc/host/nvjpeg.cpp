@@ -22,8 +22,9 @@
 //     4 size differs, 100 + nvjpegStatus_t, 200 + cudaError_t.
 //   int mmtrs_nvjpeg_decode_planes(const void* buf, long long n,
 //                                  void* planes, void* stream);
-//     A four-component (CMYK or YCCK) JPEG with NVJPEG_OUTPUT_UNCHANGED:
-//     planes: void*[4] <- each component's samples as stored, on the
+//     A three- or four-component JPEG (CMYK or YCCK; a JPEG-in-TIFF strip
+//     of RGB or CMYK samples) with NVJPEG_OUTPUT_UNCHANGED: planes:
+//     void*[components] <- each component's samples as stored, on the
 //     device, at its own size (info's), rows packed. 0 ok, 2 decode error,
 //     100 + nvjpegStatus_t (nvJPEG's refusal of the scan included),
 //     200 + cudaError_t.
@@ -113,12 +114,12 @@ extern "C" int mmtrs_nvjpeg_decode_planes(const void* buf, long long n, void* pl
     nvjpegChromaSubsampling_t css;
     int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
     if (n <= 0 || nvjpegGetImageInfo(g_handle, data, static_cast<size_t>(n), &comps, &css, widths, heights) !=
-                      NVJPEG_STATUS_SUCCESS || comps != 4)
+                      NVJPEG_STATUS_SUCCESS || comps < 3 || comps > 4)
         return 2;
     nvjpegImage_t img;
     std::memset(&img, 0, sizeof img);
     void* const* p = static_cast<void* const*>(planes);
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < comps; ++c) {
         img.channel[c] = static_cast<unsigned char*>(p[c]);
         img.pitch[c] = static_cast<size_t>(widths[c]);
     }

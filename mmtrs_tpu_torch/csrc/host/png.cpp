@@ -169,7 +169,8 @@ extern "C" int mmtrs_packbits(const void* src, long long n, void* dst, long long
     while (i < n && o < cap) {
         const int h = in[i++];
         if (h >= 0) {
-            for (int k = 0; k <= h && i < n; ++k, ++i)
+            if (i + h + 1 > n) break;  // a literal the data cannot hold: libtiff stops before it
+            for (int k = 0; k <= h; ++k, ++i)
                 if (o < cap) out[o++] = static_cast<unsigned char>(in[i]);
         } else if (h != -128) {
             if (i >= n) break;

@@ -1,6 +1,7 @@
 """Resizes and crop geometry as separable bilinear resamples (port of
 mmtrs_tpu/ops/resize.py: ``resize_bilinear``, ``center_crop_resize``,
-``crop_box_resize``, ``_crop_affine_params``, ``crop_warp_fused``).
+``crop_box_resize``, ``_crop_affine_params``, ``crop_warp_fused``,
+``mask_to_box``).
 
 The JAX package builds a dense hat-weight matrix per axis and multiplies,
 because the TPU has no fast gather; an H100 gathers, so each axis here is a
@@ -223,3 +224,17 @@ def _crop_warp_mask(m_aug, crop_params, out_size):
         & (sx >= col(x0) - 0.5) & (sx <= col(x1) - 0.5)
         & (sy >= col(y0) - 0.5) & (sy <= col(y1) - 0.5)
     )
+
+
+def mask_to_box(mask: torch.Tensor) -> torch.Tensor:
+    """[H, W] bool → f32 (y0, x0, y1, x1) with exclusive upper bounds; an
+    empty mask gives (H, W, 0, 0), as the JAX package's static-shape form."""
+    H, W = mask.shape
+    rows, cols = mask.any(dim=1), mask.any(dim=0)
+    ridx = torch.arange(H, device=mask.device)
+    cidx = torch.arange(W, device=mask.device)
+    y0 = torch.where(rows, ridx, H).min()
+    y1 = torch.where(rows, ridx, -1).max() + 1
+    x0 = torch.where(cols, cidx, W).min()
+    x1 = torch.where(cols, cidx, -1).max() + 1
+    return torch.stack([y0, x0, y1, x1]).to(torch.float32)

@@ -1,12 +1,14 @@
 """Batched geometric warps (port of mmtrs_tpu/ops/warp.py): the 3×3
 transform builders, rotation by three shears, the two-pass affine warp
-``warp_affine_shear`` and the per-pixel shift ``shift_axis_windowed``.
+``warp_affine_shear``, the per-pixel shift ``shift_axis_windowed``, and the
+gather warps ``sample_bilinear``, ``warp_affine`` and ``warp_perspective``.
 
 Images are NHWC; matrices are *forward* maps (src→dst) like cv2, and
 sampling uses the inverse. The shears and passes run through the CUDA
 kernels K3 (``shift_rows``), K4 (``resample_rows``) and K6
 (``shift_rows_windowed``), which read NHWC lines along either axis in place
-of the TPU route's planar transposes.
+of the TPU route's planar transposes. The gather warps are plain PyTorch on
+either device, as their JAX versions are an XLA gather with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -74,6 +76,61 @@ def invert_affine(m: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([B, a * i - c * g, -(a * f - c * d)], dim=-1)
     row2 = torch.stack([C, -(a * h - b * g), a * e - b * d], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2) * inv_det[..., None, None]
+
+
+def sample_bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, border: str = "replicate",
+                    cval: float = 0.0) -> torch.Tensor:
+    """Bilinear sample of img [H, W, C] at float coords ys/xs [...] →
+    [..., C]; neighbours clamped to the image (``replicate``), or every
+    sample outside [0, H − 1] × [0, W − 1] set to ``cval`` (``constant``)."""
+    H, W = img.shape[0], img.shape[1]
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy, wx = (ys - y0)[..., None], (xs - x0)[..., None]
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+
+    def gather(yi, xi):
+        return img[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+
+    out = (gather(y0i, x0i) * (1 - wy) * (1 - wx) + gather(y0i, x0i + 1) * (1 - wy) * wx
+           + gather(y0i + 1, x0i) * wy * (1 - wx) + gather(y0i + 1, x0i + 1) * wy * wx)
+    if border == "constant":
+        inside = ((ys >= 0) & (ys <= H - 1) & (xs >= 0) & (xs <= W - 1))[..., None]
+        out = torch.where(inside, out, torch.as_tensor(cval, dtype=out.dtype, device=out.device))
+    return out
+
+
+def _warp_one(img, inv3, out_h, out_w, border, cval, perspective):
+    yy = torch.arange(out_h, dtype=torch.float32, device=img.device)[:, None]
+    xx = torch.arange(out_w, dtype=torch.float32, device=img.device)[None, :]
+    # the 3×3 coordinate transform unrolled, as the JAX package does it (a
+    # matmul may run in TF32 on the card)
+    sx = inv3[0, 0] * xx + inv3[0, 1] * yy + inv3[0, 2]
+    sy = inv3[1, 0] * xx + inv3[1, 1] * yy + inv3[1, 2]
+    if perspective:
+        sz = inv3[2, 0] * xx + inv3[2, 1] * yy + inv3[2, 2]
+        sz = torch.where(sz.abs() > 1e-8, sz, torch.full_like(sz, 1e-8))
+        sx, sy = sx / sz, sy / sz
+    return sample_bilinear(img, sy, sx, border, cval)
+
+
+def warp_affine(imgs: torch.Tensor, matrices: torch.Tensor, out_hw: tuple[int, int] | None = None,
+                border: str = "replicate", cval: float = 0.0, perspective: bool = False,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """Batched gather warp of f32 [B, H, W, C] by per-sample forward maps
+    [B, 2, 3] or [B, 3, 3] (src→dst, cv2 convention) → [B, out_h, out_w,
+    C] on ``device`` (None: the images' device)."""
+    dev = torch.device(device) if device is not None else imgs.device
+    imgs = imgs.to(dev, torch.float32)
+    B, H, W, _ = imgs.shape
+    out_h, out_w = out_hw or (H, W)
+    inv = invert_affine(torch.as_tensor(matrices, dtype=torch.float32).to(dev))
+    return torch.stack([_warp_one(imgs[i], inv[i], out_h, out_w, border, cval, perspective) for i in range(B)])
+
+
+def warp_perspective(imgs: torch.Tensor, matrices: torch.Tensor, out_hw: tuple[int, int] | None = None,
+                     border: str = "replicate", cval: float = 0.0,
+                     device: str | torch.device | None = None) -> torch.Tensor:
+    return warp_affine(imgs, matrices, out_hw, border, cval, perspective=True, device=device)
 
 
 def identity3() -> torch.Tensor:

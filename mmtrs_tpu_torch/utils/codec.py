@@ -1,5 +1,8 @@
 """The port's image codec, without Pillow: JPEG and PNG decode and encode,
-BMP, GIF, TIFF and WebP decode.
+and the decode of every other format Pillow 12.1 opens (BMP, GIF, TIFF and
+WebP here; the rest in ``rasters.py``), identified as Pillow identifies
+them (``sniff``) and converted as its ``convert("RGB")`` converts them
+(``convert_rgb``, the one place each mode's conversion is written).
 
 JPEG runs on the device's backend, chosen when the library is built and
 never switched at run time:
@@ -39,13 +42,17 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
 - GIF's first frame: LZW, global and local colour tables, interlaced rows,
   a frame smaller than the screen at its offset on a canvas of the
   transparency index (else index 0), transparency otherwise ignored;
-- baseline TIFF (the first image): either byte order, strips or tiles,
-  ``PlanarConfiguration`` 1 and 2, no compression, LZW, Adobe deflate
-  (8 and 32946) or PackBits, the horizontal-difference predictor (with LZW
-  and deflate, as libtiff applies it), 8-bit RGB
-  (alpha unassociated or premultiplied, or other extra samples), gray and
-  gray + alpha, and 1-, 2-, 4- and 8-bit gray (either photometric) and
-  palette;
+- TIFF (the first image) in every mode of Pillow's table: either byte
+  order, strips or tiles, ``PlanarConfiguration`` 1 and 2, fill order 2;
+  no compression, LZW, Adobe deflate (8 and 32946), PackBits, CCITT RLE,
+  Group 3 (1-D and 2-D) and Group 4 (``csrc/host/rasters.cpp``), and JPEG
+  (``JPEGTables`` spliced into each strip or tile: libjpeg on the CPU,
+  nvJPEG on the card, as libtiff's codec decodes them: YCbCr converted,
+  RGB, gray and CMYK samples as stored); the horizontal-difference
+  predictor; 1-16-bit gray, 32-bit integer and float samples, 8- and
+  16-bit RGB(A) (alpha unassociated or premultiplied), CMYK, palette, and
+  YCbCr through libtiff's conversion and subsampling (uncompressed YCbCr as
+  Pillow's raw reader reads it, without);
 - WebP as Pillow 12.1 reads it through libwebp 1.6's WebPAnimDecoder, bit
   for bit: the RIFF container is walked here as libwebp's demuxer walks it
   (simple lossy ``VP8 ``, simple lossless ``VP8L``, extended ``VP8X``), and
@@ -59,14 +66,12 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
   ``XMP `` are skipped; an animation's first frame sits at its offset on a
   black canvas.
 
-What Pillow opens and this codec refuses, with a ValueError that names the
-format and the feature: TIFF with JPEG or CCITT compression, 16-bit or
-floating-point samples, or CMYK and YCbCr photometrics; AVIF, JPEG 2000,
-PPM (and the PNM family), ICO, QOI, DDS, PSD and SGI by their magic bytes.
-Data of no known format is not identified. A host format whose header asks for more than ``MAX_PIXELS``
-pixels is refused before anything is allocated, as Pillow refuses it
-(DecompressionBombError); a corrupt or truncated file raises a ValueError
-that names its format.
+What Pillow opens and this codec refuses raises a ValueError that names
+the format and the feature (AVIF, JPEG 2000, PCD, TIFF in CIELab, BigTIFF;
+``rasters.py`` lists the rest). Data no opener takes is not identified. A
+header that asks for more than ``MAX_PIXELS`` pixels is refused before
+anything is allocated, as Pillow refuses it (DecompressionBombError); a
+corrupt or truncated file raises a ValueError that names its format.
 """
 
 from __future__ import annotations
@@ -83,59 +88,30 @@ import torch
 
 from mmtrs_tpu_torch import _build
 from mmtrs_tpu_torch.device import resolve_device
+from mmtrs_tpu_torch.utils import rasters
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_OTHER_FORMATS = (  # (magic, name) of the host formats
-    (b"BM", "BMP"),
-    (b"GIF87a", "GIF"),
-    (b"GIF89a", "GIF"),
-    (b"II*\x00", "TIFF"),
-    (b"MM\x00*", "TIFF"),
-)
-# (offset, magic, name) of formats Pillow opens that the codec does not read
-_REFUSED_FORMATS = (
-    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (0, b"\xff\x4f\xff\x51", "JPEG 2000"),
-    (4, b"ftypavif", "AVIF"),
-    (4, b"ftypavis", "AVIF"),
-    (0, b"\x00\x00\x01\x00", "ICO"),
-    (0, b"qoif", "QOI"),
-    (0, b"DDS ", "DDS"),
-    (0, b"8BPS", "PSD"),
-    (0, b"\x01\xda", "SGI"),
-)
 # PNG colour type -> channels (PNG specification, table 11.1)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-# Pillow's DecompressionBombError limit: twice Image.MAX_IMAGE_PIXELS
-MAX_PIXELS = 2 * 89_478_485
-
-
-def _check_pixels(fmt: str, w: int, h: int, what: str = "image") -> None:
-    """Refuse a header that asks for more than MAX_PIXELS pixels."""
-    if w * h > MAX_PIXELS:
-        raise ValueError(f"{fmt} {what} of {w}x{h} = {w * h} pixels exceeds the limit of {MAX_PIXELS} pixels")
+MAX_PIXELS = rasters.MAX_PIXELS
+_check_pixels = rasters.check_pixels
 
 
 def sniff(data: bytes) -> str:
-    """The format of an encoded image by its magic bytes: "jpeg", "png",
-    "BMP", "GIF", "TIFF", "WebP", the name of a format the codec refuses
-    (one of ``_REFUSED_FORMATS``, or "PPM" for the PNM family), or
-    "unknown"."""
-    if data[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if data[:8] == PNG_MAGIC:
-        return "png"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    for magic, name in _OTHER_FORMATS:
-        if data.startswith(magic):
-            return name
-    for offset, magic, name in _REFUSED_FORMATS:
-        if data[offset:offset + len(magic)] == magic:
-            return name
-    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7") and data[2:3].isspace():
-        return "PPM"
-    return "unknown"
+    """The format of an encoded image as Pillow 12.1's ``Image.open(...).format``
+    names it ("JPEG", "PNG", "BMP", "TIFF", "WEBP", "TGA", ...), found as
+    :func:`rasters.identify` finds it, or "unknown" where Pillow identifies
+    no format."""
+    try:
+        return rasters.identify(data)[0]
+    except ValueError:
+        return "unknown"
+
+
+def is_jpeg(prefix: bytes) -> bool:
+    """True when the bytes start as a JPEG does (Pillow's JPEG opener takes
+    them before any opener after it)."""
+    return prefix[:3] == b"\xff\xd8\xff"
 
 
 def decode_image(src: bytes | str | Path, device: str | torch.device | None = None) -> torch.Tensor:
@@ -145,14 +121,76 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
     does not read, naming it."""
     dev = resolve_device(device)
     data = bytes(src) if isinstance(src, (bytes, bytearray, memoryview)) else Path(src).read_bytes()
-    kind = sniff(data)
-    if kind == "jpeg":
+    kind, load = rasters.identify(data)
+    if kind == "JPEG":
         return _decode_jpeg_cuda(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
-    if kind in _HOST_DECODERS:
+    if kind == "TIFF":
+        try:
+            return decode_tiff_to(data, dev)
+        except rasters.NOT_THIS as e:  # a tag missing or short: Pillow's open or libtiff refuses it too
+            raise ValueError(f"corrupt TIFF: {e!r}") from None
+    if load is None:
         return torch.from_numpy(_HOST_DECODERS[kind](data)).to(dev)
-    if kind == "unknown":
-        raise ValueError("cannot identify the image data: the port's codec reads JPEG, PNG, BMP, GIF, TIFF and WebP")
-    raise ValueError(f"{kind} images are not supported by the port's codec (JPEG, PNG, BMP, GIF, TIFF and WebP only)")
+    try:
+        loaded = load()
+    except rasters.NOT_THIS as e:  # a short read past the header: Pillow's decoders raise there too
+        raise ValueError(f"corrupt or truncated {kind} image: {e}") from None
+    rgb = convert_rgb(*loaded)
+    rgb = rgb if rgb.flags.writeable and rgb.flags.c_contiguous else np.ascontiguousarray(rgb).copy()
+    return torch.from_numpy(rgb).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Pillow's convert("RGB"), for every mode the decoders give
+# ---------------------------------------------------------------------------
+
+
+def _ycbcr_tables() -> tuple[np.ndarray, ...]:
+    """Pillow's YCbCr → RGB tables (ConvertYCbCr.c): each coefficient times
+    (c − 128), scaled by 2^6 and truncated after adding a half."""
+    x = np.arange(256, dtype=np.float64) - 128
+    fix = lambda c: np.trunc(c * 64 * x + 0.5).astype(np.int64)
+    return fix(1.40200), fix(-0.34414), fix(-0.71414), fix(1.77200)
+
+
+def convert_rgb(px: np.ndarray, mode: str, palette: np.ndarray | None = None) -> np.ndarray:
+    """Samples in a Pillow mode → RGB u8 [H, W, 3], as Pillow's
+    ``convert("RGB")`` gives it. ``px``: [H, W] for 1, L, P, I;16, I and F
+    ([H, W, C] with the first channel used for LA and PA), [H, W, C] for
+    RGB, RGBA, RGBX, CMYK and YCbCr. "1" holds 0 and 255; P and PA look
+    their index up in ``palette`` rows [n, 3] (an index past them, or no
+    palette, is black); I;16 (any byte order, as values) is capped at 255,
+    I clipped to 0..255; F is truncated toward 0 and clipped, NaN → 0."""
+    if px.ndim == 3 and mode in ("1", "L", "LA", "P", "PA", "I", "I;16", "F"):
+        px = px[..., 0]
+    if mode in ("1", "L", "LA"):
+        g = px.astype(np.uint8)
+    elif mode in ("P", "PA"):
+        lut = np.zeros((256, 3), np.uint8)
+        if palette is not None:
+            lut[: min(len(palette), 256)] = palette[:256]
+        return lut[px.astype(np.uint8)]
+    elif mode == "I;16":
+        g = np.minimum(px, 255).astype(np.uint8)
+    elif mode == "I":
+        g = np.clip(px, 0, 255).astype(np.uint8)
+    elif mode == "F":
+        v = px.astype(np.float32)
+        with np.errstate(invalid="ignore"):
+            g = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.where(v > 0, v, 0)), 0)).astype(np.uint8)
+    elif mode in ("RGB", "RGBA", "RGBX"):
+        return np.ascontiguousarray(px[..., :3], dtype=np.uint8)
+    elif mode == "CMYK":
+        return cmyk2rgb(torch.from_numpy(np.ascontiguousarray(px))).numpy()
+    elif mode == "YCbCr":
+        r_cr, g_cb, g_cr, b_cb = _ycbcr_tables()
+        x = px.astype(np.int64)
+        y64, cb, cr = x[..., 0] * 64, x[..., 1], x[..., 2]
+        rgb = np.stack([y64 + r_cr[cr], y64 + g_cb[cb] + g_cr[cr], y64 + b_cb[cb]], -1)
+        return np.where(rgb <= 0, 0, np.where(rgb >= 16384, 255, rgb >> 6)).astype(np.uint8)
+    else:
+        raise ValueError(f"images in Pillow mode {mode} are not supported by the port's codec")
+    return np.repeat(g[..., None], 3, axis=2)
 
 
 def _jpeg_error(status: int, backend: str) -> Exception:
@@ -221,6 +259,15 @@ def _ycc_tables(dev: torch.device) -> tuple[torch.Tensor, ...]:
     return cr_r, cb_b, cr_g, cb_g
 
 
+def cmyk2rgb(cmyk: torch.Tensor) -> torch.Tensor:
+    """Pillow's cmyk2rgb on u8 [..., 4] (either device): nk = 255 − k, each
+    channel nk − MULDIV255(c, nk), in int32 (the result lies in 0..nk)."""
+    x = cmyk.to(torch.int32)
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).to(torch.uint8)
+
+
 def cmyk_to_rgb(cmyk: torch.Tensor, ycck: bool) -> torch.Tensor:
     """u8 [H, W, 4] as stored in a four-component JPEG → RGB u8 as Pillow
     gives it: a YCCK's Y, Cb, Cr become C, M, Y = 255 − libjpeg's RGB (K
@@ -232,10 +279,7 @@ def cmyk_to_rgb(cmyk: torch.Tensor, ycck: bool) -> torch.Tensor:
         y, cb, cr = x[..., 0], x[..., 1], x[..., 2]
         rgb = torch.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], dim=-1)
         x = torch.cat([255 - rgb.clamp(0, 255), x[..., 3:]], dim=-1)
-    x = 255 - x
-    nk = 255 - x[..., 3:]
-    t = x[..., :3] * nk + 128
-    return (nk - (((t >> 8) + t) >> 8)).clamp(0, 255).to(torch.uint8)
+    return cmyk2rgb(255 - x)
 
 
 def _decode_cmyk_cuda(data: bytes, dims: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -256,7 +300,53 @@ def _decode_cmyk_cuda(data: bytes, dims: np.ndarray, dev: torch.device) -> torch
         return cmyk_to_rgb(torch.stack(full, dim=-1), ycck=adobe_transform(data) not in (None, 0))
 
 
+def jpeg_components(data: bytes) -> int:
+    """The component count of a JPEG's frame header (0 without one), the
+    markers before its first scan walked as libjpeg reads them."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker == 0xDA:
+            break
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC) and pos + 10 <= len(data):
+            return data[pos + 9]
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    return 0
+
+
+def jpeg_is_arithmetic(data: bytes) -> bool:
+    """True when the JPEG's frame header (the markers before its first scan,
+    walked as libjpeg reads them) is an arithmetic-coded one (SOF9-SOF11,
+    SOF13-SOF15)."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker == 0xDA:
+            break
+        if marker in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
+            return True
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    return False
+
+
 def _decode_jpeg_cuda(data: bytes, dev: torch.device) -> torch.Tensor:
+    """nvJPEG's decode; an arithmetic-coded JPEG nvJPEG refuses raises
+    naming it (libjpeg on the CPU decodes one as Pillow does)."""
+    try:
+        return _nvjpeg_decode(data, dev)
+    except (ValueError, RuntimeError) as e:
+        if jpeg_is_arithmetic(data):
+            raise ValueError(f"arithmetic-coded JPEG: nvJPEG does not decode it ({e})") from None
+        raise
+
+
+def _nvjpeg_decode(data: bytes, dev: torch.device) -> torch.Tensor:
     if not jpeg_has_end(data):
         raise _jpeg_error(2, "nvJPEG")
     lib = _build.nvjpeg_library()
@@ -386,21 +476,6 @@ def _packbits(data: bytes, size: int) -> np.ndarray:
     return out[: int(n[0])]
 
 
-def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
-    """Rows of packed samples, high bits first → [rows, width] u8 values."""
-    if depth == 8:
-        return rows[:, :width]
-    bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(rows.shape[0], width, depth)
-    return (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint8)
-
-
-def _lookup(index: np.ndarray, palette: np.ndarray) -> np.ndarray:
-    """Palette rows [n, 3] looked up; an index beyond them gives black."""
-    lut = np.zeros((256, 3), np.uint8)
-    lut[: min(len(palette), 256)] = palette[:256]
-    return lut[index]
-
-
 # ---------------------------------------------------------------------------
 # BMP
 # ---------------------------------------------------------------------------
@@ -486,7 +561,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
                 px = _bmp_masked(words, masks)
             out = px if top_down else px[::-1]
             return np.ascontiguousarray(out)
-        index = _unpack_bits(rows, w, bpp)
+        index = rasters.unpack_bits(rows, w, bpp)
     if not top_down:
         index = index[::-1]
     if pal_at + entry * n_colors > max(offset, pal_at) or n_colors > 65536:
@@ -497,8 +572,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
         # Pillow drops a gray palette: mode "1" (2 colours) or "L", whose
         # values are the indices themselves
         g = np.where(index > 0, 255, 0).astype(np.uint8) if n_colors == 2 else index
-        return np.repeat(g[..., None], 3, axis=2)
-    return _lookup(index, pal[:, 2::-1])
+        return convert_rgb(g, "L")
+    return convert_rgb(index, "P", pal[:, 2::-1])
 
 
 # ---------------------------------------------------------------------------
@@ -525,7 +600,7 @@ def _png_pass(raw: bytes, pos: int, w: int, h: int, channels: int, depth: int) -
     if depth == 16:
         px = rows.view(">u2").reshape(h, w, channels)
     else:
-        px = _unpack_bits(rows, w * channels, depth).reshape(h, w, channels) if depth < 8 \
+        px = rasters.unpack_bits(rows, w * channels, depth).reshape(h, w, channels) if depth < 8 \
             else rows.reshape(h, w, channels)
     return px, pos + need
 
@@ -541,8 +616,11 @@ def decode_png(data: bytes) -> np.ndarray:
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
         if len(body) != length or len(crc) != 4:
+            if idat and kind != b"IDAT":  # Pillow stops at a chunk cut after the image data
+                break
             raise ValueError("truncated PNG")
-        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+        # Pillow checks the CRCs of the chunks before the image data only
+        if not idat and kind != b"IDAT" and zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise ValueError(f"corrupt PNG: chunk {kind!r} fails its CRC")
         pos += 12 + length
         if kind == b"IHDR":
@@ -563,8 +641,11 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype == 3 and palette is None:
         raise ValueError("corrupt PNG: a palette image without PLTE")
     channels = _PNG_CHANNELS[ctype]
-    try:
-        raw = zlib.decompress(b"".join(idat))
+    passes = [((w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy) for x0, y0, dx, dy in _ADAM7] if interlace \
+        else [(w, h)]
+    need = sum(ph * ((pw * channels * depth + 7) // 8 + 1) for pw, ph in passes if pw > 0 and ph > 0)
+    try:  # as Pillow's ZIP decoder: inflate until the image is full (the checksum after it is not reached)
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG: {e}") from None
     if interlace:
@@ -577,15 +658,14 @@ def decode_png(data: bytes) -> np.ndarray:
     else:
         px, _ = _png_pass(raw, 0, w, h, channels, depth)
     if ctype == 3:
-        return _lookup(px[..., 0], palette)
-    if depth == 16:  # Pillow: gray as "I;16", clipped at 255; the others' high bytes
-        px = np.minimum(px, 255) if ctype == 0 else px >> 8
-        px = px.astype(np.uint8)
+        return convert_rgb(px, "P", palette)
+    if depth == 16 and ctype == 0:  # Pillow's "I;16"
+        return convert_rgb(px, "I;16")
+    if depth == 16:  # the others' high bytes
+        px = (px >> 8).astype(np.uint8)
     elif depth < 8:
         px = px * np.uint8(255 // ((1 << depth) - 1))
-    if ctype in (0, 4):
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    return convert_rgb(px, "L" if ctype in (0, 4) else "RGB")
 
 
 # ---------------------------------------------------------------------------
@@ -658,8 +738,8 @@ def decode_gif(data: bytes) -> np.ndarray:
     index = np.full((H, W), transparency or 0, np.uint8)
     index[y0:y0 + fh, x0:x0 + fw] = frame
     if palette is None or all(palette[i] == i // 3 for i in range(len(palette))):
-        return np.repeat(index[..., None], 3, axis=2)  # Pillow's "L": the index is the gray level
-    return _lookup(index, palette[: len(palette) // 3 * 3].reshape(-1, 3))
+        return convert_rgb(index, "L")  # Pillow's "L": the index is the gray level
+    return convert_rgb(index, "P", palette[: len(palette) // 3 * 3].reshape(-1, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +747,8 @@ def decode_gif(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q", 17: "q"}
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
+               16: "Q", 17: "q"}
 _TIFF_COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
                      6: "old-style JPEG", 7: "JPEG", 8: "Adobe deflate", 32773: "PackBits",
                      32946: "deflate"}
@@ -677,7 +758,10 @@ _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8
 
 
 def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
-    """The byte order and the first IFD's tags (tag → tuple of values)."""
+    """The byte order and the first IFD's tags (tag → tuple of values; -1
+    → the tags dropped: those of an unknown type, and those from the first
+    whose values lie past the file's end, where Pillow stops reading the
+    IFD, to the last)."""
     bo = "<" if data[:2] == b"II" else ">"
     ifd = struct.unpack(bo + "I", data[4:8])[0]
     if ifd + 2 > len(data):
@@ -687,112 +771,442 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
     for i in range(n):
         e = ifd + 2 + 12 * i
         tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
-        if typ not in _TIFF_TYPES:
+        if typ not in _TIFF_TYPES:  # an unknown type: Pillow and libtiff drop the tag
+            tags[-1] = tags.get(-1, ()) + (tag,)
             continue
         fmt = _TIFF_TYPES[typ]
-        size = struct.calcsize(fmt) * count
+        size = struct.calcsize(bo + fmt) * count
         at = e + 8 if size <= 4 else struct.unpack(bo + "I", data[e + 8:e + 12])[0]
-        if at + size > len(data):
-            raise ValueError(f"corrupt TIFF: tag {tag}'s values lie beyond the file")
-        tags[tag] = struct.unpack(f"{bo}{count}{fmt}", data[at:at + size])
+        if at + size > len(data):  # Pillow's IFD reader stops at a tag whose values lie past the file's end
+            tags[-1] = tags.get(-1, ()) + tuple(struct.unpack(bo + "H", data[ifd + 2 + 12 * j:ifd + 4 + 12 * j])[0]
+                                                for j in range(i, n) if ifd + 4 + 12 * j <= len(data))
+            break
+        vals = struct.unpack(f"{bo}{count * len(fmt)}{fmt[0]}", data[at:at + size])
+        if typ in (5, 10):  # rationals: numerator over denominator
+            vals = tuple(a / b if b else 0.0 for a, b in zip(vals[::2], vals[1::2]))
+        tags[tag] = vals
     return bo, tags
 
 
-def _tiff_chunk(data: bytes, offset: int, count: int, comp: int, size: int) -> np.ndarray:
-    """One strip or tile, decompressed to ``size`` bytes (zero-padded)."""
-    raw = data[offset:offset + count]
+# Pillow's TiffImagePlugin.OPEN_INFO (fill order 1): (photometric, sample
+# formats, bits per sample, extra samples) → (mode, raw mode); the keys
+# big-endian files lack, and those fill order 2 has too
+_TIFF_MODES = {
+    (0, (1,), (1,), ()): ("1", "1;I"), (1, (1,), (1,), ()): ("1", "1"), (0, (1,), (2,), ()): ("L", "L;2I"),
+    (1, (1,), (2,), ()): ("L", "L;2"), (0, (1,), (4,), ()): ("L", "L;4I"), (1, (1,), (4,), ()): ("L", "L;4"),
+    (0, (1,), (8,), ()): ("L", "L;I"), (1, (1,), (8,), ()): ("L", "L"), (1, (2,), (8,), ()): ("L", "L"),
+    (1, (1,), (12,), ()): ("I;16", "I;12"), (0, (1,), (16,), ()): ("I;16", "I;16"),
+    (1, (1,), (16,), ()): ("I;16", "I;16"), (1, (2,), (16,), ()): ("I", "I;16S"),
+    (0, (3,), (32,), ()): ("F", "F;32F"), (1, (1,), (32,), ()): ("I", "I;32N"),
+    (1, (2,), (32,), ()): ("I", "I;32S"), (1, (3,), (32,), ()): ("F", "F;32F"),
+    (1, (1,), (8, 8), (2,)): ("LA", "LA"), (2, (1,), (8, 8, 8), ()): ("RGB", "RGB"),
+    (2, (1,), (8, 8, 8, 8), ()): ("RGBA", "RGBA"), (2, (1,), (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
+    (2, (1,), (8, 8, 8, 8, 8), (0, 0)): ("RGB", "RGBXX"), (2, (1,), (8, 8, 8, 8, 8, 8), (0, 0, 0)): ("RGB", "RGBXXX"),
+    (2, (1,), (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"), (2, (1,), (8, 8, 8, 8, 8), (1, 0)): ("RGBA", "RGBaX"),
+    (2, (1,), (8, 8, 8, 8, 8, 8), (1, 0, 0)): ("RGBA", "RGBaXX"), (2, (1,), (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
+    (2, (1,), (8, 8, 8, 8, 8), (2, 0)): ("RGBA", "RGBAX"), (2, (1,), (8, 8, 8, 8, 8, 8), (2, 0, 0)): ("RGBA", "RGBAXX"),
+    (2, (1,), (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"), (2, (1,), (16, 16, 16), ()): ("RGB", "RGB;16L"),
+    (2, (1,), (16, 16, 16, 16), ()): ("RGBA", "RGBA;16L"), (2, (1,), (16, 16, 16, 16), (0,)): ("RGB", "RGBX;16L"),
+    (2, (1,), (16, 16, 16, 16), (1,)): ("RGBA", "RGBa;16L"), (2, (1,), (16, 16, 16, 16), (2,)): ("RGBA", "RGBA;16L"),
+    (3, (1,), (1,), ()): ("P", "P;1"), (3, (1,), (2,), ()): ("P", "P;2"), (3, (1,), (4,), ()): ("P", "P;4"),
+    (3, (1,), (8,), ()): ("P", "P"), (3, (1,), (8, 8), (0,)): ("P", "PX"), (3, (1,), (8, 8), (2,)): ("PA", "PA"),
+    (5, (1,), (8, 8, 8, 8), ()): ("CMYK", "CMYK"), (5, (1,), (8, 8, 8, 8, 8), (0,)): ("CMYK", "CMYKX"),
+    (5, (1,), (8, 8, 8, 8, 8, 8), (0, 0)): ("CMYK", "CMYKXX"), (5, (1,), (16, 16, 16, 16), ()): ("CMYK", "CMYK;16L"),
+    (6, (1,), (8,), ()): ("L", "L"), (6, (1,), (8, 8, 8), ()): ("RGB", "RGBX"), (8, (1,), (8, 8, 8), ()): ("LAB", "LAB"),
+}
+_TIFF_NOT_BIG_ENDIAN = {(1, (1,), (32,), ()), (1, (1,), (12,), ()), (0, (1,), (16,), ())}
+_TIFF_FILL_ORDER_2 = {(0, (1,), (1,), ()), (1, (1,), (1,), ()), (0, (1,), (2,), ()), (1, (1,), (2,), ()),
+                      (0, (1,), (4,), ()), (1, (1,), (4,), ()), (0, (1,), (8,), ()), (1, (1,), (8,), ()),
+                      (1, (1,), (16,), ()), (2, (1,), (8, 8, 8), ()), (3, (1,), (1,), ()), (3, (1,), (2,), ()),
+                      (3, (1,), (4,), ()), (3, (1,), (8,), ())}
+_TIFF_CCITT = (2, 3, 4)
+
+
+def _tiff_bytes(data: bytes, offset: int, count: int, comp: int, size: int, reverse: bool, need: int) -> np.ndarray:
+    """One strip or tile's bytes, decompressed to ``size`` (zero-padded),
+    of which the file must give ``need``: Pillow's raw reader takes them
+    from the offset whatever the byte count says; libtiff refuses a chunk
+    past the file's end or one that decompresses to fewer bytes.
+    ``reverse``: fill order 2, whose bits libtiff reverses before it
+    decompresses (Pillow's raw reader after)."""
+    if comp == 1:
+        raw = data[offset:offset + need]
+        if len(raw) < need:
+            raise ValueError("truncated TIFF: the image data ends early")
+    else:
+        if offset + count > len(data):
+            raise ValueError("corrupt TIFF: a strip or tile runs past the end of the file")
+        raw = data[offset:offset + count]
+    if reverse:
+        raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
     if comp == 1:
         out = np.frombuffer(raw, np.uint8)
     elif comp == 5:
         out = _lzw(raw, 8, True, size)
     elif comp in (8, 32946):
         try:
-            out = np.frombuffer(zlib.decompressobj().decompress(raw, size), np.uint8)
+            # as libtiff's ZIPDecode: inflate until the chunk is full (the
+            # checksum after it is not reached), an error before then fails
+            out = np.frombuffer(zlib.decompressobj().decompress(raw, need), np.uint8)
         except zlib.error as e:
             raise ValueError(f"corrupt TIFF: {e}") from None
     else:
         out = _packbits(raw, size)
+    if out.size < need:
+        raise ValueError("corrupt TIFF: a strip or tile decompresses to fewer bytes than its rows need")
     full = np.zeros(size, np.uint8)
     full[: min(size, out.size)] = out[:size]
     return full
 
 
+def _tiff_samples(buf: np.ndarray, rows: int, cols: int, n: int, depth: int, kind: str) -> np.ndarray:
+    """A chunk's bytes → [rows, cols, n] samples: u8 for 1-8 bits, 12-bit
+    packed as Pillow's I;12 unpacks it, 16- and 32-bit in the file's byte
+    order (``kind``: a numpy dtype code without its order, e.g. ">u" or
+    "<f")."""
+    if depth <= 8:
+        stride = (cols * n * depth + 7) // 8
+        return rasters.unpack_bits(buf[: rows * stride].reshape(rows, stride), cols * n, depth).reshape(rows, cols, n)
+    if depth == 12:
+        stride = (cols * n * 12 + 7) // 8
+        b = buf[: rows * stride].reshape(rows, stride).astype(np.uint16)
+        pairs = -(-cols * n // 2)
+        b = np.pad(b, ((0, 0), (0, 3 * pairs - stride)))
+        trip = b.reshape(rows, pairs, 3)
+        v = np.stack([(trip[..., 0] << 4) | (trip[..., 1] >> 4), ((trip[..., 1] & 15) << 8) | trip[..., 2]], -1)
+        return v.reshape(rows, 2 * pairs)[:, : cols * n].reshape(rows, cols, n)
+    dt = np.dtype(f"{kind}{depth // 8}")
+    return buf[: rows * cols * n * dt.itemsize].view(dt).reshape(rows, cols, n)
+
+
+def _tiff_ycbcr_rgb(t: dict, ycc: np.ndarray) -> np.ndarray:
+    """u8 [..., 3] YCbCr → RGB as libtiff's TIFFYCbCrToRGB (its fixed-point
+    tables from the file's ReferenceBlackWhite and YCbCrCoefficients, in
+    single precision), which Pillow reaches through TIFFRGBAImage."""
+    f32 = np.float32
+    luma = [f32(v) for v in t.get(529, (0.299, 0.587, 0.114))]
+    rbw = [f32(v) for v in t.get(532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))]
+    fix = lambda v: int(np.floor(np.float64(v) * 65536 + 0.5))
+    clamp2 = lambda v: min(max(v, f32(0)), f32(2))
+    f1 = f32(2) - f32(2) * luma[0]
+    f2 = luma[0] * f1 / luma[1]
+    f3 = f32(2) - f32(2) * luma[2]
+    f4 = luma[2] * f3 / luma[1]
+    d1, d2, d3, d4 = fix(clamp2(f1)), -fix(clamp2(f2)), fix(clamp2(f3)), -fix(clamp2(f4))
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb if rw - rb != 0 else f32(1)
+        return (f32(c) - f32(rb)) * f32(cr) / den
+
+    clampw = lambda v, lo, hi: min(max(v, lo), hi)
+    x = np.arange(256) - 128
+    cr = np.array([int(clampw(code2v(v, rbw[4] - f32(128), rbw[5] - f32(128), 127), f32(-4096), f32(4096))) for v in x])
+    cb = np.array([int(clampw(code2v(v, rbw[2] - f32(128), rbw[3] - f32(128), 127), f32(-4096), f32(4096))) for v in x])
+    y_tab = np.array([int(clampw(code2v(v + 128, rbw[0], rbw[1], 255), f32(-4096), f32(4096))) for v in x])
+    cr_r = (d1 * cr + 32768) >> 16
+    cb_b = (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y, b_, r_ = y_tab[ycc[..., 0]], ycc[..., 1].astype(np.int64), ycc[..., 2].astype(np.int64)
+    rgb = np.stack([y + cr_r[r_], y + ((cb_g[b_] + cr_g[r_]) >> 16), y + cb_b[b_]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _tiff_ycbcr_blocks(buf: np.ndarray, rows: int, cols: int, hs: int, vs: int) -> np.ndarray:
+    """A YCbCr chunk stored in subsampling blocks (hs × vs luma samples,
+    then Cb and Cr) → [rows, cols, 3] samples, each block's chroma on each
+    of its pixels, as libtiff's putcontig8bitYCbCr routines place it."""
+    bw, bh = -(-cols // hs), -(-rows // vs)
+    per = hs * vs + 2
+    blocks = np.zeros(bh * bw * per, np.uint8)
+    blocks[: min(blocks.size, buf.size)] = buf[: blocks.size]
+    blocks = blocks.reshape(bh, bw, per)
+    y = blocks[..., : hs * vs].reshape(bh, bw, vs, hs).transpose(0, 2, 1, 3).reshape(bh * vs, bw * hs)
+    cb = np.repeat(np.repeat(blocks[..., hs * vs], vs, 0), hs, 1)
+    cr = np.repeat(np.repeat(blocks[..., hs * vs + 1], vs, 0), hs, 1)
+    return np.stack([y, cb, cr], -1)[:rows, :cols]
+
+
+class _Tiff:
+    """The first image's layout, read and checked as Pillow's
+    TiffImageFile._setup reads it."""
+
+    def __init__(self, data: bytes):
+        if data[2:4] in (b"\x2b\x00", b"\x00\x2b"):
+            raise ValueError("BigTIFF images are not supported by the port's codec")
+        self.bo, t = _tiff_tags(data)
+        self.tags = t
+        one = lambda tag, default=None: t.get(tag, (default,))[0]
+        self.one = one
+        w, h = one(256), one(257)
+        if not w or not h:
+            raise ValueError("corrupt TIFF: no ImageWidth or ImageLength")
+        _check_pixels("TIFF", w, h)
+        self.w, self.h = w, h
+        comp, planar = one(259, 1), one(284, 1)
+        photo = 6 if comp == 6 else one(262, 0)
+        fill = one(266, 1)
+        sf = t.get(339, (1,))
+        if len(sf) > 1 and max(sf) == min(sf) == 1:
+            sf = (1,)
+        bps = t.get(258, (1,))
+        extra = t.get(338, ())
+        spp = one(277, 3 if comp == 6 and photo in (2, 6) else 1)
+        if spp < len(bps):
+            bps = bps[:spp]
+        elif spp > len(bps) and len(bps) == 1:
+            bps = bps * spp
+        key = (photo, tuple(sf), tuple(bps), tuple(extra))
+        if len(bps) != spp or key not in _TIFF_MODES or (self.bo == ">" and key in _TIFF_NOT_BIG_ENDIAN) \
+                or (fill == 2 and key not in _TIFF_FILL_ORDER_2):
+            name = _TIFF_PHOTOMETRIC.get(photo, f"photometric {photo}")
+            raise ValueError(f"TIFF {name} images at {'/'.join(map(str, bps))} bits (sample format "
+                             f"{'/'.join(map(str, sf))}, extra samples {list(extra)}) are not supported by the port's "
+                             "codec (nor by Pillow)")
+        self.mode, self.rawmode = _TIFF_MODES[key]
+        if self.mode == "LAB":
+            raise ValueError("TIFF CIELab images are not supported by the port's codec")
+        if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946):
+            name = _TIFF_COMPRESSION.get(comp, f"type {comp}")
+            kind = "JPEG-in-TIFF" if comp == 6 else "compression"
+            raise ValueError(f"TIFF {kind} ({name}, compression {comp}) is not supported by the port's codec")
+        if comp != 1:  # libtiff drops a one-value tag that holds several, and then fails the decode
+            for tag in (256, 257, 259, 262, 266, 277, 278, 284, 317, 322, 323):
+                if len(t.get(tag, (0,))) != 1 or tag in t.get(-1, ()):
+                    raise ValueError(f"corrupt TIFF: tag {tag} holds other than the one value libtiff takes")
+        if comp in _TIFF_CCITT and bps != (1,):
+            raise ValueError(f"corrupt TIFF: CCITT compression of {bps}-bit samples")
+        self.comp, self.photo, self.planar, self.fill, self.spp, self.bps = comp, photo, planar, fill, spp, bps
+        self.predictor = one(317, 1)
+        if self.predictor not in (1, 2):
+            raise ValueError(f"TIFF predictor {self.predictor} (floating point) is not supported by the port's codec")
+        if 322 in t:
+            self.cw, self.ch = one(322), one(323)
+            self.offsets, self.counts = t[324], t.get(325, (len(data),) * len(t[324]))
+        else:
+            self.cw, self.ch = w, min(one(278, h), h)
+            self.offsets, self.counts = t[273], t.get(279, (len(data),) * len(t[273]))
+        if not self.cw or not self.ch:
+            raise ValueError("corrupt TIFF: a tile or strip of size 0")
+        self.across, self.down = -(-w // self.cw), -(-h // self.ch)
+        _check_pixels("TIFF", self.across * self.cw, self.down * self.ch, "grid of strips or tiles")
+        self.planes = spp if planar == 2 else 1
+        if len(self.offsets) < self.across * self.down * self.planes:
+            raise ValueError("corrupt TIFF: fewer strips or tiles than the image needs")
+
+    def chunks(self):
+        """(plane, row, column, offset, count) of each strip or tile."""
+        for p in range(self.planes):
+            for k in range(self.across * self.down):
+                i = p * self.across * self.down + k
+                r, c = divmod(k, self.across)
+                yield p, r, c, self.offsets[i], self.counts[i]
+
+    def jpeg_stream(self, data: bytes, offset: int, count: int) -> bytes:
+        """A JPEG-in-TIFF chunk with the file's JPEGTables spliced in."""
+        strip = data[offset:offset + count]
+        tables = bytes(self.tags[347]) if 347 in self.tags else b""
+        if len(tables) >= 4 and strip[:2] == b"\xff\xd8":
+            return tables[:-2] + strip[2:]
+        return strip
+
+
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes → RGB u8 [H, W, 3] of the first image, as Pillow's
-    ``convert("RGB")`` (see the module docstring). Raises ValueError,
-    naming it, for a compression, sample format or photometric outside
-    baseline 8-bit (and 1-, 2-, 4-bit gray and palette)."""
-    _, t = _tiff_tags(data)
-    one = lambda tag, default=None: t.get(tag, (default,))[0]
-    w, h = one(256), one(257)
-    if not w or not h:
-        raise ValueError("corrupt TIFF: no ImageWidth or ImageLength")
-    _check_pixels("TIFF", w, h)
-    comp, photo = one(259, 1), one(262)
-    spp = one(277, 1)
-    bps = t.get(258, (1,) * spp)
-    if comp not in (1, 5, 8, 32773, 32946):
-        name = _TIFF_COMPRESSION.get(comp, f"type {comp}")
-        kind = "JPEG-in-TIFF" if comp in (6, 7) else "CCITT" if comp in (2, 3, 4) else "compression"
-        raise ValueError(f"TIFF {kind} ({name}, compression {comp}) is not supported by the port's codec")
-    if one(339, 1) == 3:
-        raise ValueError("floating-point TIFF samples are not supported by the port's codec")
-    if any(b == 16 for b in bps):
-        raise ValueError("16-bit TIFF samples are not supported by the port's codec")
-    if photo not in (0, 1, 2, 3) or any(b != bps[0] for b in bps) or one(339, 1) not in (1, 2) \
-            or (bps[0] != 8 and (photo == 2 or spp > 1)) or bps[0] not in (1, 2, 4, 8):
-        name = _TIFF_PHOTOMETRIC.get(photo, f"photometric {photo}")
-        raise ValueError(f"TIFF {name} images at {'/'.join(map(str, bps))} bits are not supported by the "
-                         "port's codec")
-    depth, planar, predictor = bps[0], one(284, 1), one(317, 1)
-    if predictor not in (1, 2):
-        raise ValueError(f"TIFF predictor {predictor} is not supported by the port's codec")
-    per_chunk = 1 if planar == 2 else spp  # samples a strip or tile holds
-    if 322 in t:
-        cw, ch = one(322), one(323)
-        offsets, counts = t[324], t[325]
+    ``convert("RGB")`` gives it (see the module docstring)."""
+    return convert_rgb(*_tiff_samples_of(_Tiff(data), data))
+
+
+def _tiff_samples_of(f: _Tiff, data: bytes) -> tuple[np.ndarray, str, np.ndarray | None]:
+    """The image's samples in its Pillow mode, and its palette."""
+    w, h, cw, ch = f.w, f.h, f.cw, f.ch
+    per_chunk = 1 if f.planar == 2 else f.spp
+    depth = f.bps[0]
+    sf = f.tags.get(339, (1,))[0]
+    kind = f.bo + ("f" if sf == 3 else "i" if sf == 2 else "u")
+    if f.comp == 7:
+        img = _tiff_jpeg_cpu(f, data)
+    elif f.comp == 1 and f.photo == 6 and f.rawmode == "RGBX":
+        img = _tiff_ycbcr_raw(f, data)
     else:
-        cw, ch = w, min(one(278, h), h)
-        offsets, counts = t[273], t.get(279, (len(data),) * len(t[273]))
-    if not cw or not ch:
-        raise ValueError("corrupt TIFF: a tile or strip of size 0")
-    across, down = -(-w // cw), -(-h // ch)
-    _check_pixels("TIFF", across * cw, down * ch, "grid of strips or tiles")
-    stride = (cw * per_chunk * depth + 7) // 8
-    planes = spp if planar == 2 else 1
-    if len(offsets) < across * down * planes:
-        raise ValueError("corrupt TIFF: fewer strips or tiles than the image needs")
-    img = np.zeros((planes, down * ch, across * cw, per_chunk), np.uint8)
-    for p in range(planes):
-        for k in range(across * down):
-            i = p * across * down + k
-            chunk = _tiff_chunk(data, offsets[i], counts[i], comp, stride * ch).reshape(ch, stride)
-            if one(266, 1) == 2:
-                chunk = _BIT_REVERSE[chunk]
-            px = _unpack_bits(chunk, cw * per_chunk, depth).reshape(ch, cw, per_chunk)
-            if predictor == 2 and comp in (5, 8, 32946):  # libtiff's codecs with a predictor
-                px = np.cumsum(px, axis=1, dtype=np.uint8)
-            r, c = divmod(k, across)
-            img[p, r * ch:(r + 1) * ch, c * cw:(c + 1) * cw] = px
-    px = img[0] if planes == 1 else np.concatenate(list(img), axis=-1)
-    px = px[:h, :w]
-    if photo == 3:
-        cmap = np.asarray(t[320], np.int64).reshape(3, -1).T // 256  # Pillow keeps the high byte
-        return _lookup(px[..., 0], cmap.astype(np.uint8))
-    if photo == 2:
-        rgb = px[..., :3]
-        extra = t.get(338, ())
-        if spp >= 4 and extra[:1] == (1,):  # premultiplied alpha: Pillow's "RGBa" unpremultiplies
-            a = px[..., 3:4].astype(np.int64)
-            un = np.minimum(rgb.astype(np.int64) * 255 // np.maximum(a, 1), 255)
-            rgb = np.where(a == 0, 0, np.where(a == 255, rgb, un)).astype(np.uint8)
-        return np.ascontiguousarray(rgb)
-    g = px[..., 0]
-    if depth < 8:
-        g = g * np.uint8(255 // ((1 << depth) - 1))
-    if photo == 0:
-        g = 255 - g
-    return np.repeat(g[..., None], 3, axis=2)
+        dtype = np.uint8 if depth <= 8 else np.uint16 if depth <= 16 else np.dtype(kind.replace(">", "<") + "4")
+        img = np.zeros((f.planes, f.down * ch, f.across * cw, per_chunk), dtype)
+        ycc = f.photo == 6 and f.spp == 3
+        hs, vs = f.tags.get(530, (2, 2))[:2] if ycc else (1, 1)
+        for p, r, c, off, count in f.chunks():
+            rows = min(ch, h - r * ch) if 322 not in f.tags or f.comp == 1 else ch
+            if f.comp in _TIFF_CCITT:
+                px = _ccitt(f, data, off, count, rows)
+            elif ycc:
+                size = -(-cw // hs) * -(-ch // vs) * (hs * vs + 2)
+                need = -(-cw // hs) * -(-rows // vs) * (hs * vs + 2)
+                buf = _tiff_bytes(data, off, count, f.comp, size, f.fill == 2, need)
+                px = _tiff_ycbcr_rgb(f.tags, _tiff_ycbcr_blocks(buf, ch, cw, hs, vs))
+            else:
+                line = (cw * per_chunk * depth + 7) // 8
+                size = ch * line
+                if f.comp == 1:  # Pillow's raw tile: its last row as wide as the image shows
+                    need = (rows - 1) * line + (min(cw, w - c * cw) * per_chunk * depth + 7) // 8
+                else:
+                    need = rows * line
+                buf = _tiff_bytes(data, off, count, f.comp, size, f.fill == 2 and f.comp != 1, need)
+                if f.fill == 2 and f.comp == 1:  # Pillow's raw modes ending in R
+                    buf = _BIT_REVERSE[buf]
+                px = _tiff_samples(buf, ch, cw, per_chunk, depth, kind)
+                if f.predictor == 2 and f.comp in (5, 8, 32946):  # libtiff's codecs with a predictor
+                    px = np.cumsum(px, axis=1, dtype=px.dtype)
+            img[p, r * ch:(r + 1) * ch, c * cw:(c + 1) * cw] = px.astype(img.dtype, copy=False)
+        img = img[0] if f.planes == 1 else np.concatenate(list(img), axis=-1)
+    px = img[:h, :w]
+    return _tiff_mode_samples(f, px)
+
+
+def _tiff_mode_samples(f: _Tiff, px: np.ndarray) -> tuple[np.ndarray, str, np.ndarray | None]:
+    """Samples as decoded → samples in the Pillow mode, as Pillow's raw
+    mode unpacks them."""
+    raw, depth = f.rawmode, f.bps[0]
+    if f.comp == 7 or (f.photo == 6 and f.mode == "RGB"):
+        return px, "RGB", None
+    if f.mode == "P" or f.mode == "PA":
+        cmap = np.asarray(f.tags[320], np.int64).reshape(3, -1).T // 256  # Pillow keeps the high byte
+        return px[..., 0], "P", cmap.astype(np.uint8)
+    if depth < 8 and f.mode in ("1", "L"):  # 1-, 2- and 4-bit gray, scaled, inverted for WhiteIsZero
+        g = px[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+        return (255 - g if raw.endswith("I") or ";I" in raw else g), f.mode, None
+    if f.mode in ("1", "L", "LA"):
+        g = px[..., 0]
+        return (255 - g if raw == "L;I" else g), "L", None
+    if f.mode in ("I;16", "I", "F"):
+        v = px[..., 0]
+        if raw == "I;32N":  # unsigned 32-bit samples read as Pillow's signed I
+            v = v.astype(np.uint32).view(np.int32)
+        return v.astype(np.float32 if f.mode == "F" else np.int64), f.mode, None
+    if depth == 16:  # RGB;16L, RGBA;16L, CMYK;16L and kin: the high byte
+        px = (px >> 8).astype(np.uint8)
+    if "a" in raw:  # premultiplied alpha: Pillow's RGBa unpacker divides it out
+        rgb, a = px[..., :3].astype(np.int64), px[..., 3:4].astype(np.int64)
+        un = np.minimum(rgb * 255 // np.maximum(a, 1), 255)
+        return np.where(a == 0, 0, np.where(a == 255, rgb, un)).astype(np.uint8), "RGB", None
+    return px, f.mode, None
+
+
+def _ccitt(f: _Tiff, data: bytes, offset: int, count: int, rows: int) -> np.ndarray:
+    """A CCITT strip or tile of ``rows`` rows → [ch, cw, 1] u8 bits, 1 where
+    the fax is black (libtiff's raster, which the photometric then reads)."""
+    raw = np.frombuffer(data[offset:offset + count], np.uint8)
+    if f.fill == 2:
+        raw = _BIT_REVERSE[raw]
+    raw = raw.tobytes()
+    out = np.zeros((f.ch, f.cw), np.uint8)
+    done = np.zeros(1, np.int32)
+    options = f.one(292, 0) if f.comp == 3 else 0
+    status = _build.raster_library().mmtrs_ccitt_decode(raw, len(raw), f.cw, rows, f.comp, options,
+                                                        out.ctypes.data, done.ctypes.data)
+    if status:
+        why = "a code outside T.4 or a run past the row" if status == 1 else "the data ends early"
+        raise ValueError(f"corrupt TIFF: a {_TIFF_COMPRESSION[f.comp]} strip or tile ({why})")
+    return out[..., None]
+
+
+def _tiff_ycbcr_raw(f: _Tiff, data: bytes) -> np.ndarray:
+    """Uncompressed YCbCr as Pillow reads it (raw mode RGBX, no colour
+    conversion): four bytes a pixel from each strip's offset."""
+    img = np.zeros((f.down * f.ch, f.w, 3), np.uint8)
+    offsets = f.offsets[-1:] if (f.cw, f.ch) == (f.w, f.h) else f.offsets
+    for i, off in enumerate(offsets):
+        rows = min(f.ch, f.h - i * f.ch)
+        px = np.frombuffer(data[off:off + 4 * f.cw * rows], np.uint8)
+        if px.size < 4 * f.cw * rows:
+            raise ValueError("truncated TIFF: the image data ends early")
+        img[i * f.ch:i * f.ch + rows] = px.reshape(rows, f.cw, 4)[..., :3]
+    return img
+
+
+def _tiff_jpeg_cpu(f: _Tiff, data: bytes) -> np.ndarray:
+    """JPEG-in-TIFF through libjpeg, chunk by chunk, as libtiff decodes it:
+    YCbCr converted to RGB, every other photometric's components as stored."""
+    lib = _build.jpeg_library()
+    ycc = f.photo == 6 and f.planar == 1
+    comps = 3 if ycc else (1 if f.planar == 2 else f.spp)
+    img = np.zeros((f.planes, f.down * f.ch, f.across * f.cw, comps), np.uint8)
+    dims = np.zeros(3, np.int32)
+    for p, r, c, off, count in f.chunks():
+        stream = f.jpeg_stream(data, off, count)
+        status = lib.mmtrs_jpeg_info(stream, len(stream), dims.ctypes.data)
+        hh, ww = int(dims[0]), int(dims[1])
+        if status or ww != f.cw or hh > f.ch:
+            raise ValueError("corrupt TIFF: a JPEG strip or tile that libjpeg cannot read, or of another size")
+        out = np.empty((hh, ww, comps), np.uint8)
+        if lib.mmtrs_jpeg_decode_tiff(stream, len(stream), out.ctypes.data, hh, ww, comps, int(ycc)):
+            raise ValueError("corrupt TIFF: a JPEG strip or tile that libjpeg cannot decode")
+        img[p, r * f.ch:r * f.ch + hh, c * f.cw:(c + 1) * f.cw] = out
+    px = img[0] if f.planes == 1 else np.concatenate(list(img), axis=-1)
+    return _tiff_jpeg_mode(f, px[:f.h, :f.w])
+
+
+def _tiff_jpeg_mode(f: _Tiff, px):
+    """JPEG-in-TIFF samples (numpy or torch) → RGB as Pillow converts the
+    mode libtiff's JPEG codec gives."""
+    if f.photo == 6:
+        return px
+    if f.mode == "CMYK":
+        return cmyk2rgb(torch.from_numpy(px)).numpy() if isinstance(px, np.ndarray) else cmyk2rgb(px)
+    if f.mode in ("L", "1"):
+        g = px[..., :1]
+        g = 255 - g if f.photo == 0 else g
+        return np.repeat(g, 3, axis=2) if isinstance(px, np.ndarray) else g.expand(*g.shape[:2], 3).contiguous()
+    return px[..., :3]
+
+
+def decode_tiff_to(data: bytes, dev: torch.device) -> torch.Tensor:
+    """A TIFF onto ``dev``: JPEG-in-TIFF on the card through nvJPEG, chunk by
+    chunk into a CUDA tensor (no host route); everything else on the host."""
+    if dev.type != "cuda":
+        return torch.from_numpy(decode_tiff(data))
+    f = _Tiff(data)
+    if f.comp != 7:
+        return torch.from_numpy(decode_tiff(data)).to(dev)
+    return _tiff_jpeg_cuda(f, data, dev)
+
+
+def _tiff_jpeg_cuda(f: _Tiff, data: bytes, dev: torch.device) -> torch.Tensor:
+    lib = _build.nvjpeg_library()
+    ycc = f.photo == 6 and f.planar == 1
+    comps = 3 if ycc else (1 if f.planar == 2 else f.spp)
+    dims = np.zeros(11, np.int32)
+    with torch.cuda.device(dev):
+        img = torch.zeros((f.planes, f.down * f.ch, f.across * f.cw, comps), dtype=torch.uint8, device=dev)
+        for p, r, c, off, count in f.chunks():
+            stream = f.jpeg_stream(data, off, count)
+            if not jpeg_has_end(stream):
+                raise _jpeg_error(2, "nvJPEG")
+            status = lib.mmtrs_nvjpeg_info(stream, len(stream), dims.ctypes.data)
+            if status:
+                raise _jpeg_error(status, "nvJPEG")
+            hh, ww, n = int(dims[0]), int(dims[1]), int(dims[2])
+            if ww != f.cw or hh > f.ch or n != comps:
+                raise ValueError("corrupt TIFF: a JPEG strip or tile of another size or component count")
+            dst = img[p, r * f.ch:r * f.ch + hh, c * f.cw:(c + 1) * f.cw]
+            if n == 1:
+                out = torch.empty((hh, ww), dtype=torch.uint8, device=dev)
+                status = lib.mmtrs_nvjpeg_decode(stream, len(stream), out.data_ptr(), hh, ww, 1, _build.stream_handle())
+                dst[..., 0] = out
+            elif ycc:
+                out = torch.empty((hh, ww, 3), dtype=torch.uint8, device=dev)
+                status = lib.mmtrs_nvjpeg_decode(stream, len(stream), out.data_ptr(), hh, ww, 0, _build.stream_handle())
+                dst.copy_(out)
+            else:  # RGB or CMYK samples as stored: nvJPEG's planes, unconverted
+                planes = [torch.empty((int(dims[3 + 2 * k]), int(dims[4 + 2 * k])), dtype=torch.uint8, device=dev)
+                          for k in range(n)]
+                ptrs = (ctypes.c_void_p * n)(*[q.data_ptr() for q in planes])
+                status = lib.mmtrs_nvjpeg_decode_planes(stream, len(stream), ctypes.addressof(ptrs),
+                                                        _build.stream_handle())
+                for k, q in enumerate(planes):
+                    dst[..., k] = q.repeat_interleave(-(-hh // q.shape[0]), 0)[:hh].repeat_interleave(
+                        -(-ww // q.shape[1]), 1)[:, :ww]
+            if status:
+                raise _jpeg_error(status, "nvJPEG")
+        px = img[0] if f.planes == 1 else torch.cat(list(img), dim=-1)
+        return _tiff_jpeg_mode(f, px[:f.h, :f.w]).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1002,4 +1416,4 @@ def decode_webp(data: bytes) -> np.ndarray:
     return canvas
 
 
-_HOST_DECODERS = {"png": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "TIFF": decode_tiff, "WebP": decode_webp}
+_HOST_DECODERS = {"PNG": decode_png, "BMP": decode_bmp, "GIF": decode_gif, "WEBP": decode_webp}

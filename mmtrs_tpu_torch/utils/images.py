@@ -25,7 +25,7 @@ import torch
 
 from mmtrs_tpu_torch.device import resolve_device
 from mmtrs_tpu_torch.ops.resize import resize_bilinear_u8
-from mmtrs_tpu_torch.utils.codec import decode_image, decode_paths, encode_jpeg, sniff
+from mmtrs_tpu_torch.utils.codec import decode_image, decode_paths, encode_jpeg, is_jpeg
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
@@ -57,7 +57,7 @@ def list_images(d: str | Path) -> list[Path]:
 def _is_jpeg(path: Path) -> bool:
     try:
         with open(path, "rb") as f:
-            return sniff(f.read(12)) == "jpeg"
+            return is_jpeg(f.read(3))
     except OSError:
         return False
 

@@ -1,6 +1,7 @@
 """Artifact IO helpers (the port's copy of ``ensure_dir``, ``timestamp``,
-``save_json``, ``read_table`` and ``write_table`` from
-mmtrs_tpu/utils/io.py, with its numpy-aware JSON encoder).
+``save_json``, ``load_json``, ``copy_with_new_name``, ``read_table`` and
+``write_table`` from mmtrs_tpu/utils/io.py, with its numpy-aware JSON
+encoder).
 
 Tables are the port's pandas-free :class:`~mmtrs_tpu_torch.utils.table.Table`
 and go through the ``csv`` module. XLSX is neither read nor written: the
@@ -11,6 +12,7 @@ openpyxl exists; the port writes the CSV only.
 from __future__ import annotations
 
 import json
+import shutil
 from datetime import datetime, timezone
 from pathlib import Path
 from typing import Any
@@ -50,6 +52,17 @@ def save_json(obj: Any, path: str | Path, indent: int = 2) -> Path:
     with open(p, "w") as f:
         json.dump(obj, f, indent=indent, cls=_NumpyEncoder)
     return p
+
+
+def load_json(path: str | Path) -> Any:
+    with open(path) as f:
+        return json.load(f)
+
+
+def copy_with_new_name(src: str | Path, dst_dir: str | Path, new_name: str) -> Path:
+    dst = ensure_dir(dst_dir) / new_name
+    shutil.copy2(src, dst)
+    return dst
 
 
 def read_table(path: str | Path) -> Table:

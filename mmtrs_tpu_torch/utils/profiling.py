@@ -1,11 +1,49 @@
-"""Structured run logs (the port's copy of ``StructuredLogger`` in
-mmtrs_tpu/utils/profiling.py)."""
+"""Tracing and structured run logs (the port's counterparts of
+mmtrs_tpu/utils/profiling.py):
+
+- :func:`trace` — a ``torch.profiler`` trace of a code region (CPU and, where
+  a card is visible, CUDA activity), written into ``logdir`` as a Chrome
+  trace that Perfetto or ``chrome://tracing`` opens;
+- :func:`annotate` — a named region inside a trace
+  (``torch.profiler.record_function``);
+- :class:`StructuredLogger` — append-only JSONL metrics log.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
+
+
+@contextlib.contextmanager
+def trace(logdir: str | Path):
+    """Profile the enclosed region and write ``logdir/trace_<ns>.json``.
+
+    Usage::
+
+        with trace("logs/trace_preproc"):
+            out = preprocess_batch(x)
+            torch.cuda.synchronize()
+    """
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / f"trace_{time.time_ns()}.json"))
+
+
+def annotate(name: str):
+    """Named sub-region annotation (shows up inside a :func:`trace`)."""
+    import torch
+
+    return torch.profiler.record_function(name)
 
 
 class StructuredLogger:

@@ -75,8 +75,24 @@ def _b64(data: bytes) -> str:
 
 
 def _encoded(img: np.ndarray, fmt: str) -> bytes:
+    """``img`` as a ``fmt`` upload: Pillow's writers, a CMYK TIFF, a 16-bit
+    RGB TIFF (each sample v · 257), an RLE TGA, an RLE PSD, a DXT5 DDS."""
+    from tests.test_torch_codec_formats import tiff_bytes
+    from tests.test_torch_codec_pillow import psd_bytes
+
+    h, w, _ = img.shape
+    if fmt == "TIFF_16BIT":
+        px = (img.astype(np.uint16) * 257).astype(">u2")
+        return tiff_bytes(w, h, {258: (3, [16] * 3), 259: (3, [1]), 262: (3, [2]), 277: (3, [3]), 278: (4, [h])},
+                          [px.tobytes()], bo=">")
+    if fmt == "PSD":
+        return psd_bytes(3, 8, [np.ascontiguousarray(img[..., c]) for c in range(3)], True)
     buf = io.BytesIO()
-    Image.fromarray(img).save(buf, fmt, **({"quality": 95} if fmt == "JPEG" else {}))
+    pil = Image.fromarray(img)
+    kw = {"JPEG": {"quality": 95}, "TGA": {"compression": "tga_rle"}, "DDS": {"pixel_format": "DXT5"}}.get(fmt, {})
+    if fmt == "TIFF_CMYK":
+        pil, fmt = pil.convert("CMYK"), "TIFF"
+    pil.save(buf, fmt, **kw)
     return buf.getvalue()
 
 
@@ -122,11 +138,16 @@ def test_ui_page_equals_jax_but_for_the_title(weightless):
 
 
 @pytest.mark.parametrize("case", ["no_streams_png", "no_streams_jpeg", "bad_base64", "not_an_image",
-                                  "missing_image", "unknown_endpoint"])
+                                  "missing_image", "unknown_endpoint", "eps", "wmf", "emf", "bufr", "grib", "hdf5",
+                                  "mpeg"])
 def test_error_contract_equals_jax(weightless, case):
     """Every refused request is a structured error with JAX's status and
     text; where the text comes from the image decoder (Pillow's against the
-    port's codec), the status and the presence of an error."""
+    port's codec), the status and the presence of an error. EPS, WMF/EMF
+    and the stub formats (BUFR, GRIB, HDF5, MPEG), which Pillow here cannot
+    load either, are refused alike."""
+    from tests.test_torch_codec_pillow import refused_files
+
     url, jurl = weightless
     img = np.zeros((8, 8, 3), np.uint8)
     body = {
@@ -136,6 +157,8 @@ def test_error_contract_equals_jax(weightless, case):
         "not_an_image": {"image_b64": _b64(b"plain text")},
         "missing_image": {"fields": {}},
     }.get(case)
+    if case in refused_files():
+        body = {"image_b64": _b64(refused_files()[case][0])}
     if case == "unknown_endpoint":
         req = lambda u: urllib.request.Request(f"{u}/other", data=b"{}", method="POST")
         codes = []
@@ -163,7 +186,7 @@ def trained(weights_dir):  # noqa: F811
     httpd.server_close()
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "TIFF_CMYK", "TIFF_16BIT", "TGA", "PSD", "DDS"])
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_predict_equals_predict_one_and_jax(trained, fmt, with_fields):
     from mmtrs_tpu_torch.utils.codec import decode_image

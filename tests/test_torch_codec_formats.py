@@ -594,27 +594,28 @@ def test_card_cmyk_arithmetic_equals_pillow_on_libjpeg_planes(four_component, ca
 # ---------------------------------------------------------------------------
 
 
-def _refused() -> dict[str, tuple[bytes, str]]:
-    """Each refused variant (Pillow opens all but BI_JPEG and the corrupt
-    WebPs, which it refuses too) and the words its error must hold."""
+def _refused() -> dict[str, tuple[bytes, str | None]]:
+    """Each variant the codec once refused and the words its error must
+    hold, or None for the variants it now decodes (Pillow opens all but
+    BI_JPEG and the corrupt WebPs, which it refuses too)."""
     from tests.test_torch_codec_webp import _corrupt
 
     a = _img(16, 16)
     webp = _corrupt()
     return {
-        "tiff_jpeg": (_save(a, "TIFF", compression="jpeg"), "JPEG-in-TIFF"),
-        "tiff_ccitt_g4": (_save(a, "TIFF", "1", compression="group4"), "CCITT"),
-        "tiff_16bit": (_save(np.arange(256, dtype=np.uint16).reshape(16, 16) * 200, "TIFF"), "16-bit"),
-        "tiff_float": (_save(np.linspace(0, 1, 256, dtype=np.float32).reshape(16, 16), "TIFF"), "floating-point"),
-        "tiff_cmyk": (_save(a, "TIFF", "CMYK"), "CMYK"),
+        "tiff_jpeg": (_save(a, "TIFF", compression="jpeg"), None),
+        "tiff_ccitt_g4": (_save(a, "TIFF", "1", compression="group4"), None),
+        "tiff_16bit": (_save(np.arange(256, dtype=np.uint16).reshape(16, 16) * 200, "TIFF"), None),
+        "tiff_float": (_save(np.linspace(0, 1, 256, dtype=np.float32).reshape(16, 16), "TIFF"), None),
+        "tiff_cmyk": (_save(a, "TIFF", "CMYK"), None),
         "bmp_jpeg": (bmp_bytes(2, 2, 24, bytes(16), comp=4), "BI_JPEG"),
-        "tiff_ccitt_g3": (_save(a, "TIFF", "1", compression="group3"), "CCITT"),
+        "tiff_ccitt_g3": (_save(a, "TIFF", "1", compression="group3"), None),
         "webp": (webp["inter_frame"], "WebP.*inter frame"),
         "webp_bad_riff_size": (webp["bad_riff_size"], "truncated WebP"),
         "avif": (_save(a, "AVIF"), "AVIF images are not supported"),
         "jpeg2000": (_save(a, "JPEG2000"), "JPEG 2000 images are not supported"),
-        "ppm": (_save(a, "PPM"), "PPM images are not supported"),
-        "ico": (_save(a, "ICO"), "ICO images are not supported"),
+        "ppm": (_save(a, "PPM"), None),
+        "ico": (_save(a, "ICO"), None),
     }
 
 
@@ -623,7 +624,9 @@ def _refused() -> dict[str, tuple[bytes, str]]:
 def test_refused_variants_name_themselves(case):
     """A variant or format Pillow reads and the codec does not raises with
     its name; a corrupt WebP (an inter frame, a RIFF size past the file's
-    end), which Pillow refuses too, raises naming WebP."""
+    end), which Pillow refuses too, raises naming WebP. The variants the
+    codec has learned to read since (JPEG-in-TIFF, CCITT, 16-bit, float and
+    CMYK TIFF, PPM, ICO) decode as Pillow decodes them."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, msg = _refused()[case]
@@ -631,7 +634,10 @@ def test_refused_variants_name_themselves(case):
         with pytest.raises(Exception):  # noqa: B017  (Pillow's own error types)
             _pil(data)
     else:
-        _pil(data)  # Pillow reads it
+        want = _pil(data)  # Pillow reads it
+    if msg is None:
+        np.testing.assert_array_equal(decode_image(data, "cpu").numpy(), want)
+        return
     with pytest.raises(ValueError, match=msg):
         decode_image(data, "cpu")
 

@@ -57,6 +57,7 @@ SLICE_MODULES = [
     "mmtrs_tpu_torch.serve.ensembles",
     "mmtrs_tpu_torch.serve.service",
     "mmtrs_tpu_torch.utils.codec",
+    "mmtrs_tpu_torch.utils.rasters",
     "mmtrs_tpu_torch.utils.images",
     "mmtrs_tpu_torch.utils.io",
     "mmtrs_tpu_torch.serve.app",
@@ -246,6 +247,19 @@ def test_training_config_copies_match_jax_package(name):
         for recipe in ("lgbm_like", "stack_tab_like"):
             assert dataclasses.asdict(getattr(port.GBDTConfig, recipe)()) == \
                 dataclasses.asdict(getattr(orig.GBDTConfig, recipe)())
+
+
+@pytest.mark.parametrize("name", ["Paths", "AugmentConfig", "SplitConfig"])
+def test_path_augment_split_config_copies_match_jax_package(name):
+    """The copies of Paths (its defaults under the same repository root),
+    AugmentConfig and SplitConfig have the originals' fields, types and
+    defaults, and are frozen as they are."""
+    import mmtrs_tpu.config as orig
+    import mmtrs_tpu_torch.config as port
+
+    spec = lambda cls: [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+    assert spec(getattr(port, name)) == spec(getattr(orig, name))
+    assert getattr(port, name).__dataclass_params__.frozen and getattr(orig, name).__dataclass_params__.frozen
 
 
 def test_mesh_config_copy_matches_jax_package():
