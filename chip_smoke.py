@@ -145,7 +145,14 @@ Phases (each raises on failure, so the script exits non-zero):
      with all 9 fields, each answer equal to ``predict_one`` on the decoded
      upload and each preview PNG to its ``processed_image``, the 300×300
      and partial-fields refusals with the JAX service's words; HTTP p50
-     beside ``predict_one``'s;
+     beside ``predict_one``'s; the port's own JPEG decoder (g++,
+     csrc/host/jpeg.cpp): every lossless and arithmetic-coded golden of
+     jpeg_goldens.npz and pillow_goldens.npz decoded to the card equal to
+     Pillow's decode, every refused one refused; the median ms of a 12 MP
+     arithmetic 4:2:0 and a 12 MP lossless RGB decode; four 1024x768
+     uploads (lossless RGB and gray, arithmetic sequential and
+     progressive) served with their launches counted, and the CLI twin over
+     them beside two baseline JPEGs, none rejected;
  10. training the MM stream (the rehearsal's stages 2-4 at
      MMJointConfig's widths: B4 at 380, batch 12, bf16, randaug; depth cut
      to 24 cases, 2 folds, 1 epoch): 24 raw 512² synthetic teeth with 9
@@ -251,6 +258,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import struct
 import subprocess
@@ -1823,12 +1831,19 @@ WEBP_SMALL = "lossy_q80_97x101.webp"
 WEBP_CLI_COPIES = 4  # copies of the 12 MP WebP through the CLI, beside the small one and a cut one
 # the goldens of every other format Pillow 12.1 opens (python -m
 # tests.test_torch_codec_pillow): each file and Pillow's decode of it. On
-# the card's machine each decodes equal to it, but JPEG-in-TIFF (nvJPEG, held
-# to the JPEG bars above; its RGB and gray files store no subsampled chroma)
-# and the arithmetic-coded JPEGs, which nvJPEG decodes within those bars or
-# the codec refuses naming them
+# the card's machine each decodes equal to it (the arithmetic-coded JPEGs
+# through the port's own decoder), but JPEG-in-TIFF (nvJPEG, held to the
+# JPEG bars above; its RGB and gray files store no subsampled chroma)
 PILLOW_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "pillow_goldens.npz"
-ARITH_ERROR = "arithmetic-coded JPEG"
+# the own JPEG decoder's goldens (python -m tests.test_torch_codec_jpeg):
+# lossless and arithmetic-coded files with Pillow 12.1's decode of each
+# (the whole file read in one block), the files Pillow refuses, BLP1 files
+# around JPEGs, two 1024x768 arithmetic uploads and a 12 MP arithmetic
+# photo (by SHA-256 and shape); the 12 MP lossless photo is written here
+# by tests/jpeg_streams.py, as the card's machine has no JPEG encoder
+JPEG_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "jpeg_goldens.npz"
+JPEG_ARCHIVE = "arith_420_3024x4032_q80.jpg"
+JPEG_UPLOADS = {"jpeg_arith": "upload_arith_420_1024x768.jpg", "jpeg_arith_prog": "upload_arith_420_prog_1024x768.jpg"}
 # the side of the BC7 DDS timed
 BC7_SIDE = 4096
 # |card - CPU| of warp_affine / warp_perspective on f32 images in [0, 255]:
@@ -1904,14 +1919,16 @@ def _codec_checks(torch, dev, smi: str) -> dict:
     return out
 
 
-def _run_cli(torch, dev, in_dir: Path, work: Path, status_want: dict, what: str) -> tuple[dict, dict, float]:
+def _run_cli(torch, dev, in_dir: Path, work: Path, status_want: dict, what: str,
+             fused: bool = False) -> tuple[dict, dict, float]:
     """``cli.run_pipeline.main`` over ``in_dir`` at batch CLI_BATCH on its
     default device, writing under ``work``, its outputs kept before
     encoding; checks the logged statuses against ``status_want``, one
     output per ``ok`` file, the L-plane route with deskew's write-back
-    (K8, K9, K3, K7 launched, K1/K2 not), the outputs on ``dev`` and each
-    equal to ``preprocess_numpy`` on its decoded, padded batch → (the log,
-    the launch counts, the wall seconds)."""
+    (K8, K9, K3, K7 launched, K1/K2 not; ``fused``: K1, K2, K3, K7
+    launched, K8/K9 not, as images of a phone's size take), the outputs on
+    ``dev`` and each equal to ``preprocess_numpy`` on its decoded, padded
+    batch → (the log, the launch counts, the wall seconds)."""
     from mmtrs_tpu_torch.cli import run_pipeline
     from mmtrs_tpu_torch.config import PreprocessConfig
     from mmtrs_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -1945,8 +1962,13 @@ def _run_cli(torch, dev, in_dir: Path, work: Path, status_want: dict, what: str)
            and log["processed"] == n_ok,
            f"{what} wrote {len(outs)} outputs and logged processed {log['processed']} of {log['total']}")
     _check(status == status_want, f"{what}: log statuses {status}")
-    _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS + ("scatter_rows",)) and all(counts[k] == 0 for k in FUSED_KERNELS),
-           f"{what} took the L-plane route with deskew's write-back: K8, K9, K3, K7 launched, K1/K2 not: {counts}")
+    if fused:
+        _check(all(counts[k] > 0 for k in SERVE_KERNELS + ("scatter_rows",)) and all(counts[k] == 0 for k in L_KERNELS),
+               f"{what} took the fused route with deskew's write-back: K1, K2, K3, K7 launched, K8/K9 not: {counts}")
+    else:
+        _check(all(counts[k] > 0 for k in L_ROUTE_KERNELS + ("scatter_rows",))
+               and all(counts[k] == 0 for k in FUSED_KERNELS),
+               f"{what} took the L-plane route with deskew's write-back: K8, K9, K3, K7 launched, K1/K2 not: {counts}")
     _check(all(v.device == torch.device(dev) for v in kept.values()), f"{what}: the outputs reached the encoder on {dev}")
 
     cfg, n = PreprocessConfig(), 0
@@ -2260,6 +2282,148 @@ def _dds(w: int, h: int, fourcc: bytes, payload: bytes, dxgi: int | None = None)
     return b"DDS " + bytes(hdr) + dx10 + payload
 
 
+def _nvjpeg_bars(name: str, got: np.ndarray, want: np.ndarray, no_chroma: bool) -> tuple[int, float]:
+    """nvJPEG's decode against Pillow's within the JPEG bars → (max, mean |d|)."""
+    d = np.abs(got.astype(int) - want.astype(int))
+    _check(d.mean() <= NVJPEG_MEAN_BAR and (d == 0).mean() >= NVJPEG_EQUAL and (d <= 8).mean() >= NVJPEG_WITHIN8
+           and (d.max() <= NVJPEG_444_MAX or not no_chroma),
+           f"{name} (nvJPEG) vs Pillow: max |d| {d.max()}, equal {(d == 0).mean():.4f}, within 8 "
+           f"{(d <= 8).mean():.5f}, mean {d.mean():.4f}")
+    return int(d.max()), float(d.mean())
+
+
+@functools.cache
+def _jpeg_streams():
+    """tests/jpeg_streams.py (numpy only), loaded by its path: a package
+    named ``tests`` elsewhere on the card machine's path shadows the
+    repository's folder of that name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("jpeg_streams", ROOT / "tests" / "jpeg_streams.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lossless_jpeg(*args, **kwargs) -> bytes:
+    """tests/jpeg_streams.py's lossless JPEG writer."""
+    return _jpeg_streams().lossless_jpeg(*args, **kwargs)
+
+
+def _jpeg_goldens() -> dict[str, np.ndarray]:
+    with np.load(JPEG_GOLDENS) as z:
+        return {f: z[f] for f in z.files}
+
+
+def _jpeg_same(g: dict, name: str, got: np.ndarray) -> bool:
+    """``got`` is Pillow's decode of golden ``name`` (its array, or its
+    SHA-256 and shape)."""
+    if f"{name}.pil" in g:
+        return got.shape == g[f"{name}.pil"].shape and np.array_equal(got, g[f"{name}.pil"])
+    return (hashlib.sha256(np.ascontiguousarray(got).tobytes()).digest() == g[f"{name}.sha256"].tobytes()
+            and got.shape == tuple(g[f"{name}.shape"]))
+
+
+def _jpeg_uploads(torch, dev, phone: np.ndarray) -> dict[str, bytes]:
+    """The phone photo as the four new JPEG forms: lossless RGB (predictor
+    1) and lossless gray (its G plane), written here by
+    tests/jpeg_streams.py, and the committed arithmetic 4:2:0 uploads
+    (sequential, progressive); each decoded to the card as Pillow decodes it
+    (the lossless ones to their source)."""
+    from mmtrs_tpu_torch.utils.codec import decode_image
+
+    g = _jpeg_goldens()
+    files = {"jpeg_lossless": _lossless_jpeg(phone, 1), "jpeg_lossless_gray": _lossless_jpeg(phone[..., 1], 1),
+             **{fam: g[name].tobytes() for fam, name in JPEG_UPLOADS.items()}}
+    for fam, raw in files.items():
+        got = decode_image(raw, dev)
+        want = {"jpeg_lossless": phone, "jpeg_lossless_gray": np.repeat(phone[..., 1:2], 3, axis=2)}.get(fam)
+        same = np.array_equal(got.cpu().numpy(), want) if want is not None else \
+            _jpeg_same(g, JPEG_UPLOADS[fam], got.cpu().numpy())
+        _check(got.device.type == "cuda" and same, f"the {fam} upload ({len(raw)} bytes) decodes to the card "
+                                                   f"({got.device.type}) as Pillow decodes it: {same} {tuple(got.shape)}")
+    return files
+
+
+def _jpeg_own_checks(torch, dev, tmp: Path, smi: str, phone: np.ndarray) -> dict:
+    """The port's own JPEG decoder on the card's machine, built by g++ from
+    csrc/host/jpeg.cpp: every lossless and arithmetic golden decoded to the
+    card equal to Pillow's decode, every file Pillow refuses refused with a
+    ValueError, the BLP1 files (a baseline JPEG inside stays on nvJPEG,
+    within the JPEG bars); the median ms of a 12 MP arithmetic 4:2:0 decode
+    and a 12 MP lossless RGB one, on the host and to a CUDA tensor; the CLI
+    twin over the four new upload forms beside two baseline JPEGs."""
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.utils import rasters
+    from mmtrs_tpu_torch.utils.codec import (OWN_FRAMES, decode_image, encode_jpeg, jpeg_components, jpeg_frame_marker,
+                                             jpeg_own_planes)
+
+    t0 = time.perf_counter()
+    _build.jpeg_own_library()
+    print(f"  own JPEG decoder built in {time.perf_counter() - t0:.2f} s (g++, csrc/host/jpeg.cpp)")
+    g = _jpeg_goldens()
+    exact, refused, nvjpeg, on_card = 0, 0, [], True
+    for name in sorted(f for f in g if f.endswith((".jpg", ".blp"))):
+        data = g[name].tobytes()
+        if f"{name}.refused" in g:
+            try:
+                decode_image(data, dev)
+            except ValueError:
+                refused += 1
+                continue
+            raise AssertionError(f"{name}: decoded on the card's machine, where Pillow refuses it")
+        got = decode_image(data, dev)
+        on_card &= got.device.type == "cuda"
+        blp = rasters.blp1_jpeg(data) if name.endswith(".blp") else None
+        if blp is not None and jpeg_frame_marker(blp[0]) not in OWN_FRAMES:
+            if jpeg_components(blp[0]) == 3:
+                _check(torch.equal(got, decode_image(blp[0], dev).flip(-1)),
+                       f"{name}: BLP1's decode is its JPEG's nvJPEG decode read back as BGR")
+            nvjpeg.append((name, *_nvjpeg_bars(name, got.cpu().numpy(), g[f"{name}.pil"], False)))
+            continue
+        if not _jpeg_same(g, name, got.cpu().numpy()):
+            raise AssertionError(f"JPEG golden {name}: not equal to Pillow's decode on the card's machine")
+        exact += 1
+    n_refused = sum(f.endswith(".refused") for f in g)
+    _check(on_card and refused == n_refused and len(nvjpeg) == 3,
+           f"{exact} own-decoder goldens decoded to the card equal to Pillow's decode, {refused} refused as Pillow "
+           f"refuses them, BLP1 around baseline JPEGs through nvJPEG within its bars ({nvjpeg})")
+
+    archive = _archive_batch()[3]  # an upright 12 MP tooth, built once for phase 7
+    t0 = time.perf_counter()
+    lossless = _lossless_jpeg(archive, 1)
+    write_s = time.perf_counter() - t0
+    arith = g[JPEG_ARCHIVE].tobytes()
+    got = decode_image(lossless, dev)
+    same = torch.equal(got.cpu(), torch.from_numpy(archive))
+    _check(got.device.type == "cuda" and same, f"the 12 MP lossless RGB JPEG ({len(lossless)} bytes, written in "
+                                               f"{write_s:.2f} s) decodes to the card ({got.device.type}) equal to its "
+                                               f"source: {same}")
+    timed = {"arith_12mp_card_ms": lambda: decode_image(arith, dev), "arith_12mp_host_ms": lambda: jpeg_own_planes(arith),
+             "lossless_12mp_card_ms": lambda: decode_image(lossless, dev),
+             "lossless_12mp_host_ms": lambda: jpeg_own_planes(lossless)}
+    out = {k: _median_ms(torch, fn) for k, fn in timed.items()}
+    print("  own JPEG decoder, 12 MP: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f" (host clock, median of 3, each ending in a synchronise; the host ms are the C++ decode alone, "
+            f"the card ms add the copy and the colour conversion on the card; {smi})")
+
+    uploads = _jpeg_uploads(torch, dev, phone)
+    in_dir = tmp / "jpeg" / "in"
+    in_dir.mkdir(parents=True)
+    for fam, raw in uploads.items():
+        (in_dir / f"{fam}.jpg").write_bytes(raw)
+    baseline = encode_jpeg(torch.from_numpy(phone).to(dev), 95)
+    for i in range(2):
+        (in_dir / f"baseline_{i}.jpg").write_bytes(baseline)
+    status = {f.name: "ok" for f in in_dir.iterdir()}
+    log, counts, wall = _run_cli(torch, dev, in_dir, tmp / "jpeg", status, "the CLI on lossless, arithmetic and "
+                                                                          "baseline JPEGs", fused=True)
+    print(f"  the CLI on {len(status)} JPEGs (4 lossless and arithmetic, 2 baseline): none rejected, "
+          f"{log['imgs_per_sec']:.2f} imgs/s over its loop ({wall:.2f} s for main(); {smi}); launches {counts}")
+    return {**out, "goldens_exact": exact, "goldens_refused": refused, "blp_nvjpeg": nvjpeg, "uploads": uploads,
+            "lossless_write_s": write_s, "cli": {"imgs_per_sec": log["imgs_per_sec"], "launches": counts}}
+
+
 def _median_ms(torch, fn, reps: int = 3) -> float:
     """The median of ``reps`` calls (the libraries are built by then)."""
     ts = []
@@ -2284,35 +2448,26 @@ def _pillow_format_checks(torch, dev, smi: str) -> dict:
     t0 = time.perf_counter()
     _build.raster_library()
     print(f"  raster decoders built in {time.perf_counter() - t0:.2f} s (g++, csrc/host/rasters.cpp)")
-    exact, nvjpeg, arith = 0, [], {}
+    exact, nvjpeg, arith = 0, [], []
     with np.load(PILLOW_GOLDENS) as z:
         names = sorted(f for f in z.files if not f.endswith((".pil", ".format")))
         for name in names:
             data, want = z[name].tobytes(), z[f"{name}.pil"]
-            if name.startswith(("tiff_jpeg", "jpeg_arithmetic")):
-                try:
-                    got = decode_image(data, dev)
-                except ValueError as e:
-                    _check(name.startswith("jpeg_arithmetic") and ARITH_ERROR in str(e),
-                           f"{name}: refused on the card naming {ARITH_ERROR}: {e}")
-                    arith[name] = f"refused: {e}"
-                    continue
+            if name.startswith("tiff_jpeg"):
+                got = decode_image(data, dev)
                 _check(got.device.type == "cuda" and tuple(got.shape) == want.shape, f"{name}: decoded on the card")
-                d = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
-                no_chroma = name in ("tiff_jpeg_rgb.tif", "tiff_jpeg_l.tif")
-                _check(d.mean() <= NVJPEG_MEAN_BAR and (d == 0).mean() >= NVJPEG_EQUAL
-                       and (d <= 8).mean() >= NVJPEG_WITHIN8 and (d.max() <= NVJPEG_444_MAX or not no_chroma),
-                       f"{name} (nvJPEG) vs Pillow: max |d| {d.max()}, equal {(d == 0).mean():.4f}, within 8 "
-                       f"{(d <= 8).mean():.5f}, mean {d.mean():.4f}")
-                (arith if name.startswith("jpeg") else {}).setdefault(name, f"decoded, max |d| {d.max()}")
-                nvjpeg.append((name, int(d.max()), float(d.mean())))
+                nvjpeg.append((name, *_nvjpeg_bars(name, got.cpu().numpy(), want,
+                                                   name in ("tiff_jpeg_rgb.tif", "tiff_jpeg_l.tif"))))
                 continue
             got = decode_image(data, dev)
             if not (got.device.type == "cuda" and torch.equal(got.cpu(), torch.from_numpy(want))):
                 raise AssertionError(f"golden {name}: not equal to Pillow's decode on the card's machine")
             exact += 1
-    _check(True, f"{exact} Pillow goldens decoded to the card equal to Pillow's decode, {len(nvjpeg)} through "
-                 f"nvJPEG within its bars ({nvjpeg}); arithmetic-coded JPEGs: {arith}")
+            if name.startswith("jpeg_arithmetic"):
+                arith.append(name)
+    _check(len(arith) == 2, f"{exact} Pillow goldens decoded to the card equal to Pillow's decode (the "
+                            f"arithmetic-coded {arith} among them, by the port's own decoder), {len(nvjpeg)} "
+                            f"through nvJPEG within its bars ({nvjpeg})")
     goldens = f"{exact} exact, nvJPEG (max, mean |d|) " + ", ".join(f"{n} {m} {a:.3f}" for n, m, a in nvjpeg)
 
     rgb = _archive_batch()[3]  # an upright 12 MP tooth, built once for phase 7
@@ -2376,11 +2531,18 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
         new_uploads = _upload_files(torch, dev, phone)
         formats["seconds"] = time.perf_counter() - t_formats
         formats.pop("uploads")
+        t_jpeg = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            jpeg = _jpeg_own_checks(torch, dev, Path(tmp), smi, phone)
+        new_uploads.update(jpeg.pop("uploads"))
+        jpeg["seconds"] = time.perf_counter() - t_jpeg
         served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads)
         seconds = time.perf_counter() - t_phase
         print(f"  phase 9 took {seconds:.1f} s ({formats['seconds']:.1f} s of it the other Pillow formats' goldens, "
-              "12 MP decodes and warps; their five uploads are in the app's part)")
-        return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "app": served, "seconds": seconds}
+              f"12 MP decodes and warps, {jpeg['seconds']:.1f} s the own JPEG decoder's goldens, 12 MP decodes and "
+              "CLI run; their nine uploads are in the app's part)")
+        return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "jpeg": jpeg, "app": served,
+                "seconds": seconds}
 
     return run
 
@@ -4046,8 +4208,11 @@ def main() -> int:
           f"ms on the host, the CLI twin on WebP {entry['webp']['cli']['imgs_per_sec']:.2f} imgs/s, a WebP upload "
           f"{entry['app']['http_p50_ms']['webp']:.2f} ms; other formats: "
           + ", ".join(f"{k} {v:.2f}" for k, v in entry["formats"].items() if k.endswith("_ms"))
+          + f"; own JPEG decoder 12 MP arithmetic {entry['jpeg']['arith_12mp_card_ms']:.2f} ms, lossless "
+          f"{entry['jpeg']['lossless_12mp_card_ms']:.2f} ms to the card"
           + ", one upload " + ", ".join(f"{k} {entry['app']['http_p50_ms'][k]:.2f} ms"
-                                        for k in ("tiff_cmyk", "tiff_jpeg", "tga", "psd", "dds"))
+                                        for k in ("tiff_cmyk", "tiff_jpeg", "tga", "psd", "dds", "jpeg_lossless",
+                                                  "jpeg_lossless_gray", "jpeg_arith", "jpeg_arith_prog"))
           + f" (launches K3/K7/K8/K9 " + ", ".join(
               f"{k} {c['shift_rows']}/{c['scatter_rows']}/{c['clahe_hist_lut']}/{c['clahe_apply']}"
               for k, c in entry["app"]["family_launches"].items())

@@ -66,7 +66,7 @@ _HOST_SIGNATURES = {
     "mmtrs_bmp_rle": (_P, _L, _I, _I, _I, _I, _P),
     "mmtrs_jpeg_info": (_P, _L, _P),
     "mmtrs_jpeg_decode": (_P, _L, _P, _I, _I),
-    "mmtrs_jpeg_decode_paths": (_P, _I, _I, _I, _P, _P, _P),
+    "mmtrs_jpeg_decode_paths": (_P, _I, _I, _I, _P, _P, _P, _P, _L, _P),
     "mmtrs_jpeg_decode_tiff": (_P, _L, _P, _I, _I, _I, _I),
     "mmtrs_jpeg_encode": (_P, _I, _I, _I, _P, _P),
     "mmtrs_codec_free": (_P,),
@@ -75,6 +75,8 @@ _HOST_SIGNATURES = {
     "mmtrs_nvjpeg_decode_planes": (_P, _L, _P, _P),
     "mmtrs_nvjpeg_encode": (_P, _I, _I, _I, _P, _P, _P),
     "mmtrs_nvjpeg_free": (_P,),
+    "mmtrs_jpeg_own_decode": (_P, _L, _L, _P, _P, _P),
+    "mmtrs_jpeg_own_free": (_P,),
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_alpha_check": (_P, _L, _I, _I),
@@ -214,6 +216,14 @@ def webp_library() -> ctypes.CDLL:
     """The WebP decoders (``csrc/host/webp.cpp``: VP8 and VP8L, with the
     tables of ``webp_tables.h``); needs only g++."""
     return _build_host("mmtrs_webp", "webp.cpp", [_gxx(), *HOST_FLAGS], (), ("webp_tables.h",))
+
+
+@functools.cache
+def jpeg_own_library() -> ctypes.CDLL:
+    """The port's own JPEG decoder (``csrc/host/jpeg.cpp``: lossless and
+    arithmetic-coded frames, on either device's route); needs only g++ and
+    links nothing."""
+    return _build_host("mmtrs_jpeg_own", "jpeg.cpp", [_gxx(), *HOST_FLAGS], ())
 
 
 @functools.cache

@@ -16,11 +16,16 @@
 //     included, as Pillow refuses one), 4 size differs.
 //   int mmtrs_jpeg_decode_paths(const void* paths, int n, int min_edge,
 //                               int threads, void* pixels, void* dims,
-//                               void* status);
-//     paths: const char*[n]; pixels: void*[n] <- a malloc'd h x w x 3
-//     buffer per decoded image (free with mmtrs_codec_free), null
-//     otherwise; dims: int[2n] <- (h, w); status: int[n] <- 0 ok, 1 min
-//     edge below min_edge, 2 decode error. Decodes on up to ``threads``
+//                               void* status, void* own, long long max_pixels,
+//                               void* spaces);
+//     paths: const char*[n]; pixels: void*[n] <- a malloc'd buffer per
+//     decoded image (free with mmtrs_codec_free), null otherwise; dims:
+//     int[2n] <- (h, w); status: int[n] <- 0 ok, 1 min edge below
+//     min_edge, 2 decode error; spaces: int[n] <- 0 for libjpeg's h x w x 3
+//     RGB, else the colour space of the components as stored (h x w x c)
+//     that ``own`` (jpeg.cpp's mmtrs_jpeg_own_decode, refusing frames over
+//     max_pixels) gave: a file whose frame is lossless or arithmetic-coded
+//     goes to it, every other to libjpeg. Decodes on up to ``threads``
 //     threads and returns the count of status 0.
 //   int mmtrs_jpeg_encode(const void* rgb, int h, int w, int quality,
 //                         void* out, void* out_len);
@@ -198,12 +203,17 @@ extern "C" int mmtrs_jpeg_decode_tiff(const void* buf, long long n, void* out, i
                        static_cast<unsigned char*>(out), h, w, comps, ycbcr != 0);
 }
 
+// jpeg.cpp's mmtrs_jpeg_own_decode: 0 decoded, 1 a frame it leaves to libjpeg
+typedef int (*OwnDecode)(const void*, long long, long long, void*, void*, void*);
+
 extern "C" int mmtrs_jpeg_decode_paths(const void* paths, int n, int min_edge, int threads, void* pixels,
-                                       void* dims, void* status) {
+                                       void* dims, void* status, void* own, long long max_pixels, void* spaces) {
     const char* const* p = static_cast<const char* const*>(paths);
     unsigned char** px = static_cast<unsigned char**>(pixels);
     int* hw = static_cast<int*>(dims);
     int* st = static_cast<int*>(status);
+    int* sp = static_cast<int*>(spaces);
+    const OwnDecode own_decode = reinterpret_cast<OwnDecode>(own);
     std::atomic<int> next(0);
     auto worker = [&]() {
         std::vector<unsigned char> bytes;
@@ -211,14 +221,25 @@ extern "C" int mmtrs_jpeg_decode_paths(const void* paths, int n, int min_edge, i
             const int i = next.fetch_add(1);
             if (i >= n) break;
             px[i] = nullptr;
-            int d[3] = {0, 0, 0};
+            sp[i] = 0;
+            int d[4] = {0, 0, 0, 0};
             st[i] = 2;
-            if (!read_file(p[i], bytes) || decode(bytes.data(), bytes.size(), nullptr, 0, 0, d) != 0) continue;
-            unsigned char* buf = static_cast<unsigned char*>(std::malloc(static_cast<size_t>(d[0]) * d[1] * 3));
-            if (!buf) continue;
-            if (decode(bytes.data(), bytes.size(), buf, d[0], d[1], nullptr) != 0) {
-                std::free(buf);
+            if (!read_file(p[i], bytes)) continue;
+            unsigned char* buf = nullptr;
+            char msg[256];
+            const int own_status = own_decode(bytes.data(), static_cast<long long>(bytes.size()), max_pixels, &buf, d, msg);
+            if (own_status == 0) {
+                sp[i] = d[3];
+            } else if (own_status != 1) {
                 continue;
+            } else {
+                if (decode(bytes.data(), bytes.size(), nullptr, 0, 0, d) != 0) continue;
+                buf = static_cast<unsigned char*>(std::malloc(static_cast<size_t>(d[0]) * d[1] * 3));
+                if (!buf) continue;
+                if (decode(bytes.data(), bytes.size(), buf, d[0], d[1], nullptr) != 0) {
+                    std::free(buf);
+                    continue;
+                }
             }
             hw[2 * i] = d[0];
             hw[2 * i + 1] = d[1];

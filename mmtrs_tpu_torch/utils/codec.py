@@ -4,8 +4,20 @@ WebP here; the rest in ``rasters.py``), identified as Pillow identifies
 them (``sniff``) and converted as its ``convert("RGB")`` converts them
 (``convert_rgb``, the one place each mode's conversion is written).
 
-JPEG runs on the device's backend, chosen when the library is built and
-never switched at run time:
+A JPEG is dispatched by the kind of its frame, the same on both devices.
+Lossless (SOF3) and arithmetic-coded (SOF9, SOF10) frames go to the port's
+own decoder (``csrc/host/jpeg.cpp``, C++ with no library), which decodes
+on the host as Pillow 12.1's bundled libjpeg-turbo 3.1.3 does, bit for
+bit; its components move to the device and are converted there with
+libjpeg's fixed-point tables. It also names the frames Pillow refuses
+(SOF11, the hierarchical SOF5-7 and SOF13-15, precision other than 8
+bits, a lossless frame asking for colour conversion). Pillow itself reads
+a file in 64 KiB blocks, and libjpeg's arithmetic decoder cannot wait for
+the next one: Pillow raises "broken data stream" for an arithmetic-coded
+JPEG whose scan data crosses a block boundary. The port decodes such a
+file as Pillow does when handed the whole file in one block. Every other
+JPEG (Huffman-coded DCT, SOF0-SOF2) runs on the device's backend, chosen
+when the library is built and never switched at run time:
 
 - on the CPU, the system libjpeg (``csrc/host/codec.cpp``), which decodes
   as Pillow's ``Image.open(...).convert("RGB")`` does (both are
@@ -123,7 +135,12 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
     data = bytes(src) if isinstance(src, (bytes, bytearray, memoryview)) else Path(src).read_bytes()
     kind, load = rasters.identify(data)
     if kind == "JPEG":
-        return _decode_jpeg_cuda(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
+        if jpeg_frame_marker(data) in OWN_FRAMES:
+            planes, space = jpeg_own_planes(data)
+            return jpeg_planes_to_rgb(planes.to(dev), space)
+        return _nvjpeg_decode(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
+    if kind == "BLP" and (blp := rasters.blp1_jpeg(data)) is not None:
+        return decode_blp_jpeg(*blp, dev)
     if kind == "TIFF":
         try:
             return decode_tiff_to(data, dev)
@@ -268,23 +285,28 @@ def cmyk2rgb(cmyk: torch.Tensor) -> torch.Tensor:
     return (nk - (((t >> 8) + t) >> 8)).to(torch.uint8)
 
 
+def ycc_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
+    """u8 [..., 3] YCbCr → RGB u8 (either device) as libjpeg's
+    ycc_rgb_convert gives it: ``_ycc_tables``, the sum clipped to 0..255."""
+    cr_r, cb_b, cr_g, cb_g = _ycc_tables(ycc.device)
+    x = ycc.long()
+    y, cb, cr = x[..., 0], x[..., 1], x[..., 2]
+    rgb = torch.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], dim=-1)
+    return rgb.clamp_(0, 255).to(torch.uint8)
+
+
 def cmyk_to_rgb(cmyk: torch.Tensor, ycck: bool) -> torch.Tensor:
     """u8 [H, W, 4] as stored in a four-component JPEG → RGB u8 as Pillow
-    gives it: a YCCK's Y, Cb, Cr become C, M, Y = 255 − libjpeg's RGB (K
-    kept), then Pillow inverts every sample ("CMYK;I") and applies its
-    cmyk2rgb: nk = 255 − k, r = nk − MULDIV255(c, nk)."""
-    x = cmyk.to(torch.int64)
-    if ycck:
-        cr_r, cb_b, cr_g, cb_g = _ycc_tables(x.device)
-        y, cb, cr = x[..., 0], x[..., 1], x[..., 2]
-        rgb = torch.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], dim=-1)
-        x = torch.cat([255 - rgb.clamp(0, 255), x[..., 3:]], dim=-1)
-    return cmyk2rgb(255 - x)
+    gives it: a YCCK's Y, Cb, Cr become C, M, Y = 255 − their RGB (libjpeg's
+    ycck_cmyk_convert, K kept), then Pillow inverts every sample ("CMYK;I")
+    and applies its cmyk2rgb: nk = 255 − k, r = nk − MULDIV255(c, nk)."""
+    x = torch.cat([255 - ycc_to_rgb(cmyk[..., :3]), cmyk[..., 3:]], dim=-1) if ycck else cmyk
+    return cmyk2rgb(255 - x.to(torch.int32))
 
 
-def _decode_cmyk_cuda(data: bytes, dims: np.ndarray, dev: torch.device) -> torch.Tensor:
+def _nvjpeg_cmyk_planes(data: bytes, dims: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A four-component JPEG on the card: nvJPEG's planes as stored, each
-    brought to full size by repetition, then cmyk_to_rgb."""
+    brought to full size by repetition, [H, W, 4]."""
     lib = _build.nvjpeg_library()
     h, w = int(dims[0]), int(dims[1])
     with torch.cuda.device(dev):
@@ -296,8 +318,13 @@ def _decode_cmyk_cuda(data: bytes, dims: np.ndarray, dev: torch.device) -> torch
             raise _jpeg_error(status, "nvJPEG")
         full = [p.repeat_interleave(-(-h // p.shape[0]), 0)[:h].repeat_interleave(-(-w // p.shape[1]), 1)[:, :w]
                 for p in planes]
-        # libjpeg's rule: an Adobe marker whose transform is not 0 means YCCK
-        return cmyk_to_rgb(torch.stack(full, dim=-1), ycck=adobe_transform(data) not in (None, 0))
+        return torch.stack(full, dim=-1)
+
+
+def _is_ycck(data: bytes) -> bool:
+    """libjpeg's rule for four components: an Adobe marker whose transform
+    is not 0 means YCCK."""
+    return adobe_transform(data) not in (None, 0)
 
 
 def jpeg_components(data: bytes) -> int:
@@ -317,33 +344,139 @@ def jpeg_components(data: bytes) -> int:
     return 0
 
 
-def jpeg_is_arithmetic(data: bytes) -> bool:
-    """True when the JPEG's frame header (the markers before its first scan,
-    walked as libjpeg reads them) is an arithmetic-coded one (SOF9-SOF11,
-    SOF13-SOF15)."""
-    pos = 2
-    while pos + 4 <= len(data) and data[pos] == 0xFF:
-        marker = data[pos + 1]
-        if marker == 0xFF:
+# the frame markers that go to the port's own decoder: lossless, arithmetic,
+# hierarchical (SOF3, SOF5-7, SOF9-11, SOF13-15, DHP); it decodes SOF3, SOF9
+# and SOF10 and names the rest, which Pillow refuses
+OWN_FRAMES = frozenset((0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xDE))
+# libjpeg's J_COLOR_SPACE numbers, as jpeg.cpp reports the stored components
+JCS_GRAYSCALE, JCS_RGB, JCS_YCBCR, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
+
+
+def jpeg_frame_marker(data: bytes) -> int:
+    """The first frame marker of a JPEG (SOF0-SOF15 or DHP) before its first
+    scan, the markers found as libjpeg's next_marker finds them (bytes
+    between segments skipped); 0 without one."""
+    pos, n = 2, len(data)
+    while True:
+        while pos < n and data[pos] != 0xFF:
             pos += 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            return 0
+        marker = data[pos]
+        pos += 1
+        if marker in (0xDA, 0xD9):
+            return 0
+        if (0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC)) or marker == 0xDE:
+            return marker
+        if marker == 0 or 0xD0 <= marker <= 0xD8 or marker == 0x01:
             continue
-        if marker == 0xDA:
-            break
-        if marker in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
-            return True
-        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
-    return False
+        if pos + 2 > n:
+            return 0
+        pos += struct.unpack(">H", data[pos:pos + 2])[0]
 
 
-def _decode_jpeg_cuda(data: bytes, dev: torch.device) -> torch.Tensor:
-    """nvJPEG's decode; an arithmetic-coded JPEG nvJPEG refuses raises
-    naming it (libjpeg on the CPU decodes one as Pillow does)."""
-    try:
-        return _nvjpeg_decode(data, dev)
-    except (ValueError, RuntimeError) as e:
-        if jpeg_is_arithmetic(data):
-            raise ValueError(f"arithmetic-coded JPEG: nvJPEG does not decode it ({e})") from None
-        raise
+def _own_error(status: int, msg: str, dims: np.ndarray) -> Exception:
+    if status == 5:
+        try:
+            _check_pixels("JPEG", int(dims[1]), int(dims[0]))
+        except ValueError as e:
+            return e
+    if status == 6:
+        return ValueError(msg)
+    if status == 3:
+        return ValueError(f"truncated JPEG (image file is truncated): {msg}")
+    return ValueError(f"corrupt JPEG (broken data stream): {msg}")
+
+
+def _own_tensor(lib, ptr: int, h: int, w: int, c: int) -> torch.Tensor:
+    """The decoder's malloc'd h x w x c buffer as a tensor that frees it."""
+    buf = (ctypes.c_ubyte * (h * w * c)).from_address(ptr)
+    weakref.finalize(buf, lib.mmtrs_jpeg_own_free, ptr)
+    return torch.from_numpy(np.ctypeslib.as_array(buf).reshape(h, w, c))
+
+
+def jpeg_own_planes(data: bytes) -> tuple[torch.Tensor, int]:
+    """A lossless or arithmetic-coded JPEG through the port's own decoder,
+    on the host → (its components as stored, at full size: u8 [H, W, C] on
+    the CPU; their colour space, a ``JCS_*`` number). Raises ValueError
+    naming the reason where Pillow refuses the file, and for a frame over
+    ``MAX_PIXELS`` before anything is allocated."""
+    lib = _build.jpeg_own_library()
+    out, dims = ctypes.c_void_p(), np.zeros(4, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    status = lib.mmtrs_jpeg_own_decode(data, len(data), MAX_PIXELS, ctypes.addressof(out), dims.ctypes.data,
+                                       ctypes.addressof(msg))
+    if status:
+        raise _own_error(status, msg.value.decode(), dims)
+    h, w, c, space = (int(v) for v in dims)
+    return _own_tensor(lib, out.value, h, w, c), space
+
+
+def jpeg_planes_to_rgb(planes: torch.Tensor, space: int) -> torch.Tensor:
+    """A JPEG's components as stored (either device) → RGB u8 as Pillow's
+    ``convert("RGB")`` gives it: gray repeated, YCbCr through libjpeg's
+    tables, RGB as is, CMYK and YCCK through ``cmyk_to_rgb``."""
+    if space == JCS_GRAYSCALE:
+        return planes.expand(*planes.shape[:2], 3).contiguous()
+    if space == JCS_YCBCR:
+        return ycc_to_rgb(planes)
+    if space == JCS_RGB:
+        return planes
+    return cmyk_to_rgb(planes, ycck=space == JCS_YCCK)
+
+
+def jpeg_stored_planes4(data: bytes, dev: torch.device) -> torch.Tensor:
+    """A four-component JPEG's samples as stored, at full size, u8
+    [H, W, 4] on ``dev`` (a YCCK left unconverted): the own decoder for its
+    frames, else libjpeg on the CPU and nvJPEG on the card."""
+    if jpeg_frame_marker(data) in OWN_FRAMES:
+        return jpeg_own_planes(data)[0].to(dev)
+    if dev.type == "cuda":
+        if not jpeg_has_end(data):
+            raise _jpeg_error(2, "nvJPEG")
+        dims = np.zeros(11, np.int32)
+        status = _build.nvjpeg_library().mmtrs_nvjpeg_info(data, len(data), dims.ctypes.data)
+        if status:
+            raise _jpeg_error(status, "nvJPEG")
+        return _nvjpeg_cmyk_planes(data, dims, dev)
+    lib = _build.jpeg_library()
+    dims = np.zeros(3, np.int32)
+    status = lib.mmtrs_jpeg_info(data, len(data), dims.ctypes.data)
+    if status:
+        raise _jpeg_error(status, "libjpeg")
+    h, w = int(dims[0]), int(dims[1])
+    out = torch.empty((h, w, 4), dtype=torch.uint8)
+    if lib.mmtrs_jpeg_decode_tiff(data, len(data), out.data_ptr(), h, w, 4, 0):
+        raise _jpeg_error(2, "libjpeg")
+    return out
+
+
+def decode_blp_jpeg(stream: bytes, w: int, h: int, alpha: bool, dev: torch.device) -> torch.Tensor:
+    """A BLP1 file's JPEG (its shared header and first mipmap) as Pillow's
+    BlpImagePlugin reads it, on ``dev``. For a four-component JPEG the
+    plugin sets the tile's JPEG mode to "CMYK", so libjpeg converts no YCCK
+    and the stored samples are inverted ("CMYK;I") and converted by
+    cmyk2rgb; any other JPEG decodes as ``decode_image`` decodes it. The RGB
+    bytes are then read back as BGR into the BLP header's w x h."""
+    if jpeg_components(stream) == 4:
+        rgb = cmyk_to_rgb(jpeg_stored_planes4(stream, dev), ycck=False)
+    else:
+        rgb = decode_image(stream, dev)
+    _check_pixels("BLP", int(rgb.shape[1]), int(rgb.shape[0]))
+    if alpha:
+        raise ValueError("BLP1 JPEG with alpha is not supported by the port's codec (nor by Pillow)")
+    flat = rgb.flip(-1).reshape(-1)
+    if flat.numel() < w * h * 3:
+        raise ValueError("truncated BLP: not enough image data")
+    return flat[: w * h * 3].reshape(h, w, 3)
+
+
+def jpeg_is_arithmetic(data: bytes) -> bool:
+    """True when the JPEG's frame header is an arithmetic-coded one
+    (SOF9-SOF11, SOF13-SOF15)."""
+    return jpeg_frame_marker(data) in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)
 
 
 def _nvjpeg_decode(data: bytes, dev: torch.device) -> torch.Tensor:
@@ -355,7 +488,7 @@ def _nvjpeg_decode(data: bytes, dev: torch.device) -> torch.Tensor:
     if status:
         raise _jpeg_error(status, "nvJPEG")
     if int(dims[2]) == 4:
-        return _decode_cmyk_cuda(data, dims, dev)
+        return cmyk_to_rgb(_nvjpeg_cmyk_planes(data, dims, dev), ycck=_is_ycck(data))
     h, w, gray = int(dims[0]), int(dims[1]), int(dims[2]) == 1
     with torch.cuda.device(dev):
         out = torch.empty((h, w) if gray else (h, w, 3), dtype=torch.uint8, device=dev)
@@ -368,12 +501,13 @@ def _nvjpeg_decode(data: bytes, dev: torch.device) -> torch.Tensor:
 
 
 def decode_paths(paths: list, min_edge: int = 0, threads: int = 0) -> tuple[list, np.ndarray]:
-    """Decode JPEG files on a pool of ``threads`` host threads (0: up to 8)
-    with the CPU backend, without resizing → (a u8 [H, W, 3] CPU tensor per
-    decoded file, else None; int32 status per file: 0 ok, 1 min edge below
-    ``min_edge``, 2 decode error). Each tensor owns the buffer libjpeg
-    decoded into."""
-    lib = _build.jpeg_library()
+    """Decode JPEG files on a pool of ``threads`` host threads (0: up to 8),
+    without resizing → (a u8 [H, W, 3] CPU tensor per decoded file, else
+    None; int32 status per file: 0 ok, 1 min edge below ``min_edge``, 2
+    decode error). A lossless or arithmetic-coded file is decoded on the
+    pool by the port's own decoder and converted here, every other by the
+    CPU backend's libjpeg into the buffer its tensor owns."""
+    lib, own = _build.jpeg_library(), _build.jpeg_own_library()
     n = len(paths)
     if n == 0:
         return [], np.zeros(0, np.int32)
@@ -381,15 +515,22 @@ def decode_paths(paths: list, min_edge: int = 0, threads: int = 0) -> tuple[list
     pixels = (ctypes.c_void_p * n)()
     dims = np.zeros(2 * n, np.int32)
     status = np.zeros(n, np.int32)
+    spaces = np.zeros(n, np.int32)
     nt = threads or min(8, os.cpu_count() or 1)
     lib.mmtrs_jpeg_decode_paths(ctypes.cast(c_paths, ctypes.c_void_p), n, min_edge, nt,
-                                ctypes.cast(pixels, ctypes.c_void_p), dims.ctypes.data, status.ctypes.data)
+                                ctypes.cast(pixels, ctypes.c_void_p), dims.ctypes.data, status.ctypes.data,
+                                ctypes.cast(own.mmtrs_jpeg_own_decode, ctypes.c_void_p), MAX_PIXELS,
+                                spaces.ctypes.data)
     out = []
     for i in range(n):
         if status[i] != 0:
             out.append(None)
             continue
-        h, w = int(dims[2 * i]), int(dims[2 * i + 1])
+        h, w, space = int(dims[2 * i]), int(dims[2 * i + 1]), int(spaces[i])
+        if space:
+            c = {JCS_GRAYSCALE: 1, JCS_RGB: 3, JCS_YCBCR: 3}.get(space, 4)
+            out.append(jpeg_planes_to_rgb(_own_tensor(own, pixels[i], h, w, c), space))
+            continue
         buf = (ctypes.c_ubyte * (h * w * 3)).from_address(pixels[i])
         weakref.finalize(buf, lib.mmtrs_codec_free, pixels[i])
         out.append(torch.from_numpy(np.ctypeslib.as_array(buf).reshape(h, w, 3)))

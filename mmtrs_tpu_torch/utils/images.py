@@ -3,9 +3,10 @@ port's twin of mmtrs_tpu/utils/images.py), on the port's codec
 (``utils/codec.py``) instead of Pillow.
 
 Images are u8 [H, W, 3] tensors on the device the caller names (None: the
-card). On the CPU, JPEG files are decoded on a pool of host threads
-(libjpeg) as Pillow decodes them; on the card each file is decoded by nvJPEG
-into device memory.
+card). On the CPU, JPEG files are decoded on a pool of host threads as
+Pillow decodes them (libjpeg, or the port's own decoder for lossless and
+arithmetic-coded frames); on the card each file is decoded by nvJPEG into
+device memory, or by the own decoder on the host and moved there.
 
 ``iter_batches`` follows the JAX package's Pillow route for every input:
 each image is resized with Pillow's BILINEAR filter (``resize_bilinear_u8``,
@@ -67,7 +68,7 @@ def _decode_chunk(chunk: list[Path], min_edge: int, dev: torch.device) -> tuple[
     order: a file that does not decode is a ``decode_error``, then one whose
     shorter edge is below ``min_edge`` a ``min_edge`` reject."""
     decoded: dict[int, torch.Tensor | str] = {}
-    if dev.type == "cpu":  # JPEGs on libjpeg's thread pool, the rest one by one
+    if dev.type == "cpu":  # JPEGs on the codec's thread pool, the rest one by one
         jpegs = [i for i, p in enumerate(chunk) if _is_jpeg(p)]
         imgs, status = decode_paths([chunk[i] for i in jpegs], min_edge)
         for i, img, st in zip(jpegs, imgs, status):

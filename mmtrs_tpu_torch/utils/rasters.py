@@ -1524,6 +1524,62 @@ def _blp_dxt(block_rows: list[bytes], kind: int, alpha: bool) -> bytes:
     return b"".join(out)
 
 
+# the frame headers JpegImagePlugin reads with its SOF handler (DHP too)
+_JPEG_SOF = frozenset((0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xDE))
+
+
+def open_jpeg(data: bytes) -> None:
+    """JpegImagePlugin's walk of the markers before the first scan, for the
+    refusals of its frame handler: a precision other than 8 bits or a
+    component count other than 1, 3 or 4 raise SyntaxError, so no opener
+    takes the data. The codec's JPEG decoders read everything else."""
+    pos, n = 2, len(data)
+    while pos + 4 <= n:
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker in (0x00, 0xFF):
+            pos += 1 if marker == 0xFF else 2
+            continue
+        if marker == 0xDA:
+            break
+        if 0xD0 <= marker <= 0xD9:
+            pos += 2
+            continue
+        length = i16be(data, pos + 2)
+        seg = data[pos + 4:pos + 2 + length]
+        if marker in _JPEG_SOF and len(seg) >= 6:
+            if seg[0] != 8:
+                raise SyntaxError(f"cannot handle {seg[0]}-bit layers")
+            if seg[5] not in (1, 3, 4):
+                raise SyntaxError(f"cannot handle {seg[5]}-layer images")
+        pos += 2 + length
+    return None
+
+
+def blp1_jpeg(data: bytes) -> tuple[bytes, int, int, bool] | None:
+    """(JPEG stream, w, h, alpha) of a BLP1 file whose image is a JPEG: its
+    shared header and first mipmap joined, as BlpImagePlugin joins them.
+    None for any other BLP, or where the opener refuses the header or the
+    data are short (its loader then raises)."""
+    try:
+        magic, compression, alpha = data[:4], *struct.unpack("<iI", data[4:12])
+        w, h = struct.unpack("<II", data[12:20])
+        if magic != b"BLP1" or compression != 0:
+            return None
+        _sized("BLP", w, h)
+        offsets = struct.unpack("<16I", data[28:92])
+        lengths = struct.unpack("<16I", data[92:156])
+        (size,) = struct.unpack("<I", data[156:160])
+    except (struct.error, SyntaxError, ValueError):
+        return None
+    start = 160 + size
+    if len(data) < start or offsets[0] < start or len(data) < offsets[0] + lengths[0]:
+        return None
+    return data[160:start] + data[offsets[0]:offsets[0] + lengths[0]], w, h, alpha != 0
+
+
 def open_blp(data: bytes) -> Loader:
     fp = io.BytesIO(data)
     magic = fp.read(4)
@@ -1577,23 +1633,16 @@ def open_blp(data: bytes) -> Loader:
             return px.tobytes()
 
         if magic == b"BLP1":
-            if compression == 0:
+            if compression == 0:  # on the host here; decode_image decodes it on its device
+                import torch
+
+                from mmtrs_tpu_torch.utils.codec import decode_blp_jpeg
+
                 (size,) = struct.unpack("<I", read(4))
                 header = read(size)
                 read(offsets[0] - body.tell())
                 stream = header + read(lengths[0])
-                import torch
-
-                from mmtrs_tpu_torch.utils.codec import decode_image, jpeg_components
-
-                if jpeg_components(stream) == 4:
-                    raise ValueError("BLP1 with a CMYK JPEG is not supported by the port's codec")
-                dev = "cuda" if torch.cuda.is_available() else "cpu"
-                rgb = decode_image(stream, dev).cpu().numpy()
-                check_pixels("BLP", rgb.shape[1], rgb.shape[0])
-                if alpha:
-                    raise ValueError("BLP1 JPEG with alpha is not supported by the port's codec (nor by Pillow)")
-                return raw(rgb[..., ::-1].tobytes())  # Pillow reads its RGB back as BGR
+                return decode_blp_jpeg(stream, w, h, alpha, torch.device("cpu")).numpy(), mode, None
             if compression == 1 and encoding in (4, 5):
                 return raw(bgra(palette()))
             raise ValueError(f"BLP1 compression {compression}, encoding {encoding} is not read (nor by Pillow)")
@@ -1852,7 +1901,7 @@ def openers() -> list[tuple[str, Callable[[bytes], bool] | None, Callable[[bytes
         ("BMP", lambda p: p[:2] == b"BM", None),
         ("DIB", lambda p: len(p) >= 4 and i32(p) in (12, 40, 52, 56, 64, 108, 124), open_dib),
         ("GIF", lambda p: p[:6] in (b"GIF87a", b"GIF89a"), None),
-        ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff", None),
+        ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff", open_jpeg),
         ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", open_ppm),
         ("PNG", lambda p: p[:8] == b"\x89PNG\r\n\x1a\n", None),
         ("AVIF", _accept_avif, _refuse("AVIF", "an AV1 decoder is not part of it")),
@@ -1905,6 +1954,7 @@ def identify(data: bytes) -> tuple[str, Loader | None]:
     data refuses it (Pillow's open raises), the loader raises that error;
     data that no opener takes raises ValueError here."""
     prefix = data[:16]
+    why = ""  # what the opener of a format whose magic matched refused
     for name, accept, opener in openers():
         if accept is not None and not accept(prefix):
             continue
@@ -1912,11 +1962,13 @@ def identify(data: bytes) -> tuple[str, Loader | None]:
             return name, None
         try:
             return name, opener(data)
-        except NOT_THIS:
+        except NOT_THIS as e:
+            if accept is not None and isinstance(e, SyntaxError) and not why:
+                why = f" ({name}: {e})"
             continue
         except (ValueError, OverflowError, MemoryError) as e:
             return name, _raiser(e)
     if prefix[:4] == b"RIFF" and prefix[8:12] == b"WEBP":  # Pillow's WebP opener wants a VP8 chunk first
         raise ValueError(f"cannot identify the image data: a corrupt WebP whose first chunk is {prefix[12:16]!r}")
     raise ValueError("cannot identify the image data: no format the port's codec knows (those Pillow 12.1 opens) "
-                     "takes it")
+                     f"takes it{why}")

@@ -6,7 +6,8 @@ package's on the CPU: both ``serve_http`` surfaces on ephemeral ports.
 - the serving contract of tests/test_serve_contract.py holds on a weightless
   service: the full schema, a structured error for every refused request;
 - on the folds tests/test_torch_service_weights.py exports, ``POST
-  /predict`` (JPEG and PNG uploads, without and with all 9 fields) answers
+  /predict`` (uploads in JPEG, lossless and arithmetic-coded JPEG, PNG and
+  the other formats, without and with all 9 fields) answers
   what the port's ``predict_one`` answers on the decoded upload, its streams
   within that file's bf16 bar of the JAX app's, and its preview PNG decodes
   to ``processed_image`` exactly.
@@ -16,10 +17,12 @@ import base64
 import io
 import json
 import socket
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -76,10 +79,20 @@ def _b64(data: bytes) -> str:
 
 def _encoded(img: np.ndarray, fmt: str) -> bytes:
     """``img`` as a ``fmt`` upload: Pillow's writers, a CMYK TIFF, a 16-bit
-    RGB TIFF (each sample v · 257), an RLE TGA, an RLE PSD, a DXT5 DDS."""
+    RGB TIFF (each sample v · 257), an RLE TGA, an RLE PSD, a DXT5 DDS, a
+    lossless JPEG (predictor 1) and an arithmetic-coded 4:2:0 JPEG (the
+    system libjpeg's, q75: under Pillow's 64 KiB read block, which the JAX
+    app's stock Pillow needs for an arithmetic-coded file)."""
+    from tests.jpeg_streams import lossless_jpeg
     from tests.test_torch_codec_formats import tiff_bytes
+    from tests.test_torch_codec_jpeg import JpegTool
     from tests.test_torch_codec_pillow import psd_bytes
 
+    if fmt == "JPEG_LOSSLESS":
+        return lossless_jpeg(img, 1)
+    if fmt == "JPEG_ARITH":
+        with tempfile.TemporaryDirectory() as d:
+            return JpegTool(Path(d))(img, quality=75)
     h, w, _ = img.shape
     if fmt == "TIFF_16BIT":
         px = (img.astype(np.uint16) * 257).astype(">u2")
@@ -186,7 +199,8 @@ def trained(weights_dir):  # noqa: F811
     httpd.server_close()
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "TIFF_CMYK", "TIFF_16BIT", "TGA", "PSD", "DDS"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "TIFF_CMYK", "TIFF_16BIT", "TGA", "PSD", "DDS",
+                                 "JPEG_LOSSLESS", "JPEG_ARITH"])
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_predict_equals_predict_one_and_jax(trained, fmt, with_fields):
     from mmtrs_tpu_torch.utils.codec import decode_image

@@ -849,8 +849,8 @@ def test_refused_formats_name_themselves(case):
 
 
 def test_arithmetic_jpegs_are_named(goldens):
-    """The arithmetic-coded goldens are found as such (the card's decode
-    names them if nvJPEG refuses them); the Huffman ones are not."""
+    """The arithmetic-coded goldens are found as such (they go to the
+    port's own decoder on either device); the Huffman ones are not."""
     from mmtrs_tpu_torch.utils.codec import jpeg_components, jpeg_is_arithmetic
 
     arith = [n for n in goldens if n.startswith("jpeg_arithmetic") and not n.endswith((".pil", ".format"))]

@@ -423,6 +423,41 @@ def test_webp_library_without_gxx_raises_by_name(monkeypatch):
         _build.webp_library.cache_clear()
 
 
+def test_jpeg_decoder_is_the_ports_own_code():
+    """The lossless and arithmetic JPEG decoder is the port's C++:
+    ``jpeg.cpp`` includes the standard library alone, its library is built
+    with g++ and links nothing, and no module of the port names Pillow's
+    bundled libraries or looks a libjpeg up with ``find_library``."""
+    includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]',
+                          (ROOT / "mmtrs_tpu_torch" / "csrc" / "host" / "jpeg.cpp").read_text(), re.M)
+    assert includes == ["algorithm", "cstdint", "cstdio", "cstdlib", "cstring", "string", "vector"]
+    build = (ROOT / "mmtrs_tpu_torch" / "_build.py").read_text()
+    assert '_build_host("mmtrs_jpeg_own", "jpeg.cpp", [_gxx(), *HOST_FLAGS], ())' in build
+    pat = re.compile(r"pillow\.libs|find_library\(\s*[\"'](?:lib)?(?:turbo)?jpeg", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py"))
+            for m in pat.finditer(p.read_text())]
+    assert hits == []
+
+
+def test_jpeg_own_library_without_gxx_raises_by_name(monkeypatch):
+    """No g++: the own JPEG decoder's build raises naming it; a lossless
+    JPEG is not handed to libjpeg or nvJPEG instead."""
+    import numpy as np
+
+    from mmtrs_tpu_torch import _build
+    from mmtrs_tpu_torch.utils.codec import decode_image
+
+    with np.load(ROOT / "mmtrs_tpu_torch" / "testdata" / "jpeg_goldens.npz") as z:
+        data = z["lossless_p1.jpg"].tobytes()
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    _build.jpeg_own_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            decode_image(data, "cpu")
+    finally:
+        _build.jpeg_own_library.cache_clear()
+
+
 def test_build_without_card_raises():
     """No CUDA device (or no nvcc): asking for the kernel library raises."""
     from mmtrs_tpu_torch import _build
