@@ -152,7 +152,15 @@ Phases (each raises on failure, so the script exits non-zero):
      arithmetic 4:2:0 and a 12 MP lossless RGB decode; four 1024x768
      uploads (lossless RGB and gray, arithmetic sequential and
      progressive) served with their launches counted, and the CLI twin over
-     them beside two baseline JPEGs, none rejected;
+     them beside two baseline JPEGs, none rejected; the format corners
+     (corners_goldens.npz: float-predictor TIFF, BigTIFF, CIELab TIFF and
+     PSD, IPTC layers, FLI delta frames, lossless and arithmetic
+     JPEG-in-TIFF, smoothed arithmetic progressions, PhotoCD) decoded to the
+     card and on the CPU route equal to Pillow's decode, the refused ones
+     refused by name on both, SOF2 progressions through nvJPEG recorded,
+     ``sqrt_rn`` on the card bit-equal to the CPU's; the median ms of a
+     12 MP float-predictor TIFF, BigTIFF and Lab PSD decode and a PhotoCD
+     one; one upload per corner family served with its launches counted;
  10. training the MM stream (the rehearsal's stages 2-4 at
      MMJointConfig's widths: B4 at 380, batch 12, bf16, randaug; depth cut
      to 24 cases, 2 folds, 1 epoch): 24 raw 512² synthetic teeth with 9
@@ -1844,6 +1852,14 @@ PILLOW_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "pillow_goldens.npz"
 JPEG_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "jpeg_goldens.npz"
 JPEG_ARCHIVE = "arith_420_3024x4032_q80.jpg"
 JPEG_UPLOADS = {"jpeg_arith": "upload_arith_420_1024x768.jpg", "jpeg_arith_prog": "upload_arith_420_prog_1024x768.jpg"}
+# the corners of the formats once refused (python -m
+# tests.test_torch_codec_corners): TIFF's float predictor, BigTIFF, CIELab
+# TIFF and PSD, IPTC layers, FLI delta frames, lossless and arithmetic
+# JPEG-in-TIFF, smoothed progressive arithmetic JPEGs, PhotoCD; Pillow 12.1's
+# decode of each, the files Pillow refuses (``.refused``: the words of the
+# port's error) and SOF2 progressions whose decode is only recorded
+CORNER_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "corners_goldens.npz"
+CORNER_NVJPEG = ("iptc_rgb_jpeg_gray.iptc",)  # a baseline JPEG inside: nvJPEG on the card
 # the side of the BC7 DDS timed
 BC7_SIDE = 4096
 # |card - CPU| of warp_affine / warp_perspective on f32 images in [0, 255]:
@@ -2073,13 +2089,17 @@ def _webp_checks(torch, dev, tmp: Path, smi: str) -> dict:
                            "launches": counts}}
 
 
-def _app_check(torch, dev, svc, uploads, fields, results, smi: str, new_uploads: dict) -> dict:
+def _app_check(torch, dev, svc, uploads, fields, results, smi: str, new_uploads: dict,
+               corner_uploads: dict) -> dict:
     """``serve_http`` on an ephemeral port over phase 8's service: GET / and
     /ui; POST /predict with phase 8's seven uploads as JPEG and as PNG,
     without and with all 9 fields, each answer against ``predict_one`` on
     the decoded upload (a PNG decodes to the upload itself, so phase 8's
     answers are the reference) and its preview against
-    ``processed_image``; the two refusals."""
+    ``processed_image``; one upload of each new family (on the L-plane
+    route) and of each format corner (on one CLAHE route, the one
+    ``supports`` picks for its bucket; its deskew shears and gated
+    write-backs counted as they fire); the two refusals."""
     import base64
     import threading
     import urllib.error
@@ -2189,6 +2209,29 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str, new_uploads:
                    f"{dt_fam * 1e3:.2f} ms ({smi})")
             family_ms[fam] = dt_fam * 1e3
 
+        # one upload per format corner: the phone photo (PhotoCD: its top
+        # left 768 x 512) in each family once refused
+        corner_launches = {}
+        for fam, raw in corner_uploads.items():
+            b64 = base64.b64encode(raw).decode()
+            decoded = decode_image(raw, dev)
+            want = svc.predict_one(decoded, fields=fields)
+            reset_launches()
+            code, got, dt_fam = post({"image_b64": b64, "include_processed": True, "fields": fields})
+            torch.cuda.synchronize()
+            fc = corner_launches[fam] = dict(LAUNCHES)
+            same = code == 200 and all(got[k] == want[k] for k in ("p_indirect", "threshold", "label", "streams"))
+            same = same and np.array_equal(decode_png(base64.b64decode(got["processed_image_b64"])),
+                                           want["processed_image"])
+            l_route = all(fc[k] > 0 for k in L_KERNELS) and all(fc[k] == 0 for k in FUSED_KERNELS)
+            fused = all(fc[k] > 0 for k in FUSED_KERNELS) and all(fc[k] == 0 for k in L_KERNELS)
+            _check(same and (l_route or fused),
+                   f"a {tuple(decoded.shape)} {fam} upload: HTTP {code}, the answer == predict_one on the decoded "
+                   f"array, its preview == processed_image; the {'L-plane' if l_route else 'fused'} route (K3 "
+                   f"{fc['shift_rows']}, K7 {fc['scatter_rows']}, K8 {fc['clahe_hist_lut']}, K9 {fc['clahe_apply']}, "
+                   f"K1 {fc['clahe_lab_fwd_lut']}, K2 {fc['clahe_apply_lab_bwd']}); {dt_fam * 1e3:.2f} ms ({smi})")
+            family_ms[fam] = dt_fam * 1e3
+
         code, low, _ = post({"image_b64": base64.b64encode(encode_png(uploads[0][:300, :300])).decode()})
         _check(code == 400 and low == {"error": LOW_RES_ERROR}, f"a 300x300 upload: {code} {low}")
         partial = {k: fields[k] for k in list(fields)[:2]}
@@ -2207,7 +2250,8 @@ def _app_check(torch, dev, svc, uploads, fields, results, smi: str, new_uploads:
           f"card, predict_one, PNG preview, JSON); predict_one alone on the decoded JPEG uploads "
           f"{p50['predict_one']:.2f} ms (host clock, {len(http_ms['jpeg'])} requests each; {smi})")
     p50.update({f"{fam}": v for fam, v in family_ms.items()})
-    return {"http_p50_ms": p50, "launches": counts, "webp_launches": webp_counts, "family_launches": family_launches}
+    return {"http_p50_ms": p50, "launches": counts, "webp_launches": webp_counts, "family_launches": family_launches,
+            "corner_launches": corner_launches}
 
 
 def _tiff(w: int, h: int, tags: dict, strip: bytes) -> bytes:
@@ -2511,6 +2555,197 @@ def _pillow_format_checks(torch, dev, smi: str) -> dict:
     return out
 
 
+def _fp_predicted(f: np.ndarray) -> bytes:
+    """libtiff's floating-point predictor on rows of f32 [h, w]: each row's
+    big-endian bytes as byte planes, differenced mod 256."""
+    h, w = f.shape
+    planes = f.astype(">f4").view(np.uint8).reshape(h, w, 4).transpose(0, 2, 1).reshape(h, -1).astype(np.int64)
+    planes[:, 1:] -= planes[:, :-1].copy()
+    return (planes % 256).astype(np.uint8).tobytes()
+
+
+def _bigtiff(w: int, h: int, tags: dict, strip: bytes) -> bytes:
+    """A little-endian one-strip BigTIFF (8-byte offsets, 20-byte entries)."""
+    tags = {**tags, 256: (4, [w]), 257: (4, [h]), 278: (4, [h]), 279: (16, [len(strip)]), 273: (16, [0])}
+    fmt = {3: "H", 4: "I", 16: "Q"}
+    at = 16 + 8 + 20 * len(tags) + 8
+    blobs = {t: struct.pack(f"<{len(v)}{fmt[ty]}", *v) for t, (ty, v) in tags.items()}
+    extra, entries = b"", []
+    data_at = at + sum(len(b) for b in blobs.values() if len(b) > 8)
+    tags[273] = (16, [data_at])
+    blobs[273] = struct.pack("<Q", data_at)
+    for t in sorted(tags):
+        ty, v = tags[t]
+        b = blobs[t]
+        if len(b) <= 8:
+            entries.append(struct.pack("<HHQ", t, ty, len(v)) + b.ljust(8, b"\0"))
+        else:
+            entries.append(struct.pack("<HHQQ", t, ty, len(v), at + len(extra)))
+            extra += b
+    return b"II+\0" + struct.pack("<HHQQ", 8, 0, 16, len(tags)) + b"".join(entries) + bytes(8) + extra + strip
+
+
+def _drop_scans(data: bytes, keep: set) -> bytes:
+    """A progressive JPEG with only the scans whose index ``keep`` holds
+    (an arithmetic scan codes with statistics of its own, so the rest stay
+    valid): each SOS segment and its entropy-coded data up to the next
+    marker that is not a stuffed byte or a restart."""
+    out, pos, scan = bytearray(), 0, 0
+    while True:
+        at = data.find(b"\xff\xda", pos)
+        if at < 0:
+            return bytes(out + data[pos:])
+        out += data[pos:at]
+        end = at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+        while not (data[end] == 0xFF and data[end + 1] not in (0, *range(0xD0, 0xD8))):
+            end += 1
+        if scan in keep:
+            out += data[at:end]
+        scan, pos = scan + 1, end
+
+
+def _pcd(ycc: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file of the 768 x 512 base image from Y, C1, C2 planes
+    [512, 768, 3] (chroma taken at each 2 x 2 block's top left)."""
+    sector = bytearray(2048)
+    sector[:7] = b"PCD_IPI"
+    sector[1538] = orientation
+    pairs = np.concatenate([ycc[..., 0].reshape(256, 2 * 768), ycc[::2, ::2, 1], ycc[::2, ::2, 2]], axis=1)
+    return bytes(2048) + bytes(sector) + bytes(94 * 2048) + pairs.tobytes()
+
+
+def _corner_files(torch, dev, rgb: np.ndarray) -> dict[str, bytes]:
+    """``rgb`` (an upload or the 12 MP archive photo) as each corner family's
+    file, written without Pillow: a deflate float TIFF with predictor 3
+    (its G plane), an uncompressed BigTIFF, an RLE PSD in Lab mode and a
+    CIELab TIFF (the RGB bytes taken as L, a, b), an IPTC image whose data
+    fills the second of three bands, an FLC whose first frame is one LC
+    delta chunk (the G plane as palette indices over a grey palette), the
+    arithmetic 4:2:0 upload inside a TIFF and with its DC refinement scan
+    dropped (smoothed), and a PhotoCD of its top left 768 x 512."""
+    import zlib
+
+    h, w, _ = rgb.shape
+    g = rgb[..., 1]
+    out = {"tiff_float_p3": _tiff(w, h, {258: (3, [32]), 259: (3, [8]), 262: (3, [1]), 277: (3, [1]), 317: (3, [3]),
+                                          339: (3, [3])}, zlib.compress(_fp_predicted(g.astype(np.float32) + 0.25), 1)),
+           "bigtiff": _bigtiff(w, h, {258: (3, [8] * 3), 259: (3, [1]), 262: (3, [2]), 277: (3, [3])}, rgb.tobytes()),
+           "tiff_lab": _tiff(w, h, {258: (3, [8] * 3), 259: (3, [1]), 262: (3, [8]), 277: (3, [3])}, rgb.tobytes())}
+    planes = rgb.transpose(2, 0, 1).reshape(3 * h, w)
+    rows = _literals(planes, 128, 1)
+    out["psd_lab"] = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 9) + bytes(12) + struct.pack(">H", 1)
+                      + struct.pack(f">{3 * h}H", *[len(rows) // (3 * h)] * (3 * h)) + rows)
+    field = lambda rec, tag, body: bytes([0x1C, rec, tag]) + struct.pack(">H", len(body)) + body
+    body = g.tobytes()
+    out["iptc_layers"] = (field(3, 60, bytes([3, 1])) + field(3, 20, struct.pack(">H", w))
+                          + field(3, 30, struct.pack(">H", h)) + field(3, 120, bytes([1])) + field(3, 65, bytes([2]))
+                          + b"".join(field(8, 10, body[i:i + 30000]) for i in range(0, len(body), 30000)))
+    lc = bytearray(struct.pack("<HH", 0, h))
+    for y in range(h):
+        packets = [g[y, x:x + 120].tobytes() for x in range(0, w, 120)]
+        lc.append(len(packets))
+        for p in packets:
+            lc += bytes([0, len(p)]) + p
+    lc += b"\0" * (len(lc) & 1)
+    color = struct.pack("<H", 1) + bytes([0, 0]) + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    chunks = struct.pack("<IH", 6 + len(color), 4) + color + struct.pack("<IH", 6 + len(lc), 12) + bytes(lc)
+    frame = struct.pack("<IHH8x", 16 + len(chunks), 0xF1FA, 2) + chunks
+    out["fli_delta"] = struct.pack("<IHHHHHHI", 128 + len(frame), 0xAF12, 1, w, h, 8, 0, 70).ljust(128, b"\0") + frame
+    jg = _jpeg_goldens()
+    if (h, w) == (768, 1024):
+        out["tiff_jpeg_arith"] = _tiff(w, h, {258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+                                              530: (3, [2, 2])}, jg[JPEG_UPLOADS["jpeg_arith"]].tobytes())
+        out["jpeg_smoothed"] = _drop_scans(jg[JPEG_UPLOADS["jpeg_arith_prog"]].tobytes(), {0, 1, 2, 3})
+    out["pcd"] = _pcd(rgb[:512, :768])
+    return out
+
+
+def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
+    """The corners on the card's machine, where the host decoders are built
+    from the checkout and neither Pillow nor JAX is installed: every corner
+    golden decoded to the card and on the CPU route equal to Pillow's stored
+    decode (a baseline JPEG inside: nvJPEG on the card within its bars, and
+    no CPU route where the machine lacks libjpeg); every refused file
+    refused by name; the SOF2 progressions through nvJPEG against Pillow's
+    decode (recorded); ``sqrt_rn`` on the
+    card bit-equal to the CPU's; the median ms of the host decode of a 12 MP
+    float-predictor TIFF, BigTIFF and Lab PSD (RLE) and of the PhotoCD."""
+    import re
+
+    from mmtrs_tpu_torch.ops.color import sqrt_rn
+    from mmtrs_tpu_torch.utils.codec import decode_image, decode_tiff
+
+    exact, refused, recorded, on_card, nvjpeg, no_libjpeg = 0, 0, {}, True, [], []
+    with np.load(CORNER_GOLDENS) as z:
+        for name in sorted(f for f in z.files if not f.endswith((".pil", ".format", ".refused"))):
+            data = z[name].tobytes()
+            if name.startswith("refused_"):
+                words = z[f"{name}.refused"].tobytes().decode()
+                for where in ("cpu", dev):
+                    try:
+                        decode_image(data, where)
+                    except ValueError as e:
+                        if re.search(words, str(e)) is None:
+                            raise AssertionError(f"{name} on {where}: refused without naming {words!r}: {e}") from None
+                        continue
+                    raise AssertionError(f"{name}: decoded on {where}, where Pillow refuses it")
+                refused += 1
+                continue
+            want = z[f"{name}.pil"]
+            try:
+                got = decode_image(data, dev)
+            except ValueError as e:  # nvJPEG on a SOF2 progression: recorded as it answers
+                if not name.startswith("record_"):
+                    raise
+                recorded[name] = {"card": f"refused: {e}"}
+                continue
+            on_card &= got.device.type == "cuda"
+            try:
+                cpu = decode_image(data, "cpu")
+            except RuntimeError as e:  # a baseline JPEG inside: this machine has no libjpeg for the CPU route
+                if "libjpeg" not in str(e):
+                    raise
+                cpu, no_libjpeg = None, no_libjpeg + [name]
+            if name.startswith("record_"):
+                d = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
+                recorded[name] = {"card_max": int(d.max()), "card_mean": float(d.mean())}
+                continue
+            if name in CORNER_NVJPEG:  # a baseline JPEG's gray band: nvJPEG on the card, within the JPEG bars
+                nvjpeg.append((name, *_nvjpeg_bars(name, got.cpu().numpy(), want, True)))
+            elif not torch.equal(got.cpu(), torch.from_numpy(want)):
+                raise AssertionError(f"corner golden {name} on the card route: not equal to Pillow's decode")
+            if cpu is not None and not torch.equal(cpu, torch.from_numpy(want)):
+                raise AssertionError(f"corner golden {name} on the CPU route: not equal to Pillow's decode")
+            exact += 1
+    _check(on_card and exact >= 60 and refused >= 20,
+           f"{exact} corner goldens decoded to the card and on the CPU route equal to Pillow's decode ({nvjpeg} "
+           f"through nvJPEG within its bars; the CPU route skipped where a baseline JPEG needs libjpeg, absent here: "
+           f"{no_libjpeg}), {refused} refused by name on both")
+    print(f"  recorded, SOF2 progressions whose luma AC is left unrefined (nvJPEG on the card, system libjpeg on "
+          f"the CPU) against Pillow: {recorded}")
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(0.0, 4.0, 1 << 20).astype(np.float32))
+    same = torch.equal(sqrt_rn(x.to(dev)).cpu(), sqrt_rn(x))
+    _check(same, f"sqrt_rn on the card (sqrtf) bit-equal to the CPU's correctly rounded root on 2^20 values: {same}")
+
+    archive = _archive_batch()[3]  # the upright 12 MP tooth
+    files = _corner_files(torch, dev, archive)
+    timed = {"float_p3_tiff_12mp_host_ms": lambda: decode_tiff(files["tiff_float_p3"]),
+             "bigtiff_12mp_host_ms": lambda: decode_tiff(files["bigtiff"]),
+             "lab_psd_rle_12mp_host_ms": lambda: decode_image(files["psd_lab"], "cpu"),
+             "pcd_768x512_host_ms": lambda: decode_image(files["pcd"], "cpu")}
+    out = {k: _median_ms(torch, fn) for k, fn in timed.items()}
+    big = decode_image(files["bigtiff"], dev)
+    _check(torch.equal(big.cpu(), torch.from_numpy(archive)), "the 12 MP BigTIFF decodes to the card as its source")
+    print("  12 MP corner host decodes: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f" (host clock, median of 3, each ending in a synchronise; {smi})")
+    uploads = _corner_files(torch, dev, phone)
+    for fam, raw in uploads.items():
+        got = decode_image(raw, dev)
+        _check(got.device.type == "cuda" and got.shape[-1] == 3, f"the {fam} upload ({len(raw)} bytes) decodes to the "
+                                                                  f"card: {tuple(got.shape)}")
+    return {**out, "goldens_exact": exact, "goldens_refused": refused, "recorded_sof2": recorded, "uploads": uploads}
+
+
 def phase_entry_points(torch, dev, smi: str, archive_ips: float):
     """Phase 9, run by phase 8 on its service (``then``)."""
     import tempfile
@@ -2536,13 +2771,18 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
             jpeg = _jpeg_own_checks(torch, dev, Path(tmp), smi, phone)
         new_uploads.update(jpeg.pop("uploads"))
         jpeg["seconds"] = time.perf_counter() - t_jpeg
-        served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads)
+        t_corners = time.perf_counter()
+        corners = _corner_checks(torch, dev, smi, phone)
+        corner_uploads = corners.pop("uploads")
+        corners["seconds"] = time.perf_counter() - t_corners
+        served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads, corner_uploads)
         seconds = time.perf_counter() - t_phase
         print(f"  phase 9 took {seconds:.1f} s ({formats['seconds']:.1f} s of it the other Pillow formats' goldens, "
               f"12 MP decodes and warps, {jpeg['seconds']:.1f} s the own JPEG decoder's goldens, 12 MP decodes and "
-              "CLI run; their nine uploads are in the app's part)")
-        return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "jpeg": jpeg, "app": served,
-                "seconds": seconds}
+              f"CLI run, {corners['seconds']:.1f} s the format corners' goldens and 12 MP decodes; their uploads are "
+              "in the app's part)")
+        return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "jpeg": jpeg, "corners": corners,
+                "app": served, "seconds": seconds}
 
     return run
 
@@ -4217,7 +4457,13 @@ def main() -> int:
               f"{k} {c['shift_rows']}/{c['scatter_rows']}/{c['clahe_hist_lut']}/{c['clahe_apply']}"
               for k, c in entry["app"]["family_launches"].items())
           + f"), goldens {entry['formats']['goldens']}, arithmetic JPEG {entry['formats']['arithmetic_jpeg']}, "
-          f"warps card vs CPU {entry['formats']['warp_card_max_abs']:.3g}"
+          f"warps card vs CPU {entry['formats']['warp_card_max_abs']:.3g}; format corners: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in entry["corners"].items() if k.endswith("_ms"))
+          + f", {entry['corners']['goldens_exact']} goldens exact, {entry['corners']['goldens_refused']} refused, "
+          f"part {entry['corners']['seconds']:.1f} s, one upload " + ", ".join(
+              f"{k} {entry['app']['http_p50_ms'][k]:.2f} ms (K3/K7/K8/K9/K1/K2 {c['shift_rows']}/{c['scatter_rows']}/"
+              f"{c['clahe_hist_lut']}/{c['clahe_apply']}/{c['clahe_lab_fwd_lut']}/{c['clahe_apply_lab_bwd']})"
+              for k, c in entry["app"]["corner_launches"].items())
           + f"; phase 9 {entry['seconds']:.1f} s; MM training (B4 380 "
           f"b12 bf16 randaug) step {train['step']['step_ms']:.2f} ms + prep {train['step']['prep_ms']:.2f} ms, "
           f"{train['step']['imgs_per_sec']:.2f} imgs/s, peak {train['step']['peak_gb']:.2f} GB, phase 10 "

@@ -76,6 +76,7 @@ _HOST_SIGNATURES = {
     "mmtrs_nvjpeg_encode": (_P, _I, _I, _I, _P, _P, _P),
     "mmtrs_nvjpeg_free": (_P,),
     "mmtrs_jpeg_own_decode": (_P, _L, _L, _P, _P, _P),
+    "mmtrs_jpeg_own_decode_as": (_P, _L, _L, _I, _P, _P, _P),
     "mmtrs_jpeg_own_free": (_P,),
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
@@ -88,6 +89,9 @@ _HOST_SIGNATURES = {
     "mmtrs_bcn_decode": (_P, _L, _I, _I, _I, _I, _P),
     "mmtrs_ccitt_decode": (_P, _L, _I, _I, _I, _I, _P, _P),
     "mmtrs_packbits_rows": (_P, _L, _L, _I, _P, _P),
+    "mmtrs_fli_frame": (_P, _L, _I, _I, _P),
+    "mmtrs_pcd_decode": (_P, _L, _P),
+    "mmtrs_lab_to_rgb": (_P, _L, _P),
 }
 HOST_CSRC = CSRC / "host"
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # g++; nvcc passes -fPIC on with -Xcompiler
@@ -229,9 +233,11 @@ def jpeg_own_library() -> ctypes.CDLL:
 @functools.cache
 def raster_library() -> ctypes.CDLL:
     """The other raster formats' sequential loops (``csrc/host/rasters.cpp``:
-    TGA, PCX and SGI run lengths, QOI, BC1-BC7 blocks, CCITT fax, with the
-    tables of ``raster_tables.h``); needs only g++."""
-    return _build_host("mmtrs_rasters", "rasters.cpp", [_gxx(), *HOST_FLAGS], (), ("raster_tables.h",))
+    TGA, PCX and SGI run lengths, QOI, BC1-BC7 blocks, CCITT fax, FLI
+    frames, PhotoCD, CIELab → RGB, with the tables of ``raster_tables.h``
+    and ``lab_tables.h``); needs only g++."""
+    return _build_host("mmtrs_rasters", "rasters.cpp", [_gxx(), *HOST_FLAGS], (),
+                       ("raster_tables.h", "lab_tables.h"))
 
 
 @functools.cache

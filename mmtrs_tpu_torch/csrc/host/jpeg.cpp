@@ -21,9 +21,9 @@
 // Refused, as Pillow refuses them: a lossless frame that asks for colour
 // conversion (libjpeg-turbo converts no colour in lossless mode),
 // hierarchical frames (SOF5-7, SOF13-15, DHP), lossless arithmetic (SOF11),
-// and a sampling libjpeg cannot upsample. Refused here although Pillow
-// decodes it: a progressive frame whose progression leaves low AC
-// coefficients unrefined (libjpeg's block smoothing), named as such.
+// and a sampling libjpeg cannot upsample. A progressive frame whose scans
+// leave the DC or low AC coefficients unrefined is smoothed first, as
+// libjpeg's decompress_smooth_data smooths it.
 //
 // No global state: calls may run on many threads at once. Only the C++
 // standard library is used; nothing is linked.
@@ -38,6 +38,13 @@
 //     of this decoder (its first frame header is SOF0-SOF2, or it has none),
 //     2 corrupt, 3 truncated, 5 over max_pixels (dims set), 6 a feature
 //     refused by name.
+//   int mmtrs_jpeg_own_decode_as(const void* buf, long long n,
+//                                long long max_pixels, int space, void* out,
+//                                void* dims, void* msg);
+//     The same with the colour space libtiff's JPEG codec sets for a
+//     JPEG-in-TIFF chunk instead of libjpeg's guess (space 3: YCbCr, to be
+//     converted; 6: JCS_UNKNOWN, the components as stored, no conversion
+//     refused; 0: the guess); dims[3] <- space (0 for 6).
 //   int mmtrs_jpeg_own_free(void* p);
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared jpeg.cpp (see mmtrs_tpu_torch/_build.py)
@@ -53,7 +60,7 @@
 namespace {
 
 constexpr int ST_NOT_OWN = 1, ST_BROKEN = 2, ST_TRUNCATED = 3, ST_BOMB = 5, ST_REFUSED = 6;
-constexpr int CS_GRAY = 1, CS_RGB = 2, CS_YCC = 3, CS_CMYK = 4, CS_YCCK = 5;
+constexpr int CS_GRAY = 1, CS_RGB = 2, CS_YCC = 3, CS_CMYK = 4, CS_YCCK = 5, CS_UNKNOWN = 6;
 
 struct Fail {
     int status;
@@ -159,6 +166,7 @@ struct Decoder {
     bool jfif = false, adobe = false;
     int adobe_transform = 0;
     int space = 0;
+    int forced_space = 0;  // JPEG-in-TIFF: libtiff's choice, 0 libjpeg's guess
     bool multi_scan = false;
 
     // the current scan
@@ -463,6 +471,7 @@ struct Decoder {
         } else {
             space = adobe ? (adobe_transform == 0 ? CS_CMYK : CS_YCCK) : CS_CMYK;
         }
+        if (forced_space) space = forced_space == CS_UNKNOWN ? 0 : forced_space;
         dims[0] = height;
         dims[1] = width;
         dims[2] = ncomp;
@@ -516,6 +525,7 @@ struct Decoder {
     void decode(long long max_pixels, int* dims);
     void decode_lossless();
     void decode_dct();
+    void smooth_idct(Comp& c, int total_imcu_rows);
     void finish_single_scan();
     std::vector<uint8_t> output(int nc);
 };
@@ -1187,9 +1197,7 @@ void Decoder::decode_dct() {
         }
         if (read_markers() == 0xD9) break;
     }
-    if (smoothing_applies(*this))
-        fail(ST_REFUSED, "progressive JPEG whose scans leave low AC coefficients unrefined (libjpeg's block "
-                         "smoothing) is not decoded by the port");
+    const bool smooth = smoothing_applies(*this);
     for (auto& c : comp) {
         c.pw = c.bw * 8;
         c.ph = c.bh * 8;
@@ -1198,10 +1206,151 @@ void Decoder::decode_dct() {
             std::fill(c.plane.begin(), c.plane.end(), 128);
             continue;
         }
+        if (smooth) {
+            smooth_idct(c, mcus_y);
+            continue;
+        }
         for (int by = 0; by < c.hib; ++by)
             for (int bx = 0; bx < c.wib; ++bx)
                 idct_block(c.coef.data() + (static_cast<size_t>(by) * c.bw + bx) * 64, c.qt,
                            c.plane.data() + static_cast<size_t>(by) * 8 * c.pw + bx * 8, static_cast<size_t>(c.pw));
+    }
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1.3): each block's DC
+// (where no AC coefficient was ever coded) and its AC 1-9 (where still 0
+// and not known to full precision) estimated from the DC values of the 5 x
+// 5 blocks around it, then the IDCT. The neighbours are found iMCU row by
+// iMCU row as libjpeg finds them: the rows above and below clamped by its
+// image_block_row arithmetic (which, in the last iMCU row, counts that
+// row's blocks as if every row had as many), the columns by its sliding
+// registers, which repeat the edge block.
+void Decoder::smooth_idct(Comp& c, int total_imcu_rows) {
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k)
+        if (bits[k] != -1) change_dc = false;
+    auto q = [&](int pos) { return static_cast<long long>(static_cast<uint16_t>(c.qt[pos])); };
+    const long long Q00 = q(0), Q01 = q(1), Q10 = q(8), Q20 = q(16), Q11 = q(9), Q02 = q(2);
+    const long long Q03 = change_dc ? q(3) : 0, Q12 = change_dc ? q(10) : 0, Q21 = change_dc ? q(17) : 0,
+                    Q30 = change_dc ? q(24) : 0;
+    auto dc = [&](int row, int col) { return static_cast<int>(c.coef[(static_cast<size_t>(row) * c.bw + col) * 64]); };
+    // an estimate from num, scaled by Q00 / Q, clamped below 2^Al when Al > 0
+    auto estimate = [](long long num, long long qk, int al) {
+        int pred;
+        if (num >= 0) {
+            pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        } else {
+            pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            pred = -pred;
+        }
+        return static_cast<int16_t>(pred);
+    };
+    const int last_imcu = total_imcu_rows - 1;
+    const int last_col = c.wib - 1;
+    int16_t ws[64];
+    for (int r = 0; r < total_imcu_rows; ++r) {
+        int block_rows = c.v;
+        if (r == last_imcu) {
+            block_rows = c.hib % c.v;
+            if (block_rows == 0) block_rows = c.v;
+        }
+        const int image_block_rows = block_rows * total_imcu_rows;
+        for (int br = 0; br < block_rows; ++br) {
+            const int row = r * c.v + br;
+            const int ibr = r * block_rows + br;
+            const int prev = ibr > 0 ? row - 1 : row;
+            const int pprev = ibr > 1 ? row - 2 : prev;
+            const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+            const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+            int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11, DC12, DC13, DC14, DC15, DC16,
+                DC17, DC18, DC19, DC20, DC21, DC22, DC23, DC24, DC25;
+            DC01 = DC02 = DC03 = DC04 = DC05 = dc(pprev, 0);
+            DC06 = DC07 = DC08 = DC09 = DC10 = dc(prev, 0);
+            DC11 = DC12 = DC13 = DC14 = DC15 = dc(row, 0);
+            DC16 = DC17 = DC18 = DC19 = DC20 = dc(next, 0);
+            DC21 = DC22 = DC23 = DC24 = DC25 = dc(nnext, 0);
+            for (int col = 0; col <= last_col; ++col) {
+                std::memcpy(ws, c.coef.data() + (static_cast<size_t>(row) * c.bw + col) * 64, sizeof ws);
+                if (col == 0 && col < last_col) {
+                    DC04 = dc(pprev, 1);
+                    DC09 = dc(prev, 1);
+                    DC14 = dc(row, 1);
+                    DC19 = dc(next, 1);
+                    DC24 = dc(nnext, 1);
+                }
+                if (col + 1 < last_col) {
+                    DC05 = dc(pprev, col + 2);
+                    DC10 = dc(prev, col + 2);
+                    DC15 = dc(row, col + 2);
+                    DC20 = dc(next, col + 2);
+                    DC25 = dc(nnext, col + 2);
+                }
+                int al;
+                if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+                    const long long num = Q00 * (change_dc
+                        ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 - 3 * DC11
+                           + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21
+                           - DC22 + DC24 + DC25)
+                        : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+                    ws[1] = estimate(num, Q01, al);
+                }
+                if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+                    const long long num = Q00 * (change_dc
+                        ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 + 13 * DC09
+                           - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23
+                           + 3 * DC24 + DC25)
+                        : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+                    ws[8] = estimate(num, Q10, al);
+                }
+                if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+                    const long long num = Q00 * (change_dc
+                        ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 + 2 * DC17
+                           + 7 * DC18 + 2 * DC19 + DC23)
+                        : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+                    ws[16] = estimate(num, Q20, al);
+                }
+                if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+                    const long long num = Q00 * (change_dc
+                        ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25)
+                        : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06
+                           + 10 * DC07 - 10 * DC09));
+                    ws[9] = estimate(num, Q11, al);
+                }
+                if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+                    const long long num = Q00 * (change_dc
+                        ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15
+                           + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                        : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+                    ws[2] = estimate(num, Q02, al);
+                }
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+                        ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+                    if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+                        ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+                    if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+                        ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+                    if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+                        ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+                    const long long num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06
+                                                 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11
+                                                 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16
+                                                 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21
+                                                 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+                    ws[0] = estimate(num, Q00, 0);
+                }
+                idct_block(ws, c.qt, c.plane.data() + static_cast<size_t>(row) * 8 * c.pw + col * 8,
+                           static_cast<size_t>(c.pw));
+                DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+                DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+                DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+                DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+                DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+            }
+        }
     }
 }
 
@@ -1320,8 +1469,8 @@ void Decoder::decode(long long max_pixels, int* dims) {
 
 }  // namespace
 
-extern "C" int mmtrs_jpeg_own_decode(const void* buf, long long n, long long max_pixels, void* out, void* dims,
-                                     void* msg) {
+extern "C" int mmtrs_jpeg_own_decode_as(const void* buf, long long n, long long max_pixels, int space, void* out,
+                                        void* dims, void* msg) {
     void** dst = static_cast<void**>(out);
     int* dm = static_cast<int*>(dims);
     char* text = static_cast<char*>(msg);
@@ -1329,6 +1478,7 @@ extern "C" int mmtrs_jpeg_own_decode(const void* buf, long long n, long long max
     text[0] = 0;
     try {
         Decoder dec(static_cast<const uint8_t*>(buf), n > 0 ? static_cast<size_t>(n) : 0);
+        dec.forced_space = space;
         dec.decode(max_pixels, dm);
         const int nc = dec.ncomp;
         std::vector<uint8_t> px = dec.output(nc);
@@ -1347,6 +1497,11 @@ extern "C" int mmtrs_jpeg_own_decode(const void* buf, long long n, long long max
         std::snprintf(text, 256, "out of memory");
         return ST_BROKEN;
     }
+}
+
+extern "C" int mmtrs_jpeg_own_decode(const void* buf, long long n, long long max_pixels, void* out, void* dims,
+                                     void* msg) {
+    return mmtrs_jpeg_own_decode_as(buf, n, max_pixels, 0, out, dims, msg);
 }
 
 extern "C" int mmtrs_jpeg_own_free(void* p) {

@@ -1,7 +1,8 @@
 // The sequential loops of utils/rasters.py's decoders, each a loop whose
 // every step depends on the one before, as Pillow 12.1 runs it: TGA's,
 // PCX's and SGI's run-length codes, QOI, the BCn block formats (BC1-BC7 of
-// DDS and BLP2) and CCITT fax (TIFF compressions 2, 3 and 4).
+// DDS and BLP2), CCITT fax (TIFF compressions 2, 3 and 4), FLI/FLC frames
+// and PhotoCD; and Pillow's CIELab -> RGB conversion (LittleCMS's grid).
 //
 // C API (ctypes, plain C, no dependencies; every return is a status):
 //   int mmtrs_tga_rle(const void* src, long long n, int pixel_bytes,
@@ -56,6 +57,26 @@
 //     bytes, 1 where the fax is black. done: int[1] <- rows decoded. 0 ok,
 //     1 a code that is not T.4's or a run past the row, 2 the data ended
 //     before the rows.
+//   int mmtrs_fli_frame(const void* src, long long n, int w, int h, void* dst);
+//     One FLI/FLC frame chunk as Pillow's FliDecode applies it to dst (h
+//     rows of w palette indices, the buffer it starts from): BLACK, BRUN,
+//     COPY, LC (byte delta) and SS2 (word delta, with its skip and last-byte
+//     words); colour and stamp chunks skipped. src: the bytes Pillow's
+//     reader holds (the frame, or fewer at a file's end), each bound checked
+//     against them as Pillow checks it. 0 ok, 1 a packet or row past the
+//     data or the image (Pillow's overrun), 2 not a frame chunk or an
+//     unknown chunk, 3 a chunk of size 0, 4 a COPY chunk short of its data.
+//   int mmtrs_pcd_decode(const void* src, long long n, void* dst);
+//     PhotoCD's 768 x 512 base image as Pillow's PcdDecode reads it: src from
+//     the image's offset, rows in pairs (two luma rows of 768, then 384 of
+//     each chroma, whose samples cover a 2 x 2 block), each pixel's (Y, C1,
+//     C2) through Pillow's PhotoYCC unpacker (UnpackYCC.c's tables, clipped
+//     sums), dst 512 x 768 x 3 RGB. 0 ok, 1 the data ended first.
+//   int mmtrs_lab_to_rgb(const void* src, long long pixels, void* dst);
+//     Pillow's LAB (L, a + 128, b + 128 bytes) -> RGB as its LittleCMS
+//     transform computes it: each byte times 257, tetrahedral interpolation
+//     in lab_tables.h's 33^3 grid (cmsintrp.c's TetrahedralInterp16), 16 to
+//     8 bits rounded as lcms2's FROM_16_TO_8. Integers only. 0 ok.
 //
 // Build: g++ -O3 -fPIC -shared rasters.cpp (see mmtrs_tpu_torch/_build.py)
 
@@ -63,6 +84,7 @@
 #include <cstring>
 #include <vector>
 
+#include "lab_tables.h"
 #include "raster_tables.h"
 
 namespace {
@@ -854,6 +876,225 @@ extern "C" int mmtrs_ccitt_decode(const void* src, long long n, int w, int rows,
             ref = ch;
             ref.push_back(w);
             ref.push_back(w);
+        }
+    }
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// FLI/FLC (FliDecode.c)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline int fli16(const u8* p) { return p[0] | (p[1] << 8); }
+inline int32_t fli32(const u8* p) {
+    return static_cast<int32_t>(static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+                                (static_cast<uint32_t>(p[2]) << 16) | (static_cast<uint32_t>(p[3]) << 24));
+}
+
+}  // namespace
+
+extern "C" int mmtrs_fli_frame(const void* src, long long n, int w, int h, void* dst) {
+    const u8* ptr = static_cast<const u8*>(src);
+    u8* img = static_cast<u8*>(dst);
+    long long bytes = n;
+    if (bytes < 8) return 1;
+    if (fli16(ptr + 4) != 0xF1FA) return 2;
+    const int chunks = fli16(ptr + 6);
+    ptr += 16;
+    bytes -= 16;
+    // Pillow's ERR_IF_DATA_OOB: data + off past the held bytes
+#define OOB(off) if ((data - ptr) + static_cast<long long>(off) > bytes) return 1
+    for (int c = 0; c < chunks; ++c) {
+        if (bytes < 10) return 1;
+        const u8* data = ptr + 6;
+        switch (fli16(ptr + 4)) {
+            case 4:
+            case 11:
+            case 18:
+                break;
+            case 7: {  // SS2: word delta
+                const int lines = fli16(data);
+                data += 2;
+                int l = 0, y = 0;
+                for (; l < lines && y < h; ++l, ++y) {
+                    u8* row = img + static_cast<long long>(y) * w;
+                    OOB(2);
+                    int packets = fli16(data);
+                    data += 2;
+                    while (packets & 0x8000) {
+                        if (packets & 0x4000) {
+                            y += 65536 - packets;  // skip lines
+                            if (y >= h) return 1;
+                            row = img + static_cast<long long>(y) * w;
+                        } else {
+                            row[w - 1] = static_cast<u8>(packets);  // the last byte of an odd width
+                        }
+                        OOB(2);
+                        packets = fli16(data);
+                        data += 2;
+                    }
+                    int p = 0, x = 0;
+                    for (; p < packets; ++p) {
+                        OOB(2);
+                        x += data[0];
+                        if (data[1] >= 128) {
+                            OOB(4);
+                            const int i = 256 - data[1];
+                            if (x + i + i > w) break;
+                            for (int j = 0; j < i; ++j) {
+                                row[x++] = data[2];
+                                row[x++] = data[3];
+                            }
+                            data += 4;
+                        } else {
+                            const int i = 2 * data[1];
+                            if (x + i > w) break;
+                            OOB(2 + i);
+                            std::memcpy(row + x, data + 2, static_cast<size_t>(i));
+                            data += 2 + i;
+                            x += i;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (l < lines) return 1;
+                break;
+            }
+            case 12: {  // LC: byte delta
+                int y = fli16(data);
+                const int ymax = y + fli16(data + 2);
+                data += 4;
+                for (; y < ymax && y < h; ++y) {
+                    u8* row = img + static_cast<long long>(y) * w;
+                    OOB(1);
+                    const int packets = *data++;
+                    int p = 0, x = 0, i = 0;
+                    for (; p < packets; ++p, x += i) {
+                        OOB(2);
+                        x += data[0];
+                        if (data[1] & 0x80) {
+                            i = 256 - data[1];
+                            if (x + i > w) break;
+                            OOB(3);
+                            std::memset(row + x, data[2], static_cast<size_t>(i));
+                            data += 3;
+                        } else {
+                            i = data[1];
+                            if (x + i > w) break;
+                            OOB(2 + i);
+                            std::memcpy(row + x, data + 2, static_cast<size_t>(i));
+                            data += i + 2;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (y < ymax) return 1;
+                break;
+            }
+            case 13:
+                std::memset(img, 0, static_cast<size_t>(w) * h);
+                break;
+            case 15:  // BRUN
+                for (int y = 0; y < h; ++y) {
+                    u8* row = img + static_cast<long long>(y) * w;
+                    data += 1;  // the packet count, unused
+                    int x = 0, i = 0;
+                    for (; x < w; x += i) {
+                        OOB(2);
+                        if (data[0] & 0x80) {
+                            i = 256 - data[0];
+                            if (x + i > w) break;
+                            OOB(i + 1);
+                            std::memcpy(row + x, data + 1, static_cast<size_t>(i));
+                            data += i + 1;
+                        } else {
+                            i = data[0];
+                            if (x + i > w) break;
+                            std::memset(row + x, data[1], static_cast<size_t>(i));
+                            data += 2;
+                        }
+                    }
+                    if (x != w) return 1;
+                }
+                break;
+            case 16:  // COPY
+                if ((data - ptr) + static_cast<long long>(w) * h > bytes) return 4;
+                std::memcpy(img, data, static_cast<size_t>(w) * h);
+                break;
+            default:
+                return 2;
+        }
+        const int32_t advance = fli32(ptr);
+        if (advance == 0) return 3;
+        if (advance < 0 || advance > bytes) return 1;
+        ptr += advance;
+        bytes -= advance;
+    }
+#undef OOB
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// PhotoCD (PcdDecode.c, UnpackYCC.c)
+// ---------------------------------------------------------------------------
+
+extern "C" int mmtrs_pcd_decode(const void* src, long long n, void* dst) {
+    constexpr int kW = 768, kH = 512, kPair = 3 * kW;
+    if (n < static_cast<long long>(kPair) * (kH / 2)) return 1;
+    const u8* in = static_cast<const u8*>(src);
+    u8* out = static_cast<u8*>(dst);
+    auto clip = [](int v) { return static_cast<u8>(v <= 0 ? 0 : v >= 255 ? 255 : v); };
+    for (int pair = 0; pair < kH / 2; ++pair) {
+        const u8* p = in + static_cast<long long>(pair) * kPair;
+        for (int r = 0; r < 2; ++r) {
+            u8* o = out + (static_cast<long long>(2 * pair + r) * kW) * 3;
+            for (int x = 0; x < kW; ++x) {
+                const int l = kYccL[p[x + r * kW]];
+                const int cb = p[(x + 4 * kW) / 2], cr = p[(x + 5 * kW) / 2];
+                o[3 * x] = clip(l + kYccCr[cr]);
+                o[3 * x + 1] = clip(l + kYccGr[cr] + kYccGb[cb]);
+                o[3 * x + 2] = clip(l + kYccCb[cb]);
+            }
+        }
+    }
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// CIELab -> RGB (LittleCMS's optimised transform, as Pillow builds it)
+// ---------------------------------------------------------------------------
+
+extern "C" int mmtrs_lab_to_rgb(const void* src, long long pixels, void* dst) {
+    constexpr int kN = 33, kOptaL = 3 * kN * kN, kOptaA = 3 * kN, kOptaB = 3;
+    const u8* in = static_cast<const u8*>(src);
+    u8* out = static_cast<u8*>(dst);
+    auto to_fixed = [](int v) { return v + (v + 0x7FFF) / 0xFFFF; };  // _cmsToFixedDomain
+    for (long long i = 0; i < pixels; ++i, in += 3, out += 3) {
+        const int L = in[0] * 257, A = in[1] * 257, B = in[2] * 257;
+        const int fx = to_fixed(L * (kN - 1)), fy = to_fixed(A * (kN - 1)), fz = to_fixed(B * (kN - 1));
+        const int rx = fx & 0xFFFF, ry = fy & 0xFFFF, rz = fz & 0xFFFF;
+        int X1 = L == 0xFFFF ? 0 : kOptaL, Y1 = A == 0xFFFF ? 0 : kOptaA, Z1 = B == 0xFFFF ? 0 : kOptaB;
+        const uint16_t* t = kLabGrid + (fx >> 16) * kOptaL + (fy >> 16) * kOptaA + (fz >> 16) * kOptaB;
+        // the simplex's three further corners (cumulative offsets) and their weights
+        int o1, o2, o3, w1, w2, w3;
+        if (rx >= ry) {
+            if (ry >= rz) { o1 = X1; o2 = X1 + Y1; w1 = rx; w2 = ry; w3 = rz; }
+            else if (rz >= rx) { o1 = Z1; o2 = X1 + Z1; w1 = rz; w2 = rx; w3 = ry; }
+            else { o1 = X1; o2 = X1 + Z1; w1 = rx; w2 = rz; w3 = ry; }
+        } else {
+            if (rx >= rz) { o1 = Y1; o2 = X1 + Y1; w1 = ry; w2 = rx; w3 = rz; }
+            else if (ry >= rz) { o1 = Y1; o2 = Y1 + Z1; w1 = ry; w2 = rz; w3 = rx; }
+            else { o1 = Z1; o2 = Y1 + Z1; w1 = rz; w2 = ry; w3 = rx; }
+        }
+        o3 = X1 + Y1 + Z1;
+        for (int k = 0; k < 3; ++k) {
+            const long long c0 = t[k], c1 = t[o1 + k], c2 = t[o2 + k], c3 = t[o3 + k];
+            // 64-bit: a product passes 2^31 where the grid jumps, and Pillow's result is the unwrapped one
+            const long long rest = (c1 - c0) * w1 + (c2 - c1) * w2 + (c3 - c2) * w3 + 0x8001;
+            const auto v = static_cast<uint16_t>(c0 + ((rest + (rest >> 16)) >> 16));
+            out[k] = static_cast<u8>((static_cast<uint32_t>(v) * 65281u + 8388608u) >> 24);
         }
     }
     return 0;

@@ -33,6 +33,8 @@ import math
 import numpy as np
 import torch
 
+from mmtrs_tpu_torch.ops.color import sqrt_rn
+
 # torchvision BoxCoder clamp: log(1000/16)
 _BBOX_XFORM_CLIP = float(np.log(1000.0 / 16.0))
 
@@ -256,7 +258,7 @@ def roi_levels(boxes: torch.Tensor, n_levels: int, canonical_size: float = 224.0
     floor(k0 + log2(sqrt(area)/224 + 1e-6)) clamped to [2, 2 + L − 1],
     0-based, int64."""
     areas = torch.clamp_min(boxes[..., 2] - boxes[..., 0], 0) * torch.clamp_min(boxes[..., 3] - boxes[..., 1], 0)
-    k = torch.floor(canonical_level + torch.log2(torch.sqrt(areas) / canonical_size + 1e-6))
+    k = torch.floor(canonical_level + torch.log2(sqrt_rn(areas) / canonical_size + 1e-6))
     return (torch.clamp(k, 2, 2 + n_levels - 1) - 2).long()
 
 

@@ -27,7 +27,7 @@ import torch.nn as nn
 
 from mmtrs_tpu_torch.models.backbones.efficientnet import dropout
 from mmtrs_tpu_torch.models.backbones.factory import create_model, feature_dim
-from mmtrs_tpu_torch.ops.color import fdiv
+from mmtrs_tpu_torch.ops.color import fdiv, sqrt_rn
 from mmtrs_tpu_torch.ops.resize import resize_bilinear
 from mmtrs_tpu_torch.utils.rng import generator_for_origin
 
@@ -131,7 +131,7 @@ def make_bags(imgs: torch.Tensor, draws: BagDraws, out_size: int = 320) -> torch
     K = draws.area.shape[1]
     dev = imgs.device
     area, y0u, x0u, flip = (t.to(dev) for t in (draws.area, draws.y0, draws.x0, draws.flip))
-    side = torch.sqrt(area)
+    side = sqrt_rn(area)
     ch, cw = side * H, side * W
     y0, x0 = y0u * (H - ch), x0u * (W - cw)
     u = torch.arange(out_size, dtype=torch.float32, device=dev)

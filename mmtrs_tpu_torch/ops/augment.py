@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from mmtrs_tpu_torch.ops.clahe import clahe_rgb, quantize_u8
-from mmtrs_tpu_torch.ops.color import hsv_shift, rgb_to_gray
+from mmtrs_tpu_torch.ops.color import hsv_shift, rgb_to_gray, sqrt_rn
 from mmtrs_tpu_torch.ops.kernels.clahe_lab import clahe_lab_fused
 from mmtrs_tpu_torch.ops.kernels.clahe_lab import supports as lab_supports
 from mmtrs_tpu_torch.ops.kernels.photometric import (
@@ -790,8 +790,8 @@ def _rrc_hflip3(u: torch.Tensor, H: int, W: int) -> torch.Tensor:
     col = lambda k: u[:, RANDAUG_SLOTS[k]]
     area = _scaled(col("rrc_area"), 0.08, 1.0) * (H * W)
     r = torch.exp(_scaled(col("rrc_logr"), math.log(3.0 / 4.0), math.log(4.0 / 3.0)))
-    w = torch.clamp(torch.sqrt(area * r), 8.0, float(W))
-    h = torch.clamp(torch.sqrt(area / r), 8.0, float(H))
+    w = torch.clamp(sqrt_rn(area * r), 8.0, float(W))
+    h = torch.clamp(sqrt_rn(area / r), 8.0, float(H))
     i = col("rrc_i").float() * (H - h)
     j = col("rrc_j").float() * (W - w)
     # dst→src is axis-aligned: src = s·dst + t (half-pixel centres)
@@ -915,8 +915,8 @@ def draw_randaug(seed: int, origin_ids, aug_idxs, H: int, W: int) -> RandaugDraw
     # RandomErasing(p=.2, scale .02-1/3, ratio .3-3.3), one clamped attempt
     area = _scaled(col("erase_area"), 0.02, 1.0 / 3.0) * (H * W)
     r = torch.exp(_scaled(col("erase_logr"), math.log(0.3), math.log(3.3)))
-    w = torch.clamp(torch.sqrt(area * r), 1.0, float(W))
-    h = torch.clamp(torch.sqrt(area / r), 1.0, float(H))
+    w = torch.clamp(sqrt_rn(area * r), 1.0, float(W))
+    h = torch.clamp(sqrt_rn(area / r), 1.0, float(H))
     box = torch.stack([col("erase_i").float() * (H - h), col("erase_j").float() * (W - w), h, w], dim=1)
     return RandaugDraws(
         mats=mats, **phot, erase_on=randaug_gates(u)["erase"], erase_box=box,

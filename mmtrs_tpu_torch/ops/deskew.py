@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from mmtrs_tpu_torch.ops.augment import subset_apply_
-from mmtrs_tpu_torch.ops.color import rgb_to_gray
+from mmtrs_tpu_torch.ops.color import rgb_to_gray, sqrt_rn
 from mmtrs_tpu_torch.ops.warp import rotate_shear3
 
 
@@ -33,7 +33,7 @@ def _sobel(gray: torch.Tensor):
 def canny_lite(gray: torch.Tensor, low: float = 50.0, high: float = 150.0) -> torch.Tensor:
     """Strong edges + weak edges adjacent to strong (1-step hysteresis)."""
     gx, gy = _sobel(gray)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    mag = sqrt_rn(gx * gx + gy * gy)
     strong = mag >= high
     weak = mag >= low
     dil = F.max_pool2d(strong.float()[:, None], 3, stride=1, padding=1)[:, 0]

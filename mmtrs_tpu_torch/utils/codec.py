@@ -79,7 +79,7 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
   black canvas.
 
 What Pillow opens and this codec refuses raises a ValueError that names
-the format and the feature (AVIF, JPEG 2000, PCD, TIFF in CIELab, BigTIFF;
+the format and the feature (AVIF, JPEG 2000;
 ``rasters.py`` lists the rest). Data no opener takes is not identified. A
 header that asks for more than ``MAX_PIXELS`` pixels is refused before
 anything is allocated, as Pillow refuses it (DecompressionBombError); a
@@ -148,6 +148,8 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
             raise ValueError(f"corrupt TIFF: {e!r}") from None
     if load is None:
         return torch.from_numpy(_HOST_DECODERS[kind](data)).to(dev)
+    if kind == "IPTC" and load.iptc[3] == "jpeg":
+        return _decode_iptc_jpeg(load.iptc, dev)
     try:
         loaded = load()
     except rasters.NOT_THIS as e:  # a short read past the header: Pillow's decoders raise there too
@@ -174,7 +176,9 @@ def convert_rgb(px: np.ndarray, mode: str, palette: np.ndarray | None = None) ->
     """Samples in a Pillow mode → RGB u8 [H, W, 3], as Pillow's
     ``convert("RGB")`` gives it. ``px``: [H, W] for 1, L, P, I;16, I and F
     ([H, W, C] with the first channel used for LA and PA), [H, W, C] for
-    RGB, RGBA, RGBX, CMYK and YCbCr. "1" holds 0 and 255; P and PA look
+    RGB, RGBA, RGBX, CMYK, YCbCr and LAB (L, a + 128, b + 128, as Pillow
+    holds it; converted as its LittleCMS transform converts it, equal on all
+    2^24 inputs). "1" holds 0 and 255; P and PA look
     their index up in ``palette`` rows [n, 3] (an index past them, or no
     palette, is black); I;16 (any byte order, as values) is capped at 255,
     I clipped to 0..255; F is truncated toward 0 and clipped, NaN → 0."""
@@ -199,6 +203,11 @@ def convert_rgb(px: np.ndarray, mode: str, palette: np.ndarray | None = None) ->
         return np.ascontiguousarray(px[..., :3], dtype=np.uint8)
     elif mode == "CMYK":
         return cmyk2rgb(torch.from_numpy(np.ascontiguousarray(px))).numpy()
+    elif mode == "LAB":  # Pillow's LittleCMS transform to sRGB, in csrc/host/rasters.cpp
+        lab = np.ascontiguousarray(px[..., :3], dtype=np.uint8)
+        rgb = np.empty_like(lab)
+        _build.raster_library().mmtrs_lab_to_rgb(lab.ctypes.data, lab.size // 3, rgb.ctypes.data)
+        return rgb
     elif mode == "YCbCr":
         r_cr, g_cb, g_cr, b_cb = _ycbcr_tables()
         x = px.astype(np.int64)
@@ -350,12 +359,31 @@ def jpeg_components(data: bytes) -> int:
 OWN_FRAMES = frozenset((0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xDE))
 # libjpeg's J_COLOR_SPACE numbers, as jpeg.cpp reports the stored components
 JCS_GRAYSCALE, JCS_RGB, JCS_YCBCR, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
+JCS_UNKNOWN = 6  # the own decoder's code for libjpeg's JCS_UNKNOWN: no colour conversion
 
 
 def jpeg_frame_marker(data: bytes) -> int:
     """The first frame marker of a JPEG (SOF0-SOF15 or DHP) before its first
     scan, the markers found as libjpeg's next_marker finds them (bytes
     between segments skipped); 0 without one."""
+    return _jpeg_frame(data)[0]
+
+
+def jpeg_frame_header(data: bytes) -> tuple[int, int, int, int, list[tuple[int, int, int]]] | None:
+    """The first frame header: (marker, precision, height, width, [(id, h, v)
+    of each component]), or None without a whole one."""
+    marker, pos = _jpeg_frame(data)
+    if not marker or pos + 8 > len(data):
+        return None
+    precision, height, width, n = struct.unpack(">BHHB", data[pos + 2:pos + 8])
+    if pos + 8 + 3 * n > len(data):
+        return None
+    comps = [(data[pos + 8 + 3 * k], data[pos + 9 + 3 * k] >> 4, data[pos + 9 + 3 * k] & 15) for k in range(n)]
+    return marker, precision, height, width, comps
+
+
+def _jpeg_frame(data: bytes) -> tuple[int, int]:
+    """(the first frame marker or 0, the offset of its segment's length)."""
     pos, n = 2, len(data)
     while True:
         while pos < n and data[pos] != 0xFF:
@@ -363,17 +391,17 @@ def jpeg_frame_marker(data: bytes) -> int:
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
-            return 0
+            return 0, pos
         marker = data[pos]
         pos += 1
         if marker in (0xDA, 0xD9):
-            return 0
+            return 0, pos
         if (0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC)) or marker == 0xDE:
-            return marker
+            return marker, pos
         if marker == 0 or 0xD0 <= marker <= 0xD8 or marker == 0x01:
             continue
         if pos + 2 > n:
-            return 0
+            return 0, pos
         pos += struct.unpack(">H", data[pos:pos + 2])[0]
 
 
@@ -397,17 +425,19 @@ def _own_tensor(lib, ptr: int, h: int, w: int, c: int) -> torch.Tensor:
     return torch.from_numpy(np.ctypeslib.as_array(buf).reshape(h, w, c))
 
 
-def jpeg_own_planes(data: bytes) -> tuple[torch.Tensor, int]:
+def jpeg_own_planes(data: bytes, space: int = 0) -> tuple[torch.Tensor, int]:
     """A lossless or arithmetic-coded JPEG through the port's own decoder,
     on the host → (its components as stored, at full size: u8 [H, W, C] on
-    the CPU; their colour space, a ``JCS_*`` number). Raises ValueError
-    naming the reason where Pillow refuses the file, and for a frame over
-    ``MAX_PIXELS`` before anything is allocated."""
+    the CPU; their colour space, a ``JCS_*`` number). ``space``: the colour
+    space libtiff sets for a JPEG-in-TIFF chunk (``JCS_YCBCR``, or
+    ``JCS_UNKNOWN``: no conversion) in place of libjpeg's guess. Raises
+    ValueError naming the reason where Pillow refuses the file, and for a
+    frame over ``MAX_PIXELS`` before anything is allocated."""
     lib = _build.jpeg_own_library()
     out, dims = ctypes.c_void_p(), np.zeros(4, np.int32)
     msg = ctypes.create_string_buffer(256)
-    status = lib.mmtrs_jpeg_own_decode(data, len(data), MAX_PIXELS, ctypes.addressof(out), dims.ctypes.data,
-                                       ctypes.addressof(msg))
+    status = lib.mmtrs_jpeg_own_decode_as(data, len(data), MAX_PIXELS, space, ctypes.addressof(out),
+                                          dims.ctypes.data, ctypes.addressof(msg))
     if status:
         raise _own_error(status, msg.value.decode(), dims)
     h, w, c, space = (int(v) for v in dims)
@@ -471,6 +501,27 @@ def decode_blp_jpeg(stream: bytes, w: int, h: int, alpha: bool, dev: torch.devic
     if flat.numel() < w * h * 3:
         raise ValueError("truncated BLP: not enough image data")
     return flat[: w * h * 3].reshape(h, w, 3)
+
+
+def _decode_iptc_jpeg(iptc: tuple, dev: torch.device) -> torch.Tensor:
+    """An IPTC image whose data is a JPEG, decoded on ``dev`` as
+    ``decode_image`` decodes a JPEG: whole, or (three- and four-layer
+    modes) its one gray band merged into the mode as IptcImagePlugin merges
+    it, then converted."""
+    body, mode, band, _ = iptc
+    try:
+        stream = body()
+    except rasters.NOT_THIS as e:
+        raise ValueError(f"corrupt or truncated IPTC image: {e}") from None
+    if band is None:
+        return decode_image(stream, dev)
+    if rasters.identify(stream)[0] != "JPEG" or jpeg_components(stream) != 1:
+        raise ValueError(f"IPTC/NAA: a {mode} layer whose data is not one gray band (Pillow cannot merge it)")
+    try:
+        px = rasters.iptc_merge(decode_image(stream, dev)[..., 0], mode, band)
+    except IndexError as e:
+        raise ValueError(f"corrupt or truncated IPTC image: {e}") from None
+    return px if mode == "RGB" else cmyk2rgb(px)
 
 
 def jpeg_is_arithmetic(data: bytes) -> bool:
@@ -888,8 +939,10 @@ def decode_gif(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+# the types Pillow's IFD reader loads (it drops the others, SLONG8 and IFD8
+# among them)
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
-               16: "Q", 17: "q"}
+               13: "I", 16: "Q"}
 _TIFF_COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
                      6: "old-style JPEG", 7: "JPEG", 8: "Adobe deflate", 32773: "PackBits",
                      32946: "deflate"}
@@ -900,33 +953,73 @@ _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8
 
 def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
     """The byte order and the first IFD's tags (tag → tuple of values; -1
-    → the tags dropped: those of an unknown type, and those from the first
-    whose values lie past the file's end, where Pillow stops reading the
-    IFD, to the last)."""
+    → the tags dropped: those of a type Pillow does not load, and those
+    from the first whose values lie past the file's end, where Pillow stops
+    reading the IFD, to the last; -4 → the raw entries (type, count, value
+    field) of the tags libtiff reads apart, ``_TIFF_LIBTIFF_READS``). A
+    BigTIFF (``II+``: 8-byte offsets and counts, 20-byte entries) is read
+    as Pillow reads it; Pillow takes ``MM`` files for classic ones, whose
+    first IFD then lies where bytes 4-7 say."""
     bo = "<" if data[:2] == b"II" else ">"
-    ifd = struct.unpack(bo + "I", data[4:8])[0]
-    if ifd + 2 > len(data):
+    big = data[2] == 43
+    word, cnt = ("Q", "Q") if big else ("I", "H")
+    wsize, esize = (8, 20) if big else (4, 12)
+    ifd = struct.unpack(bo + word, data[8:16] if big else data[4:8])[0]
+    if ifd + struct.calcsize(cnt) > len(data):
         raise ValueError("corrupt TIFF: the IFD lies beyond the file")
-    n = struct.unpack(bo + "H", data[ifd:ifd + 2])[0]
-    tags = {}
+    n = struct.unpack(bo + cnt, data[ifd:ifd + struct.calcsize(cnt)])[0]
+    first = ifd + struct.calcsize(cnt)
+    tags, raw = {}, {}
     for i in range(n):
-        e = ifd + 2 + 12 * i
-        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
-        if typ not in _TIFF_TYPES:  # an unknown type: Pillow and libtiff drop the tag
+        e = first + esize * i
+        if e + esize > len(data):
+            raise ValueError("corrupt TIFF: the IFD runs past the end of the file")
+        tag, typ, count = struct.unpack(bo + "HH" + word, data[e:e + 4 + wsize])
+        if tag in _TIFF_LIBTIFF_READS:
+            raw[tag] = (typ, count, data[e + 4 + wsize:e + esize])
+        fmt = _TIFF_TYPES.get(typ)
+        if fmt is None:  # a type Pillow does not load: it drops the tag
             tags[-1] = tags.get(-1, ()) + (tag,)
             continue
-        fmt = _TIFF_TYPES[typ]
         size = struct.calcsize(bo + fmt) * count
-        at = e + 8 if size <= 4 else struct.unpack(bo + "I", data[e + 8:e + 12])[0]
+        at = e + 4 + wsize if size <= wsize else struct.unpack(bo + word, data[e + 4 + wsize:e + esize])[0]
         if at + size > len(data):  # Pillow's IFD reader stops at a tag whose values lie past the file's end
-            tags[-1] = tags.get(-1, ()) + tuple(struct.unpack(bo + "H", data[ifd + 2 + 12 * j:ifd + 4 + 12 * j])[0]
-                                                for j in range(i, n) if ifd + 4 + 12 * j <= len(data))
+            tags[-1] = tags.get(-1, ()) + tuple(
+                struct.unpack(bo + "H", data[first + esize * j:first + esize * j + 2])[0]
+                for j in range(i, n) if first + esize * j + 2 <= len(data))
             break
         vals = struct.unpack(f"{bo}{count * len(fmt)}{fmt[0]}", data[at:at + size])
         if typ in (5, 10):  # rationals: numerator over denominator
             vals = tuple(a / b if b else 0.0 for a, b in zip(vals[::2], vals[1::2]))
         tags[tag] = vals
+    tags[-4] = raw
     return bo, tags
+
+
+# the tags whose entries libtiff reads apart from Pillow for a compressed
+# image: strip and tile offsets and counts, and YCbCrSubsampling
+_TIFF_LIBTIFF_READS = (273, 279, 324, 325, 530)
+
+
+def _libtiff_values(data: bytes, bo: str, big: bool, entry: tuple, n: int) -> tuple:
+    """The first ``n`` values of an IFD entry (type, count, value field) as
+    libtiff's TIFFReadDirEntryArrayWithLimit reads them: inline only when
+    the whole array would fit the field, else from the offset the field
+    holds (so an entry whose count was damaged reads its values from
+    elsewhere, as libtiff does)."""
+    typ, count, field = entry
+    fmt = {3: "H", 4: "I", 16: "Q", 17: "q"}.get(typ)
+    if fmt is None or count < n:
+        raise ValueError("corrupt TIFF: strip or tile offsets or counts that libtiff cannot read")
+    size, wsize = struct.calcsize(fmt), (8 if big else 4)
+    if count * size <= wsize:
+        raw = field[:n * size]
+    else:
+        at = struct.unpack(bo + ("Q" if big else "I"), field[:wsize])[0]
+        raw = data[at:at + n * size]
+        if len(raw) < n * size:
+            raise ValueError("corrupt TIFF: strip or tile offsets or counts past the end of the file")
+    return struct.unpack(f"{bo}{n}{fmt}", raw)
 
 
 # Pillow's TiffImagePlugin.OPEN_INFO (fill order 1): (photometric, sample
@@ -1020,6 +1113,20 @@ def _tiff_samples(buf: np.ndarray, rows: int, cols: int, n: int, depth: int, kin
     return buf[: rows * cols * n * dt.itemsize].view(dt).reshape(rows, cols, n)
 
 
+def _fp_acc(buf: np.ndarray, rows: int, line: int, stride: int, nbytes: int) -> np.ndarray:
+    """The floating-point predictor undone as libtiff's ``fpAcc`` undoes it,
+    row by row: the bytes summed mod 256 along the row ``stride`` (samples
+    a pixel) apart, then the row's byte planes (most significant first, each
+    a byte of every sample) put back together in little-endian order, which
+    libtiff leaves whatever the file's byte order (Pillow then reads them in
+    the file's)."""
+    b = buf[: rows * line].reshape(rows, line // stride, stride)
+    b = np.cumsum(b, axis=1, dtype=np.uint8).reshape(rows, nbytes, line // nbytes)
+    out = buf.copy()
+    out[: rows * line] = b[:, ::-1].transpose(0, 2, 1).reshape(-1)
+    return out
+
+
 def _tiff_ycbcr_rgb(t: dict, ycc: np.ndarray) -> np.ndarray:
     """u8 [..., 3] YCbCr → RGB as libtiff's TIFFYCbCrToRGB (its fixed-point
     tables from the file's ReferenceBlackWhite and YCbCrCoefficients, in
@@ -1072,8 +1179,6 @@ class _Tiff:
     TiffImageFile._setup reads it."""
 
     def __init__(self, data: bytes):
-        if data[2:4] in (b"\x2b\x00", b"\x00\x2b"):
-            raise ValueError("BigTIFF images are not supported by the port's codec")
         self.bo, t = _tiff_tags(data)
         self.tags = t
         one = lambda tag, default=None: t.get(tag, (default,))[0]
@@ -1104,8 +1209,6 @@ class _Tiff:
                              f"{'/'.join(map(str, sf))}, extra samples {list(extra)}) are not supported by the port's "
                              "codec (nor by Pillow)")
         self.mode, self.rawmode = _TIFF_MODES[key]
-        if self.mode == "LAB":
-            raise ValueError("TIFF CIELab images are not supported by the port's codec")
         if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946):
             name = _TIFF_COMPRESSION.get(comp, f"type {comp}")
             kind = "JPEG-in-TIFF" if comp == 6 else "compression"
@@ -1118,32 +1221,75 @@ class _Tiff:
             raise ValueError(f"corrupt TIFF: CCITT compression of {bps}-bit samples")
         self.comp, self.photo, self.planar, self.fill, self.spp, self.bps = comp, photo, planar, fill, spp, bps
         self.predictor = one(317, 1)
-        if self.predictor not in (1, 2):
-            raise ValueError(f"TIFF predictor {self.predictor} (floating point) is not supported by the port's codec")
+        if self.predictor not in (1, 2, 3):
+            raise ValueError(f"TIFF predictor {self.predictor} is not supported by the port's codec (nor by Pillow)")
+        if self.predictor == 3 and comp in (5, 8, 32946) and sf != (3,):
+            raise ValueError("corrupt TIFF: the floating-point predictor (3) on integer samples, which libtiff refuses")
+        self.big = data[2] == 43
+        if comp != 1:  # libtiff reads the offsets and counts: of SLONG8 too, not of IFD or IFD8
+            if self.big and struct.unpack(self.bo + "HH", data[4:8]) != (8, 0):
+                raise ValueError("corrupt TIFF: a BigTIFF header whose offset size is not 8 (libtiff refuses it)")
+            for tag in (273, 279, 324, 325):
+                typ = t[-4][tag][0] if tag in t[-4] else None
+                if typ in (13, 18):
+                    raise ValueError(f"corrupt TIFF: strip or tile offsets or counts of type {typ}, which libtiff "
+                                     "refuses")
         if 322 in t:
             self.cw, self.ch = one(322), one(323)
-            self.offsets, self.counts = t[324], t.get(325, (len(data),) * len(t[324]))
+            self.offsets = t[324] if comp == 1 else t.get(324, ())
+            self.counts = t.get(325, (len(data),) * len(self.offsets))
         else:
             self.cw, self.ch = w, min(one(278, h), h)
-            self.offsets, self.counts = t[273], t.get(279, (len(data),) * len(t[273]))
+            self.offsets = t[273] if comp == 1 else t.get(273, ())
+            self.counts = t.get(279, (len(data),) * len(self.offsets))
         if not self.cw or not self.ch:
             raise ValueError("corrupt TIFF: a tile or strip of size 0")
         self.across, self.down = -(-w // self.cw), -(-h // self.ch)
         _check_pixels("TIFF", self.across * self.cw, self.down * self.ch, "grid of strips or tiles")
         self.planes = spp if planar == 2 else 1
-        if len(self.offsets) < self.across * self.down * self.planes:
+        n_chunks = self.across * self.down * self.planes
+        if comp != 1:  # libtiff's own reading of the offsets and counts
+            off_tag, cnt_tag = (324, 325) if 322 in t else (273, 279)
+            if off_tag not in t[-4]:
+                raise ValueError("corrupt TIFF: no strip or tile offsets")
+            self.offsets = _libtiff_values(data, self.bo, self.big, t[-4][off_tag], n_chunks)
+            if cnt_tag in t[-4]:
+                self.counts = _libtiff_values(data, self.bo, self.big, t[-4][cnt_tag], n_chunks)
+            else:  # libtiff's estimate, for the one strip it allows without counts: to the file's end
+                self.counts = tuple(max(len(data) - o, 0) for o in self.offsets)
+        if len(self.offsets) < n_chunks:
             raise ValueError("corrupt TIFF: fewer strips or tiles than the image needs")
+        # libtiff's YCbCrSubsampling, or (JPEGFixupTags) the first JPEG frame's
+        self.ycc_sampling = None
+        if 530 in t[-4] and t[-4][530][:2] in ((3, 2), (4, 2)):
+            self.ycc_sampling = _libtiff_values(data, self.bo, self.big, t[-4][530], 2)
 
     def chunks(self):
-        """(plane, row, column, offset, count) of each strip or tile."""
-        for p in range(self.planes):
-            for k in range(self.across * self.down):
-                i = p * self.across * self.down + k
-                r, c = divmod(k, self.across)
+        """(plane, row, column, offset, count) of each strip or tile: those
+        the image needs (libtiff), or for an uncompressed image every
+        offset as Pillow's raw reader places it, wrapping back to the top
+        (a later strip then overwrites an earlier one), or the last alone
+        where one strip covers a chunky image."""
+        n = self.across * self.down
+        if self.comp != 1:
+            for i in range(n * self.planes):
+                p, (r, c) = i // n, divmod(i % n, self.across)
                 yield p, r, c, self.offsets[i], self.counts[i]
+            return
+        offsets = self.offsets
+        if (self.cw, self.ch) == (self.w, self.h) and self.planar != 2:
+            offsets = offsets[-1:]
+        elif self.planar == 2 and len(offsets) > n * self.planes:
+            raise ValueError("corrupt TIFF: more strips or tiles than the planes hold (Pillow cannot open it)")
+        for i, off in enumerate(offsets):
+            p, (r, c) = (i // n) % self.planes, divmod(i % n, self.across)
+            yield p, r, c, off, self.counts[min(i, len(self.counts) - 1)]
 
     def jpeg_stream(self, data: bytes, offset: int, count: int) -> bytes:
-        """A JPEG-in-TIFF chunk with the file's JPEGTables spliced in."""
+        """A JPEG-in-TIFF chunk with the file's JPEGTables spliced in (libtiff
+        refuses a chunk that runs past the file's end)."""
+        if offset + count > len(data):
+            raise ValueError("corrupt TIFF: a strip or tile runs past the end of the file")
         strip = data[offset:offset + count]
         tables = bytes(self.tags[347]) if 347 in self.tags else b""
         if len(tables) >= 4 and strip[:2] == b"\xff\xd8":
@@ -1192,6 +1338,8 @@ def _tiff_samples_of(f: _Tiff, data: bytes) -> tuple[np.ndarray, str, np.ndarray
                 buf = _tiff_bytes(data, off, count, f.comp, size, f.fill == 2 and f.comp != 1, need)
                 if f.fill == 2 and f.comp == 1:  # Pillow's raw modes ending in R
                     buf = _BIT_REVERSE[buf]
+                if f.predictor == 3 and f.comp in (5, 8, 32946):
+                    buf = _fp_acc(buf, ch, line, per_chunk, depth // 8)
                 px = _tiff_samples(buf, ch, cw, per_chunk, depth, kind)
                 if f.predictor == 2 and f.comp in (5, 8, 32946):  # libtiff's codecs with a predictor
                     px = np.cumsum(px, axis=1, dtype=px.dtype)
@@ -1221,6 +1369,9 @@ def _tiff_mode_samples(f: _Tiff, px: np.ndarray) -> tuple[np.ndarray, str, np.nd
         if raw == "I;32N":  # unsigned 32-bit samples read as Pillow's signed I
             v = v.astype(np.uint32).view(np.int32)
         return v.astype(np.float32 if f.mode == "F" else np.int64), f.mode, None
+    if f.mode == "LAB":  # Pillow's LAB raw mode stores a* and b* (signed) offset by 128; its
+        # per-band raw modes of separate planes (L, A, B) copy the bytes
+        return (px ^ np.array([0, 128, 128], np.uint8) if f.planar == 1 else px), "LAB", None
     if depth == 16:  # RGB;16L, RGBA;16L, CMYK;16L and kin: the high byte
         px = (px >> 8).astype(np.uint8)
     if "a" in raw:  # premultiplied alpha: Pillow's RGBa unpacker divides it out
@@ -1262,16 +1413,64 @@ def _tiff_ycbcr_raw(f: _Tiff, data: bytes) -> np.ndarray:
     return img
 
 
+def _tiff_jpeg_check(f: _Tiff, stream: bytes) -> bool:
+    """libtiff's checks of a JPEG-in-TIFF chunk's frame before it decodes
+    (``JPEGPreDecode``): its component count (the samples of a pixel, or 1
+    for separate planes), precision (the bits of a sample) and sampling
+    (the first component's what ``YCbCrSubsampling`` says for YCbCr, 1 × 1
+    otherwise; every other component's 1 × 1), each refused by name where
+    Pillow refuses it. True when the frame is one for the own decoder,
+    which takes it on either device."""
+    head = jpeg_frame_header(stream)
+    if head is None:
+        return False  # the decoders name what is wrong
+    marker, precision, _, _, comps = head
+    ycc = f.photo == 6 and f.planar == 1
+    if f.ycc_sampling is None:  # JPEGFixupTags: from the first chunk's frame, where libtiff's parser reads it
+        f.ycc_sampling = tuple(comps[0][1:]) if marker in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA) else (2, 2)
+    hs, vs = f.ycc_sampling if ycc else (1, 1)
+    if len(comps) != (1 if f.planar == 2 else f.spp):
+        raise ValueError("corrupt TIFF: a JPEG strip or tile of another component count (libtiff refuses it)")
+    if precision != f.bps[0]:
+        raise ValueError(f"corrupt TIFF: a JPEG strip or tile of {precision}-bit precision in a TIFF of "
+                         f"{f.bps[0]}-bit samples (libtiff refuses it)")
+    if comps[0][1:] != (hs, vs) or any((h, v) != (1, 1) for _, h, v in comps[1:]):
+        raise ValueError("corrupt TIFF: a JPEG strip or tile whose sampling factors the TIFF's do not allow "
+                         "(libtiff refuses it)")
+    if marker in OWN_FRAMES and marker in (0xC3, 0xC7, 0xCB, 0xCF) and ycc:
+        raise ValueError("lossless JPEG-in-TIFF in YCbCr is not decoded (nor by Pillow: libjpeg converts no "
+                         "colour in lossless mode)")
+    return marker in OWN_FRAMES
+
+
+def _tiff_jpeg_own(f: _Tiff, stream: bytes) -> torch.Tensor:
+    """A chunk through the port's own decoder as libtiff has libjpeg decode
+    it: YCbCr photometric (chunky) converted, every other photometric's
+    components as stored; u8 [h, w, C] on the CPU."""
+    ycc = f.photo == 6 and f.planar == 1
+    planes, _ = jpeg_own_planes(stream, JCS_YCBCR if ycc else JCS_UNKNOWN)
+    return ycc_to_rgb(planes) if ycc else planes
+
+
 def _tiff_jpeg_cpu(f: _Tiff, data: bytes) -> np.ndarray:
-    """JPEG-in-TIFF through libjpeg, chunk by chunk, as libtiff decodes it:
-    YCbCr converted to RGB, every other photometric's components as stored."""
-    lib = _build.jpeg_library()
+    """JPEG-in-TIFF chunk by chunk, as libtiff decodes it: through libjpeg,
+    or the port's own decoder for the frames it takes (lossless and
+    arithmetic-coded); YCbCr converted to RGB, every other photometric's
+    components as stored."""
     ycc = f.photo == 6 and f.planar == 1
     comps = 3 if ycc else (1 if f.planar == 2 else f.spp)
     img = np.zeros((f.planes, f.down * f.ch, f.across * f.cw, comps), np.uint8)
     dims = np.zeros(3, np.int32)
     for p, r, c, off, count in f.chunks():
         stream = f.jpeg_stream(data, off, count)
+        if _tiff_jpeg_check(f, stream):
+            out = _tiff_jpeg_own(f, stream).numpy()
+            hh, ww = out.shape[:2]
+            if ww != f.cw or hh > f.ch:
+                raise ValueError("corrupt TIFF: a JPEG strip or tile of another size")
+            img[p, r * f.ch:r * f.ch + hh, c * f.cw:(c + 1) * f.cw] = out
+            continue
+        lib = _build.jpeg_library()  # built only for a chunk libjpeg decodes
         status = lib.mmtrs_jpeg_info(stream, len(stream), dims.ctypes.data)
         hh, ww = int(dims[0]), int(dims[1])
         if status or ww != f.cw or hh > f.ch:
@@ -1318,6 +1517,16 @@ def _tiff_jpeg_cuda(f: _Tiff, data: bytes, dev: torch.device) -> torch.Tensor:
         img = torch.zeros((f.planes, f.down * f.ch, f.across * f.cw, comps), dtype=torch.uint8, device=dev)
         for p, r, c, off, count in f.chunks():
             stream = f.jpeg_stream(data, off, count)
+            if _tiff_jpeg_check(f, stream):  # the own decoder's frames: on the host, converted on the card
+                planes = _tiff_jpeg_own(f, stream) if not (f.photo == 6 and f.planar == 1) else None
+                if planes is None:
+                    stored, _ = jpeg_own_planes(stream, JCS_YCBCR)
+                    planes = ycc_to_rgb(stored.to(dev))
+                hh, ww = planes.shape[:2]
+                if ww != f.cw or hh > f.ch:
+                    raise ValueError("corrupt TIFF: a JPEG strip or tile of another size")
+                img[p, r * f.ch:r * f.ch + hh, c * f.cw:(c + 1) * f.cw] = planes.to(dev)
+                continue
             if not jpeg_has_end(stream):
                 raise _jpeg_error(2, "nvJPEG")
             status = lib.mmtrs_nvjpeg_info(stream, len(stream), dims.ctypes.data)

@@ -33,16 +33,18 @@ BC1-BC7, CCITT fax) run in C (``csrc/host/rasters.cpp``). Decoded here:
   CMYK; DDS: uncompressed (masks, luminance, palette, DX10 RGBA) and BC1-BC7
   (BC5 and BC6H signed and unsigned);
 - SUN (raw and RLE), XBM, XPM, MSP, IM, FITS (raw and gzip), SPIDER, GBR,
-  PIXAR, MCIDAS, IMT, XVThumb, FTEX, IPTC (one layer), BLP (palette, JPEG,
-  and BLP2's DXT in Pillow's own Python arithmetic), ICNS (PNG and RGB
-  entries) and FLI/FLC (a first frame of BLACK, BRUN and COPY chunks).
+  PIXAR, MCIDAS, IMT, XVThumb, FTEX, IPTC (one layer, or one of three or
+  four bands as Pillow merges it), BLP (palette, JPEG, and BLP2's DXT in
+  Pillow's own Python arithmetic), ICNS (PNG and RGB entries), FLI/FLC (a
+  first frame of BLACK, BRUN, COPY and the LC and SS2 delta chunks) and
+  PCD (PhotoCD's 768 × 512 base image, PhotoYCC, turned as it says);
+- PSD's Lab mode and TIFF's CIELab through ``codec.convert_rgb``'s copy of
+  Pillow's LittleCMS transform.
 
 Refused, with an error that names them: AVIF and JPEG 2000 (each a codec of
-its own), PCD (PhotoYCC), PSD's Lab mode (Pillow's Lab → RGB is
-floating-point colour science not ported here), and the formats Pillow
-identifies but cannot load without software it lacks (EPS without
-Ghostscript; WMF/EMF, BUFR, GRIB, HDF5 and MPEG, whose plugins are stubs
-with no handler).
+its own), and the formats Pillow identifies but cannot load without
+software it lacks (EPS without Ghostscript; WMF/EMF, BUFR, GRIB, HDF5 and
+MPEG, whose plugins are stubs with no handler).
 """
 
 from __future__ import annotations
@@ -668,8 +670,6 @@ def open_psd(data: bytes) -> Loader:
         fp.seek(end)
     compression = i16be(fp.read(2))
     start = fp.tell()
-    if mode == "LAB":
-        raise ValueError("PSD images in Lab mode are not supported by the port's codec")
     _sized("PSD", w, h)
 
     def load() -> Loaded:
@@ -1453,7 +1453,11 @@ def open_iptc(data: bytes) -> Loader:
         tag, size = field()
         if not tag or tag == (8, 10):
             break
-        info[tag] = fp.read(size) if size else None
+        value = fp.read(size) if size else None
+        if tag in info:  # a repeated field: Pillow keeps its values in a list
+            info[tag] = (info[tag] if isinstance(info[tag], list) else [info[tag]]) + [value]
+        else:
+            info[tag] = value
     layers, component = info[(3, 60)][0], info[(3, 60)][1]
     as_int = lambda key: i32be((b"\0\0\0\0" + info[key])[-4:])
     w, h = as_int((3, 20)), as_int((3, 30))
@@ -1464,23 +1468,49 @@ def open_iptc(data: bytes) -> Loader:
         "CMYK" if layers == 4 and component else None
     if mode is None:
         raise SyntaxError("not identified by this opener")
+    # the one layer the data holds, as Pillow's band: component 1 is band 0
+    band = None if mode == "L" else info[(3, 65)][0] - 1 if (3, 65) in info else 0
     _sized("IPTC", w, h)
 
-    def load() -> Loaded:
-        if mode != "L" or tag != (8, 10):
-            raise ValueError("IPTC images of more than one layer are not supported by the port's codec")
+    def body() -> bytes:
+        """The 8:10 fields' data joined (a PGM header before raw samples)."""
+        if tag != (8, 10):
+            raise ValueError("corrupt IPTC/NAA: no image data")
         fp.seek(offset)
-        body = bytearray(b"P5\n%d %d\n255\n" % (w, h) if compression == "raw" else b"")
+        out = bytearray(b"P5\n%d %d\n255\n" % (w, h) if compression == "raw" else b"")
         while True:
             kind, size = field()
             if kind != (8, 10):
                 break
-            body += fp.read(size)
+            out += fp.read(size)
+        return bytes(out)
+
+    def load() -> Loaded:
         from mmtrs_tpu_torch.utils.codec import decode_image
 
-        return decode_image(bytes(body), "cpu").numpy(), "RGB", None
+        data = body()
+        if band is None:
+            return decode_image(data, "cpu").numpy(), "RGB", None
+        sub_kind, sub_load = identify(data)
+        if sub_load is None or (sub := sub_load())[1] != "L":
+            raise ValueError(f"IPTC/NAA: a {mode} layer whose data is not one gray band (Pillow cannot merge it)")
+        return iptc_merge(sub[0], mode, band), mode, None
 
+    load.iptc = (body, mode, band, compression)  # codec.decode_image decodes a JPEG body on the caller's device
     return load
+
+
+def iptc_merge(layer, mode: str, band: int):
+    """IptcImagePlugin's merge: the decoded layer (numpy or torch, [H, W])
+    as band ``band`` of ``mode`` (RGB or CMYK), the other bands black."""
+    if isinstance(layer, np.ndarray):
+        px = np.zeros((*layer.shape[:2], len(mode)), np.uint8)
+    else:
+        import torch
+
+        px = torch.zeros((*layer.shape[:2], len(mode)), dtype=torch.uint8, device=layer.device)
+    px[..., band] = layer
+    return px
 
 
 def _blp_dxt(block_rows: list[bytes], kind: int, alpha: bool) -> bytes:
@@ -1792,79 +1822,58 @@ def open_fli(data: bytes) -> Loader:
     pal = palette.astype(np.uint8)
 
     def load() -> Loaded:
-        if len(data) < at + 4:
-            raise _truncated("FLI")
-        frame = data[at:at + i32(data, at)]
-        return _fli_frame(frame, w, h), "P", pal
+        return _fli_frame(data, w, h), "P", pal
 
     return load
 
 
-def _fli_frame(buf: bytes, w: int, h: int) -> np.ndarray:
-    """The first frame as Pillow's FliDecode reads it: its BLACK, BRUN and
-    COPY chunks (colour and stamp chunks skipped); a delta chunk (LC, SS2)
-    in a first frame is refused."""
-    if len(buf) < 16:
+_FLI_STATUS = {1: "a packet or row past the data or the image", 2: "not a frame chunk, or an unknown chunk",
+               3: "a chunk of size 0"}
+
+
+def _fli_frame(data: bytes, w: int, h: int) -> np.ndarray:
+    """The first frame as Pillow reads it: its tile starts at byte 128
+    whatever a prefix chunk says (so a file with one fails, as in Pillow),
+    its reader holds one frame size of bytes (a byte short of an even size
+    will do, as FliDecode allows a pad byte), and FliDecode's chunks (BLACK,
+    BRUN, COPY and the deltas LC and SS2) apply to a black buffer, in
+    ``csrc/host/rasters.cpp``."""
+    from mmtrs_tpu_torch import _build
+
+    if len(data) < 128 + 4:
         raise _truncated("FLI")
-    if i16(buf, 4) != 0xF1FA:
-        raise ValueError("corrupt FLI: the first frame is not a frame chunk")
+    size = i32(data, 128)
+    size = size - (1 << 32) if size >= 1 << 31 else size
+    buf = data[128:] if size < 0 else data[128:128 + size]
+    if not buf or len(buf) + len(buf) % 2 < size or len(buf) < 4:
+        raise _truncated("FLI")
     img = np.zeros((h, w), np.uint8)
-    pos, left = 16, len(buf) - 16
-    for _ in range(i16(buf, 6)):
-        if left < 10:
-            raise _truncated("FLI")
-        kind, d = i16(buf, pos + 4), pos + 6
-        if kind == 13:
-            img[:] = 0
-        elif kind == 15:  # BRUN: per row a packet count byte, then runs and literals
-            for y in range(h):
-                d += 1
-                x = 0
-                while x < w:
-                    if d + 2 > len(buf):
-                        raise _truncated("FLI")
-                    n = buf[d]
-                    if n & 0x80:
-                        n = 256 - n
-                        if x + n > w:
-                            break
-                        if d + n + 1 > len(buf):
-                            raise _truncated("FLI")
-                        img[y, x:x + n] = np.frombuffer(buf, np.uint8, n, d + 1)
-                        d += n + 1
-                    else:
-                        if x + n > w:
-                            break
-                        img[y, x:x + n] = buf[d + 1]
-                        d += 2
-                    x += n
-                if x != w:
-                    raise ValueError("corrupt FLI: a BRUN row that does not fill the image's width")
-        elif kind == 16:
-            if w * h > left:
-                raise _truncated("FLI")
-            img[:] = np.frombuffer(buf, np.uint8, w * h, d).reshape(h, w)
-        elif kind in (7, 12):
-            raise ValueError("FLI first frames with delta chunks (LC, SS2) are not supported by the port's codec")
-        elif kind not in (4, 11, 18):
-            raise ValueError(f"corrupt FLI: chunk type {kind}")
-        advance = i32(buf, pos)
-        if advance == 0 or advance > left:
-            raise ValueError("corrupt FLI: a chunk's size")
-        pos += advance
-        left -= advance
+    status = _build.raster_library().mmtrs_fli_frame(buf, len(buf), w, h, img.ctypes.data)
+    if status == 4:
+        raise _truncated("FLI")
+    if status:
+        raise ValueError(f"corrupt FLI: {_FLI_STATUS[status]}")
     return img
 
 
 def open_pcd(data: bytes) -> Loader:
-    """PhotoCD is identified as Pillow identifies it (its ``PCD_`` mark at
-    2048, the orientation byte read), and its image data refused."""
+    """PhotoCD as Pillow's PcdImagePlugin reads it: the 768 × 512 base image
+    at 96 sectors, PhotoYCC → RGB in ``csrc/host/rasters.cpp``, then turned
+    by the orientation bits at byte 1538 of the second sector (1: 90°
+    counter-clockwise, 3: 270°), as Pillow's ``load_end`` rotates it."""
     if not data[2048:2048 + 1539].startswith(b"PCD_"):
         raise SyntaxError("not a PCD file")
-    data[2048 + 1538]  # IndexError on a short file, as Pillow's s[1538]
+    orientation = data[2048 + 1538] & 3  # IndexError on a short file, as Pillow's s[1538]
 
     def load() -> Loaded:
-        raise ValueError("PCD images are not supported by the port's codec (PhotoYCC is not ported)")
+        from mmtrs_tpu_torch import _build
+
+        src = data[96 * 2048:]
+        rgb = np.empty((512, 768, 3), np.uint8)
+        if _build.raster_library().mmtrs_pcd_decode(src, len(src), rgb.ctypes.data):
+            raise _truncated("PCD")
+        turns = {1: 1, 3: 3}.get(orientation, 0)
+        return (np.rot90(rgb, turns) if turns else rgb), "RGB", None
 
     return load
 

@@ -4,15 +4,18 @@ of the codec's CCITT and BCn decoders, read from installed libraries.
 ``csrc/host/rasters.cpp`` needs the CCITT T.4 run-length codes (white and
 black, terminating and make-up) and the BC6H/BC7 block tables (BC6H's
 fourteen mode descriptions and their endpoint bit layouts; BC7's eight mode
-descriptions, partition tables, anchor indices and interpolation weights).
+descriptions, partition tables, anchor indices and interpolation weights)
+and PhotoYCC's conversion tables.
 The standards define them by value. Rather than copy them by hand, this
 script finds each one in read-only data: the CCITT codes in the libtiff that
 Pillow's wheel ships (``pillow.libs/libtiff-*.so*``), the block tables in
 Pillow's own ``_imaging`` extension. Each table is found by its first row,
 and checked against the tables beside it and against what the standards
 say of it (the T.4 codes' count and sentinel, the BC7 partitions' subset
-counts). The header is written with libtiff's and Pillow's notices, copied
-from Pillow's ``LICENSE``.
+counts). PhotoYCC's five conversion tables (PCD) are Pillow's own
+``UnpackYCC.c`` arrays, found by the first entries of their luma table and
+checked against the scale factors its comment names. The header is written
+with libtiff's and Pillow's notices, copied from Pillow's ``LICENSE``.
 
 The header is committed, so no machine that builds the codec runs this
 script or needs Pillow::
@@ -90,6 +93,34 @@ def _fax_codes(blob: bytes, first: tuple[int, ...], color: str) -> np.ndarray:
     return codes
 
 
+# PhotoYCC → RGB (UnpackYCC.c): L = 1.3584 Y, CB = 2.2179 (C1 − 156),
+# CR = 1.8215 (C2 − 137), GB = −0.194 CB, GR = −0.509 CR, each rounded
+YCC_L_FIRST = (0, 1, 3, 4, 5, 7, 8, 10, 11, 12, 14, 15)
+
+
+def _ycc_tables(imaging: bytes) -> dict[str, np.ndarray]:
+    """The five 256-entry int16 tables: L found by its first entries, the
+    four chroma tables that lie before it told apart by their direction and
+    range, each within two of the scale its comment gives (the arrays are
+    rounded from other digits)."""
+    at = imaging.find(struct.pack(f"<{len(YCC_L_FIRST)}h", *YCC_L_FIRST))
+    if at < 0:
+        raise ValueError("PhotoYCC's luma table is not in Pillow's _imaging")
+    table = lambda k: np.frombuffer(imaging, "<i2", count=256, offset=at + 512 * k).astype(np.int16)
+    i = np.arange(256, dtype=np.float64)
+    cb, cr = 2.2179 * (i - 156), 1.8215 * (i - 137)
+    want = {"kYccL": 1.3584 * i, "kYccCb": cb, "kYccCr": cr, "kYccGb": -0.194 * cb, "kYccGr": -0.509 * cr}
+    out = {"kYccL": table(0)}
+    for k in range(-4, 0):
+        t = table(k).astype(np.float64)
+        name = min((n for n in want if n not in out), key=lambda n: np.abs(t - want[n]).max())
+        out[name] = table(k)
+    for name, ref in want.items():
+        if name not in out or np.abs(out[name] - ref).max() > 2.0:
+            raise ValueError(f"PhotoYCC's table {name} is not beside its luma table, or not what UnpackYCC.c says")
+    return {n: out[n] for n in want}
+
+
 def extract(tiff: bytes, imaging: bytes) -> dict[str, np.ndarray]:
     out = {"kFaxWhite": _fax_codes(tiff, WHITE_FIRST, "white"), "kFaxBlack": _fax_codes(tiff, BLACK_FIRST, "black")}
     at = imaging.find(BC6_FIRST)
@@ -126,11 +157,12 @@ def extract(tiff: bytes, imaging: bytes) -> dict[str, np.ndarray]:
             or (s2.max(1) != 1).any() or (s3.max(1) != 2).any() \
             or (s2[np.arange(64), out["kBc7Anchor2"]] != 1).any():
         raise ValueError("BC7's anchors or partitions are not what the BC7 format defines")
+    out.update(_ycc_tables(imaging))
     return out
 
 
 _CTYPES = {np.dtype(np.uint8): "uint8_t", np.dtype(np.uint16): "uint16_t", np.dtype(np.uint32): "uint32_t",
-           np.dtype(np.int32): "int32_t"}
+           np.dtype(np.int32): "int32_t", np.dtype(np.int16): "int16_t"}
 
 
 def _c_array(name: str, values: np.ndarray) -> str:
@@ -154,6 +186,7 @@ def render() -> str:
         " * BC6H's endpoint bit layouts (each entry endpoint << 4 | bit), BC7's\n"
         " * partitions (a subset index per pixel, pixel 0 in the low bits), anchor\n"
         " * indices and interpolation weights, from Pillow's _imaging extension.\n"
+        " * kYcc*: PhotoYCC → RGB (PCD), Pillow's UnpackYCC.c tables.\n"
         " *\n"
         f"{libtiff}\n"
         " *\n"

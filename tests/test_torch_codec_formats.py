@@ -347,45 +347,50 @@ def test_gif_first_frame_decodes_as_pillow(case):
 # ---------------------------------------------------------------------------
 
 
-def tiff_bytes(w, h, tags: dict, chunks: list[bytes], bo="<", tiled=None) -> bytes:
+def tiff_bytes(w, h, tags: dict, chunks: list[bytes], bo="<", tiled=None, big=False, offset_type=4) -> bytes:
     """A one-IFD TIFF: ``tags`` (tag → (type, values)), the strips or tiles
-    after the IFD; their offset and count tags are filled in."""
+    after the IFD; their offset and count tags are filled in, of type
+    ``offset_type``. ``big``: a BigTIFF (8-byte offsets, 20-byte entries)."""
     tags = dict(tags)
     tags[256], tags[257] = (4, [w]), (4, [h])
     off_tag, cnt_tag = (324, 325) if tiled else (273, 279)
     if tiled:
         tags[322], tags[323] = (3, [tiled[0]]), (3, [tiled[1]])
-    tags[off_tag], tags[cnt_tag] = (4, [0] * len(chunks)), (4, [len(c) for c in chunks])
-    fmt = {3: "H", 4: "I"}
+    tags[off_tag], tags[cnt_tag] = (offset_type, [0] * len(chunks)), (offset_type, [len(c) for c in chunks])
+    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+    word, entry = (8, 20) if big else (4, 12)
     n = len(tags)
-    ifd_end = 8 + 2 + 12 * n + 4
+    head_len = 16 if big else 8
+    ifd_end = head_len + (8 if big else 2) + entry * n + word
     extra, entries = b"", []
     at = ifd_end
-    values = {}
     for tag in sorted(tags):
         typ, vals = tags[tag]
         b = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
-        values[tag] = b
-        if len(b) > 4:
+        if len(b) > word:
             at += len(b) + (len(b) & 1)
     data_at = at
     offs = []
     for c in chunks:
         offs.append(data_at)
         data_at += len(c)
-    tags[off_tag] = (4, offs)
+    tags[off_tag] = (offset_type, offs)
     at = ifd_end
     for tag in sorted(tags):
         typ, vals = tags[tag]
         b = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
-        if len(b) <= 4:
-            entries.append(struct.pack(f"{bo}HHI", tag, typ, len(vals)) + b.ljust(4, b"\0"))
+        if len(b) <= word:
+            entries.append(struct.pack(f"{bo}HH" + ("Q" if big else "I"), tag, typ, len(vals)) + b.ljust(word, b"\0"))
         else:
-            entries.append(struct.pack(f"{bo}HHII", tag, typ, len(vals), at))
+            entries.append(struct.pack(f"{bo}HH" + ("QQ" if big else "II"), tag, typ, len(vals), at))
             extra += b + b"\0" * (len(b) & 1)
             at += len(b) + (len(b) & 1)
-    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(f"{bo}I", 8)
-    ifd = struct.pack(f"{bo}H", n) + b"".join(entries) + struct.pack(f"{bo}I", 0)
+    if big:
+        head = (b"II+\0" if bo == "<" else b"MM\0+") + struct.pack(f"{bo}HHQ", 8, 0, 16)
+        ifd = struct.pack(f"{bo}Q", n) + b"".join(entries) + struct.pack(f"{bo}Q", 0)
+    else:
+        head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(f"{bo}I", 8)
+        ifd = struct.pack(f"{bo}H", n) + b"".join(entries) + struct.pack(f"{bo}I", 0)
     return head + ifd + extra + b"".join(chunks)
 
 

@@ -466,10 +466,7 @@ CUT_AND_MUTATED = ["lossless_p7_restart2.jpg", "lossless_420.jpg", "arith_420_re
 @pytest.mark.parametrize("name", CUT_AND_MUTATED)
 def test_cut_and_mutated_files_agree_with_pillow(name):
     """60 variants of a golden (a byte flipped, set to 0xFF, or the file
-    cut) decode equal to Pillow's decode, or both refuse. The one refusal
-    of the port's own where Pillow decodes is named: a progressive stream
-    whose scans leave low AC coefficients unrefined, which libjpeg smooths
-    (ROADMAP, Queue 3)."""
+    cut) decode equal to Pillow's decode, or both refuse."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data = _goldens()[name].tobytes()
@@ -489,21 +486,22 @@ def test_cut_and_mutated_files_agree_with_pillow(name):
         try:
             got = decode_image(bytes(b), "cpu").numpy()
         except ValueError as e:
-            assert isinstance(want, str) or "block smoothing" in str(e), (name, k, str(e))
+            assert isinstance(want, str), (name, k, str(e))
             continue
         assert not isinstance(want, str) and np.array_equal(got, want), (name, k, want if isinstance(want, str) else "")
 
 
 def test_block_smoothing_is_refused_by_name():
     """A progressive arithmetic frame with only its DC scan: Pillow smooths
-    the blocks (libjpeg's ``decompress_smooth_data``) and decodes it; the
-    port refuses it, naming block smoothing (ROADMAP, Queue 3)."""
+    the blocks (libjpeg's ``decompress_smooth_data``) and decodes it; so
+    does the port, once refused by name, now equal to Pillow
+    (tests/test_torch_codec_corners.py holds more progressions)."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data = flat_frame(0xCA)
-    assert not isinstance(pillow_decode(data, whole=False), str)
-    with pytest.raises(ValueError, match="block smoothing"):
-        decode_image(data, "cpu")
+    want = pillow_decode(data, whole=False)
+    assert not isinstance(want, str)
+    np.testing.assert_array_equal(decode_image(data, "cpu").numpy(), want)
 
 
 def test_a_bomb_is_refused_before_decoding():

@@ -815,7 +815,8 @@ def test_bomb_limit_holds_for_the_new_formats(fmt):
 def refused_files() -> dict[str, tuple[bytes, str]]:
     """Files of the formats the port refuses, and the name its error holds:
     Pillow 12.1 here opens none of them to the end either, save AVIF and
-    JPEG 2000 (their own codecs, not ported) and Lab PSDs."""
+    JPEG 2000 (their own codecs, not ported); None for a format once
+    refused that the port now decodes (Lab PSD, PCD)."""
     img = Image.fromarray(_rgb(80))
     return {
         "eps": (b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 16 16\n%%EndComments\nshowpage\n", "EPS"),
@@ -827,12 +828,12 @@ def refused_files() -> dict[str, tuple[bytes, str]]:
         "mpeg": (b"\x00\x00\x01\xb3" + struct.pack(">HH", 0x0100, 0x1000) + bytes(60), "MPEG"),
         "avif": (_save(img, "AVIF"), "AVIF"),
         "jpeg2000": (_save(img, "JPEG2000"), "JPEG 2000"),
-        "psd_lab": (psd_bytes(9, 8, [np.zeros((H, W), np.uint8)] * 3, False), "Lab"),
+        "psd_lab": (psd_bytes(9, 8, [np.zeros((H, W), np.uint8)] * 3, False), None),
         "tga_cmap32": (tga_bytes(1, 8, bytes(W * H), W, H, cmap=(0, 4, 32, bytes(16))), "TGA colour maps of 32"),
         "tga_type1_no_map": (tga_bytes(1, 8, bytes(W * H), W, H), "TGA colour-mapped"),
         "tga_rle_1bit": (tga_bytes(11, 1, b"\x82\xff" * 40, W, H), "TGA"),
         "tga_run_across_rows": (tga_bytes(10, 24, b"\xff\x01\x02\x03" * 4, W, H), "TGA.*run past"),
-        "pcd": ((bytes(2048) + b"PCD_IPI").ljust(96 * 2048 + 768 * 512 * 3 // 2, b"\x80"), "PCD"),
+        "pcd": ((bytes(2048) + b"PCD_IPI").ljust(96 * 2048 + 768 * 512 * 3 // 2, b"\x80"), None),
     }
 
 
@@ -841,7 +842,10 @@ def test_refused_formats_name_themselves(case):
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, name = refused_files()[case]
-    if case not in ("avif", "jpeg2000", "psd_lab", "pcd"):  # Pillow refuses the others too
+    if name is None:  # refused once, now decoded as Pillow decodes it (Lab PSD, PCD)
+        np.testing.assert_array_equal(decode_image(data, "cpu").numpy(), _pillow(data)[1])
+        return
+    if case not in ("avif", "jpeg2000"):  # Pillow refuses the others too
         with pytest.raises(Exception):  # noqa: B017  (Pillow's own error types)
             Image.open(io.BytesIO(data)).convert("RGB")
     with pytest.raises(ValueError, match=name):

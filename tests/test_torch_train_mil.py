@@ -78,7 +78,8 @@ def no_jax_drop_path(monkeypatch):
 @pytest.mark.parametrize("hflip_p", [0.5, 0.0])
 def test_make_bags_matches_jax(hflip_p):
     """[2, 64, 80, 3] u8, bag 3, out 32, JAX's draws fed in: within 1e-4
-    (measured 0: the two taps' weights are JAX's hat values)."""
+    (measured 0 with ``sqrt_rn``; 2.08e-3 with torch 2.13's CPU f32
+    ``sqrt``, one ulp off on an area, which moves a bilinear tap)."""
     from mmtrs_tpu.models.mil import make_bags as jbags
     from mmtrs_tpu.utils.rng import keys_for_batch
     from mmtrs_tpu_torch.models.mil import BagDraws, make_bags
@@ -92,6 +93,63 @@ def test_make_bags_matches_jax(hflip_p):
     got = make_bags(torch.from_numpy(imgs), draws, 32).numpy()
     assert got.shape == want.shape == (2, 3, 32, 32, 3)
     assert np.abs(got - want).max() <= 1e-4
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """``sqrt_rn`` equals numpy's IEEE ``sqrt`` bit for bit on 1e6 f32
+    values spread over every exponent: 0, subnormals, powers of 4 (exact
+    roots), 1e6 − 260 random bit patterns below infinity."""
+    from mmtrs_tpu_torch.ops.color import sqrt_rn
+
+    rng = np.random.default_rng(0)
+    pow4 = np.ldexp(1.0, np.arange(-148, 127, 2)).astype(np.float32)
+    sub = np.array([1, 2, 3, 0x7FFFFF, 0x400000], np.uint32).view(np.float32)
+    fixed = np.concatenate([[0.0, np.float32(np.finfo(np.float32).max)], pow4, sub]).astype(np.float32)
+    bits = rng.integers(0, 0x7F800000, 10**6 - fixed.size, dtype=np.int64).astype(np.uint32)
+    x = np.concatenate([fixed, bits.view(np.float32)])
+    assert x.size == 10**6 and np.isfinite(x).all() and (x[5:] < np.float32(1.2e-38)).any()
+    got = sqrt_rn(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), np.sqrt(x).view(np.uint32))
+
+
+def test_make_bags_on_an_area_where_torch_cpu_sqrt_is_an_ulp_off(monkeypatch):
+    """An area searched from seeded draws in [0.4, 1): torch's CPU f32
+    ``sqrt`` is one ulp from numpy's there and, used for ``side``, moves a
+    bag pixel by more than 1e-4; ``make_bags`` (``sqrt_rn``) is within 1e-4
+    of JAX's on it (JAX's draws pinned to that area by a zero-width scale
+    range). On a torch whose CPU ``sqrt`` is IEEE no area is off, and the
+    first draw is used."""
+    import mmtrs_tpu_torch.models.mil as pmil
+    from mmtrs_tpu.models.mil import make_bags as jbags
+    from mmtrs_tpu.utils.rng import keys_for_batch
+    from mmtrs_tpu_torch.models.mil import BagDraws, make_bags
+
+    imgs = np.random.default_rng(2).integers(0, 256, (1, 64, 80, 3)).astype(np.uint8)
+    cand = np.random.default_rng(3).uniform(0.4, 1.0, 4096).astype(np.float32)
+    off = cand[torch.sqrt(torch.from_numpy(cand)).numpy() != np.sqrt(cand)]
+    oid = np.array([4])
+
+    _, y0, x0, flip = jax_bag_draws(5, oid, 1)  # independent of the scale range
+
+    def bags(area):
+        d = BagDraws.from_numpy(np.full((1, 1), area, np.float32), y0, x0, flip)
+        return make_bags(torch.from_numpy(imgs), d, 32).numpy()
+
+    area = cand[0]
+    for a in off[:64]:
+        right = bags(a)
+        with monkeypatch.context() as m:
+            m.setattr(pmil, "sqrt_rn", torch.sqrt)
+            naive = bags(a)
+        if np.abs(naive - right).max() > 1e-4:
+            area = a
+            break
+    else:
+        assert off.size == 0, "no off-ulp area moves a tap"
+    keys = keys_for_batch(5, oid, np.zeros(1))
+    want = np.asarray(jbags(jnp.asarray(imgs), keys, 1, 32, (float(area), float(area))))
+    assert np.abs(bags(area) - want).max() <= 1e-4
 
 
 def test_make_bags_full_crop_is_the_image_and_flip_reverses_columns():
