@@ -155,12 +155,16 @@ Phases (each raises on failure, so the script exits non-zero):
      them beside two baseline JPEGs, none rejected; the format corners
      (corners_goldens.npz: float-predictor TIFF, BigTIFF, CIELab TIFF and
      PSD, IPTC layers, FLI delta frames, lossless and arithmetic
-     JPEG-in-TIFF, smoothed arithmetic progressions, PhotoCD) decoded to the
-     card and on the CPU route equal to Pillow's decode, the refused ones
-     refused by name on both, SOF2 progressions through nvJPEG recorded,
+     JPEG-in-TIFF, smoothed arithmetic and Huffman progressions, PhotoCD,
+     old-style JPEG-in-TIFF) decoded to the card and on the CPU route equal
+     to Pillow's decode, the refused ones refused by name on both,
      ``sqrt_rn`` on the card bit-equal to the CPU's; the median ms of a
      12 MP float-predictor TIFF, BigTIFF and Lab PSD decode and a PhotoCD
-     one; one upload per corner family served with its launches counted;
+     one; JPEG 2000 (jp2_goldens.npz decoded to the card equal to Pillow's
+     decode, the refused ones refused; the median ms of a 12 MP 5/3 and a
+     12 MP 9/7 host decode); one upload per corner family (JPEG 2000 5/3
+     and 9/7, old-style JPEG-in-TIFF in both layouts and a smoothed SOF2
+     JPEG among them) served with its launches counted;
  10. training the MM stream (the rehearsal's stages 2-4 at
      MMJointConfig's widths: B4 at 380, batch 12, bf16, randaug; depth cut
      to 24 cases, 2 folds, 1 epoch): 24 raw 512² synthetic teeth with 9
@@ -1855,9 +1859,10 @@ JPEG_UPLOADS = {"jpeg_arith": "upload_arith_420_1024x768.jpg", "jpeg_arith_prog"
 # the corners of the formats once refused (python -m
 # tests.test_torch_codec_corners): TIFF's float predictor, BigTIFF, CIELab
 # TIFF and PSD, IPTC layers, FLI delta frames, lossless and arithmetic
-# JPEG-in-TIFF, smoothed progressive arithmetic JPEGs, PhotoCD; Pillow 12.1's
-# decode of each, the files Pillow refuses (``.refused``: the words of the
-# port's error) and SOF2 progressions whose decode is only recorded
+# JPEG-in-TIFF, smoothed progressive arithmetic and Huffman (ids
+# record_sof2_*) JPEGs, PhotoCD, old-style JPEG-in-TIFF; Pillow 12.1's
+# decode of each, and the files Pillow refuses (``.refused``: the words of
+# the port's error)
 CORNER_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "corners_goldens.npz"
 CORNER_NVJPEG = ("iptc_rgb_jpeg_gray.iptc",)  # a baseline JPEG inside: nvJPEG on the card
 # the side of the BC7 DDS timed
@@ -2665,9 +2670,9 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
     from the checkout and neither Pillow nor JAX is installed: every corner
     golden decoded to the card and on the CPU route equal to Pillow's stored
     decode (a baseline JPEG inside: nvJPEG on the card within its bars, and
-    no CPU route where the machine lacks libjpeg); every refused file
-    refused by name; the SOF2 progressions through nvJPEG against Pillow's
-    decode (recorded); ``sqrt_rn`` on the
+    no CPU route where the machine lacks libjpeg), the smoothed SOF2
+    progressions and old-style JPEG-in-TIFF among them (the own decoder on
+    both routes); every refused file refused by name; ``sqrt_rn`` on the
     card bit-equal to the CPU's; the median ms of the host decode of a 12 MP
     float-predictor TIFF, BigTIFF and Lab PSD (RLE) and of the PhotoCD."""
     import re
@@ -2675,7 +2680,7 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
     from mmtrs_tpu_torch.ops.color import sqrt_rn
     from mmtrs_tpu_torch.utils.codec import decode_image, decode_tiff
 
-    exact, refused, recorded, on_card, nvjpeg, no_libjpeg = 0, 0, {}, True, [], []
+    exact, refused, on_card, nvjpeg, no_libjpeg = 0, 0, True, [], []
     with np.load(CORNER_GOLDENS) as z:
         for name in sorted(f for f in z.files if not f.endswith((".pil", ".format", ".refused"))):
             data = z[name].tobytes()
@@ -2692,13 +2697,7 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
                 refused += 1
                 continue
             want = z[f"{name}.pil"]
-            try:
-                got = decode_image(data, dev)
-            except ValueError as e:  # nvJPEG on a SOF2 progression: recorded as it answers
-                if not name.startswith("record_"):
-                    raise
-                recorded[name] = {"card": f"refused: {e}"}
-                continue
+            got = decode_image(data, dev)
             on_card &= got.device.type == "cuda"
             try:
                 cpu = decode_image(data, "cpu")
@@ -2706,10 +2705,6 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
                 if "libjpeg" not in str(e):
                     raise
                 cpu, no_libjpeg = None, no_libjpeg + [name]
-            if name.startswith("record_"):
-                d = np.abs(got.cpu().numpy().astype(int) - want.astype(int))
-                recorded[name] = {"card_max": int(d.max()), "card_mean": float(d.mean())}
-                continue
             if name in CORNER_NVJPEG:  # a baseline JPEG's gray band: nvJPEG on the card, within the JPEG bars
                 nvjpeg.append((name, *_nvjpeg_bars(name, got.cpu().numpy(), want, True)))
             elif not torch.equal(got.cpu(), torch.from_numpy(want)):
@@ -2721,8 +2716,11 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
            f"{exact} corner goldens decoded to the card and on the CPU route equal to Pillow's decode ({nvjpeg} "
            f"through nvJPEG within its bars; the CPU route skipped where a baseline JPEG needs libjpeg, absent here: "
            f"{no_libjpeg}), {refused} refused by name on both")
-    print(f"  recorded, SOF2 progressions whose luma AC is left unrefined (nvJPEG on the card, system libjpeg on "
-          f"the CPU) against Pillow: {recorded}")
+    sof2 = sorted(n for n in z.files if n.startswith("record_sof2") and not n.endswith((".pil", ".format")))
+    ojpeg = sorted(n for n in z.files if n.startswith("ojpeg_") and not n.endswith((".pil", ".format")))
+    _check(len(sof2) == 5 and len(ojpeg) >= 17,
+           f"among them the {len(sof2)} smoothed SOF2 progressions and {len(ojpeg)} old-style JPEG-in-TIFF files, "
+           "bit-equal to Pillow on the card route (the own decoder, no nvJPEG)")
     x = torch.from_numpy(np.random.default_rng(SEED).uniform(0.0, 4.0, 1 << 20).astype(np.float32))
     same = torch.equal(sqrt_rn(x.to(dev)).cpu(), sqrt_rn(x))
     _check(same, f"sqrt_rn on the card (sqrtf) bit-equal to the CPU's correctly rounded root on 2^20 values: {same}")
@@ -2743,7 +2741,147 @@ def _corner_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
         got = decode_image(raw, dev)
         _check(got.device.type == "cuda" and got.shape[-1] == 3, f"the {fam} upload ({len(raw)} bytes) decodes to the "
                                                                   f"card: {tuple(got.shape)}")
-    return {**out, "goldens_exact": exact, "goldens_refused": refused, "recorded_sof2": recorded, "uploads": uploads}
+    return {**out, "goldens_exact": exact, "goldens_refused": refused, "uploads": uploads}
+
+
+# JPEG 2000 (python -m tests.test_torch_codec_jp2): the goldens with
+# Pillow 12.1's decode, the refused files, and three 1024x768 uploads of the
+# phone photo written by Pillow here (no .pil: the app holds each to
+# predict_one on its own decode): .jp2 5/3 and 9/7 at 20:1 (one 1024x768 tile,
+# 2 decomposition levels: a 4 x 4 grid of copies is a 12 MP codestream whose
+# code-blocks fall as the upload's), and a Huffman progressive JPEG with its
+# last scans dropped, which libjpeg smooths; and a lossless 256 x 256 tile
+JP2_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "jp2_goldens.npz"
+JP2_UPLOADS = {"jp2_53": "upload_53_1024x768.jp2", "jp2_97": "upload_97_1024x768.jp2",
+               "jpeg_sof2_smoothed": "upload_sof2_1024x768.jpg"}
+# the 12 MP codestreams timed: (tile, tiles across and down): 5/3 lossless
+# from a 256 x 256 tile, 9/7 at 20:1 from the 9/7 upload
+JP2_12MP = {"53_lossless": ("upload_53_lossless_tile_256.jp2", 16, 12), "97": ("upload_97_1024x768.jp2", 4, 4)}
+
+
+def _tiled_codestream(jp2: bytes, across: int, down: int) -> bytes:
+    """A .jp2 of one tile as a raw codestream of ``across`` x ``down`` copies of
+    that tile: SIZ's image size grown, each tile-part copied with its tile index."""
+    from mmtrs_tpu_torch.utils.rasters import _jp2_codestream
+
+    cs, _ = _jp2_codestream(jp2)
+    cs = cs[:cs.rindex(b"\xff\xd9")]
+    sot = cs.index(b"\xff\x90")
+    head, part = bytearray(cs[:sot]), cs[sot:]
+    tw, th = struct.unpack(">II", head[24:32])
+    head[8:16] = struct.pack(">II", tw * across, th * down)
+    parts = b"".join(part[:4] + struct.pack(">H", t) + part[6:] for t in range(across * down))
+    return bytes(head) + parts + b"\xff\xd9"
+
+
+def _ojpeg_files(torch, dev, rgb: np.ndarray) -> dict[str, bytes]:
+    """``rgb`` as old-style JPEG-in-TIFF in libtiff's two layouts, written
+    without Pillow from nvJPEG's 4:2:0 stream: its JPEGInterchangeFormat and
+    one strip at the whole JPEG; the table tags (quantisation and Huffman
+    tables after the strip) and the strip at its entropy-coded data."""
+    from mmtrs_tpu_torch.utils.codec import encode_jpeg
+
+    h, w, _ = rgb.shape
+    jpeg = encode_jpeg(torch.from_numpy(rgb).to(dev), 90)
+    base = {258: (3, [8] * 3), 259: (3, [6]), 262: (3, [6]), 277: (3, [3])}
+    whole = _tiff(w, h, {**base, 513: (4, [0]), 514: (4, [len(jpeg)])}, jpeg)
+    whole = _tiff(w, h, {**base, 513: (4, [len(whole) - len(jpeg)]), 514: (4, [len(jpeg)])}, jpeg)
+    tables, comps, pos = {}, [], 2
+    while True:
+        m, n = jpeg[pos + 1], struct.unpack(">H", jpeg[pos + 2:pos + 4])[0]
+        seg = jpeg[pos + 4:pos + 2 + n]
+        if m == 0xDB:
+            for k in range(0, len(seg), 65):
+                tables[("q", seg[k] & 15)] = seg[k + 1:k + 65]
+        elif m == 0xC4:
+            k = 0
+            while k < len(seg):
+                size = sum(seg[k + 1:k + 17])
+                tables[("ac" if seg[k] >> 4 else "dc", seg[k] & 15)] = seg[k + 1:k + 17 + size]
+                k += 17 + size
+        elif m == 0xC0:
+            comps = [(seg[6 + 3 * i], seg[7 + 3 * i], seg[8 + 3 * i]) for i in range(seg[5])]
+        elif m == 0xDA:
+            sel = {seg[1 + 2 * i]: seg[2 + 2 * i] for i in range(seg[0])}
+            body = jpeg[pos + 2 + n:jpeg.rindex(b"\xff\xd9")]
+            break
+        pos += 2 + n
+    blob, at = b"", {}
+    for key in sorted(tables, key=str):
+        at[key] = len(blob)
+        blob += tables[key] + b"\0" * (len(tables[key]) & 1)
+    hv = comps[0][1]
+    tags = {**base, 512: (3, [1]), 530: (3, [hv >> 4, hv & 15]), 519: (4, [0] * 3), 520: (4, [0] * 3),
+            521: (4, [0] * 3)}
+    size = len(_tiff(w, h, tags, body))
+    tags[519] = (4, [size + at[("q", c[2])] for c in comps])
+    tags[520] = (4, [size + at[("dc", sel[c[0]] >> 4)] for c in comps])
+    tags[521] = (4, [size + at[("ac", sel[c[0]] & 15)] for c in comps])
+    return {"ojpeg_interchange": whole, "ojpeg_tables": _tiff(w, h, tags, body) + blob}
+
+
+def _jp2_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
+    """JPEG 2000 on the card's machine (no Pillow): every golden decoded to
+    the card and on the CPU route equal to Pillow's stored decode, every
+    refused file refused by name on both; the median ms of the host decode
+    of a 12 MP 5/3 lossless and a 12 MP 9/7 codestream (grids of copies of
+    one tile, ``JP2_12MP``), each tile of which decodes as the tile alone;
+    the uploads (JPEG 2000, old-style JPEG-in-TIFF, the smoothed SOF2 JPEG)."""
+    import re
+
+    from mmtrs_tpu_torch.utils.codec import decode_image
+
+    exact, refused, on_card = 0, 0, True
+    with np.load(JP2_GOLDENS) as z:
+        files = {f: z[f] for f in z.files}
+    for name in sorted(f for f in files if not f.endswith((".pil", ".format", ".refused"))):
+        data = files[name].tobytes()
+        if name.startswith("refused_"):
+            words = files[f"{name}.refused"].tobytes().decode()
+            for where in ("cpu", dev):
+                try:
+                    decode_image(data, where)
+                except ValueError as e:
+                    if re.search(words, str(e)) is None:
+                        raise AssertionError(f"{name} on {where}: refused without naming {words!r}: {e}") from None
+                    continue
+                raise AssertionError(f"{name}: decoded on {where}, where Pillow refuses it")
+            refused += 1
+            continue
+        if name.startswith("upload_"):
+            continue
+        want = torch.from_numpy(files[f"{name}.pil"])
+        got = decode_image(data, dev)
+        on_card &= got.device.type == "cuda"
+        if not (torch.equal(got.cpu(), want) and torch.equal(decode_image(data, "cpu"), want)):
+            raise AssertionError(f"JPEG 2000 golden {name}: not equal to Pillow's decode on both routes")
+        exact += 1
+    _check(on_card and exact >= 50 and refused >= 5,
+           f"{exact} JPEG 2000 goldens decoded to the card and on the CPU route equal to Pillow's decode (every "
+           f"progression order, code-block style, POC, PPM/PPT, SOP/EPH, tile-parts, 4-16 bits, signed, L/LA/RGB/"
+           f"RGBA/I;16/P/CMYK/sYCC, 5/3 and 9/7), {refused} refused by name on both")
+    out, last = {}, {}
+    for kind, (name, across, down) in JP2_12MP.items():
+        upload = files[name].tobytes()
+        big = _tiled_codestream(upload, across, down)
+        tile = decode_image(upload, "cpu")
+        out[f"jp2_{kind}_12mp_ms"] = _median_ms(torch, lambda: last.update(got=decode_image(big, dev)))
+        got = last["got"]
+        th, tw = tile.shape[:2]
+        grid = got.cpu().reshape(down, th, across, tw, 3).permute(0, 2, 1, 3, 4)
+        same = tuple(got.shape) == (down * th, across * tw, 3) and bool((grid == tile).all())
+        _check(same and got.device.type == "cuda",
+               f"a {across * tw}x{down * th} JPEG 2000 {kind} codestream of {across * down} tiles decodes to the card, "
+               "each tile as the tile alone decodes")
+    print("  12 MP JPEG 2000 decodes to the card: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f" (the host decode, then the copy; host clock, median of 3, each ending in a synchronise; {smi})")
+    uploads = {k: files[v].tobytes() for k, v in JP2_UPLOADS.items()}
+    uploads.update(_ojpeg_files(torch, dev, phone))
+    for fam, raw in uploads.items():
+        got = decode_image(raw, dev)
+        _check(got.device.type == "cuda" and tuple(got.shape) == phone.shape,
+               f"the {fam} upload ({len(raw)} bytes) decodes to the card: {tuple(got.shape)}")
+    return {**out, "goldens_exact": exact, "goldens_refused": refused, "uploads": uploads}
 
 
 def phase_entry_points(torch, dev, smi: str, archive_ips: float):
@@ -2775,14 +2913,18 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
         corners = _corner_checks(torch, dev, smi, phone)
         corner_uploads = corners.pop("uploads")
         corners["seconds"] = time.perf_counter() - t_corners
+        t_jp2 = time.perf_counter()
+        jp2 = _jp2_checks(torch, dev, smi, phone)
+        corner_uploads.update(jp2.pop("uploads"))
+        jp2["seconds"] = time.perf_counter() - t_jp2
         served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads, corner_uploads)
         seconds = time.perf_counter() - t_phase
         print(f"  phase 9 took {seconds:.1f} s ({formats['seconds']:.1f} s of it the other Pillow formats' goldens, "
               f"12 MP decodes and warps, {jpeg['seconds']:.1f} s the own JPEG decoder's goldens, 12 MP decodes and "
-              f"CLI run, {corners['seconds']:.1f} s the format corners' goldens and 12 MP decodes; their uploads are "
-              "in the app's part)")
+              f"CLI run, {corners['seconds']:.1f} s the format corners' goldens and 12 MP decodes, "
+              f"{jp2['seconds']:.1f} s JPEG 2000's goldens and 12 MP decodes; their uploads are in the app's part)")
         return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "jpeg": jpeg, "corners": corners,
-                "app": served, "seconds": seconds}
+                "jp2": jp2, "app": served, "seconds": seconds}
 
     return run
 

@@ -78,6 +78,10 @@ _HOST_SIGNATURES = {
     "mmtrs_jpeg_own_decode": (_P, _L, _L, _P, _P, _P),
     "mmtrs_jpeg_own_decode_as": (_P, _L, _L, _I, _P, _P, _P),
     "mmtrs_jpeg_own_free": (_P,),
+    "mmtrs_jpeg_own_takes_sof2": (_P, _L),
+    "mmtrs_jpeg_own_decode_raw": (_P, _L, _L, _P, _P, _P),
+    "mmtrs_jp2_decode": (_P, _L, _L, _P, _P, _P),
+    "mmtrs_jp2_free": (_P,),
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_alpha_check": (_P, _L, _I, _I),
@@ -224,10 +228,18 @@ def webp_library() -> ctypes.CDLL:
 
 @functools.cache
 def jpeg_own_library() -> ctypes.CDLL:
-    """The port's own JPEG decoder (``csrc/host/jpeg.cpp``: lossless and
-    arithmetic-coded frames, on either device's route); needs only g++ and
-    links nothing."""
+    """The port's own JPEG decoder (``csrc/host/jpeg.cpp``: lossless,
+    arithmetic-coded and smoothed Huffman progressive frames, on either
+    device's route); needs only g++ and links nothing."""
     return _build_host("mmtrs_jpeg_own", "jpeg.cpp", [_gxx(), *HOST_FLAGS], ())
+
+
+@functools.cache
+def jp2_library() -> ctypes.CDLL:
+    """The port's own JPEG 2000 decoder (``csrc/host/jp2.cpp``), built with
+    no contraction of float operations (the 9/7 wavelet's and the ICT's
+    roundings are OpenJPEG's); needs only g++ and links nothing."""
+    return _build_host("mmtrs_jp2", "jp2.cpp", [_gxx(), *HOST_FLAGS, "-ffp-contract=off", "-pthread"], ())
 
 
 @functools.cache

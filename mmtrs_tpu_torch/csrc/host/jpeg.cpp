@@ -1,7 +1,11 @@
 // The port's own JPEG decoder, for the frames that libjpeg on the CPU and
 // nvJPEG on the card do not read as Pillow 12.1 does: lossless (SOF3,
-// Huffman-coded, T.81 Annex H) and arithmetic-coded DCT frames (SOF9
-// sequential, SOF10 progressive, T.81 Annex D, F.2.4 and G.2). It decodes
+// Huffman-coded, T.81 Annex H), arithmetic-coded DCT frames (SOF9
+// sequential, SOF10 progressive, T.81 Annex D, F.2.4 and G.2) and Huffman
+// progressive frames (SOF2, jdphuff.c) whose scans leave the progression
+// incomplete (a coefficient never coded or not refined to its last bit:
+// every file libjpeg smooths among them); and, for old-style JPEG-in-TIFF,
+// Huffman sequential frames (SOF0, SOF1) as raw component planes. It decodes
 // as Pillow's bundled libjpeg-turbo 3.1.3 does with the whole file in one
 // buffer: its marker reader, its colour-space guess (default_decompress_parms,
 // with the lossless rule that component ids 1, 2, 3 mean RGB), its handling
@@ -23,7 +27,9 @@
 // hierarchical frames (SOF5-7, SOF13-15, DHP), lossless arithmetic (SOF11),
 // and a sampling libjpeg cannot upsample. A progressive frame whose scans
 // leave the DC or low AC coefficients unrefined is smoothed first, as
-// libjpeg's decompress_smooth_data smooths it.
+// libjpeg's decompress_smooth_data smooths it (the rows past the last
+// scan's data with the bits before that scan, as its last_good_iMCU_row
+// has it).
 //
 // No global state: calls may run on many threads at once. Only the C++
 // standard library is used; nothing is linked.
@@ -35,9 +41,9 @@
 //     mmtrs_jpeg_own_free); dims: int[4] <- h, w, c, colour space (1 gray,
 //     2 RGB, 3 YCbCr, 4 CMYK, 5 YCCK: libjpeg's J_COLOR_SPACE numbers);
 //     msg: char[256] <- the reason of a refusal. Returns 0 ok, 1 not a frame
-//     of this decoder (its first frame header is SOF0-SOF2, or it has none),
-//     2 corrupt, 3 truncated, 5 over max_pixels (dims set), 6 a feature
-//     refused by name.
+//     of this decoder (its first frame header is SOF0 or SOF1, or SOF2 with
+//     a complete progression, or it has none), 2 corrupt, 3 truncated, 5
+//     over max_pixels (dims set), 6 a feature refused by name.
 //   int mmtrs_jpeg_own_decode_as(const void* buf, long long n,
 //                                long long max_pixels, int space, void* out,
 //                                void* dims, void* msg);
@@ -45,6 +51,17 @@
 //     JPEG-in-TIFF chunk instead of libjpeg's guess (space 3: YCbCr, to be
 //     converted; 6: JCS_UNKNOWN, the components as stored, no conversion
 //     refused; 0: the guess); dims[3] <- space (0 for 6).
+//   int mmtrs_jpeg_own_decode_raw(const void* buf, long long n,
+//                                 long long max_pixels, void* out, void* dims,
+//                                 void* msg);
+//     Old-style JPEG-in-TIFF: any frame of this decoder or SOF0/SOF1, each
+//     component's plane at its own resolution (libjpeg's raw_data_out, no
+//     upsampling, no colour conversion), the planes one after another; no
+//     markers read after the scan. dims: int[20] <- h, w, c, the iMCU rows
+//     decoded before the data ran out (-1: all), then per component its
+//     plane's height, width and sampling factors.
+//   int mmtrs_jpeg_own_takes_sof2(const void* buf, long long n);
+//     1 where a SOF2 stream's scan headers leave its progression incomplete.
 //   int mmtrs_jpeg_own_free(void* p);
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared jpeg.cpp (see mmtrs_tpu_torch/_build.py)
@@ -54,6 +71,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -146,6 +164,7 @@ struct Comp {
     std::vector<uint8_t> plane;       // the reconstructed component: pw x ph
     int pw = 0, ph = 0;
     int coef_bits[64];                // progression state (libjpeg's coef_bits)
+    int prev_bits[64];                // each coefficient's bits before the last scan that coded it
 };
 
 struct Decoder {
@@ -167,7 +186,12 @@ struct Decoder {
     int adobe_transform = 0;
     int space = 0;
     int forced_space = 0;  // JPEG-in-TIFF: libtiff's choice, 0 libjpeg's guess
+    bool take_sof2 = false;  // a Huffman progressive frame whose progression is incomplete
+    bool take_sequential = false;  // Huffman sequential frames too (old-style JPEG-in-TIFF's raw planes)
     bool multi_scan = false;
+    int scan_number = 0;  // libjpeg's input_scan_number
+    int last_good_imcu = 0;  // libjpeg's last_good_iMCU_row: the last iMCU row fetched with data in hand
+    int rows_delivered = -1;  // raw planes: the iMCU rows decoded before the data ran out (-1: all)
 
     // the current scan
     int comps_in_scan = 0;
@@ -368,7 +392,17 @@ struct Decoder {
             const int m = unread_marker;
             switch (m) {
                 case 0xD8: fail(ST_BROKEN, "corrupt JPEG: a second SOI marker");
-                case 0xC0: case 0xC1: case 0xC2:
+                case 0xC2:
+                    if (take_sof2 && !saw_sof) {
+                        get_sof(m);
+                        break;
+                    }
+                    [[fallthrough]];
+                case 0xC0: case 0xC1:
+                    if (take_sequential && !saw_sof) {
+                        get_sof(m);
+                        break;
+                    }
                     if (!saw_sof) fail(ST_NOT_OWN, "a Huffman-coded DCT frame");
                     fail(ST_BROKEN, "corrupt JPEG: a second frame header");
                 case 0xC3: case 0xC9: case 0xCA: case 0xCB: get_sof(m); break;
@@ -535,7 +569,9 @@ struct Decoder {
 // jpeg_make_d_derived_tbl, jdlhuff.c's decode_mcus)
 // ---------------------------------------------------------------------------
 
-void derive(const HuffTable& t, Derived& out, bool lossless) {
+// max_symbol: a DC table's largest difference size (16 lossless, 15 DCT);
+// an AC table's symbols are not checked
+void derive(const HuffTable& t, Derived& out, int max_symbol) {
     int huffsize[257], huffcode[257];
     int p = 0;
     for (int l = 1; l <= 16; ++l) {
@@ -577,7 +613,7 @@ void derive(const HuffTable& t, Derived& out, bool lossless) {
         }
     }
     for (int i = 0; i < numsymbols; ++i)
-        if (t.val[i] > (lossless ? 16 : 15)) fail(ST_BROKEN, "corrupt JPEG: a bad Huffman table");
+        if (t.val[i] > max_symbol) fail(ST_BROKEN, "corrupt JPEG: a bad Huffman table");
     out.val = t.val;
 }
 
@@ -670,7 +706,7 @@ void Decoder::decode_lossless() {
         for (int ci = 0; ci < comps_in_scan; ++ci) {
             const int t = cur[ci]->dc_tbl;
             if (t >= 4 || !dc_huff[t].defined) fail(ST_BROKEN, "corrupt JPEG: a scan names a missing Huffman table");
-            derive(dc_huff[t], tables[t], true);
+            derive(dc_huff[t], tables[t], 16);
         }
         if (restart_interval % static_cast<unsigned>(mcus_per_row) != 0)
             fail(ST_BROKEN, "corrupt JPEG: a lossless restart interval that is not whole MCU rows");
@@ -773,7 +809,7 @@ void Decoder::decode_lossless() {
             }
         }
         if (!multi_scan) {
-            finish_single_scan();
+            if (!take_sequential) finish_single_scan();
             return;
         }
         if (read_markers() == 0xD9) return;
@@ -1048,6 +1084,196 @@ struct Arith {
 };
 
 // ---------------------------------------------------------------------------
+// Huffman-coded progressive scans (jdphuff.c): DC first and refine, AC
+// first with its EOB runs, AC refine with its correction bits; restarts
+// reset the predictions and the run; past a marker the bit reader feeds
+// zeros and the remaining MCUs of the interval are left as they are
+// ---------------------------------------------------------------------------
+
+inline int huff_extend(int r, int s) { return r < (1 << (s - 1)) ? r + static_cast<int>(~0u << s) + 1 : r; }
+
+struct HuffProg {
+    Decoder& dec;
+    BitReader br;
+    Derived tables[4];     // a progressive scan's tables; a sequential scan's AC tables
+    Derived dc_tables[4];  // a sequential scan's DC tables
+    const Derived* ac = nullptr;
+    int last_dc_val[4] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
+    unsigned restarts_to_go = 0;
+
+    // start_pass_phuff_decoder: the tables a scan needs, its state reset
+    explicit HuffProg(Decoder& d) : dec(d), br(d) {
+        restarts_to_go = dec.restart_interval;
+        if (!dec.progressive) {  // jdhuff.c start_pass_huff_decoder: both tables of each component
+            for (int ci = 0; ci < dec.comps_in_scan; ++ci) {
+                const Comp& c = *dec.cur[ci];
+                if (c.dc_tbl >= 4 || c.ac_tbl >= 4 || !dec.dc_huff[c.dc_tbl].defined || !dec.ac_huff[c.ac_tbl].defined)
+                    fail(ST_BROKEN, "corrupt JPEG: a scan names a missing Huffman table");
+                derive(dec.dc_huff[c.dc_tbl], dc_tables[c.dc_tbl], 15);
+                derive(dec.ac_huff[c.ac_tbl], tables[c.ac_tbl], 255);
+            }
+            return;
+        }
+        const bool dc = dec.Ss == 0;
+        for (int ci = 0; ci < dec.comps_in_scan; ++ci) {
+            const Comp& c = *dec.cur[ci];
+            if (dc && dec.Ah != 0) continue;  // DC refinement reads no table
+            const int t = dc ? c.dc_tbl : c.ac_tbl;
+            const HuffTable* h = t < 4 ? (dc ? &dec.dc_huff[t] : &dec.ac_huff[t]) : nullptr;
+            if (!h || !h->defined) fail(ST_BROKEN, "corrupt JPEG: a scan names a missing Huffman table");
+            derive(*h, tables[t], dc ? 15 : 255);
+            if (!dc) ac = &tables[t];
+        }
+    }
+
+    // process_restart: unused bits dropped, the RSTn marker read, the
+    // predictions and the EOB run reset; out of data stays so only when
+    // the marker reader stopped at another marker
+    void restart_check() {
+        if (!dec.restart_interval) return;
+        if (restarts_to_go == 0) {
+            br.bits_left = 0;
+            dec.read_restart_marker();
+            for (int& v : last_dc_val) v = 0;
+            eobrun = 0;
+            restarts_to_go = dec.restart_interval;
+            if (dec.unread_marker == 0) br.insufficient = false;
+        }
+        --restarts_to_go;
+    }
+
+    void dc_first(int16_t** blocks) {
+        restart_check();
+        if (br.insufficient) return;
+        for (int b = 0; b < dec.blocks_in_mcu; ++b) {
+            const int ci = dec.membership[b];
+            int s = br.decode(tables[dec.cur[ci]->dc_tbl]);
+            if (s) s = huff_extend(br.get_bits(s), s);
+            const int last = last_dc_val[ci];
+            if ((last >= 0 && s > INT32_MAX - last) || (last < 0 && s < INT32_MIN - last))
+                fail(ST_BROKEN, "corrupt JPEG: a DC coefficient out of range");
+            last_dc_val[ci] = last + s;
+            blocks[b][0] = static_cast<int16_t>(static_cast<uint32_t>(last_dc_val[ci]) << dec.Al);
+        }
+    }
+
+    void ac_first(int16_t** blocks) {
+        restart_check();
+        if (br.insufficient) return;
+        if (eobrun > 0) {
+            --eobrun;
+            return;
+        }
+        int16_t* block = blocks[0];
+        for (int k = dec.Ss; k <= dec.Se; ++k) {
+            int s = br.decode(*ac);
+            int r = s >> 4;
+            s &= 15;
+            if (s) {
+                k += r;
+                s = huff_extend(br.get_bits(s), s);
+                block[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(s) << dec.Al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = 1u << r;
+                if (r) eobrun += static_cast<unsigned>(br.get_bits(r));
+                --eobrun;
+                break;
+            }
+        }
+    }
+
+    void dc_refine(int16_t** blocks) {
+        restart_check();
+        const int p1 = 1 << dec.Al;
+        for (int b = 0; b < dec.blocks_in_mcu; ++b)
+            if (br.get_bits(1)) blocks[b][0] = static_cast<int16_t>(blocks[b][0] | p1);
+    }
+
+    void ac_refine(int16_t** blocks) {
+        restart_check();
+        if (br.insufficient) return;
+        int16_t* block = blocks[0];
+        const int p1 = 1 << dec.Al;
+        const int m1 = static_cast<int>(~0u << dec.Al);
+        auto correct = [&](int16_t* coef) {
+            if (br.get_bits(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+        };
+        int k = dec.Ss;
+        if (eobrun == 0) {
+            for (; k <= dec.Se; ++k) {
+                int s = br.decode(*ac);
+                int r = s >> 4;
+                s &= 15;
+                if (s) {  // a size other than 1 is a bad code libjpeg warns of, read as 1
+                    s = br.get_bits(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1u << r;
+                    if (r) eobrun += static_cast<unsigned>(br.get_bits(r));
+                    break;
+                }
+                do {
+                    int16_t* coef = block + kNatural[k];
+                    if (*coef != 0) {
+                        correct(coef);
+                    } else if (--r < 0) {
+                        break;
+                    }
+                    ++k;
+                } while (k <= dec.Se);
+                if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= dec.Se; ++k) {
+                int16_t* coef = block + kNatural[k];
+                if (*coef != 0) correct(coef);
+            }
+            --eobrun;
+        }
+    }
+
+    // jdhuff.c decode_mcu: each block's DC difference, then its AC run
+    // lengths and sizes to the end of block
+    void sequential(int16_t** blocks) {
+        restart_check();
+        if (br.insufficient) return;
+        for (int b = 0; b < dec.blocks_in_mcu; ++b) {
+            const int ci = dec.membership[b];
+            const Comp& c = *dec.cur[ci];
+            int s = br.decode(dc_tables[c.dc_tbl]);
+            if (s) s = huff_extend(br.get_bits(s), s);
+            last_dc_val[ci] = static_cast<int>(static_cast<unsigned>(last_dc_val[ci]) + static_cast<unsigned>(s));
+            int16_t* block = blocks[b];
+            block[0] = static_cast<int16_t>(last_dc_val[ci]);
+            const Derived& t = tables[c.ac_tbl];
+            for (int k = 1; k < 64; ++k) {
+                s = br.decode(t);
+                const int r = s >> 4;
+                s &= 15;
+                if (s) {
+                    k += r;
+                    block[kNatural[k]] = static_cast<int16_t>(huff_extend(br.get_bits(s), s));
+                } else {
+                    if (r != 15) break;
+                    k += 15;
+                }
+            }
+        }
+    }
+
+    void mcu(int16_t** blocks) {
+        if (!dec.progressive) sequential(blocks);
+        else if (dec.Ah == 0 && dec.Ss == 0) dc_first(blocks);
+        else if (dec.Ah == 0) ac_first(blocks);
+        else if (dec.Ss == 0) dc_refine(blocks);
+        else ac_refine(blocks);
+    }
+};
+
+// ---------------------------------------------------------------------------
 // The islow IDCT as libjpeg-turbo's SIMD code (jidctint-avx2/sse2) computes
 // it: 16-bit dequantisation, the sums in0 +- in4, in7 + in3 and in5 + in1 in
 // 16 bits, the rest in wrapping 32-bit arithmetic, each pass descaled and
@@ -1154,7 +1380,8 @@ void Decoder::decode_dct() {
             for (int i = 0; i < 64; ++i) c.qt[i] = static_cast<int16_t>(qtab[c.tq][i]);
             c.latched = true;
         }
-        if (progressive) {  // jdarith.c start_pass: validate the progression
+        ++scan_number;
+        if (progressive) {  // jdarith.c / jdphuff.c start_pass: validate the progression
             bool bad = false;
             if (Ss == 0) {
                 bad = Se != 0;
@@ -1164,10 +1391,15 @@ void Decoder::decode_dct() {
             if (Ah != 0 && Ah - 1 != Al) bad = true;
             if (Al > 13) bad = true;
             if (bad) fail(ST_BROKEN, "corrupt JPEG: a bad progressive scan");
-            for (int ci = 0; ci < comps_in_scan; ++ci)
-                for (int k = Ss; k <= Se; ++k) cur[ci]->coef_bits[k] = Al;
+            for (int ci = 0; ci < comps_in_scan; ++ci) {
+                Comp& c = *cur[ci];
+                for (int k = std::min(Ss, 1); k <= std::max(Se, 9); ++k) c.prev_bits[k] = scan_number > 1 ? c.coef_bits[k] : 0;
+                for (int k = Ss; k <= Se; ++k) c.coef_bits[k] = Al;
+            }
         }
-        ar.start_pass();
+        std::unique_ptr<HuffProg> hp;
+        if (arith) ar.start_pass();
+        else hp.reset(new HuffProg(*this));
         int16_t* blocks[10];
         for (int my = 0; my < mcu_rows; ++my) {
             for (int mx = 0; mx < mcus_per_row; ++mx) {
@@ -1184,7 +1416,19 @@ void Decoder::decode_dct() {
                                               + (static_cast<size_t>(my * c.v + y) * c.bw + mx * c.h + x) * 64;
                     }
                 }
-                if (!progressive) ar.mcu_sequential(blocks);
+                const int imcu = comps_in_scan == 1 ? my / cur[0]->v : my;
+                if (!hp || !hp->br.insufficient) last_good_imcu = imcu;
+                if (hp && take_sequential && !multi_scan) {
+                    try {
+                        hp->mcu(blocks);
+                    } catch (const Fail& f) {  // libtiff's source fails: the iMCU rows before this one stand
+                        if (f.status != ST_TRUNCATED) throw;
+                        rows_delivered = imcu;
+                        my = mcu_rows;
+                        break;
+                    }
+                } else if (hp) hp->mcu(blocks);
+                else if (!progressive) ar.mcu_sequential(blocks);
                 else if (Ah == 0 && Ss == 0) ar.mcu_dc_first(blocks);
                 else if (Ah == 0) ar.mcu_ac_first(blocks);
                 else if (Ss == 0) ar.mcu_dc_refine(blocks);
@@ -1192,7 +1436,7 @@ void Decoder::decode_dct() {
             }
         }
         if (!multi_scan) {
-            finish_single_scan();
+            if (!take_sequential) finish_single_scan();  // libtiff reads no markers after the rows
             break;
         }
         if (read_markers() == 0xD9) break;
@@ -1226,14 +1470,23 @@ void Decoder::decode_dct() {
 // row's blocks as if every row had as many), the columns by its sliding
 // registers, which repeat the edge block.
 void Decoder::smooth_idct(Comp& c, int total_imcu_rows) {
+    int prev[10];  // smoothing_ok's latch of the bits before each coefficient's last scan
+    for (int k = 1; k < 10; ++k) prev[k] = scan_number > 1 ? c.prev_bits[k] : -1;
     const int* bits = c.coef_bits;
-    bool change_dc = true;
-    for (int k = 1; k < 10; ++k)
-        if (bits[k] != -1) change_dc = false;
+    bool change_dc = false;
     auto q = [&](int pos) { return static_cast<long long>(static_cast<uint16_t>(c.qt[pos])); };
     const long long Q00 = q(0), Q01 = q(1), Q10 = q(8), Q20 = q(16), Q11 = q(9), Q02 = q(2);
-    const long long Q03 = change_dc ? q(3) : 0, Q12 = change_dc ? q(10) : 0, Q21 = change_dc ? q(17) : 0,
-                    Q30 = change_dc ? q(24) : 0;
+    long long Q03 = 0, Q12 = 0, Q21 = 0, Q30 = 0;
+    auto latch = [&](const int* b) {  // DC interpolated only where no AC coefficient is known at all
+        bits = b;
+        change_dc = true;
+        for (int k = 1; k < 10; ++k)
+            if (bits[k] != -1) change_dc = false;
+        Q03 = change_dc ? q(3) : 0;
+        Q12 = change_dc ? q(10) : 0;
+        Q21 = change_dc ? q(17) : 0;
+        Q30 = change_dc ? q(24) : 0;
+    };
     auto dc = [&](int row, int col) { return static_cast<int>(c.coef[(static_cast<size_t>(row) * c.bw + col) * 64]); };
     // an estimate from num, scaled by Q00 / Q, clamped below 2^Al when Al > 0
     auto estimate = [](long long num, long long qk, int al) {
@@ -1252,6 +1505,9 @@ void Decoder::smooth_idct(Comp& c, int total_imcu_rows) {
     const int last_col = c.wib - 1;
     int16_t ws[64];
     for (int r = 0; r < total_imcu_rows; ++r) {
+        // past the last iMCU row the last scan fetched before its data ran
+        // out, the bits as they were before that scan
+        latch(r > last_good_imcu ? prev : c.coef_bits);
         int block_rows = c.v;
         if (r == last_imcu) {
             block_rows = c.hib % c.v;
@@ -1274,12 +1530,12 @@ void Decoder::smooth_idct(Comp& c, int total_imcu_rows) {
             DC21 = DC22 = DC23 = DC24 = DC25 = dc(nnext, 0);
             for (int col = 0; col <= last_col; ++col) {
                 std::memcpy(ws, c.coef.data() + (static_cast<size_t>(row) * c.bw + col) * 64, sizeof ws);
-                if (col == 0 && col < last_col) {
-                    DC04 = dc(pprev, 1);
-                    DC09 = dc(prev, 1);
-                    DC14 = dc(row, 1);
-                    DC19 = dc(next, 1);
-                    DC24 = dc(nnext, 1);
+                if (col == 0 && col < last_col) {  // two blocks wide: the second is also the one past it
+                    DC04 = DC05 = dc(pprev, 1);
+                    DC09 = DC10 = dc(prev, 1);
+                    DC14 = DC15 = dc(row, 1);
+                    DC19 = DC20 = dc(next, 1);
+                    DC24 = DC25 = dc(nnext, 1);
                 }
                 if (col + 1 < last_col) {
                     DC05 = dc(pprev, col + 2);
@@ -1452,6 +1708,57 @@ std::vector<uint8_t> Decoder::output(int nc) {
     return out;
 }
 
+// Whether a Huffman-coded progressive (SOF2) stream leaves its progression
+// incomplete: a component never in a scan, or a coefficient never coded or
+// not refined to its last bit. That takes in every stream libjpeg smooths
+// (smoothing_ok), and those where nvJPEG on the card refuses the file or
+// reads the unrefined bits otherwise than libjpeg. Read from the headers
+// alone: the frame, the component's tables latched at their first scan and
+// the coefficient bits the scan headers leave (jdphuff.c start_pass), the
+// entropy-coded data skipped as next_marker skips it. A stream that ends
+// early is judged by the scans it has; one whose headers libjpeg refuses
+// (a bad progression, a missing table) is left to libjpeg.
+bool sof2_incomplete(const uint8_t* d, size_t n) {
+    Decoder w(d, n);
+    w.take_sof2 = true;
+    try {
+        if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) return false;
+        w.pos = 2;
+        if (w.read_markers() != 0xDA) return false;
+        if (!w.saw_sof || !w.progressive || w.arith || w.precision != 8) return false;
+        for (auto& c : w.comp)
+            for (int& b : c.coef_bits) b = -1;
+        for (;;) {
+            for (int ci = 0; ci < w.comps_in_scan; ++ci) {
+                Comp& c = *w.cur[ci];
+                if (c.latched) continue;
+                if (c.tq < 0 || c.tq >= 4 || !w.qdef[c.tq]) return false;
+                for (int i = 0; i < 64; ++i) c.qt[i] = static_cast<int16_t>(w.qtab[c.tq][i]);
+                c.latched = true;
+            }
+            const bool bad = (w.Ss == 0 ? w.Se != 0 : w.Se < w.Ss || w.Se > 63 || w.comps_in_scan != 1)
+                             || (w.Ah != 0 && w.Ah - 1 != w.Al) || w.Al > 13;
+            if (bad) return false;
+            for (int ci = 0; ci < w.comps_in_scan; ++ci)
+                for (int k = w.Ss; k <= w.Se; ++k) w.cur[ci]->coef_bits[k] = w.Al;
+            try {
+                if (w.read_markers() == 0xD9) break;
+            } catch (const Fail& f) {
+                if (f.status != ST_TRUNCATED) return false;
+                break;
+            }
+        }
+        for (const auto& c : w.comp) {
+            if (!c.latched) return true;
+            for (int b : c.coef_bits)
+                if (b != 0) return true;
+        }
+        return false;
+    } catch (const Fail&) {
+        return false;
+    }
+}
+
 void Decoder::decode(long long max_pixels, int* dims) {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) fail(ST_BROKEN, "not a JPEG: no SOI marker");
     pos = 2;
@@ -1477,8 +1784,10 @@ extern "C" int mmtrs_jpeg_own_decode_as(const void* buf, long long n, long long 
     *dst = nullptr;
     text[0] = 0;
     try {
-        Decoder dec(static_cast<const uint8_t*>(buf), n > 0 ? static_cast<size_t>(n) : 0);
+        const size_t size = n > 0 ? static_cast<size_t>(n) : 0;
+        Decoder dec(static_cast<const uint8_t*>(buf), size);
         dec.forced_space = space;
+        dec.take_sof2 = sof2_incomplete(static_cast<const uint8_t*>(buf), size);
         dec.decode(max_pixels, dm);
         const int nc = dec.ncomp;
         std::vector<uint8_t> px = dec.output(nc);
@@ -1502,6 +1811,54 @@ extern "C" int mmtrs_jpeg_own_decode_as(const void* buf, long long n, long long 
 extern "C" int mmtrs_jpeg_own_decode(const void* buf, long long n, long long max_pixels, void* out, void* dims,
                                      void* msg) {
     return mmtrs_jpeg_own_decode_as(buf, n, max_pixels, 0, out, dims, msg);
+}
+
+extern "C" int mmtrs_jpeg_own_decode_raw(const void* buf, long long n, long long max_pixels, void* out, void* dims,
+                                         void* msg) {
+    void** dst = static_cast<void**>(out);
+    int* dm = static_cast<int*>(dims);
+    char* text = static_cast<char*>(msg);
+    *dst = nullptr;
+    text[0] = 0;
+    try {
+        Decoder dec(static_cast<const uint8_t*>(buf), n > 0 ? static_cast<size_t>(n) : 0);
+        dec.take_sequential = true;
+        dec.forced_space = CS_UNKNOWN;
+        dec.decode(max_pixels, dm);
+        dm[3] = dec.rows_delivered;
+        size_t total = 0;
+        for (int ci = 0; ci < dec.ncomp; ++ci) {
+            const Comp& c = dec.comp[ci];
+            dm[4 + 4 * ci] = c.dh;
+            dm[5 + 4 * ci] = c.dw;
+            dm[6 + 4 * ci] = c.h;
+            dm[7 + 4 * ci] = c.v;
+            total += static_cast<size_t>(c.dh) * c.dw;
+        }
+        uint8_t* mem = static_cast<uint8_t*>(std::malloc(total ? total : 1));
+        if (!mem) {
+            std::snprintf(text, 256, "out of memory");
+            return ST_BROKEN;
+        }
+        uint8_t* p = mem;
+        for (int ci = 0; ci < dec.ncomp; ++ci) {
+            const Comp& c = dec.comp[ci];
+            for (int y = 0; y < c.dh; ++y, p += c.dw)
+                std::memcpy(p, c.plane.data() + static_cast<size_t>(y) * c.pw, static_cast<size_t>(c.dw));
+        }
+        *dst = mem;
+        return 0;
+    } catch (const Fail& f) {
+        std::snprintf(text, 256, "%s", f.what.c_str());
+        return f.status;
+    } catch (const std::bad_alloc&) {
+        std::snprintf(text, 256, "out of memory");
+        return ST_BROKEN;
+    }
+}
+
+extern "C" int mmtrs_jpeg_own_takes_sof2(const void* buf, long long n) {
+    return sof2_incomplete(static_cast<const uint8_t*>(buf), n > 0 ? static_cast<size_t>(n) : 0) ? 1 : 0;
 }
 
 extern "C" int mmtrs_jpeg_own_free(void* p) {

@@ -52,5 +52,4 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None, b
     overrides the choice (gloo on the card lets ranks share one)."""
     from mmtrs_tpu_torch.parallel.dryrun import spawn
 
-    dev = resolve_device(device)
-    spawn(n_devices, device=dev.type, backend=backend or ("nccl" if dev.type == "cuda" else "gloo"))
+    spawn(n_devices, device=resolve_device(device), backend=backend)

@@ -18,10 +18,11 @@ trainers data-parallel over an n-rank group, on tiny shapes.
 - :func:`spawn` launches this module's :func:`main` in n ranks; it is what
   ``graft_entry.dryrun_multichip`` runs.
 
-Devices and backends are the caller's: ``device="cpu"`` runs CPU processes
-(one torch thread each) over gloo; ``"cuda"`` puts rank r on card r mod the
-cards visible, over nccl (one card per rank) or gloo (ranks may share a
-card).
+Devices and backends are the caller's: ``device=None`` (the default) is the
+card, as ``"cuda"`` is, and raises where no card is visible; ``"cuda"`` puts
+rank r on card r mod the cards visible, over nccl (one card per rank, the
+default backend there) or gloo (ranks may share a card); ``device="cpu"``
+runs CPU processes (one torch thread each) over gloo, its default.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mmtrs_tpu_torch.device import resolve_device
 from mmtrs_tpu_torch.parallel import mesh
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -47,8 +49,8 @@ REHEARSAL_RAW = 512  # the rehearsal's raw image size, resized to 380 in the pre
 ALL_REDUCE_REPS = 5
 
 
-def _rank_devices(n: int, device: str, backend: str) -> list[str]:
-    dev = torch.device(device)
+def _rank_devices(n: int, device: torch.device, backend: str) -> list[str]:
+    dev = device
     if backend not in mesh.BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {mesh.BACKENDS}")
     if dev.type == "cpu":
@@ -68,7 +70,7 @@ def _rank_devices(n: int, device: str, backend: str) -> list[str]:
 LAUNCH_GRACE_S = 5.0  # how long the other ranks get to exit after one fails
 
 
-def launch(n: int, module: str, args=(), device: str = "cpu", backend: str = "gloo",
+def launch(n: int, module: str, args=(), device: str | torch.device | None = None, backend: str | None = None,
            timeout: float = 3600.0, workdir: str | os.PathLike | None = None) -> list[str]:
     """Run ``python -m module *args`` in n rank processes of one group and
     wait for them; → each rank's stdout. A rank that exits non-zero stops
@@ -76,8 +78,11 @@ def launch(n: int, module: str, args=(), device: str = "cpu", backend: str = "gl
     stderr tail of every rank that failed; at the timeout, of every rank
     still running. The
     store and the ranks' logs live in a temporary folder (in ``workdir``
-    when given), removed after."""
-    devices = _rank_devices(n, device, backend)
+    when given), removed after. ``device`` None is the card (raising where
+    none is visible); ``backend`` None is nccl on the card, gloo on the CPU."""
+    dev = resolve_device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    devices = _rank_devices(n, dev, backend)
     with tempfile.TemporaryDirectory(prefix="mmtrs_dist_", dir=workdir) as tmp:
         procs, outs, errs = [], [], []
         try:
@@ -277,12 +282,13 @@ def load_result(path: Path) -> dict:
     return res
 
 
-def spawn(n: int, device: str = "cpu", backend: str = "gloo", model_name: str = "efficientnet_b0",
+def spawn(n: int, device: str | torch.device | None = None, backend: str | None = None, model_name: str = "efficientnet_b0",
           aug_sizes=(64,), rehearsal: bool = False, out: str | os.PathLike | None = None,
           timeout: float = 3600.0) -> list[str]:
     """Run the dryrun in n rank processes (:func:`launch`); with ``out`` each
-    rank writes its result there as ``rank{r}.npz`` / ``.json``. Prints rank
-    0's output; → every rank's stdout."""
+    rank writes its result there as ``rank{r}.npz`` / ``.json``. Devices and
+    backends default as :func:`launch`'s. Prints rank 0's output; → every
+    rank's stdout."""
     args = ["--model_name", model_name, "--aug_sizes", ",".join(map(str, aug_sizes))]
     if rehearsal:
         args.append("--rehearsal")

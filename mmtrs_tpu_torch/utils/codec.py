@@ -5,7 +5,9 @@ them (``sniff``) and converted as its ``convert("RGB")`` converts them
 (``convert_rgb``, the one place each mode's conversion is written).
 
 A JPEG is dispatched by the kind of its frame, the same on both devices.
-Lossless (SOF3) and arithmetic-coded (SOF9, SOF10) frames go to the port's
+Lossless (SOF3) and arithmetic-coded (SOF9, SOF10) frames, and Huffman
+progressive (SOF2) ones whose scan headers leave the progression incomplete
+(the files libjpeg's block smoothing estimates among them), go to the port's
 own decoder (``csrc/host/jpeg.cpp``, C++ with no library), which decodes
 on the host as Pillow 12.1's bundled libjpeg-turbo 3.1.3 does, bit for
 bit; its components move to the device and are converted there with
@@ -55,12 +57,17 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
   a frame smaller than the screen at its offset on a canvas of the
   transparency index (else index 0), transparency otherwise ignored;
 - TIFF (the first image) in every mode of Pillow's table: either byte
-  order, strips or tiles, ``PlanarConfiguration`` 1 and 2, fill order 2;
+  order, strips or tiles, ``PlanarConfiguration`` 1 and 2, fill order 2,
+  an IFD damaged past the file's end read as Pillow reads it for the mode
+  and size and as libtiff reads it for the decode;
   no compression, LZW, Adobe deflate (8 and 32946), PackBits, CCITT RLE,
   Group 3 (1-D and 2-D) and Group 4 (``csrc/host/rasters.cpp``), and JPEG
   (``JPEGTables`` spliced into each strip or tile: libjpeg on the CPU,
   nvJPEG on the card, as libtiff's codec decodes them: YCbCr converted,
-  RGB, gray and CMYK samples as stored); the horizontal-difference
+  RGB, gray and CMYK samples as stored), and old-style JPEG (compression 6,
+  both of libtiff's layouts: the stream ``tif_ojpeg.c`` writes, through
+  the port's own decoder's raw planes on either device, converted as
+  TIFFRGBAImage converts YCbCr); the horizontal-difference
   predictor; 1-16-bit gray, 32-bit integer and float samples, 8- and
   16-bit RGB(A) (alpha unassociated or premultiplied), CMYK, palette, and
   YCbCr through libtiff's conversion and subsampling (uncompressed YCbCr as
@@ -79,8 +86,8 @@ is ``zlib`` and ``struct`` alone. Each decoder gives what Pillow's
   black canvas.
 
 What Pillow opens and this codec refuses raises a ValueError that names
-the format and the feature (AVIF, JPEG 2000;
-``rasters.py`` lists the rest). Data no opener takes is not identified. A
+the format and the feature (AVIF; ``rasters.py`` lists the rest; JPEG 2000
+is decoded there, by the port's ``csrc/host/jp2.cpp``). Data no opener takes is not identified. A
 header that asks for more than ``MAX_PIXELS`` pixels is refused before
 anything is allocated, as Pillow refuses it (DecompressionBombError); a
 corrupt or truncated file raises a ValueError that names its format.
@@ -135,7 +142,7 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
     data = bytes(src) if isinstance(src, (bytes, bytearray, memoryview)) else Path(src).read_bytes()
     kind, load = rasters.identify(data)
     if kind == "JPEG":
-        if jpeg_frame_marker(data) in OWN_FRAMES:
+        if jpeg_goes_own(data):
             planes, space = jpeg_own_planes(data)
             return jpeg_planes_to_rgb(planes.to(dev), space)
         return _nvjpeg_decode(data, dev) if dev.type == "cuda" else _decode_jpeg_cpu(data)
@@ -362,6 +369,23 @@ JCS_GRAYSCALE, JCS_RGB, JCS_YCBCR, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
 JCS_UNKNOWN = 6  # the own decoder's code for libjpeg's JCS_UNKNOWN: no colour conversion
 
 
+def jpeg_goes_own(data: bytes) -> bool:
+    """True when a JPEG goes to the port's own decoder, on either device:
+    its frame is one of ``OWN_FRAMES``, or it is Huffman progressive (SOF2)
+    and its scan headers leave the progression incomplete (a coefficient
+    never coded or not refined to its last bit). Those are the files
+    libjpeg's block smoothing estimates (``smoothing_ok``), which the system
+    libjpeg-turbo 2.1.5 does otherwise than Pillow's 3.1.3, and those
+    nvJPEG refuses or reads otherwise. Decided from the headers alone,
+    before any decode."""
+    marker = jpeg_frame_marker(data)
+    return marker in OWN_FRAMES or (marker == 0xC2 and _own_takes_sof2(data))
+
+
+def _own_takes_sof2(data: bytes) -> bool:
+    return bool(_build.jpeg_own_library().mmtrs_jpeg_own_takes_sof2(data, len(data)))
+
+
 def jpeg_frame_marker(data: bytes) -> int:
     """The first frame marker of a JPEG (SOF0-SOF15 or DHP) before its first
     scan, the markers found as libjpeg's next_marker finds them (bytes
@@ -414,7 +438,7 @@ def _own_error(status: int, msg: str, dims: np.ndarray) -> Exception:
     if status == 6:
         return ValueError(msg)
     if status == 3:
-        return ValueError(f"truncated JPEG (image file is truncated): {msg}")
+        return ValueError(f"corrupt or truncated JPEG (image file is truncated): {msg}")
     return ValueError(f"corrupt JPEG (broken data stream): {msg}")
 
 
@@ -461,7 +485,7 @@ def jpeg_stored_planes4(data: bytes, dev: torch.device) -> torch.Tensor:
     """A four-component JPEG's samples as stored, at full size, u8
     [H, W, 4] on ``dev`` (a YCCK left unconverted): the own decoder for its
     frames, else libjpeg on the CPU and nvJPEG on the card."""
-    if jpeg_frame_marker(data) in OWN_FRAMES:
+    if jpeg_goes_own(data):
         return jpeg_own_planes(data)[0].to(dev)
     if dev.type == "cuda":
         if not jpeg_has_end(data):
@@ -956,7 +980,11 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
     → the tags dropped: those of a type Pillow does not load, and those
     from the first whose values lie past the file's end, where Pillow stops
     reading the IFD, to the last; -4 → the raw entries (type, count, value
-    field) of the tags libtiff reads apart, ``_TIFF_LIBTIFF_READS``). A
+    field) of the tags libtiff reads apart, ``_TIFF_LIBTIFF_READS``; -5 →
+    the tags past that first entry as libtiff reads them, which reads on
+    and skips each entry whose values lie past the file's end; -6 → the
+    tags libtiff cannot read: those past the file's end and those of a type
+    it does not read as a number). A
     BigTIFF (``II+``: 8-byte offsets and counts, 20-byte entries) is read
     as Pillow reads it; Pillow takes ``MM`` files for classic ones, whose
     first IFD then lies where bytes 4-7 say."""
@@ -969,7 +997,7 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
         raise ValueError("corrupt TIFF: the IFD lies beyond the file")
     n = struct.unpack(bo + cnt, data[ifd:ifd + struct.calcsize(cnt)])[0]
     first = ifd + struct.calcsize(cnt)
-    tags, raw = {}, {}
+    tags, raw, libtiff, unread = {}, {}, {}, []
     for i in range(n):
         e = first + esize * i
         if e + esize > len(data):
@@ -980,22 +1008,54 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
         fmt = _TIFF_TYPES.get(typ)
         if fmt is None:  # a type Pillow does not load: it drops the tag
             tags[-1] = tags.get(-1, ()) + (tag,)
+            if typ not in (17, 18):  # libtiff reads SLONG8 and IFD8 as integers
+                unread.append(tag)
             continue
-        size = struct.calcsize(bo + fmt) * count
-        at = e + 4 + wsize if size <= wsize else struct.unpack(bo + word, data[e + 4 + wsize:e + esize])[0]
-        if at + size > len(data):  # Pillow's IFD reader stops at a tag whose values lie past the file's end
+        vals = _ifd_values(data, bo, word, e + 4 + wsize, typ, fmt, count)
+        if vals is None:  # Pillow's IFD reader stops at a tag whose values lie past the file's end
             tags[-1] = tags.get(-1, ()) + tuple(
                 struct.unpack(bo + "H", data[first + esize * j:first + esize * j + 2])[0]
                 for j in range(i, n) if first + esize * j + 2 <= len(data))
+            unread.append(tag)
+            for j in range(i + 1, n):
+                e = first + esize * j
+                if e + esize > len(data):
+                    break
+                tag, typ, count = struct.unpack(bo + "HH" + word, data[e:e + 4 + wsize])
+                if tag in _TIFF_LIBTIFF_READS:
+                    raw[tag] = (typ, count, data[e + 4 + wsize:e + esize])
+                fmt = _TIFF_TYPES.get(typ)
+                vals = None if fmt is None else _ifd_values(data, bo, word, e + 4 + wsize, typ, fmt, count)
+                if vals is None:
+                    unread.append(tag)
+                else:
+                    libtiff.setdefault(tag, vals)
             break
-        vals = struct.unpack(f"{bo}{count * len(fmt)}{fmt[0]}", data[at:at + size])
-        if typ in (5, 10):  # rationals: numerator over denominator
-            vals = tuple(a / b if b else 0.0 for a, b in zip(vals[::2], vals[1::2]))
         tags[tag] = vals
-    tags[-4] = raw
+    tags[-4], tags[-5], tags[-6] = raw, libtiff, tuple(unread)
     return bo, tags
 
 
+def _ifd_values(data: bytes, bo: str, word: str, field: int, typ: int, fmt: str, count: int) -> tuple | None:
+    """An IFD entry's values (rationals as floats), inline in its value
+    field at ``field`` or at the offset it holds; None where they lie past
+    the file's end."""
+    size = struct.calcsize(bo + fmt) * count
+    wsize = struct.calcsize(word)
+    at = field if size <= wsize else struct.unpack(bo + word, data[field:field + wsize])[0]
+    if at + size > len(data):
+        return None
+    vals = struct.unpack(f"{bo}{count * len(fmt)}{fmt[0]}", data[at:at + size])
+    if typ in (5, 10):  # rationals: numerator over denominator
+        vals = tuple(a / b if b else 0.0 for a, b in zip(vals[::2], vals[1::2]))
+    return vals
+
+
+# the tags without which libtiff's TIFFReadDirectory fails where it cannot
+# read them: samples per pixel, compression, the sizes, planar
+# configuration, rows per strip, extra samples, and the per-sample shorts
+_TIFF_LIBTIFF_NEEDS = frozenset((277, 259, 256, 257, 32997, 322, 323, 32998, 284, 278, 338, 258, 280, 281, 32996,
+                                 339))
 # the tags whose entries libtiff reads apart from Pillow for a compressed
 # image: strip and tile offsets and counts, and YCbCrSubsampling
 _TIFF_LIBTIFF_READS = (273, 279, 324, 325, 530)
@@ -1209,13 +1269,36 @@ class _Tiff:
                              f"{'/'.join(map(str, sf))}, extra samples {list(extra)}) are not supported by the port's "
                              "codec (nor by Pillow)")
         self.mode, self.rawmode = _TIFF_MODES[key]
-        if comp not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946):
+        self.sample_format = t.get(339, (1,))[0]  # Pillow's, which its raw mode unpacks
+        self.pillow_tags = t
+        if comp not in (1, 2, 3, 4, 5, 6, 7, 8, 32773, 32946):
             name = _TIFF_COMPRESSION.get(comp, f"type {comp}")
-            kind = "JPEG-in-TIFF" if comp == 6 else "compression"
-            raise ValueError(f"TIFF {kind} ({name}, compression {comp}) is not supported by the port's codec")
-        if comp != 1:  # libtiff drops a one-value tag that holds several, and then fails the decode
+            raise ValueError(f"TIFF compression ({name}, compression {comp}) is not supported by the port's codec")
+        if comp != 1:
+            # Pillow hands the file to libtiff, which reads the IFD on past
+            # an entry where Pillow's reader stopped: Pillow's view gave the
+            # mode and size, libtiff's gives the decode's layout. Where the
+            # two views disagree on the size of a pixel or on YCbCr, Pillow's
+            # unpacker would read libtiff's rows as another layout.
+            for tag, ours in ((258, bps), (262, (photo,)), (277, (spp,))):
+                theirs = t[-5].get(tag)
+                if tag == 262 and 6 not in (*(theirs or ()), photo):
+                    continue
+                if tag == 277 and t.get(284, t[-5].get(284, (1,)))[:1] == (2,):
+                    continue  # separate planes: Pillow reads the first ones, each laid out alike
+                if theirs is not None and tag in t[-1] and tuple(theirs) != tuple(ours):
+                    raise ValueError(f"corrupt TIFF: a damaged IFD that Pillow reads without tag {tag} and libtiff "
+                                     f"reads with it ({list(theirs)}): the two would lay the samples out apart")
+            bad = [tag for tag in t[-6] if tag in _TIFF_LIBTIFF_NEEDS]
+            if bad:
+                raise ValueError(f"corrupt TIFF: tag {bad[0]} cannot be read (its values lie past the file's end, or "
+                                 "of another type): libtiff refuses the IFD")
+            t = {**t[-5], **t}
+            self.tags = t
+            planar, fill = one(284, 1), one(266, 1)
+            # libtiff drops a one-value tag that holds several, and then fails the decode
             for tag in (256, 257, 259, 262, 266, 277, 278, 284, 317, 322, 323):
-                if len(t.get(tag, (0,))) != 1 or tag in t.get(-1, ()):
+                if len(t.get(tag, (0,))) != 1:
                     raise ValueError(f"corrupt TIFF: tag {tag} holds other than the one value libtiff takes")
         if comp in _TIFF_CCITT and bps != (1,):
             raise ValueError(f"corrupt TIFF: CCITT compression of {bps}-bit samples")
@@ -1223,7 +1306,7 @@ class _Tiff:
         self.predictor = one(317, 1)
         if self.predictor not in (1, 2, 3):
             raise ValueError(f"TIFF predictor {self.predictor} is not supported by the port's codec (nor by Pillow)")
-        if self.predictor == 3 and comp in (5, 8, 32946) and sf != (3,):
+        if self.predictor == 3 and comp in (5, 8, 32946) and t.get(339, (1,))[:1] != (3,):
             raise ValueError("corrupt TIFF: the floating-point predictor (3) on integer samples, which libtiff refuses")
         self.big = data[2] == 43
         if comp != 1:  # libtiff reads the offsets and counts: of SLONG8 too, not of IFD or IFD8
@@ -1250,13 +1333,19 @@ class _Tiff:
         n_chunks = self.across * self.down * self.planes
         if comp != 1:  # libtiff's own reading of the offsets and counts
             off_tag, cnt_tag = (324, 325) if 322 in t else (273, 279)
-            if off_tag not in t[-4]:
+            # libtiff's old-style JPEG hack: one strip may lack its offset or
+            # count, the codec's read of it then failing
+            self.strips_read = True
+            if comp == 6 and (off_tag not in t[-4] or cnt_tag not in t[-4]) and n_chunks == 1 and 322 not in t:
+                self.offsets, self.counts, self.strips_read = (0,), (0,), False
+            elif off_tag not in t[-4]:
                 raise ValueError("corrupt TIFF: no strip or tile offsets")
-            self.offsets = _libtiff_values(data, self.bo, self.big, t[-4][off_tag], n_chunks)
-            if cnt_tag in t[-4]:
-                self.counts = _libtiff_values(data, self.bo, self.big, t[-4][cnt_tag], n_chunks)
-            else:  # libtiff's estimate, for the one strip it allows without counts: to the file's end
-                self.counts = tuple(max(len(data) - o, 0) for o in self.offsets)
+            else:
+                self.offsets = _libtiff_values(data, self.bo, self.big, t[-4][off_tag], n_chunks)
+                if cnt_tag in t[-4]:
+                    self.counts = _libtiff_values(data, self.bo, self.big, t[-4][cnt_tag], n_chunks)
+                else:  # libtiff's estimate, for the one strip it allows without counts: to the file's end
+                    self.counts = tuple(max(len(data) - o, 0) for o in self.offsets)
         if len(self.offsets) < n_chunks:
             raise ValueError("corrupt TIFF: fewer strips or tiles than the image needs")
         # libtiff's YCbCrSubsampling, or (JPEGFixupTags) the first JPEG frame's
@@ -1308,9 +1397,10 @@ def _tiff_samples_of(f: _Tiff, data: bytes) -> tuple[np.ndarray, str, np.ndarray
     w, h, cw, ch = f.w, f.h, f.cw, f.ch
     per_chunk = 1 if f.planar == 2 else f.spp
     depth = f.bps[0]
-    sf = f.tags.get(339, (1,))[0]
-    kind = f.bo + ("f" if sf == 3 else "i" if sf == 2 else "u")
-    if f.comp == 7:
+    kind = f.bo + ("f" if f.sample_format == 3 else "i" if f.sample_format == 2 else "u")
+    if f.comp == 6:
+        img = _tiff_ojpeg(f, data)
+    elif f.comp == 7:
         img = _tiff_jpeg_cpu(f, data)
     elif f.comp == 1 and f.photo == 6 and f.rawmode == "RGBX":
         img = _tiff_ycbcr_raw(f, data)
@@ -1353,10 +1443,10 @@ def _tiff_mode_samples(f: _Tiff, px: np.ndarray) -> tuple[np.ndarray, str, np.nd
     """Samples as decoded → samples in the Pillow mode, as Pillow's raw
     mode unpacks them."""
     raw, depth = f.rawmode, f.bps[0]
-    if f.comp == 7 or (f.photo == 6 and f.mode == "RGB"):
+    if f.comp in (6, 7) or (f.photo == 6 and f.mode == "RGB"):
         return px, "RGB", None
     if f.mode == "P" or f.mode == "PA":
-        cmap = np.asarray(f.tags[320], np.int64).reshape(3, -1).T // 256  # Pillow keeps the high byte
+        cmap = np.asarray(f.pillow_tags[320], np.int64).reshape(3, -1).T // 256  # Pillow keeps the high byte
         return px[..., 0], "P", cmap.astype(np.uint8)
     if depth < 8 and f.mode in ("1", "L"):  # 1-, 2- and 4-bit gray, scaled, inverted for WhiteIsZero
         g = px[..., 0] * np.uint8(255 // ((1 << depth) - 1))
@@ -1384,6 +1474,8 @@ def _tiff_mode_samples(f: _Tiff, px: np.ndarray) -> tuple[np.ndarray, str, np.nd
 def _ccitt(f: _Tiff, data: bytes, offset: int, count: int, rows: int) -> np.ndarray:
     """A CCITT strip or tile of ``rows`` rows → [ch, cw, 1] u8 bits, 1 where
     the fax is black (libtiff's raster, which the photometric then reads)."""
+    if offset + count > len(data):
+        raise ValueError("corrupt TIFF: a strip or tile runs past the end of the file")
     raw = np.frombuffer(data[offset:offset + count], np.uint8)
     if f.fill == 2:
         raw = _BIT_REVERSE[raw]
@@ -1440,7 +1532,7 @@ def _tiff_jpeg_check(f: _Tiff, stream: bytes) -> bool:
     if marker in OWN_FRAMES and marker in (0xC3, 0xC7, 0xCB, 0xCF) and ycc:
         raise ValueError("lossless JPEG-in-TIFF in YCbCr is not decoded (nor by Pillow: libjpeg converts no "
                          "colour in lossless mode)")
-    return marker in OWN_FRAMES
+    return marker in OWN_FRAMES or (marker == 0xC2 and _own_takes_sof2(stream))
 
 
 def _tiff_jpeg_own(f: _Tiff, stream: bytes) -> torch.Tensor:
@@ -1481,6 +1573,238 @@ def _tiff_jpeg_cpu(f: _Tiff, data: bytes) -> np.ndarray:
         img[p, r * f.ch:r * f.ch + hh, c * f.cw:(c + 1) * f.cw] = out
     px = img[0] if f.planes == 1 else np.concatenate(list(img), axis=-1)
     return _tiff_jpeg_mode(f, px[:f.h, :f.w])
+
+
+def _ojpeg_stream(f: _Tiff, data: bytes) -> bytes:
+    """The JPEG stream libtiff's old-style JPEG codec (``tif_ojpeg.c``)
+    hands to libjpeg. libtiff reads one
+    byte stream: the ``JPEGInterchangeFormat`` bytes (cut at the file's
+    end), then each strip's (a strip past the file's end skipped, one that
+    runs past it cut there). It parses the markers at its start as
+    ``OJPEGReadHeaderInfoSec`` does (SOI, APPn and COM skipped; DQT, DHT,
+    DRI, SOF0/1/3 and SOS kept), or, where the stream holds no frame, takes
+    the table tags (``JPEGQTables``, ``JPEGDCTables``, ``JPEGACTables``,
+    ``JPEGRestartInterval``, the sampling of ``YCbCrSubsampling``), and
+    writes its own header: SOI, the tables, DRI, SOF, SOS. The rest of the
+    stream follows as the scan's data, an RSTn marker where one strip ends
+    and another follows, then EOI."""
+    t, size = f.tags, len(data)
+    parts, striles = [], []  # striles: each strip's (start, end) in the stream
+    jif = t.get(513, (0,))[0]
+    if 0 < jif < size:
+        n = t.get(514, (0,))[0]
+        parts.append(data[jif:size if n == 0 or jif + n > size else jif + n])
+    for _, _, _, off, count in f.chunks() if f.strips_read else ():
+        start = sum(map(len, parts))
+        if 0 < off < size:
+            parts.append(data[off:size if count == 0 or off + count > size else off + count])
+        striles.append((start, sum(map(len, parts))))
+    buf = b"".join(parts)
+    ends = [sum(map(len, parts[:k + 1])) for k in range(len(parts))]
+    spp = f.spp
+
+    def skip(k):  # OJPEGReadSkip: never past the end of the interchange stream or strip it is in
+        nonlocal pos
+        pos = min(pos + k, min((e for e in ends if e >= pos), default=pos))
+
+    def bad(why):
+        return ValueError(f"corrupt TIFF: an old-style JPEG {why} (libtiff refuses it)")
+
+    pos = 0
+
+    def take(k):
+        nonlocal pos
+        if pos + k > len(buf):
+            raise bad("stream that ends inside its header")
+        pos += k
+        return buf[pos - k:pos]
+
+    word = lambda: struct.unpack(">H", take(2))[0]
+    qtab, dctab, actab = [None] * 4, [None] * 4, [None] * 4
+    restart = t.get(515, (0,))[0]
+    sof = None  # (marker, height, width, [(id, hv, tq)])
+    sos = None  # [(id, tda)]
+    m = 0
+    while m != 0xDA:
+        if pos >= len(buf):  # the first peek finds no data: the header is never read
+            raise bad("stream without data")
+        if buf[pos] != 0xFF:
+            break
+        pos += 1
+        m = take(1)[0]
+        while m == 0xFF:
+            m = take(1)[0]
+        if m == 0xD8:
+            continue
+        if m == 0xFE or 0xE0 <= m <= 0xEF:
+            n = word()
+            if n < 2:
+                raise bad("marker segment shorter than its length")
+            skip(n - 2)
+        elif m == 0xDD:
+            if word() != 4:
+                raise bad("DRI marker")
+            restart = word()
+        elif m == 0xDB:
+            n = word()
+            if n <= 2:
+                raise bad("DQT marker")
+            n -= 2
+            while n > 0:
+                if n < 65:
+                    raise bad("DQT marker")
+                body = take(65)
+                if body[0] & 15 > 3:
+                    raise bad("DQT marker")
+                qtab[body[0] & 15] = b"\xff\xdb\x00\x43" + body
+                n -= 65
+        elif m == 0xC4:
+            n = word()
+            if n <= 2:
+                raise bad("DHT marker")
+            body = take(n - 2)
+            o = body[0]
+            if o >> 4 not in (0, 1) or o & 15 > 3:
+                raise bad("DHT marker")
+            (actab if o >> 4 else dctab)[o & 15] = b"\xff\xc4" + struct.pack(">H", n) + body
+        elif m in (0xC0, 0xC1, 0xC3):
+            if sof is not None:
+                raise bad("stream with a second frame header")
+            n = word()
+            if n < 11 or (n - 8) % 3:
+                raise bad("SOF marker")
+            nc = (n - 8) // 3
+            if nc != spp:
+                raise bad("frame of another number of samples")
+            if take(1)[0] != 8:
+                raise bad("frame of other than 8 bits a sample")
+            height, width = word(), word()
+            if height < f.h or width != f.w:
+                raise bad("frame of another size")
+            if take(1)[0] != nc:
+                raise bad("SOF marker")
+            sof = (m, height, width, [tuple(take(3)) for _ in range(nc)])
+        elif m == 0xDA:
+            if word() != 6 + 2 * spp or take(1)[0] != spp:
+                raise bad("SOS marker")
+            sos = [tuple(take(2)) for _ in range(spp)]
+            skip(3)
+        else:
+            raise bad(f"stream with an unknown marker 0x{m:02x}")
+    if sof is None:  # the table tags
+        ycc = spp == 3 and t.get(262, (6,))[0] == 6 and f.planar == 1
+        hs, vs = t.get(530, (2, 2))[:2] if ycc else (1, 1)
+        sof = (0xC0, f.h, f.w, [(k, (hs << 4 | vs) if k == 0 else 0x11, 0) for k in range(spp)])
+        tq, tda = [0] * spp, [0] * spp
+        for tag, kind in ((519, "q"), (520, 0x00), (521, 0x10)):
+            offs = t.get(tag, (0,) * spp)
+            if len(offs) != spp or offs[0] == 0:  # libtiff sets no table tag of another count
+                raise bad(f"without its tag {tag} (JPEG tables)")
+            for k in range(spp):
+                if offs[k] == 0 or (k and offs[k] == offs[k - 1]):
+                    if kind == "q":
+                        tq[k] = tq[k - 1]
+                    else:
+                        tda[k] = tda[k] | (tda[k - 1] & (0xF0 if kind == 0 else 0x0F))
+                    continue
+                if offs[k] in offs[:max(k - 1, 0)]:
+                    raise bad(f"tag {tag} naming one table for two components")
+                if kind == "q":
+                    body = data[offs[k]:offs[k] + 64]
+                    if len(body) < 64:
+                        raise bad("quantisation table past the end of the file")
+                    qtab[k], tq[k] = b"\xff\xdb\x00\x43" + bytes([k]) + body, k
+                    continue
+                counts = data[offs[k]:offs[k] + 16]
+                values = data[offs[k] + 16:offs[k] + 16 + sum(counts)]
+                if len(counts) < 16 or len(values) < sum(counts):
+                    raise bad("Huffman table past the end of the file")
+                (actab if kind else dctab)[k] = (b"\xff\xc4" + struct.pack(">H", 19 + len(values)) + bytes([kind | k])
+                                                  + counts + values)
+                tda[k] |= k << 4 if kind == 0 else k
+        sof = (sof[0], sof[1], sof[2], [(c, hv, tq[k]) for k, (c, hv, _) in enumerate(sof[3])])
+        sos = [(k, tda[k]) for k in range(spp)]
+    elif sos is None:
+        raise bad("stream without a scan header")
+    marker, height, width, comps = sof
+    out = bytearray(b"\xff\xd8")
+    for table in (*qtab, *dctab, *actab):
+        out += table or b""
+    if restart:
+        out += b"\xff\xdd\x00\x04" + struct.pack(">H", restart)
+    out += bytes([0xFF, marker]) + struct.pack(">HBHHB", 8 + 3 * spp, 8, height, width, spp)
+    for c in comps:
+        out += bytes(c)
+    out += b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp)
+    for c in sos:
+        out += bytes(c)
+    out += b"\x00\x3f\x00"
+    at, rst = pos, 0
+    for k, (start, end) in enumerate(striles):
+        if end > at:
+            out += buf[at:end]
+            at = end
+        if end > start and end > pos and k + 1 < len(striles):  # a strip's data ends and another strip follows
+            out += bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) & 7
+    out += buf[at:]
+    # EOI follows the last strip's data; where the last strip holds none
+    # (or none could be read) libtiff's source fails when libjpeg asks for more
+    ends_well = bool(striles) and striles[-1][1] > striles[-1][0]
+    return bytes(out) + (b"\xff\xd9" if ends_well else b"")
+
+
+def _tiff_ojpeg(f: _Tiff, data: bytes) -> np.ndarray:
+    """Old-style JPEG-in-TIFF (compression 6) as libtiff decodes it and
+    Pillow reads it: the stream of ``_ojpeg_stream`` through the port's
+    own decoder on the host, as libjpeg decodes it for libtiff. Chunky
+    YCbCr comes out as raw, subsampled planes, each chroma sample then
+    standing for its block (the luma's sampling factors, libtiff's
+    corrected YCbCrSubsampling) and converted by libtiff's TIFFYCbCrToRGB,
+    as TIFFRGBAImage does for Pillow; a sampling TIFF cannot hold (chroma
+    other than 1 × 1, luma other than 1, 2 or 4) is upsampled by libjpeg
+    first; one component is read as stored (mode L). → [H, W, 3] RGB."""
+    if f.planar == 2 or 322 in f.tags:
+        raise ValueError("TIFF old-style JPEG in separate planes or tiles is not supported by the port's codec")
+    photo = f.tags.get(262, (6,))[0]
+    if f.spp == 3 and photo != 6:
+        raise ValueError(f"TIFF old-style JPEG of 3 samples in photometric {photo} (not YCbCr) is not supported by "
+                         "the port's codec")
+    if f.spp not in (1, 3):
+        raise ValueError(f"TIFF old-style JPEG of {f.spp} samples is not supported by the port's codec")
+    stream = _ojpeg_stream(f, data)
+    lib = _build.jpeg_own_library()
+    out, dims = ctypes.c_void_p(), np.zeros(20, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    status = lib.mmtrs_jpeg_own_decode_raw(stream, len(stream), MAX_PIXELS, ctypes.addressof(out), dims.ctypes.data,
+                                           ctypes.addressof(msg))
+    if status:
+        raise _own_error(status, msg.value.decode(), dims)
+    h, w, n, delivered = (int(v) for v in dims[:4])
+    comps = [tuple(int(v) for v in dims[4 + 4 * k:8 + 4 * k]) for k in range(n)]
+    total = sum(dh * dw for dh, dw, _, _ in comps)
+    buf = (ctypes.c_ubyte * max(total, 1)).from_address(out.value)
+    flat = np.ctypeslib.as_array(buf)[:total].copy()
+    lib.mmtrs_jpeg_own_free(out)
+    planes, at = [], 0
+    for dh, dw, _, _ in comps:
+        planes.append(flat[at:at + dh * dw].reshape(dh, dw))
+        at += dh * dw
+    if n != f.spp or w != f.w or h < f.h:
+        raise ValueError("corrupt TIFF: an old-style JPEG stream of another size or component count")
+    h = f.h  # libtiff reads the image's rows of a taller frame
+    if n == 1:  # Pillow's mode L, repeated into RGB
+        if delivered >= 0:
+            raise ValueError("corrupt TIFF: an old-style JPEG strip that libtiff cannot read")
+        return np.repeat(planes[0][:h, :, None], 3, -1)
+    (_, _, hs, vs), rest = comps[0], comps[1:]
+    if any((ch, cv) != (1, 1) for _, _, ch, cv in rest) or hs not in (1, 2, 4) or vs not in (1, 2, 4):
+        raise ValueError("TIFF old-style JPEG with a sampling TIFF cannot hold is not supported by the port's codec")
+    rows, cols = np.arange(h) // vs, np.arange(w) // hs
+    ycc = np.stack([planes[0][:h], planes[1][rows][:, cols], planes[2][rows][:, cols]], -1)
+    if delivered >= 0:  # TIFFRGBAImage goes on past libtiff's error: the rows not decoded stay zero
+        ycc[delivered * 8 * vs:] = 0
+    return _tiff_ycbcr_rgb(f.tags, ycc)
 
 
 def _tiff_jpeg_mode(f: _Tiff, px):

@@ -39,10 +39,16 @@ BC1-BC7, CCITT fax) run in C (``csrc/host/rasters.cpp``). Decoded here:
   first frame of BLACK, BRUN, COPY and the LC and SS2 delta chunks) and
   PCD (PhotoCD's 768 × 512 base image, PhotoYCC, turned as it says);
 - PSD's Lab mode and TIFF's CIELab through ``codec.convert_rgb``'s copy of
-  Pillow's LittleCMS transform.
+  Pillow's LittleCMS transform;
+- JPEG 2000 (.jp2 and raw codestreams, and ICNS's JPEG 2000 entries): the
+  codestream through the port's own decoder (``csrc/host/jp2.cpp``, as
+  Pillow's OpenJPEG 2.5.4 decodes it, in strict mode), the JP2 boxes read
+  as Pillow's plugin and OpenJPEG read them, each tile unpacked as
+  Pillow's ``Jpeg2KDecode.c`` unpacks it (precision shifts, the signed
+  offset, its sYCC guess, palettes), then converted.
 
-Refused, with an error that names them: AVIF and JPEG 2000 (each a codec of
-its own), and the formats Pillow identifies but cannot load without
+Refused, with an error that names them: AVIF (a codec of its own), and the
+formats Pillow identifies but cannot load without
 software it lacks (EPS without Ghostscript; WMF/EMF, BUFR, GRIB, HDF5 and
 MPEG, whose plugins are stubs with no handler).
 """
@@ -1738,7 +1744,12 @@ def open_icns(data: bytes) -> Loader:
             if sig.startswith(b"\x89PNG\r\n\x1a\n"):
                 return _decode_png(data[start:]), "RGB", None  # an RGBA image wins over the RGB channels
             if sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) or sig == b"\0\0\0\x0cjP  \r\n\x87\n":
-                raise ValueError("ICNS entries in JPEG 2000 are not supported by the port's codec")
+                # IcnsImagePlugin: the entry opened as a JPEG 2000 file and converted to RGBA
+                loaded = open_jpeg2000(data[start:start + length])()
+                if loaded[1] == "I;16":
+                    raise ValueError("ICNS entries in 16-bit JPEG 2000 are not decoded (nor by Pillow, which cannot "
+                                     "convert I;16 to RGBA)")
+                return loaded
             raise ValueError("corrupt ICNS: an unsupported icon subimage format (nor read by Pillow)")
         if px is None:
             raise ValueError("corrupt ICNS: no RGB resource at the best size")
@@ -1878,6 +1889,434 @@ def open_pcd(data: bytes) -> Loader:
     return load
 
 
+# ---------------------------------------------------------------------------
+# JPEG 2000 (Jpeg2KImagePlugin, Jpeg2KDecode.c over OpenJPEG 2.5.4)
+# ---------------------------------------------------------------------------
+
+_J2K_MAGIC = b"\xff\x4f\xff\x51"
+_JP2_MAGIC = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+# OpenJPEG's colour spaces, as opj_jp2_read_header sets them from colr's EnumCS
+_CS_UNSPECIFIED, _CS_SRGB, _CS_GRAY, _CS_SYCC, _CS_EYCC, _CS_CMYK, _CS_UNKNOWN = 0, 1, 2, 3, 4, 5, -1
+_ENUMCS = {16: _CS_SRGB, 17: _CS_GRAY, 18: _CS_SYCC, 24: _CS_EYCC, 12: _CS_CMYK}
+# Jpeg2KDecode.c's j2k_unpackers: (mode, colour space, components) → unpacker
+_J2K_UNPACKERS = {
+    ("L", _CS_GRAY, 1): "gray", ("P", _CS_SRGB, 1): "gray", ("PA", _CS_SRGB, 2): "graya",
+    ("I;16", _CS_GRAY, 1): "gray_i", ("LA", _CS_GRAY, 2): "graya", ("RGB", _CS_GRAY, 1): "gray",
+    ("RGB", _CS_GRAY, 2): "gray", ("RGB", _CS_SRGB, 3): "srgb", ("RGB", _CS_SYCC, 3): "sycc",
+    ("RGB", _CS_SRGB, 4): "srgb", ("RGB", _CS_SYCC, 4): "sycc", ("RGBA", _CS_GRAY, 1): "gray",
+    ("RGBA", _CS_GRAY, 2): "graya", ("RGBA", _CS_SRGB, 3): "srgb", ("RGBA", _CS_SYCC, 3): "sycc",
+    ("RGBA", _CS_SRGB, 4): "srgb", ("RGBA", _CS_SYCC, 4): "sycc", ("CMYK", _CS_CMYK, 4): "srgb",
+}
+
+
+class _BoxReader:
+    """Jpeg2KImagePlugin.BoxReader: fields and sub-boxes of the JP2 header."""
+
+    def __init__(self, fp: io.BytesIO, length: int = -1):
+        self.fp, self.has_length, self.length, self.remaining = fp, length >= 0, length, -1
+
+    def _can_read(self, n: int) -> bool:
+        if self.has_length and self.fp.tell() + n > self.length:
+            return False
+        return n <= self.remaining if self.remaining >= 0 else True
+
+    def _read(self, n: int) -> bytes:
+        if not self._can_read(n):
+            raise SyntaxError("Not enough data in header")
+        data = self.fp.read(n)
+        if len(data) < n:
+            raise ValueError(f"corrupt JPEG 2000: a header box ends early (Pillow: expected to read {n} bytes but "
+                             f"only got {len(data)})")
+        if self.remaining > 0:
+            self.remaining -= n
+        return data
+
+    def fields(self, fmt: str) -> tuple:
+        return struct.unpack(fmt, self._read(struct.calcsize(fmt)))
+
+    def boxes(self) -> "_BoxReader":
+        n = self.remaining
+        return _BoxReader(io.BytesIO(self._read(n)), n)
+
+    def has_next(self) -> bool:
+        return self.fp.tell() + self.remaining < self.length if self.has_length else True
+
+    def next_type(self) -> bytes:
+        if self.remaining > 0:
+            self.fp.seek(self.remaining, io.SEEK_CUR)
+        self.remaining = -1
+        lbox, tbox = self.fields(">I4s")
+        hlen = 8
+        if lbox == 1:
+            lbox, hlen = self.fields(">Q")[0], 16
+        if lbox < hlen or not self._can_read(lbox - hlen):
+            raise SyntaxError("Invalid header length")
+        self.remaining = lbox - hlen
+        return tbox
+
+
+def _j2k_size_mode(fp: io.BytesIO) -> tuple[tuple[int, int], str]:
+    """Jpeg2KImagePlugin._parse_codestream (after SOC and the SIZ marker)."""
+    hdr = fp.read(2)
+    lsiz = struct.unpack(">H", hdr)[0]
+    siz = hdr + fp.read(lsiz - 2)
+    _, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
+    size = (xsiz - xosiz, ysiz - yosiz)
+    if csiz == 1:
+        mode = "I;16" if (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1 > 8 else "L"
+    elif csiz in (2, 3, 4):
+        mode = {2: "LA", 3: "RGB", 4: "RGBA"}[csiz]
+    else:
+        raise SyntaxError("unable to determine J2K image mode")
+    return size, mode
+
+
+def _jp2_header(fp: io.BytesIO) -> tuple[tuple[int, int], str, np.ndarray | None]:
+    """Jpeg2KImagePlugin._parse_jp2_header: size, mode and palette (P and PA
+    from a pclr box, its colours added as ImagePalette.getcolor adds them)."""
+    reader, header = _BoxReader(fp), None
+    while reader.has_next():
+        if reader.next_type() == b"jp2h":
+            header = reader.boxes()
+            break
+    if header is None:
+        raise ValueError("corrupt JPEG 2000: no jp2h box (Pillow's assertion fails)")
+    size = mode = nc = None
+    palette = None
+    while header.has_next():
+        tbox = header.next_type()
+        if tbox == b"ihdr":
+            height, width, nc, bpc = header.fields(">IIHB")
+            size = (width, height)
+            if nc == 1 and (bpc & 0x7F) > 8:
+                mode = "I;16"
+            else:
+                mode = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode)
+        elif tbox == b"colr" and nc == 4:
+            meth, _, _, enumcs = header.fields(">BBBI")
+            if meth == 1 and enumcs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and mode in ("L", "LA"):
+            ne, npc = header.fields(">HB")
+            if max(header.fields(">" + "B" * npc)) <= 8:
+                colors: dict = {}
+                for _ in range(ne):
+                    color = header.fields(">" + "B" * npc)
+                    if color not in colors:
+                        if len(colors) >= 256:
+                            raise ValueError("corrupt JPEG 2000: a palette of more than 256 colours (Pillow "
+                                             "cannot allocate them)")
+                        colors[color] = len(colors)
+                if npc != 3:
+                    raise ValueError(f"JPEG 2000 palettes of {npc} columns are not supported by the port's codec")
+                palette = np.array(list(colors), np.uint8).reshape(-1, 3)
+                mode = "P" if mode == "L" else "PA"
+        elif tbox == b"res ":
+            res = header.boxes()
+            while res.has_next():
+                if res.next_type() == b"resc":
+                    res.fields(">HHHHBB")
+                    break
+    if size is None or mode is None:
+        raise SyntaxError("Malformed JP2 header")
+    return size, mode, palette
+
+
+def _skip_comment(fp: io.BytesIO) -> None:
+    """Jpeg2KImageFile._parse_comment: its reads, which can fail as Pillow's fail."""
+    while True:
+        marker = fp.read(2)
+        if not marker:
+            break
+        typ = marker[1]
+        if typ in (0x90, 0xD9):
+            break
+        length = struct.unpack(">H", fp.read(2))[0]
+        if typ == 0x64:
+            fp.read(length - 2)
+            break
+        fp.seek(length - 2, io.SEEK_CUR)
+
+
+def _jp2_refuse(why: str) -> ValueError:
+    return ValueError(f"corrupt JPEG 2000: {why} (OpenJPEG refuses it)")
+
+
+def _jp2_image_box(kind: bytes, body: bytes, st: dict) -> None:
+    """OpenJPEG's handlers of the boxes inside jp2h (opj_jp2_read_ihdr, _colr,
+    _bpcc, _pclr, _cmap, _cdef): their checks, and the colour they set."""
+    n = len(body)
+    if kind == b"ihdr":
+        if "nc" in st:
+            return  # a second ihdr is ignored
+        if n != 14:
+            raise _jp2_refuse("an ihdr box of the wrong size")
+        st["nc"] = struct.unpack(">H", body[8:10])[0]
+        if not 1 <= st["nc"] <= 16384:
+            raise _jp2_refuse("an ihdr box with a bad component count")
+        st["bpc"] = body[10]
+    elif kind == b"colr":
+        if "enumcs" in st:
+            return  # boxes after the first are ignored
+        if n < 3:
+            raise _jp2_refuse("a colr box of the wrong size")
+        if body[0] == 1:
+            if n < 7:
+                raise _jp2_refuse("a colr box of the wrong size")
+            st["enumcs"] = struct.unpack(">I", body[3:7])[0]
+        elif body[0] == 2:
+            st["enumcs"] = 0  # an ICC profile: the colour space is read as unspecified
+    elif kind == b"bpcc":
+        if n != st.get("nc", -1):
+            raise _jp2_refuse("a bpcc box of the wrong size")
+    elif kind == b"pclr":
+        if "pclr" in st or n < 3:
+            raise _jp2_refuse("a second or short pclr box")
+        entries, cols = struct.unpack(">HB", body[:3])
+        if not 1 <= entries <= 1024 or cols == 0 or n < 3 + cols:
+            raise _jp2_refuse("a bad pclr box")
+        need = 3 + cols + entries * sum(((b & 0x7F) + 8) >> 3 for b in body[3:3 + cols])
+        if n < need:
+            raise _jp2_refuse("a pclr box shorter than its entries")
+        st["pclr"] = cols
+    elif kind == b"cmap":
+        if "pclr" not in st:
+            raise _jp2_refuse("a cmap box before the pclr box")
+        if "cmap" in st or n < st["pclr"] * 4:
+            raise _jp2_refuse("a second or short cmap box")
+        st["cmap"] = True
+    elif kind == b"cdef":
+        if "cdef" in st:
+            raise _jp2_refuse("a second cdef box")
+        count = struct.unpack(">H", body[:2])[0] if n >= 2 else 0
+        if n < 2 or count == 0 or n < 2 + 6 * count:
+            raise _jp2_refuse("a cdef box of the wrong size")
+        st["cdef"] = True
+
+
+_JP2_IMAGE_BOXES = (b"ihdr", b"colr", b"bpcc", b"pclr", b"cmap", b"cdef")
+
+
+def _jp2_box_header(data: bytes, pos: int, end: int) -> tuple[int, bytes, int] | None:
+    """(length, type, header size) of the box at ``pos`` (length 0: to the
+    end; 1: the 64-bit length after), or None where fewer than 8 bytes are left."""
+    if pos + 8 > end:
+        return None
+    length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+    head = 8
+    if length == 0:
+        length = end - pos
+    elif length == 1:
+        if pos + 16 > end:
+            return None
+        hi, length = struct.unpack(">II", data[pos + 8:pos + 16])
+        if hi:
+            raise _jp2_refuse("a box over 2^32 bytes")
+        head = 16
+    return length, kind, head
+
+
+def _jp2_codestream(data: bytes) -> tuple[bytes, int]:
+    """The codestream and colour space OpenJPEG's JP2 reader takes from a
+    .jp2 file (opj_jp2_read_header_procedure): the signature box first, then
+    ftyp, jp2h (its image boxes checked as OpenJPEG checks them), boxes it
+    does not know skipped, up to the jp2c box, whose body is the codestream."""
+    pos, st, state = 0, {}, []
+    while True:
+        box = _jp2_box_header(data, pos, len(data))
+        if box is None:
+            break
+        length, kind, head = box
+        if kind == b"jp2c":
+            if "jp2h" not in state:
+                raise _jp2_refuse("a codestream box before jp2h")
+            enumcs = st.get("enumcs")
+            return data[pos + head:], _ENUMCS.get(enumcs, _CS_UNKNOWN) if enumcs else _CS_UNKNOWN
+        if length < head:
+            raise _jp2_refuse("a box shorter than its header")
+        body = data[pos + head:pos + length]
+        known = kind in (b"jP  ", b"ftyp", b"jp2h")
+        if known or kind in _JP2_IMAGE_BOXES:
+            if len(body) < length - head:
+                raise _jp2_refuse(f"a {kind!r} box past the end of the file")
+            if kind == b"jP  ":
+                if state or len(body) != 4 or body != b"\r\n\x87\n":
+                    raise _jp2_refuse("a bad signature box")
+            elif kind == b"ftyp":
+                if state != ["jP  "] or len(body) < 8 or (len(body) - 8) % 4:
+                    raise _jp2_refuse("a bad ftyp box")
+            elif kind == b"jp2h":
+                if "ftyp" not in state:
+                    raise _jp2_refuse("a jp2h box before ftyp")
+                at = 0
+                while at < len(body):
+                    sub = _jp2_box_header(body, at, len(body))
+                    if sub is None or sub[0] < sub[2] or sub[0] > len(body) - at:
+                        raise _jp2_refuse("a box inside jp2h of a bad length")
+                    if sub[1] in _JP2_IMAGE_BOXES:
+                        _jp2_image_box(sub[1], body[at + sub[2]:at + sub[0]], st)
+                    at += sub[0]
+                if "nc" not in st:
+                    raise _jp2_refuse("no ihdr box in jp2h")
+            elif "jp2h" in state:  # an image box outside jp2h, read once jp2h is
+                _jp2_image_box(kind, body, st)
+            state.append(kind.decode("latin-1"))
+        else:
+            if not state:
+                raise _jp2_refuse("no signature box first")
+            if state == ["jP  "]:
+                raise _jp2_refuse("no ftyp box second")
+            if len(body) < length - head:
+                raise _jp2_refuse(f"a {kind!r} box past the end of the file")
+        pos += length
+    if "jp2h" not in state:
+        raise _jp2_refuse("no jp2h box")
+    raise _jp2_refuse("no jp2c codestream box")
+
+
+def jpeg2000_tiles(stream: bytes) -> tuple[list, list, list]:
+    """A codestream through the port's own decoder (``csrc/host/jp2.cpp``)
+    → (the image's x0, y0, x1, y1; per component (dx, dy, prec, sgnd); per
+    decoded tile (x0, y0, x1, y1, [[h, w] int32 per component]))."""
+    import ctypes
+
+    lib = _build.jp2_library()
+    out, words, msg = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(256)
+    status = lib.mmtrs_jp2_decode(stream, len(stream), MAX_PIXELS, ctypes.addressof(out), ctypes.addressof(words),
+                                  ctypes.addressof(msg))
+    if status:
+        why = msg.value.decode()
+        if status == 5:
+            raise ValueError(f"JPEG 2000 image exceeds the limit of {MAX_PIXELS} pixels")
+        raise ValueError(why if status == 6 or why.startswith(("corrupt", "truncated")) else
+                         f"corrupt JPEG 2000: {why}")
+    try:
+        w = np.ctypeslib.as_array((ctypes.c_int32 * words.value).from_address(out.value)).copy()
+    finally:
+        lib.mmtrs_jp2_free(out)
+    box, nc = list(w[:4]), int(w[4])
+    comps = [tuple(int(v) for v in w[5 + 4 * c:9 + 4 * c]) for c in range(nc)]
+    pos = 5 + 4 * nc
+    tiles = []
+    pos += 1
+    for _ in range(int(w[pos - 1])):
+        tx0, ty0, tx1, ty1 = (int(v) for v in w[pos + 1:pos + 5])
+        pos += 5
+        planes = []
+        for _ in range(nc):
+            cw, ch = int(w[pos]), int(w[pos + 1])
+            planes.append(w[pos + 2:pos + 2 + cw * ch].reshape(ch, cw))
+            pos += 2 + cw * ch
+        tiles.append((tx0, ty0, tx1, ty1, planes))
+    return box, comps, tiles
+
+
+def _j2k_csiz(prec: int) -> int:
+    size = (prec + 7) >> 3
+    return 4 if size == 3 else size
+
+
+def decode_jpeg2000(stream: bytes, color_space: int, mode: str, size: tuple[int, int],
+                    palette: np.ndarray | None) -> Loaded:
+    """A codestream decoded and unpacked as Pillow's JPEG 2000 decoder does:
+    OpenJPEG's colour space (unspecified or unknown: gray for 1-2
+    components, sRGB for 3-4, sYCC where the second or third is the first
+    subsampled), the unpacker of Pillow's mode, each tile
+    checked against Pillow's size and placed at its offset. A tile's samples
+    go through the byte buffer OpenJPEG fills and Pillow reads (each
+    sample's low 1, 2 or 4 bytes; the buffer kept from tile to tile, zeroed
+    when it grows), and Pillow's unpackers index it with its own strides
+    (``w / dx`` for a subsampled component, the tile's width otherwise)."""
+    box, comps, tiles = jpeg2000_tiles(stream)
+    nc = len(comps)
+    if not 1 <= nc <= 4:
+        raise ValueError(f"JPEG 2000 of {nc} components is not decoded (nor by Pillow)")
+    if (box[2] - box[0], box[3] - box[1]) != tuple(size):
+        raise ValueError("corrupt JPEG 2000: a codestream of another size than the JP2 header's (Pillow refuses it)")
+    if color_space in (_CS_UNSPECIFIED, _CS_UNKNOWN):  # no colr box, an ICC profile or an unknown EnumCS
+        color_space = _CS_GRAY if nc <= 2 else _CS_SRGB
+        # Pillow's guess: a subsampled second or third component (the first
+        # not) is chroma
+        first = next((c for c, (dx, dy, _, _) in enumerate(comps) if (dx, dy) != (1, 1)), None)
+        if nc >= 3 and first in (1, 2):
+            color_space = _CS_SYCC
+    unpack = _J2K_UNPACKERS.get((mode, color_space, nc))
+    if unpack is None or (unpack in ("gray", "gray_i", "graya") and comps[0][:2] != (1, 1)):
+        raise ValueError(f"JPEG 2000 of {nc} components in OpenJPEG colour space {color_space} as mode {mode} is not "
+                         "decoded (nor by Pillow: no unpacker)")
+    w, h = size
+    channels = {"gray": 1, "gray_i": 1, "graya": 2}.get(unpack, min(nc, 4))
+    bits = 16 if unpack == "gray_i" else 8
+    img = np.zeros((h, w, channels), np.uint16 if bits == 16 else np.uint8)
+    csiz = [_j2k_csiz(prec) for _, _, prec, _ in comps]
+    buf = np.zeros(0, np.uint8)
+    for tx0, ty0, tx1, ty1, planes in tiles:
+        x0, y0 = tx0 - box[0], ty0 - box[1]
+        if tx0 < box[0] or ty0 < box[1] or tx1 - box[0] > w or ty1 - box[1] > h or tx0 > tx1 or ty0 > ty1:
+            raise ValueError("corrupt JPEG 2000: a tile outside the image Pillow sized (Pillow refuses it)")
+        th, tw = ty1 - ty0, tx1 - tx0
+        # OpenJPEG's tile buffer: each component's samples, its csiz low bytes each
+        data = b"".join(planes[c].astype("<i4").view(np.uint8).reshape(-1, 4)[:, :csiz[c]].tobytes()
+                        for c in range(nc))
+        need = max(len(data), tw * th * sum(csiz))
+        if len(buf) < need:
+            buf = np.zeros(need, np.uint8)
+        buf[:len(data)] = np.frombuffer(data, np.uint8)
+        # Pillow's strides: the gray unpackers step through the tile's width;
+        # the colour ones through w / dx of each component
+        base = 0
+        yy, xx = np.mgrid[0:th, 0:tw]
+        for c in range(channels):
+            dx, dy, prec, sgnd = comps[c]
+            if unpack in ("gray", "gray_i", "graya"):
+                dx = dy = 1
+            stride = tw // dx
+            at = base + csiz[c] * ((yy // dy) * stride + xx // dx)
+            word = np.zeros((th, tw), np.int64)
+            for k in range(csiz[c]):
+                word |= buf[np.minimum(at + k, len(buf) - 1)].astype(np.int64) << (8 * k)
+            shift = bits - prec
+            offset = (1 << (prec - 1)) if sgnd else 0
+            if shift < 0:
+                offset += 1 << (-shift - 1)
+            x = (word + offset) & 0xFFFFFFFF
+            v = ((x >> -shift) if shift < 0 else (x << shift)) & 0xFFFF
+            img[y0:y0 + th, x0:x0 + tw, c] = v & (0xFFFF if bits == 16 else 0xFF)
+            base += csiz[c] * (tw // dx) * (th // dy)
+    if unpack == "sycc":
+        mode = "YCbCr"
+    elif mode in ("RGB", "RGBA") and unpack in ("gray", "graya"):
+        mode = "L"
+    return img, mode, palette
+
+
+def open_jpeg2000(data: bytes) -> Loader:
+    """Jpeg2KImageFile._open: the codestream's SIZ or the JP2 header."""
+    fp = io.BytesIO(data)
+    sig = fp.read(4)
+    if sig == _J2K_MAGIC:
+        size, mode = _j2k_size_mode(fp)
+        _skip_comment(fp)
+        palette = None
+    else:
+        if sig + fp.read(8) != _JP2_MAGIC:
+            raise SyntaxError("not a JPEG 2000 file")
+        size, mode, palette = _jp2_header(fp)
+        if fp.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
+            fp.seek(struct.unpack(">H", fp.read(2))[0] - 2, io.SEEK_CUR)
+            _skip_comment(fp)
+    _sized("JPEG2000", *size)
+
+    def load() -> Loaded:
+        if sig == _J2K_MAGIC:
+            stream, space = data, _CS_UNSPECIFIED
+        else:
+            stream, space = _jp2_codestream(data)
+        return decode_jpeg2000(stream, space, mode, size, palette)
+
+    return load
+
+
 def _raiser(e: Exception) -> Loader:
     def load() -> Loaded:
         raise ValueError(str(e)) from e
@@ -1928,8 +2367,7 @@ def openers() -> list[tuple[str, Callable[[bytes], bool] | None, Callable[[bytes
         ("GBR", lambda p: len(p) >= 8 and i32be(p) >= 20 and i32be(p, 4) in (1, 2), open_gbr),
         ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1, _refuse("GRIB", stub)),
         ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _refuse("HDF5", stub)),
-        ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51" or p[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n",
-         _refuse("JPEG 2000", "EBCOT and the wavelet transform are not part of it")),
+        ("JPEG2000", lambda p: p[:4] == _J2K_MAGIC or p[:12] == _JP2_MAGIC, open_jpeg2000),
         ("ICNS", lambda p: p[:4] == b"icns", open_icns),
         ("ICO", lambda p: p[:4] == b"\x00\x00\x01\x00", open_ico),
         ("IM", None, open_im),

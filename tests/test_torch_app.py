@@ -80,9 +80,10 @@ def _b64(data: bytes) -> str:
 def _encoded(img: np.ndarray, fmt: str) -> bytes:
     """``img`` as a ``fmt`` upload: Pillow's writers, a CMYK TIFF, a 16-bit
     RGB TIFF (each sample v · 257), an RLE TGA, an RLE PSD, a DXT5 DDS, a
-    lossless JPEG (predictor 1) and an arithmetic-coded 4:2:0 JPEG (the
+    lossless JPEG (predictor 1), an arithmetic-coded 4:2:0 JPEG (the
     system libjpeg's, q75: under Pillow's 64 KiB read block, which the JAX
-    app's stock Pillow needs for an arithmetic-coded file)."""
+    app's stock Pillow needs for an arithmetic-coded file) and JPEG 2000
+    (.jp2, 5/3 or 9/7)."""
     from tests.jpeg_streams import lossless_jpeg
     from tests.test_torch_codec_formats import tiff_bytes
     from tests.test_torch_codec_jpeg import JpegTool
@@ -100,6 +101,11 @@ def _encoded(img: np.ndarray, fmt: str) -> bytes:
                           [px.tobytes()], bo=">")
     if fmt == "PSD":
         return psd_bytes(3, 8, [np.ascontiguousarray(img[..., c]) for c in range(3)], True)
+    if fmt.startswith("JPEG2000"):  # a .jp2: the 5/3 wavelet, or the 9/7 at 20:1
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG2000", **({"irreversible": True, "quality_layers": [20]}
+                                                      if fmt.endswith("97") else {}))
+        return buf.getvalue()
     buf = io.BytesIO()
     pil = Image.fromarray(img)
     kw = {"JPEG": {"quality": 95}, "TGA": {"compression": "tga_rle"}, "DDS": {"pixel_format": "DXT5"}}.get(fmt, {})
@@ -200,7 +206,7 @@ def trained(weights_dir):  # noqa: F811
 
 
 @pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "TIFF_CMYK", "TIFF_16BIT", "TGA", "PSD", "DDS",
-                                 "JPEG_LOSSLESS", "JPEG_ARITH"])
+                                 "JPEG_LOSSLESS", "JPEG_ARITH", "JPEG2000", "JPEG2000_97"])
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_predict_equals_predict_one_and_jax(trained, fmt, with_fields):
     from mmtrs_tpu_torch.utils.codec import decode_image

@@ -16,6 +16,7 @@ are regenerated with ``python -m tests.test_torch_codec_corners``.
 from __future__ import annotations
 
 import io
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -526,9 +527,10 @@ def _sof2_progressive() -> bytes:
     return _save(Image.fromarray(img), "JPEG", quality=90, progressive=True)
 
 
-# The same progressions in Huffman coding (SOF2), which the port leaves to
-# the system libjpeg on the CPU and nvJPEG on the card: recorded, not held
-# equal to Pillow (ROADMAP, Queue 3)
+# The same progressions in Huffman coding (SOF2): their scan headers leave
+# coefficients that libjpeg smooths, so the port's own decoder takes them on
+# both devices (their ids, ``record_sof2_*``, are those they had when the
+# system libjpeg's decode was only recorded)
 SOF2_RECORDED = {"dc_only": range(1), "first2": range(2), "first4": range(4), "first6": range(6),
                  "no_dc_refine": {0, 1, 2, 3, 4, 5, 7, 8, 9}}
 
@@ -545,6 +547,124 @@ def _smoothed_corners() -> dict[str, bytes]:
         out[f"smooth_prog420_h37_{name}.jpg"] = drop_scans(_with_height(_jpeg_golden("arith_420_prog.jpg"), 37),
                                                            set(keep))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Old-style JPEG-in-TIFF (compression 6)
+# ---------------------------------------------------------------------------
+
+
+def jpeg_parts(j: bytes) -> tuple[dict, list, int, bytes]:
+    """A baseline JPEG's tables ({("q" | "dc" | "ac", id): DQT body or DHT
+    counts and values}), its components [(id, hv, tq, td, ta)], restart
+    interval and entropy-coded data (without EOI)."""
+    pos, tables, restart, sof = 2, {}, 0, []
+    while True:
+        m, size = j[pos + 1], struct.unpack(">H", j[pos + 2:pos + 4])[0]
+        seg = j[pos + 4:pos + 2 + size]
+        if m == 0xDB:
+            for k in range(0, len(seg), 65):
+                tables[("q", seg[k] & 15)] = seg[k + 1:k + 65]
+        elif m == 0xC4:
+            k = 0
+            while k < len(seg):
+                n = sum(seg[k + 1:k + 17])
+                tables[("ac" if seg[k] >> 4 else "dc", seg[k] & 15)] = seg[k + 1:k + 17 + n]
+                k += 17 + n
+        elif m == 0xDD:
+            restart = struct.unpack(">H", seg[:2])[0]
+        elif m == 0xC0:
+            sof = [(seg[6 + 3 * i], seg[7 + 3 * i], seg[8 + 3 * i]) for i in range(seg[5])]
+        elif m == 0xDA:
+            sel = {seg[1 + 2 * i]: seg[2 + 2 * i] for i in range(seg[0])}
+            comps = [(cid, hv, tq, sel[cid] >> 4, sel[cid] & 15) for cid, hv, tq in sof]
+            return tables, comps, restart, j[pos + 2 + size:-2]
+        pos += 2 + size
+
+
+def ojpeg_tiff(img: np.ndarray, layout: str, subsampling: str = "4:2:0", strip_rows: int | None = None,
+               bo: str = "<", proc: int | None = None) -> bytes:
+    """An old-style JPEG-in-TIFF of ``img`` (gray or RGB) from a Pillow
+    JPEG, in one of libtiff's layouts: "whole" (JPEGInterchangeFormat and
+    the one strip both at the whole JPEG), "head" (JPEGInterchangeFormat
+    at the JPEG's header up to its scan, the entropy-coded data in the
+    strips) or "tables" (JPEGProc ``proc``, JPEGQTables, JPEGDCTables,
+    JPEGACTables, JPEGRestartInterval and YCbCrSubsampling, the data in
+    the strips). ``strip_rows``: strips of that many rows, each a restart
+    interval whose RST marker libtiff puts back."""
+    gray = img.ndim == 2
+    kw = {"quality": 85} if gray else {"quality": 85, "subsampling": subsampling}
+    h, w = img.shape[:2]
+    if strip_rows:
+        kw["restart_marker_rows"] = strip_rows // (8 if gray or subsampling != "4:2:0" else 16)
+    j = _save(Image.fromarray(img), "JPEG", **kw)
+    n = 1 if gray else 3
+    tags = {259: (3, [6]), 262: (3, [1 if gray else 6]), 277: (3, [n]), 258: (3, [8] * n)}
+    if strip_rows:
+        tags[278] = (4, [strip_rows])
+    tables, comps, restart, body = jpeg_parts(j)
+    strips = re.split(rb"\xff[\xd0-\xd7]", body) if strip_rows else [body]
+    if layout == "whole":
+        tags[513], tags[514] = (4, [0]), (4, [len(j)])
+        tags[513] = (4, [tiff_bytes(w, h, tags, [j], bo).find(j)])
+        return tiff_bytes(w, h, tags, [j], bo)
+    if layout == "head":
+        head = j[:len(j) - len(body) - 2]
+        tags[513], tags[514] = (4, [0]), (4, [len(head)])
+        tags[513] = (4, [len(tiff_bytes(w, h, tags, strips, bo))])
+        return tiff_bytes(w, h, tags, strips, bo) + head
+    tags[512] = (3, [proc or 1])
+    if restart:
+        tags[515] = (3, [restart])
+    if not gray:
+        tags[530] = (3, [comps[0][1] >> 4, comps[0][1] & 15])
+    blob, at = b"", {}
+    for key in sorted(tables, key=str):
+        at[key] = len(blob)
+        blob += tables[key] + b"\0" * (len(tables[key]) & 1)
+    for tag in (519, 520, 521):
+        tags[tag] = (4, [0] * n)
+    base = len(tiff_bytes(w, h, tags, strips, bo))
+    for tag, kind, k in ((519, "q", 2), (520, "dc", 3), (521, "ac", 4)):
+        tags[tag] = (4, [base + at[(kind, c[k])] for c in comps])
+    return tiff_bytes(w, h, tags, strips, bo) + blob
+
+
+def _ojpeg_image(h: int, w: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramp = np.stack([xx * 5 + yy, yy * 4 + 40, (xx + yy) * 3], -1)
+    return (ramp + rng.integers(-12, 12, (h, w, 3))).clip(0, 255).astype(np.uint8)
+
+
+def _ojpeg_corners() -> dict[str, bytes]:
+    """Both of libtiff's layouts (the interchange stream, whole or its
+    header alone, and the table tags) at gray, 4:4:4, 4:2:2 and 4:2:0, a
+    restart interval over several strips, big-endian."""
+    img, tall = _ojpeg_image(37, 45, 70), _ojpeg_image(64, 48, 71)
+    out = {}
+    for layout in ("whole", "head", "tables"):
+        out[f"ojpeg_{layout}_gray.tif"] = ojpeg_tiff(img[..., 1], layout)
+        for sub in ("4:4:4", "4:2:2", "4:2:0"):
+            out[f"ojpeg_{layout}_{sub.replace(':', '')}.tif"] = ojpeg_tiff(img, layout, sub)
+    for layout in ("head", "tables"):
+        out[f"ojpeg_{layout}_420_restart_4_strips.tif"] = ojpeg_tiff(tall, layout, "4:2:0", strip_rows=16)
+        out[f"ojpeg_{layout}_444_restart_8_strips.tif"] = ojpeg_tiff(tall, layout, "4:4:4", strip_rows=8)
+    out["ojpeg_tables_422_big_endian.tif"] = ojpeg_tiff(img, "tables", "4:2:2", bo=">")
+    out["ojpeg_tables_proc14.tif"] = ojpeg_tiff(img, "tables", proc=14)  # libtiff writes a baseline frame anyway
+    return out
+
+
+def _ojpeg_refused() -> dict[str, tuple[bytes, str]]:
+    img = _ojpeg_image(37, 45, 72)
+    tables = ojpeg_tiff(img, "tables")
+    no_qtables = tables.replace(struct.pack("<HHI", 519, 4, 3), struct.pack("<HHI", 65000, 4, 3))
+    head = ojpeg_tiff(img, "head")
+    return {
+        "ojpeg_interchange_cut": (head[:-200], "old-style JPEG"),
+        "ojpeg_strips_cut": (ojpeg_tiff(img, "tables")[:700], "TIFF"),
+        "ojpeg_without_qtables": (no_qtables, "tag 519"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -587,7 +707,7 @@ def golden_files() -> dict[str, bytes]:
     """Every golden file, by name."""
     out = {}
     for part in (_tiff_corners(), _lab_corners(), _iptc_corners(), _fli_corners(), _jpeg_tiff_corners(), _smoothed_corners(),
-                 _sof2_recorded(), _pcd_corners()):
+                 _sof2_recorded(), _pcd_corners(), _ojpeg_corners()):
         out.update(part)
     return out
 
@@ -595,7 +715,8 @@ def golden_files() -> dict[str, bytes]:
 def refused_files() -> dict[str, tuple[bytes, str]]:
     """Variants Pillow refuses too, and the words the port's error holds."""
     out = {}
-    for part in (_tiff_refused(), _lab_refused(), _iptc_refused(), _fli_refused(), _jpeg_tiff_refused(), _pcd_refused()):
+    for part in (_tiff_refused(), _lab_refused(), _iptc_refused(), _fli_refused(), _jpeg_tiff_refused(), _pcd_refused(),
+                 _ojpeg_refused()):
         out.update(part)
     return out
 
@@ -667,16 +788,34 @@ def test_golden_decodes_and_sniffs_as_pillow(goldens, name):
 
 
 @pytest.mark.parametrize("name", _golden_names(recorded=True))
-def test_sof2_progressions_on_the_cpu_route_are_recorded(goldens, name):
-    """Huffman progressive frames with the smoothed progressions: the CPU
-    route (the system libjpeg-turbo 2.1.5) is within 4 levels of Pillow's
-    libjpeg-turbo 3.1.3, equal where the luma AC is refined (measured: 4
-    levels on the DC scan alone, 1 on the prefixes of 2-6 scans, 0 without
-    the DC refinement alone)."""
+def test_sof2_progressions_on_the_cpu_route_equal_pillow(goldens, name):
+    """Huffman progressive frames with the smoothed progressions: routed to
+    the port's own decoder from their scan headers, and equal to Pillow's
+    libjpeg-turbo 3.1.3 bit for bit."""
+    from mmtrs_tpu_torch.utils.codec import jpeg_goes_own
+
     data = goldens[name].tobytes()
-    got, want = _port(data).astype(int), goldens[f"{name}.pil"].astype(int)
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= (0 if "no_dc_refine" in name else 4)
+    assert jpeg_goes_own(data)
+    np.testing.assert_array_equal(_port(data), goldens[f"{name}.pil"])
+
+
+def test_sof2_route_is_read_from_the_scan_headers():
+    """A whole progression (every coefficient refined to its last bit) and
+    baseline frames stay with libjpeg and nvJPEG; a progression cut short,
+    a smoothed one with restarts, a gray one and one whose AC bands stop at
+    coefficient 5 go to the own decoder and equal Pillow."""
+    from mmtrs_tpu_torch.utils.codec import jpeg_goes_own
+
+    src = _sof2_progressive()
+    assert not jpeg_goes_own(src)
+    assert not jpeg_goes_own(_save(Image.fromarray(np.zeros((16, 16, 3), np.uint8)), "JPEG"))
+    img = np.asarray(Image.open(io.BytesIO(src)))
+    cases = [drop_scans(src, {0, 1, 2, 3, 4, 5, 6, 7, 8}),
+             drop_scans(_save(Image.fromarray(img), "JPEG", progressive=True, restart_marker_blocks=2), {0, 1, 2}),
+             drop_scans(_save(Image.fromarray(img[..., 0]), "JPEG", progressive=True), {0, 1})]
+    for data in cases:
+        assert jpeg_goes_own(data)
+        np.testing.assert_array_equal(_port(data), _pillow(data)[1])
 
 
 @pytest.mark.parametrize("case", sorted(refused_files()))
@@ -711,44 +850,29 @@ def _mutations(data: bytes, seed: int, n: int = 24) -> list[bytes]:
     return out
 
 
-MUTATED = ["tiff_p3", "bigtiff", "tiff_lab", "psd_lab", "iptc_", "fli_", "jit_", "smooth_"]
-
-
-def _ifd_cut_short(data: bytes) -> bool:
-    """True for a TIFF whose IFD holds an entry with values past the file's
-    end before a tag libtiff needs: Pillow's tag reader stops there and
-    libtiff's reads on, so the two disagree on the image's layout; the port
-    refuses it by name (ROADMAP, Queue 3)."""
-    from mmtrs_tpu_torch.utils.codec import _tiff_tags
-
-    try:
-        return data[:2] in (b"II", b"MM") and bool(_tiff_tags(data)[1].get(-1))
-    except (ValueError, struct.error):
-        return False
+MUTATED = ["tiff_p3", "bigtiff", "tiff_lab", "psd_lab", "iptc_", "fli_", "jit_", "smooth_", "record_sof2", "ojpeg_"]
 
 
 @pytest.mark.parametrize("family", MUTATED)
 def test_mutated_files_agree_with_pillow(goldens, family):
     """Cut and mutated goldens of each family: where Pillow decodes, the
     port's decode is equal; where Pillow raises, the port raises a
-    ValueError. A TIFF whose damaged IFD Pillow and libtiff read apart
-    (``_ifd_cut_short``) may be refused where Pillow decodes it."""
-    names = [n for n in _golden_names() if n.startswith(family)]
+    ValueError. A TIFF whose damaged IFD Pillow and libtiff read apart is
+    held to Pillow too."""
+    names = [n for n in _golden_names() + _golden_names(recorded=True) if n.startswith(family)]
     bad = []
     for i, n in enumerate(names[:4]):
         for data in _mutations(goldens[n].tobytes(), i):
             want = _pillow_or_none(data)
             try:
                 got = _port(data)
-            except ValueError as e:
+            except ValueError:
                 got = None
-                if want is not None and _ifd_cut_short(data) and "holds other than the one value" in str(e):
-                    continue
             if want is None and got is not None:
-                bad.append(("port decodes, Pillow raises", n))
+                bad.append(("port decodes, Pillow raises", n, data))
             elif want is not None and (got is None or got.shape != want[1].shape or not np.array_equal(got, want[1])):
-                bad.append(("differs" if got is not None else "port raises, Pillow decodes", n))
-    assert bad == [], bad[:3]
+                bad.append(("differs" if got is not None else "port raises, Pillow decodes", n, data))
+    assert bad == [], [b[:2] for b in bad[:3]]
 
 
 if __name__ == "__main__":

@@ -438,13 +438,14 @@ def test_own_frames_never_reach_libjpeg_or_nvjpeg(monkeypatch):
 
 
 def test_frame_walk_agrees_with_the_decoder():
-    """``jpeg_frame_marker``, which routes a JPEG, sends a file to the own
+    """``jpeg_goes_own``, which routes a JPEG (its frame marker, and for a
+    Huffman progressive frame its scan headers), sends a file to the own
     decoder exactly when the decoder's own parse does not leave it to
     libjpeg (status 1)."""
     import ctypes
 
     from mmtrs_tpu_torch import _build
-    from mmtrs_tpu_torch.utils.codec import OWN_FRAMES, jpeg_frame_marker
+    from mmtrs_tpu_torch.utils.codec import jpeg_goes_own
 
     lib = _build.jpeg_own_library()
     buf = io.BytesIO()
@@ -456,7 +457,7 @@ def test_frame_walk_agrees_with_the_decoder():
         status = lib.mmtrs_jpeg_own_decode(data, len(data), 0, ctypes.addressof(out), dims.ctypes.data,
                                            ctypes.addressof(msg))
         lib.mmtrs_jpeg_own_free(out)
-        assert (jpeg_frame_marker(data) in OWN_FRAMES) == (status != 1), (name, status, msg.value)
+        assert jpeg_goes_own(data) == (status != 1), (name, status, msg.value)
 
 
 CUT_AND_MUTATED = ["lossless_p7_restart2.jpg", "lossless_420.jpg", "arith_420_restart3.jpg", "arith_422_prog.jpg",

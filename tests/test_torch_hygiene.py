@@ -430,10 +430,30 @@ def test_jpeg_decoder_is_the_ports_own_code():
     bundled libraries or looks a libjpeg up with ``find_library``."""
     includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]',
                           (ROOT / "mmtrs_tpu_torch" / "csrc" / "host" / "jpeg.cpp").read_text(), re.M)
-    assert includes == ["algorithm", "cstdint", "cstdio", "cstdlib", "cstring", "string", "vector"]
+    assert includes == ["algorithm", "cstdint", "cstdio", "cstdlib", "cstring", "memory", "string", "vector"]
     build = (ROOT / "mmtrs_tpu_torch" / "_build.py").read_text()
     assert '_build_host("mmtrs_jpeg_own", "jpeg.cpp", [_gxx(), *HOST_FLAGS], ())' in build
     pat = re.compile(r"pillow\.libs|find_library\(\s*[\"'](?:lib)?(?:turbo)?jpeg", re.M)
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py"))
+            for m in pat.finditer(p.read_text())]
+    assert hits == []
+
+
+def test_jp2_decoder_is_the_ports_own_code():
+    """The JPEG 2000 decoder is the port's C++: ``jp2.cpp`` includes the
+    standard library alone (its threads too), its library is built with
+    g++ (float contraction off, for OpenJPEG's 9/7 roundings) and links
+    nothing, and
+    no module of the port names Pillow's bundled libraries or looks an
+    OpenJPEG up; ``tests/jp2_streams.py``, the one user of the wheel's
+    libopenjp2, is imported by tests alone."""
+    includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]',
+                          (ROOT / "mmtrs_tpu_torch" / "csrc" / "host" / "jp2.cpp").read_text(), re.M)
+    assert includes == ["algorithm", "atomic", "climits", "cmath", "cstdint", "cstdio", "cstdlib", "cstring", "memory",
+                        "mutex", "string", "thread", "vector"]
+    build = (ROOT / "mmtrs_tpu_torch" / "_build.py").read_text()
+    assert '_build_host("mmtrs_jp2", "jp2.cpp", [_gxx(), *HOST_FLAGS, "-ffp-contract=off", "-pthread"], ())' in build
+    pat = re.compile(r"pillow\.libs|libopenjp2|find_library\(\s*[\"'](?:lib)?openjp|jp2_streams")
     hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py"))
             for m in pat.finditer(p.read_text())]
     assert hits == []

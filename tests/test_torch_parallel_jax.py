@@ -102,7 +102,7 @@ def test_two_ranks_match_jax_two_device_mesh(tmp_path):
                             env=forced_cpu_env(2), cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
-        launch(2, "tests.test_torch_parallel_jax", ["port", tmp_path], timeout=300, workdir=tmp_path)
+        launch(2, "tests.test_torch_parallel_jax", ["port", tmp_path], device="cpu", timeout=300, workdir=tmp_path)
     finally:
         _, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, err[-4000:]

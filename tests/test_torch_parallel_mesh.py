@@ -124,7 +124,7 @@ def ranks(tmp_path_factory):
     from mmtrs_tpu_torch.parallel.dryrun import launch
 
     out = tmp_path_factory.mktemp("ranks")
-    launch(2, "tests.test_torch_parallel_mesh", ["helpers", out], timeout=300, workdir=out)
+    launch(2, "tests.test_torch_parallel_mesh", ["helpers", out], device="cpu", timeout=300, workdir=out)
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
 
 
@@ -245,7 +245,7 @@ def test_failing_rank_fails_the_launch(tmp_path):
     from mmtrs_tpu_torch.parallel.dryrun import launch
 
     with pytest.raises(RuntimeError, match="rank 1 of 2(.|\n)*a planted failure in rank 1"):
-        launch(2, "tests.test_torch_parallel_mesh", ["fail", tmp_path], timeout=120, workdir=tmp_path)
+        launch(2, "tests.test_torch_parallel_mesh", ["fail", tmp_path], device="cpu", timeout=120, workdir=tmp_path)
 
 
 def test_backends_are_explicit():
@@ -260,6 +260,21 @@ def test_backends_are_explicit():
         make_group(1, 0, "nccl", "unused", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         make_group(1, 0, "mpi", "unused")
+
+
+def test_launch_and_spawn_default_to_the_card(monkeypatch, tmp_path):
+    """With no ``device``, ``launch`` and ``spawn`` take the card, and raise
+    by name where none is visible, before any rank starts."""
+    import torch
+
+    from mmtrs_tpu_torch.parallel.dryrun import launch, spawn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch(2, "tests.test_torch_parallel_mesh", ["fail", tmp_path], workdir=tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(2, out=tmp_path)
+    assert not list(tmp_path.iterdir())
 
 
 def test_dryrun_multichip_on_cpu(capsys):
