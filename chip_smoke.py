@@ -2774,6 +2774,89 @@ def _tiled_codestream(jp2: bytes, across: int, down: int) -> bytes:
     return bytes(head) + parts + b"\xff\xd9"
 
 
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _fullbox(kind: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+
+def _avif_file(items: list[dict], primary: int | None, refs: list = (), brand: bytes = b"avif") -> bytes:
+    """An AVIF (HEIF) file of ``items``: each a dict of ``id``, ``type``,
+    ``data``, ``props`` (whole property boxes; ``av1C``, ``irot``, ``imir``
+    and ``clap`` marked essential) and ``idat`` (its data in the idat box,
+    iloc construction method 1); ``refs``: (kind, from, [to...]); no pitm
+    where ``primary`` is None. The items' data follow in one mdat box."""
+    props, assoc = [], []
+    for it in items:
+        idx = []
+        for prop in it["props"]:
+            if prop not in props:
+                props.append(prop)
+            essential = prop[4:8] in (b"av1C", b"irot", b"imir", b"clap")
+            idx.append((props.index(prop) + 1) | (0x80 if essential else 0))
+        assoc.append(struct.pack(">HB", it["id"], len(idx)) + bytes(idx))
+    hdlr = _fullbox(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    pitm = _fullbox(b"pitm", 0, 0, struct.pack(">H", primary)) if primary is not None else b""
+    infe = b"".join(_fullbox(b"infe", 2, 1 if it.get("hidden") else 0, struct.pack(">HH", it["id"], 0) + it["type"]
+                             + b"\0") for it in items)
+    iinf = _fullbox(b"iinf", 0, 0, struct.pack(">H", len(items)) + infe)
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props)) + _fullbox(b"ipma", 0, 0, struct.pack(">I", len(items))
+                                                                       + b"".join(assoc)))
+    iref = _fullbox(b"iref", 0, 0, b"".join(_box(kind, struct.pack(">HH", src, len(dst)) + b"".join(
+        struct.pack(">H", d) for d in dst)) for kind, src, dst in refs)) if refs else b""
+    idat_items = [it for it in items if it.get("idat")]
+    idat = _box(b"idat", b"".join(it["data"] for it in idat_items)) if idat_items else b""
+    ftyp = _box(b"ftyp", brand + bytes(4) + b"avifmif1miaf")
+
+    def meta(offsets: dict) -> bytes:
+        rows = b"".join(struct.pack(">HHHHII", it["id"], 1 if it.get("idat") else 0, 0, 1, offsets.get(it["id"], 0),
+                                    len(it["data"])) for it in items)
+        iloc = _fullbox(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", len(items)) + rows)
+        return _fullbox(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iprp + iref + idat)
+
+    head = len(ftyp) + len(meta({})) + 8
+    offsets, at, idat_at = {}, head, 0
+    for it in items:
+        if it.get("idat"):
+            offsets[it["id"]], idat_at = idat_at, idat_at + len(it["data"])
+        else:
+            offsets[it["id"]], at = at, at + len(it["data"])
+    mdat = _box(b"mdat", b"".join(it["data"] for it in items if not it.get("idat")))
+    return ftyp + meta(offsets) + mdat
+
+
+def _avif_item(avif_bytes: bytes) -> tuple[bytes, list[bytes]]:
+    """The primary item's AV1 data and property boxes of a one-item AVIF."""
+    from mmtrs_tpu_torch.utils.avif import Container
+
+    c = Container(avif_bytes)
+    item = c.items[c.primary]
+    props = [avif_bytes[p0 - 8:p1] for t, (p0, p1) in item.props.items()]
+    props += [avif_bytes[p0 - 8:p1] for p0, p1 in item.colr]
+    return c.data(item), props
+
+
+def _avif_grid(tiles: list[bytes], across: int, down: int, size: tuple[int, int] | None = None) -> bytes:
+    """An AVIF whose primary item is a grid of ``across`` × ``down`` tiles:
+    one-item AVIFs, in raster order (one alone is copied into every cell),
+    alike in size and AV1 configuration; ``size``: the grid's output (w, h),
+    the whole mosaic by default."""
+    parts = [_avif_item(t) for t in (tiles if len(tiles) > 1 else tiles * (across * down))]
+    tile_props = parts[0][1]
+    ispe = next(p for p in tile_props if p[4:8] == b"ispe")
+    tw, th = struct.unpack(">II", ispe[12:20])
+    w, h = size or (tw * across, th * down)
+    grid = bytes([0, 1, down - 1, across - 1]) + struct.pack(">II", w, h)
+    grid_props = [_fullbox(b"ispe", 0, 0, struct.pack(">II", w, h))] + [p for p in tile_props
+                                                                         if p[4:8] in (b"pixi", b"colr")]
+    items = [{"id": 1, "type": b"grid", "data": grid, "props": grid_props, "idat": True}]
+    items += [{"id": k + 2, "type": b"av01", "data": data, "props": props, "hidden": True}
+              for k, (data, props) in enumerate(parts)]
+    return _avif_file(items, 1, [(b"dimg", 1, [k + 2 for k in range(len(parts))])])
+
+
 def _ojpeg_files(torch, dev, rgb: np.ndarray) -> dict[str, bytes]:
     """``rgb`` as old-style JPEG-in-TIFF in libtiff's two layouts, written
     without Pillow from nvJPEG's 4:2:0 stream: its JPEGInterchangeFormat and
@@ -2884,6 +2967,66 @@ def _jp2_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
     return {**out, "goldens_exact": exact, "goldens_refused": refused, "uploads": uploads}
 
 
+# AVIF (the port's own AV1 decoder and libyuv's conversion): the goldens
+# (Pillow's decodes stored), and the card's uploads of the phone photo, at
+# Pillow's defaults (4:2:0, speed 6, quality 75), 4:4:4, 4:0:0 and in two
+# tiles, plus a 512 x 384 tile whose 2 x 2 grid of copies is an upload too;
+# the default upload's 4 x 4 grid of copies is the 12 MP file
+AVIF_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif_goldens.npz"
+AVIF_UPLOADS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif_uploads.npz"
+AVIF_UPLOAD_FILES = {"avif_420": "upload_default_1024x768.avif", "avif_444": "upload_444_1024x768.avif",
+                     "avif_400": "upload_400_1024x768.avif", "avif_two_tiles": "upload_two_tiles_1024x768.avif"}
+AVIF_GRID_TILE = "upload_grid_tile_512x384.avif"
+
+
+def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
+    """AVIF on the card's machine (no Pillow): every golden decoded to the
+    card and on the CPU route equal to Pillow's stored decode; the median
+    ms of the decode of a 12 MP grid (4 x 4 copies of the default upload),
+    whose planes hold the upload's in each cell (the conversion's chroma
+    upsampling runs across the cells, as libavif's does); the uploads."""
+    from mmtrs_tpu_torch.utils.codec import decode_image
+
+    exact, on_card = 0, True
+    with np.load(AVIF_GOLDENS) as z:
+        files = {f: z[f] for f in z.files}
+    for name in sorted(f for f in files if not f.endswith(".pil")):
+        data = files[name].tobytes()
+        want = torch.from_numpy(files[f"{name}.pil"])
+        got = decode_image(data, dev)
+        on_card &= got.device.type == "cuda"
+        if not (torch.equal(got.cpu(), want) and torch.equal(decode_image(data, "cpu"), want)):
+            raise AssertionError(f"AVIF golden {name}: not equal to Pillow's decode on both routes")
+        exact += 1
+    _check(on_card and exact >= 25,
+           f"{exact} AVIF goldens decoded to the card and on the CPU route equal to Pillow's decode (4:2:0/4:2:2/"
+           "4:4:4/4:0:0, speeds 2-10, qualities 10-100, tiles, 128 superblocks, lossless, delta q and lf, filter "
+           "intra, 64-point transforms, grids, irot/imir/clap, alpha, limited range)")
+    with np.load(AVIF_UPLOADS) as z:
+        up = {f: z[f].tobytes() for f in z.files}
+    from mmtrs_tpu_torch.utils.avif import planes_of
+
+    upload = up[AVIF_UPLOAD_FILES["avif_420"]]
+    big, last = _avif_grid([upload], 4, 4), {}
+    out = {"avif_12mp_grid_ms": _median_ms(torch, lambda: last.update(got=decode_image(big, dev)))}
+    got = last["got"]
+    tile, grid = planes_of(upload)[0], planes_of(big)[0]
+    same = all(np.array_equal(g.reshape(4, t.shape[0], 4, t.shape[1]).transpose(0, 2, 1, 3),
+                              np.broadcast_to(t, (4, 4) + t.shape)) for g, t in zip(grid, tile))
+    _check(same and got.device.type == "cuda" and torch.equal(got.cpu(), decode_image(big, "cpu")),
+           f"a {tuple(got.shape)} AVIF grid of 16 copies of the 1024x768 upload decodes to the card: its planes "
+           "are the upload's in each cell, its RGB (converted on the card) the CPU route's")
+    print(f"  12 MP AVIF grid decodes to the card: {out['avif_12mp_grid_ms']:.2f} ms (the host decode on up to 8 "
+          f"threads, the conversion, then the copy; host clock, median of 3, each ending in a synchronise; {smi})")
+    uploads = {k: up[v] for k, v in AVIF_UPLOAD_FILES.items()}
+    uploads["avif_grid"] = _avif_grid([up[AVIF_GRID_TILE]], 2, 2)
+    for fam, raw in uploads.items():
+        got = decode_image(raw, dev)
+        _check(got.device.type == "cuda" and tuple(got.shape) == phone.shape,
+               f"the {fam} upload ({len(raw)} bytes) decodes to the card: {tuple(got.shape)}")
+    return {**out, "goldens_exact": exact, "uploads": uploads}
+
+
 def phase_entry_points(torch, dev, smi: str, archive_ips: float):
     """Phase 9, run by phase 8 on its service (``then``)."""
     import tempfile
@@ -2917,14 +3060,19 @@ def phase_entry_points(torch, dev, smi: str, archive_ips: float):
         jp2 = _jp2_checks(torch, dev, smi, phone)
         corner_uploads.update(jp2.pop("uploads"))
         jp2["seconds"] = time.perf_counter() - t_jp2
+        t_avif = time.perf_counter()
+        avif = _avif_checks(torch, dev, smi, phone)
+        corner_uploads.update(avif.pop("uploads"))
+        avif["seconds"] = time.perf_counter() - t_avif
         served = _app_check(torch, dev, svc, uploads, fields, results, smi, new_uploads, corner_uploads)
         seconds = time.perf_counter() - t_phase
         print(f"  phase 9 took {seconds:.1f} s ({formats['seconds']:.1f} s of it the other Pillow formats' goldens, "
               f"12 MP decodes and warps, {jpeg['seconds']:.1f} s the own JPEG decoder's goldens, 12 MP decodes and "
               f"CLI run, {corners['seconds']:.1f} s the format corners' goldens and 12 MP decodes, "
-              f"{jp2['seconds']:.1f} s JPEG 2000's goldens and 12 MP decodes; their uploads are in the app's part)")
+              f"{jp2['seconds']:.1f} s JPEG 2000's goldens and 12 MP decodes, {avif['seconds']:.1f} s AVIF's goldens "
+              "and 12 MP grid; their uploads are in the app's part)")
         return {"codec": codec, "cli": cli, "webp": webp, "formats": formats, "jpeg": jpeg, "corners": corners,
-                "jp2": jp2, "app": served, "seconds": seconds}
+                "jp2": jp2, "avif": avif, "app": served, "seconds": seconds}
 
     return run
 

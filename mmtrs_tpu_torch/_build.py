@@ -82,6 +82,8 @@ _HOST_SIGNATURES = {
     "mmtrs_jpeg_own_decode_raw": (_P, _L, _L, _P, _P, _P),
     "mmtrs_jp2_decode": (_P, _L, _L, _P, _P, _P),
     "mmtrs_jp2_free": (_P,),
+    "mmtrs_av1_decode": (_P, _L, _L, _P, _P, _P),
+    "mmtrs_av1_free": (_P,),
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_alpha_check": (_P, _L, _I, _I),
@@ -240,6 +242,13 @@ def jp2_library() -> ctypes.CDLL:
     no contraction of float operations (the 9/7 wavelet's and the ICT's
     roundings are OpenJPEG's); needs only g++ and links nothing."""
     return _build_host("mmtrs_jp2", "jp2.cpp", [_gxx(), *HOST_FLAGS, "-ffp-contract=off", "-pthread"], ())
+
+
+@functools.cache
+def av1_library() -> ctypes.CDLL:
+    """The port's own AV1 intra decoder for AVIF (``csrc/host/av1.cpp``, with
+    the tables of ``av1_tables.h``); needs only g++ and links nothing."""
+    return _build_host("mmtrs_av1", "av1.cpp", [_gxx(), *HOST_FLAGS], (), ("av1_tables.h",))
 
 
 @functools.cache

@@ -1,0 +1,2448 @@
+// The port's own AV1 decoder for AVIF still pictures: one intra frame,
+// 8-bit, to its Y, U and V planes, as the AV1 specification decodes it (the
+// decoding is exact, so the planes equal dav1d's). C++ with the standard
+// library alone; it links nothing.
+//
+// What it decodes:
+// - OBUs: temporal delimiter, sequence header (reduced and full
+//   still-picture forms), frame header, OBU_FRAME and tile groups; padding
+//   and metadata skipped;
+// - tiles of uniform or explicit spacing, tile-size bytes, 64² and 128²
+//   superblocks;
+// - the symbol decoder with CDF adaptation and disable_cdf_update;
+// - the intra block syntax: partitions, intra segmentation with its
+//   spatial prediction, delta q and delta lf (multi as well), skip, y and uv
+//   modes with angle deltas, CfL alphas, filter intra, the palette and
+//   intraBC flags (read, then refused), tx depth, the intra tx sets (reduced
+//   too), the coefficients of every tx size with the zero-out past 32;
+// - dequantisation with per-plane deltas, and lossless (WHT);
+// - the inverse transforms (DCT 4-64, ADST 4/8/16, identity) in the
+//   specification's integer steps, with its clamps;
+// - intra prediction: DC, V, H, directional with the edge filter and
+//   upsampling, smooth, Paeth, CfL and filter intra, availability stopping
+//   at tile edges;
+// - the deblocking filter (levels by segment, mode delta and delta lf; the
+//   4-, 6-, 8- and 14-tap filters);
+// - 4:2:0, 4:2:2, 4:4:4 and 4:0:0.
+//
+// Refused by name (AVIF's second slice): CDEF that filters, loop
+// restoration, superres, film grain, quantiser matrices, 10/12 bits,
+// palette and intraBC blocks, inter frames.
+//
+// Entry points (ctypes, see mmtrs_tpu_torch/utils/avif.py):
+//   int mmtrs_av1_decode(const void* buf, long long n, long long max_pixels,
+//                        void* out, void* dims, void* msg);
+//     buf: the OBUs of one AV1 image item (its av1C configOBUs first, if
+//     any). out <- a malloc'd buffer: the Y plane, then U and V (each at its
+//     subsampled size, rows packed). dims: int[16] <- width, height, subx,
+//     suby, planes, bit depth, colour primaries, transfer, matrix, range,
+//     the tools mask (low 32 bits). Returns 0, or a status with msg
+//     (char[256]): 2 broken, 3 truncated, 5 over max_pixels, 6 refused.
+//   int mmtrs_av1_free(void* p);
+//
+// Build: g++ -O3 -std=c++17 -fPIC -shared av1.cpp (mmtrs_tpu_torch/_build.py)
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <string>
+#include <vector>
+
+#include "av1_tables.h"
+
+namespace {
+
+constexpr int ST_BROKEN = 2, ST_TRUNCATED = 3, ST_BOMB = 5, ST_REFUSED = 6;
+
+struct Fail {
+    int status;
+    std::string what;
+};
+
+[[noreturn]] void fail(int status, const std::string& what) { throw Fail{status, what}; }
+[[noreturn]] void broken(const std::string& what) { fail(ST_BROKEN, "corrupt AV1: " + what); }
+[[noreturn]] void refuse(const std::string& tool) {
+    fail(ST_REFUSED, "AVIF whose AV1 uses " + tool + " is not decoded by the port's codec (AVIF's second slice)");
+}
+
+// the tools a decode used, for the tests' coverage
+enum : uint32_t {
+    TOOL_DC = 1u << 0, TOOL_VH = 1u << 1, TOOL_DIRECTIONAL = 1u << 2, TOOL_SMOOTH = 1u << 3, TOOL_PAETH = 1u << 4,
+    TOOL_CFL = 1u << 5, TOOL_FILTER_INTRA = 1u << 6, TOOL_ANGLE_DELTA = 1u << 7, TOOL_EDGE_UPSAMPLE = 1u << 8,
+    TOOL_TX4 = 1u << 9, TOOL_TX8 = 1u << 10, TOOL_TX16 = 1u << 11, TOOL_TX32 = 1u << 12, TOOL_TX64 = 1u << 13,
+    TOOL_TX_RECT = 1u << 14, TOOL_DCT = 1u << 15, TOOL_ADST = 1u << 16, TOOL_IDTX = 1u << 17, TOOL_TX_1D = 1u << 18,
+    TOOL_LOSSLESS = 1u << 19, TOOL_TILES = 1u << 20, TOOL_SEGMENTATION = 1u << 21, TOOL_DELTA_Q = 1u << 22,
+    TOOL_DELTA_LF = 1u << 23, TOOL_SB128 = 1u << 24, TOOL_DEBLOCK = 1u << 25, TOOL_420 = 1u << 26,
+    TOOL_422 = 1u << 27, TOOL_444 = 1u << 28, TOOL_400 = 1u << 29, TOOL_EDGE_FILTER = 1u << 30,
+    TOOL_DELTA_LF_MULTI = 1u << 31,
+};
+
+inline int clip3(int lo, int hi, int x) { return x < lo ? lo : (x > hi ? hi : x); }
+inline int round2(int64_t x, int n) { return n ? static_cast<int>((x + (int64_t(1) << (n - 1))) >> n) : static_cast<int>(x); }
+inline int round2signed(int x, int n) { return x >= 0 ? round2(x, n) : -round2(-x, n); }
+inline int floor_log2(uint32_t x) { int s = 0; while (x > 1) { x >>= 1; ++s; } return s; }
+
+// ---------------------------------------------------------------------------
+// Block and transform sizes (the specification's enumerations)
+// ---------------------------------------------------------------------------
+
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8, BLOCK_16X16, BLOCK_16X32, BLOCK_32X16,
+       BLOCK_32X32, BLOCK_32X64, BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128, BLOCK_4X16,
+       BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64, BLOCK_64X16, BLOCK_INVALID };
+const int kBlockW[22] = {4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64, 128, 128, 4, 16, 8, 32, 16, 64};
+const int kBlockH[22] = {4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 64, 32, 64, 128, 64, 128, 16, 4, 32, 8, 64, 16};
+
+int block_of(int w, int h) {
+    for (int b = 0; b < 22; ++b)
+        if (kBlockW[b] == w && kBlockH[b] == h) return b;
+    return BLOCK_INVALID;
+}
+
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16,
+       TX_32X64, TX_64X32, TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+const int kTxW[19] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64};
+const int kTxH[19] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16};
+const int kTxSplit[19] = {TX_4X4, TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_4X4, TX_4X4, TX_8X8, TX_8X8, TX_16X16,
+                          TX_16X16, TX_32X32, TX_32X32, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16};
+const int kTxRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2};
+
+int tx_of(int w, int h) {
+    for (int t = 0; t < 19; ++t)
+        if (kTxW[t] == w && kTxH[t] == h) return t;
+    return -1;
+}
+int tx_sqr(int t) { return tx_of(std::min(kTxW[t], kTxH[t]), std::min(kTxW[t], kTxH[t])); }
+int tx_sqr_up(int t) { return tx_of(std::max(kTxW[t], kTxH[t]), std::max(kTxW[t], kTxH[t])); }
+int max_tx_rect(int bsize) { return tx_of(std::min(kBlockW[bsize], 64), std::min(kBlockH[bsize], 64)); }
+int log2i(int v) { return floor_log2(static_cast<uint32_t>(v)); }
+
+// intra modes
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED, D67_PRED, SMOOTH_PRED,
+       SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED };
+const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0};
+const int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+bool directional(int m) { return m >= V_PRED && m <= D67_PRED; }
+
+// transform types
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+       FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { T1_DCT, T1_ADST, T1_FLIPADST, T1_IDTX };
+// the 1D transforms of each 2D type: vertical (columns), horizontal (rows)
+const int kVtx[16] = {T1_DCT, T1_ADST, T1_DCT, T1_ADST, T1_FLIPADST, T1_DCT, T1_FLIPADST, T1_ADST, T1_FLIPADST,
+                      T1_IDTX, T1_DCT, T1_IDTX, T1_ADST, T1_IDTX, T1_FLIPADST, T1_IDTX};
+const int kHtx[16] = {T1_DCT, T1_DCT, T1_ADST, T1_ADST, T1_DCT, T1_FLIPADST, T1_FLIPADST, T1_FLIPADST, T1_ADST,
+                      T1_IDTX, T1_IDTX, T1_DCT, T1_IDTX, T1_ADST, T1_IDTX, T1_FLIPADST};
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+int tx_class(int t) {
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return TX_CLASS_VERT;
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return TX_CLASS_HORIZ;
+    return TX_CLASS_2D;
+}
+const int kTxIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const int kTxIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST, DCT_ADST,
+                             ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+bool in_intra_set(int set, int t) {
+    if (set == TX_SET_DCTONLY) return t == DCT_DCT;
+    if (set == TX_SET_INTRA_2) return t == IDTX || t == DCT_DCT || t == ADST_ADST || t == ADST_DCT || t == DCT_ADST;
+    return t == IDTX || t == DCT_DCT || t == V_DCT || t == H_DCT || t == ADST_ADST || t == ADST_DCT || t == DCT_ADST;
+}
+
+// ---------------------------------------------------------------------------
+// Bit reader for the OBU headers (the specification's f(n), uvlc, leb128...)
+// ---------------------------------------------------------------------------
+
+struct Bits {
+    const uint8_t* d;
+    size_t n;
+    size_t pos = 0;  // in bits
+    Bits(const uint8_t* data, size_t size) : d(data), n(size) {}
+    uint32_t f(int k) {
+        uint32_t v = 0;
+        for (int i = 0; i < k; ++i) {
+            if (pos >= n * 8) fail(ST_TRUNCATED, "truncated AV1: a header ends early");
+            v = (v << 1) | ((d[pos >> 3] >> (7 - (pos & 7))) & 1);
+            ++pos;
+        }
+        return v;
+    }
+    int su(int k) {
+        int v = static_cast<int>(f(k));
+        const int sign = 1 << (k - 1);
+        return (v & sign) ? v - 2 * sign : v;
+    }
+    uint32_t uvlc() {
+        int zeros = 0;
+        while (!f(1)) {
+            if (++zeros >= 32) return UINT32_MAX;
+        }
+        return zeros ? f(zeros) + ((1u << zeros) - 1) : 0;
+    }
+    uint32_t ns(uint32_t nv) {
+        int w = 0;
+        for (uint32_t x = nv; x; x >>= 1) ++w;
+        const uint32_t m = (1u << w) - nv;
+        const uint32_t v = f(w - 1);
+        if (v < m) return v;
+        return (v << 1) - m + f(1);
+    }
+    void byte_align() { pos = (pos + 7) & ~size_t(7); }
+};
+
+uint64_t leb128(const uint8_t* d, size_t n, size_t* at) {
+    uint64_t v = 0;
+    for (int i = 0; i < 8; ++i) {
+        if (*at >= n) fail(ST_TRUNCATED, "truncated AV1: an OBU size ends early");
+        const uint8_t b = d[(*at)++];
+        v |= static_cast<uint64_t>(b & 0x7f) << (i * 7);
+        if (!(b & 0x80)) return v;
+    }
+    broken("an OBU size of more than 8 bytes");
+}
+
+// ---------------------------------------------------------------------------
+// Sequence and frame headers
+// ---------------------------------------------------------------------------
+
+struct Sequence {
+    bool seen = false;
+    int profile = 0, still = 0, reduced = 0;
+    int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
+    int buffer_delay_length = 0, buffer_removal_time_length = 0, frame_presentation_time_length = 0;
+    int op_count = 1;
+    int op_idc[32] = {};
+    int decoder_model_present[32] = {};
+    int frame_width_bits = 0, frame_height_bits = 0, max_w = 0, max_h = 0;
+    int frame_id_numbers = 0, delta_frame_id_length = 0, additional_frame_id_length = 0;
+    int sb128 = 0, enable_filter_intra = 0, enable_intra_edge_filter = 0;
+    int force_screen_content_tools = 2, force_integer_mv = 2, order_hint_bits = 0, enable_order_hint = 0;
+    int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
+    int bit_depth = 8, mono = 0, subx = 1, suby = 1, cp = 2, tc = 2, mc = 2, range = 0, sep_uv_dq = 0;
+    int film_grain = 0;
+};
+
+void read_sequence(Bits& b, Sequence& s) {
+    s.profile = b.f(3);
+    if (s.profile > 2) broken("a sequence header of an unknown profile");
+    s.still = b.f(1);
+    s.reduced = b.f(1);
+    if (s.reduced) {
+        b.f(5);  // seq_level_idx
+        s.op_count = 1;
+    } else {
+        s.timing_info = b.f(1);
+        if (s.timing_info) {
+            b.f(32);
+            b.f(32);
+            s.equal_picture_interval = b.f(1);
+            if (s.equal_picture_interval) b.uvlc();
+            s.decoder_model_info = b.f(1);
+            if (s.decoder_model_info) {
+                s.buffer_delay_length = b.f(5) + 1;
+                b.f(32);
+                s.buffer_removal_time_length = b.f(5) + 1;
+                s.frame_presentation_time_length = b.f(5) + 1;
+            }
+        }
+        const int initial_display_delay = b.f(1);
+        s.op_count = b.f(5) + 1;
+        for (int i = 0; i < s.op_count; ++i) {
+            s.op_idc[i] = b.f(12);
+            const int level = b.f(5);
+            if (level > 7) b.f(1);
+            if (s.decoder_model_info) {
+                s.decoder_model_present[i] = b.f(1);
+                if (s.decoder_model_present[i]) {
+                    b.f(s.buffer_delay_length);
+                    b.f(s.buffer_delay_length);
+                    b.f(1);
+                }
+            }
+            if (initial_display_delay && b.f(1)) b.f(4);
+        }
+    }
+    s.frame_width_bits = b.f(4) + 1;
+    s.frame_height_bits = b.f(4) + 1;
+    s.max_w = b.f(s.frame_width_bits) + 1;
+    s.max_h = b.f(s.frame_height_bits) + 1;
+    if (!s.reduced) s.frame_id_numbers = b.f(1);
+    if (s.frame_id_numbers) {
+        s.delta_frame_id_length = b.f(4) + 2;
+        s.additional_frame_id_length = b.f(3) + 1;
+    }
+    s.sb128 = b.f(1);
+    s.enable_filter_intra = b.f(1);
+    s.enable_intra_edge_filter = b.f(1);
+    if (s.reduced) {
+        s.force_screen_content_tools = 2;
+        s.force_integer_mv = 2;
+        s.order_hint_bits = 0;
+    } else {
+        b.f(1);  // enable_interintra_compound
+        b.f(1);  // enable_masked_compound
+        b.f(1);  // enable_warped_motion
+        b.f(1);  // enable_dual_filter
+        s.enable_order_hint = b.f(1);
+        if (s.enable_order_hint) {
+            b.f(1);  // enable_jnt_comp
+            b.f(1);  // enable_ref_frame_mvs
+        }
+        if (b.f(1)) s.force_screen_content_tools = 2;
+        else s.force_screen_content_tools = b.f(1);
+        if (s.force_screen_content_tools > 0) {
+            if (b.f(1)) s.force_integer_mv = 2;
+            else s.force_integer_mv = b.f(1);
+        } else {
+            s.force_integer_mv = 2;
+        }
+        if (s.enable_order_hint) s.order_hint_bits = b.f(3) + 1;
+    }
+    s.enable_superres = b.f(1);
+    s.enable_cdef = b.f(1);
+    s.enable_restoration = b.f(1);
+    // color_config
+    const int high_bitdepth = b.f(1);
+    if (s.profile == 2 && high_bitdepth) s.bit_depth = b.f(1) ? 12 : 10;
+    else s.bit_depth = high_bitdepth ? 10 : 8;
+    s.mono = s.profile == 1 ? 0 : b.f(1);
+    if (b.f(1)) {
+        s.cp = b.f(8);
+        s.tc = b.f(8);
+        s.mc = b.f(8);
+    } else {
+        s.cp = s.tc = s.mc = 2;
+    }
+    if (s.mono) {
+        s.range = b.f(1);
+        s.subx = s.suby = 1;
+        s.sep_uv_dq = 0;
+    } else {
+        if (s.cp == 1 && s.tc == 13 && s.mc == 0) {
+            s.range = 1;
+            s.subx = s.suby = 0;
+        } else {
+            s.range = b.f(1);
+            if (s.profile == 0) {
+                s.subx = s.suby = 1;
+            } else if (s.profile == 1) {
+                s.subx = s.suby = 0;
+            } else if (s.bit_depth == 12) {
+                s.subx = b.f(1);
+                s.suby = s.subx ? b.f(1) : 0;
+            } else {
+                s.subx = 1;
+                s.suby = 0;
+            }
+            if (s.subx && s.suby) b.f(2);  // chroma_sample_position
+        }
+        s.sep_uv_dq = b.f(1);
+    }
+    s.film_grain = b.f(1);
+    s.seen = true;
+}
+
+constexpr int MAX_SEGMENTS = 8, SEG_LVL_MAX = 8, SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
+              SEG_LVL_SKIP = 6;
+const int kSegBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const int kSegSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+
+struct Frame {
+    int width = 0, height = 0, mi_cols = 0, mi_rows = 0;
+    int show_frame = 1, showable = 0, error_resilient = 0, disable_cdf_update = 0;
+    int allow_screen_content = 0, allow_intrabc = 0;
+    int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 4;
+    std::vector<int> col_starts, row_starts;
+    int base_q = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0, dq_vac = 0, using_qm = 0;
+    int seg_enabled = 0, seg_pre_skip = 0, last_active_seg = 0;
+    int feature_enabled[8][8] = {}, feature_data[8][8] = {};
+    int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0, delta_lf_multi = 0;
+    bool lossless[8] = {};
+    bool coded_lossless = false;
+    int lf_level[4] = {}, lf_sharpness = 0, lf_delta_enabled = 0;
+    int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    int lf_mode_deltas[2] = {0, 0};
+    int cdef_bits = 0;
+    int tx_mode_select = 0, reduced_tx_set = 0;
+};
+
+int tile_log2(int blk, int target) {
+    int k = 0;
+    while ((blk << k) < target) ++k;
+    return k;
+}
+
+bool seg_active(const Frame& f, int seg, int feature) { return f.seg_enabled && f.feature_enabled[seg][feature]; }
+
+int qindex_of(const Frame& f, int seg, int current, bool ignore_delta) {
+    if (seg_active(f, seg, SEG_LVL_ALT_Q)) {
+        const int data = f.feature_data[seg][SEG_LVL_ALT_Q];
+        int q = f.base_q + data;
+        if (!ignore_delta && f.delta_q_present) q = current + data;
+        return clip3(0, 255, q);
+    }
+    if (!ignore_delta && f.delta_q_present) return current;
+    return f.base_q;
+}
+
+int read_delta_q(Bits& b) { return b.f(1) ? b.su(7) : 0; }
+
+void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint32_t* tools, int temporal_id, int spatial_id) {
+    int frame_type = 0;
+    if (s.reduced) {
+        f.show_frame = 1;
+        f.showable = 0;
+    } else {
+        if (b.f(1)) refuse("a frame shown from another (show_existing_frame)");
+        frame_type = b.f(2);
+        if (frame_type != 0) refuse("an inter or intra-only frame (not a key frame)");
+        f.show_frame = b.f(1);
+        if (f.show_frame && s.decoder_model_info && !s.equal_picture_interval) b.f(s.frame_presentation_time_length);
+        f.showable = f.show_frame ? 0 : b.f(1);
+        f.error_resilient = f.show_frame ? 1 : b.f(1);
+    }
+    f.disable_cdf_update = b.f(1);
+    if (s.force_screen_content_tools == 2) f.allow_screen_content = b.f(1);
+    else f.allow_screen_content = s.force_screen_content_tools;
+    if (f.allow_screen_content && s.force_integer_mv == 2) b.f(1);  // force_integer_mv
+    if (s.frame_id_numbers) b.f(s.delta_frame_id_length + s.additional_frame_id_length);
+    const int size_override = s.reduced ? 0 : b.f(1);
+    b.f(s.order_hint_bits);  // order_hint
+    // primary_ref_frame is none for an intra frame
+    if (s.decoder_model_info) {
+        if (b.f(1)) {
+            for (int op = 0; op < s.op_count; ++op) {
+                if (!s.decoder_model_present[op]) continue;
+                const int idc = s.op_idc[op];
+                const int in_t = (idc >> temporal_id) & 1, in_s = (idc >> (spatial_id + 8)) & 1;
+                if (idc == 0 || (in_t && in_s)) b.f(s.buffer_removal_time_length);
+            }
+        }
+    }
+    if (!f.show_frame) {  // a key frame not shown: refresh_frame_flags, and maybe the reference order hints
+        if (b.f(8) != 0xFF && f.error_resilient && s.enable_order_hint)
+            for (int i = 0; i < 8; ++i) b.f(s.order_hint_bits);
+    }
+    // frame_size
+    if (size_override) {
+        f.width = b.f(s.frame_width_bits) + 1;
+        f.height = b.f(s.frame_height_bits) + 1;
+    } else {
+        f.width = s.max_w;
+        f.height = s.max_h;
+    }
+    if (s.enable_superres && b.f(1)) refuse("superres");
+    f.mi_cols = 2 * ((f.width + 7) >> 3);
+    f.mi_rows = 2 * ((f.height + 7) >> 3);
+    if (b.f(1)) {  // render_and_frame_size_different
+        b.f(16);
+        b.f(16);
+    }
+    if (f.allow_screen_content) f.allow_intrabc = b.f(1);
+    if (!(s.reduced || f.disable_cdf_update)) b.f(1);  // disable_frame_end_update_cdf: one frame, no update
+    // tile_info
+    const int sb_cols = s.sb128 ? (f.mi_cols + 31) >> 5 : (f.mi_cols + 15) >> 4;
+    const int sb_rows = s.sb128 ? (f.mi_rows + 31) >> 5 : (f.mi_rows + 15) >> 4;
+    const int sb_shift = s.sb128 ? 5 : 4;
+    const int sb_size = sb_shift + 2;
+    const int max_tile_width_sb = 4096 >> sb_size;
+    int max_tile_area_sb = (4096 * 2304) >> (2 * sb_size);
+    const int min_log2_tile_cols = tile_log2(max_tile_width_sb, sb_cols);
+    const int max_log2_tile_cols = tile_log2(1, std::min(sb_cols, 64));
+    const int max_log2_tile_rows = tile_log2(1, std::min(sb_rows, 64));
+    const int min_log2_tiles = std::max(min_log2_tile_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
+    f.col_starts.clear();
+    f.row_starts.clear();
+    if (b.f(1)) {  // uniform_tile_spacing_flag
+        f.tile_cols_log2 = min_log2_tile_cols;
+        while (f.tile_cols_log2 < max_log2_tile_cols && b.f(1)) ++f.tile_cols_log2;
+        const int tile_w = (sb_cols + (1 << f.tile_cols_log2) - 1) >> f.tile_cols_log2;
+        for (int start = 0; start < sb_cols; start += tile_w) f.col_starts.push_back(start << sb_shift);
+        f.col_starts.push_back(f.mi_cols);
+        const int min_log2_tile_rows = std::max(min_log2_tiles - f.tile_cols_log2, 0);
+        f.tile_rows_log2 = min_log2_tile_rows;
+        while (f.tile_rows_log2 < max_log2_tile_rows && b.f(1)) ++f.tile_rows_log2;
+        const int tile_h = (sb_rows + (1 << f.tile_rows_log2) - 1) >> f.tile_rows_log2;
+        for (int start = 0; start < sb_rows; start += tile_h) f.row_starts.push_back(start << sb_shift);
+        f.row_starts.push_back(f.mi_rows);
+    } else {
+        int widest = 0, start = 0;
+        while (start < sb_cols) {
+            f.col_starts.push_back(start << sb_shift);
+            const int size = static_cast<int>(b.ns(std::min(sb_cols - start, max_tile_width_sb))) + 1;
+            widest = std::max(widest, size);
+            start += size;
+        }
+        f.col_starts.push_back(f.mi_cols);
+        f.tile_cols_log2 = tile_log2(1, static_cast<int>(f.col_starts.size()) - 1);
+        if (min_log2_tiles > 0) max_tile_area_sb = (sb_rows * sb_cols) >> (min_log2_tiles + 1);
+        else max_tile_area_sb = sb_rows * sb_cols;
+        const int max_tile_height_sb = std::max(max_tile_area_sb / widest, 1);
+        start = 0;
+        while (start < sb_rows) {
+            f.row_starts.push_back(start << sb_shift);
+            start += static_cast<int>(b.ns(std::min(sb_rows - start, max_tile_height_sb))) + 1;
+        }
+        f.row_starts.push_back(f.mi_rows);
+        f.tile_rows_log2 = tile_log2(1, static_cast<int>(f.row_starts.size()) - 1);
+    }
+    f.tile_cols = static_cast<int>(f.col_starts.size()) - 1;
+    f.tile_rows = static_cast<int>(f.row_starts.size()) - 1;
+    if (f.tile_cols_log2 > 0 || f.tile_rows_log2 > 0) {
+        b.f(f.tile_rows_log2 + f.tile_cols_log2);  // context_update_tile_id
+        f.tile_size_bytes = b.f(2) + 1;
+    }
+    if (f.tile_cols * f.tile_rows > 1) *tools |= TOOL_TILES;
+    // quantization_params
+    f.base_q = b.f(8);
+    f.dq_ydc = read_delta_q(b);
+    if (!s.mono) {
+        const int diff_uv = s.sep_uv_dq ? b.f(1) : 0;
+        f.dq_udc = read_delta_q(b);
+        f.dq_uac = read_delta_q(b);
+        if (diff_uv) {
+            f.dq_vdc = read_delta_q(b);
+            f.dq_vac = read_delta_q(b);
+        } else {
+            f.dq_vdc = f.dq_udc;
+            f.dq_vac = f.dq_uac;
+        }
+    }
+    f.using_qm = b.f(1);
+    if (f.using_qm) {
+        b.f(4);
+        b.f(4);
+        if (s.sep_uv_dq) b.f(4);
+    }
+    // segmentation_params
+    f.seg_enabled = b.f(1);
+    if (f.seg_enabled) {
+        *tools |= TOOL_SEGMENTATION;
+        for (int i = 0; i < MAX_SEGMENTS; ++i)
+            for (int j = 0; j < SEG_LVL_MAX; ++j) {
+                f.feature_enabled[i][j] = b.f(1);
+                int v = 0;
+                if (f.feature_enabled[i][j]) {
+                    if (kSegSigned[j]) v = clip3(-kSegMax[j], kSegMax[j], b.su(1 + kSegBits[j]));
+                    else v = clip3(0, kSegMax[j], static_cast<int>(b.f(kSegBits[j])));
+                }
+                f.feature_data[i][j] = v;
+            }
+    }
+    for (int i = 0; i < MAX_SEGMENTS; ++i)
+        for (int j = 0; j < SEG_LVL_MAX; ++j)
+            if (f.seg_enabled && f.feature_enabled[i][j]) {
+                f.last_active_seg = i;
+                if (j >= SEG_LVL_REF_FRAME) f.seg_pre_skip = 1;
+            }
+    // delta_q_params, delta_lf_params
+    if (f.base_q > 0) f.delta_q_present = b.f(1);
+    if (f.delta_q_present) {
+        f.delta_q_res = b.f(2);
+        if (!f.allow_intrabc) f.delta_lf_present = b.f(1);
+        if (f.delta_lf_present) {
+            f.delta_lf_res = b.f(2);
+            f.delta_lf_multi = b.f(1);
+        }
+    }
+    f.coded_lossless = true;
+    for (int seg = 0; seg < MAX_SEGMENTS; ++seg) {
+        const int q = qindex_of(f, seg, f.base_q, true);
+        f.lossless[seg] = q == 0 && !f.dq_ydc && !f.dq_uac && !f.dq_udc && !f.dq_vac && !f.dq_vdc;
+        if (!f.lossless[seg]) f.coded_lossless = false;
+    }
+    if (f.using_qm && !f.coded_lossless) refuse("quantiser matrices");
+    // loop_filter_params
+    if (!(f.coded_lossless || f.allow_intrabc)) {
+        f.lf_level[0] = b.f(6);
+        f.lf_level[1] = b.f(6);
+        if (!s.mono && (f.lf_level[0] || f.lf_level[1])) {
+            f.lf_level[2] = b.f(6);
+            f.lf_level[3] = b.f(6);
+        }
+        f.lf_sharpness = b.f(3);
+        f.lf_delta_enabled = b.f(1);
+        if (f.lf_delta_enabled && b.f(1)) {
+            for (int i = 0; i < 8; ++i)
+                if (b.f(1)) f.lf_ref_deltas[i] = b.su(7);
+            for (int i = 0; i < 2; ++i)
+                if (b.f(1)) f.lf_mode_deltas[i] = b.su(7);
+        }
+    }
+    // cdef_params
+    if (!(f.coded_lossless || f.allow_intrabc || !s.enable_cdef)) {
+        b.f(2);  // cdef_damping_minus_3
+        f.cdef_bits = b.f(2);
+        bool any = false;
+        for (int i = 0; i < (1 << f.cdef_bits); ++i) {
+            any |= b.f(4) != 0;
+            any |= b.f(2) != 0;
+            if (!s.mono) {
+                any |= b.f(4) != 0;
+                any |= b.f(2) != 0;
+            }
+        }
+        if (any) refuse("CDEF");
+    }
+    // lr_params
+    const bool all_lossless = f.coded_lossless;  // no superres
+    if (!(all_lossless || f.allow_intrabc || !s.enable_restoration)) {
+        for (int i = 0; i < (s.mono ? 1 : 3); ++i)
+            if (b.f(2)) refuse("loop restoration");
+    }
+    // read_tx_mode
+    f.tx_mode_select = f.coded_lossless ? 0 : b.f(1);
+    f.reduced_tx_set = b.f(1);
+    // film_grain_params
+    if (s.film_grain && (f.show_frame || f.showable) && b.f(1)) refuse("film grain");
+}
+
+// ---------------------------------------------------------------------------
+// The symbol decoder (8.2) and the CDFs it adapts
+// ---------------------------------------------------------------------------
+
+struct Cdfs {
+    uint16_t partition[20][11];
+    uint16_t kf_y_mode[5][5][14];
+    uint16_t uv_mode[2][13][15];
+    uint16_t angle_delta[8][8];
+    uint16_t tx_set1[4][13][8];
+    uint16_t tx_set2[4][13][6];
+    uint16_t tx_size[4][3][4];
+    uint16_t cfl_sign[9];
+    uint16_t cfl_alpha[6][17];
+    uint16_t filter_intra[22][3];
+    uint16_t filter_intra_mode[6];
+    uint16_t skip[3][3];
+    uint16_t intrabc[3];
+    uint16_t seg_id[3][9];
+    uint16_t pal_y_mode[7][3][3];
+    uint16_t pal_uv_mode[2][3];
+    uint16_t delta_q[5];
+    uint16_t delta_lf[5];
+    uint16_t delta_lf_multi[4][5];
+    uint16_t txb_skip[5][13][3];
+    uint16_t eob_extra[5][2][9][3];
+    uint16_t dc_sign[2][3][3];
+    uint16_t eob16[2][2][6];
+    uint16_t eob32[2][2][7];
+    uint16_t eob64[2][2][8];
+    uint16_t eob128[2][2][9];
+    uint16_t eob256[2][2][10];
+    uint16_t eob512[2][2][11];
+    uint16_t eob1024[2][2][12];
+    uint16_t base_eob[5][2][4][4];
+    uint16_t base[5][2][42][5];
+    uint16_t br[5][2][21][5];
+
+    void init(int qctx) {
+        std::memcpy(partition, kPartitionCdf, sizeof partition);
+        std::memcpy(kf_y_mode, kKfYModeCdf, sizeof kf_y_mode);
+        std::memcpy(uv_mode, kUvModeCdf, sizeof uv_mode);
+        std::memcpy(angle_delta, kAngleDeltaCdf, sizeof angle_delta);
+        std::memcpy(tx_set1, kIntraTxSet1Cdf, sizeof tx_set1);
+        std::memcpy(tx_set2, kIntraTxSet2Cdf, sizeof tx_set2);
+        std::memcpy(tx_size, kTxSizeCdf, sizeof tx_size);
+        std::memcpy(cfl_sign, kCflSignCdf, sizeof cfl_sign);
+        std::memcpy(cfl_alpha, kCflAlphaCdf, sizeof cfl_alpha);
+        std::memcpy(filter_intra, kFilterIntraCdf, sizeof filter_intra);
+        std::memcpy(filter_intra_mode, kFilterIntraModeCdf, sizeof filter_intra_mode);
+        std::memcpy(skip, kSkipCdf, sizeof skip);
+        std::memcpy(intrabc, kIntrabcCdf, sizeof intrabc);
+        std::memcpy(seg_id, kSegmentIdCdf, sizeof seg_id);
+        std::memcpy(pal_y_mode, kPaletteYModeCdf, sizeof pal_y_mode);
+        std::memcpy(pal_uv_mode, kPaletteUvModeCdf, sizeof pal_uv_mode);
+        std::memcpy(delta_q, kDeltaQCdf, sizeof delta_q);
+        std::memcpy(delta_lf, kDeltaLfCdf, sizeof delta_lf);
+        std::memcpy(delta_lf_multi, kDeltaLfMultiCdf, sizeof delta_lf_multi);
+        std::memcpy(txb_skip, kTxbSkipCdf[qctx], sizeof txb_skip);
+        std::memcpy(eob_extra, kEobExtraCdf[qctx], sizeof eob_extra);
+        std::memcpy(dc_sign, kDcSignCdf[qctx], sizeof dc_sign);
+        std::memcpy(eob16, kEobPt16Cdf[qctx], sizeof eob16);
+        std::memcpy(eob32, kEobPt32Cdf[qctx], sizeof eob32);
+        std::memcpy(eob64, kEobPt64Cdf[qctx], sizeof eob64);
+        std::memcpy(eob128, kEobPt128Cdf[qctx], sizeof eob128);
+        std::memcpy(eob256, kEobPt256Cdf[qctx], sizeof eob256);
+        std::memcpy(eob512, kEobPt512Cdf[qctx], sizeof eob512);
+        std::memcpy(eob1024, kEobPt1024Cdf[qctx], sizeof eob1024);
+        std::memcpy(base_eob, kCoeffBaseEobCdf[qctx], sizeof base_eob);
+        std::memcpy(base, kCoeffBaseCdf[qctx], sizeof base);
+        std::memcpy(br, kCoeffBrCdf[qctx], sizeof br);
+    }
+};
+
+struct SymbolDecoder {
+    const uint8_t* d = nullptr;
+    size_t n = 0, bitpos = 0;
+    uint32_t value = 0, range = 0;
+    int max_bits = 0;
+    bool update = true;
+
+    uint32_t bits(int k) {
+        uint32_t v = 0;
+        for (int i = 0; i < k; ++i) {
+            const size_t byte = bitpos >> 3;
+            const uint32_t bit = byte < n ? (d[byte] >> (7 - (bitpos & 7))) & 1 : 0;
+            v = (v << 1) | bit;
+            ++bitpos;
+        }
+        return v;
+    }
+    void init(const uint8_t* data, size_t size, bool disable_update) {
+        d = data;
+        n = size;
+        bitpos = 0;
+        const int num = static_cast<int>(std::min<size_t>(size * 8, 15));
+        const uint32_t buf = bits(num);
+        const uint32_t padded = buf << (15 - num);
+        value = ((1u << 15) - 1) ^ padded;
+        range = 1u << 15;
+        max_bits = static_cast<int>(8 * size) - 15;
+        update = !disable_update;
+    }
+    int symbol(uint16_t* cdf, int nsym, bool adapt = true) {
+        uint32_t cur = range, prev;
+        int sym = -1;
+        do {
+            ++sym;
+            prev = cur;
+            const uint32_t f = cdf[sym];  // the inverse CDF: (1 << 15) - cdf
+            cur = ((range >> 8) * (f >> 6) >> 1) + 4 * static_cast<uint32_t>(nsym - sym - 1);
+        } while (value < cur);
+        range = prev - cur;
+        value -= cur;
+        const int b = 15 - floor_log2(range);
+        range <<= b;
+        const int num = std::min(b, std::max(0, max_bits));
+        const uint32_t data = bits(num) << (b - num);
+        value = data ^ (((value + 1) << b) - 1);
+        max_bits -= b;
+        if (adapt && update) {
+            uint16_t& count = cdf[nsym];
+            const int rate = 3 + (count > 15) + (count > 31) + std::min(floor_log2(static_cast<uint32_t>(nsym)), 2);
+            for (int i = 0; i < nsym - 1; ++i) {
+                if (i < sym) cdf[i] = static_cast<uint16_t>(cdf[i] + ((32768 - cdf[i]) >> rate));
+                else cdf[i] = static_cast<uint16_t>(cdf[i] - (cdf[i] >> rate));
+            }
+            count = static_cast<uint16_t>(count + (count < 32));
+        }
+        return sym;
+    }
+    int boolean() {
+        uint16_t cdf[3] = {1 << 14, 0, 0};
+        return symbol(cdf, 2, false);
+    }
+    int literal(int k) {
+        int v = 0;
+        for (int i = 0; i < k; ++i) v = (v << 1) | boolean();
+        return v;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// Inverse transforms (7.13.2): libaom's and dav1d's butterflies, each add
+// clamped to the pass's range
+// ---------------------------------------------------------------------------
+
+inline int cospi(int a) { return a >= 64 ? 0 : kCosPi[a]; }
+inline int half_btf(int w0, int x0, int w1, int x1) {
+    return static_cast<int>((static_cast<int64_t>(w0) * x0 + static_cast<int64_t>(w1) * x1 + 2048) >> 12);
+}
+
+struct Clamp {
+    int lo, hi;
+    int operator()(int64_t x) const { return static_cast<int>(x < lo ? lo : (x > hi ? hi : x)); }
+};
+
+int brev(int bits, int x) {
+    int r = 0;
+    for (int i = 0; i < bits; ++i) r |= ((x >> i) & 1) << (bits - 1 - i);
+    return r;
+}
+
+// the odd half of an N-point inverse DCT (b: M = N / 2 values, the odd
+// inputs in bit-reversed order): a rotation stage, then rounds of
+// butterflies and rotations over doubling groups, then a rotation by π/4
+void idct_odd(int* b, int m, const Clamp& cl) {
+    const int n = 2 * m;
+    const int lg = log2i(m / 2);
+    for (int k = 0; k < m / 2; ++k) {
+        const int a = 64 - 64 / n - (256 / n) * brev(lg, k);
+        const int u = b[k], v = b[m - 1 - k];
+        b[k] = half_btf(cospi(a), u, -cospi(64 - a), v);
+        b[m - 1 - k] = half_btf(cospi(64 - a), u, cospi(a), v);
+    }
+    for (int g = 2; g <= m / 2; g *= 2) {
+        for (int t = 0; t < m / g; ++t)
+            for (int u = 0; u < g / 2; ++u) {
+                const int i = t * g + u, j = t * g + g - 1 - u;
+                const int x = b[i], y = b[j];
+                if (t & 1) {
+                    b[i] = cl(int64_t(y) - x);
+                    b[j] = cl(int64_t(x) + y);
+                } else {
+                    b[i] = cl(int64_t(x) + y);
+                    b[j] = cl(int64_t(x) - y);
+                }
+            }
+        if (g < m / 2) {
+            const int nb = m / (4 * g);
+            for (int s = 0; s < nb; ++s) {
+                const int alpha = 16 / nb + (64 / nb) * brev(log2i(nb), s);
+                for (int p = 2 * g * s + g / 2; p < 2 * g * s + g; ++p) {  // type A
+                    const int u = b[p], v = b[m - 1 - p];
+                    b[p] = half_btf(-cospi(alpha), u, cospi(64 - alpha), v);
+                    b[m - 1 - p] = half_btf(cospi(64 - alpha), u, cospi(alpha), v);
+                }
+                for (int p = 2 * g * s + g; p < 2 * g * s + g + g / 2; ++p) {  // type B
+                    const int u = b[p], v = b[m - 1 - p];
+                    b[p] = half_btf(-cospi(64 - alpha), u, -cospi(alpha), v);
+                    b[m - 1 - p] = half_btf(-cospi(alpha), u, cospi(64 - alpha), v);
+                }
+            }
+        }
+    }
+    for (int p = m / 4; p < m / 2; ++p) {
+        const int u = b[p], v = b[m - 1 - p];
+        b[p] = half_btf(-cospi(32), u, cospi(32), v);
+        b[m - 1 - p] = half_btf(cospi(32), u, cospi(32), v);
+    }
+}
+
+// in-place N-point inverse DCT of x (natural order)
+void idct(int* x, int n, const Clamp& cl) {
+    if (n == 2) {
+        const int a = x[0], b = x[1];
+        x[0] = half_btf(cospi(32), a, cospi(32), b);
+        x[1] = half_btf(cospi(32), a, -cospi(32), b);
+        return;
+    }
+    const int m = n / 2;
+    int even[32], odd[32];
+    for (int i = 0; i < m; ++i) even[i] = x[2 * i];
+    for (int k = 0; k < m; ++k) odd[k] = x[2 * brev(log2i(m), k) + 1];
+    idct(even, m, cl);
+    if (m == 2) {  // the 4-point DCT's odd half: one rotation
+        const int u = odd[0], v = odd[1];
+        odd[0] = half_btf(cospi(48), u, -cospi(16), v);
+        odd[1] = half_btf(cospi(16), u, cospi(48), v);
+    } else {
+        idct_odd(odd, m, cl);
+    }
+    for (int i = 0; i < m; ++i) {
+        x[i] = cl(int64_t(even[i]) + odd[m - 1 - i]);
+        x[n - 1 - i] = cl(int64_t(even[i]) - odd[m - 1 - i]);
+    }
+}
+
+void iadst4(int* x) {
+    const int x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+    if (!(x0 | x1 | x2 | x3)) return;
+    int64_t s0 = int64_t(kSinPi[1]) * x0, s1 = int64_t(kSinPi[2]) * x0, s2 = int64_t(kSinPi[3]) * x1;
+    int64_t s3 = int64_t(kSinPi[4]) * x2, s4 = int64_t(kSinPi[1]) * x2, s5 = int64_t(kSinPi[2]) * x3;
+    int64_t s6 = int64_t(kSinPi[4]) * x3;
+    const int64_t s7 = int64_t(x0) - x2 + x3;
+    s0 = s0 + s3;
+    s1 = s1 - s4;
+    s3 = s2;
+    s2 = int64_t(kSinPi[3]) * s7;
+    s0 = s0 + s5;
+    s1 = s1 - s6;
+    const int64_t o0 = s0 + s3, o1 = s1 + s3, o2 = s2, o3 = s0 + s1 - s3;
+    x[0] = round2(o0, 12);
+    x[1] = round2(o1, 12);
+    x[2] = round2(o2, 12);
+    x[3] = round2(o3, 12);
+}
+
+void iadst8(int* x, const Clamp& cl) {
+    int b[8] = {x[7], x[0], x[5], x[2], x[3], x[4], x[1], x[6]};
+    int c[8];
+    c[0] = half_btf(cospi(4), b[0], cospi(60), b[1]);
+    c[1] = half_btf(cospi(60), b[0], -cospi(4), b[1]);
+    c[2] = half_btf(cospi(20), b[2], cospi(44), b[3]);
+    c[3] = half_btf(cospi(44), b[2], -cospi(20), b[3]);
+    c[4] = half_btf(cospi(36), b[4], cospi(28), b[5]);
+    c[5] = half_btf(cospi(28), b[4], -cospi(36), b[5]);
+    c[6] = half_btf(cospi(52), b[6], cospi(12), b[7]);
+    c[7] = half_btf(cospi(12), b[6], -cospi(52), b[7]);
+    for (int i = 0; i < 4; ++i) {
+        b[i] = cl(int64_t(c[i]) + c[i + 4]);
+        b[i + 4] = cl(int64_t(c[i]) - c[i + 4]);
+    }
+    c[0] = b[0]; c[1] = b[1]; c[2] = b[2]; c[3] = b[3];
+    c[4] = half_btf(cospi(16), b[4], cospi(48), b[5]);
+    c[5] = half_btf(cospi(48), b[4], -cospi(16), b[5]);
+    c[6] = half_btf(-cospi(48), b[6], cospi(16), b[7]);
+    c[7] = half_btf(cospi(16), b[6], cospi(48), b[7]);
+    b[0] = cl(int64_t(c[0]) + c[2]); b[1] = cl(int64_t(c[1]) + c[3]);
+    b[2] = cl(int64_t(c[0]) - c[2]); b[3] = cl(int64_t(c[1]) - c[3]);
+    b[4] = cl(int64_t(c[4]) + c[6]); b[5] = cl(int64_t(c[5]) + c[7]);
+    b[6] = cl(int64_t(c[4]) - c[6]); b[7] = cl(int64_t(c[5]) - c[7]);
+    c[0] = b[0]; c[1] = b[1];
+    c[2] = half_btf(cospi(32), b[2], cospi(32), b[3]);
+    c[3] = half_btf(cospi(32), b[2], -cospi(32), b[3]);
+    c[4] = b[4]; c[5] = b[5];
+    c[6] = half_btf(cospi(32), b[6], cospi(32), b[7]);
+    c[7] = half_btf(cospi(32), b[6], -cospi(32), b[7]);
+    x[0] = c[0]; x[1] = -c[4]; x[2] = c[6]; x[3] = -c[2];
+    x[4] = c[3]; x[5] = -c[7]; x[6] = c[5]; x[7] = -c[1];
+}
+
+void iadst16(int* x, const Clamp& cl) {
+    static const int perm[16] = {15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14};
+    int b[16], c[16];
+    for (int i = 0; i < 16; ++i) b[i] = x[perm[i]];
+    for (int i = 0; i < 8; ++i) {  // stage 2: angles 2, 10, ..., 58
+        const int a = 2 + 8 * i;
+        c[2 * i] = half_btf(cospi(a), b[2 * i], cospi(64 - a), b[2 * i + 1]);
+        c[2 * i + 1] = half_btf(cospi(64 - a), b[2 * i], -cospi(a), b[2 * i + 1]);
+    }
+    for (int i = 0; i < 8; ++i) {
+        b[i] = cl(int64_t(c[i]) + c[i + 8]);
+        b[i + 8] = cl(int64_t(c[i]) - c[i + 8]);
+    }
+    for (int i = 0; i < 8; ++i) c[i] = b[i];
+    c[8] = half_btf(cospi(8), b[8], cospi(56), b[9]);
+    c[9] = half_btf(cospi(56), b[8], -cospi(8), b[9]);
+    c[10] = half_btf(cospi(40), b[10], cospi(24), b[11]);
+    c[11] = half_btf(cospi(24), b[10], -cospi(40), b[11]);
+    c[12] = half_btf(-cospi(56), b[12], cospi(8), b[13]);
+    c[13] = half_btf(cospi(8), b[12], cospi(56), b[13]);
+    c[14] = half_btf(-cospi(24), b[14], cospi(40), b[15]);
+    c[15] = half_btf(cospi(40), b[14], cospi(24), b[15]);
+    for (int h = 0; h < 16; h += 8)
+        for (int i = 0; i < 4; ++i) {
+            b[h + i] = cl(int64_t(c[h + i]) + c[h + i + 4]);
+            b[h + i + 4] = cl(int64_t(c[h + i]) - c[h + i + 4]);
+        }
+    for (int h = 0; h < 16; h += 8) {
+        c[h] = b[h]; c[h + 1] = b[h + 1]; c[h + 2] = b[h + 2]; c[h + 3] = b[h + 3];
+        c[h + 4] = half_btf(cospi(16), b[h + 4], cospi(48), b[h + 5]);
+        c[h + 5] = half_btf(cospi(48), b[h + 4], -cospi(16), b[h + 5]);
+        c[h + 6] = half_btf(-cospi(48), b[h + 6], cospi(16), b[h + 7]);
+        c[h + 7] = half_btf(cospi(16), b[h + 6], cospi(48), b[h + 7]);
+    }
+    for (int h = 0; h < 16; h += 4) {
+        b[h] = cl(int64_t(c[h]) + c[h + 2]);
+        b[h + 1] = cl(int64_t(c[h + 1]) + c[h + 3]);
+        b[h + 2] = cl(int64_t(c[h]) - c[h + 2]);
+        b[h + 3] = cl(int64_t(c[h + 1]) - c[h + 3]);
+    }
+    for (int h = 0; h < 16; h += 4) {
+        c[h] = b[h];
+        c[h + 1] = b[h + 1];
+        c[h + 2] = half_btf(cospi(32), b[h + 2], cospi(32), b[h + 3]);
+        c[h + 3] = half_btf(cospi(32), b[h + 2], -cospi(32), b[h + 3]);
+    }
+    static const int out[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
+    for (int i = 0; i < 16; ++i) x[i] = (i & 1) ? -c[out[i]] : c[out[i]];
+}
+
+void iidentity(int* x, int n) {
+    for (int i = 0; i < n; ++i) {
+        if (n == 4) x[i] = round2(int64_t(x[i]) * 5793, 12);
+        else if (n == 8) x[i] = x[i] * 2;
+        else if (n == 16) x[i] = round2(int64_t(x[i]) * 11586, 12);
+        else x[i] = x[i] * 4;
+    }
+}
+
+void inverse_1d(int* x, int n, int type, const Clamp& cl) {
+    if (type == T1_DCT) idct(x, n, cl);
+    else if (type == T1_IDTX) iidentity(x, n);
+    else if (n == 4) iadst4(x);
+    else if (n == 8) iadst8(x, cl);
+    else iadst16(x, cl);
+}
+
+void iwht4(int* t, int shift) {
+    int a = t[0] >> shift, c = t[1] >> shift, d = t[2] >> shift, b = t[3] >> shift;
+    a += c;
+    d -= b;
+    const int e = (a - d) >> 1;
+    b = e - b;
+    c = e - c;
+    a -= b;
+    d += c;
+    t[0] = a;
+    t[1] = b;
+    t[2] = c;
+    t[3] = d;
+}
+
+// ---------------------------------------------------------------------------
+// The decoder
+// ---------------------------------------------------------------------------
+
+struct Plane {
+    int w = 0, h = 0, stride = 0;  // w, h: the decoded area (mi units × 4 >> sub); stride with a margin
+    std::vector<uint8_t> px;
+    uint8_t& at(int y, int x) { return px[static_cast<size_t>(y) * stride + x]; }
+};
+
+struct Decoder {
+    const Sequence& seq;
+    Frame& fr;
+    uint32_t tools = 0;
+    int num_planes = 3, subx = 1, suby = 1;
+    Plane planes[3];
+    // per-4×4 (mi) information, frame-wide
+    int mi_stride = 0;
+    std::vector<uint8_t> mi_size, y_mode, uv_mode, skip, seg_id, tx_size, palette_y;
+    std::vector<int8_t> delta_lfs;  // 4 a mi
+    std::vector<uint8_t> lf_tx[3];  // the transform size of each plane's 4×4 unit, for the loop filter
+    int lf_stride[3] = {};
+    // the tile's state
+    int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
+    SymbolDecoder sd;
+    Cdfs cdf;
+    std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
+    int delta_lf[4] = {};
+    int current_q = 0;
+    bool read_deltas = false;
+    int cdef_idx[4] = {-1, -1, -1, -1};
+    // block_decoded[plane][y + 1][x + 1], y and x from -1 to 32 (4×4 units in the superblock)
+    uint8_t block_decoded[3][34][34] = {};
+    // the current block
+    int mi_row = 0, mi_col = 0, bsize = 0, bw4 = 0, bh4 = 0;
+    bool has_chroma = false, avail_u = false, avail_l = false, avail_u_chroma = false, avail_l_chroma = false;
+    int segment = 0, is_skip = 0, ymode = 0, uvmode = 0, angle_y = 0, angle_uv = 0, cfl_u = 0, cfl_v = 0;
+    int use_filter_intra = 0, filter_mode = 0, txsz = 0;
+    bool lossless = false;
+    int max_luma_w = 0, max_luma_h = 0;
+    int qctx = 0;
+    // the coefficients of the current transform block, its residual, and
+    // CfL's luma (per decoder: tiles of a grid decode on threads)
+    int32_t quant[1024];
+    uint8_t levels[32 + 4][32 + 4];
+    int resid[64][64];
+    int lbuf[32][32];
+
+    Decoder(const Sequence& s, Frame& f) : seq(s), fr(f) {}
+
+    bool inside(int r, int c) const {
+        return c >= mi_col_start && c < mi_col_end && r >= mi_row_start && r < mi_row_end;
+    }
+    size_t mi(int r, int c) const { return static_cast<size_t>(r) * mi_stride + c; }
+
+    void setup() {
+        num_planes = seq.mono ? 1 : 3;
+        subx = seq.subx;
+        suby = seq.suby;
+        mi_stride = fr.mi_cols + 32;
+        const size_t mis = static_cast<size_t>(fr.mi_rows + 32) * mi_stride;
+        mi_size.assign(mis, 0);
+        y_mode.assign(mis, 0);
+        uv_mode.assign(mis, 0);
+        skip.assign(mis, 0);
+        seg_id.assign(mis, 0);
+        tx_size.assign(mis, 0);
+        palette_y.assign(mis, 0);
+        delta_lfs.assign(mis * 4, 0);
+        for (int p = 0; p < num_planes; ++p) {
+            const int sx = p ? subx : 0, sy = p ? suby : 0;
+            Plane& pl = planes[p];
+            pl.w = (fr.mi_cols * 4) >> sx;
+            pl.h = (fr.mi_rows * 4) >> sy;
+            pl.stride = pl.w + 160;
+            pl.px.assign(static_cast<size_t>(pl.h + 160) * pl.stride, 0);
+            lf_stride[p] = (fr.mi_cols >> sx) + 32;
+            lf_tx[p].assign(static_cast<size_t>((fr.mi_rows >> sy) + 32) * lf_stride[p], 0);
+            above_level[p].assign(fr.mi_cols + 64, 0);
+            above_dc[p].assign(fr.mi_cols + 64, 0);
+            left_level[p].assign(fr.mi_rows + 64, 0);
+            left_dc[p].assign(fr.mi_rows + 64, 0);
+        }
+        qctx = fr.base_q <= 20 ? 0 : fr.base_q <= 60 ? 1 : fr.base_q <= 120 ? 2 : 3;
+        if (num_planes == 1) tools |= TOOL_400;
+        else if (subx && suby) tools |= TOOL_420;
+        else if (subx) tools |= TOOL_422;
+        else tools |= TOOL_444;
+        if (seq.sb128) tools |= TOOL_SB128;
+    }
+
+    // ---- one tile (5.11)
+    void decode_tile(const uint8_t* data, size_t size, int row, int col) {
+        mi_row_start = fr.row_starts[row];
+        mi_row_end = fr.row_starts[row + 1];
+        mi_col_start = fr.col_starts[col];
+        mi_col_end = fr.col_starts[col + 1];
+        current_q = fr.base_q;
+        cdf.init(qctx);
+        sd.init(data, size, fr.disable_cdf_update);
+        for (int p = 0; p < num_planes; ++p) {
+            std::fill(above_level[p].begin(), above_level[p].end(), 0);
+            std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
+        }
+        for (int& d : delta_lf) d = 0;
+        const int sb4 = seq.sb128 ? 32 : 16;
+        for (int r = mi_row_start; r < mi_row_end; r += sb4) {
+            for (int p = 0; p < num_planes; ++p) {
+                std::fill(left_level[p].begin(), left_level[p].end(), 0);
+                std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
+            }
+            for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+                read_deltas = fr.delta_q_present;
+                for (int& k : cdef_idx) k = -1;
+                clear_block_decoded(r, c, sb4);
+                decode_partition(r, c, seq.sb128 ? BLOCK_128X128 : BLOCK_64X64);
+            }
+        }
+        // the specification's bound on the symbol decoder's read past its
+        // data (SymbolMaxBits >= -14 at the tile's end), which dav1d enforces
+        if (sd.max_bits < -14) broken("a tile whose symbols run past its data");
+    }
+
+    void clear_block_decoded(int r, int c, int sb4) {
+        for (int p = 0; p < num_planes; ++p) {
+            const int sx = p ? subx : 0, sy = p ? suby : 0;
+            const int sbw4 = (mi_col_end - c) >> sx, sbh4 = (mi_row_end - r) >> sy;
+            for (int y = -1; y <= (sb4 >> sy); ++y)
+                for (int x = -1; x <= (sb4 >> sx); ++x) {
+                    uint8_t v;
+                    if (y < 0 && x < sbw4) v = 1;
+                    else if (x < 0 && y < sbh4) v = 1;
+                    else v = 0;
+                    block_decoded[p][y + 1][x + 1] = v;
+                }
+            block_decoded[p][(sb4 >> sy) + 1][0] = 0;
+        }
+    }
+
+    // ---- partitions (5.11.4)
+    int partition_ctx(int r, int c, int bsl) {
+        const int above = avail_u && log2i(kBlockW[mi_size[mi(r - 1, c)]] >> 2) < bsl;
+        const int left = avail_l && log2i(kBlockH[mi_size[mi(r, c - 1)]] >> 2) < bsl;
+        return left * 2 + above;
+    }
+
+    void decode_partition(int r, int c, int bs) {
+        if (r >= fr.mi_rows || c >= fr.mi_cols) return;
+        avail_u = inside(r - 1, c);
+        avail_l = inside(r, c - 1);
+        const int num4 = kBlockW[bs] >> 2, half = num4 >> 1, quarter = half >> 1;
+        const bool has_rows = (r + half) < fr.mi_rows, has_cols = (c + half) < fr.mi_cols;
+        int partition;
+        if (bs < BLOCK_8X8) {
+            partition = 0;
+        } else {
+            const int bsl = log2i(num4);  // 1 for 8×8 ... 5 for 128×128
+            const int ctx = partition_ctx(r, c, bsl);
+            uint16_t* pc = cdf.partition[(bsl - 1) * 4 + ctx];
+            const int nsym = bsl == 1 ? 4 : (bsl == 5 ? 8 : 10);
+            auto prob = [&](int e) { return (e > 0 ? pc[e - 1] : 32768) - pc[e]; };
+            if (has_rows && has_cols) {
+                partition = sd.symbol(pc, nsym);
+                // dav1d refuses the vertical splits in 4:2:2 (their halves'
+                // chroma would be narrower than the block sizes allow)
+                if (num_planes > 1 && subx && !suby && (partition == 2 || partition == 6 || partition == 7 ||
+                                                         partition == 9))
+                    broken("a vertical partition in 4:2:2");
+            } else if (has_cols) {  // split or horizontal: split takes every partition that cuts the top half
+                int psum = prob(2) + prob(3);  // VERT, SPLIT
+                if (bsl > 1) {
+                    psum += prob(4) + prob(6) + prob(7);  // HORZ_A, VERT_A, VERT_B
+                    if (bsl < 5) psum += prob(9);  // VERT_4
+                }
+                uint16_t tmp[3] = {static_cast<uint16_t>(psum), 0, 0};
+                partition = sd.symbol(tmp, 2, false) ? 3 : 1;
+            } else if (has_rows) {  // split or vertical: split takes every partition that cuts the left half
+                int psum = prob(1) + prob(3);  // HORZ, SPLIT
+                if (bsl > 1) {
+                    psum += prob(4) + prob(5) + prob(6);  // HORZ_A, HORZ_B, VERT_A
+                    if (bsl < 5) psum += prob(8);  // HORZ_4
+                }
+                uint16_t tmp[3] = {static_cast<uint16_t>(psum), 0, 0};
+                partition = sd.symbol(tmp, 2, false) ? 3 : 2;
+                if (num_planes > 1 && subx && !suby && partition == 2) broken("a vertical partition in 4:2:2");
+            } else {
+                partition = 3;
+            }
+        }
+        const int w = kBlockW[bs], h = kBlockH[bs];
+        const int split = block_of(w / 2, h / 2);
+        switch (partition) {
+            case 0: decode_block(r, c, bs); break;
+            case 1:
+                decode_block(r, c, block_of(w, h / 2));
+                if (has_rows) decode_block(r + half, c, block_of(w, h / 2));
+                break;
+            case 2:
+                decode_block(r, c, block_of(w / 2, h));
+                if (has_cols) decode_block(r, c + half, block_of(w / 2, h));
+                break;
+            case 3:
+                decode_partition(r, c, split);
+                decode_partition(r, c + half, split);
+                decode_partition(r + half, c, split);
+                decode_partition(r + half, c + half, split);
+                break;
+            case 4:  // HORZ_A
+                decode_block(r, c, split);
+                decode_block(r, c + half, split);
+                decode_block(r + half, c, block_of(w, h / 2));
+                break;
+            case 5:  // HORZ_B
+                decode_block(r, c, block_of(w, h / 2));
+                decode_block(r + half, c, split);
+                decode_block(r + half, c + half, split);
+                break;
+            case 6:  // VERT_A
+                decode_block(r, c, split);
+                decode_block(r + half, c, split);
+                decode_block(r, c + half, block_of(w / 2, h));
+                break;
+            case 7:  // VERT_B
+                decode_block(r, c, block_of(w / 2, h));
+                decode_block(r, c + half, split);
+                decode_block(r + half, c + half, split);
+                break;
+            case 8:  // HORZ_4
+                for (int i = 0; i < 4; ++i)
+                    if (i < 3 || r + quarter * 3 < fr.mi_rows) decode_block(r + quarter * i, c, block_of(w, h / 4));
+                break;
+            default:  // VERT_4
+                for (int i = 0; i < 4; ++i)
+                    if (i < 3 || c + quarter * 3 < fr.mi_cols) decode_block(r, c + quarter * i, block_of(w / 4, h));
+                break;
+        }
+    }
+
+    // ---- a block (5.11.5)
+    void decode_block(int r, int c, int bs) {
+        if (bs == BLOCK_INVALID) broken("a partition into an invalid block size");
+        mi_row = r;
+        mi_col = c;
+        bsize = bs;
+        bw4 = kBlockW[bs] >> 2;
+        bh4 = kBlockH[bs] >> 2;
+        if (bh4 == 1 && suby && (mi_row & 1) == 0) has_chroma = false;
+        else if (bw4 == 1 && subx && (mi_col & 1) == 0) has_chroma = false;
+        else has_chroma = num_planes > 1;
+        avail_u = inside(r - 1, c);
+        avail_l = inside(r, c - 1);
+        avail_u_chroma = avail_u;
+        avail_l_chroma = avail_l;
+        if (has_chroma) {
+            if (suby && bh4 == 1) avail_u_chroma = inside(r - 2, c);
+            if (subx && bw4 == 1) avail_l_chroma = inside(r, c - 2);
+        } else {
+            avail_u_chroma = avail_l_chroma = false;
+        }
+        mode_info();
+        read_block_tx_size();
+        if (is_skip) reset_block_context();
+        for (int y = 0; y < bh4; ++y)
+            for (int x = 0; x < bw4; ++x) {
+                if (r + y >= fr.mi_rows || c + x >= fr.mi_cols) continue;
+                const size_t k = mi(r + y, c + x);
+                y_mode[k] = static_cast<uint8_t>(ymode);
+                uv_mode[k] = static_cast<uint8_t>(uvmode);
+                skip[k] = static_cast<uint8_t>(is_skip);
+                tx_size[k] = static_cast<uint8_t>(txsz);
+                mi_size[k] = static_cast<uint8_t>(bs);
+                seg_id[k] = static_cast<uint8_t>(segment);
+                for (int i = 0; i < 4; ++i) delta_lfs[k * 4 + i] = static_cast<int8_t>(delta_lf[i]);
+            }
+        residual();
+    }
+
+    void mode_info() {
+        is_skip = 0;  // a segment id read before skip predicts as for a block not skipped
+        if (fr.seg_pre_skip) intra_segment_id();
+        read_skip();
+        if (!fr.seg_pre_skip) intra_segment_id();
+        read_cdef();
+        read_delta_qindex();
+        read_delta_lf();
+        read_deltas = false;
+        if (fr.allow_intrabc && sd.symbol(cdf.intrabc, 2)) refuse("intraBC");
+        const int above = kIntraModeContext[avail_u ? y_mode[mi(mi_row - 1, mi_col)] : DC_PRED];
+        const int left = kIntraModeContext[avail_l ? y_mode[mi(mi_row, mi_col - 1)] : DC_PRED];
+        ymode = sd.symbol(cdf.kf_y_mode[above][left], 13);
+        const bool use_angle_delta = bsize >= BLOCK_8X8;
+        angle_y = 0;
+        if (use_angle_delta && directional(ymode)) angle_y = sd.symbol(cdf.angle_delta[ymode - V_PRED], 7) - 3;
+        uvmode = DC_PRED;
+        angle_uv = 0;
+        cfl_u = cfl_v = 0;
+        if (has_chroma) {
+            const int residual_bs = plane_bsize(bsize, 1);
+            bool cfl_allowed;
+            if (lossless && residual_bs == BLOCK_4X4) cfl_allowed = true;
+            else if (!lossless && std::max(kBlockW[bsize], kBlockH[bsize]) <= 32) cfl_allowed = true;
+            else cfl_allowed = false;
+            uvmode = cfl_allowed ? sd.symbol(cdf.uv_mode[1][ymode], 14) : sd.symbol(cdf.uv_mode[0][ymode], 13);
+            if (uvmode == UV_CFL_PRED) {
+                const int signs = sd.symbol(cdf.cfl_sign, 8);
+                const int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
+                if (sign_u) {
+                    cfl_u = sd.symbol(cdf.cfl_alpha[(sign_u - 1) * 3 + sign_v], 16) + 1;
+                    if (sign_u == 1) cfl_u = -cfl_u;
+                }
+                if (sign_v) {
+                    cfl_v = sd.symbol(cdf.cfl_alpha[(sign_v - 1) * 3 + sign_u], 16) + 1;
+                    if (sign_v == 1) cfl_v = -cfl_v;
+                }
+                tools |= TOOL_CFL;
+            }
+            if (use_angle_delta && directional(uvmode)) angle_uv = sd.symbol(cdf.angle_delta[uvmode - V_PRED], 7) - 3;
+        }
+        if (angle_y || angle_uv) tools |= TOOL_ANGLE_DELTA;
+        if (bsize >= BLOCK_8X8 && kBlockW[bsize] <= 64 && kBlockH[bsize] <= 64 && fr.allow_screen_content) {
+            const int bctx = log2i(kBlockW[bsize] >> 2) + log2i(kBlockH[bsize] >> 2) - 2;
+            if (ymode == DC_PRED) {
+                const int ctx = (avail_u && palette_y[mi(mi_row - 1, mi_col)]) + (avail_l && palette_y[mi(mi_row, mi_col - 1)]);
+                if (sd.symbol(cdf.pal_y_mode[bctx][ctx], 2)) refuse("palette");
+            }
+            if (has_chroma && uvmode == DC_PRED && sd.symbol(cdf.pal_uv_mode[0], 2)) refuse("palette");
+        }
+        use_filter_intra = 0;
+        if (seq.enable_filter_intra && ymode == DC_PRED && std::max(kBlockW[bsize], kBlockH[bsize]) <= 32) {
+            use_filter_intra = sd.symbol(cdf.filter_intra[bsize], 2);
+            if (use_filter_intra) {
+                filter_mode = sd.symbol(cdf.filter_intra_mode, 5);
+                tools |= TOOL_FILTER_INTRA;
+            }
+        }
+    }
+
+    int plane_bsize(int bs, int plane) const {
+        const int sx = plane ? subx : 0, sy = plane ? suby : 0;
+        int w = kBlockW[bs] >> sx, h = kBlockH[bs] >> sy;
+        int b = block_of(std::max(w, 4), std::max(h, 4));
+        if (b == BLOCK_INVALID) {  // 4:2:2 of a 4×16 or 16×4 ... the specification's Subsampled_Size
+            if (w < 4) w = 4;
+            if (h < 4) h = 4;
+            if (w == 4 && h == 16) b = BLOCK_4X16;
+            else if (w == 8 && h == 32) b = BLOCK_8X32;
+            else if (w == 2 * h && w <= 64) b = block_of(w, h);
+            else b = block_of(std::min(w, h * 2), std::min(h, w * 2));
+        }
+        return b;
+    }
+
+    void intra_segment_id() {
+        if (!fr.seg_enabled) {
+            segment = 0;
+        } else {
+            const int prev_ul = (avail_u && avail_l) ? seg_id[mi(mi_row - 1, mi_col - 1)] : -1;
+            const int prev_u = avail_u ? seg_id[mi(mi_row - 1, mi_col)] : -1;
+            const int prev_l = avail_l ? seg_id[mi(mi_row, mi_col - 1)] : -1;
+            int pred;
+            if (prev_u == -1) pred = prev_l == -1 ? 0 : prev_l;
+            else if (prev_l == -1) pred = prev_u;
+            else pred = prev_ul == prev_u ? prev_u : prev_l;
+            if (is_skip) {
+                segment = pred;
+            } else {
+                int ctx;
+                if (prev_ul < 0 || prev_u < 0 || prev_l < 0) ctx = 0;
+                else if (prev_ul == prev_u && prev_ul == prev_l) ctx = 2;
+                else if (prev_ul == prev_u || prev_ul == prev_l || prev_u == prev_l) ctx = 1;
+                else ctx = 0;
+                const int diff = sd.symbol(cdf.seg_id[ctx], MAX_SEGMENTS);
+                const int max = fr.last_active_seg + 1;
+                int v;
+                if (!pred) v = diff;
+                else if (pred >= max - 1) v = max - diff - 1;
+                else if (2 * pred < max) {
+                    if (diff <= 2 * pred) v = (diff & 1) ? pred + ((diff + 1) >> 1) : pred - (diff >> 1);
+                    else v = diff;
+                } else {
+                    if (diff <= 2 * (max - pred - 1)) v = (diff & 1) ? pred + ((diff + 1) >> 1) : pred - (diff >> 1);
+                    else v = max - (diff + 1);
+                }
+                segment = clip3(0, fr.last_active_seg, v);
+            }
+        }
+        lossless = fr.lossless[segment];
+    }
+
+    void read_skip() {
+        if (fr.seg_pre_skip && seg_active(fr, segment, SEG_LVL_SKIP)) {
+            is_skip = 1;
+            return;
+        }
+        int ctx = 0;
+        if (avail_u) ctx += skip[mi(mi_row - 1, mi_col)];
+        if (avail_l) ctx += skip[mi(mi_row, mi_col - 1)];
+        is_skip = sd.symbol(cdf.skip[ctx], 2);
+    }
+
+    void read_cdef() {
+        if (is_skip || fr.coded_lossless || !seq.enable_cdef || fr.allow_intrabc) return;
+        const int idx = seq.sb128 ? (((mi_row >> 4) & 1) * 2 + ((mi_col >> 4) & 1)) : 0;  // the 64² area
+        if (cdef_idx[idx] == -1) {
+            cdef_idx[idx] = sd.literal(fr.cdef_bits);
+            // a 128² block covers all four 64² areas
+            if (seq.sb128 && bsize == BLOCK_128X128) for (int& k : cdef_idx) k = cdef_idx[idx];
+            else if (seq.sb128 && bsize == BLOCK_128X64) cdef_idx[idx ^ 1] = cdef_idx[idx];
+            else if (seq.sb128 && bsize == BLOCK_64X128) cdef_idx[idx ^ 2] = cdef_idx[idx];
+        }
+    }
+
+    void read_delta_qindex() {
+        const int sb = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+        if (bsize == sb && is_skip) return;
+        if (!read_deltas) return;
+        int abs = sd.symbol(cdf.delta_q, 4);
+        if (abs == 3) {
+            const int rem = sd.literal(3) + 1;
+            abs = sd.literal(rem) + (1 << rem) + 1;
+        }
+        if (abs) {
+            const int sign = sd.literal(1);
+            const int reduced = sign ? -abs : abs;
+            current_q = clip3(1, 255, current_q + (reduced << fr.delta_q_res));
+            tools |= TOOL_DELTA_Q;
+        }
+    }
+
+    void read_delta_lf() {
+        const int sb = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+        if (bsize == sb && is_skip) return;
+        if (!read_deltas || !fr.delta_lf_present) return;
+        const int count = fr.delta_lf_multi ? (num_planes > 1 ? 4 : 2) : 1;
+        for (int i = 0; i < count; ++i) {
+            uint16_t* c = fr.delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf;
+            int abs = sd.symbol(c, 4);
+            if (abs == 3) {
+                const int n = sd.literal(3) + 1;
+                abs = sd.literal(n) + (1 << n) + 1;
+            }
+            if (abs) {
+                const int sign = sd.literal(1);
+                const int reduced = sign ? -abs : abs;
+                delta_lf[i] = clip3(-63, 63, delta_lf[i] + (reduced << fr.delta_lf_res));
+                tools |= fr.delta_lf_multi ? (TOOL_DELTA_LF | TOOL_DELTA_LF_MULTI) : TOOL_DELTA_LF;
+            }
+        }
+    }
+
+    // ---- transform size (5.11.15-17)
+    // the neighbours' transform sizes (InterTxSizes; an intra block's TxSize)
+    int above_tx_width() const { return kTxW[tx_size[mi(mi_row - 1, mi_col)]]; }
+    int left_tx_height() const { return kTxH[tx_size[mi(mi_row, mi_col - 1)]]; }
+
+    void read_block_tx_size() {
+        if (lossless) {
+            txsz = TX_4X4;
+            return;
+        }
+        const int max_rect = max_tx_rect(bsize);
+        txsz = max_rect;
+        if (bsize > BLOCK_4X4 && fr.tx_mode_select) {
+            int depth_to_4 = 0;
+            for (int t = max_rect; t != TX_4X4; t = kTxSplit[t]) ++depth_to_4;
+            const int cat = depth_to_4 - 1;
+            const int max_depth = std::min(depth_to_4, 2);
+            const int above_w = avail_u ? above_tx_width() : 0;
+            const int left_h = avail_l ? left_tx_height() : 0;
+            const int ctx = (above_w >= kTxW[max_rect]) + (left_h >= kTxH[max_rect]);
+            const int depth = sd.symbol(cdf.tx_size[cat][ctx], max_depth + 1);
+            for (int i = 0; i < depth; ++i) txsz = kTxSplit[txsz];
+        }
+    }
+
+    void reset_block_context() {
+        for (int p = 0; p < (has_chroma ? num_planes : 1); ++p) {
+            const int sx = p ? subx : 0, sy = p ? suby : 0;
+            for (int i = mi_col >> sx; i < ((mi_col + bw4) >> sx); ++i) {
+                above_level[p][i] = 0;
+                above_dc[p][i] = 0;
+            }
+            for (int i = mi_row >> sy; i < ((mi_row + bh4) >> sy); ++i) {
+                left_level[p][i] = 0;
+                left_dc[p][i] = 0;
+            }
+        }
+    }
+    // ---- residual and reconstruction (5.11.34-35, 7.11, 7.12, 7.13)
+    int uv_tx_size() const {
+        const int uvt = max_tx_rect(plane_bsize(bsize, 1));
+        if (kTxW[uvt] == 64 || kTxH[uvt] == 64) {
+            if (kTxW[uvt] == 16) return TX_16X32;
+            if (kTxH[uvt] == 16) return TX_32X16;
+            return TX_32X32;
+        }
+        return uvt;
+    }
+
+    void residual() {
+        const int wchunks = std::max(1, kBlockW[bsize] >> 6), hchunks = std::max(1, kBlockH[bsize] >> 6);
+        for (int cy = 0; cy < hchunks; ++cy)
+            for (int cx = 0; cx < wchunks; ++cx) {
+                for (int p = 0; p < 1 + (has_chroma ? 2 : 0); ++p) {
+                    const int t = lossless ? TX_4X4 : (p ? uv_tx_size() : txsz);
+                    const int step_x = kTxW[t] >> 2, step_y = kTxH[t] >> 2;
+                    const int pbs = plane_bsize(bsize, p);
+                    const int n4w = kBlockW[pbs] >> 2, n4h = kBlockH[pbs] >> 2;
+                    const int sx = p ? subx : 0, sy = p ? suby : 0;
+                    const int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+                    for (int y = 0; y < std::min(n4h, 16 >> sy); y += step_y)
+                        for (int x = 0; x < std::min(n4w, 16 >> sx); x += step_x)
+                            transform_block(p, base_x, base_y, t, x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
+                }
+            }
+    }
+
+    void transform_block(int plane, int base_x, int base_y, int t, int x, int y) {
+        const int sx = plane ? subx : 0, sy = plane ? suby : 0;
+        const int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+        const int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+        const int sb_mask = seq.sb128 ? 31 : 15;
+        const int sub_r = row & sb_mask, sub_c = col & sb_mask;
+        const int step_x = kTxW[t] >> 2, step_y = kTxH[t] >> 2;
+        const int max_x = (fr.mi_cols * 4) >> sx, max_y = (fr.mi_rows * 4) >> sy;
+        if (start_x >= max_x || start_y >= max_y) return;
+        const bool is_cfl = plane > 0 && uvmode == UV_CFL_PRED;
+        int mode;
+        if (plane == 0) mode = ymode;
+        else mode = is_cfl ? DC_PRED : uvmode;
+        const int by = (sub_r >> sy), bx = (sub_c >> sx);
+        const bool have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+        const bool have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+        const bool have_above_right = block_decoded[plane][by - 1 + 1][bx + step_x + 1];
+        const bool have_below_left = block_decoded[plane][by + step_y + 1][bx - 1 + 1];
+        predict_intra(plane, start_x, start_y, have_left, have_above, have_above_right, have_below_left, mode,
+                      log2i(kTxW[t]), log2i(kTxH[t]));
+        if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+        if (plane == 0) {
+            max_luma_w = start_x + step_x * 4;
+            max_luma_h = start_y + step_y * 4;
+        }
+        if (!is_skip) {
+            const int eob = coeffs(start_x, start_y, plane, t);
+            if (eob > 0) reconstruct(plane, start_x, start_y, t);
+        }
+        for (int i = 0; i < step_y; ++i)
+            for (int j = 0; j < step_x; ++j) {
+                const size_t li = static_cast<size_t>((row >> sy) + i) * lf_stride[plane] + (col >> sx) + j;
+                if (li < lf_tx[plane].size()) lf_tx[plane][li] = static_cast<uint8_t>(t);
+                if (by + i + 1 < 34 && bx + j + 1 < 34) block_decoded[plane][by + i + 1][bx + j + 1] = 1;
+            }
+        const int tw = kTxW[t], th = kTxH[t];
+        tools |= tw == 4 || th == 4 ? TOOL_TX4 : 0;
+        tools |= std::max(tw, th) == 8 ? TOOL_TX8 : 0;
+        tools |= std::max(tw, th) == 16 ? TOOL_TX16 : 0;
+        tools |= std::max(tw, th) == 32 ? TOOL_TX32 : 0;
+        tools |= std::max(tw, th) == 64 ? TOOL_TX64 : 0;
+        tools |= tw != th ? TOOL_TX_RECT : 0;
+    }
+
+    // ---- intra prediction (7.11.2)
+    int filter_type(int plane) {
+        auto smooth = [&](int r, int c, int p) {
+            const int m = p == 0 ? y_mode[mi(r, c)] : uv_mode[mi(r, c)];
+            return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
+        };
+        bool above = false, left = false;
+        if (plane == 0 ? avail_u : avail_u_chroma) {
+            int r = mi_row - 1, c = mi_col;
+            if (plane > 0) {
+                if (subx && !(mi_col & 1)) ++c;
+                if (suby && (mi_row & 1)) --r;
+            }
+            above = smooth(r, c, plane);
+        }
+        if (plane == 0 ? avail_l : avail_l_chroma) {
+            int r = mi_row, c = mi_col - 1;
+            if (plane > 0) {
+                if (subx && (mi_col & 1)) --c;
+                if (suby && !(mi_row & 1)) ++r;
+            }
+            left = smooth(r, c, plane);
+        }
+        return above || left;
+    }
+
+    static int edge_strength(int w, int h, int type, int delta) {
+        const int d = std::abs(delta), wh = w + h;
+        int s = 0;
+        if (type == 0) {
+            if (wh <= 8) { if (d >= 56) s = 1; }
+            else if (wh <= 12) { if (d >= 40) s = 1; }
+            else if (wh <= 16) { if (d >= 40) s = 1; }
+            else if (wh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+            else if (wh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+            else { if (d >= 1) s = 3; }
+        } else {
+            if (wh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+            else if (wh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+            else if (wh <= 24) { if (d >= 4) s = 3; }
+            else { if (d >= 1) s = 3; }
+        }
+        return s;
+    }
+
+    static bool use_upsample(int w, int h, int type, int delta) {
+        const int d = std::abs(delta), wh = w + h;
+        if (d <= 0 || d >= 40) return false;
+        return type ? wh <= 8 : wh <= 16;
+    }
+
+    static void edge_filter(int* buf, int size, int strength) {  // buf[-1 .. size-2] filtered from index -1
+        if (!strength) return;
+        static const int kernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+        int edge[160];
+        for (int i = 0; i < size; ++i) edge[i] = buf[i - 1];
+        for (int i = 1; i < size; ++i) {
+            int s = 0;
+            for (int j = 0; j < 5; ++j) s += kernel[strength - 1][j] * edge[clip3(0, size - 1, i - 2 + j)];
+            buf[i - 1] = (s + 8) >> 4;
+        }
+    }
+
+    static void edge_upsample(int* buf, int num) {
+        int dup[80];
+        dup[0] = buf[-1];
+        for (int i = -1; i < num; ++i) dup[i + 2] = buf[i];
+        dup[num + 2] = buf[num - 1];
+        buf[-2] = dup[0];
+        for (int i = 0; i < num; ++i) {
+            int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+            s = clip3(0, 255, round2(s, 4));
+            buf[2 * i - 1] = s;
+            buf[2 * i] = dup[i + 2];
+        }
+    }
+
+    void predict_intra(int plane, int x, int y, bool have_left, bool have_above, bool have_above_right,
+                       bool have_below_left, int mode, int log2w, int log2h) {
+        Plane& pl = planes[plane];
+        const int w = 1 << log2w, h = 1 << log2h;
+        const int sx = plane ? subx : 0, sy = plane ? suby : 0;
+        const int max_x = ((fr.mi_cols * 4) >> sx) - 1, max_y = ((fr.mi_rows * 4) >> sy) - 1;
+        int above_buf[288], left_buf[288];
+        int* above = above_buf + 16;
+        int* left = left_buf + 16;
+        const int n = w + h;
+        if (!have_above && have_left) {
+            for (int i = 0; i < n; ++i) above[i] = pl.at(y, x - 1);
+        } else if (!have_above && !have_left) {
+            for (int i = 0; i < n; ++i) above[i] = 127;
+        } else {
+            const int limit = std::min(max_x, x + (have_above_right ? 2 * w : w) - 1);
+            for (int i = 0; i < n; ++i) above[i] = pl.at(y - 1, std::min(limit, x + i));
+        }
+        if (!have_left && have_above) {
+            for (int i = 0; i < n; ++i) left[i] = pl.at(y - 1, x);
+        } else if (!have_left && !have_above) {
+            for (int i = 0; i < n; ++i) left[i] = 129;
+        } else {
+            const int limit = std::min(max_y, y + (have_below_left ? 2 * h : h) - 1);
+            for (int i = 0; i < n; ++i) left[i] = pl.at(std::min(limit, y + i), x - 1);
+        }
+        if (have_above && have_left) above[-1] = pl.at(y - 1, x - 1);
+        else if (have_above) above[-1] = pl.at(y - 1, x);
+        else if (have_left) above[-1] = pl.at(y, x - 1);
+        else above[-1] = 128;
+        left[-1] = above[-1];
+        int pred[64][64];
+        if (plane == 0 && use_filter_intra) {
+            const int8_t* taps = kFilterIntraTaps + filter_mode * 64;
+            for (int i2 = 0; i2 < (h >> 1); ++i2)
+                for (int j4 = 0; j4 < (w >> 2); ++j4) {
+                    int p[7];
+                    for (int i = 0; i < 7; ++i) {
+                        if (i < 5) {
+                            if (i2 == 0) p[i] = above[(j4 << 2) + i - 1];
+                            else if (j4 == 0 && i == 0) p[i] = left[(i2 << 1) - 1];
+                            else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+                        } else {
+                            if (j4 == 0) p[i] = left[(i2 << 1) + i - 5];
+                            else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+                        }
+                    }
+                    for (int i = 0; i < 8; ++i) {
+                        int pr = 0;
+                        for (int j = 0; j < 7; ++j) pr += taps[i * 8 + j] * p[j];
+                        pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip3(0, 255, round2signed(pr, 4));
+                    }
+                }
+        } else if (directional(mode)) {
+            const int angle_delta = plane == 0 ? angle_y : angle_uv;
+            const int p_angle = kModeToAngle[mode] + angle_delta * 3;
+            int up_above = 0, up_left = 0;
+            tools |= (mode == V_PRED || mode == H_PRED) && !angle_delta ? TOOL_VH : TOOL_DIRECTIONAL;
+            if (seq.enable_intra_edge_filter) {
+                const int type = filter_type(plane);
+                if (p_angle != 90 && p_angle != 180) {
+                    if (p_angle > 90 && p_angle < 180 && (w + h) >= 24) {
+                        above[-1] = left[-1] = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+                    }
+                    if (have_above) {
+                        const int s = edge_strength(w, h, type, p_angle - 90);
+                        const int num = std::min(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
+                        if (s) tools |= TOOL_EDGE_FILTER;
+                        edge_filter(above, num, s);
+                    }
+                    if (have_left) {
+                        const int s = edge_strength(w, h, type, p_angle - 180);
+                        const int num = std::min(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
+                        if (s) tools |= TOOL_EDGE_FILTER;
+                        edge_filter(left, num, s);
+                    }
+                }
+                up_above = use_upsample(w, h, type, p_angle - 90);
+                if (up_above) edge_upsample(above, w + (p_angle < 90 ? h : 0));
+                up_left = use_upsample(w, h, type, p_angle - 180);
+                if (up_left) edge_upsample(left, h + (p_angle > 180 ? w : 0));
+                if (up_above || up_left) tools |= TOOL_EDGE_UPSAMPLE;
+            }
+            int dx = 0, dy = 0;
+            if (p_angle < 90) dx = kDrIntraDerivative[p_angle];
+            else if (p_angle > 90 && p_angle < 180) dx = kDrIntraDerivative[180 - p_angle];
+            if (p_angle > 90 && p_angle < 180) dy = kDrIntraDerivative[p_angle - 90];
+            else if (p_angle > 180) dy = kDrIntraDerivative[270 - p_angle];
+            for (int i = 0; i < h; ++i)
+                for (int j = 0; j < w; ++j) {
+                    int v;
+                    if (p_angle == 90) {
+                        v = above[j];
+                    } else if (p_angle == 180) {
+                        v = left[i];
+                    } else if (p_angle < 90) {
+                        const int idx = (i + 1) * dx;
+                        const int base = (idx >> (6 - up_above)) + (j << up_above);
+                        const int shift = ((idx << up_above) >> 1) & 0x1f;
+                        const int max_base = (w + h - 1) << up_above;
+                        if (base < max_base) v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+                        else v = above[max_base];
+                    } else if (p_angle < 180) {
+                        int idx = (j << 6) - (i + 1) * dx;
+                        int base = idx >> (6 - up_above);
+                        if (base >= -(1 << up_above)) {
+                            const int shift = ((idx * (1 << up_above)) >> 1) & 0x1f;
+                            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+                        } else {
+                            idx = (i << 6) - (j + 1) * dy;
+                            base = idx >> (6 - up_left);
+                            const int shift = ((idx * (1 << up_left)) >> 1) & 0x1f;
+                            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+                        }
+                    } else {
+                        const int idx = (j + 1) * dy;
+                        const int base = (idx >> (6 - up_left)) + (i << up_left);
+                        const int shift = ((idx << up_left) >> 1) & 0x1f;
+                        const int max_base = (w + h - 1) << up_left;
+                        if (base < max_base) v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+                        else v = left[max_base];
+                    }
+                    pred[i][j] = v;
+                }
+        } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
+            tools |= TOOL_SMOOTH;
+            const uint8_t* wx = kSmoothWeights + (w - 2);
+            const uint8_t* wy = kSmoothWeights + (h - 2);
+            for (int i = 0; i < h; ++i)
+                for (int j = 0; j < w; ++j) {
+                    if (mode == SMOOTH_PRED) {
+                        const int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] +
+                                      (256 - wx[j]) * above[w - 1];
+                        pred[i][j] = round2(s, 9);
+                    } else if (mode == SMOOTH_V_PRED) {
+                        pred[i][j] = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+                    } else {
+                        pred[i][j] = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+                    }
+                }
+        } else if (mode == DC_PRED) {
+            tools |= TOOL_DC;
+            int avg;
+            if (have_above && have_left) {
+                int sum = 0;
+                for (int k = 0; k < w; ++k) sum += above[k];
+                for (int k = 0; k < h; ++k) sum += left[k];
+                avg = (sum + ((w + h) >> 1)) / (w + h);
+            } else if (have_above) {
+                int sum = 0;
+                for (int k = 0; k < w; ++k) sum += above[k];
+                avg = (sum + (w >> 1)) >> log2w;
+            } else if (have_left) {
+                int sum = 0;
+                for (int k = 0; k < h; ++k) sum += left[k];
+                avg = (sum + (h >> 1)) >> log2h;
+            } else {
+                avg = 128;
+            }
+            for (int i = 0; i < h; ++i)
+                for (int j = 0; j < w; ++j) pred[i][j] = avg;
+        } else {  // PAETH
+            tools |= TOOL_PAETH;
+            for (int i = 0; i < h; ++i)
+                for (int j = 0; j < w; ++j) {
+                    const int base = above[j] + left[i] - above[-1];
+                    const int p_left = std::abs(base - left[i]), p_top = std::abs(base - above[j]);
+                    const int p_tl = std::abs(base - above[-1]);
+                    if (p_left <= p_top && p_left <= p_tl) pred[i][j] = left[i];
+                    else if (p_top <= p_tl) pred[i][j] = above[j];
+                    else pred[i][j] = above[-1];
+                }
+        }
+        for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) pl.at(y + i, x + j) = static_cast<uint8_t>(pred[i][j]);
+    }
+
+    void predict_cfl(int plane, int start_x, int start_y, int t) {
+        const int w = kTxW[t], h = kTxH[t];
+        const int alpha = plane == 1 ? cfl_u : cfl_v;
+        int sum = 0;
+        for (int i = 0; i < h; ++i) {
+            const int luma_y = std::min((start_y + i) << suby, max_luma_h - (1 << suby));
+            for (int j = 0; j < w; ++j) {
+                const int luma_x = std::min((start_x + j) << subx, max_luma_w - (1 << subx));
+                int tt = 0;
+                for (int dy = 0; dy <= suby; ++dy)
+                    for (int dx = 0; dx <= subx; ++dx) tt += planes[0].at(luma_y + dy, luma_x + dx);
+                const int v = tt << (3 - subx - suby);
+                lbuf[i][j] = v;
+                sum += v;
+            }
+        }
+        const int avg = round2(sum, log2i(w) + log2i(h));
+        Plane& pl = planes[plane];
+        for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) {
+                const int dc = pl.at(start_y + i, start_x + j);
+                const int scaled = round2signed(alpha * (lbuf[i][j] - avg), 6);
+                pl.at(start_y + i, start_x + j) = static_cast<uint8_t>(clip3(0, 255, dc + scaled));
+            }
+    }
+
+    // ---- coefficients (5.11.39)
+    int plane_tx_type = 0;
+
+    int get_tx_set(int t) const {
+        if (tx_sqr_up(t) > TX_32X32) return TX_SET_DCTONLY;
+        if (tx_sqr_up(t) == TX_32X32) return TX_SET_DCTONLY;
+        if (fr.reduced_tx_set) return TX_SET_INTRA_2;
+        if (tx_sqr(t) == TX_16X16) return TX_SET_INTRA_2;
+        return TX_SET_INTRA_1;
+    }
+
+    void scan_of(int t, int type, std::vector<int>& scan) const {
+        int w = std::min(kTxW[t], 32), h = std::min(kTxH[t], 32);
+        if (t == TX_16X64) { w = 16; h = 32; }
+        if (t == TX_64X16) { w = 32; h = 16; }
+        scan.clear();
+        const bool big = tx_sqr_up(t) == TX_64X64;
+        const bool pref_row = !big && (type == V_DCT || type == V_ADST || type == V_FLIPADST);
+        const bool pref_col = !big && (type == H_DCT || type == H_ADST || type == H_FLIPADST);
+        if (pref_row) {
+            for (int i = 0; i < w * h; ++i) scan.push_back(i);
+        } else if (pref_col) {
+            for (int c = 0; c < w; ++c)
+                for (int r = 0; r < h; ++r) scan.push_back(r * w + c);
+        } else {
+            for (int d = 0; d < w + h - 1; ++d) {
+                const int lo = std::max(0, d - (w - 1)), hi = std::min(d, h - 1);
+                const bool reverse = (w == h && d % 2 == 0) || w > h;
+                if (reverse)
+                    for (int r = hi; r >= lo; --r) scan.push_back(r * w + d - r);
+                else
+                    for (int r = lo; r <= hi; ++r) scan.push_back(r * w + d - r);
+            }
+        }
+    }
+
+    int coeffs(int start_x, int start_y, int plane, int t) {
+        const int sx = plane ? subx : 0, sy = plane ? suby : 0;
+        const int x4 = start_x >> 2, y4 = start_y >> 2;
+        const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
+        const int tx_ctx = (tx_sqr(t) + tx_sqr_up(t) + 1) >> 1;
+        const int ptype = plane > 0;
+        const int seg_eob = (t == TX_16X64 || t == TX_64X16) ? 512 : std::min(1024, kTxW[t] * kTxH[t]);
+        std::memset(quant, 0, sizeof(int32_t) * seg_eob);
+        std::memset(levels, 0, sizeof levels);
+        int eob = 0, cul_level = 0, dc_category = 0;
+        const int max_x4 = fr.mi_cols >> sx, max_y4 = fr.mi_rows >> sy;
+        // the all-zero context
+        int ctx;
+        if (plane == 0) {
+            int top = 0, left = 0;
+            for (int k = 0; k < w4; ++k)
+                if (x4 + k < max_x4) top = std::max(top, int(above_level[plane][x4 + k]));
+            for (int k = 0; k < h4; ++k)
+                if (y4 + k < max_y4) left = std::max(left, int(left_level[plane][y4 + k]));
+            top = std::min(top, 255);
+            left = std::min(left, 255);
+            if (kBlockW[bsize] == kTxW[t] && kBlockH[bsize] == kTxH[t]) ctx = 0;
+            else if (top == 0 && left == 0) ctx = 1;
+            else if (top == 0 || left == 0) ctx = 2 + (std::max(top, left) > 3);
+            else if (std::max(top, left) <= 3) ctx = 4;
+            else if (std::min(top, left) <= 3) ctx = 5;
+            else ctx = 6;
+        } else {
+            int above = 0, left = 0;
+            for (int i = 0; i < w4; ++i)
+                if (x4 + i < max_x4) above |= above_level[plane][x4 + i] | above_dc[plane][x4 + i];
+            for (int i = 0; i < h4; ++i)
+                if (y4 + i < max_y4) left |= left_level[plane][y4 + i] | left_dc[plane][y4 + i];
+            ctx = (above != 0) + (left != 0) + 7;
+            const int pbs = plane_bsize(bsize, plane);
+            if (kBlockW[pbs] * kBlockH[pbs] > kTxW[t] * kTxH[t]) ctx += 3;
+        }
+        const int all_zero = sd.symbol(cdf.txb_skip[std::min(tx_ctx, 4)][ctx], 2);
+        if (!all_zero) {
+            // the transform type
+            if (plane == 0) {
+                const int set = get_tx_set(t);
+                const int q = fr.seg_enabled ? qindex_of(fr, segment, current_q, true) : fr.base_q;
+                int type = DCT_DCT;
+                if (set > 0 && q > 0) {
+                    static const int kFilterDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
+                    const int dir = use_filter_intra ? kFilterDir[filter_mode] : ymode;
+                    if (set == TX_SET_INTRA_1) type = kTxIntraInvSet1[sd.symbol(cdf.tx_set1[tx_sqr(t)][dir], 7)];
+                    else type = kTxIntraInvSet2[sd.symbol(cdf.tx_set2[tx_sqr(t)][dir], 5)];
+                }
+                plane_tx_type = lossless || tx_sqr_up(t) > TX_32X32 ? DCT_DCT : type;
+            } else {
+                if (lossless || tx_sqr_up(t) > TX_32X32) {
+                    plane_tx_type = DCT_DCT;
+                } else {
+                    const int type = kModeToTxfm[uvmode];
+                    plane_tx_type = in_intra_set(get_tx_set(t), type) ? type : DCT_DCT;
+                }
+            }
+            std::vector<int>& scan = scan_buf;
+            scan_of(t, plane_tx_type, scan);
+            const int eob_multi = std::min(log2i(kTxW[t]), 5) + std::min(log2i(kTxH[t]), 5) - 4;
+            const int ectx = tx_class(plane_tx_type) == TX_CLASS_2D ? 0 : 1;
+            int eob_pt;
+            switch (eob_multi) {
+                case 0: eob_pt = sd.symbol(cdf.eob16[ptype][ectx], 5) + 1; break;
+                case 1: eob_pt = sd.symbol(cdf.eob32[ptype][ectx], 6) + 1; break;
+                case 2: eob_pt = sd.symbol(cdf.eob64[ptype][ectx], 7) + 1; break;
+                case 3: eob_pt = sd.symbol(cdf.eob128[ptype][ectx], 8) + 1; break;
+                case 4: eob_pt = sd.symbol(cdf.eob256[ptype][ectx], 9) + 1; break;
+                case 5: eob_pt = sd.symbol(cdf.eob512[ptype][ectx], 10) + 1; break;
+                default: eob_pt = sd.symbol(cdf.eob1024[ptype][ectx], 11) + 1; break;
+            }
+            eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
+            int eob_shift = eob_pt - 3;
+            if (eob_shift >= 0) {
+                if (sd.symbol(cdf.eob_extra[std::min(tx_ctx, 4)][ptype][eob_pt - 3], 2)) eob += 1 << eob_shift;
+                for (int i = 1; i < std::max(1, eob_pt - 2); ++i) {
+                    eob_shift = std::max(0, eob_pt - 2) - 1 - i;
+                    if (sd.literal(1)) eob += 1 << eob_shift;
+                }
+            }
+            if (eob > seg_eob) broken("an end of block past the transform");
+            const int adj_w = std::min(kTxW[t], 32), adj_h = std::min(kTxH[t], 32);
+            const int bwl = log2i(t == TX_16X64 ? 16 : adj_w);
+            const int txh = t == TX_64X16 ? 16 : adj_h;
+            const int txw = 1 << bwl;
+            const int cls = tx_class(plane_tx_type);
+            for (int c = eob - 1; c >= 0; --c) {
+                const int pos = scan[c];
+                const int row = pos >> bwl, col = pos - (row << bwl);
+                int level;
+                if (c == eob - 1) {
+                    int ectx2;
+                    if (c == 0) ectx2 = 0;
+                    else if (c <= (txh << bwl) / 8) ectx2 = 1;
+                    else if (c <= (txh << bwl) / 4) ectx2 = 2;
+                    else ectx2 = 3;
+                    level = sd.symbol(cdf.base_eob[std::min(tx_ctx, 4)][ptype][ectx2], 3) + 1;
+                } else {
+                    level = sd.symbol(cdf.base[std::min(tx_ctx, 4)][ptype][base_ctx(t, row, col, cls, txw, txh)], 4);
+                }
+                if (level > 2) {
+                    const int bctx = br_ctx(row, col, cls, txw, txh, pos);
+                    for (int idx = 0; idx < 4; ++idx) {
+                        const int k = sd.symbol(cdf.br[std::min(tx_ctx, 3)][ptype][bctx], 4);
+                        level += k;
+                        if (k < 3) break;
+                    }
+                }
+                quant[pos] = level;
+                levels[row][col] = static_cast<uint8_t>(level);
+            }
+            for (int c = 0; c < eob; ++c) {
+                const int pos = scan[c];
+                int sign = 0;
+                if (quant[pos]) {
+                    if (c == 0) {
+                        int dc_sign = 0;
+                        for (int k = 0; k < w4; ++k)
+                            if (x4 + k < max_x4) {
+                                const int s = above_dc[plane][x4 + k];
+                                if (s == 1) --dc_sign;
+                                else if (s == 2) ++dc_sign;
+                            }
+                        for (int k = 0; k < h4; ++k)
+                            if (y4 + k < max_y4) {
+                                const int s = left_dc[plane][y4 + k];
+                                if (s == 1) --dc_sign;
+                                else if (s == 2) ++dc_sign;
+                            }
+                        const int dctx = dc_sign < 0 ? 1 : (dc_sign > 0 ? 2 : 0);
+                        sign = sd.symbol(cdf.dc_sign[ptype][dctx], 2);
+                    } else {
+                        sign = sd.literal(1);
+                    }
+                }
+                if (quant[pos] > 14) {
+                    int length = 0, bit;
+                    do {
+                        ++length;
+                        bit = sd.literal(1);
+                        if (length > 32) broken("a Golomb code too long");
+                    } while (!bit);
+                    int x = 1;
+                    for (int i = length - 2; i >= 0; --i) x = (x << 1) | sd.literal(1);
+                    quant[pos] = x + 14;
+                }
+                if (pos == 0 && quant[pos] > 0) dc_category = sign ? 1 : 2;
+                quant[pos] &= 0xFFFFF;
+                cul_level += quant[pos];
+                if (sign) quant[pos] = -quant[pos];
+            }
+            cul_level = std::min(63, cul_level);
+        }
+        for (int i = 0; i < w4; ++i) {
+            above_level[plane][x4 + i] = static_cast<uint8_t>(cul_level);
+            above_dc[plane][x4 + i] = static_cast<uint8_t>(dc_category);
+        }
+        for (int i = 0; i < h4; ++i) {
+            left_level[plane][y4 + i] = static_cast<uint8_t>(cul_level);
+            left_dc[plane][y4 + i] = static_cast<uint8_t>(dc_category);
+        }
+        return eob;
+    }
+
+    std::vector<int> scan_buf;
+
+    int base_ctx(int t, int row, int col, int cls, int txw, int txh) {
+        static const int offs[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+                                          {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+                                          {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+        int mag = 0;
+        for (int k = 0; k < 5; ++k) {
+            const int rr = row + offs[cls][k][0], cc = col + offs[cls][k][1];
+            if (rr < txh && cc < txw) mag += std::min<int>(levels[rr][cc], 3);
+        }
+        const int ctx = std::min((mag + 1) >> 1, 4);
+        if (cls == TX_CLASS_2D) {
+            if (row == 0 && col == 0) return 0;
+            static const int lo[3][5][5] = {
+                {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}},
+                {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21},
+                 {16, 16, 21, 21, 21}},
+                {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21},
+                 {21, 21, 21, 21, 21}}};
+            const int w = kTxW[t], h = kTxH[t];
+            const int shape = w == h ? 0 : (w > h ? 1 : 2);
+            return ctx + lo[shape][std::min(row, 4)][std::min(col, 4)];
+        }
+        const int idx = cls == TX_CLASS_VERT ? row : col;
+        static const int pos_offset[3] = {26, 31, 36};
+        return ctx + pos_offset[std::min(idx, 2)];
+    }
+
+    int br_ctx(int row, int col, int cls, int txw, int txh, int pos) {
+        static const int offs[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}}, {{0, 1}, {1, 0}, {0, 2}}, {{0, 1}, {1, 0}, {2, 0}}};
+        int mag = 0;
+        for (int k = 0; k < 3; ++k) {
+            const int rr = row + offs[cls][k][0], cc = col + offs[cls][k][1];
+            if (rr < txh && cc < txw) mag += std::min<int>(levels[rr][cc], 15);
+        }
+        mag = std::min((mag + 1) >> 1, 6);
+        if (pos == 0) return mag;
+        if (cls == TX_CLASS_2D) return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+        if (cls == TX_CLASS_HORIZ) return col == 0 ? mag + 7 : mag + 14;
+        return row == 0 ? mag + 7 : mag + 14;
+    }
+
+    // ---- dequantisation and the 2D inverse transform (7.12.3, 7.13.3)
+    int dc_q(int plane) {
+        const int q = qindex_of(fr, segment, current_q, false);
+        const int d = plane == 0 ? fr.dq_ydc : (plane == 1 ? fr.dq_udc : fr.dq_vdc);
+        return kDcQLookup[clip3(0, 255, q + d)];
+    }
+    int ac_q(int plane) {
+        const int q = qindex_of(fr, segment, current_q, false);
+        const int d = plane == 0 ? 0 : (plane == 1 ? fr.dq_uac : fr.dq_vac);
+        return kAcQLookup[clip3(0, 255, q + d)];
+    }
+
+    void reconstruct(int plane, int x, int y, int t) {
+        const int w = kTxW[t], h = kTxH[t];
+        const int log2w = log2i(w), log2h = log2i(h);
+        const int tw = std::min(32, w), th = std::min(32, h);
+        const int pels = w * h;
+        const int dq_shift = (pels > 256) + (pels > 1024);
+        const int dcq = dc_q(plane), acq = ac_q(plane);
+        for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) resid[i][j] = 0;
+        for (int i = 0; i < th; ++i)
+            for (int j = 0; j < tw; ++j) {
+                const int q = quant[i * tw + j];
+                if (!q) continue;
+                const int64_t mag = static_cast<int64_t>(std::abs(q)) * ((i == 0 && j == 0) ? dcq : acq);
+                int dq = static_cast<int>((mag & 0xFFFFFF) >> dq_shift);
+                if (q < 0) dq = -dq;
+                resid[i][j] = clip3(-(1 << 15), (1 << 15) - 1, dq);
+            }
+        Plane& pl = planes[plane];
+        if (lossless) {
+            tools |= TOOL_LOSSLESS;
+            int tmp[4][4];
+            for (int i = 0; i < 4; ++i) {
+                int row[4] = {resid[i][0], resid[i][1], resid[i][2], resid[i][3]};
+                iwht4(row, 2);
+                for (int j = 0; j < 4; ++j) tmp[i][j] = row[j];
+            }
+            for (int j = 0; j < 4; ++j) {
+                int col[4] = {tmp[0][j], tmp[1][j], tmp[2][j], tmp[3][j]};
+                iwht4(col, 0);
+                for (int i = 0; i < 4; ++i) pl.at(y + i, x + j) = static_cast<uint8_t>(clip3(0, 255, pl.at(y + i, x + j) + col[i]));
+            }
+            return;
+        }
+        const int type = plane_tx_type;
+        const int vt = kVtx[type], ht = kHtx[type];
+        if (vt == T1_DCT && ht == T1_DCT) tools |= TOOL_DCT;
+        if (vt == T1_ADST || ht == T1_ADST) tools |= TOOL_ADST;
+        if (type == IDTX) tools |= TOOL_IDTX;
+        if (tx_class(type) != TX_CLASS_2D) tools |= TOOL_TX_1D;
+        // dav1d's clips for 8-bit video: int16 through the rows and columns
+        const Clamp row_cl{-(1 << 15), (1 << 15) - 1};
+        const Clamp col_cl{-(1 << 15), (1 << 15) - 1};
+        const int row_shift = kTxRowShift[t];
+        const bool rect2 = std::abs(log2w - log2h) == 1;
+        int buf[64];
+        for (int i = 0; i < h; ++i) {
+            if (i >= 32) {
+                for (int j = 0; j < w; ++j) resid[i][j] = 0;
+                continue;
+            }
+            bool any = false;
+            for (int j = 0; j < w; ++j) {
+                int v = resid[i][j];
+                if (rect2) v = round2(int64_t(v) * 2896, 12);
+                buf[j] = row_cl(v);
+                any |= buf[j] != 0;
+            }
+            if (any) inverse_1d(buf, w, ht == T1_FLIPADST ? T1_ADST : ht, row_cl);
+            for (int j = 0; j < w; ++j) resid[i][j] = col_cl(round2(buf[j], row_shift));
+        }
+        const bool lr_flip = ht == T1_FLIPADST, ud_flip = vt == T1_FLIPADST;
+        for (int j = 0; j < w; ++j) {
+            const int sj = lr_flip ? w - 1 - j : j;
+            for (int i = 0; i < h; ++i) buf[i] = resid[i][sj];
+            inverse_1d(buf, h, vt == T1_FLIPADST ? T1_ADST : vt, col_cl);
+            for (int i = 0; i < h; ++i) {
+                const int v = round2(buf[ud_flip ? h - 1 - i : i], 4);
+                pl.at(y + i, x + j) = static_cast<uint8_t>(clip3(0, 255, pl.at(y + i, x + j) + v));
+            }
+        }
+    }
+
+    // ---- the deblocking filter (7.14)
+    int filter_level(int row, int col, int plane, int pass) {
+        const int seg = seg_id[mi(row, col)];
+        const int i = plane == 0 ? pass : plane + 1;
+        const int dlf = fr.delta_lf_multi ? delta_lfs[mi(row, col) * 4 + i] : delta_lfs[mi(row, col) * 4];
+        int lvl = clip3(0, 63, dlf + fr.lf_level[i]);
+        if (seg_active(fr, seg, SEG_LVL_ALT_LF_Y_V + i)) lvl = clip3(0, 63, lvl + fr.feature_data[seg][SEG_LVL_ALT_LF_Y_V + i]);
+        if (fr.lf_delta_enabled) {
+            const int n_shift = lvl >> 5;
+            lvl = clip3(0, 63, lvl + (fr.lf_ref_deltas[0] * (1 << n_shift)));
+        }
+        return lvl;
+    }
+
+    void loop_filter() {
+        if (!fr.lf_level[0] && !fr.lf_level[1]) return;
+        for (int plane = 0; plane < num_planes; ++plane) {
+            if (plane > 0 && !fr.lf_level[plane + 1]) continue;
+            for (int pass = 0; pass < 2; ++pass) {
+                const int row_step = plane == 0 ? 1 : (1 << suby), col_step = plane == 0 ? 1 : (1 << subx);
+                for (int row = 0; row < fr.mi_rows; row += row_step)
+                    for (int col = 0; col < fr.mi_cols; col += col_step) edge(plane, pass, row, col);
+            }
+        }
+    }
+
+    void edge(int plane, int pass, int row, int col) {
+        const int sx = plane ? subx : 0, sy = plane ? suby : 0;
+        const int dx = pass == 0, dy = pass == 1;
+        const int x = col * 4, y = row * 4;
+        row |= sy;
+        col |= sx;
+        if (x >= fr.width || y >= fr.height) return;
+        if (pass == 0 && x == 0) return;
+        if (pass == 1 && y == 0) return;
+        const int xp = x >> sx, yp = y >> sy;
+        const int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
+        const int t = lf_tx[plane][static_cast<size_t>(row >> sy) * lf_stride[plane] + (col >> sx)];
+        const int prev_t = lf_tx[plane][static_cast<size_t>(prev_row >> sy) * lf_stride[plane] + (prev_col >> sx)];
+        // an intra block filters every transform edge (applyFilter: isIntra),
+        // skipped or not, block edge or not
+        const bool tx_edge = pass == 0 ? xp % kTxW[t] == 0 : yp % kTxH[t] == 0;
+        if (!tx_edge) return;
+        const int base = pass == 0 ? std::min(kTxW[prev_t], kTxW[t]) : std::min(kTxH[prev_t], kTxH[t]);
+        const int size = plane == 0 ? std::min(16, base) : std::min(8, base);
+        int lvl = filter_level(row, col, plane, pass);
+        if (lvl == 0) lvl = filter_level(prev_row, prev_col, plane, pass);
+        if (lvl == 0) return;
+        tools |= TOOL_DEBLOCK;
+        const int shift = fr.lf_sharpness > 4 ? 2 : (fr.lf_sharpness > 0 ? 1 : 0);
+        const int limit = fr.lf_sharpness > 0 ? clip3(1, 9 - fr.lf_sharpness, lvl >> shift) : std::max(1, lvl >> shift);
+        const int blimit = 2 * (lvl + 2) + limit;
+        const int thresh = lvl >> 4;
+        for (int i = 0; i < 4; ++i) sample_filter(plane, xp + dy * i, yp + dx * i, limit, blimit, thresh, dx, dy, size);
+    }
+
+    void sample_filter(int plane, int x, int y, int limit, int blimit, int thresh, int dx, int dy, int size) {
+        Plane& pl = planes[plane];
+        auto F = [&](int k) -> uint8_t& { return pl.at(y + k * dy, x + k * dx); };
+        const int q0 = F(0), q1 = F(1), q2 = size >= 8 ? F(2) : 0, q3 = size >= 8 ? F(3) : 0;
+        const int p0 = F(-1), p1 = F(-2), p2 = size >= 8 ? F(-3) : 0, p3 = size >= 8 ? F(-4) : 0;
+        const int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+        const int len = size == 4 ? 4 : (plane ? 6 : (size == 8 ? 8 : 16));
+        bool mask = std::abs(p1 - p0) > limit || std::abs(q1 - q0) > limit ||
+                    std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > blimit;
+        if (len >= 6) mask = mask || std::abs(p2 - p1) > limit || std::abs(q2 - q1) > limit;
+        if (len >= 8) mask = mask || std::abs(p3 - p2) > limit || std::abs(q3 - q2) > limit;
+        if (mask) return;
+        bool flat = false, flat2 = false;
+        if (size >= 8) {
+            flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 && std::abs(q2 - q0) <= 1;
+            if (len >= 8) flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+        }
+        if (size >= 16) {
+            const int q4 = F(4), q5 = F(5), q6 = F(6), p4 = F(-5), p5 = F(-6), p6 = F(-7);
+            flat2 = std::abs(p6 - p0) <= 1 && std::abs(q6 - q0) <= 1 && std::abs(p5 - p0) <= 1 && std::abs(q5 - q0) <= 1 &&
+                    std::abs(p4 - p0) <= 1 && std::abs(q4 - q0) <= 1;
+        }
+        if (size == 4 || !flat) {
+            auto c4 = [](int v) { return clip3(-128, 127, v); };
+            const int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+            int filter = hev ? c4(ps1 - qs1) : 0;
+            filter = c4(filter + 3 * (qs0 - ps0));
+            const int f1 = c4(filter + 4) >> 3, f2 = c4(filter + 3) >> 3;
+            F(0) = static_cast<uint8_t>(c4(qs0 - f1) + 128);
+            F(-1) = static_cast<uint8_t>(c4(ps0 + f2) + 128);
+            if (!hev) {
+                const int f = round2(f1, 1);
+                F(1) = static_cast<uint8_t>(c4(qs1 - f) + 128);
+                F(-2) = static_cast<uint8_t>(c4(ps1 + f) + 128);
+            }
+        } else if (size == 8 || !flat2) {
+            wide(F, plane, 3);
+        } else {
+            wide(F, plane, 4);
+        }
+    }
+
+    template <typename G>
+    void wide(G& F, int plane, int log2size) {
+        const int n = log2size == 4 ? 6 : (plane == 0 ? 3 : 2);
+        const int n2 = (log2size == 3 && plane == 0) ? 0 : 1;
+        int v[16], out[16];
+        for (int k = -(n + 1); k <= n; ++k) v[k + 8] = F(k);
+        for (int i = -n; i < n; ++i) {
+            int t = 0;
+            for (int j = -n; j <= n; ++j) {
+                const int p = clip3(-(n + 1), n, i + j);
+                const int tap = std::abs(j) <= n2 ? 2 : 1;
+                t += v[p + 8] * tap;
+            }
+            out[i + 8] = round2(t, log2size);
+        }
+        for (int i = -n; i < n; ++i) F(i) = static_cast<uint8_t>(out[i + 8]);
+    }
+};
+
+// ---------------------------------------------------------------------------
+// The OBU walk (5.3) and the entry point
+// ---------------------------------------------------------------------------
+
+struct Image {
+    Sequence seq;
+    Frame fr;
+    std::vector<uint8_t> planes;
+    uint32_t tools = 0;
+};
+
+void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
+    Sequence& seq = img.seq;
+    Frame& fr = img.fr;
+    std::unique_ptr<Decoder> dec;
+    bool have_header = false, done = false;
+    int tiles_done = 0;
+    size_t at = 0;
+    while (at < n && !done) {
+        Bits hb(d + at, n - at);
+        hb.f(1);  // obu_forbidden_bit: dav1d checks it only when told to be strict
+        const int type = hb.f(4);
+        const int ext = hb.f(1);
+        const int has_size = hb.f(1);
+        hb.f(1);
+        int temporal_id = 0, spatial_id = 0;
+        if (ext) {
+            temporal_id = hb.f(3);
+            spatial_id = hb.f(2);
+            hb.f(3);
+        }
+        size_t p = at + 1 + ext;
+        uint64_t size;
+        if (has_size) size = leb128(d, n, &p);
+        else size = n - p;
+        if (size > n - p) fail(ST_TRUNCATED, "truncated AV1: an OBU runs past the item's data");
+        const uint8_t* body = d + p;
+        const size_t len = static_cast<size_t>(size);
+        at = p + len;
+        if (type == 1) {  // sequence header
+            Bits b(body, len);
+            Sequence s;
+            read_sequence(b, s);
+            if (seq.seen && have_header) continue;
+            seq = s;
+        } else if (type == 3 || type == 6) {  // frame header, frame
+            if (!seq.seen) broken("a frame before any sequence header");
+            if (have_header) {
+                if (type == 3) continue;  // a redundant copy
+                broken("a second frame in a still picture");
+            }
+            if (seq.bit_depth != 8) refuse(std::to_string(seq.bit_depth) + "-bit samples");
+            Bits b(body, len);
+            read_frame_header(b, seq, fr, &img.tools, temporal_id, spatial_id);
+            if (static_cast<long long>(fr.width) * fr.height > max_pixels)
+                fail(ST_BOMB, "AV1 frame over the decoder's pixel limit");
+            have_header = true;
+            dec.reset(new Decoder(seq, fr));
+            dec->setup();
+            if (type == 6) {
+                b.byte_align();
+                const size_t hdr = b.pos / 8;
+                // the tile group that follows in the same OBU
+                const uint8_t* tg = body + hdr;
+                const size_t tgn = len - hdr;
+                Bits tb(tg, tgn);
+                const int num_tiles = fr.tile_cols * fr.tile_rows;
+                int start = 0, end = num_tiles - 1;
+                if (num_tiles > 1 && tb.f(1)) {
+                    const int bits = fr.tile_cols_log2 + fr.tile_rows_log2;
+                    start = tb.f(bits);
+                    end = tb.f(bits);
+                }
+                tb.byte_align();
+                size_t q = tb.pos / 8;
+                for (int t = start; t <= end; ++t) {
+                    size_t tsize;
+                    if (t == end) {
+                        tsize = tgn - q;
+                    } else {
+                        if (q + fr.tile_size_bytes > tgn) fail(ST_TRUNCATED, "truncated AV1: a tile size ends early");
+                        tsize = 0;
+                        for (int k = 0; k < fr.tile_size_bytes; ++k) tsize |= static_cast<size_t>(tg[q + k]) << (8 * k);
+                        tsize += 1;
+                        q += fr.tile_size_bytes;
+                        if (tsize > tgn - q) fail(ST_TRUNCATED, "truncated AV1: a tile runs past its tile group");
+                    }
+                    if (t >= num_tiles) broken("a tile past the frame's tiles");
+                    dec->decode_tile(tg + q, tsize, t / fr.tile_cols, t % fr.tile_cols);
+                    q += tsize;
+                    ++tiles_done;
+                }
+                if (tiles_done >= num_tiles) done = true;
+            }
+        } else if (type == 4) {  // tile group
+            if (!have_header) broken("a tile group before its frame header");
+            Bits tb(body, len);
+            const int num_tiles = fr.tile_cols * fr.tile_rows;
+            int start = 0, end = num_tiles - 1;
+            if (num_tiles > 1 && tb.f(1)) {
+                const int bits = fr.tile_cols_log2 + fr.tile_rows_log2;
+                start = tb.f(bits);
+                end = tb.f(bits);
+            }
+            tb.byte_align();
+            size_t q = tb.pos / 8;
+            for (int t = start; t <= end; ++t) {
+                size_t tsize;
+                if (t == end) {
+                    tsize = len - q;
+                } else {
+                    if (q + fr.tile_size_bytes > len) fail(ST_TRUNCATED, "truncated AV1: a tile size ends early");
+                    tsize = 0;
+                    for (int k = 0; k < fr.tile_size_bytes; ++k) tsize |= static_cast<size_t>(body[q + k]) << (8 * k);
+                    tsize += 1;
+                    q += fr.tile_size_bytes;
+                    if (tsize > len - q) fail(ST_TRUNCATED, "truncated AV1: a tile runs past its tile group");
+                }
+                if (t >= num_tiles) broken("a tile past the frame's tiles");
+                dec->decode_tile(body + q, tsize, t / fr.tile_cols, t % fr.tile_cols);
+                q += tsize;
+                ++tiles_done;
+            }
+            if (tiles_done >= num_tiles) done = true;
+        }
+        // temporal delimiters, metadata, padding and the rest are skipped
+    }
+    if (!done) fail(ST_TRUNCATED, "truncated AV1: the item's data ends before its frame's last tile");
+    dec->loop_filter();
+    img.tools |= dec->tools;
+    // the planes, cropped to the frame
+    for (int pidx = 0; pidx < dec->num_planes; ++pidx) {
+        const int sx = pidx ? seq.subx : 0, sy = pidx ? seq.suby : 0;
+        const int w = (fr.width + sx) >> sx, h = (fr.height + sy) >> sy;
+        Plane& pl = dec->planes[pidx];
+        for (int y = 0; y < h; ++y) img.planes.insert(img.planes.end(), &pl.at(y, 0), &pl.at(y, 0) + w);
+    }
+}
+
+}  // namespace
+
+extern "C" int mmtrs_av1_decode(const void* buf, long long n, long long max_pixels, void* out, void* dims, void* msg) {
+    void** dst = static_cast<void**>(out);
+    int* dm = static_cast<int*>(dims);
+    char* text = static_cast<char*>(msg);
+    *dst = nullptr;
+    text[0] = 0;
+    try {
+        Image img;
+        decode(static_cast<const uint8_t*>(buf), n > 0 ? static_cast<size_t>(n) : 0, max_pixels, img);
+        const Sequence& s = img.seq;
+        dm[0] = img.fr.width;
+        dm[1] = img.fr.height;
+        dm[2] = s.subx;
+        dm[3] = s.suby;
+        dm[4] = s.mono ? 1 : 3;
+        dm[5] = s.bit_depth;
+        dm[6] = s.cp;
+        dm[7] = s.tc;
+        dm[8] = s.mc;
+        dm[9] = s.range;
+        dm[10] = static_cast<int>(img.tools);
+        void* mem = std::malloc(std::max<size_t>(img.planes.size(), 1));
+        if (!mem) {
+            std::snprintf(text, 256, "out of memory");
+            return ST_BROKEN;
+        }
+        std::memcpy(mem, img.planes.data(), img.planes.size());
+        *dst = mem;
+        return 0;
+    } catch (const Fail& f) {
+        std::snprintf(text, 256, "%s", f.what.c_str());
+        return f.status;
+    } catch (const std::bad_alloc&) {
+        std::snprintf(text, 256, "out of memory");
+        return ST_BROKEN;
+    }
+}
+
+extern "C" int mmtrs_av1_free(void* p) {
+    std::free(p);
+    return 0;
+}

@@ -168,6 +168,10 @@ struct Codestream {
     std::vector<uint8_t> ppm_data;                // the PPM's Ippm, concatenated, consumed tile-part by tile-part
     size_t ppm_used = 0;
     bool have_cod = false, have_qcd = false;
+    // OpenJPEG's resno_decoded: by component, the highest resolution of any
+    // packet read so far in the image (it never falls from tile to tile); a
+    // tile is reconstructed and handed out at that resolution
+    std::vector<uint32_t> resno_decoded;
 
     uint32_t comp_room() const { return img.comps.size() <= 256 ? 1 : 2; }
 
@@ -1126,10 +1130,10 @@ void idwt97_line(float* x, int n, int sn, int dn, int cas) {
 }
 
 template <typename T, typename F>
-void idwt_2d(TileComp& tc, T* buf, F line) {
+void idwt_2d(TileComp& tc, uint32_t numres, T* buf, F line) {
     const size_t w = tc.w();
     std::vector<T> tmp;
-    for (uint32_t r = 1; r < tc.numres; ++r) {
+    for (uint32_t r = 1; r < numres; ++r) {
         const Resolution& lo = tc.res[r - 1];
         const Resolution& hi = tc.res[r];
         const int rw = hi.x1 - hi.x0, rh = hi.y1 - hi.y0;
@@ -1344,7 +1348,11 @@ void decode_tile(Codestream& cs, uint32_t tileno, Tile& tile) {
     }
     const uint8_t* data = tcp.data.data();
     const uint8_t* end = data + tcp.data.size();
-    auto visit = [&](uint32_t c, uint32_t r, uint32_t p, uint32_t l) { read_packet(tcp, tile, c, r, p, l, data, end, hdr); };
+    if (cs.resno_decoded.size() != nc) cs.resno_decoded.assign(nc, 0);
+    auto visit = [&](uint32_t c, uint32_t r, uint32_t p, uint32_t l) {
+        read_packet(tcp, tile, c, r, p, l, data, end, hdr);
+        cs.resno_decoded[c] = std::max(cs.resno_decoded[c], r);
+    };
     if (tcp.has_poc) {
         for (const Poc& poc : tcp.pocs)  // an unknown order in a POC gives no packets
             if (poc.prg <= 4) for_each_packet(tile, img.comps, po, poc, poc.layno1, visit);
@@ -1407,10 +1415,11 @@ void decode_tile(Codestream& cs, uint32_t tileno, Tile& tile) {
     parallel_for(jobs.size(), [&](size_t k, T1& t1) { run_t1(jobs[k], t1); });
     parallel_for(nc, [&](size_t c, T1&) {
         TileComp& tc = tile.comps[c];
+        const uint32_t numres = std::min(cs.resno_decoded[c] + 1, tc.numres);
         if (tcp.tccps[c].qmfbid == 1)
-            idwt_2d(tc, tc.idata.data(), [](int32_t* x, int n, int, int, int cas) { idwt53_line(x, n, cas); });
+            idwt_2d(tc, numres, tc.idata.data(), [](int32_t* x, int n, int, int, int cas) { idwt53_line(x, n, cas); });
         else
-            idwt_2d(tc, tc.fdata.data(), idwt97_line);
+            idwt_2d(tc, numres, tc.fdata.data(), idwt97_line);
     });
     // the component transform (on the first three, of one size) and the DC level shift
     if (tcp.mct && nc >= 3) {
@@ -1680,10 +1689,16 @@ std::vector<uint32_t> decode(const uint8_t* d, size_t n, long long max_pixels) {
         out.push_back(static_cast<uint32_t>(tile.y0));
         out.push_back(static_cast<uint32_t>(tile.x1));
         out.push_back(static_cast<uint32_t>(tile.y1));
-        for (const TileComp& tc : tile.comps) {
-            out.push_back(static_cast<uint32_t>(tc.w()));
-            out.push_back(static_cast<uint32_t>(tc.h()));
-            for (int32_t v : tc.idata) out.push_back(static_cast<uint32_t>(v));
+        // each component at its resno_decoded (opj_tcd_update_tile_data): the
+        // top-left corner of the tile's buffer, packed
+        for (size_t c = 0; c < tile.comps.size(); ++c) {
+            const TileComp& tc = tile.comps[c];
+            const Resolution& res = tc.res[std::min(cs.resno_decoded[c], tc.numres - 1)];
+            const size_t rw = static_cast<size_t>(res.x1 - res.x0), rh = static_cast<size_t>(res.y1 - res.y0);
+            out.push_back(static_cast<uint32_t>(rw));
+            out.push_back(static_cast<uint32_t>(rh));
+            for (size_t y = 0; y < rh; ++y)
+                for (size_t x = 0; x < rw; ++x) out.push_back(static_cast<uint32_t>(tc.idata[y * tc.w() + x]));
         }
     }
     return out;

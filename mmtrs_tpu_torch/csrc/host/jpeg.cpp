@@ -58,7 +58,8 @@
 //     component's plane at its own resolution (libjpeg's raw_data_out, no
 //     upsampling, no colour conversion), the planes one after another; no
 //     markers read after the scan. dims: int[20] <- h, w, c, the iMCU rows
-//     decoded before the data ran out (-1: all), then per component its
+//     decoded before the data ran out (-1: all; -2 - rows where they ran
+//     out at a restart marker out of place), then per component its
 //     plane's height, width and sampling factors.
 //   int mmtrs_jpeg_own_takes_sof2(const void* buf, long long n);
 //     1 where a SOF2 stream's scan headers leave its progression incomplete.
@@ -192,6 +193,7 @@ struct Decoder {
     int scan_number = 0;  // libjpeg's input_scan_number
     int last_good_imcu = 0;  // libjpeg's last_good_iMCU_row: the last iMCU row fetched with data in hand
     int rows_delivered = -1;  // raw planes: the iMCU rows decoded before the data ran out (-1: all)
+    bool resync_failed = false;  // raw planes: they ran out at a restart marker out of place
 
     // the current scan
     int comps_in_scan = 0;
@@ -443,6 +445,10 @@ struct Decoder {
         if (unread_marker == 0xD0 + next_restart_num) {
             unread_marker = 0;
         } else {
+            if (take_sequential) {  // tif_ojpeg.c's source manager fails libjpeg's resync
+                resync_failed = true;
+                fail(ST_TRUNCATED, "corrupt old-style JPEG: a restart marker out of place (libtiff's resync fails)");
+            }
             const int desired = next_restart_num;
             int marker = unread_marker;
             for (;;) {
@@ -1825,7 +1831,7 @@ extern "C" int mmtrs_jpeg_own_decode_raw(const void* buf, long long n, long long
         dec.take_sequential = true;
         dec.forced_space = CS_UNKNOWN;
         dec.decode(max_pixels, dm);
-        dm[3] = dec.rows_delivered;
+        dm[3] = dec.resync_failed ? -2 - dec.rows_delivered : dec.rows_delivered;
         size_t total = 0;
         for (int ci = 0; ci < dec.ncomp; ++ci) {
             const Comp& c = dec.comp[ci];

@@ -157,6 +157,13 @@ def decode_image(src: bytes | str | Path, device: str | torch.device | None = No
         return torch.from_numpy(_HOST_DECODERS[kind](data)).to(dev)
     if kind == "IPTC" and load.iptc[3] == "jpeg":
         return _decode_iptc_jpeg(load.iptc, dev)
+    if kind == "AVIF" and hasattr(load, "avif"):  # decoded on the host, converted on ``dev``
+        from mmtrs_tpu_torch.utils.avif import decode_avif
+
+        try:
+            return decode_avif(load.avif, dev)
+        except rasters.NOT_THIS as e:  # an item's data past the file's end: Pillow's decode fails too
+            raise ValueError(f"corrupt or truncated AVIF image: {e}") from None
     try:
         loaded = load()
     except rasters.NOT_THIS as e:  # a short read past the header: Pillow's decoders raise there too
@@ -984,7 +991,7 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
     the tags past that first entry as libtiff reads them, which reads on
     and skips each entry whose values lie past the file's end; -6 → the
     tags libtiff cannot read: those past the file's end and those of a type
-    it does not read as a number). A
+    it does not read as a number; -7 → the type of each tag Pillow loads). A
     BigTIFF (``II+``: 8-byte offsets and counts, 20-byte entries) is read
     as Pillow reads it; Pillow takes ``MM`` files for classic ones, whose
     first IFD then lies where bytes 4-7 say."""
@@ -997,7 +1004,7 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
         raise ValueError("corrupt TIFF: the IFD lies beyond the file")
     n = struct.unpack(bo + cnt, data[ifd:ifd + struct.calcsize(cnt)])[0]
     first = ifd + struct.calcsize(cnt)
-    tags, raw, libtiff, unread = {}, {}, {}, []
+    tags, raw, libtiff, unread, types = {}, {}, {}, [], {}
     for i in range(n):
         e = first + esize * i
         if e + esize > len(data):
@@ -1008,7 +1015,7 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
         fmt = _TIFF_TYPES.get(typ)
         if fmt is None:  # a type Pillow does not load: it drops the tag
             tags[-1] = tags.get(-1, ()) + (tag,)
-            if typ not in (17, 18):  # libtiff reads SLONG8 and IFD8 as integers
+            if typ not in (17, 18) or not big:  # libtiff reads SLONG8 and IFD8 as integers, in BigTIFF
                 unread.append(tag)
             continue
         vals = _ifd_values(data, bo, word, e + 4 + wsize, typ, fmt, count)
@@ -1032,7 +1039,10 @@ def _tiff_tags(data: bytes) -> tuple[str, dict[int, tuple]]:
                     libtiff.setdefault(tag, vals)
             break
         tags[tag] = vals
-    tags[-4], tags[-5], tags[-6] = raw, libtiff, tuple(unread)
+        types[tag] = typ
+        if typ in _TIFF_NOT_INTEGERS or (typ == 16 and not big):  # libtiff's integer readers refuse them
+            unread.append(tag)
+    tags[-4], tags[-5], tags[-6], tags[-7] = raw, libtiff, tuple(unread), types
     return bo, tags
 
 
@@ -1056,6 +1066,11 @@ def _ifd_values(data: bytes, bo: str, word: str, field: int, typ: int, fmt: str,
 # configuration, rows per strip, extra samples, and the per-sample shorts
 _TIFF_LIBTIFF_NEEDS = frozenset((277, 259, 256, 257, 32997, 322, 323, 32998, 284, 278, 338, 258, 280, 281, 32996,
                                  339))
+# the types libtiff's TIFFReadDirEntryShort/Long do not take: ASCII,
+# rationals, UNDEFINED, floats and IFD offsets
+_TIFF_NOT_INTEGERS = frozenset((2, 5, 7, 10, 11, 12, 13))
+# the tags Pillow's TiffImageFile._setup reads as numbers
+_TIFF_NUMBERS = (256, 257, 258, 259, 262, 277, 339)
 # the tags whose entries libtiff reads apart from Pillow for a compressed
 # image: strip and tile offsets and counts, and YCbCrSubsampling
 _TIFF_LIBTIFF_READS = (273, 279, 324, 325, 530)
@@ -1068,7 +1083,7 @@ def _libtiff_values(data: bytes, bo: str, big: bool, entry: tuple, n: int) -> tu
     holds (so an entry whose count was damaged reads its values from
     elsewhere, as libtiff does)."""
     typ, count, field = entry
-    fmt = {3: "H", 4: "I", 16: "Q", 17: "q"}.get(typ)
+    fmt = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q"}.get(typ)
     if fmt is None or count < n:
         raise ValueError("corrupt TIFF: strip or tile offsets or counts that libtiff cannot read")
     size, wsize = struct.calcsize(fmt), (8 if big else 4)
@@ -1079,7 +1094,39 @@ def _libtiff_values(data: bytes, bo: str, big: bool, entry: tuple, n: int) -> tu
         raw = data[at:at + n * size]
         if len(raw) < n * size:
             raise ValueError("corrupt TIFF: strip or tile offsets or counts past the end of the file")
-    return struct.unpack(f"{bo}{n}{fmt}", raw)
+    vals = struct.unpack(f"{bo}{n}{fmt}", raw)
+    if min(vals, default=0) < 0:  # a signed type's negative value: out of libtiff's range
+        raise ValueError("corrupt TIFF: strip or tile offsets or counts that libtiff cannot read")
+    return vals
+
+
+def _libtiff_pair(t: dict, tag: int, default: tuple) -> tuple:
+    """A two-value tag (YCbCrSubsampling) as libtiff's short array reader
+    takes it: of an integer type, else the default stands."""
+    vals = t.get(tag)
+    if not vals or len(vals) < 2 or t[-7].get(tag, 3) not in (1, 3, 4, 6, 8, 9, 16, 17):
+        return default
+    return tuple(vals[:2])
+
+
+def _libtiff_long(t: dict, tag: int) -> int:
+    """A one-value offset or length tag as libtiff reads it: of an integer
+    type and not negative, else 0 (libtiff drops it)."""
+    vals = t.get(tag)
+    if not vals or t[-7].get(tag, 4) not in (1, 3, 4, 6, 8, 9, 16, 17) or vals[0] < 0:
+        return 0
+    return vals[0]
+
+
+def _libtiff_short(t: dict, tag: int, default: int) -> int:
+    """A one-value tag as libtiff's TIFFReadDirEntryShort reads it: of an
+    integer type and within 0-65535, else libtiff drops it (a warning) and
+    the default stands."""
+    vals = t.get(tag)
+    typ = t[-7].get(tag, 3)
+    if not vals or typ not in (1, 3, 4, 6, 8, 9, 16, 17) or not 0 <= vals[0] <= 65535:
+        return default
+    return vals[0]
 
 
 # Pillow's TiffImagePlugin.OPEN_INFO (fill order 1): (photometric, sample
@@ -1243,12 +1290,22 @@ class _Tiff:
         self.tags = t
         one = lambda tag, default=None: t.get(tag, (default,))[0]
         self.one = one
+        # Pillow loads a BYTE or UNDEFINED entry as bytes and an ASCII one as
+        # a str: its _setup takes neither as a size, a sample layout, a
+        # compression or a photometric (which old-style JPEG does not read)
+        # (nor, where it reads the strips itself, as the rows per strip)
+        typed = [tag for tag in (*_TIFF_NUMBERS, 278) if t[-7].get(tag) in (1, 2, 7)
+                 and not (tag == 262 and one(259) == 6 and t[-7].get(259) not in (1, 2, 7))
+                 and not (tag == 278 and one(259, 1) != 1)]
+        if typed:
+            raise ValueError(f"corrupt TIFF: tag {typed[0]} of type {t[-7][typed[0]]}, which Pillow reads as other than a "
+                             "number (Pillow refuses the file)")
         w, h = one(256), one(257)
         if not w or not h:
             raise ValueError("corrupt TIFF: no ImageWidth or ImageLength")
         _check_pixels("TIFF", w, h)
         self.w, self.h = w, h
-        comp, planar = one(259, 1), one(284, 1)
+        comp, planar = one(259, 1), 2 if one(284, 1) == 2 else 1  # Pillow tests for 2 alone
         photo = 6 if comp == 6 else one(262, 0)
         fill = one(266, 1)
         sf = t.get(339, (1,))
@@ -1295,7 +1352,7 @@ class _Tiff:
                                  "of another type): libtiff refuses the IFD")
             t = {**t[-5], **t}
             self.tags = t
-            planar, fill = one(284, 1), one(266, 1)
+            planar, fill = _libtiff_short(t, 284, 1), one(266, 1)
             # libtiff drops a one-value tag that holds several, and then fails the decode
             for tag in (256, 257, 259, 262, 266, 277, 278, 284, 317, 322, 323):
                 if len(t.get(tag, (0,))) != 1:
@@ -1303,12 +1360,18 @@ class _Tiff:
         if comp in _TIFF_CCITT and bps != (1,):
             raise ValueError(f"corrupt TIFF: CCITT compression of {bps}-bit samples")
         self.comp, self.photo, self.planar, self.fill, self.spp, self.bps = comp, photo, planar, fill, spp, bps
-        self.predictor = one(317, 1)
+        self.predictor = one(317, 1) if comp == 1 else _libtiff_short(t, 317, 1)
         if self.predictor not in (1, 2, 3):
             raise ValueError(f"TIFF predictor {self.predictor} is not supported by the port's codec (nor by Pillow)")
         if self.predictor == 3 and comp in (5, 8, 32946) and t.get(339, (1,))[:1] != (3,):
             raise ValueError("corrupt TIFF: the floating-point predictor (3) on integer samples, which libtiff refuses")
         self.big = data[2] == 43
+        if comp == 1 and any(t[-7].get(tag) in (2, 7) for tag in (273, 279, 324, 325)):
+            # Pillow's raw reader takes the offsets and counts as integers: a str or bytes fails it
+            raise ValueError("corrupt TIFF: strip or tile offsets or counts of a text or undefined type (Pillow "
+                             "refuses them)")
+        if comp == 7 and t[-7].get(262) in _TIFF_NOT_INTEGERS and photo == 6:
+            raise ValueError("corrupt TIFF: a photometric tag libtiff cannot read, which its JPEG decode needs")
         if comp != 1:  # libtiff reads the offsets and counts: of SLONG8 too, not of IFD or IFD8
             if self.big and struct.unpack(self.bo + "HH", data[4:8]) != (8, 0):
                 raise ValueError("corrupt TIFF: a BigTIFF header whose offset size is not 8 (libtiff refuses it)")
@@ -1351,7 +1414,15 @@ class _Tiff:
         # libtiff's YCbCrSubsampling, or (JPEGFixupTags) the first JPEG frame's
         self.ycc_sampling = None
         if 530 in t[-4] and t[-4][530][:2] in ((3, 2), (4, 2)):
-            self.ycc_sampling = _libtiff_values(data, self.bo, self.big, t[-4][530], 2)
+            try:
+                self.ycc_sampling = _libtiff_values(data, self.bo, self.big, t[-4][530], 2)
+            except ValueError:  # its values past the file's end: libtiff drops the tag
+                pass
+        elif comp == 7 and 530 in t[-4] and t[-4][530][0] in (1, 6) and t[-4][530][1] >= 2:
+            pair = _libtiff_values(data, self.bo, self.big, t[-4][530], 2)  # BYTE/SBYTE: libtiff reads them too
+            if any(v not in (1, 2, 4) for v in pair):
+                raise ValueError(f"corrupt TIFF: YCbCrSubsampling {list(pair)}, which libtiff refuses")
+            self.ycc_sampling = pair
 
     def chunks(self):
         """(plane, row, column, offset, count) of each strip or tile: those
@@ -1433,6 +1504,11 @@ def _tiff_samples_of(f: _Tiff, data: bytes) -> tuple[np.ndarray, str, np.ndarray
                 px = _tiff_samples(buf, ch, cw, per_chunk, depth, kind)
                 if f.predictor == 2 and f.comp in (5, 8, 32946):  # libtiff's codecs with a predictor
                     px = np.cumsum(px, axis=1, dtype=px.dtype)
+                if f.comp != 1 and f.bo == ">" and depth == 32 and f.predictor != 3:
+                    # libtiff hands 32-bit samples over in native (little-endian)
+                    # order; Pillow's raw mode reads them big-endian (it
+                    # corrects 16-bit modes alone)
+                    px = px.byteswap()
             img[p, r * ch:(r + 1) * ch, c * cw:(c + 1) * cw] = px.astype(img.dtype, copy=False)
         img = img[0] if f.planes == 1 else np.concatenate(list(img), axis=-1)
     px = img[:h, :w]
@@ -1590,9 +1666,9 @@ def _ojpeg_stream(f: _Tiff, data: bytes) -> bytes:
     and another follows, then EOI."""
     t, size = f.tags, len(data)
     parts, striles = [], []  # striles: each strip's (start, end) in the stream
-    jif = t.get(513, (0,))[0]
+    jif = _libtiff_long(t, 513)
     if 0 < jif < size:
-        n = t.get(514, (0,))[0]
+        n = _libtiff_long(t, 514)
         parts.append(data[jif:size if n == 0 or jif + n > size else jif + n])
     for _, _, _, off, count in f.chunks() if f.strips_read else ():
         start = sum(map(len, parts))
@@ -1621,7 +1697,15 @@ def _ojpeg_stream(f: _Tiff, data: bytes) -> bytes:
 
     word = lambda: struct.unpack(">H", take(2))[0]
     qtab, dctab, actab = [None] * 4, [None] * 4, [None] * 4
-    restart = t.get(515, (0,))[0]
+    # OJPEGReadHeaderInfo: over several strips the restart interval is a
+    # strip's MCUs, whatever JPEGRestartInterval says (a DRI marker in the
+    # stream overrides it); one strip keeps the tag's
+    restart = _libtiff_short(t, 515, 0)
+    ycc = spp == 3 and _libtiff_short(t, 262, 6) == 6 and f.planar == 1
+    hs, vs = _libtiff_pair(t, 530, (2, 2)) if ycc else (1, 1)
+    rps = t.get(278, (f.h,))[0]
+    if isinstance(rps, int) and 0 < rps < f.h and isinstance(hs, int) and isinstance(vs, int) and hs > 0 and vs > 0:
+        restart = -(-f.w // (8 * hs)) * (rps // (8 * vs))
     sof = None  # (marker, height, width, [(id, hv, tq)])
     sos = None  # [(id, tda)]
     m = 0
@@ -1692,12 +1776,12 @@ def _ojpeg_stream(f: _Tiff, data: bytes) -> bytes:
         else:
             raise bad(f"stream with an unknown marker 0x{m:02x}")
     if sof is None:  # the table tags
-        ycc = spp == 3 and t.get(262, (6,))[0] == 6 and f.planar == 1
-        hs, vs = t.get(530, (2, 2))[:2] if ycc else (1, 1)
+        ycc = spp == 3 and _libtiff_short(t, 262, 6) == 6 and f.planar == 1
+        hs, vs = _libtiff_pair(t, 530, (2, 2)) if ycc else (1, 1)
         sof = (0xC0, f.h, f.w, [(k, (hs << 4 | vs) if k == 0 else 0x11, 0) for k in range(spp)])
         tq, tda = [0] * spp, [0] * spp
         for tag, kind in ((519, "q"), (520, 0x00), (521, 0x10)):
-            offs = t.get(tag, (0,) * spp)
+            offs = t.get(tag, (0,) * spp) if t[-7].get(tag, 4) not in _TIFF_NOT_INTEGERS else (0,) * spp
             if len(offs) != spp or offs[0] == 0:  # libtiff sets no table tag of another count
                 raise bad(f"without its tag {tag} (JPEG tables)")
             for k in range(spp):
@@ -1766,7 +1850,10 @@ def _tiff_ojpeg(f: _Tiff, data: bytes) -> np.ndarray:
     first; one component is read as stored (mode L). → [H, W, 3] RGB."""
     if f.planar == 2 or 322 in f.tags:
         raise ValueError("TIFF old-style JPEG in separate planes or tiles is not supported by the port's codec")
-    photo = f.tags.get(262, (6,))[0]
+    photo = _libtiff_short(f.tags, 262, 6)  # libtiff takes YCbCr where it cannot read the tag
+    if f.spp == 1 and photo == 6:
+        raise ValueError("corrupt TIFF: an old-style JPEG of one sample taken for YCbCr (its photometric tag "
+                         "unreadable), which libtiff cannot decode")
     if f.spp == 3 and photo != 6:
         raise ValueError(f"TIFF old-style JPEG of 3 samples in photometric {photo} (not YCbCr) is not supported by "
                          "the port's codec")
@@ -1793,9 +1880,20 @@ def _tiff_ojpeg(f: _Tiff, data: bytes) -> np.ndarray:
     if n != f.spp or w != f.w or h < f.h:
         raise ValueError("corrupt TIFF: an old-style JPEG stream of another size or component count")
     h = f.h  # libtiff reads the image's rows of a taller frame
-    if n == 1:  # Pillow's mode L, repeated into RGB
-        if delivered >= 0:
+    if delivered != -1:
+        # libtiff's source ran dry (or its resync failed) in the strip that
+        # needed iMCU row ``delivered``. Pillow reads mode L strip by strip
+        # and raises; in YCbCr it calls TIFFRGBAImageGet a strip at a time,
+        # which keeps a failed strip's buffer (zeroed, then the rows decoded)
+        # but fails outright on the next strip, whose OJPEGPreDecode must
+        # skip the failed rows first and fails again: only a failure in the
+        # last strip lets the image through
+        delivered = delivered if delivered >= 0 else -2 - delivered
+        rps = f.tags.get(278, (h,))[0] or h
+        strip = delivered * 8 * comps[0][3] // rps
+        if n == 1 or strip < -(-h // rps) - 1:
             raise ValueError("corrupt TIFF: an old-style JPEG strip that libtiff cannot read")
+    if n == 1:  # Pillow's mode L, repeated into RGB
         return np.repeat(planes[0][:h, :, None], 3, -1)
     (_, _, hs, vs), rest = comps[0], comps[1:]
     if any((ch, cv) != (1, 1) for _, _, ch, cv in rest) or hs not in (1, 2, 4) or vs not in (1, 2, 4):

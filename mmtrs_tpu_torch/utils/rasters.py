@@ -45,9 +45,14 @@ BC1-BC7, CCITT fax) run in C (``csrc/host/rasters.cpp``). Decoded here:
   Pillow's OpenJPEG 2.5.4 decodes it, in strict mode), the JP2 boxes read
   as Pillow's plugin and OpenJPEG read them, each tile unpacked as
   Pillow's ``Jpeg2KDecode.c`` unpacks it (precision shifts, the signed
-  offset, its sYCC guess, palettes), then converted.
+  offset, its sYCC guess, palettes), then converted;
+- AVIF still pictures (``utils.avif``): libavif's container and checks, the
+  AV1 intra frame through the port's own decoder (``csrc/host/av1.cpp``),
+  libyuv's YUV → RGB as Pillow's libavif routes it; CDEF, loop
+  restoration, superres, film grain, quantiser matrices, 10/12 bits,
+  palette and intraBC blocks and premultiplied alpha refused by name.
 
-Refused, with an error that names them: AVIF (a codec of its own), and the
+Refused, with an error that names them: the
 formats Pillow identifies but cannot load without
 software it lacks (EPS without Ghostscript; WMF/EMF, BUFR, GRIB, HDF5 and
 MPEG, whose plugins are stubs with no handler).
@@ -2317,6 +2322,22 @@ def open_jpeg2000(data: bytes) -> Loader:
     return load
 
 
+def open_avif(data: bytes) -> Loader:
+    """AvifImagePlugin._open: libavif's parse of the container (a failure is
+    a SyntaxError, as Pillow's is) and the primary image's size; the load
+    decodes it with the port's own AV1 decoder (``utils.avif``)."""
+    from mmtrs_tpu_torch.utils import avif
+
+    av = avif.Avif(data)
+    _sized("AVIF", av.width, av.height)
+
+    def load() -> Loaded:
+        return avif.decode_avif(av).numpy(), "RGB", None
+
+    load.avif = av  # codec.decode_image converts its planes on the caller's device
+    return load
+
+
 def _raiser(e: Exception) -> Loader:
     def load() -> Loaded:
         raise ValueError(str(e)) from e
@@ -2352,7 +2373,7 @@ def openers() -> list[tuple[str, Callable[[bytes], bool] | None, Callable[[bytes
         ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff", open_jpeg),
         ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", open_ppm),
         ("PNG", lambda p: p[:8] == b"\x89PNG\r\n\x1a\n", None),
-        ("AVIF", _accept_avif, _refuse("AVIF", "an AV1 decoder is not part of it")),
+        ("AVIF", _accept_avif, open_avif),
         ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), open_blp),
         ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _refuse("BUFR", stub)),
         ("CUR", lambda p: p[:4] == b"\x00\x00\x02\x00", open_cur),

@@ -83,7 +83,7 @@ def _encoded(img: np.ndarray, fmt: str) -> bytes:
     lossless JPEG (predictor 1), an arithmetic-coded 4:2:0 JPEG (the
     system libjpeg's, q75: under Pillow's 64 KiB read block, which the JAX
     app's stock Pillow needs for an arithmetic-coded file) and JPEG 2000
-    (.jp2, 5/3 or 9/7)."""
+    (.jp2, 5/3 or 9/7); AVIF at Pillow's defaults."""
     from tests.jpeg_streams import lossless_jpeg
     from tests.test_torch_codec_formats import tiff_bytes
     from tests.test_torch_codec_jpeg import JpegTool
@@ -206,7 +206,7 @@ def trained(weights_dir):  # noqa: F811
 
 
 @pytest.mark.parametrize("fmt", ["JPEG", "PNG", "WEBP", "TIFF_CMYK", "TIFF_16BIT", "TGA", "PSD", "DDS",
-                                 "JPEG_LOSSLESS", "JPEG_ARITH", "JPEG2000", "JPEG2000_97"])
+                                 "JPEG_LOSSLESS", "JPEG_ARITH", "JPEG2000", "JPEG2000_97", "AVIF"])
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_predict_equals_predict_one_and_jax(trained, fmt, with_fields):
     from mmtrs_tpu_torch.utils.codec import decode_image

@@ -655,6 +655,108 @@ def _ojpeg_corners() -> dict[str, bytes]:
     return out
 
 
+def _with_strip_words(data: bytes, tag: int, values: dict[int, int]) -> bytes:
+    """A little-endian TIFF with entries of its strip offset (273) or
+    count (279) array replaced: {strip: value}."""
+    ifd = struct.unpack("<I", data[4:8])[0]
+    m = bytearray(data)
+    for k in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        t, _, n, at = struct.unpack("<HHII", data[ifd + 2 + 12 * k:ifd + 14 + 12 * k])
+        if t == tag:
+            for i, v in values.items():
+                struct.pack_into("<I", m, at + 4 * i if n > 1 else ifd + 10 + 12 * k, v)
+    return bytes(m)
+
+
+# old-style JPEG-in-TIFF whose strips libtiff reads short or long: a count of
+# 0 or past the file reads to the file's end (here through the other strips
+# and, in the "head" layout, the interchange header put after them); offsets
+# of 0 or past the file skip a strip
+OJPEG_STRIPS = [
+    ("head_420_restart_4_strips", 279, {0: 0}), ("head_420_restart_4_strips", 279, {1: 1 << 20}),
+    ("head_420_restart_4_strips", 279, {2: 0xFFFFFFFF}), ("head_444_restart_8_strips", 279, {6: 0}),
+    ("tables_420_restart_4_strips", 273, {1: 0, 3: 0}), ("tables_444_restart_8_strips", 273, {2: 0, 5: 1 << 30}),
+]
+
+
+@pytest.mark.parametrize("name,tag,values", OJPEG_STRIPS)
+def test_ojpeg_strips_libtiff_reads_short_or_long_agree_with_pillow(goldens, name, tag, values):
+    """tif_ojpeg.c's source fails libjpeg's resync (a restart marker out of
+    place) and fails when its strips run dry; TIFFRGBAImageGet, which
+    Pillow calls a strip at a time, keeps the failed strip's rows but the
+    next strip's read then fails too: Pillow decodes only where the failure
+    falls in the last strip, with that strip's undecoded rows zero."""
+    data = _with_strip_words(goldens[f"ojpeg_{name}.tif"].tobytes(), tag, values)
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError, match="old-style JPEG strip"):
+            _port(data)
+    else:
+        np.testing.assert_array_equal(_port(data), want[1])
+
+
+def _with_entry_type(data: bytes, tag: int, typ: int) -> bytes:
+    """A classic TIFF with the type of its first IFD's entry ``tag``
+    replaced."""
+    bo = "<" if data[:2] == b"II" else ">"
+    ifd = struct.unpack(bo + "I", data[4:8])[0]
+    m = bytearray(data)
+    for k in range(struct.unpack(bo + "H", data[ifd:ifd + 2])[0]):
+        if struct.unpack(bo + "H", data[ifd + 2 + 12 * k:ifd + 4 + 12 * k])[0] == tag:
+            struct.pack_into(bo + "H", m, ifd + 4 + 12 * k, typ)
+    return bytes(m)
+
+
+# damaged entry types: Pillow loads BYTE and UNDEFINED as bytes and ASCII as
+# a str, which its _setup cannot take as a size, sample layout, compression,
+# photometric or (reading the strips itself) rows per strip or strip
+# offsets; libtiff's integer readers refuse ASCII, rationals, UNDEFINED,
+# floats and IFD offsets (and in a classic TIFF the 8-byte types), dropping
+# an optional tag (predictor, planar, photometric, restart interval, the
+# old-style JPEG's offsets and tables) and failing on a required one
+ENTRY_TYPES = [("tiff_p3_lzw.tif", 256, 1), ("tiff_p3_lzw.tif", 259, 2), ("tiff_p3_lzw.tif", 277, 13),
+               ("tiff_lab_raw.tif", 262, 7), ("tiff_lab_raw.tif", 278, 1), ("tiff_lab_raw.tif", 339, 2),
+               ("jit_arith_420_ycbcr.tif", 278, 13), ("ojpeg_tables_420_restart_4_strips.tif", 262, 2),
+               ("tiff_p3_lzw.tif", 273, 9), ("tiff_p3_lzw.tif", 317, 11), ("tiff_p3_deflate_be.tif", 317, 4),
+               ("tiff_lab_raw.tif", 284, 5), ("tiff_lab_raw.tif", 273, 2), ("jit_arith_420_ycbcr.tif", 530, 1),
+               ("ojpeg_tables_420_restart_4_strips.tif", 515, 5), ("ojpeg_tables_420_restart_4_strips.tif", 530, 2),
+               ("ojpeg_tables_420_restart_4_strips.tif", 519, 13), ("ojpeg_tables_gray.tif", 262, 11),
+               ("ojpeg_head_420.tif", 514, 11), ("tiff_p3_lzw.tif", 277, 17)]
+
+
+@pytest.mark.parametrize("name,tag,typ", ENTRY_TYPES)
+def test_damaged_entry_types_agree_with_pillow(goldens, name, tag, typ):
+    """An IFD entry whose type is damaged: the port decodes equal to
+    Pillow, or both refuse."""
+    data = _with_entry_type(goldens[name].tobytes(), tag, typ)
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            _port(data)
+    else:
+        np.testing.assert_array_equal(_port(data), want[1])
+
+
+@pytest.mark.parametrize("sample_format,comp,predictor", [(3, 8, 1), (3, 32773, 1), (2, 5, 2), (2, 8, 1)])
+def test_big_endian_32bit_compressed_samples_as_pillow_reads_them(sample_format, comp, predictor):
+    """A big-endian TIFF of 32-bit samples that libtiff decompresses: libtiff
+    hands them over in native order and Pillow's raw mode (F;32BF, I;32BS)
+    reads them big-endian, so Pillow shows them byte-swapped; the port
+    equals it (and a damaged predictor entry that libtiff drops lands
+    here too)."""
+    rng = np.random.default_rng(sample_format + comp)
+    px = _float_px(4) if sample_format == 3 else rng.integers(-2 ** 31, 2 ** 31, (H, W)).astype(np.int32)
+    if predictor == 2:
+        px = np.diff(px.astype(np.int64), axis=1, prepend=0).astype(px.dtype)
+    raw = px.astype(">" + px.dtype.str[1:]).tobytes()
+    body = zlib.compress(raw) if comp == 8 else tiff_lzw(raw) if comp == 5 else b"".join(
+        bytes([len(raw[k:k + 128]) - 1]) + raw[k:k + 128] for k in range(0, len(raw), 128))
+    tags = {258: (3, [32]), 259: (3, [comp]), 262: (3, [1]), 277: (3, [1]), 339: (3, [sample_format]),
+            278: (3, [H]), 317: (3, [predictor])}
+    data = tiff_bytes(W, H, tags, [body], ">")
+    np.testing.assert_array_equal(_port(data), _pillow(data)[1])
+
+
 def _ojpeg_refused() -> dict[str, tuple[bytes, str]]:
     img = _ojpeg_image(37, 45, 72)
     tables = ojpeg_tiff(img, "tables")

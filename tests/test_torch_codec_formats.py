@@ -617,7 +617,7 @@ def _refused() -> dict[str, tuple[bytes, str | None]]:
         "tiff_ccitt_g3": (_save(a, "TIFF", "1", compression="group3"), None),
         "webp": (webp["inter_frame"], "WebP.*inter frame"),
         "webp_bad_riff_size": (webp["bad_riff_size"], "truncated WebP"),
-        "avif": (_save(a, "AVIF"), "AVIF images are not supported"),
+        "avif": (_save(a, "AVIF"), None),
         "jpeg2000": (_save(a, "JPEG2000"), None),
         "ppm": (_save(a, "PPM"), None),
         "ico": (_save(a, "ICO"), None),
@@ -631,7 +631,7 @@ def test_refused_variants_name_themselves(case):
     its name; a corrupt WebP (an inter frame, a RIFF size past the file's
     end), which Pillow refuses too, raises naming WebP. The variants the
     codec has learned to read since (JPEG-in-TIFF, CCITT, 16-bit, float and
-    CMYK TIFF, PPM, ICO, JPEG 2000) decode as Pillow decodes them."""
+    CMYK TIFF, PPM, ICO, JPEG 2000, AVIF) decode as Pillow decodes them."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, msg = _refused()[case]

@@ -289,6 +289,34 @@ def _mutations(data: bytes, seed: int, n: int = 30) -> list[bytes]:
     return out
 
 
+def _with_poc_order(data: bytes, entry: int, order: int) -> bytes:
+    """``data`` with the progression order byte of its POC's ``entry`` set
+    to ``order`` (one byte per component index: three components)."""
+    at = data.find(b"\xff\x5f") + 4 + 7 * entry + 6
+    return data[:at] + bytes([order]) + data[at + 1:]
+
+
+@pytest.mark.parametrize("entry,order", [(0, 5), (1, 5), (1, 255), (1, 2)])
+def test_poc_with_an_unknown_progression_order_decodes_as_openjpeg(goldens, entry, order):
+    """A POC entry whose progression order byte is not 0-4 gives no packets
+    (OpenJPEG's pi_next), so the tile's highest resolution read can fall
+    short of its last: OpenJPEG reconstructs the tile at that resolution
+    (``resno_decoded``) and hands the smaller image out at the top-left
+    of Pillow's buffer (packed, read with Pillow's strides), the rest left
+    zero. An unknown first entry makes
+    both refuse. (1, 2): the second entry in RPCL, as a known order."""
+    data = _with_poc_order(goldens["opj_rgb_poc.j2k"].tobytes(), entry, order)
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            _port(data)
+        return
+    got = _port(data)
+    np.testing.assert_array_equal(got, want[1])
+    if order > 4:
+        assert (got == 0).mean() > 0.9  # a fraction of the samples: the lower resolutions' alone
+
+
 MUTATED = ["pil_rgb_53.jp2", "pil_rgb_97_layers.j2k", "pil_rgb_rpcl_tiles.j2k", "opj_rgb_all_styles.j2k",
            "opj_rgb_ppm.j2k", "opj_rgb_sop_eph.j2k"]
 

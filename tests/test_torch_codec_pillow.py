@@ -814,9 +814,9 @@ def test_bomb_limit_holds_for_the_new_formats(fmt):
 
 def refused_files() -> dict[str, tuple[bytes, str]]:
     """Files of the formats the port refuses, and the name its error holds:
-    Pillow 12.1 here opens none of them to the end either, save AVIF (its
-    own codec, not ported); None for a format once refused that the port
-    now decodes (Lab PSD, PCD, JPEG 2000)."""
+    Pillow 12.1 here opens none of them to the end either; None for a
+    format once refused that the port now decodes (AVIF, Lab PSD, PCD,
+    JPEG 2000)."""
     img = Image.fromarray(_rgb(80))
     return {
         "eps": (b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 16 16\n%%EndComments\nshowpage\n", "EPS"),
@@ -826,7 +826,7 @@ def refused_files() -> dict[str, tuple[bytes, str]]:
         "grib": (b"GRIB\0\0\0\x01" + bytes(60), "GRIB"),
         "hdf5": (b"\x89HDF\r\n\x1a\n" + bytes(60), "HDF5"),
         "mpeg": (b"\x00\x00\x01\xb3" + struct.pack(">HH", 0x0100, 0x1000) + bytes(60), "MPEG"),
-        "avif": (_save(img, "AVIF"), "AVIF"),
+        "avif": (_save(img, "AVIF"), None),
         "jpeg2000": (_save(img, "JPEG2000"), None),
         "psd_lab": (psd_bytes(9, 8, [np.zeros((H, W), np.uint8)] * 3, False), None),
         "tga_cmap32": (tga_bytes(1, 8, bytes(W * H), W, H, cmap=(0, 4, 32, bytes(16))), "TGA colour maps of 32"),
@@ -842,12 +842,11 @@ def test_refused_formats_name_themselves(case):
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     data, name = refused_files()[case]
-    if name is None:  # refused once, now decoded as Pillow decodes it (Lab PSD, PCD, JPEG 2000)
+    if name is None:  # refused once, now decoded as Pillow decodes it (AVIF, Lab PSD, PCD, JPEG 2000)
         np.testing.assert_array_equal(decode_image(data, "cpu").numpy(), _pillow(data)[1])
         return
-    if case != "avif":  # Pillow refuses the others too
-        with pytest.raises(Exception):  # noqa: B017  (Pillow's own error types)
-            Image.open(io.BytesIO(data)).convert("RGB")
+    with pytest.raises(Exception):  # noqa: B017  (Pillow's own error types)
+        Image.open(io.BytesIO(data)).convert("RGB")
     with pytest.raises(ValueError, match=name):
         decode_image(data, "cpu")
 

@@ -459,6 +459,28 @@ def test_jp2_decoder_is_the_ports_own_code():
     assert hits == []
 
 
+def test_av1_decoder_is_the_ports_own_code():
+    """The AVIF decoder is the port's code: ``av1.cpp`` includes the
+    standard library and its own table header alone, its library is built
+    with g++ and links nothing, no module of the port (nor chip_smoke.py)
+    names Pillow's bundled libraries, dlopens libavif or dav1d, or imports
+    PIL, and no C++ file includes their headers; ``tests/avif_oracle.py``,
+    the one user of the wheel's libavif, is imported by tests alone."""
+    host = ROOT / "mmtrs_tpu_torch" / "csrc" / "host"
+    includes = re.findall(r'^#include\s*[<"]([^>"]+)[>"]', (host / "av1.cpp").read_text(), re.M)
+    assert includes == ["algorithm", "cstdint", "cstdio", "cstdlib", "cstring", "memory", "string", "vector",
+                        "av1_tables.h"]
+    build = (ROOT / "mmtrs_tpu_torch" / "_build.py").read_text()
+    assert '_build_host("mmtrs_av1", "av1.cpp", [_gxx(), *HOST_FLAGS], (), ("av1_tables.h",))' in build
+    pat = re.compile(r"pillow\.libs|libavif[-.*]|libdav1d|dav1d\.so|find_library\(\s*[\"'](?:lib)?(?:avif|dav1d)|"
+                     r"avif_oracle|^\s*(?:import PIL|from PIL)", re.M)
+    sources = [*sorted((ROOT / "mmtrs_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in sources for m in pat.finditer(p.read_text())]
+    assert hits == []
+    headers = re.compile(r'#include\s*[<"](?:avif|dav1d|aom)/')
+    assert [p.name for p in sorted(host.glob("*.*")) if headers.search(p.read_text(errors="ignore"))] == []
+
+
 def test_jpeg_own_library_without_gxx_raises_by_name(monkeypatch):
     """No g++: the own JPEG decoder's build raises naming it; a lossless
     JPEG is not handed to libjpeg or nvJPEG instead."""

@@ -1,7 +1,8 @@
 """The port's MIL trainer held against the JAX package on the CPU in float32:
-``make_bags`` on JAX's own bag draws, one train step of MILNet over the
-test net and over B0, the whole ``run_mil_kfold`` on JAX's bag draws, and
-its fold checkpoints read back by the port's ``MILEnsemble``.
+``make_bags`` on JAX's own bag draws, the whole ``run_mil_kfold`` on JAX's
+bag draws, and its fold checkpoints read back by the port's
+``MILEnsemble``. One train step of MILNet over the test net and over B0 is
+held in tests/test_torch_mil_step.py.
 
 The JAX trainer builds MILNet in bf16 with dropout 0.2 on the pooled
 feature and the factory's drop-path 0.1; the tests swap in an f32 MILNet
@@ -23,7 +24,6 @@ import pytest
 import torch
 
 from tests.synth import synth_images, synth_standardized
-from tests.test_torch_train_mm import _en_noise_leaf, _leaves
 
 LR = 1e-3
 
@@ -60,16 +60,6 @@ def _flax_milnet_f32():
     from mmtrs_tpu.models.mil import MILNet
 
     return functools.partial(MILNet, dtype=jnp.float32, drop_rate=0.0)
-
-
-@pytest.fixture
-def no_jax_drop_path(monkeypatch):
-    """JAX's MILNet builds its encoder with the factory's drop-path 0.1;
-    here 0."""
-    import mmtrs_tpu.models.mil as jmil_model
-
-    monkeypatch.setattr(jmil_model, "create_model",
-                        functools.partial(jmil_model.create_model, drop_path=0.0))
 
 
 # -- bags ------------------------------------------------------------------------------
@@ -175,93 +165,6 @@ def test_bag_draws_are_seeded_per_origin():
     assert float(a.area.min()) >= 0.4 and float(a.area.max()) <= 1.0
     assert not BagDraws.draw(999, [5, 9], 12, hflip_p=0.0).flip.any()
     assert not torch.equal(a.area, BagDraws.draw(4, [5, 9], 12).area)
-
-
-# -- one train step -------------------------------------------------------------------
-
-
-def _mil_tree(sd: dict, coll: str = "params") -> dict:
-    from mmtrs_tpu_torch.models.convert import milnet_to_flax
-
-    return milnet_to_flax(sd)[coll]
-
-
-@pytest.mark.parametrize("model_name,size,gbar", [("test_cnn", 32, 1e-4), ("efficientnet_b0", 64, 3e-4)])
-def test_mil_train_step_matches_jax(no_jax_drop_path, model_name, size, gbar):
-    """MILNet in f32, dropouts 0, the Flax init converted, 2 bags of 3 from
-    JAX's draws: the loss within 1e-5 relative, every gradient within
-    ``gbar`` of its leaf's max |g| (B0's noise leaves ≤ 1e-6 of the largest
-    in both), the parameters after the AdamW step within 1e-5 where both
-    gradients exceed 1e-3 of their leaf's max and within 2·lr elsewhere, and
-    the BatchNorm statistics within 1e-5 relative (+ 1e-6)."""
-    import mmtrs_tpu.train.mil as jmil
-    from mmtrs_tpu.config import MILConfig as JaxCfg
-    from mmtrs_tpu.train.common import bce_logits as jax_bce
-    from mmtrs_tpu_torch.config import MILConfig
-    from mmtrs_tpu_torch.models.convert import milnet_from_flax
-    from mmtrs_tpu_torch.models.mil import BagDraws, make_bags
-    from mmtrs_tpu_torch.train.common import bce_logits, normalize_imagenet
-    from mmtrs_tpu_torch.train.mil import MILTrainer
-
-    kw = dict(model_name=model_name, bag_size=3, img_size=size, batch_size=2, lr=LR)
-    rng = np.random.default_rng(2)
-    imgs = rng.integers(0, 256, (2, size + 16, size + 8, 3)).astype(np.uint8)
-    oid, y = np.array([4, 11]), np.array([1.0, 0.0], np.float32)
-    orig = jmil.MILNet
-    jmil.MILNet = _flax_milnet_f32()
-    try:
-        jt = jmil.MILTrainer(JaxCfg(**kw))
-        st = jt.init_state(10)
-        bags = np.asarray(jt._make_train_bags(imgs, 7, oid))
-    finally:
-        jmil.MILNet = orig
-    v0 = jax.tree.map(np.asarray, {"params": st.params, "batch_stats": st.batch_stats})
-
-    def jloss(params):
-        (logit, _), mut = jt.model.apply({"params": params, "batch_stats": st.batch_stats}, bags,
-                                         train=True, mutable=["batch_stats"])
-        return jax_bce(logit, y), mut
-
-    (jl0, _), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(st.params)
-    jgrads = _leaves({"params": jg})
-    st1, jl = jt._train_step(st, {"bags": jnp.asarray(bags), "y": jnp.asarray(y)})
-    want = _leaves(jax.tree.map(np.asarray, {"params": st1.params, "batch_stats": st1.batch_stats}))
-
-    make = lambda: MILTrainer(MILConfig(**kw), device="cpu", init=milnet_from_flax(v0), dtype=torch.float32,
-                              drop_rate=0.0, drop_path=0.0)
-    pt = make()
-    pt.init_state(10)
-    pbags = normalize_imagenet(make_bags(torch.from_numpy(imgs), BagDraws.from_numpy(*jax_bag_draws(7, oid, 3)),
-                                         size))
-    np.testing.assert_allclose(pbags.numpy(), bags, rtol=0, atol=1e-5)
-    probe = make().model
-    probe.train()
-    bce_logits(probe(pbags)[0], torch.from_numpy(y)).backward()
-    pgrads = _leaves({"params": _mil_tree({k: v.grad for k, v in probe.named_parameters()})})
-    pl = pt.train_step(pbags, torch.from_numpy(y))
-
-    noise = _en_noise_leaf if model_name != "test_cnn" else (lambda k: False)
-    assert abs(float(pl) - float(jl)) <= 1e-5 * abs(float(jl))
-    assert set(pgrads) == set(jgrads)
-    gmax = max(float(np.abs(g).max()) for g in jgrads.values())
-    for k, g in jgrads.items():
-        if noise(k):
-            assert np.abs(g).max() <= 1e-6 * gmax and np.abs(pgrads[k]).max() <= 1e-6 * gmax, k
-        else:
-            assert np.abs(pgrads[k] - g).max() <= gbar * np.abs(g).max(), k
-    got = _leaves({"params": _mil_tree(pt.model.state_dict()),
-                   "batch_stats": _mil_tree(pt.model.state_dict(), "batch_stats")})
-    assert set(got) == set(want)
-    for k, w in want.items():
-        if "batch_stats" in k:
-            np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-6, err_msg=k)
-            continue
-        g = np.minimum(np.abs(jgrads[k]), np.abs(pgrads[k]))
-        firm = g > 1e-3 * np.abs(jgrads[k]).max()
-        if noise(k):
-            firm[...] = False
-        np.testing.assert_allclose(got[k][firm], w[firm], rtol=0, atol=1e-5, err_msg=k)
-        assert np.abs(got[k] - w).max() <= 2 * LR, k
 
 
 def test_train_mode_needs_a_generator_and_eval_does_not():
