@@ -2977,19 +2977,34 @@ AVIF_UPLOADS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif_uploads.npz"
 AVIF_UPLOAD_FILES = {"avif_420": "upload_default_1024x768.avif", "avif_444": "upload_444_1024x768.avif",
                      "avif_400": "upload_400_1024x768.avif", "avif_two_tiles": "upload_two_tiles_1024x768.avif"}
 AVIF_GRID_TILE = "upload_grid_tile_512x384.avif"
+# AVIF's second slice (palette, intraBC, CDEF, loop restoration): its
+# goldens, a screenshot-like upload (palette and intraBC) and an animated
+# save's first frame (CDEF) of the phone photo, and the phone photo at speed
+# 2 with CDEF, whose 4 x 4 grid of copies is the 12 MP restoration file
+AVIF2_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif2_goldens.npz"
+AVIF2_UPLOADS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif2_uploads.npz"
+AVIF2_UPLOAD_FILES = {"avif_screenshot": "upload_screenshot_1024x768.avif",
+                      "avif_animated": "upload_animated_q30_1024x768.avif"}
+AVIF2_GRID_TILE = "upload_speed2_cdef_lr_1024x768.avif"
 
 
 def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
-    """AVIF on the card's machine (no Pillow): every golden decoded to the
-    card and on the CPU route equal to Pillow's stored decode; the median
-    ms of the decode of a 12 MP grid (4 x 4 copies of the default upload),
-    whose planes hold the upload's in each cell (the conversion's chroma
-    upsampling runs across the cells, as libavif's does); the uploads."""
+    """AVIF on the card's machine (no Pillow): every golden of both slices
+    decoded to the card and on the CPU route equal to Pillow's stored
+    decode; the median ms of the decode of two 12 MP grids (4 x 4 copies of
+    the default upload, and of the speed-2 photograph with loop restoration
+    and CDEF), whose planes hold the upload's in each cell (the
+    conversion's chroma upsampling runs across the cells, as libavif's
+    does); the uploads, the second slice's screenshot (palette, intraBC) and
+    animated frame (CDEF) with them."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     exact, on_card = 0, True
     with np.load(AVIF_GOLDENS) as z:
         files = {f: z[f] for f in z.files}
+    with np.load(AVIF2_GOLDENS) as z:
+        files2 = {f: z[f] for f in z.files}
+    files.update(files2)
     for name in sorted(f for f in files if not f.endswith(".pil")):
         data = files[name].tobytes()
         want = torch.from_numpy(files[f"{name}.pil"])
@@ -2998,10 +3013,12 @@ def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
         if not (torch.equal(got.cpu(), want) and torch.equal(decode_image(data, "cpu"), want)):
             raise AssertionError(f"AVIF golden {name}: not equal to Pillow's decode on both routes")
         exact += 1
-    _check(on_card and exact >= 25,
+    new = sum(not f.endswith(".pil") for f in files2)
+    _check(on_card and exact >= 55 and new >= 30,
            f"{exact} AVIF goldens decoded to the card and on the CPU route equal to Pillow's decode (4:2:0/4:2:2/"
-           "4:4:4/4:0:0, speeds 2-10, qualities 10-100, tiles, 128 superblocks, lossless, delta q and lf, filter "
-           "intra, 64-point transforms, grids, irot/imir/clap, alpha, limited range)")
+           "4:4:4/4:0:0, speeds 0-10, qualities 10-100, tiles, 128 superblocks, lossless, delta q and lf, filter "
+           f"intra, 64-point transforms, grids, irot/imir/clap, alpha, limited range; {new} of them the second "
+           "slice's: palette, intraBC, CDEF, Wiener, self-guided and switchable restoration)")
     with np.load(AVIF_UPLOADS) as z:
         up = {f: z[f].tobytes() for f in z.files}
     from mmtrs_tpu_torch.utils.avif import planes_of
@@ -3018,8 +3035,24 @@ def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
            "are the upload's in each cell, its RGB (converted on the card) the CPU route's")
     print(f"  12 MP AVIF grid decodes to the card: {out['avif_12mp_grid_ms']:.2f} ms (the host decode on up to 8 "
           f"threads, the conversion, then the copy; host clock, median of 3, each ending in a synchronise; {smi})")
+    with np.load(AVIF2_UPLOADS) as z:
+        up2 = {f: z[f].tobytes() for f in z.files}
+    restored = up2[AVIF2_GRID_TILE]
+    big2 = _avif_grid([restored], 4, 4)
+    out["avif_12mp_restoration_grid_ms"] = _median_ms(torch, lambda: last.update(got=decode_image(big2, dev)))
+    got = last["got"]
+    tile, grid = planes_of(restored)[0], planes_of(big2)[0]
+    same = all(np.array_equal(g.reshape(4, t.shape[0], 4, t.shape[1]).transpose(0, 2, 1, 3),
+                              np.broadcast_to(t, (4, 4) + t.shape)) for g, t in zip(grid, tile))
+    _check(same and got.device.type == "cuda" and torch.equal(got.cpu(), decode_image(big2, "cpu")),
+           f"a {tuple(got.shape)} AVIF grid of 16 copies of the speed-2 photograph (loop restoration and CDEF) "
+           "decodes to the card: its planes are the photograph's in each cell, its RGB the CPU route's")
+    print(f"  12 MP AVIF grid with loop restoration and CDEF decodes to the card: "
+          f"{out['avif_12mp_restoration_grid_ms']:.2f} ms (the host decode on up to 8 threads, the conversion, then "
+          f"the copy; host clock, median of 3, each ending in a synchronise; {smi})")
     uploads = {k: up[v] for k, v in AVIF_UPLOAD_FILES.items()}
     uploads["avif_grid"] = _avif_grid([up[AVIF_GRID_TILE]], 2, 2)
+    uploads.update({k: up2[v] for k, v in AVIF2_UPLOAD_FILES.items()})
     for fam, raw in uploads.items():
         got = decode_image(raw, dev)
         _check(got.device.type == "cuda" and tuple(got.shape) == phone.shape,

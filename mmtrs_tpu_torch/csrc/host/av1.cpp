@@ -12,22 +12,34 @@
 // - the symbol decoder with CDF adaptation and disable_cdf_update;
 // - the intra block syntax: partitions, intra segmentation with its
 //   spatial prediction, delta q and delta lf (multi as well), skip, y and uv
-//   modes with angle deltas, CfL alphas, filter intra, the palette and
-//   intraBC flags (read, then refused), tx depth, the intra tx sets (reduced
-//   too), the coefficients of every tx size with the zero-out past 32;
+//   modes with angle deltas, CfL alphas, filter intra, tx depth, the intra
+//   tx sets (reduced too), the coefficients of every tx size with the
+//   zero-out past 32;
+// - palette: the colour cache of the above (same 64-row superblock row)
+//   and left blocks, the delta-coded colours, the colour map in wavefront
+//   order with its colour-order contexts, extended past the frame's edge;
+// - intraBC: the DV stack of an intra frame (find_mv_stack's spatial scan,
+//   sorting and clamping, the default DV), read_mv at whole samples, dav1d's
+//   clip of a DV into the tile's decoded region, the copy with the BILINEAR
+//   filter, the var-tx tree (txfm_split) and the inter tx sets;
 // - dequantisation with per-plane deltas, and lossless (WHT);
-// - the inverse transforms (DCT 4-64, ADST 4/8/16, identity) in the
-//   specification's integer steps, with its clamps;
+// - the inverse transforms (DCT 4-64, ADST and FLIPADST 4/8/16, identity)
+//   in the specification's integer steps, with its clamps;
 // - intra prediction: DC, V, H, directional with the edge filter and
-//   upsampling, smooth, Paeth, CfL and filter intra, availability stopping
-//   at tile edges;
+//   upsampling, smooth, Paeth, CfL, filter intra and palette, availability
+//   stopping at tile edges;
 // - the deblocking filter (levels by segment, mode delta and delta lf; the
 //   4-, 6-, 8- and 14-tap filters);
+// - CDEF: the per-8×8 direction search and variance, primary and secondary
+//   taps with their damping, the 4:2:2 direction map, skipped 8×8s and
+//   64×64s, from a copy of the deblocked frame;
+// - loop restoration: Wiener (7 and 5 taps) and self-guided (the r = 1 and
+//   r = 2 box filters and the projection) units, switchable, over stripes
+//   of 64 rows offset by 8 that read the deblocked rows at their edges;
 // - 4:2:0, 4:2:2, 4:4:4 and 4:0:0.
 //
-// Refused by name (AVIF's second slice): CDEF that filters, loop
-// restoration, superres, film grain, quantiser matrices, 10/12 bits,
-// palette and intraBC blocks, inter frames.
+// Refused by name (AVIF's third slice): superres, film grain, quantiser
+// matrices, 10/12 bits, inter frames.
 //
 // Entry points (ctypes, see mmtrs_tpu_torch/utils/avif.py):
 //   int mmtrs_av1_decode(const void* buf, long long n, long long max_pixels,
@@ -36,7 +48,7 @@
 //     any). out <- a malloc'd buffer: the Y plane, then U and V (each at its
 //     subsampled size, rows packed). dims: int[16] <- width, height, subx,
 //     suby, planes, bit depth, colour primaries, transfer, matrix, range,
-//     the tools mask (low 32 bits). Returns 0, or a status with msg
+//     the tools mask's low and high 32 bits. Returns 0, or a status with msg
 //     (char[256]): 2 broken, 3 truncated, 5 over max_pixels, 6 refused.
 //   int mmtrs_av1_free(void* p);
 //
@@ -65,11 +77,12 @@ struct Fail {
 [[noreturn]] void fail(int status, const std::string& what) { throw Fail{status, what}; }
 [[noreturn]] void broken(const std::string& what) { fail(ST_BROKEN, "corrupt AV1: " + what); }
 [[noreturn]] void refuse(const std::string& tool) {
-    fail(ST_REFUSED, "AVIF whose AV1 uses " + tool + " is not decoded by the port's codec (AVIF's second slice)");
+    fail(ST_REFUSED, "AVIF whose AV1 uses " + tool + " is not decoded by the port's codec (AVIF's third slice)");
 }
 
-// the tools a decode used, for the tests' coverage
-enum : uint32_t {
+// the tools a decode used, for the tests' coverage (dims[10] the low 32
+// bits, dims[11] the high)
+enum : uint64_t {
     TOOL_DC = 1u << 0, TOOL_VH = 1u << 1, TOOL_DIRECTIONAL = 1u << 2, TOOL_SMOOTH = 1u << 3, TOOL_PAETH = 1u << 4,
     TOOL_CFL = 1u << 5, TOOL_FILTER_INTRA = 1u << 6, TOOL_ANGLE_DELTA = 1u << 7, TOOL_EDGE_UPSAMPLE = 1u << 8,
     TOOL_TX4 = 1u << 9, TOOL_TX8 = 1u << 10, TOOL_TX16 = 1u << 11, TOOL_TX32 = 1u << 12, TOOL_TX64 = 1u << 13,
@@ -77,7 +90,9 @@ enum : uint32_t {
     TOOL_LOSSLESS = 1u << 19, TOOL_TILES = 1u << 20, TOOL_SEGMENTATION = 1u << 21, TOOL_DELTA_Q = 1u << 22,
     TOOL_DELTA_LF = 1u << 23, TOOL_SB128 = 1u << 24, TOOL_DEBLOCK = 1u << 25, TOOL_420 = 1u << 26,
     TOOL_422 = 1u << 27, TOOL_444 = 1u << 28, TOOL_400 = 1u << 29, TOOL_EDGE_FILTER = 1u << 30,
-    TOOL_DELTA_LF_MULTI = 1u << 31,
+    TOOL_DELTA_LF_MULTI = 1u << 31, TOOL_PALETTE_Y = 1ull << 32, TOOL_PALETTE_UV = 1ull << 33,
+    TOOL_PALETTE_CACHE = 1ull << 34, TOOL_INTRABC = 1ull << 35, TOOL_CDEF_Y = 1ull << 36, TOOL_CDEF_UV = 1ull << 37,
+    TOOL_WIENER = 1ull << 38, TOOL_SGRPROJ = 1ull << 39, TOOL_SWITCHABLE_LR = 1ull << 40,
 };
 
 inline int clip3(int lo, int hi, int x) { return x < lo ? lo : (x > hi ? hi : x); }
@@ -146,6 +161,13 @@ const int kTxIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST, DCT_ADST,
                              ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
+bool in_inter_set(int set, int t) {
+    if (set == TX_SET_DCTONLY) return t == DCT_DCT;
+    if (set == TX_SET_INTER_3) return t == IDTX || t == DCT_DCT;
+    if (set == TX_SET_INTER_2) return t != V_ADST && t != H_ADST && t != V_FLIPADST && t != H_FLIPADST;
+    return true;
+}
 bool in_intra_set(int set, int t) {
     if (set == TX_SET_DCTONLY) return t == DCT_DCT;
     if (set == TX_SET_INTRA_2) return t == IDTX || t == DCT_DCT || t == ADST_ADST || t == ADST_DCT || t == DCT_ADST;
@@ -230,6 +252,7 @@ void read_sequence(Bits& b, Sequence& s) {
     if (s.profile > 2) broken("a sequence header of an unknown profile");
     s.still = b.f(1);
     s.reduced = b.f(1);
+    if (s.reduced && !s.still) broken("a reduced sequence header of a moving picture");
     if (s.reduced) {
         b.f(5);  // seq_level_idx
         s.op_count = 1;
@@ -252,6 +275,9 @@ void read_sequence(Bits& b, Sequence& s) {
         s.op_count = b.f(5) + 1;
         for (int i = 0; i < s.op_count; ++i) {
             s.op_idc[i] = b.f(12);
+            // dav1d: an operating point names both its temporal and spatial layers
+            if (s.op_idc[i] && (!(s.op_idc[i] & 0xff) || !(s.op_idc[i] & 0xf00)))
+                broken("an operating point of no temporal or spatial layer");
             const int level = b.f(5);
             if (level > 7) b.f(1);
             if (s.decoder_model_info) {
@@ -345,6 +371,8 @@ void read_sequence(Bits& b, Sequence& s) {
     s.seen = true;
 }
 
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
 constexpr int MAX_SEGMENTS = 8, SEG_LVL_MAX = 8, SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
               SEG_LVL_SKIP = 6;
 const int kSegBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
@@ -366,7 +394,9 @@ struct Frame {
     int lf_level[4] = {}, lf_sharpness = 0, lf_delta_enabled = 0;
     int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
     int lf_mode_deltas[2] = {0, 0};
-    int cdef_bits = 0;
+    int cdef_bits = 0, cdef_damping = 3;
+    int cdef_y_pri[8] = {}, cdef_y_sec[8] = {}, cdef_uv_pri[8] = {}, cdef_uv_sec[8] = {};
+    int lr_type[3] = {}, lr_size[3] = {};  // FrameRestorationType (RESTORE_*), LoopRestorationSize
     int tx_mode_select = 0, reduced_tx_set = 0;
 };
 
@@ -391,7 +421,7 @@ int qindex_of(const Frame& f, int seg, int current, bool ignore_delta) {
 
 int read_delta_q(Bits& b) { return b.f(1) ? b.su(7) : 0; }
 
-void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint32_t* tools, int temporal_id, int spatial_id) {
+void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint64_t* tools, int temporal_id, int spatial_id) {
     int frame_type = 0;
     if (s.reduced) {
         f.show_frame = 1;
@@ -575,24 +605,39 @@ void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint32_t* tools, in
     }
     // cdef_params
     if (!(f.coded_lossless || f.allow_intrabc || !s.enable_cdef)) {
-        b.f(2);  // cdef_damping_minus_3
+        f.cdef_damping = b.f(2) + 3;
         f.cdef_bits = b.f(2);
-        bool any = false;
         for (int i = 0; i < (1 << f.cdef_bits); ++i) {
-            any |= b.f(4) != 0;
-            any |= b.f(2) != 0;
+            f.cdef_y_pri[i] = b.f(4);
+            f.cdef_y_sec[i] = b.f(2);
+            if (f.cdef_y_sec[i] == 3) f.cdef_y_sec[i] = 4;
             if (!s.mono) {
-                any |= b.f(4) != 0;
-                any |= b.f(2) != 0;
+                f.cdef_uv_pri[i] = b.f(4);
+                f.cdef_uv_sec[i] = b.f(2);
+                if (f.cdef_uv_sec[i] == 3) f.cdef_uv_sec[i] = 4;
             }
         }
-        if (any) refuse("CDEF");
     }
     // lr_params
     const bool all_lossless = f.coded_lossless;  // no superres
     if (!(all_lossless || f.allow_intrabc || !s.enable_restoration)) {
-        for (int i = 0; i < (s.mono ? 1 : 3); ++i)
-            if (b.f(2)) refuse("loop restoration");
+        static const int kRemap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ};
+        bool uses = false, chroma = false;
+        for (int i = 0; i < (s.mono ? 1 : 3); ++i) {
+            f.lr_type[i] = kRemap[b.f(2)];
+            if (f.lr_type[i] != RESTORE_NONE) {
+                uses = true;
+                chroma |= i > 0;
+            }
+        }
+        if (uses) {
+            int shift = b.f(1);
+            if (s.sb128) ++shift;
+            else if (shift) shift += b.f(1);
+            f.lr_size[0] = 256 >> (2 - shift);
+            const int uv_shift = s.subx && s.suby && chroma ? b.f(1) : 0;
+            f.lr_size[1] = f.lr_size[2] = f.lr_size[0] >> uv_shift;
+        }
     }
     // read_tx_mode
     f.tx_mode_select = f.coded_lossless ? 0 : b.f(1);
@@ -638,6 +683,22 @@ struct Cdfs {
     uint16_t base_eob[5][2][4][4];
     uint16_t base[5][2][42][5];
     uint16_t br[5][2][21][5];
+    uint16_t pal_y_size[7][8];
+    uint16_t pal_uv_size[7][8];
+    uint16_t pal_y_color[7][5][9];
+    uint16_t pal_uv_color[7][5][9];
+    uint16_t txfm_split[21][3];
+    uint16_t inter_set1[2][17];
+    uint16_t inter_set2[13];
+    uint16_t inter_set3[4][3];
+    uint16_t mv_joint[5];
+    uint16_t mv_class[2][12];
+    uint16_t mv_class0_bit[2][3];
+    uint16_t mv_bit[2][10][3];
+    uint16_t mv_sign[2][3];
+    uint16_t restore_switchable[4];
+    uint16_t restore_wiener[3];
+    uint16_t restore_sgrproj[3];
 
     void init(int qctx) {
         std::memcpy(partition, kPartitionCdf, sizeof partition);
@@ -672,6 +733,24 @@ struct Cdfs {
         std::memcpy(base_eob, kCoeffBaseEobCdf[qctx], sizeof base_eob);
         std::memcpy(base, kCoeffBaseCdf[qctx], sizeof base);
         std::memcpy(br, kCoeffBrCdf[qctx], sizeof br);
+        std::memcpy(pal_y_size, kPaletteYSizeCdf, sizeof pal_y_size);
+        std::memcpy(pal_uv_size, kPaletteUvSizeCdf, sizeof pal_uv_size);
+        std::memcpy(pal_y_color, kPaletteYColorCdf, sizeof pal_y_color);
+        std::memcpy(pal_uv_color, kPaletteUvColorCdf, sizeof pal_uv_color);
+        std::memcpy(txfm_split, kTxfmSplitCdf, sizeof txfm_split);
+        std::memcpy(inter_set1, kInterTxSet1Cdf, sizeof inter_set1);
+        std::memcpy(inter_set2, kInterTxSet2Cdf, sizeof inter_set2);
+        std::memcpy(inter_set3, kInterTxSet3Cdf, sizeof inter_set3);
+        std::memcpy(mv_joint, kMvJointCdf, sizeof mv_joint);
+        for (int c = 0; c < 2; ++c) {
+            std::memcpy(mv_class[c], kMvClassCdf, sizeof mv_class[c]);
+            std::memcpy(mv_class0_bit[c], kMvClass0BitCdf, sizeof mv_class0_bit[c]);
+            std::memcpy(mv_bit[c], kMvBitCdf, sizeof mv_bit[c]);
+            std::memcpy(mv_sign[c], kMvSignCdf, sizeof mv_sign[c]);
+        }
+        std::memcpy(restore_switchable, kRestoreSwitchableCdf, sizeof restore_switchable);
+        std::memcpy(restore_wiener, kRestoreWienerCdf, sizeof restore_wiener);
+        std::memcpy(restore_sgrproj, kRestoreSgrprojCdf, sizeof restore_sgrproj);
     }
 };
 
@@ -740,6 +819,13 @@ struct SymbolDecoder {
         int v = 0;
         for (int i = 0; i < k; ++i) v = (v << 1) | boolean();
         return v;
+    }
+    int ns(int nv) {  // NS(n) of the tile data (4.10.10 through L())
+        const int w = floor_log2(static_cast<uint32_t>(nv)) + 1;
+        const int m = (1 << w) - nv;
+        const int v = literal(w - 1);
+        if (v < m) return v;
+        return (v << 1) - m + literal(1);
     }
 };
 
@@ -988,12 +1074,15 @@ struct Plane {
 struct Decoder {
     const Sequence& seq;
     Frame& fr;
-    uint32_t tools = 0;
+    uint64_t tools = 0;
     int num_planes = 3, subx = 1, suby = 1;
     Plane planes[3];
     // per-4×4 (mi) information, frame-wide
     int mi_stride = 0;
-    std::vector<uint8_t> mi_size, y_mode, uv_mode, skip, seg_id, tx_size, palette_y;
+    std::vector<uint8_t> mi_size, y_mode, uv_mode, skip, seg_id, tx_size;
+    std::vector<uint8_t> pal_sizes[2], pal_colors[2];  // PaletteSizes and PaletteColors (8 a mi) of Y and U
+    std::vector<uint8_t> is_inters, decoded, tx_types;  // IsInters, a mi written this frame, TxTypes (luma)
+    std::vector<int16_t> mvs;  // an intraBC block's DV (row, column), 2 a mi
     std::vector<int8_t> delta_lfs;  // 4 a mi
     std::vector<uint8_t> lf_tx[3];  // the transform size of each plane's 4×4 unit, for the loop filter
     int lf_stride[3] = {};
@@ -1006,6 +1095,17 @@ struct Decoder {
     int current_q = 0;
     bool read_deltas = false;
     int cdef_idx[4] = {-1, -1, -1, -1};
+    std::vector<int8_t> cdef_frame;  // cdef_idx of each 64×64 (-1: none read, its blocks all skipped)
+    // each restoration unit's type and coefficients (Wiener: 2 passes × 3
+    // taps; self-guided: the set and 2 projection weights), the units of
+    // each plane, and the tile's reference values (RefLrWiener, RefSgrXqd)
+    struct LrUnit {
+        int type = RESTORE_NONE, wiener[2][3] = {}, sgr_set = 0, xqd[2] = {};
+    };
+    std::vector<LrUnit> lr_units[3];
+    int lr_rows[3] = {}, lr_cols[3] = {};
+    int ref_wiener[3][2][3] = {}, ref_xqd[3][2] = {};
+    int cdef_stride = 0;
     // block_decoded[plane][y + 1][x + 1], y and x from -1 to 32 (4×4 units in the superblock)
     uint8_t block_decoded[3][34][34] = {};
     // the current block
@@ -1013,12 +1113,16 @@ struct Decoder {
     bool has_chroma = false, avail_u = false, avail_l = false, avail_u_chroma = false, avail_l_chroma = false;
     int segment = 0, is_skip = 0, ymode = 0, uvmode = 0, angle_y = 0, angle_uv = 0, cfl_u = 0, cfl_v = 0;
     int use_filter_intra = 0, filter_mode = 0, txsz = 0;
+    int pal_n[2] = {}, palette[3][8] = {};  // PaletteSizeY/UV, the Y, U and V colours
+    int use_intrabc = 0, dv[2] = {};  // an intraBC block and its displacement (1/8 sample: row, column)
+    uint8_t color_map[2][64][64];  // ColorMapY, ColorMapUV
     bool lossless = false;
     int max_luma_w = 0, max_luma_h = 0;
     int qctx = 0;
     // the coefficients of the current transform block, its residual, and
     // CfL's luma (per decoder: tiles of a grid decode on threads)
     int32_t quant[1024];
+    int bc_mid[129][128];  // the intraBC copy's horizontal pass
     uint8_t levels[32 + 4][32 + 4];
     int resid[64][64];
     int lbuf[32][32];
@@ -1042,7 +1146,14 @@ struct Decoder {
         skip.assign(mis, 0);
         seg_id.assign(mis, 0);
         tx_size.assign(mis, 0);
-        palette_y.assign(mis, 0);
+        is_inters.assign(mis, 0);
+        decoded.assign(mis, 0);
+        tx_types.assign(mis, 0);
+        mvs.assign(mis * 2, 0);
+        for (int k = 0; k < 2; ++k) {
+            pal_sizes[k].assign(mis, 0);
+            pal_colors[k].assign(mis * 8, 0);
+        }
         delta_lfs.assign(mis * 4, 0);
         for (int p = 0; p < num_planes; ++p) {
             const int sx = p ? subx : 0, sy = p ? suby : 0;
@@ -1058,6 +1169,15 @@ struct Decoder {
             left_level[p].assign(fr.mi_rows + 64, 0);
             left_dc[p].assign(fr.mi_rows + 64, 0);
         }
+        for (int p = 0; p < num_planes; ++p) {
+            if (fr.lr_type[p] == RESTORE_NONE) continue;
+            const int sx = p ? subx : 0, sy = p ? suby : 0;
+            lr_rows[p] = count_units(fr.lr_size[p], (fr.height + sy) >> sy);
+            lr_cols[p] = count_units(fr.lr_size[p], (fr.width + sx) >> sx);
+            lr_units[p].assign(static_cast<size_t>(lr_rows[p]) * lr_cols[p], LrUnit());
+        }
+        cdef_stride = (fr.mi_cols + 15) >> 4;
+        cdef_frame.assign(static_cast<size_t>(cdef_stride) * ((fr.mi_rows + 15) >> 4), -1);
         qctx = fr.base_q <= 20 ? 0 : fr.base_q <= 60 ? 1 : fr.base_q <= 120 ? 2 : 3;
         if (num_planes == 1) tools |= TOOL_400;
         else if (subx && suby) tools |= TOOL_420;
@@ -1080,6 +1200,11 @@ struct Decoder {
             std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
         }
         for (int& d : delta_lf) d = 0;
+        for (int p = 0; p < 3; ++p)
+            for (int pass = 0; pass < 2; ++pass) {
+                ref_xqd[p][pass] = kSgrprojXqdMid[pass];
+                for (int i = 0; i < 3; ++i) ref_wiener[p][pass][i] = kWienerTapsMid[i];
+            }
         const int sb4 = seq.sb128 ? 32 : 16;
         for (int r = mi_row_start; r < mi_row_end; r += sb4) {
             for (int p = 0; p < num_planes; ++p) {
@@ -1090,7 +1215,13 @@ struct Decoder {
                 read_deltas = fr.delta_q_present;
                 for (int& k : cdef_idx) k = -1;
                 clear_block_decoded(r, c, sb4);
+                read_lr(r, c, sb4);
                 decode_partition(r, c, seq.sb128 ? BLOCK_128X128 : BLOCK_64X64);
+                for (int k = 0; k < (seq.sb128 ? 4 : 1); ++k) {
+                    const int r64 = (r >> 4) + (k >> 1), c64 = (c >> 4) + (k & 1);
+                    if ((r64 << 4) < fr.mi_rows && (c64 << 4) < fr.mi_cols)
+                        cdef_frame[static_cast<size_t>(r64) * cdef_stride + c64] = static_cast<int8_t>(cdef_idx[k]);
+                }
             }
         }
         // the specification's bound on the symbol decoder's read past its
@@ -1235,6 +1366,7 @@ struct Decoder {
             avail_u_chroma = avail_l_chroma = false;
         }
         mode_info();
+        palette_tokens();
         read_block_tx_size();
         if (is_skip) reset_block_context();
         for (int y = 0; y < bh4; ++y)
@@ -1244,11 +1376,20 @@ struct Decoder {
                 y_mode[k] = static_cast<uint8_t>(ymode);
                 uv_mode[k] = static_cast<uint8_t>(uvmode);
                 skip[k] = static_cast<uint8_t>(is_skip);
-                tx_size[k] = static_cast<uint8_t>(txsz);
+                if (!use_intrabc) tx_size[k] = static_cast<uint8_t>(txsz);  // InterTxSizes of an inter block: read_var_tx
                 mi_size[k] = static_cast<uint8_t>(bs);
+                is_inters[k] = static_cast<uint8_t>(use_intrabc);
+                decoded[k] = 1;
+                mvs[k * 2] = static_cast<int16_t>(dv[0]);
+                mvs[k * 2 + 1] = static_cast<int16_t>(dv[1]);
                 seg_id[k] = static_cast<uint8_t>(segment);
                 for (int i = 0; i < 4; ++i) delta_lfs[k * 4 + i] = static_cast<int8_t>(delta_lf[i]);
+                for (int pl = 0; pl < 2; ++pl) {
+                    pal_sizes[pl][k] = static_cast<uint8_t>(pal_n[pl]);
+                    for (int i = 0; i < pal_n[pl]; ++i) pal_colors[pl][k * 8 + i] = static_cast<uint8_t>(palette[pl][i]);
+                }
             }
+        if (use_intrabc) predict_intrabc();
         residual();
     }
 
@@ -1261,7 +1402,17 @@ struct Decoder {
         read_delta_qindex();
         read_delta_lf();
         read_deltas = false;
-        if (fr.allow_intrabc && sd.symbol(cdf.intrabc, 2)) refuse("intraBC");
+        use_intrabc = fr.allow_intrabc ? sd.symbol(cdf.intrabc, 2) : 0;
+        dv[0] = dv[1] = 0;
+        pal_n[0] = pal_n[1] = 0;
+        use_filter_intra = 0;
+        if (use_intrabc) {  // an inter block of DC_PRED modes for its neighbours' contexts
+            ymode = uvmode = DC_PRED;
+            angle_y = angle_uv = cfl_u = cfl_v = 0;
+            intrabc_dv();
+            tools |= TOOL_INTRABC;
+            return;
+        }
         const int above = kIntraModeContext[avail_u ? y_mode[mi(mi_row - 1, mi_col)] : DC_PRED];
         const int left = kIntraModeContext[avail_l ? y_mode[mi(mi_row, mi_col - 1)] : DC_PRED];
         ymode = sd.symbol(cdf.kf_y_mode[above][left], 13);
@@ -1294,22 +1445,365 @@ struct Decoder {
             if (use_angle_delta && directional(uvmode)) angle_uv = sd.symbol(cdf.angle_delta[uvmode - V_PRED], 7) - 3;
         }
         if (angle_y || angle_uv) tools |= TOOL_ANGLE_DELTA;
-        if (bsize >= BLOCK_8X8 && kBlockW[bsize] <= 64 && kBlockH[bsize] <= 64 && fr.allow_screen_content) {
-            const int bctx = log2i(kBlockW[bsize] >> 2) + log2i(kBlockH[bsize] >> 2) - 2;
-            if (ymode == DC_PRED) {
-                const int ctx = (avail_u && palette_y[mi(mi_row - 1, mi_col)]) + (avail_l && palette_y[mi(mi_row, mi_col - 1)]);
-                if (sd.symbol(cdf.pal_y_mode[bctx][ctx], 2)) refuse("palette");
-            }
-            if (has_chroma && uvmode == DC_PRED && sd.symbol(cdf.pal_uv_mode[0], 2)) refuse("palette");
-        }
-        use_filter_intra = 0;
-        if (seq.enable_filter_intra && ymode == DC_PRED && std::max(kBlockW[bsize], kBlockH[bsize]) <= 32) {
+        if (bsize >= BLOCK_8X8 && kBlockW[bsize] <= 64 && kBlockH[bsize] <= 64 && fr.allow_screen_content)
+            palette_mode_info();
+        if (seq.enable_filter_intra && ymode == DC_PRED && !pal_n[0] &&
+            std::max(kBlockW[bsize], kBlockH[bsize]) <= 32) {
             use_filter_intra = sd.symbol(cdf.filter_intra[bsize], 2);
             if (use_filter_intra) {
                 filter_mode = sd.symbol(cdf.filter_intra_mode, 5);
                 tools |= TOOL_FILTER_INTRA;
             }
         }
+    }
+
+    // ---- intraBC (5.11.7 use_intrabc, 7.10.2 find_mv_stack, 5.11.32 read_mv)
+    int stack_mv[8][2] = {}, stack_weight[8] = {}, num_mv = 0;
+
+    void add_candidate(int r, int c, int weight) {
+        if (!is_inters[mi(r, c)]) return;  // only intraBC blocks hold a DV (RefFrame INTRA_FRAME)
+        const int mr = mvs[mi(r, c) * 2], mc = mvs[mi(r, c) * 2 + 1];  // whole samples: lower_mv_precision keeps them
+        int idx = 0;
+        while (idx < num_mv && !(stack_mv[idx][0] == mr && stack_mv[idx][1] == mc)) ++idx;
+        if (idx < num_mv) {
+            stack_weight[idx] += weight;
+        } else if (num_mv < 8) {
+            stack_mv[num_mv][0] = mr;
+            stack_mv[num_mv][1] = mc;
+            stack_weight[num_mv++] = weight;
+        }
+    }
+    void scan_row(int delta_row) {
+        const int end4 = std::min(std::min(bw4, fr.mi_cols - mi_col), 16);
+        int delta_col = 0;
+        const bool step16 = bw4 >= 16;
+        if (std::abs(delta_row) > 1) {
+            delta_row += mi_row & 1;
+            delta_col = 1 - (mi_col & 1);
+        }
+        for (int i = 0; i < end4;) {
+            const int r = mi_row + delta_row, c = mi_col + delta_col + i;
+            if (!inside(r, c)) break;
+            int len = std::min(bw4, kBlockW[mi_size[mi(r, c)]] >> 2);
+            if (std::abs(delta_row) > 1) len = std::max(2, len);
+            if (step16) len = std::max(4, len);
+            add_candidate(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_col(int delta_col) {
+        const int end4 = std::min(std::min(bh4, fr.mi_rows - mi_row), 16);
+        int delta_row = 0;
+        const bool step16 = bh4 >= 16;
+        if (std::abs(delta_col) > 1) {
+            delta_row = 1 - (mi_row & 1);
+            delta_col += mi_col & 1;
+        }
+        for (int i = 0; i < end4;) {
+            const int r = mi_row + delta_row + i, c = mi_col + delta_col;
+            if (!inside(r, c)) break;
+            int len = std::min(bh4, kBlockH[mi_size[mi(r, c)]] >> 2);
+            if (std::abs(delta_col) > 1) len = std::max(2, len);
+            if (step16) len = std::max(4, len);
+            add_candidate(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_point(int delta_row, int delta_col) {
+        const int r = mi_row + delta_row, c = mi_col + delta_col;
+        if (inside(r, c) && decoded[mi(r, c)]) add_candidate(r, c, 4);
+    }
+    void sort_stack(int start, int end) {
+        while (end > start) {
+            int new_end = start;
+            for (int i = start + 1; i < end; ++i)
+                if (stack_weight[i - 1] < stack_weight[i]) {
+                    std::swap(stack_weight[i - 1], stack_weight[i]);
+                    std::swap(stack_mv[i - 1][0], stack_mv[i][0]);
+                    std::swap(stack_mv[i - 1][1], stack_mv[i][1]);
+                    new_end = i;
+                }
+            end = new_end;
+        }
+    }
+
+    int read_mv_component(int comp) {
+        const int sign = sd.symbol(cdf.mv_sign[comp], 2);
+        const int cls = sd.symbol(cdf.mv_class[comp], 11);
+        int mag;
+        if (cls == 0) {
+            mag = ((sd.symbol(cdf.mv_class0_bit[comp], 2) << 3) | (3 << 1) | 1) + 1;  // integer: fr 3, hp 1
+        } else {
+            int d = 0;
+            for (int i = 0; i < cls; ++i) d |= sd.symbol(cdf.mv_bit[comp][i], 2) << i;
+            mag = (2 << (cls + 2)) + ((d << 3) | (3 << 1) | 1) + 1;
+        }
+        return sign ? -mag : mag;
+    }
+
+    void intrabc_dv() {
+        // the spatial scan (the contexts it also yields serve inter frames alone)
+        num_mv = 0;
+        for (auto& m : stack_mv) m[0] = m[1] = 0;
+        scan_row(-1);
+        scan_col(-1);
+        if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+        const int nearest = num_mv;
+        for (int i = 0; i < nearest; ++i) stack_weight[i] += 640;  // REF_CAT_LEVEL
+        scan_point(-1, -1);
+        scan_row(-3);
+        scan_col(-3);
+        if (bh4 > 1) scan_row(-5);
+        if (bw4 > 1) scan_col(-5);
+        sort_stack(0, nearest);
+        sort_stack(nearest, num_mv);
+        // extra_search adds nothing (an intra frame's blocks refer to no
+        // other frame); the stack's rest stays the zero global MV
+        for (int i = 0; i < num_mv; ++i) {  // context_and_clamping
+            const int border_r = 128 + bh4 * 32, border_c = 128 + bw4 * 32;
+            stack_mv[i][0] = clip3(-(mi_row * 32) - border_r, (fr.mi_rows - bh4 - mi_row) * 32 + border_r, stack_mv[i][0]);
+            stack_mv[i][1] = clip3(-(mi_col * 32) - border_c, (fr.mi_cols - bw4 - mi_col) * 32 + border_c, stack_mv[i][1]);
+        }
+        int pred[2] = {stack_mv[0][0], stack_mv[0][1]};
+        if (!pred[0] && !pred[1]) {
+            pred[0] = stack_mv[1][0];
+            pred[1] = stack_mv[1][1];
+        }
+        const int sb4 = seq.sb128 ? 32 : 16;
+        if (!pred[0] && !pred[1]) {
+            if (mi_row - sb4 < mi_row_start) {
+                pred[0] = 0;
+                pred[1] = -(sb4 * 4 + 256) * 8;
+            } else {
+                pred[0] = -(sb4 * 4 * 8);
+                pred[1] = 0;
+            }
+        }
+        // whole samples (libaom's (v >> 3) * 8 of the reference DV)
+        pred[0] = (pred[0] >> 3) * 8;
+        pred[1] = (pred[1] >> 3) * 8;
+        const int joint = sd.symbol(cdf.mv_joint, 4);
+        if (joint == 2 || joint == 3) pred[0] += read_mv_component(0);
+        if (joint == 1 || joint == 3) pred[1] += read_mv_component(1);
+        // dav1d's clip of the DV into the decoded part of the tile
+        int border_left = mi_col_start * 4, border_top = mi_row_start * 4;
+        if (has_chroma) {
+            if (bw4 < 2 && subx) border_left += 4;
+            if (bh4 < 2 && suby) border_top += 4;
+        }
+        int src_left = mi_col * 4 + (pred[1] >> 3), src_top = mi_row * 4 + (pred[0] >> 3);
+        int src_right = src_left + bw4 * 4, src_bottom = src_top + bh4 * 4;
+        const int border_right = ((mi_col_end + (bw4 - 1)) & ~(bw4 - 1)) * 4;
+        if (src_left < border_left) {
+            src_right += border_left - src_left;
+            src_left = border_left;
+        } else if (src_right > border_right) {
+            src_left -= src_right - border_right;
+            src_right = border_right;
+        }
+        if (src_top < border_top) {
+            src_bottom += border_top - src_top;
+            src_top = border_top;
+        }
+        const int sb_shift = seq.sb128 ? 5 : 4;
+        const int sbx = (mi_col >> sb_shift) << (sb_shift + 2), sby = (mi_row >> sb_shift) << (sb_shift + 2);
+        const int sb_size = 4 << sb_shift;
+        if (src_bottom > sby && src_right > sbx) {
+            if (src_top - border_top >= src_bottom - sby) {
+                src_top -= src_bottom - sby;
+                src_bottom = sby;
+            } else if (src_left - border_left >= src_right - sbx) {
+                src_left -= src_right - sbx;
+                src_right = sbx;
+            }
+        }
+        if (src_bottom > sby + sb_size) {
+            src_top -= src_bottom - (sby + sb_size);
+            src_bottom = sby + sb_size;
+        }
+        if (src_bottom > sby && src_right > sbx) broken("an intraBC vector into the superblock being decoded");
+        dv[0] = (src_top - mi_row * 4) * 8;
+        dv[1] = (src_left - mi_col * 4) * 8;
+    }
+
+    // the prediction: the block copied from the frame decoded so far, with
+    // the BILINEAR filter where subsampled chroma lands between samples
+    // (7.11.3.4, InterRound0 3 and InterRound1 11 at 8 bits)
+    void predict_intrabc() {
+        for (int p = 0; p < (has_chroma ? num_planes : 1); ++p) {
+            const int sx = p ? subx : 0, sy = p ? suby : 0;
+            const int pbs = plane_bsize(bsize, p);
+            const int w = kBlockW[pbs], h = kBlockH[pbs];
+            const int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+            const int last_x = ((fr.width + sx) >> sx) - 1, last_y = ((fr.height + sy) >> sy) - 1;
+            const int px = x0 * 16 + ((2 * dv[1]) >> sx), py = y0 * 16 + ((2 * dv[0]) >> sy);  // 1/16 sample
+            const int ix = px >> 4, fx = px & 15, iy = py >> 4, fy = py & 15;
+            Plane& pl = planes[p];
+            for (int r = 0; r <= h; ++r) {
+                const int yy = clip3(0, last_y, iy + r);
+                for (int c = 0; c < w; ++c) {
+                    const int a = pl.at(yy, clip3(0, last_x, ix + c)), b = pl.at(yy, clip3(0, last_x, ix + c + 1));
+                    bc_mid[r][c] = round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+                }
+            }
+            for (int r = 0; r < h; ++r)
+                for (int c = 0; c < w; ++c)
+                    pl.at(y0 + r, x0 + c) =
+                        static_cast<uint8_t>(clip3(0, 255, round2((128 - 8 * fy) * bc_mid[r][c] + 8 * fy * bc_mid[r + 1][c], 11)));
+        }
+    }
+
+    // ---- palette (5.11.46, 5.11.49, 7.11.4)
+    int palette_cache(int plane, int* cache) {
+        const int above_n = (mi_row & 15) && avail_u ? pal_sizes[plane][mi(mi_row - 1, mi_col)] : 0;
+        const int left_n = avail_l ? pal_sizes[plane][mi(mi_row, mi_col - 1)] : 0;
+        const uint8_t* above = above_n ? &pal_colors[plane][mi(mi_row - 1, mi_col) * 8] : nullptr;
+        const uint8_t* left = left_n ? &pal_colors[plane][mi(mi_row, mi_col - 1) * 8] : nullptr;
+        int ai = 0, li = 0, n = 0;
+        auto put = [&](int v) {
+            if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+        };
+        while (ai < above_n && li < left_n) {
+            const int a = above[ai], l = left[li];
+            if (l < a) {
+                put(l);
+                ++li;
+            } else {
+                put(a);
+                ++ai;
+                if (l == a) ++li;
+            }
+        }
+        while (ai < above_n) put(above[ai++]);
+        while (li < left_n) put(left[li++]);
+        return n;
+    }
+
+    // the colours of one plane's palette from the cache, then literals and
+    // deltas (Y: deltas of at least 1)
+    void palette_colors(int plane, int n, bool y) {
+        int cache[16];
+        const int cache_n = palette_cache(plane, cache);
+        int* colors = palette[plane];
+        int idx = 0;
+        for (int i = 0; i < cache_n && idx < n; ++i)
+            if (sd.literal(1)) {
+                colors[idx++] = cache[i];
+                tools |= TOOL_PALETTE_CACHE;
+            }
+        if (idx < n) colors[idx++] = sd.literal(8);
+        int bits = 0;
+        if (idx < n) bits = 5 + sd.literal(2);
+        while (idx < n) {
+            const int delta = sd.literal(bits) + (y ? 1 : 0);
+            colors[idx] = std::min(255, colors[idx - 1] + delta);
+            const int range = 256 - colors[idx] - (y ? 1 : 0);
+            bits = std::min(bits, range > 1 ? floor_log2(static_cast<uint32_t>(range - 1)) + 1 : 0);
+            ++idx;
+        }
+        std::sort(colors, colors + n);
+    }
+
+    void palette_mode_info() {
+        const int bctx = log2i(kBlockW[bsize] >> 2) + log2i(kBlockH[bsize] >> 2) - 2;
+        if (ymode == DC_PRED) {
+            const int ctx = (avail_u && pal_sizes[0][mi(mi_row - 1, mi_col)]) +
+                            (avail_l && pal_sizes[0][mi(mi_row, mi_col - 1)]);
+            if (sd.symbol(cdf.pal_y_mode[bctx][ctx], 2)) {
+                pal_n[0] = sd.symbol(cdf.pal_y_size[bctx], 7) + 2;
+                palette_colors(0, pal_n[0], true);
+                tools |= TOOL_PALETTE_Y;
+            }
+        }
+        if (has_chroma && uvmode == DC_PRED && sd.symbol(cdf.pal_uv_mode[pal_n[0] > 0], 2)) {
+            const int n = pal_n[1] = sd.symbol(cdf.pal_uv_size[bctx], 7) + 2;
+            palette_colors(1, n, false);
+            int* v = palette[2];
+            if (sd.literal(1)) {  // delta_encode_palette_colors_v
+                const int bits = 4 + sd.literal(2);
+                v[0] = sd.literal(8);
+                for (int i = 1; i < n; ++i) {
+                    int delta = sd.literal(bits);
+                    if (delta && sd.literal(1)) delta = -delta;
+                    int val = v[i - 1] + delta;
+                    if (val < 0) val += 256;
+                    if (val >= 256) val -= 256;
+                    v[i] = clip3(0, 255, val);
+                }
+            } else {
+                for (int i = 0; i < n; ++i) v[i] = sd.literal(8);
+            }
+            tools |= TOOL_PALETTE_UV;
+        }
+    }
+
+    // the colour index map, read in anti-diagonal order, each index coded
+    // by its rank among the neighbours' (get_palette_color_context)
+    void color_map_tokens(int k, int n, int bw, int bh, int onw, int onh) {
+        uint8_t (*m)[64] = color_map[k];
+        m[0][0] = static_cast<uint8_t>(sd.ns(n));
+        static const int kHashToCtx[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+        for (int i = 1; i < onh + onw - 1; ++i)
+            for (int j = std::min(i, onw - 1); j >= std::max(0, i - onh + 1); --j) {
+                const int r = i - j, c = j;
+                int scores[8] = {}, order[8] = {0, 1, 2, 3, 4, 5, 6, 7};
+                if (c > 0) scores[m[r][c - 1]] += 2;
+                if (r > 0 && c > 0) scores[m[r - 1][c - 1]] += 1;
+                if (r > 0) scores[m[r - 1][c]] += 2;
+                for (int a = 0; a < 3; ++a) {
+                    int best = scores[a], at = a;
+                    for (int b = a + 1; b < n; ++b)
+                        if (scores[b] > best) {
+                            best = scores[b];
+                            at = b;
+                        }
+                    if (at != a) {
+                        const int o = order[at];
+                        for (int b = at; b > a; --b) {
+                            scores[b] = scores[b - 1];
+                            order[b] = order[b - 1];
+                        }
+                        scores[a] = best;
+                        order[a] = o;
+                    }
+                }
+                const int ctx = kHashToCtx[scores[0] + 2 * scores[1] + 2 * scores[2]];
+                uint16_t* c2 = k == 0 ? cdf.pal_y_color[n - 2][ctx] : cdf.pal_uv_color[n - 2][ctx];
+                m[r][c] = static_cast<uint8_t>(order[sd.symbol(c2, n)]);
+            }
+        for (int i = 0; i < onh; ++i)
+            for (int j = onw; j < bw; ++j) m[i][j] = m[i][onw - 1];
+        for (int i = onh; i < bh; ++i)
+            for (int j = 0; j < bw; ++j) m[i][j] = m[onh - 1][j];
+    }
+
+    void palette_tokens() {
+        int bw = kBlockW[bsize], bh = kBlockH[bsize];
+        int onh = std::min(bh, (fr.mi_rows - mi_row) * 4), onw = std::min(bw, (fr.mi_cols - mi_col) * 4);
+        if (pal_n[0]) color_map_tokens(0, pal_n[0], bw, bh, onw, onh);
+        if (pal_n[1]) {
+            bw >>= subx;
+            bh >>= suby;
+            onw >>= subx;
+            onh >>= suby;
+            if (bw < 4) {
+                bw += 2;
+                onw += 2;
+            }
+            if (bh < 4) {
+                bh += 2;
+                onh += 2;
+            }
+            color_map_tokens(1, pal_n[1], bw, bh, onw, onh);
+        }
+    }
+
+    void predict_palette(int plane, int start_x, int start_y, int x, int y, int t) {
+        const int* colors = palette[plane];
+        uint8_t (*m)[64] = color_map[plane > 0];
+        for (int i = 0; i < kTxH[t]; ++i)
+            for (int j = 0; j < kTxW[t]; ++j)
+                planes[plane].at(start_y + i, start_x + j) = static_cast<uint8_t>(colors[m[y * 4 + i][x * 4 + j]]);
     }
 
     int plane_bsize(int bs, int plane) const {
@@ -1358,7 +1852,9 @@ struct Decoder {
                     if (diff <= 2 * (max - pred - 1)) v = (diff & 1) ? pred + ((diff + 1) >> 1) : pred - (diff >> 1);
                     else v = max - (diff + 1);
                 }
-                segment = clip3(0, fr.last_active_seg, v);
+                // dav1d takes an id past the last active segment as 0 (the
+                // specification clips it; only a damaged stream has one)
+                segment = v < 0 || v > fr.last_active_seg ? 0 : v;
             }
         }
         lossless = fr.lossless[segment];
@@ -1426,28 +1922,88 @@ struct Decoder {
     }
 
     // ---- transform size (5.11.15-17)
-    // the neighbours' transform sizes (InterTxSizes; an intra block's TxSize)
-    int above_tx_width() const { return kTxW[tx_size[mi(mi_row - 1, mi_col)]]; }
-    int left_tx_height() const { return kTxH[tx_size[mi(mi_row, mi_col - 1)]]; }
+    // the neighbours' transform sizes (get_above_tx_width and
+    // get_left_tx_height: a skipped inter block's size, else InterTxSizes)
+    int above_tx_width(int r, int c) const {
+        if (r == mi_row) {
+            if (!avail_u) return 64;
+            const size_t k = mi(r - 1, c);
+            if (skip[k] && is_inters[k]) return kBlockW[mi_size[k]];
+        }
+        return kTxW[tx_size[mi(r - 1, c)]];
+    }
+    int left_tx_height(int r, int c) const {
+        if (c == mi_col) {
+            if (!avail_l) return 64;
+            const size_t k = mi(r, c - 1);
+            if (skip[k] && is_inters[k]) return kBlockH[mi_size[k]];
+        }
+        return kTxH[tx_size[mi(r, c - 1)]];
+    }
+
+    void read_var_tx_size(int r, int c, int t, int depth) {
+        if (r >= fr.mi_rows || c >= fr.mi_cols) return;
+        int split = 0;
+        if (t != TX_4X4 && depth < 2) {
+            const int above = above_tx_width(r, c) < kTxW[t], left = left_tx_height(r, c) < kTxH[t];
+            const int size = std::min(64, std::max(kBlockW[bsize], kBlockH[bsize]));
+            const int max_sq = tx_of(size, size);
+            const int ctx = (tx_sqr_up(t) != max_sq) * 3 + (4 - max_sq) * 6 + above + left;
+            split = sd.symbol(cdf.txfm_split[ctx], 2);
+        }
+        const int w4 = kTxW[t] >> 2, h4 = kTxH[t] >> 2;
+        if (split) {
+            const int sub = kTxSplit[t];
+            for (int i = 0; i < h4; i += kTxH[sub] >> 2)
+                for (int j = 0; j < w4; j += kTxW[sub] >> 2) read_var_tx_size(r + i, c + j, sub, depth + 1);
+        } else {
+            for (int i = 0; i < h4; ++i)
+                for (int j = 0; j < w4; ++j)
+                    if (r + i < fr.mi_rows && c + j < fr.mi_cols) tx_size[mi(r + i, c + j)] = static_cast<uint8_t>(t);
+            txsz = t;
+        }
+    }
 
     void read_block_tx_size() {
         if (lossless) {
             txsz = TX_4X4;
+            if (use_intrabc) fill_inter_tx(txsz);
             return;
         }
         const int max_rect = max_tx_rect(bsize);
         txsz = max_rect;
+        if (use_intrabc) {
+            if (fr.tx_mode_select && bsize > BLOCK_4X4 && !is_skip) {
+                for (int r = mi_row; r < mi_row + bh4; r += kTxH[max_rect] >> 2)
+                    for (int c = mi_col; c < mi_col + bw4; c += kTxW[max_rect] >> 2) read_var_tx_size(r, c, max_rect, 0);
+            } else {
+                fill_inter_tx(txsz);
+            }
+            return;
+        }
         if (bsize > BLOCK_4X4 && fr.tx_mode_select) {
             int depth_to_4 = 0;
             for (int t = max_rect; t != TX_4X4; t = kTxSplit[t]) ++depth_to_4;
             const int cat = depth_to_4 - 1;
             const int max_depth = std::min(depth_to_4, 2);
-            const int above_w = avail_u ? above_tx_width() : 0;
-            const int left_h = avail_l ? left_tx_height() : 0;
+            int above_w = 0, left_h = 0;
+            if (avail_u) {
+                const size_t k = mi(mi_row - 1, mi_col);
+                above_w = is_inters[k] ? kBlockW[mi_size[k]] : above_tx_width(mi_row, mi_col);
+            }
+            if (avail_l) {
+                const size_t k = mi(mi_row, mi_col - 1);
+                left_h = is_inters[k] ? kBlockH[mi_size[k]] : left_tx_height(mi_row, mi_col);
+            }
             const int ctx = (above_w >= kTxW[max_rect]) + (left_h >= kTxH[max_rect]);
             const int depth = sd.symbol(cdf.tx_size[cat][ctx], max_depth + 1);
             for (int i = 0; i < depth; ++i) txsz = kTxSplit[txsz];
         }
+    }
+
+    void fill_inter_tx(int t) {
+        for (int r = mi_row; r < std::min(mi_row + bh4, fr.mi_rows); ++r)
+            for (int c = mi_col; c < std::min(mi_col + bw4, fr.mi_cols); ++c) tx_size[mi(r, c)] = static_cast<uint8_t>(t);
     }
 
     void reset_block_context() {
@@ -1485,11 +2041,39 @@ struct Decoder {
                     const int n4w = kBlockW[pbs] >> 2, n4h = kBlockH[pbs] >> 2;
                     const int sx = p ? subx : 0, sy = p ? suby : 0;
                     const int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+                    if (use_intrabc && !lossless && p == 0) {  // the var-tx tree, a 64² chunk at a time
+                        const int max_rect = max_tx_rect(bsize);
+                        const int cw = std::min(kBlockW[bsize], 64), ch = std::min(kBlockH[bsize], 64);
+                        for (int y = 0; y < ch; y += kTxH[max_rect])
+                            for (int x = 0; x < cw; x += kTxW[max_rect])
+                                transform_tree(base_x + (cx << 6) + x, base_y + (cy << 6) + y, kTxW[max_rect],
+                                               kTxH[max_rect]);
+                        continue;
+                    }
                     for (int y = 0; y < std::min(n4h, 16 >> sy); y += step_y)
                         for (int x = 0; x < std::min(n4w, 16 >> sx); x += step_x)
                             transform_block(p, base_x, base_y, t, x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
                 }
             }
+    }
+
+    void transform_tree(int x, int y, int w, int h) {
+        if (x >= fr.mi_cols * 4 || y >= fr.mi_rows * 4) return;
+        const int t = tx_size[mi(y >> 2, x >> 2)];
+        if (w <= kTxW[t] && h <= kTxH[t]) {
+            transform_block(0, x, y, tx_of(w, h), 0, 0);
+        } else if (w > h) {
+            transform_tree(x, y, w / 2, h);
+            transform_tree(x + w / 2, y, w / 2, h);
+        } else if (w < h) {
+            transform_tree(x, y, w, h / 2);
+            transform_tree(x, y + h / 2, w, h / 2);
+        } else {
+            transform_tree(x, y, w / 2, h / 2);
+            transform_tree(x + w / 2, y, w / 2, h / 2);
+            transform_tree(x, y + h / 2, w / 2, h / 2);
+            transform_tree(x + w / 2, y + h / 2, w / 2, h / 2);
+        }
     }
 
     void transform_block(int plane, int base_x, int base_y, int t, int x, int y) {
@@ -1510,9 +2094,15 @@ struct Decoder {
         const bool have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
         const bool have_above_right = block_decoded[plane][by - 1 + 1][bx + step_x + 1];
         const bool have_below_left = block_decoded[plane][by + step_y + 1][bx - 1 + 1];
-        predict_intra(plane, start_x, start_y, have_left, have_above, have_above_right, have_below_left, mode,
-                      log2i(kTxW[t]), log2i(kTxH[t]));
-        if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+        if (use_intrabc) {
+            // predicted for the whole block (predict_intrabc)
+        } else if (pal_n[plane > 0]) {
+            predict_palette(plane, start_x, start_y, x, y, t);
+        } else {
+            predict_intra(plane, start_x, start_y, have_left, have_above, have_above_right, have_below_left, mode,
+                          log2i(kTxW[t]), log2i(kTxH[t]));
+            if (is_cfl) predict_cfl(plane, start_x, start_y, t);
+        }
         if (plane == 0) {
             max_luma_w = start_x + step_x * 4;
             max_luma_h = start_y + step_y * 4;
@@ -1821,6 +2411,10 @@ struct Decoder {
 
     int get_tx_set(int t) const {
         if (tx_sqr_up(t) > TX_32X32) return TX_SET_DCTONLY;
+        if (use_intrabc) {
+            if (fr.reduced_tx_set || tx_sqr_up(t) == TX_32X32) return TX_SET_INTER_3;
+            return tx_sqr(t) == TX_16X16 ? TX_SET_INTER_2 : TX_SET_INTER_1;
+        }
         if (tx_sqr_up(t) == TX_32X32) return TX_SET_DCTONLY;
         if (fr.reduced_tx_set) return TX_SET_INTRA_2;
         if (tx_sqr(t) == TX_16X16) return TX_SET_INTRA_2;
@@ -1896,16 +2490,24 @@ struct Decoder {
                 const int set = get_tx_set(t);
                 const int q = fr.seg_enabled ? qindex_of(fr, segment, current_q, true) : fr.base_q;
                 int type = DCT_DCT;
-                if (set > 0 && q > 0) {
+                if (set > 0 && q > 0 && use_intrabc) {
+                    if (set == TX_SET_INTER_1) type = kTxTypeInterInvSet1[sd.symbol(cdf.inter_set1[tx_sqr(t)], 16)];
+                    else if (set == TX_SET_INTER_2) type = kTxTypeInterInvSet2[sd.symbol(cdf.inter_set2, 12)];
+                    else type = sd.symbol(cdf.inter_set3[tx_sqr(t)], 2) ? DCT_DCT : IDTX;
+                } else if (set > 0 && q > 0) {
                     static const int kFilterDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
                     const int dir = use_filter_intra ? kFilterDir[filter_mode] : ymode;
                     if (set == TX_SET_INTRA_1) type = kTxIntraInvSet1[sd.symbol(cdf.tx_set1[tx_sqr(t)][dir], 7)];
                     else type = kTxIntraInvSet2[sd.symbol(cdf.tx_set2[tx_sqr(t)][dir], 5)];
                 }
                 plane_tx_type = lossless || tx_sqr_up(t) > TX_32X32 ? DCT_DCT : type;
+                set_tx_types(x4, y4, w4, h4, plane_tx_type);
             } else {
                 if (lossless || tx_sqr_up(t) > TX_32X32) {
                     plane_tx_type = DCT_DCT;
+                } else if (use_intrabc) {  // the luma type at the block's position (compute_tx_type)
+                    const int type = tx_types[mi(std::max(mi_row, (y4 << sy)), std::max(mi_col, (x4 << sx)))];
+                    plane_tx_type = in_inter_set(get_tx_set(t), type) ? type : DCT_DCT;
                 } else {
                     const int type = kModeToTxfm[uvmode];
                     plane_tx_type = in_intra_set(get_tx_set(t), type) ? type : DCT_DCT;
@@ -2006,6 +2608,8 @@ struct Decoder {
                 if (sign) quant[pos] = -quant[pos];
             }
             cul_level = std::min(63, cul_level);
+        } else if (plane == 0) {
+            set_tx_types(x4, y4, w4, h4, DCT_DCT);
         }
         for (int i = 0; i < w4; ++i) {
             above_level[plane][x4 + i] = static_cast<uint8_t>(cul_level);
@@ -2019,6 +2623,12 @@ struct Decoder {
     }
 
     std::vector<int> scan_buf;
+
+    void set_tx_types(int x4, int y4, int w4, int h4, int type) {
+        for (int i = 0; i < h4; ++i)
+            for (int j = 0; j < w4; ++j)
+                if (y4 + i < fr.mi_rows && x4 + j < fr.mi_cols) tx_types[mi(y4 + i, x4 + j)] = static_cast<uint8_t>(type);
+    }
 
     int base_ctx(int t, int row, int col, int cls, int txw, int txh) {
         static const int offs[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
@@ -2146,6 +2756,338 @@ struct Decoder {
         }
     }
 
+    // ---- loop restoration: the units' coefficients (5.11.57), read with
+    // the superblock whose area holds each unit's top-left corner
+    static int count_units(int unit, int size) { return std::max((size + (unit >> 1)) / unit, 1); }
+
+    int subexp(int num_syms, int k) {  // decode_subexp_bool
+        int i = 0, mk = 0;
+        while (true) {
+            const int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (num_syms <= mk + 3 * a) return sd.ns(num_syms - mk) + mk;
+            if (!sd.literal(1)) return sd.literal(b2) + mk;
+            ++i;
+            mk += a;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        return (v & 1) ? r - ((v + 1) >> 1) : r + (v >> 1);
+    }
+    int signed_subexp(int low, int high, int k, int r) {  // decode_signed_subexp_with_ref_bool
+        const int mx = high - low, rr = r - low;
+        const int v = subexp(mx, k);
+        const int x = (rr << 1) <= mx ? inverse_recenter(rr, v) : mx - 1 - inverse_recenter(mx - 1 - rr, v);
+        return x + low;
+    }
+
+    void read_lr(int r, int c, int sb4) {
+        if (fr.allow_intrabc) return;
+        for (int p = 0; p < num_planes; ++p) {
+            if (fr.lr_type[p] == RESTORE_NONE) continue;
+            const int sx = p ? subx : 0, sy = p ? suby : 0, unit = fr.lr_size[p];
+            const int row0 = (r * (4 >> sy) + unit - 1) / unit;
+            const int row1 = std::min(lr_rows[p], ((r + sb4) * (4 >> sy) + unit - 1) / unit);
+            const int col0 = (c * (4 >> sx) + unit - 1) / unit;
+            const int col1 = std::min(lr_cols[p], ((c + sb4) * (4 >> sx) + unit - 1) / unit);
+            for (int ur = row0; ur < row1; ++ur)
+                for (int uc = col0; uc < col1; ++uc) read_lr_unit(p, lr_units[p][static_cast<size_t>(ur) * lr_cols[p] + uc]);
+        }
+    }
+
+    void read_lr_unit(int p, LrUnit& u) {
+        if (fr.lr_type[p] == RESTORE_WIENER) {
+            u.type = sd.symbol(cdf.restore_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+        } else if (fr.lr_type[p] == RESTORE_SGRPROJ) {
+            u.type = sd.symbol(cdf.restore_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+        } else {
+            u.type = sd.symbol(cdf.restore_switchable, 3);
+            tools |= TOOL_SWITCHABLE_LR;
+        }
+        if (u.type == RESTORE_WIENER) {
+            for (int pass = 0; pass < 2; ++pass) {
+                u.wiener[pass][0] = 0;
+                for (int j = p ? 1 : 0; j < 3; ++j) {
+                    const int v = signed_subexp(kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j], ref_wiener[p][pass][j]);
+                    u.wiener[pass][j] = ref_wiener[p][pass][j] = v;
+                }
+            }
+            tools |= TOOL_WIENER;
+        } else if (u.type == RESTORE_SGRPROJ) {
+            u.sgr_set = sd.literal(4);
+            for (int i = 0; i < 2; ++i) {
+                const int lo = kSgrprojXqdMin[i], hi = kSgrprojXqdMax[i];
+                int v = 0;
+                if (kSgrParams[u.sgr_set][i * 2]) v = signed_subexp(lo, hi + 1, 4, ref_xqd[p][i]);
+                else if (i == 1) v = clip3(lo, hi, 128 - ref_xqd[p][0]);
+                u.xqd[i] = ref_xqd[p][i] = v;
+            }
+            tools |= TOOL_SGRPROJ;
+        }
+    }
+
+    // ---- loop restoration (7.17), a stripe × unit rectangle at a time:
+    // the samples inside the stripe come from CDEF's output, the two rows
+    // above and below it from the deblocked frame, the frame's edges
+    // repeated
+    std::vector<int> lr_src, lr_mid;
+    std::vector<int32_t> sgr_a, sgr_b, sgr_f[2];
+
+    void loop_restoration() {
+        bool any = false;
+        for (int p = 0; p < num_planes; ++p) any |= fr.lr_type[p] != RESTORE_NONE;
+        if (!any) return;
+        for (int p = 0; p < num_planes; ++p) {
+            if (fr.lr_type[p] == RESTORE_NONE) continue;
+            const int sx = p ? subx : 0, sy = p ? suby : 0, unit = fr.lr_size[p];
+            const int pw = (fr.width + sx) >> sx, ph = (fr.height + sy) >> sy;
+            const std::vector<uint8_t>& deblocked = cdef_src[p].empty() ? planes[p].px : cdef_src[p];
+            std::vector<uint8_t> out = planes[p].px;
+            for (int stripe = 0; (stripe * 64 - 8) < fr.height; ++stripe) {
+                const int s0 = (stripe * 64 - 8) >> sy, s1 = s0 + (64 >> sy) - 1;  // StripeStartY, StripeEndY
+                const int y0 = std::max(0, s0), y1 = std::min(ph, s1 + 1);
+                const int ur = std::min(lr_rows[p] - 1, (((stripe * 64) >> sy)) / unit);
+                for (int uc = 0; uc < lr_cols[p]; ++uc) {
+                    const int x0 = uc * unit, x1 = uc == lr_cols[p] - 1 ? pw : std::min(pw, (uc + 1) * unit);
+                    if (x0 >= x1 || y0 >= y1) continue;
+                    const LrUnit& u = lr_units[p][static_cast<size_t>(ur) * lr_cols[p] + uc];
+                    if (u.type == RESTORE_NONE) continue;
+                    fill_lr_source(p, deblocked, x0, x1, y0, y1, s0, s1, pw, ph);
+                    if (u.type == RESTORE_WIENER) wiener(p, u, x0, x1, y0, y1, out);
+                    else self_guided(p, u, x0, x1, y0, y1, out);
+                }
+            }
+            planes[p].px.swap(out);
+        }
+    }
+
+    // lr_src: the rectangle with 3 samples around it, as get_source_sample
+    // reads them
+    int lr_w = 0;
+    void fill_lr_source(int p, const std::vector<uint8_t>& deblocked, int x0, int x1, int y0, int y1, int s0, int s1,
+                        int pw, int ph) {
+        lr_w = x1 - x0 + 6;
+        lr_src.resize(static_cast<size_t>(lr_w) * (y1 - y0 + 6));
+        const int stride = planes[p].stride;
+        for (int r = 0; r < y1 - y0 + 6; ++r) {
+            int y = clip3(0, ph - 1, y0 - 3 + r);
+            const std::vector<uint8_t>* src = &planes[p].px;
+            if (y < s0) {
+                y = std::max(s0 - 2, y);
+                src = &deblocked;
+            } else if (y > s1) {
+                y = std::min(s1 + 2, y);
+                src = &deblocked;
+            }
+            const uint8_t* row = src->data() + static_cast<size_t>(y) * stride;
+            for (int c = 0; c < lr_w; ++c) lr_src[static_cast<size_t>(r) * lr_w + c] = row[clip3(0, pw - 1, x0 - 3 + c)];
+        }
+    }
+    int src(int r, int c) const { return lr_src[static_cast<size_t>(r + 3) * lr_w + c + 3]; }
+
+    void wiener(int p, const LrUnit& u, int x0, int x1, int y0, int y1, std::vector<uint8_t>& out) {
+        int vf[7], hf[7];
+        for (int pass = 0; pass < 2; ++pass) {
+            int* f = pass ? hf : vf;
+            f[3] = 128;
+            for (int i = 0; i < 3; ++i) {
+                f[i] = f[6 - i] = u.wiener[pass][i];
+                f[3] -= 2 * u.wiener[pass][i];
+            }
+        }
+        const int w = x1 - x0, h = y1 - y0;
+        lr_mid.resize(static_cast<size_t>(w) * (h + 6));
+        for (int r = 0; r < h + 6; ++r)
+            for (int c = 0; c < w; ++c) {
+                int sum = 0;
+                for (int t = 0; t < 7; ++t) sum += hf[t] * src(r - 3, c + t - 3);
+                lr_mid[static_cast<size_t>(r) * w + c] = clip3(-2048, 8191 - 2048, round2(sum, 3));
+            }
+        const int stride = planes[p].stride;
+        for (int r = 0; r < h; ++r)
+            for (int c = 0; c < w; ++c) {
+                int sum = 0;
+                for (int t = 0; t < 7; ++t) sum += vf[t] * lr_mid[static_cast<size_t>(r + t) * w + c];
+                out[static_cast<size_t>(y0 + r) * stride + x0 + c] = static_cast<uint8_t>(clip3(0, 255, round2(sum, 11)));
+            }
+    }
+
+    // box_filter: A and B over the rectangle and a ring of one sample, then
+    // F of each pass
+    void box_filter(int set, int pass, int w, int h, std::vector<int32_t>& f) {
+        const int r = kSgrParams[set][pass * 2], s = kSgrParams[set][pass * 2 + 1];
+        const int n = (2 * r + 1) * (2 * r + 1);
+        const int one_over_n = ((1 << 12) + n / 2) / n;
+        const int aw = w + 2;
+        sgr_a.resize(static_cast<size_t>(aw) * (h + 2));
+        sgr_b.resize(sgr_a.size());
+        for (int i = -1; i < h + 1; ++i)
+            for (int j = -1; j < w + 1; ++j) {
+                int64_t a = 0;
+                int b = 0;
+                for (int dy = -r; dy <= r; ++dy)
+                    for (int dx = -r; dx <= r; ++dx) {
+                        const int c = src(i + dy, j + dx);
+                        a += c * c;
+                        b += c;
+                    }
+                const int64_t pv = std::max<int64_t>(0, a * n - static_cast<int64_t>(b) * b);
+                const int64_t z = (pv * s + (1 << 19)) >> 20;
+                int a2;
+                if (z >= 255) a2 = 256;
+                else if (z == 0) a2 = 1;
+                else a2 = static_cast<int>(((z << 8) + z / 2) / (z + 1));
+                const int64_t b2 = static_cast<int64_t>(256 - a2) * b * one_over_n;
+                sgr_a[static_cast<size_t>(i + 1) * aw + j + 1] = a2;
+                sgr_b[static_cast<size_t>(i + 1) * aw + j + 1] = static_cast<int32_t>((b2 + (1 << 11)) >> 12);
+            }
+        f.resize(static_cast<size_t>(w) * h);
+        for (int i = 0; i < h; ++i) {
+            const int shift = pass == 0 && (i & 1) ? 4 : 5;
+            for (int j = 0; j < w; ++j) {
+                int64_t a = 0, b = 0;
+                for (int dy = -1; dy <= 1; ++dy)
+                    for (int dx = -1; dx <= 1; ++dx) {
+                        int weight;
+                        if (pass == 0) weight = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+                        else weight = (dx == 0 || dy == 0) ? 4 : 3;
+                        const size_t k = static_cast<size_t>(i + dy + 1) * aw + j + dx + 1;
+                        a += weight * sgr_a[k];
+                        b += weight * sgr_b[k];
+                    }
+                const int64_t v = a * src(i, j) + b;
+                f[static_cast<size_t>(i) * w + j] = static_cast<int32_t>(round2(v, 8 + shift - 4));
+            }
+        }
+    }
+
+    void self_guided(int p, const LrUnit& u, int x0, int x1, int y0, int y1, std::vector<uint8_t>& out) {
+        const int w = x1 - x0, h = y1 - y0, set = u.sgr_set;
+        const int r0 = kSgrParams[set][0], r1 = kSgrParams[set][2];
+        if (r0) box_filter(set, 0, w, h, sgr_f[0]);
+        if (r1) box_filter(set, 1, w, h, sgr_f[1]);
+        const int w0 = u.xqd[0], w1 = u.xqd[1], w2 = 128 - w0 - w1;
+        const int stride = planes[p].stride;
+        for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) {
+                const int uu = src(i, j) << 4;
+                int64_t v = static_cast<int64_t>(w1) * uu;
+                v += static_cast<int64_t>(w0) * (r0 ? sgr_f[0][static_cast<size_t>(i) * w + j] : uu);
+                v += static_cast<int64_t>(w2) * (r1 ? sgr_f[1][static_cast<size_t>(i) * w + j] : uu);
+                out[static_cast<size_t>(y0 + i) * stride + x0 + j] = static_cast<uint8_t>(clip3(0, 255, round2(v, 11)));
+            }
+    }
+
+    // ---- CDEF (7.15): each 8×8 filtered from the deblocked frame (src)
+    // into the planes, along the direction its luma's search finds
+    std::vector<uint8_t> cdef_src[3];
+
+    void cdef() {
+        if (!seq.enable_cdef || fr.coded_lossless || fr.allow_intrabc) return;
+        for (int p = 0; p < num_planes; ++p) cdef_src[p] = planes[p].px;
+        for (int r = 0; r < fr.mi_rows; r += 2)
+            for (int c = 0; c < fr.mi_cols; c += 2) {
+                const int idx = cdef_frame[static_cast<size_t>(r >> 4) * cdef_stride + (c >> 4)];
+                if (idx == -1) continue;
+                if (skip[mi(r, c)] && skip[mi(r + 1, c)] && skip[mi(r, c + 1)] && skip[mi(r + 1, c + 1)]) continue;
+                int var = 0;
+                const int y_dir = cdef_direction(r, c, &var);
+                int pri = fr.cdef_y_pri[idx];
+                const int sec = fr.cdef_y_sec[idx];
+                const int var_str = (var >> 6) ? std::min(floor_log2(static_cast<uint32_t>(var >> 6)), 12) : 0;
+                const int dir = pri ? y_dir : 0;
+                pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
+                if (pri || sec) tools |= TOOL_CDEF_Y;
+                cdef_filter(0, r, c, pri, sec, fr.cdef_damping, dir);
+                if (num_planes == 1) continue;
+                const int uv_pri = fr.cdef_uv_pri[idx], uv_sec = fr.cdef_uv_sec[idx];
+                const int uv_dir = uv_pri ? kCdefUvDir[subx][suby][y_dir] : 0;
+                if (uv_pri || uv_sec) tools |= TOOL_CDEF_UV;
+                cdef_filter(1, r, c, uv_pri, uv_sec, fr.cdef_damping - 1, uv_dir);
+                cdef_filter(2, r, c, uv_pri, uv_sec, fr.cdef_damping - 1, uv_dir);
+            }
+    }
+
+    int src_at(int p, int y, int x) const { return cdef_src[p][static_cast<size_t>(y) * planes[p].stride + x]; }
+
+    int cdef_direction(int r, int c, int* var) const {
+        int cost[8] = {}, partial[8][15] = {};
+        const int x0 = c * 4, y0 = r * 4;
+        for (int i = 0; i < 8; ++i)
+            for (int j = 0; j < 8; ++j) {
+                const int x = src_at(0, y0 + i, x0 + j) - 128;
+                partial[0][i + j] += x;
+                partial[1][i + j / 2] += x;
+                partial[2][i] += x;
+                partial[3][3 + i - j / 2] += x;
+                partial[4][7 + i - j] += x;
+                partial[5][3 - i / 2 + j] += x;
+                partial[6][j] += x;
+                partial[7][i / 2 + j] += x;
+            }
+        for (int i = 0; i < 8; ++i) {
+            cost[2] += partial[2][i] * partial[2][i];
+            cost[6] += partial[6][i] * partial[6][i];
+        }
+        cost[2] *= kCdefDivTable[8];
+        cost[6] *= kCdefDivTable[8];
+        for (int i = 0; i < 7; ++i) {
+            cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * kCdefDivTable[i + 1];
+            cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * kCdefDivTable[i + 1];
+        }
+        cost[0] += partial[0][7] * partial[0][7] * kCdefDivTable[8];
+        cost[4] += partial[4][7] * partial[4][7] * kCdefDivTable[8];
+        for (int i = 1; i < 8; i += 2) {
+            for (int j = 0; j < 5; ++j) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+            cost[i] *= kCdefDivTable[8];
+            for (int j = 0; j < 3; ++j)
+                cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * kCdefDivTable[2 * j + 2];
+        }
+        int best = 0, dir = 0;
+        for (int i = 0; i < 8; ++i)
+            if (cost[i] > best) {
+                best = cost[i];
+                dir = i;
+            }
+        *var = (best - cost[(dir + 4) & 7]) >> 10;
+        return dir;
+    }
+
+    static int constrain(int diff, int threshold, int damping) {
+        if (!threshold) return 0;
+        const int adj = std::max(0, damping - floor_log2(static_cast<uint32_t>(threshold)));
+        const int val = std::min(std::abs(diff), std::max(0, threshold - (std::abs(diff) >> adj)));
+        return diff < 0 ? -val : val;
+    }
+
+    void cdef_filter(int p, int r, int c, int pri, int sec, int damping, int dir) {
+        static const int kPriTaps[2][2] = {{4, 2}, {3, 3}}, kSecTaps[2][2] = {{2, 1}, {2, 1}};
+        const int sx = p ? subx : 0, sy = p ? suby : 0;
+        const int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, w = 8 >> sx, h = 8 >> sy;
+        const int rows = fr.mi_rows * 4 >> sy, cols = fr.mi_cols * 4 >> sx;  // is_inside_filter_region
+        Plane& pl = planes[p];
+        for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) {
+                const int x = src_at(p, y0 + i, x0 + j);
+                int sum = 0, mx = x, mn = x;
+                auto tap = [&](int d, int k, int sign, int str, int weight) {
+                    const int yy = y0 + i + sign * kCdefDirections[d][k][0], xx = x0 + j + sign * kCdefDirections[d][k][1];
+                    if (yy < 0 || yy >= rows || xx < 0 || xx >= cols) return;
+                    const int v = src_at(p, yy, xx);
+                    sum += weight * constrain(v - x, str, damping);
+                    mx = std::max(mx, v);
+                    mn = std::min(mn, v);
+                };
+                for (int k = 0; k < 2; ++k)
+                    for (int sign = -1; sign <= 1; sign += 2) {
+                        tap(dir, k, sign, pri, kPriTaps[pri & 1][k]);
+                        tap((dir + 2) & 7, k, sign, sec, kSecTaps[pri & 1][k]);
+                        tap((dir - 2) & 7, k, sign, sec, kSecTaps[pri & 1][k]);
+                    }
+                pl.at(y0 + i, x0 + j) = static_cast<uint8_t>(clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4)));
+            }
+    }
+
     // ---- the deblocking filter (7.14)
     int filter_level(int row, int col, int plane, int pass) {
         const int seg = seg_id[mi(row, col)];
@@ -2271,7 +3213,7 @@ struct Image {
     Sequence seq;
     Frame fr;
     std::vector<uint8_t> planes;
-    uint32_t tools = 0;
+    uint64_t tools = 0;
 };
 
 void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
@@ -2281,7 +3223,7 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
     bool have_header = false, done = false;
     int tiles_done = 0;
     size_t at = 0;
-    while (at < n && !done) {
+    while (at < n) {  // dav1d reads every OBU of the data, those after the frame too
         Bits hb(d + at, n - at);
         hb.f(1);  // obu_forbidden_bit: dav1d checks it only when told to be strict
         const int type = hb.f(4);
@@ -2302,6 +3244,7 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
         const uint8_t* body = d + p;
         const size_t len = static_cast<size_t>(size);
         at = p + len;
+        if (done) continue;  // past the frame, an OBU need only fit the data
         if (type == 1) {  // sequence header
             Bits b(body, len);
             Sequence s;
@@ -2392,6 +3335,8 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
     }
     if (!done) fail(ST_TRUNCATED, "truncated AV1: the item's data ends before its frame's last tile");
     dec->loop_filter();
+    dec->cdef();
+    dec->loop_restoration();
     img.tools |= dec->tools;
     // the planes, cropped to the frame
     for (int pidx = 0; pidx < dec->num_planes; ++pidx) {
@@ -2424,7 +3369,8 @@ extern "C" int mmtrs_av1_decode(const void* buf, long long n, long long max_pixe
         dm[7] = s.tc;
         dm[8] = s.mc;
         dm[9] = s.range;
-        dm[10] = static_cast<int>(img.tools);
+        dm[10] = static_cast<int>(static_cast<uint32_t>(img.tools));
+        dm[11] = static_cast<int>(static_cast<uint32_t>(img.tools >> 32));
         void* mem = std::malloc(std::max<size_t>(img.planes.size(), 1));
         if (!mem) {
             std::snprintf(text, 256, "out of memory");

@@ -8,9 +8,12 @@ The container (libavif's ``avifParse``): ``ftyp`` with an ``avif`` or
 ``avis`` brand; ``meta`` with a ``pict`` handler, ``pitm``, ``iloc``
 (versions 0-2, construction methods 0 and 1), ``iinf``/``infe`` (v2/v3),
 ``iprp`` (``ispe``, ``pixi``, ``av1C``, ``colr`` nclx and ICC, ``irot``,
-``imir``, ``clap``, ``auxC``), ``iref`` (``dimg`` of a ``grid`` item,
-``auxl`` of an alpha item, ``prem``), ``idat``; libavif's strict checks
-(``ispe`` required, a grid's tiles alike and covering its output; Pillow
+``imir``, ``clap``, ``auxC``; each property's version and reserved bits
+checked as libavif parses it, used or not; an item with an unknown
+essential property skipped), ``iref`` (``dimg`` of a ``grid`` item,
+``auxl`` of an alpha item, ``prem``), ``idat``, read up to the boxes the
+brands need (``meta``; ``moov`` for ``avis``), as libavif stops; its checks
+(``ispe`` required of every image item, a grid's tiles alike and covering its output; Pillow
 turns libavif's strict checks off) and size limits, and Pillow's bomb check on the primary item's
 size. ``irot``, ``imir`` and ``clap`` leave the pixels as they are: Pillow
 reports the orientation in ``info["exif"]`` and never crops. An alpha item
@@ -77,6 +80,11 @@ def _boxes(d: bytes, at: int, end: int, lenient: bool = False) -> list[tuple[byt
     cut there, as libavif reads the items' data wherever iloc says."""
     out = []
     while at < end:
+        if lenient and out and out[0][0] == b"ftyp":  # avifParse stops once it has every box the brands need
+            brands = _brands(d, out[0][1], out[0][2])
+            seen = {t for t, _, _ in out}
+            if (b"avif" not in brands or b"meta" in seen) and (b"avis" not in brands or b"moov" in seen):
+                break
         if end - at < 8:
             raise _fail("a box header cut short")
         n, t = struct.unpack_from(">I4s", d, at)
@@ -123,10 +131,15 @@ class _Item:
         self.base = 0
         self.props: dict[bytes, tuple[int, int]] = {}
         self.colr: list[tuple[int, int]] = []
+        self.unsupported = False  # an essential property libavif does not know: the item is skipped
+
+
+def _brands(d: bytes, body: int, end: int) -> list[bytes]:
+    return [d[body:body + 4]] + [d[k:k + 4] for k in range(body + 8, end - 3, 4)]
 
 
 def _ftyp_ok(d: bytes, body: int, end: int) -> bool:
-    brands = [d[body:body + 4]] + [d[k:k + 4] for k in range(body + 8, end - 3, 4)]
+    brands = _brands(d, body, end)
     return b"avif" in brands or b"avis" in brands
 
 
@@ -151,6 +164,8 @@ class Container:
         self.primary = None
         handler = None
         _, body, end = metas[0]
+        if end - body < 4 or d[body] != 0:
+            raise _fail("a meta box of another version than 0")
         for t, b0, b1 in _boxes(d, body + 4, end):
             if t == b"hdlr":  # avifParseHandlerBox: version 0, pre_defined 0, 'pict', a terminated name
                 r = _Reader(d, b0, b1)
@@ -180,9 +195,11 @@ class Container:
                 self.idat = d[b0:b1]
         if handler != b"pict":
             raise _fail("a meta box without the pict handler")
+        if b"avis" in _brands(d, top[0][1], top[0][2]) and not any(t == b"moov" for t, _, _ in top):
+            raise _fail("an avis brand without its moov box")
         if self.primary is None and any(t == b"moov" for t, _, _ in top):
             raise ValueError("AVIF image sequence (an avis track) without a primary item is not decoded by the "
-                             "port's codec (AVIF's second slice)")
+                             "port's codec (AVIF's third slice)")
         if self.primary is None or self.primary not in self.items:
             raise _fail("no primary item")
 
@@ -203,7 +220,12 @@ class Container:
             if item.extents:
                 raise _fail(f"item {iid} located twice")
             if ver in (1, 2):
-                item.construction = r.u(2) & 15
+                word = r.u(2)  # 12 reserved bits, then the construction method
+                if word >> 4:
+                    raise _fail("an iloc entry whose reserved bits are set")
+                item.construction = word & 15
+                if item.construction > 1:
+                    raise _fail("an item built from another item (iloc construction method 2)")
             r.u(2)  # data_reference_index, which libavif does not read
             item.base = r.u(bsz)
             n = r.u(2)
@@ -224,7 +246,7 @@ class Container:
             raise _fail("an iinf box whose entry count is not its boxes'")
         for t, c0, c1 in kids:
             if t != b"infe":
-                continue
+                raise _fail(f"an iinf box holding a {t!r} box")
             e = _Reader(self.d, c0, c1)
             ev = e.u(1)
             e.u(3)
@@ -241,6 +263,8 @@ class Container:
         for t, c0, c1 in _boxes(self.d, b0, b1):
             if t == b"ipco":
                 self.props = _boxes(self.d, c0, c1)
+                for t2, p0, p1 in self.props:
+                    _check_property(self.d, t2, p0, p1)
             elif t == b"ipma":
                 r = _Reader(self.d, c0, c1)
                 ver = r.u(1)
@@ -256,9 +280,11 @@ class Container:
                         if idx > len(self.props):
                             raise _fail("an item property index past the ipco box")
                         t2, p0, p1 = self.props[idx - 1]
+                        if v >> (15 if flags & 1 else 7) and t2 not in _KNOWN_PROPERTIES:
+                            item.unsupported = True
                         if t2 == b"colr":
                             item.colr.append((p0, p1))
-                        elif t2 in item.props:
+                        elif t2 in item.props and item.props[t2] != (p0, p1):  # the same box twice is one
                             raise _fail(f"an item with two {t2!r} properties")
                         else:
                             item.props[t2] = (p0, p1)
@@ -274,15 +300,10 @@ class Container:
             self.refs.append((t, src, [e.u(w) for _ in range(e.u(2))]))
 
     def data(self, item: _Item) -> bytes:
-        if item.construction == 1:
-            src, base = self.idat, item.base
-        elif item.construction == 0:
-            src, base = self.d, item.base
-        else:
-            raise _fail("an item built from another item (iloc construction method 2)")
+        src = self.idat if item.construction == 1 else self.d
         out = bytearray()
         for off, n in item.extents:
-            at = base + off
+            at = item.base + off
             if n == 0:  # to the end of the file
                 n = len(src) - at
             if at + n > len(src) or n < 0:
@@ -293,6 +314,26 @@ class Container:
     def prop(self, item: _Item, t: bytes) -> bytes | None:
         p = item.props.get(t)
         return None if p is None else self.d[p[0]:p[1]]
+
+
+# the properties libavif parses (avifParseItemPropertyContainerBox); an
+# essential one of another type makes libavif skip its item
+_KNOWN_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi", b"a1op",
+                     b"lsel", b"a1lx", b"clli"}
+
+
+def _check_property(d: bytes, t: bytes, p0: int, p1: int) -> None:
+    """libavif's checks of a property as it parses the ipco box, used or
+    not: versions and reserved bits."""
+    b = d[p0:p1]
+    if t == b"av1C" and (len(b) < 4 or b[0] != 0x81):
+        raise _fail("an av1C property whose marker or version is not 1")
+    if t in (b"pixi", b"ispe") and (len(b) < 4 or b[0] != 0):
+        raise _fail(f"a {t.decode()} property of another version than 0")
+    if (t == b"irot" and (not b or b[0] & 0xFC)) or (t == b"imir" and (not b or b[0] & 0xFE)):
+        raise _fail(f"an {t.decode()} property with reserved bits set")
+    if t == b"colr" and b[:4] == b"nclx" and (len(b) < 11 or b[10] & 0x7F):
+        raise _fail("an nclx colour property with reserved bits set")
 
 
 def _ispe(c: Container, item: _Item) -> tuple[int, int]:
@@ -316,8 +357,13 @@ class Avif:
     def __init__(self, d: bytes):
         c = self.c = Container(d)
         prim = c.items[c.primary]
-        if prim.type not in (b"av01", b"grid"):
-            raise _fail(f"a primary item of type {prim.type!r}")
+        if prim.type not in (b"av01", b"grid") or prim.unsupported:
+            raise _fail(f"a primary item of type {prim.type!r}" + (" with an unknown essential property"
+                                                                     if prim.unsupported else ""))
+        thumbs = {src for kind, src, _ in c.refs if kind == b"thmb"}
+        for item in c.items.values():  # every image item libavif does not skip has its ispe
+            if item.type in (b"av01", b"grid") and item.extents and not item.unsupported and item.id not in thumbs:
+                _ispe(c, item)
         self.width, self.height = _ispe(c, prim)
         _check_size(self.width, self.height)
         if prim.type == b"grid":
@@ -336,7 +382,7 @@ class Avif:
             if len(tiles) != self.rows * self.cols:
                 raise _fail("a grid with another number of tiles than its rows and columns")
             self.tiles = [c.items.get(t) for t in tiles]
-            if any(t is None or t.type != b"av01" for t in self.tiles):
+            if any(t is None or t.type != b"av01" or t.unsupported for t in self.tiles):
                 raise _fail("a grid tile that is not an AV1 image item")
             sizes = {_ispe(c, t) for t in self.tiles}
             if len(sizes) != 1:
@@ -377,14 +423,18 @@ class Avif:
         self.alpha = None
         for a in alphas:
             item = c.items.get(a)
-            aux = c.prop(item, b"auxC") if item else None
+            if item is None or not item.extents or item.unsupported:  # avifDecoderItemShouldBeSkipped
+                continue
+            aux = c.prop(item, b"auxC")
             if aux is not None and aux[4:].split(b"\0")[0] in ALPHA_URNS:
                 self.alpha = item
                 break
         if self.alpha is not None:
+            if c.prop(self.alpha, b"av1C") is None:
+                raise _fail(f"item {self.alpha.id} without an av1C property")
             if any(kind == b"prem" and src == prim.id for kind, src, _ in c.refs):
                 raise ValueError("AVIF with premultiplied alpha is not decoded by the port's codec (it changes the "
-                                 "colour Pillow gives; AVIF's second slice)")
+                                 "colour Pillow gives; AVIF's third slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +523,10 @@ def yuv_to_rgb(planes: list[torch.Tensor], subx: int, suby: int, matrix: int, fu
     call gives them: integer ops alone, so the host and the card agree."""
     h, w = planes[0].shape
     if len(planes) == 1:
+        # avifPrepareReformatState refuses these matrices for gray too
+        if matrix in (3, 10, 11, 13, 14) or matrix >= 16 or (matrix == 8 and not full):
+            raise ValueError(f"AVIF of matrix coefficients {matrix} does not convert (nor in Pillow: libavif's "
+                             "Reformat failed)")
         if full:
             return planes[0][..., None].expand(h, w, 3).contiguous()
         yg, yb = _GRAY_LIMITED
@@ -484,7 +538,7 @@ def yuv_to_rgb(planes: list[torch.Tensor], subx: int, suby: int, matrix: int, fu
                              "libavif's Reformat failed)")
         if not full:
             raise ValueError("AVIF with the identity matrix at limited range goes through libavif's own conversion, "
-                             "which the port's codec does not reproduce (AVIF's second slice)")
+                             "which the port's codec does not reproduce (AVIF's third slice)")
         return torch.stack([planes[2], planes[0], planes[1]], -1)
     key = (_MATRIX_AS.get(matrix, -1), full)
     if key not in _LIBYUV:
@@ -493,7 +547,7 @@ def yuv_to_rgb(planes: list[torch.Tensor], subx: int, suby: int, matrix: int, fu
                              "Reformat failed)")
         raise ValueError(f"AVIF of matrix coefficients {matrix} at {'full' if full else 'limited'} range goes "
                          "through libavif's own conversion, which the port's codec does not reproduce (AVIF's "
-                         "second slice)")
+                         "third slice)")
     ub, vr, ug, vg, yg, yb = _LIBYUV[key]
     if (subx, suby) == (1, 1):
         u, v = upsample_420(planes[1], h, w), upsample_420(planes[2], h, w)
@@ -523,7 +577,7 @@ def _decode_planes(av: Avif) -> tuple[list[np.ndarray], np.ndarray]:
     for planes, dims in results:
         if (int(dims[0]), int(dims[1])) != (av.tile_w, av.tile_h):
             raise ValueError("AVIF whose AV1 image has another size than its ispe property is not decoded by the "
-                             "port's codec (libavif scales the image to the ispe; AVIF's second slice)")
+                             "port's codec (libavif scales the image to the ispe; AVIF's third slice)")
         if tuple(dims[2:6]) != tuple(dims0[2:6]):
             raise ValueError("AVIF: grid tiles of different pixel formats (Pillow: Failed to decode image)")
     if len(results) == 1:
@@ -556,7 +610,7 @@ def decode_avif(av: Avif, device: torch.device | str = "cpu") -> torch.Tensor:
     planes converted where they land."""
     planes, dims = _decode_planes(av)
     if int(dims[5]) != 8:
-        raise ValueError(f"AVIF of {int(dims[5])}-bit samples is not decoded by the port's codec (AVIF's second slice)")
+        raise ValueError(f"AVIF of {int(dims[5])}-bit samples is not decoded by the port's codec (AVIF's third slice)")
     if av.alpha is not None:  # Pillow decodes the alpha plane too, and fails with it
         _, adims = _decode_item(av.c.data(av.alpha))
         if (int(adims[0]), int(adims[1])) != (av.width, av.height) and av.rows * av.cols == 1:
@@ -571,5 +625,12 @@ def decode_avif(av: Avif, device: torch.device | str = "cpu") -> torch.Tensor:
 
 def planes_of(data: bytes) -> tuple[list[np.ndarray], np.ndarray]:
     """An AVIF's primary image as the port decodes it: its Y, U and V planes
-    and the decoder's dims (size, sampling, depth, CICP, range, tools)."""
+    and the decoder's dims (size, sampling, depth, CICP, range, the tools
+    mask's low and high words: ``tools_of``)."""
     return _decode_planes(Avif(data))
+
+
+def tools_of(dims: np.ndarray) -> int:
+    """The 64-bit mask of the AV1 tools a decode used (``csrc/host/av1.cpp``'s
+    TOOL_* bits), from its dims[10] (low word) and dims[11] (high word)."""
+    return (int(dims[10]) & 0xFFFFFFFF) | (int(dims[11]) & 0xFFFFFFFF) << 32

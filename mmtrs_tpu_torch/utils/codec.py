@@ -1314,6 +1314,8 @@ class _Tiff:
         bps = t.get(258, (1,))
         extra = t.get(338, ())
         spp = one(277, 3 if comp == 6 and photo in (2, 6) else 1)
+        if spp > 6:  # Pillow's MAX_SAMPLESPERPIXEL
+            raise ValueError(f"corrupt TIFF: {spp} samples per pixel (Pillow: Invalid value for samples per pixel)")
         if spp < len(bps):
             bps = bps[:spp]
         elif spp > len(bps) and len(bps) == 1:
@@ -1407,6 +1409,10 @@ class _Tiff:
                 self.offsets = _libtiff_values(data, self.bo, self.big, t[-4][off_tag], n_chunks)
                 if cnt_tag in t[-4]:
                     self.counts = _libtiff_values(data, self.bo, self.big, t[-4][cnt_tag], n_chunks)
+                    if n_chunks == 1 and 322 not in t and self.offsets[0] and not self.counts[0]:
+                        # ByteCountLooksBad: one strip of no bytes, which
+                        # EstimateStripByteCounts runs to the file's end
+                        self.counts = (max(len(data) - self.offsets[0], 0),)
                 else:  # libtiff's estimate, for the one strip it allows without counts: to the file's end
                     self.counts = tuple(max(len(data) - o, 0) for o in self.offsets)
         if len(self.offsets) < n_chunks:
@@ -1778,10 +1784,17 @@ def _ojpeg_stream(f: _Tiff, data: bytes) -> bytes:
     if sof is None:  # the table tags
         ycc = spp == 3 and _libtiff_short(t, 262, 6) == 6 and f.planar == 1
         hs, vs = _libtiff_pair(t, 530, (2, 2)) if ycc else (1, 1)
+        # OJPEGReadHeaderInfo over several strips: the subsampling (with no
+        # frame header in the stream, the tag's or its (2, 2) default) must
+        # divide a strip's rows
+        if isinstance(rps, int) and 0 < rps < f.h and (hs not in (1, 2, 4) or vs not in (1, 2, 4) or rps % (8 * vs)):
+            raise bad("strips whose length the subsampling does not divide")
         sof = (0xC0, f.h, f.w, [(k, (hs << 4 | vs) if k == 0 else 0x11, 0) for k in range(spp)])
         tq, tda = [0] * spp, [0] * spp
         for tag, kind in ((519, "q"), (520, 0x00), (521, 0x10)):
             offs = t.get(tag, (0,) * spp) if t[-7].get(tag, 4) not in _TIFF_NOT_INTEGERS else (0,) * spp
+            if min(offs, default=0) < 0:  # a signed type's negative value: libtiff drops the tag
+                offs = (0,) * spp
             if len(offs) != spp or offs[0] == 0:  # libtiff sets no table tag of another count
                 raise bad(f"without its tag {tag} (JPEG tables)")
             for k in range(spp):

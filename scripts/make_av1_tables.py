@@ -3,9 +3,11 @@ constant tables, read from the libavif that Pillow's wheel ships.
 
 The AV1 intra decoder of the PyTorch port's codec (``csrc/host/av1.cpp``)
 needs the tables the AV1 specification defines by value: the default CDFs
-of every syntax element an intra frame reads, the 8-bit quantiser lookups,
-the directional-prediction derivatives, the smooth weights and the
-filter-intra taps. Pillow's ``pillow.libs/libavif-*.so*`` embeds both
+of every syntax element an intra frame reads (palette, intraBC's MV, the
+var-tx split, the inter tx sets and loop restoration among them), the
+8-bit quantiser lookups, the directional-prediction derivatives, the
+smooth weights, the filter-intra taps, CDEF's directions and divisors and
+the self-guided filter's parameter sets. Pillow's ``pillow.libs/libavif-*.so*`` embeds both
 libaom 3.12 (its encoder) and dav1d 1.5 (its decoder), and their read-only
 data hold these tables. This script finds each one by its first values,
 takes the first occurrence, checks its shape (each CDF strictly
@@ -94,6 +96,53 @@ PLAIN = (
     ("kSinPi", "int32_t", 5, (0, 1321, 2482, 3344, 3803)),
 )
 _FMT = {"int32_t": "i", "int16_t": "h", "uint16_t": "H", "uint8_t": "B", "int8_t": "b"}
+# AVIF's second slice (palette, intraBC, CDEF, loop restoration): libaom's
+# palette CDFs, a CDF of each palette size in a row of 9 (sizes 2-8, each
+# under 5 colour contexts), the var-tx split, the inter tx-set CDFs
+# (libaom's [set][square size][17], set 0 empty; set 1 serves the square
+# sizes 4 and 8, set 2 16, set 3 all four), its MV context (joints,
+# then two components alike); dav1d's restoration CDFs
+SLICE2_AOM = (
+    ("kPaletteYSizeCdf", (7,), 7, 8, icdf(7952, 13000, 18149, 21478, 25527, 29241)),
+    ("kPaletteUvSizeCdf", (7,), 7, 8, icdf(8713, 19979, 27128, 29609, 31331, 32272)),
+    ("kPaletteYColorCdf", (7, 5), 8, 9, icdf(28710) + [0] * 8 + icdf(16384) + [0] * 8 + icdf(10553)),
+    ("kPaletteUvColorCdf", (7, 5), 8, 9, icdf(29089) + [0] * 8 + icdf(16384) + [0] * 8 + icdf(8713)),
+    ("kTxfmSplitCdf", (21,), 2, 3, icdf(28581) + [0, 0] + icdf(23846) + [0, 0] + icdf(20847)),
+)
+INTER_TX_SIG = icdf(4458, 5560, 7695, 9709, 13330, 14789, 17537, 20266)
+INTER_INV1_SIG = (9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 4, 5, 3, 6, 7, 8)
+INTER_INV2_SIG = (9, 10, 11, 0, 1, 2, 4, 5, 3, 6, 7, 8)
+MV_SIG = icdf(4096, 11264, 19328) + [0, 0] + icdf(28672, 30976, 31858, 32320, 32551, 32656, 32740, 32757)
+# (name, symbols, CDFs) of an nmv component in libaom's nmv_context, in order
+MV_FIELDS = (("kMvClassCdf", 11, 1), ("kMvClass0FrCdf", 4, 2), ("kMvFrCdf", 4, 1), ("kMvSignCdf", 2, 1),
+             ("kMvClass0HpCdf", 2, 1), ("kMvHpCdf", 2, 1), ("kMvClass0BitCdf", 2, 1), ("kMvBitCdf", 2, 10))
+SLICE2_DAV1D = (
+    ("kRestoreSwitchableCdf", (), 3, 4, icdf(9413, 22581) + [0, 0] + icdf(11570) + [0], 0),
+    ("kRestoreWienerCdf", (), 2, 2, icdf(11570) + [0] + icdf(16855) + [0], 0),
+    ("kRestoreSgrprojCdf", (), 2, 2, icdf(11570) + [0] + icdf(16855) + [0], 4),
+)
+# libaom's self-guided parameter sets (r0, r1, s0, s1) and dav1d's s pairs
+SGR_AOM_SIG = (2, 1, 140, 3236, 2, 1, 112, 2158)
+SGR_DAV1D_SIG = (140, 3236, 112, 2158, 93, 1618)
+# libaom's CDEF tables: the directions as offsets in its 144-wide buffer
+# (cdef_directions_padded + 2), the 4:2:2 and 4:4:0 direction maps, the
+# direction search's divisors
+CDEF_BSTRIDE = 144
+CDEF_DIRS_SIG = (-143, -286, 1, -142, 1, 2, 1, 146)
+CDEF_CONV440_SIG = (1, 2, 2, 2, 3, 4, 6, 0)
+CDEF_CONV422_SIG = (7, 0, 2, 4, 5, 6, 6, 6)
+CDEF_DIV_SIG = (0, 840, 420, 280, 210, 168, 140, 120, 105)
+# the Wiener taps' middle values, found in libaom; the ranges and subexp
+# parameters libaom keeps as immediates (the specification's values)
+WIENER_MID_SIG = (3, -7, 15)
+SPEC_CONSTANTS = (
+    ("kWienerTapsMin", "int8_t", (-5, -23, -17)),
+    ("kWienerTapsMax", "int8_t", (10, 8, 46)),
+    ("kWienerTapsK", "int8_t", (1, 2, 3)),
+    ("kSgrprojXqdMin", "int8_t", (-96, -32)),
+    ("kSgrprojXqdMax", "int8_t", (31, 95)),
+    ("kSgrprojXqdMid", "int8_t", (-32, 31)),
+)
 # libaom keeps the default and rectangular scans in its own orientation
 # (transposed: row and column swapped); the decoder builds the
 # specification's and the script finds libaom's transpose of each
@@ -174,6 +223,90 @@ def agree(blob: bytes, lo: int, hi: int, name: str, table: np.ndarray, own: int)
     return found
 
 
+def ints(blob: bytes, lo: int, hi: int, sig, fmt: str, count: int, what: str) -> np.ndarray:
+    at = find(blob, lo, hi, np.array(sig, fmt).tobytes(), what)
+    return np.frombuffer(blob[at:at + np.dtype(fmt).itemsize * count], fmt).astype(np.int64)
+
+
+def aom_rows(blob: bytes, at: int, n: int, stride: int, count: int, what: str) -> np.ndarray:
+    """``count`` libaom CDFs of ``n`` symbols at ``at``, in the header's form."""
+    raw = np.frombuffer(blob[at:at + 2 * count * stride], "<u2").reshape(count, stride).astype(np.int64)
+    out = np.zeros((count, n + 1), np.int64)
+    for k, row in enumerate(raw):
+        vals = row[:n - 1]
+        if (vals == 0).any() or (np.diff(vals) >= 0).any() or (row[n - 1:] != 0).any():
+            sys.exit(f"{what}: CDF {k} is not libaom's form: {row.tolist()}")
+        out[k, :n - 1] = vals
+    return out
+
+
+def slice2(blob: bytes, lo: int, hi: int) -> list[str]:
+    out = []
+    for name, dims, n, stride, sig in SLICE2_AOM:
+        table = aom_table(blob, lo, hi, name, dims, n, stride, sig)
+        own = blob.find(np.array(sig, "<u2").tobytes(), lo, hi)
+        got = agree(blob, lo, hi, name, table, own)
+        if got != table.size // (n + 1):  # dav1d holds each of these CDFs too
+            sys.exit(f"{name}: dav1d's copy differs from libaom's ({got} of {table.size // (n + 1)} CDFs found)")
+        if "Color" in name:  # size s (2-8) holds s symbols
+            for s in range(2, 9):
+                for row in table[s - 2]:
+                    if next(i for i, v in enumerate(row) if v == 0) != s - 1:
+                        sys.exit(f"{name}: palette size {s} holds a CDF of another size")
+        out.append(c_array(name, "uint16_t", table))
+    at = find(blob, lo, hi, np.array(INTER_TX_SIG, "<u2").tobytes(), "the inter tx-set CDFs") - 4 * 17 * 2
+    if np.frombuffer(blob[at:at + 4 * 17 * 2], "<u2").any():
+        sys.exit("the inter tx-set CDFs: set 0 is not empty")
+    set1 = aom_rows(blob, at + 4 * 17 * 2, 16, 17, 4, "kInterTxSet1Cdf")
+    set2 = aom_rows(blob, at + 8 * 17 * 2, 12, 17, 4, "kInterTxSet2Cdf")
+    set3 = aom_rows(blob, at + 12 * 17 * 2, 2, 17, 4, "kInterTxSet3Cdf")
+    # the specification keeps set 2's CDF of 16×16 alone (the one size it serves)
+    out += [c_array("kInterTxSet1Cdf", "uint16_t", set1[:2]), c_array("kInterTxSet2Cdf", "uint16_t", set2[2]),
+            c_array("kInterTxSet3Cdf", "uint16_t", set3)]
+    # the symbol → type maps of sets 1 and 2 (libaom's av1_ext_tx_inv, ALL16
+    # and DTT9_IDTX_1DDCT); set 3 is IDTX, DCT_DCT
+    for name, sig, n in (("kTxTypeInterInvSet1", INTER_INV1_SIG, 16), ("kTxTypeInterInvSet2", INTER_INV2_SIG, 12)):
+        out.append(c_array(name, "uint8_t", ints(blob, lo, hi, sig, "<i4", n, f"libaom's {name}")))
+    at = find(blob, lo, hi, np.array(MV_SIG, "<u2").tobytes(), "the MV context")
+    out.append(c_array("kMvJointCdf", "uint16_t", aom_rows(blob, at, 4, 5, 1, "kMvJointCdf")[0]))
+    comps = []
+    for c in range(2):
+        p, comp = at + 10 + c * 2 * sum((n + 1) * k for _, n, k in MV_FIELDS), {}
+        for name, n, k in MV_FIELDS:
+            rows = aom_rows(blob, p, n, n + 1, k, name)
+            comp[name] = rows if k > 1 else rows[0]
+            p += 2 * (n + 1) * k
+        comps.append(comp)
+    for name, _, _ in MV_FIELDS:
+        if (comps[0][name] != comps[1][name]).any():
+            sys.exit(f"{name}: the MV context's two components differ")
+        out.append(c_array(name, "uint16_t", comps[0][name]))
+    for name, dims, n, stride, sig, skip in SLICE2_DAV1D:
+        out.append(c_array(name, "uint16_t", dav1d_table(blob, lo, hi, name, dims, n, stride, sig, skip)))
+    sgr = ints(blob, lo, hi, SGR_AOM_SIG, "<i4", 64, "libaom's av1_sgr_params").reshape(16, 4)
+    dav1d_s = ints(blob, lo, hi, SGR_DAV1D_SIG, "<u2", 32, "dav1d's sgr params").reshape(16, 2)
+    # the specification's layout (r0, s0, r1, s1), s 0 where r is (libaom: -1)
+    sgr = np.stack([sgr[:, 0], np.where(sgr[:, 0] > 0, sgr[:, 2], 0), sgr[:, 1], np.where(sgr[:, 1] > 0, sgr[:, 3], 0)], 1)
+    if (sgr[:, 1::2] != dav1d_s).any():
+        sys.exit("the self-guided parameters: libaom's and dav1d's differ")
+    out.append(c_array("kSgrParams", "int32_t", sgr))
+    offs = ints(blob, lo, hi, CDEF_DIRS_SIG, "<i4", 16, "libaom's cdef_directions").reshape(8, 2)
+    dy = np.round(offs / CDEF_BSTRIDE).astype(np.int64)
+    dirs = np.stack([dy, offs - dy * CDEF_BSTRIDE], -1)
+    if (np.abs(dirs[..., 1]) > 2).any():
+        sys.exit("libaom's cdef_directions: an offset of more than 2 columns")
+    out.append(c_array("kCdefDirections", "int8_t", dirs))
+    ident = np.arange(8)
+    c440 = ints(blob, lo, hi, CDEF_CONV440_SIG, "<i4", 8, "libaom's CDEF 4:4:0 directions")
+    c422 = ints(blob, lo, hi, CDEF_CONV422_SIG, "<i4", 8, "libaom's CDEF 4:2:2 directions")
+    out.append(c_array("kCdefUvDir", "uint8_t", np.array([[ident, c440], [c422, ident]])))  # [subx][suby][dir]
+    out.append(c_array("kCdefDivTable", "int32_t", ints(blob, lo, hi, CDEF_DIV_SIG, "<i4", 9, "libaom's div_table")))
+    out.append(c_array("kWienerTapsMid", "int8_t", ints(blob, lo, hi, WIENER_MID_SIG, "<i4", 3, "the Wiener taps")))
+    for name, ctype, vals in SPEC_CONSTANTS:
+        out.append(c_array(name, ctype, np.array(vals)))
+    return out
+
+
 def scans_checked(blob: bytes, lo: int, hi: int) -> int:
     for w, h in SCAN_SIZES:
         order = []
@@ -224,6 +357,7 @@ def build() -> str:
         size = struct.calcsize(fmt)
         vals = np.array(struct.unpack(f"<{count}{_FMT[ctype]}", blob[at:at + size * count]))
         out.append(c_array(name, ctype, vals))
+    out += slice2(blob, lo, hi)
     # the two libraries' copies agree wherever dav1d keeps the CDFs as
     # libaom does (dav1d lays its coefficient CDFs out otherwise): the mode
     # tables' every CDF is found outside the copy read

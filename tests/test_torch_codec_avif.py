@@ -7,7 +7,9 @@ copy of libavif's colour conversion (``utils/avif.py``), against Pillow 12.1
 - the goldens' tool masks cover every tool of AVIF's first slice;
 - the conversion equals libavif's on every (Y, U, V) triple and on random
   4:2:0 and 4:2:2 planes of odd sizes, for each (matrix, range) it takes;
-- each tool of the second slice is refused by name on a file that uses it;
+- each tool left to AVIF's third slice is refused by name on a file that
+  uses it (CDEF, loop restoration and palette, once refused here, now
+  decode equal to Pillow; ``tests/test_torch_codec_avif2.py`` holds them);
 - cut and mutated files agree with Pillow (both decode equal, or both
   refuse);
 - ``scripts/make_av1_tables.py`` rewrites the committed table header.
@@ -263,8 +265,9 @@ def _inter_frame(anim: bytes) -> bytes:
 
 @functools.cache
 def refused_files() -> dict[str, tuple[bytes, str]]:
-    """A file using each tool of AVIF's second slice, and the words the
-    port's error holds. Pillow decodes them all but the crafted superres,
+    """A file using each tool once refused, and the words the port's error
+    holds (CDEF, loop restoration and palette decode since the second
+    slice). Pillow decodes them all but the crafted superres,
     10-bit, inter-frame and sequence files (the wheel's libaom writes neither
     superres nor more than 8 bits)."""
     mid = photo(97, 130, 4)
@@ -388,13 +391,21 @@ def test_refused_cases_are_listed():
     assert sorted(refused_files()) == sorted(REFUSED)
 
 
+# the tools AVIF's second slice decodes (tests/test_torch_codec_avif2.py)
+DECODED = ("cdef", "loop_restoration", "palette")
+
+
 @pytest.mark.parametrize("case", REFUSED)
 def test_second_slice_tools_are_refused_by_name(case):
-    """Each tool left to AVIF's second slice raises with its name; Pillow
-    decodes the files that Pillow's and libavif's encoders wrote."""
+    """Each tool left to AVIF's third slice raises with its name; Pillow
+    decodes the files that Pillow's and libavif's encoders wrote. CDEF, loop
+    restoration and palette now decode, equal to Pillow."""
     data, words = refused_files()[case]
     if case not in ("superres", "ten_bit", "inter_frame", "avis_without_primary_item"):
         assert _pillow_or_none(data) is not None
+    if case in DECODED:
+        np.testing.assert_array_equal(_port(data), _pillow(data)[1])
+        return
     with pytest.raises(ValueError, match=words):
         _port(data)
 
@@ -487,6 +498,101 @@ def test_mutated_files_agree_with_pillow(goldens, name):
         elif want is not None and (got is None or got.shape != want[1].shape or not np.array_equal(got, want[1])):
             bad.append((k, "differs" if got is not None else "port raises, Pillow decodes"))
     assert bad == [], bad[:3]
+
+
+# one byte of a golden changed, each a rule of libavif 1.3.0's parser (or
+# conversion, or dav1d's header parse) that a fuzz of the goldens found the
+# port without: (golden, offset, new byte)
+CONTAINER_RESIDUALS = {
+    "ipma_names_an_unknown_item": ("rgba_67x45.avif", 415, 152),  # the alpha item then lacks its ispe
+    "iloc_names_an_unknown_item": ("rgba_67x45.avif", 122, 55),  # the alpha item has no data: skipped
+    "iloc_reserved_bits": ("clap_67x45.avif", 105, 225),
+    "iloc_reserved_bits_of_a_tile": ("grid_3x1_copies_192x64.avif", 137, 155),
+    "av1c_marker": ("filter_intra_speed2_130x97.avif", 221, 93),
+    "nclx_reserved_bits": ("s444_130x97.avif", 243, 167),
+    "irot_reserved_bits": ("irot1_imir0_67x45.avif", 245, 36),
+    "imir_reserved_bits": ("irot1_imir0_67x45.avif", 254, 44),
+    "unknown_essential_property": ("irot1_imir0_67x45.avif", 244, 253),
+    "pixi_version": ("q10_130x97.avif", 205, 243),
+    "meta_version": ("tx64_speed4_128x128.avif", 40, 72),
+    "iinf_holding_another_box": ("rgba_67x45.avif", 180, 102),
+    "mdat_size_past_what_libavif_reads": ("limited_range_67x45.avif", 270, 72),
+    "one_property_associated_twice": ("q10_130x97.avif", 266, 131),
+    "avis_brand_without_moov": ("s444_130x97.avif", 11, 115),
+    "gray_of_a_matrix_libavif_refuses": ("s400_67x45.avif", 236, 234),
+    # dav1d's sequence-header check: an operating point names both layers
+    "operating_point_without_layers": ("segmentation_aq1_160x128.avif", 281, 84),
+    # dav1d takes a segment id past the last active segment as 0, where the
+    # specification clips it to the last
+    "segment_id_past_the_last_active": ("segmentation_aq1_160x128.avif", 303, 190),
+    # the alpha's extent run on into the colour item: dav1d reads its OBUs
+    # past the frame, and one runs past the data
+    "obu_past_the_frame_running_past_the_data": ("rgba_67x45.avif", 134, 157),
+}
+
+
+def _changed(goldens, name: str, at: int, value: int) -> bytes:
+    data = bytearray(goldens[name].tobytes())
+    data[at] = value
+    return bytes(data)
+
+
+@pytest.mark.parametrize("case", sorted(CONTAINER_RESIDUALS))
+def test_container_residuals_agree_with_pillow(goldens, case):
+    """Queue 3's container faults: the port decodes equal to Pillow, or
+    both refuse."""
+    data = _changed(goldens, *CONTAINER_RESIDUALS[case])
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            _port(data)
+    else:
+        np.testing.assert_array_equal(_port(data), want[1])
+
+
+def test_every_image_item_needs_its_ispe(goldens):
+    """libavif refuses an AV1 item without ispe even where nothing refers to
+    it; one with ispe but no av1C is skipped unless it is the alpha."""
+    data, props = cs._avif_item(goldens["default_420_67x45.avif"].tobytes())
+    ispe = [p for p in props if p[4:8] == b"ispe"]
+    av1c = [p for p in props if p[4:8] == b"av1C"]
+    main = {"id": 1, "type": b"av01", "data": data, "props": props}
+    for extra, ok in ((av1c, False), (ispe, True)):
+        f = cs._avif_file([main, {"id": 2, "type": b"av01", "data": data, "props": extra}], 1)
+        assert (_pillow_or_none(f) is not None) == ok
+        if ok:
+            np.testing.assert_array_equal(_port(f), _pillow(f)[1])
+        else:
+            with pytest.raises(ValueError):
+                _port(f)
+
+
+# a damaged file whose planes differ from dav1d's at these many samples
+# (Y, U, V), counted against dav1d's AVX2 transforms: the path dav1d takes
+# on an x86 CPU without AVX-512 VBMI, as where these tests run (on one
+# with it, dav1d takes its AVX-512 ICL transforms and the counts may
+# differ)
+DAV1D_SIMD_DIFFERENCES = {
+    # coefficients past int16 in a damaged tile: dav1d's AVX2 inverse
+    # transforms saturate in their 16-bit lanes, the port clamps only where
+    # dav1d's C transforms do (Y 255 against 0)
+    "int16_overflow": (("delta_q_lf_160x128.avif", 2976, 124), (55, 19, 289)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DAV1D_SIMD_DIFFERENCES))
+def test_damaged_files_left_differing_from_dav1d_are_pinned(goldens, case):
+    """A documented difference (ROADMAP Queue 3, by design): both decode,
+    and the port's planes differ from dav1d's at the pinned number of
+    samples."""
+    (name, at, value), counts = DAV1D_SIMD_DIFFERENCES[case]
+    from mmtrs_tpu_torch.utils.avif import planes_of
+
+    data = _changed(goldens, name, at, value)
+    assert _pillow_or_none(data) is not None
+    got = planes_of(data)[0]
+    want = ao.decode(data)["planes"]
+    assert tuple(int((g != w).sum()) for g, w in zip(got, want)) == counts
 
 
 def test_card_uploads_regenerate_and_decode_as_pillow():

@@ -737,6 +737,33 @@ def test_damaged_entry_types_agree_with_pillow(goldens, name, tag, typ):
         np.testing.assert_array_equal(_port(data), want[1])
 
 
+# the entry-type damage a sweep of every tag × type over the JPEG-in-TIFF
+# goldens found the port reading otherwise than libtiff: a dropped
+# YCbCrSubsampling whose (2, 2) default does not divide the strips of a
+# 4:4:4 old-style file (OJPEGReadHeaderInfo fails), a StripByteCounts of
+# BYTE/SBYTE that reads 0 (ByteCountLooksBad: EstimateStripByteCounts runs
+# the one strip to the file's end), JPEGQTables of SBYTE that read negative
+# (libtiff drops the tag), a LONG8 SamplesPerPixel in a classic TIFF
+# (Pillow's MAX_SAMPLESPERPIXEL)
+TIFF_RESIDUALS = [("ojpeg_tables_444_restart_8_strips.tif", 530, 2), ("ojpeg_tables_444_restart_8_strips.tif", 530, 4),
+                  ("ojpeg_tables_444_restart_8_strips.tif", 530, 11), ("jit_arith_444_rgb.tif", 279, 1),
+                  ("jit_arith_444_rgb.tif", 279, 6), ("ojpeg_tables_420.tif", 519, 6),
+                  ("ojpeg_tables_proc14.tif", 519, 6), ("ojpeg_tables_gray.tif", 277, 16)]
+
+
+@pytest.mark.parametrize("name,tag,typ", TIFF_RESIDUALS)
+def test_queue3_tiff_entry_types_agree_with_pillow(goldens, name, tag, typ):
+    """Damaged entry types libtiff reads apart from Pillow: the port decodes
+    equal to Pillow, or both refuse (a ValueError, not a MemoryError)."""
+    data = _with_entry_type(goldens[name].tobytes(), tag, typ)
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            _port(data)
+    else:
+        np.testing.assert_array_equal(_port(data), want[1])
+
+
 @pytest.mark.parametrize("sample_format,comp,predictor", [(3, 8, 1), (3, 32773, 1), (2, 5, 2), (2, 8, 1)])
 def test_big_endian_32bit_compressed_samples_as_pillow_reads_them(sample_format, comp, predictor):
     """A big-endian TIFF of 32-bit samples that libtiff decompresses: libtiff
