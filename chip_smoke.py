@@ -2857,6 +2857,35 @@ def _avif_grid(tiles: list[bytes], across: int, down: int, size: tuple[int, int]
     return _avif_file(items, 1, [(b"dimg", 1, [k + 2 for k in range(len(parts))])])
 
 
+def _avif_rgba_grid(tile: bytes, across: int, down: int, premultiplied: bool) -> bytes:
+    """An RGBA AVIF of ``across`` × ``down`` copies of a one-image RGBA AVIF:
+    a grid of its colour item and a grid of its alpha item (auxl), the
+    colour premultiplied by the alpha (a prem reference) where
+    ``premultiplied``."""
+    from mmtrs_tpu_torch.utils.avif import Container
+
+    c = Container(tile)
+    colour = c.items[c.primary]
+    alpha = c.items[next(src for kind, src, _ in c.refs if kind == b"auxl")]
+
+    def props(item) -> list[bytes]:
+        return [tile[p0 - 8:p1] for p0, p1 in item.props.values()] + [tile[p0 - 8:p1] for p0, p1 in item.colr]
+
+    cp, ap = props(colour), props(alpha)
+    tw, th = struct.unpack(">II", next(p for p in cp if p[4:8] == b"ispe")[12:20])
+    n = across * down
+    grid = bytes([0, 1, down - 1, across - 1]) + struct.pack(">II", tw * across, th * down)
+    ispe = _fullbox(b"ispe", 0, 0, struct.pack(">II", tw * across, th * down))
+    items = [{"id": 1, "type": b"grid", "data": grid, "idat": True,
+              "props": [ispe] + [p for p in cp if p[4:8] in (b"pixi", b"colr")]},
+             {"id": 2, "type": b"grid", "data": grid, "idat": True,
+              "props": [ispe] + [p for p in ap if p[4:8] in (b"pixi", b"auxC")]}]
+    items += [{"id": 3 + k, "type": b"av01", "data": c.data(colour), "props": cp, "hidden": True} for k in range(n)]
+    items += [{"id": 3 + n + k, "type": b"av01", "data": c.data(alpha), "props": ap, "hidden": True} for k in range(n)]
+    refs = [(b"dimg", 1, [3 + k for k in range(n)]), (b"dimg", 2, [3 + n + k for k in range(n)]), (b"auxl", 2, [1])]
+    return _avif_file(items, 1, refs + ([(b"prem", 1, [2])] if premultiplied else []))
+
+
 def _ojpeg_files(torch, dev, rgb: np.ndarray) -> dict[str, bytes]:
     """``rgb`` as old-style JPEG-in-TIFF in libtiff's two layouts, written
     without Pillow from nvJPEG's 4:2:0 stream: its JPEGInterchangeFormat and
@@ -2986,17 +3015,37 @@ AVIF2_UPLOADS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif2_uploads.npz"
 AVIF2_UPLOAD_FILES = {"avif_screenshot": "upload_screenshot_1024x768.avif",
                       "avif_animated": "upload_animated_q30_1024x768.avif"}
 AVIF2_GRID_TILE = "upload_speed2_cdef_lr_1024x768.avif"
+# AVIF's third slice (premultiplied alpha, quantiser matrices, film grain,
+# libavif's own colour conversion, frames scaled to their ispe, image
+# sequences decoded from their track): its goldens, and the phone photo with
+# film grain (whose 4 x 4 grid of copies is the 12 MP grain file), with
+# tune=iq (quantiser matrices) and as premultiplied RGBA (whose 4 x 4 grid of
+# copies, alpha grid with it, is the 12 MP premultiplied file)
+AVIF3_GOLDENS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif3_goldens.npz"
+AVIF3_UPLOADS = ROOT / "mmtrs_tpu_torch" / "testdata" / "avif3_uploads.npz"
+AVIF3_UPLOAD_FILES = {"avif_film_grain": "upload_film_grain_1024x768.avif", "avif_qm": "upload_tune_iq_1024x768.avif",
+                      "avif_premultiplied": "upload_premultiplied_rgba_1024x768.avif"}
+# (matrix, full range, colour primaries) that libavif converts in f32: FCC,
+# SMPTE 240M and matrix 15 at both ranges, YCgCo, chroma-derived NCL of
+# Display P3 (12) and EBU 3213 (22) primaries, and the identity at limited
+# range (4:4:4 only)
+AVIF_F32_MATRICES = [(4, 1, 2), (4, 0, 2), (7, 1, 2), (7, 0, 2), (8, 1, 2), (12, 1, 12), (12, 0, 22), (15, 1, 2),
+                     (15, 0, 2), (0, 0, 2)]
 
 
 def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
-    """AVIF on the card's machine (no Pillow): every golden of both slices
-    decoded to the card and on the CPU route equal to Pillow's stored
-    decode; the median ms of the decode of two 12 MP grids (4 x 4 copies of
-    the default upload, and of the speed-2 photograph with loop restoration
-    and CDEF), whose planes hold the upload's in each cell (the
-    conversion's chroma upsampling runs across the cells, as libavif's
+    """AVIF on the card's machine (no Pillow): every golden of the three
+    slices decoded to the card and on the CPU route equal to Pillow's stored
+    decode; libavif's f32 YUV -> RGB on the card equal to the CPU route on
+    every (Y, U, V) triple for each matrix that takes it; the median ms of
+    the decode of four 12 MP grids (4 x 4 copies of the default upload, of
+    the speed-2 photograph with loop restoration and
+    CDEF, of the film-grain upload, and of the premultiplied RGBA upload
+    with its alpha grid), the first three's planes the upload's in each cell
+    (the conversion's chroma upsampling runs across the cells, as libavif's
     does); the uploads, the second slice's screenshot (palette, intraBC) and
-    animated frame (CDEF) with them."""
+    animated frame (CDEF) and the third's film grain, tune=iq and
+    premultiplied RGBA with them."""
     from mmtrs_tpu_torch.utils.codec import decode_image
 
     exact, on_card = 0, True
@@ -3004,7 +3053,10 @@ def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
         files = {f: z[f] for f in z.files}
     with np.load(AVIF2_GOLDENS) as z:
         files2 = {f: z[f] for f in z.files}
+    with np.load(AVIF3_GOLDENS) as z:
+        files3 = {f: z[f] for f in z.files}
     files.update(files2)
+    files.update(files3)
     for name in sorted(f for f in files if not f.endswith(".pil")):
         data = files[name].tobytes()
         want = torch.from_numpy(files[f"{name}.pil"])
@@ -3014,11 +3066,34 @@ def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
             raise AssertionError(f"AVIF golden {name}: not equal to Pillow's decode on both routes")
         exact += 1
     new = sum(not f.endswith(".pil") for f in files2)
-    _check(on_card and exact >= 55 and new >= 30,
+    new3 = sum(not f.endswith(".pil") for f in files3)
+    _check(on_card and exact >= 134 and new >= 30 and new3 >= 79,
            f"{exact} AVIF goldens decoded to the card and on the CPU route equal to Pillow's decode (4:2:0/4:2:2/"
            "4:4:4/4:0:0, speeds 0-10, qualities 10-100, tiles, 128 superblocks, lossless, delta q and lf, filter "
            f"intra, 64-point transforms, grids, irot/imir/clap, alpha, limited range; {new} of them the second "
-           "slice's: palette, intraBC, CDEF, Wiener, self-guided and switchable restoration)")
+           f"slice's: palette, intraBC, CDEF, Wiener, self-guided and switchable restoration; {new3} the third's: "
+           "premultiplied alpha, quantiser matrices, film grain, libavif's own colour conversion, frames scaled to "
+           "their ispe, sequences from their track)")
+    from mmtrs_tpu_torch.utils.avif import yuv_to_rgb
+
+    # libavif's f32 conversion on the card, held to the CPU route (which the
+    # suite holds to libavif) on a 4096² image of every (Y, U, V) triple, in
+    # 4:4:4 and with its chroma cut to 4:2:0, for each matrix that takes it
+    v = np.arange(1 << 24, dtype=np.uint32)
+    triples = [torch.from_numpy((v >> s & 255).astype(np.uint8).reshape(4096, 4096)) for s in (16, 8, 0)]
+    sub = [triples[0]] + [p[::2, ::2].contiguous() for p in triples[1:]]
+    t0, swept = time.perf_counter(), []
+    for matrix, full, prim in AVIF_F32_MATRICES:
+        for planes, s in ((triples, 0), (sub, 1)) if matrix else ((triples, 0),):
+            got = yuv_to_rgb([p.to(dev) for p in planes], s, s, matrix, full, prim)
+            if not (got.device.type == "cuda" and torch.equal(got.cpu(), yuv_to_rgb(planes, s, s, matrix, full, prim))):
+                raise AssertionError(f"libavif's f32 conversion of matrix {matrix} (full range {full}, primaries "
+                                     f"{prim}, {'4:2:0' if s else '4:4:4'}) differs on the card from the CPU route")
+            swept.append(f"{matrix}/{full}/{prim}/{'420' if s else '444'}")
+    _check(len(swept) == 2 * len(AVIF_F32_MATRICES) - 1,
+           f"libavif's f32 YUV -> RGB on the card equals the CPU route on every (Y, U, V) triple (16.8 M pixels) for "
+           f"each matrix/range/primaries/subsampling it takes: {', '.join(swept)} "
+           f"({time.perf_counter() - t0:.1f} s)")
     with np.load(AVIF_UPLOADS) as z:
         up = {f: z[f].tobytes() for f in z.files}
     from mmtrs_tpu_torch.utils.avif import planes_of
@@ -3050,9 +3125,33 @@ def _avif_checks(torch, dev, smi: str, phone: np.ndarray) -> dict:
     print(f"  12 MP AVIF grid with loop restoration and CDEF decodes to the card: "
           f"{out['avif_12mp_restoration_grid_ms']:.2f} ms (the host decode on up to 8 threads, the conversion, then "
           f"the copy; host clock, median of 3, each ending in a synchronise; {smi})")
+    with np.load(AVIF3_UPLOADS) as z:
+        up3 = {f: z[f].tobytes() for f in z.files}
+    grain = up3[AVIF3_UPLOAD_FILES["avif_film_grain"]]
+    big3 = _avif_grid([grain], 4, 4)
+    out["avif_12mp_film_grain_grid_ms"] = _median_ms(torch, lambda: last.update(got=decode_image(big3, dev)))
+    got = last["got"]
+    tile, grid = planes_of(grain)[0], planes_of(big3)[0]
+    same = all(np.array_equal(g.reshape(4, t.shape[0], 4, t.shape[1]).transpose(0, 2, 1, 3),
+                              np.broadcast_to(t, (4, 4) + t.shape)) for g, t in zip(grid, tile))
+    _check(same and got.device.type == "cuda" and torch.equal(got.cpu(), decode_image(big3, "cpu")),
+           f"a {tuple(got.shape)} AVIF grid of 16 copies of the film-grain upload decodes to the card: each tile's "
+           "grain is its own, so its planes are the upload's in each cell, its RGB the CPU route's")
+    prem = _avif_rgba_grid(up3[AVIF3_UPLOAD_FILES["avif_premultiplied"]], 4, 4, True)
+    out["avif_12mp_premultiplied_grid_ms"] = _median_ms(torch, lambda: last.update(got=decode_image(prem, dev)))
+    got = last["got"]
+    _check(tuple(got.shape) == (3072, 4096, 3) and got.device.type == "cuda"
+           and torch.equal(got.cpu(), decode_image(prem, "cpu")),
+           f"a {tuple(got.shape)} premultiplied RGBA AVIF (grids of 16 copies of the upload's colour and alpha) "
+           "decodes to the card, unpremultiplied there, equal to the CPU route")
+    print(f"  12 MP AVIF grids with film grain and premultiplied alpha decode to the card: "
+          f"{out['avif_12mp_film_grain_grid_ms']:.2f} ms and {out['avif_12mp_premultiplied_grid_ms']:.2f} ms (the host "
+          f"decode on up to 8 threads, the conversion and unpremultiply, then the copy; host clock, median of 3, each "
+          f"ending in a synchronise; {smi})")
     uploads = {k: up[v] for k, v in AVIF_UPLOAD_FILES.items()}
     uploads["avif_grid"] = _avif_grid([up[AVIF_GRID_TILE]], 2, 2)
     uploads.update({k: up2[v] for k, v in AVIF2_UPLOAD_FILES.items()})
+    uploads.update({k: up3[v] for k, v in AVIF3_UPLOAD_FILES.items()})
     for fam, raw in uploads.items():
         got = decode_image(raw, dev)
         _check(got.device.type == "cuda" and tuple(got.shape) == phone.shape,

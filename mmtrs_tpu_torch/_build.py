@@ -84,6 +84,7 @@ _HOST_SIGNATURES = {
     "mmtrs_jp2_free": (_P,),
     "mmtrs_av1_decode": (_P, _L, _L, _P, _P, _P),
     "mmtrs_av1_free": (_P,),
+    "mmtrs_avif_scale_plane": (_P, _I, _I, _P, _I, _I),
     "mmtrs_webp_vp8_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_vp8l_decode": (_P, _L, _I, _I, _P),
     "mmtrs_webp_alpha_check": (_P, _L, _I, _I),

@@ -36,10 +36,20 @@
 // - loop restoration: Wiener (7 and 5 taps) and self-guided (the r = 1 and
 //   r = 2 box filters and the projection) units, switchable, over stripes
 //   of 64 rows offset by 8 that read the deblocked rows at their edges;
+// - quantiser matrices (libaom's iwt_matrix_ref, in its column-by-column
+//   coefficient order; the 64-point sizes take the 32-point ones; the
+//   identity and 1D types and lossless segments none);
+// - film grain, as dav1d applies it to its output picture (the LFSR and
+//   Gaussian_Sequence, the luma and chroma auto-regression, the scaling
+//   LUTs, 32×32 blocks of random offsets with the overlap blend, the clip
+//   to restricted range);
 // - 4:2:0, 4:2:2, 4:4:4 and 4:0:0.
 //
-// Refused by name (AVIF's third slice): superres, film grain, quantiser
-// matrices, 10/12 bits, inter frames.
+// Refused by name: superres, 10/12 bits, inter frames (nothing here
+// writes them in a still picture or a sequence's first sample).
+//
+// Besides, libavif's avifImageScale (libyuv's ScalePlane with kFilterBox,
+// its x86 rows) for a frame of another size than its item's ispe.
 //
 // Entry points (ctypes, see mmtrs_tpu_torch/utils/avif.py):
 //   int mmtrs_av1_decode(const void* buf, long long n, long long max_pixels,
@@ -48,9 +58,17 @@
 //     any). out <- a malloc'd buffer: the Y plane, then U and V (each at its
 //     subsampled size, rows packed). dims: int[16] <- width, height, subx,
 //     suby, planes, bit depth, colour primaries, transfer, matrix, range,
-//     the tools mask's low and high 32 bits. Returns 0, or a status with msg
+//     the tools mask's low and high 32 bits, the film grain parameters'
+//     kinds (bits: grain, luma points, chroma points, chroma scaling from
+//     luma, overlap, restricted range, the AR lag at 6-7, a grain scale
+//     shift at 8), the frame header's length in bits. Returns 0, or a
+//     status with msg
 //     (char[256]): 2 broken, 3 truncated, 5 over max_pixels, 6 refused.
 //   int mmtrs_av1_free(void* p);
+//   int mmtrs_avif_scale_plane(const void* src, int sw, int sh, void* dst,
+//                              int dw, int dh);
+//     One plane (rows packed, one readable row past its end) scaled to
+//     dw × dh; 2 where libavif refuses the scale.
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared av1.cpp (mmtrs_tpu_torch/_build.py)
 
@@ -77,7 +95,7 @@ struct Fail {
 [[noreturn]] void fail(int status, const std::string& what) { throw Fail{status, what}; }
 [[noreturn]] void broken(const std::string& what) { fail(ST_BROKEN, "corrupt AV1: " + what); }
 [[noreturn]] void refuse(const std::string& tool) {
-    fail(ST_REFUSED, "AVIF whose AV1 uses " + tool + " is not decoded by the port's codec (AVIF's third slice)");
+    fail(ST_REFUSED, "AVIF whose AV1 uses " + tool + " is not decoded by the port's codec");
 }
 
 // the tools a decode used, for the tests' coverage (dims[10] the low 32
@@ -92,7 +110,8 @@ enum : uint64_t {
     TOOL_422 = 1u << 27, TOOL_444 = 1u << 28, TOOL_400 = 1u << 29, TOOL_EDGE_FILTER = 1u << 30,
     TOOL_DELTA_LF_MULTI = 1u << 31, TOOL_PALETTE_Y = 1ull << 32, TOOL_PALETTE_UV = 1ull << 33,
     TOOL_PALETTE_CACHE = 1ull << 34, TOOL_INTRABC = 1ull << 35, TOOL_CDEF_Y = 1ull << 36, TOOL_CDEF_UV = 1ull << 37,
-    TOOL_WIENER = 1ull << 38, TOOL_SGRPROJ = 1ull << 39, TOOL_SWITCHABLE_LR = 1ull << 40,
+    TOOL_WIENER = 1ull << 38, TOOL_SGRPROJ = 1ull << 39, TOOL_SWITCHABLE_LR = 1ull << 40, TOOL_QM = 1ull << 41,
+    TOOL_FILM_GRAIN = 1ull << 42,
 };
 
 inline int clip3(int lo, int hi, int x) { return x < lo ? lo : (x > hi ? hi : x); }
@@ -386,6 +405,7 @@ struct Frame {
     int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 4;
     std::vector<int> col_starts, row_starts;
     int base_q = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0, dq_vac = 0, using_qm = 0;
+    int qm_level[3] = {15, 15, 15};  // qm_y, qm_u, qm_v
     int seg_enabled = 0, seg_pre_skip = 0, last_active_seg = 0;
     int feature_enabled[8][8] = {}, feature_data[8][8] = {};
     int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0, delta_lf_multi = 0;
@@ -398,6 +418,13 @@ struct Frame {
     int cdef_y_pri[8] = {}, cdef_y_sec[8] = {}, cdef_uv_pri[8] = {}, cdef_uv_sec[8] = {};
     int lr_type[3] = {}, lr_size[3] = {};  // FrameRestorationType (RESTORE_*), LoopRestorationSize
     int tx_mode_select = 0, reduced_tx_set = 0;
+    // film_grain_params (5.9.30), in dav1d's Dav1dFilmGrainData form
+    struct Grain {
+        int apply = 0, seed = 0, num_y = 0, csfl = 0, num_uv[2] = {0, 0};
+        int y_points[14][2] = {}, uv_points[2][10][2] = {};
+        int scaling_shift = 8, lag = 0, ar_y[24] = {}, ar_uv[2][25] = {}, ar_shift = 6, grain_scale_shift = 0;
+        int uv_mult[2] = {}, uv_luma_mult[2] = {}, uv_offset[2] = {}, overlap = 0, restricted = 0;
+    } grain;
 };
 
 int tile_log2(int blk, int target) {
@@ -544,9 +571,9 @@ void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint64_t* tools, in
     }
     f.using_qm = b.f(1);
     if (f.using_qm) {
-        b.f(4);
-        b.f(4);
-        if (s.sep_uv_dq) b.f(4);
+        f.qm_level[0] = b.f(4);
+        f.qm_level[1] = b.f(4);
+        f.qm_level[2] = s.sep_uv_dq ? b.f(4) : f.qm_level[1];
     }
     // segmentation_params
     f.seg_enabled = b.f(1);
@@ -585,7 +612,6 @@ void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint64_t* tools, in
         f.lossless[seg] = q == 0 && !f.dq_ydc && !f.dq_uac && !f.dq_udc && !f.dq_vac && !f.dq_vdc;
         if (!f.lossless[seg]) f.coded_lossless = false;
     }
-    if (f.using_qm && !f.coded_lossless) refuse("quantiser matrices");
     // loop_filter_params
     if (!(f.coded_lossless || f.allow_intrabc)) {
         f.lf_level[0] = b.f(6);
@@ -642,8 +668,218 @@ void read_frame_header(Bits& b, const Sequence& s, Frame& f, uint64_t* tools, in
     // read_tx_mode
     f.tx_mode_select = f.coded_lossless ? 0 : b.f(1);
     f.reduced_tx_set = b.f(1);
-    // film_grain_params
-    if (s.film_grain && (f.show_frame || f.showable) && b.f(1)) refuse("film grain");
+    // film_grain_params: a key frame's update_grain is 1; dav1d's checks
+    if (s.film_grain && (f.show_frame || f.showable) && b.f(1)) {
+        auto& g = f.grain;
+        g.apply = 1;
+        g.seed = b.f(16);
+        g.num_y = b.f(4);
+        if (g.num_y > 14) broken("film grain of more than 14 luma points");
+        for (int i = 0; i < g.num_y; ++i) {
+            g.y_points[i][0] = b.f(8);
+            if (i && g.y_points[i - 1][0] >= g.y_points[i][0]) broken("film grain luma points out of order");
+            g.y_points[i][1] = b.f(8);
+        }
+        g.csfl = s.mono ? 0 : b.f(1);
+        if (!(s.mono || g.csfl || (s.subx && s.suby && !g.num_y))) {
+            for (int pl = 0; pl < 2; ++pl) {
+                g.num_uv[pl] = b.f(4);
+                if (g.num_uv[pl] > 10) broken("film grain of more than 10 chroma points");
+                for (int i = 0; i < g.num_uv[pl]; ++i) {
+                    g.uv_points[pl][i][0] = b.f(8);
+                    if (i && g.uv_points[pl][i - 1][0] >= g.uv_points[pl][i][0])
+                        broken("film grain chroma points out of order");
+                    g.uv_points[pl][i][1] = b.f(8);
+                }
+            }
+        }
+        if (s.subx && s.suby && !g.num_uv[0] != !g.num_uv[1]) broken("film grain on one 4:2:0 chroma plane");
+        g.scaling_shift = b.f(2) + 8;
+        g.lag = b.f(2);
+        const int num_pos = 2 * g.lag * (g.lag + 1);
+        if (g.num_y)
+            for (int i = 0; i < num_pos; ++i) g.ar_y[i] = b.f(8) - 128;
+        for (int pl = 0; pl < 2; ++pl)
+            if (g.num_uv[pl] || g.csfl)
+                for (int i = 0; i < num_pos + (g.num_y ? 1 : 0); ++i) g.ar_uv[pl][i] = b.f(8) - 128;
+        g.ar_shift = b.f(2) + 6;
+        g.grain_scale_shift = b.f(2);
+        for (int pl = 0; pl < 2; ++pl)
+            if (g.num_uv[pl]) {
+                g.uv_mult[pl] = b.f(8) - 128;
+                g.uv_luma_mult[pl] = b.f(8) - 128;
+                g.uv_offset[pl] = b.f(9) - 256;
+            }
+        g.overlap = b.f(1);
+        g.restricted = b.f(1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Film grain synthesis (7.18.3) as dav1d applies it to its output picture
+// (fg_apply_tmpl.c, filmgrain_tmpl.c): the grain templates from the LFSR
+// and Gaussian_Sequence with their auto-regression, the scaling LUTs, and
+// 32×32 blocks of random offsets blended where they overlap
+// ---------------------------------------------------------------------------
+
+constexpr int GRAIN_W = 82, GRAIN_H = 73;
+
+int grain_random(int bits, unsigned& state) {
+    const unsigned r = state;
+    const unsigned bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    state = (r >> 1) | (bit << 15);
+    return static_cast<int>((state >> (16 - bits)) & ((1u << bits) - 1));
+}
+inline int grain_round2(int x, int shift) { return (x + ((1 << shift) >> 1)) >> shift; }
+
+// a grain template: GRAIN_H + 1 rows of GRAIN_W (dav1d's extra row)
+struct GrainLut {
+    std::vector<int> v;
+    int* operator[](int y) { return v.data() + static_cast<size_t>(y) * GRAIN_W; }
+    const int* operator[](int y) const { return v.data() + static_cast<size_t>(y) * GRAIN_W; }
+};
+
+void generate_grain(const Frame::Grain& g, int pl, int subx, int suby, const GrainLut& luma, GrainLut& buf) {
+    unsigned seed = static_cast<unsigned>(g.seed) ^ (pl == 0 ? 0 : (pl == 2 ? 0x49d8 : 0xb524));
+    const int shift = 4 + g.grain_scale_shift;
+    const int w = pl && subx ? 44 : GRAIN_W, h = pl && suby ? 38 : GRAIN_H;
+    buf.v.assign(static_cast<size_t>(GRAIN_H + 1) * GRAIN_W, 0);
+    for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) buf[y][x] = grain_round2(kGaussianSequence[grain_random(11, seed)], shift);
+    const int lag = g.lag;
+    for (int y = 3; y < h; ++y)
+        for (int x = 3; x < w - 3; ++x) {
+            const int* coeff = pl ? g.ar_uv[pl - 1] : g.ar_y;
+            int sum = 0;
+            for (int dy = -lag; dy <= 0; ++dy)
+                for (int dx = -lag; dx <= lag; ++dx) {
+                    if (!dx && !dy) {
+                        if (pl && g.num_y) {  // the luma grain's contribution
+                            const int lx = ((x - 3) << subx) + 3, ly = ((y - 3) << suby) + 3;
+                            int l = 0;
+                            for (int i = 0; i <= suby; ++i)
+                                for (int j = 0; j <= subx; ++j) l += luma[ly + i][lx + j];
+                            sum += grain_round2(l, subx + suby) * *coeff;
+                        }
+                        goto done;
+                    }
+                    sum += *coeff++ * buf[y + dy][x + dx];
+                }
+        done:
+            buf[y][x] = clip3(-128, 127, buf[y][x] + grain_round2(sum, g.ar_shift));
+        }
+}
+
+void grain_scaling(const int (*points)[2], int num, uint8_t* scaling) {
+    if (num == 0) {
+        std::memset(scaling, 0, 256);
+        return;
+    }
+    std::memset(scaling, points[0][1], points[0][0]);
+    for (int i = 0; i < num - 1; ++i) {
+        const int bx = points[i][0], by = points[i][1], dx = points[i + 1][0] - bx, dy = points[i + 1][1] - by;
+        const int delta = dy * ((0x10000 + (dx >> 1)) / dx);
+        for (int x = 0, d = 0x8000; x < dx; ++x, d += delta) scaling[bx + x] = static_cast<uint8_t>(by + (d >> 16));
+    }
+    const int n = points[num - 1][0];
+    std::memset(scaling + n, points[num - 1][1], 256 - n);
+}
+
+// planes: Y, U, V (cropped, rows packed) of a frame w × h; the grain is
+// added in place, read from copies of the planes as decoded
+void apply_grain(const Frame::Grain& g, int mono, int subx, int suby, int is_id, int w, int h,
+                 std::vector<uint8_t*> planes) {
+    const int cw = (w + subx) >> subx, ch = (h + suby) >> suby;
+    std::vector<uint8_t> src_y(planes[0], planes[0] + static_cast<size_t>(w) * h);
+    GrainLut lut[3];
+    generate_grain(g, 0, 0, 0, lut[0], lut[0]);
+    uint8_t scaling[3][256];
+    const bool chroma = !mono && (g.num_uv[0] || g.num_uv[1] || g.csfl);
+    for (int pl = 0; pl < 2 && !mono; ++pl)
+        if (g.num_uv[pl] || g.csfl) generate_grain(g, pl + 1, subx, suby, lut[0], lut[pl + 1]);
+    grain_scaling(g.y_points, g.num_y, scaling[0]);
+    for (int pl = 0; pl < 2; ++pl) grain_scaling(g.uv_points[pl], g.num_uv[pl], scaling[pl + 1]);
+    static const int kW[2][2][2] = {{{27, 17}, {17, 27}}, {{23, 22}, {0, 0}}};
+    const int rows = (h + 31) >> 5;
+    for (int row = 0; row < rows; ++row) {
+        const int nrows = 1 + (g.overlap && row > 0);
+        for (int pl = 0; pl < 3; ++pl) {
+            if (pl == 0 ? !g.num_y : !(chroma && (g.csfl || g.num_uv[pl - 1]))) continue;
+            const int sx = pl ? subx : 0, sy = pl ? suby : 0;
+            const int pw = pl ? cw : w;
+            const int bh = pl ? (std::min(h - row * 32, 32) + sy) >> sy : std::min(h - row * 32, 32);
+            const int y0 = pl ? (row * 32) >> sy : row * 32;
+            const uint8_t* sc = scaling[pl && !g.csfl ? pl : 0];
+            const GrainLut& lt = lut[pl];
+            const int lo = g.restricted ? 16 : 0, hi = g.restricted ? (pl && !is_id ? 240 : 235) : 255;
+            unsigned seed[2];
+            for (int i = 0; i < nrows; ++i) {
+                seed[i] = static_cast<unsigned>(g.seed);
+                seed[i] ^= static_cast<unsigned>((((row - i) * 37 + 178) & 0xFF) << 8);
+                seed[i] ^= static_cast<unsigned>(((row - i) * 173 + 105) & 0xFF);
+            }
+            int offsets[2][2] = {};
+            auto sample = [&](int bx, int by, int x, int y) {
+                const int r = offsets[bx][by];
+                const int offx = 3 + (2 >> sx) * (3 + (r >> 4)), offy = 3 + (2 >> sy) * (3 + (r & 0xF));
+                return lt[offy + y + (32 >> sy) * by][offx + x + (32 >> sx) * bx];
+            };
+            uint8_t* dst = planes[pl];
+            const uint8_t* src = pl ? nullptr : src_y.data();
+            std::vector<uint8_t> src_c;
+            if (pl) {
+                src_c.assign(dst, dst + static_cast<size_t>(cw) * ch);
+                src = src_c.data();
+            }
+            auto add = [&](int bx, int x, int y, int grain) {
+                const int px = bx + x, py = y0 + y;
+                const int v = src[static_cast<size_t>(py) * pw + px];
+                int idx = v;
+                if (pl) {
+                    const int lx = px << sx, ly = py << sy;
+                    const uint8_t* lrow = src_y.data() + static_cast<size_t>(ly) * w;
+                    int avg = lrow[lx];
+                    if (sx) avg = (avg + lrow[std::min(lx + 1, w - 1)] + 1) >> 1;
+                    idx = avg;
+                    if (!g.csfl)
+                        idx = clip3(0, 255, ((avg * g.uv_luma_mult[pl - 1] + v * g.uv_mult[pl - 1]) >> 6) +
+                                                g.uv_offset[pl - 1]);
+                }
+                const int noise = grain_round2(sc[idx] * grain, g.scaling_shift);
+                dst[static_cast<size_t>(py) * pw + px] = static_cast<uint8_t>(clip3(lo, hi, v + noise));
+            };
+            const int bs = 32 >> sx;
+            for (int bx = 0; bx < pw; bx += bs) {
+                const int bw = std::min(bs, pw - bx);
+                if (g.overlap && bx)
+                    for (int i = 0; i < nrows; ++i) offsets[1][i] = offsets[0][i];
+                for (int i = 0; i < nrows; ++i) offsets[0][i] = grain_random(8, seed[i]);
+                const int ystart = g.overlap && row ? std::min(2 >> sy, bh) : 0;
+                const int xstart = g.overlap && bx ? std::min(2 >> sx, bw) : 0;
+                for (int y = ystart; y < bh; ++y) {
+                    for (int x = xstart; x < bw; ++x) add(bx, x, y, sample(0, 0, x, y));
+                    for (int x = 0; x < xstart; ++x) {
+                        const int gr = grain_round2(sample(1, 0, x, y) * kW[sx][x][0] + sample(0, 0, x, y) * kW[sx][x][1], 5);
+                        add(bx, x, y, clip3(-128, 127, gr));
+                    }
+                }
+                for (int y = 0; y < ystart; ++y) {
+                    for (int x = xstart; x < bw; ++x) {
+                        const int gr = grain_round2(sample(0, 1, x, y) * kW[sy][y][0] + sample(0, 0, x, y) * kW[sy][y][1], 5);
+                        add(bx, x, y, clip3(-128, 127, gr));
+                    }
+                    for (int x = 0; x < xstart; ++x) {
+                        int top = grain_round2(sample(1, 1, x, y) * kW[sx][x][0] + sample(0, 1, x, y) * kW[sx][x][1], 5);
+                        top = clip3(-128, 127, top);
+                        int gr = grain_round2(sample(1, 0, x, y) * kW[sx][x][0] + sample(0, 0, x, y) * kW[sx][x][1], 5);
+                        gr = clip3(-128, 127, gr);
+                        gr = clip3(-128, 127, grain_round2(top * kW[sy][y][0] + gr * kW[sy][y][1], 5));
+                        add(bx, x, y, gr);
+                    }
+                }
+            }
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -2672,6 +2908,17 @@ struct Decoder {
     }
 
     // ---- dequantisation and the 2D inverse transform (7.12.3, 7.13.3)
+    // the quantiser matrix of a transform (the 64-point sizes take their
+    // 32-point one), or null: a lossless segment's level is 15 (none), and
+    // the identity and 1D types skip the matrix, as libaom's
+    // IS_2D_TRANSFORM and dav1d's txtp < IDTX have it
+    const uint8_t* qmatrix(int plane, int t) const {
+        static const int kQmOffset[19] = {0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336, 2704,
+                                          2768, 2832, 3088, 1680, 2192};
+        const int level = fr.using_qm && !lossless ? fr.qm_level[plane] : 15;
+        if (level >= 15 || plane_tx_type >= IDTX) return nullptr;
+        return kQuantizerMatrix[level][plane > 0] + kQmOffset[t];
+    }
     int dc_q(int plane) {
         const int q = qindex_of(fr, segment, current_q, false);
         const int d = plane == 0 ? fr.dq_ydc : (plane == 1 ? fr.dq_udc : fr.dq_vdc);
@@ -2690,13 +2937,18 @@ struct Decoder {
         const int pels = w * h;
         const int dq_shift = (pels > 256) + (pels > 1024);
         const int dcq = dc_q(plane), acq = ac_q(plane);
+        const uint8_t* qm = qmatrix(plane, t);
+        if (qm) tools |= TOOL_QM;
         for (int i = 0; i < h; ++i)
             for (int j = 0; j < w; ++j) resid[i][j] = 0;
         for (int i = 0; i < th; ++i)
             for (int j = 0; j < tw; ++j) {
                 const int q = quant[i * tw + j];
                 if (!q) continue;
-                const int64_t mag = static_cast<int64_t>(std::abs(q)) * ((i == 0 && j == 0) ? dcq : acq);
+                int qv = (i == 0 && j == 0) ? dcq : acq;
+                // the weights in libaom's coefficient order: column by column
+                if (qm) qv = (qv * qm[j * th + i] + 16) >> 5;
+                const int64_t mag = static_cast<int64_t>(std::abs(q)) * qv;
                 int dq = static_cast<int>((mag & 0xFFFFFF) >> dq_shift);
                 if (q < 0) dq = -dq;
                 resid[i][j] = clip3(-(1 << 15), (1 << 15) - 1, dq);
@@ -3214,6 +3466,7 @@ struct Image {
     Frame fr;
     std::vector<uint8_t> planes;
     uint64_t tools = 0;
+    int header_bits = 0;  // the frame header's length in bits: its last is clip_to_restricted_range with grain
 };
 
 void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
@@ -3249,6 +3502,7 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
             Bits b(body, len);
             Sequence s;
             read_sequence(b, s);
+            b.f(1);  // dav1d's check_trailing_bits reads the trailing one bit, which must be in the OBU
             if (seq.seen && have_header) continue;
             seq = s;
         } else if (type == 3 || type == 6) {  // frame header, frame
@@ -3260,6 +3514,7 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
             if (seq.bit_depth != 8) refuse(std::to_string(seq.bit_depth) + "-bit samples");
             Bits b(body, len);
             read_frame_header(b, seq, fr, &img.tools, temporal_id, spatial_id);
+            img.header_bits = static_cast<int>(b.pos);
             if (static_cast<long long>(fr.width) * fr.height > max_pixels)
                 fail(ST_BOMB, "AV1 frame over the decoder's pixel limit");
             have_header = true;
@@ -3339,11 +3594,20 @@ void decode(const uint8_t* d, size_t n, long long max_pixels, Image& img) {
     dec->loop_restoration();
     img.tools |= dec->tools;
     // the planes, cropped to the frame
+    std::vector<size_t> starts;
     for (int pidx = 0; pidx < dec->num_planes; ++pidx) {
         const int sx = pidx ? seq.subx : 0, sy = pidx ? seq.suby : 0;
         const int w = (fr.width + sx) >> sx, h = (fr.height + sy) >> sy;
         Plane& pl = dec->planes[pidx];
+        starts.push_back(img.planes.size());
         for (int y = 0; y < h; ++y) img.planes.insert(img.planes.end(), &pl.at(y, 0), &pl.at(y, 0) + w);
+    }
+    const auto& g = fr.grain;
+    if (g.apply && (g.num_y || g.num_uv[0] || g.num_uv[1] || (g.restricted && g.csfl))) {  // dav1d's has_grain
+        img.tools |= TOOL_FILM_GRAIN;
+        std::vector<uint8_t*> at;
+        for (size_t k : starts) at.push_back(img.planes.data() + k);
+        apply_grain(g, seq.mono, seq.subx, seq.suby, seq.mc == 0, fr.width, fr.height, at);
     }
 }
 
@@ -3371,6 +3635,10 @@ extern "C" int mmtrs_av1_decode(const void* buf, long long n, long long max_pixe
         dm[9] = s.range;
         dm[10] = static_cast<int>(static_cast<uint32_t>(img.tools));
         dm[11] = static_cast<int>(static_cast<uint32_t>(img.tools >> 32));
+        const auto& g = img.fr.grain;  // the film grain parameters' kinds, for the tests' coverage
+        dm[12] = g.apply | (g.num_y > 0) << 1 | (g.num_uv[0] > 0 || g.num_uv[1] > 0) << 2 | g.csfl << 3 |
+                 g.overlap << 4 | g.restricted << 5 | g.lag << 6 | (g.grain_scale_shift > 0) << 8;
+        dm[13] = img.header_bits;
         void* mem = std::malloc(std::max<size_t>(img.planes.size(), 1));
         if (!mem) {
             std::snprintf(text, 256, "out of memory");
@@ -3390,5 +3658,427 @@ extern "C" int mmtrs_av1_decode(const void* buf, long long n, long long max_pixe
 
 extern "C" int mmtrs_av1_free(void* p) {
     std::free(p);
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// libavif's avifImageScale: an AV1 frame of another size than its item's
+// ispe (or its track's tkhd) is scaled to it, each plane through libyuv's
+// ScalePlane with kFilterBox (scale.cc, scale_common.cc; the x86 rows it
+// picks compute as these C rows do)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+enum FilterMode { kFilterNone, kFilterLinear, kFilterBilinear, kFilterBox };
+
+int fixed_div(int num, int div) { return static_cast<int>((static_cast<int64_t>(num) << 16) / div); }
+int fixed_div1(int num, int div) { return static_cast<int>(((static_cast<int64_t>(num) << 16) - 0x00010001) / (div - 1)); }
+int center_start(int dx, int s) { return dx < 0 ? -((-dx >> 1) + s) : ((dx >> 1) + s); }
+int min1(int x) { return x < 1 ? 1 : x; }
+
+FilterMode filter_reduce(int sw, int sh, int dw, int dh, FilterMode f) {
+    if (f == kFilterBox && (dw * 2 >= sw || dh * 2 >= sh)) f = kFilterBilinear;
+    if (f == kFilterBilinear) {
+        if (sh == 1) f = kFilterLinear;
+        if (dh == sh || dh * 3 == sh) f = kFilterLinear;
+        if (sw == 1) f = kFilterNone;
+    }
+    if (f == kFilterLinear) {
+        if (sw == 1) f = kFilterNone;
+        if (dw == sw || dw * 3 == sw) f = kFilterNone;
+    }
+    return f;
+}
+
+void scale_slope(int sw, int sh, int dw, int dh, FilterMode f, int* x, int* y, int* dx, int* dy) {
+    if (dw == 1 && sw >= 32768) dw = sw;
+    if (dh == 1 && sh >= 32768) dh = sh;
+    if (f == kFilterBox) {
+        *dx = fixed_div(sw, dw);
+        *dy = fixed_div(sh, dh);
+        *x = *y = 0;
+    } else if (f == kFilterBilinear || f == kFilterLinear) {
+        if (dw <= sw) {
+            *dx = fixed_div(sw, dw);
+            *x = center_start(*dx, -32768);
+        } else if (sw > 1 && dw > 1) {
+            *dx = fixed_div1(sw, dw);
+            *x = 0;
+        }
+        if (f == kFilterLinear) {
+            *dy = fixed_div(sh, dh);
+            *y = *dy >> 1;
+        } else if (dh <= sh) {
+            *dy = fixed_div(sh, dh);
+            *y = center_start(*dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            *dy = fixed_div1(sh, dh);
+            *y = 0;
+        }
+    } else {
+        *dx = fixed_div(sw, dw);
+        *dy = fixed_div(sh, dh);
+        *x = center_start(*dx, 0);
+        *y = center_start(*dy, 0);
+    }
+}
+
+// ScaleFilterCols_C with Intel's 7-bit BLENDER
+void filter_cols(uint8_t* dst, const uint8_t* src, int dw, int x, int dx) {
+    for (int j = 0; j < dw; ++j, x += dx) {
+        const int xi = x >> 16, a = src[xi], b = src[xi + 1];
+        dst[j] = static_cast<uint8_t>(a + ((((x & 0xffff) >> 9) * (b - a) + 0x40) >> 7));
+    }
+}
+void scale_cols(uint8_t* dst, const uint8_t* src, int dw, int x, int dx) {
+    for (int j = 0; j < dw; ++j, x += dx) dst[j] = src[x >> 16];
+}
+void interpolate_row(uint8_t* dst, const uint8_t* src, ptrdiff_t stride, int w, int f) {
+    const uint8_t* src1 = src + stride;
+    if (f == 0) {
+        std::memcpy(dst, src, static_cast<size_t>(w));
+        return;
+    }
+    for (int x = 0; x < w; ++x) dst[x] = static_cast<uint8_t>((src[x] * (256 - f) + src1[x] * f + 128) >> 8);
+}
+// ScaleRowUp2_Linear_Any_C and ScaleRowUp2_Bilinear_Any_C
+void up2_linear(const uint8_t* s, uint8_t* d, int dw) {
+    const int sw = (dw + 1) / 2;
+    d[0] = s[0];
+    for (int x = 0; x < sw - 1 && 2 * x + 2 < dw; ++x) {
+        d[2 * x + 1] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] + 2) >> 2);
+        d[2 * x + 2] = static_cast<uint8_t>((s[x] + s[x + 1] * 3 + 2) >> 2);
+    }
+    d[dw - 1] = s[(dw - 1) / 2];
+}
+void up2_bilinear(const uint8_t* s, ptrdiff_t ss, uint8_t* d, ptrdiff_t ds, int dw) {
+    const uint8_t* t = s + ss;
+    uint8_t* e = d + ds;
+    d[0] = static_cast<uint8_t>((s[0] * 3 + t[0] + 2) >> 2);
+    e[0] = static_cast<uint8_t>((s[0] + t[0] * 3 + 2) >> 2);
+    const int k = (dw - 1) / 2;
+    for (int x = 0; x < k; ++x) {
+        d[2 * x + 1] = static_cast<uint8_t>((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
+        d[2 * x + 2] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
+        e[2 * x + 1] = static_cast<uint8_t>((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
+        e[2 * x + 2] = static_cast<uint8_t>((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
+    }
+    d[dw - 1] = static_cast<uint8_t>((s[k] * 3 + t[k] + 2) >> 2);
+    e[dw - 1] = static_cast<uint8_t>((s[k] + t[k] * 3 + 2) >> 2);
+}
+
+void scale_plane(const uint8_t* src, int ss, int sw, int sh, uint8_t* dst, int ds, int dw, int dh) {
+    FilterMode f = filter_reduce(sw, sh, dw, dh, kFilterBox);
+    if (dw == sw && dh == sh) {
+        for (int y = 0; y < dh; ++y) std::memcpy(dst + static_cast<ptrdiff_t>(y) * ds, src + static_cast<ptrdiff_t>(y) * ss, dw);
+        return;
+    }
+    if (dw == sw && f != kFilterBox) {  // ScalePlaneVertical
+        int dy = 0, y = 0;
+        if (dh <= sh) {
+            dy = fixed_div(sh, dh);
+            y = center_start(dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            dy = fixed_div1(sh, dh);
+        }
+        const int max_y = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
+        for (int j = 0; j < dh; ++j, y += dy) {
+            if (y > max_y) y = max_y;
+            interpolate_row(dst + static_cast<ptrdiff_t>(j) * ds, src + static_cast<ptrdiff_t>(y >> 16) * ss, ss, dw,
+                            f ? (y >> 8) & 255 : 0);
+        }
+        return;
+    }
+    if (dw <= sw && dh <= sh) {
+        if (4 * dw == 3 * sw && 4 * dh == 3 * sh) {  // ScalePlaneDown34
+            const ptrdiff_t fs = f == kFilterLinear ? 0 : ss;
+            // the SSSE3 rows libyuv runs on the first dw - dw % 24 outputs
+            // blend the rows first (pavgb: 3:1 as avg(s, avg(s, t)), 1:1
+            // as avg(s, t)), then the columns 3:1, 2:2, 1:3 with 2 to round;
+            // its C rows run on the rest
+            const int simd = dw - dw % 24;
+            auto pavg = [](int a, int b) { return (a + b + 1) >> 1; };
+            auto simd_row = [&](const uint8_t* s, ptrdiff_t st, uint8_t* d, bool three) {
+                const uint8_t* t = s + st;
+                for (int x = 0; x < simd; x += 3, s += 4, t += 4, d += 3) {
+                    int v[4];
+                    for (int k = 0; k < 4; ++k) v[k] = three ? pavg(s[k], pavg(s[k], t[k])) : pavg(s[k], t[k]);
+                    d[0] = static_cast<uint8_t>((v[0] * 3 + v[1] + 2) >> 2);
+                    d[1] = static_cast<uint8_t>((v[1] * 2 + v[2] * 2 + 2) >> 2);
+                    d[2] = static_cast<uint8_t>((v[2] + v[3] * 3 + 2) >> 2);
+                }
+            };
+            auto row0 = [&](const uint8_t* s, ptrdiff_t st, uint8_t* d) {
+                const uint8_t* t = s + st;
+                int x = 0;
+                if (f) {
+                    simd_row(s, st, d, true);
+                    x = simd, s += simd / 3 * 4, t += simd / 3 * 4, d += simd;
+                }
+                for (; x < dw; x += 3, s += 4, t += 4, d += 3) {
+                    if (!f) {
+                        d[0] = s[0], d[1] = s[1], d[2] = s[3];
+                        continue;
+                    }
+                    const int a0 = (s[0] * 3 + s[1] + 2) >> 2, a1 = (s[1] + s[2] + 1) >> 1, a2 = (s[2] + s[3] * 3 + 2) >> 2;
+                    const int b0 = (t[0] * 3 + t[1] + 2) >> 2, b1 = (t[1] + t[2] + 1) >> 1, b2 = (t[2] + t[3] * 3 + 2) >> 2;
+                    d[0] = static_cast<uint8_t>((a0 * 3 + b0 + 2) >> 2);
+                    d[1] = static_cast<uint8_t>((a1 * 3 + b1 + 2) >> 2);
+                    d[2] = static_cast<uint8_t>((a2 * 3 + b2 + 2) >> 2);
+                }
+            };
+            auto row1 = [&](const uint8_t* s, ptrdiff_t st, uint8_t* d) {
+                const uint8_t* t = s + st;
+                int x = 0;
+                if (f) {
+                    simd_row(s, st, d, false);
+                    x = simd, s += simd / 3 * 4, t += simd / 3 * 4, d += simd;
+                }
+                for (; x < dw; x += 3, s += 4, t += 4, d += 3) {
+                    if (!f) {
+                        d[0] = s[0], d[1] = s[1], d[2] = s[3];
+                        continue;
+                    }
+                    const int a0 = (s[0] * 3 + s[1] + 2) >> 2, a1 = (s[1] + s[2] + 1) >> 1, a2 = (s[2] + s[3] * 3 + 2) >> 2;
+                    const int b0 = (t[0] * 3 + t[1] + 2) >> 2, b1 = (t[1] + t[2] + 1) >> 1, b2 = (t[2] + t[3] * 3 + 2) >> 2;
+                    d[0] = static_cast<uint8_t>((a0 + b0 + 1) >> 1);
+                    d[1] = static_cast<uint8_t>((a1 + b1 + 1) >> 1);
+                    d[2] = static_cast<uint8_t>((a2 + b2 + 1) >> 1);
+                }
+            };
+            int y = 0;
+            for (; y < dh - 2; y += 3) {
+                row0(src, fs, dst);
+                src += ss, dst += ds;
+                row1(src, fs, dst);
+                src += ss, dst += ds;
+                row0(src + ss, -fs, dst);
+                src += 2 * ss, dst += ds;
+            }
+            if (dh % 3 == 2) {
+                row0(src, fs, dst);
+                src += ss, dst += ds;
+                row1(src, 0, dst);
+            } else if (dh % 3 == 1) {
+                row0(src, 0, dst);
+            }
+            return;
+        }
+        if (2 * dw == sw && 2 * dh == sh) {  // ScalePlaneDown2
+            for (int y = 0; y < dh; ++y) {
+                const uint8_t* s = src + static_cast<ptrdiff_t>(2 * y) * ss;
+                const uint8_t* t = s + (f == kFilterLinear ? 0 : ss);
+                uint8_t* d = dst + static_cast<ptrdiff_t>(y) * ds;
+                for (int x = 0; x < dw; ++x) {
+                    if (!f) d[x] = s[ss + 2 * x + 1];
+                    else if (f == kFilterLinear) d[x] = static_cast<uint8_t>((s[2 * x] + s[2 * x + 1] + 1) >> 1);
+                    else d[x] = static_cast<uint8_t>((s[2 * x] + s[2 * x + 1] + t[2 * x] + t[2 * x + 1] + 2) >> 2);
+                }
+            }
+            return;
+        }
+        if (8 * dw == 3 * sw && 8 * dh == 3 * sh) {  // ScalePlaneDown38
+            const ptrdiff_t fs = f == kFilterLinear ? 0 : ss;
+            // the two-row box's SSSE3 row (on the first dw - dw % 6
+            // outputs) averages the rows first (pavgb), then divides the
+            // column sums by 3 and 2
+            const int simd = dw - dw % 6;
+            auto box = [&](const uint8_t* s, ptrdiff_t st, int rows, uint8_t* d) {
+                for (int x = 0; x < dw; x += 3, s += 8, d += 3) {
+                    if (!f) {
+                        d[0] = s[0], d[1] = s[3], d[2] = s[6];
+                        continue;
+                    }
+                    if (rows == 2 && x < simd) {
+                        int v[8];
+                        for (int k = 0; k < 8; ++k) v[k] = (s[k] + s[st + k] + 1) >> 1;
+                        d[0] = static_cast<uint8_t>(((v[0] + v[1] + v[2]) * (65536 / 3)) >> 16);
+                        d[1] = static_cast<uint8_t>(((v[3] + v[4] + v[5]) * (65536 / 3)) >> 16);
+                        d[2] = static_cast<uint8_t>(((v[6] + v[7]) * (65536 / 2)) >> 16);
+                        continue;
+                    }
+                    int a = 0, b = 0, c = 0;
+                    for (int r = 0; r < rows; ++r) {
+                        const uint8_t* q = s + r * st;
+                        a += q[0] + q[1] + q[2];
+                        b += q[3] + q[4] + q[5];
+                        c += q[6] + q[7];
+                    }
+                    const int k3 = rows == 3 ? 65536 / 9 : 65536 / 6, k2 = rows == 3 ? 65536 / 6 : 65536 / 4;
+                    d[0] = static_cast<uint8_t>((a * k3) >> 16);
+                    d[1] = static_cast<uint8_t>((b * k3) >> 16);
+                    d[2] = static_cast<uint8_t>((c * k2) >> 16);
+                }
+            };
+            int y = 0;
+            for (; y < dh - 2; y += 3) {
+                box(src, fs, 3, dst);
+                src += 3 * ss, dst += ds;
+                box(src, fs, 3, dst);
+                src += 3 * ss, dst += ds;
+                box(src, fs, 2, dst);
+                src += 2 * ss, dst += ds;
+            }
+            if (dh % 3 == 2) {
+                box(src, fs, 3, dst);
+                src += 3 * ss, dst += ds;
+                box(src, 0, 3, dst);
+            } else if (dh % 3 == 1) {
+                box(src, 0, 3, dst);
+            }
+            return;
+        }
+        if (4 * dw == sw && 4 * dh == sh && (f == kFilterBox || f == kFilterNone)) {  // ScalePlaneDown4
+            for (int y = 0; y < dh; ++y) {
+                const uint8_t* s = src + static_cast<ptrdiff_t>(4 * y) * ss;
+                uint8_t* d = dst + static_cast<ptrdiff_t>(y) * ds;
+                for (int x = 0; x < dw; ++x) {
+                    if (!f) {
+                        d[x] = s[2 * ss + 4 * x + 2];
+                        continue;
+                    }
+                    int sum = 0;
+                    for (int r = 0; r < 4; ++r)
+                        for (int c = 0; c < 4; ++c) sum += s[r * ss + 4 * x + c];
+                    d[x] = static_cast<uint8_t>((sum + 8) >> 4);
+                }
+            }
+            return;
+        }
+    }
+    if (f == kFilterBox && dh * 2 < sh) {  // ScalePlaneBox
+        int x = 0, y = 0, dx = 0, dy = 0;
+        scale_slope(sw, sh, dw, dh, kFilterBox, &x, &y, &dx, &dy);
+        const int max_y = sh << 16;
+        std::vector<int> row(static_cast<size_t>(sw));
+        for (int j = 0; j < dh; ++j) {
+            const int iy = y >> 16;
+            y += dy;
+            if (y > max_y) y = max_y;
+            const int bh = min1((y >> 16) - iy);
+            std::fill(row.begin(), row.end(), 0);
+            for (int k = 0; k < bh; ++k)
+                for (int i = 0; i < sw; ++i) row[i] += src[static_cast<ptrdiff_t>(iy + k) * ss + i];
+            uint8_t* d = dst + static_cast<ptrdiff_t>(j) * ds;
+            int xx = x;
+            if (dx & 0xffff) {  // ScaleAddCols2_C
+                const int minbw = dx >> 16;
+                const int tbl[2] = {65536 / (min1(minbw) * bh), 65536 / (min1(minbw + 1) * bh)};
+                for (int i = 0; i < dw; ++i) {
+                    const int ix = xx >> 16;
+                    xx += dx;
+                    const int bw = min1((xx >> 16) - ix);
+                    int sum = 0;
+                    for (int k = 0; k < bw; ++k) sum += row[ix + k];
+                    d[i] = static_cast<uint8_t>((sum * tbl[bw - minbw]) >> 16);
+                }
+            } else if (dx != 0x10000) {  // ScaleAddCols1_C
+                const int bw = min1(dx >> 16), scale = 65536 / (bw * bh);
+                int ix = xx >> 16;
+                for (int i = 0; i < dw; ++i, ix += bw) {
+                    int sum = 0;
+                    for (int k = 0; k < bw; ++k) sum += row[ix + k];
+                    d[i] = static_cast<uint8_t>((sum * scale) >> 16);
+                }
+            } else {  // ScaleAddCols0_C
+                const int scale = 65536 / bh;
+                for (int i = 0; i < dw; ++i) d[i] = static_cast<uint8_t>((row[(xx >> 16) + i] * scale) >> 16);
+            }
+        }
+        return;
+    }
+    if ((dw + 1) / 2 == sw && f == kFilterLinear) {  // ScalePlaneUp2_Linear
+        if (dh == 1) {
+            up2_linear(src + static_cast<ptrdiff_t>((sh - 1) / 2) * ss, dst, dw);
+        } else {
+            const int dy = fixed_div(sh - 1, dh - 1);
+            int y = (1 << 15) - 1;
+            for (int i = 0; i < dh; ++i, y += dy) up2_linear(src + static_cast<ptrdiff_t>(y >> 16) * ss, dst + static_cast<ptrdiff_t>(i) * ds, dw);
+        }
+        return;
+    }
+    if ((dh + 1) / 2 == sh && (dw + 1) / 2 == sw && (f == kFilterBilinear || f == kFilterBox)) {  // ScalePlaneUp2_Bilinear
+        up2_bilinear(src, 0, dst, 0, dw);
+        dst += ds;
+        for (int y = 0; y < sh - 1; ++y) {
+            up2_bilinear(src, ss, dst, ds, dw);
+            src += ss;
+            dst += 2 * ds;
+        }
+        if (!(dh & 1)) up2_bilinear(src, 0, dst, 0, dw);
+        return;
+    }
+    int x = 0, y = 0, dx = 0, dy = 0;
+    if (f && dh > sh) {  // ScalePlaneBilinearUp
+        scale_slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
+        const int max_y = (sh - 1) << 16;
+        auto cols = [&](uint8_t* d, const uint8_t* s) {
+            if (f) filter_cols(d, s, dw, x, dx);
+            else scale_cols(d, s, dw, x, dx);
+        };
+        if (y > max_y) y = max_y;
+        int yi = y >> 16;
+        const uint8_t* s = src + static_cast<ptrdiff_t>(yi) * ss;
+        std::vector<uint8_t> rows(static_cast<size_t>(2 * dw) + 2);
+        uint8_t* rowptr = rows.data();
+        ptrdiff_t rowstride = dw;
+        int lasty = yi;
+        cols(rowptr, s);
+        if (sh > 1) s += ss;
+        cols(rowptr + rowstride, s);
+        if (sh > 2) s += ss;
+        for (int j = 0; j < dh; ++j, y += dy) {
+            yi = y >> 16;
+            if (yi != lasty) {
+                if (y > max_y) {
+                    y = max_y;
+                    yi = y >> 16;
+                    s = src + static_cast<ptrdiff_t>(yi) * ss;
+                }
+                if (yi != lasty) {
+                    cols(rowptr, s);
+                    rowptr += rowstride;
+                    rowstride = -rowstride;
+                    lasty = yi;
+                    if (y + 65536 < max_y) s += ss;
+                }
+            }
+            uint8_t* d = dst + static_cast<ptrdiff_t>(j) * ds;
+            if (f == kFilterLinear) interpolate_row(d, rowptr, 0, dw, 0);
+            else interpolate_row(d, rowptr, rowstride, dw, (y >> 8) & 255);
+        }
+        return;
+    }
+    if (f) {  // ScalePlaneBilinearDown
+        scale_slope(sw, sh, dw, dh, f, &x, &y, &dx, &dy);
+        const int max_y = (sh - 1) << 16;
+        std::vector<uint8_t> row(static_cast<size_t>(sw) + 1);
+        if (y > max_y) y = max_y;
+        for (int j = 0; j < dh; ++j) {
+            const uint8_t* s = src + static_cast<ptrdiff_t>(y >> 16) * ss;
+            uint8_t* d = dst + static_cast<ptrdiff_t>(j) * ds;
+            if (f == kFilterLinear) {
+                filter_cols(d, s, dw, x, dx);
+            } else {
+                interpolate_row(row.data(), s, ss, sw, (y >> 8) & 255);
+                filter_cols(d, row.data(), dw, x, dx);
+            }
+            y += dy;
+            if (y > max_y) y = max_y;
+        }
+        return;
+    }
+    scale_slope(sw, sh, dw, dh, kFilterNone, &x, &y, &dx, &dy);  // ScalePlaneSimple
+    for (int i = 0; i < dh; ++i, y += dy) scale_cols(dst + static_cast<ptrdiff_t>(i) * ds, src + static_cast<ptrdiff_t>(y >> 16) * ss, dw, x, dx);
+}
+
+}  // namespace
+
+// a plane sw × sh (rows packed) → dw × dh (rows packed); 0, or 2 where
+// libavif refuses the scale (a side over 16384, or of 0)
+extern "C" int mmtrs_avif_scale_plane(const void* src, int sw, int sh, void* dst, int dw, int dh) {
+    if (sw > 16384 || sh > 16384 || sw < 1 || sh < 1 || dw < 1 || dh < 1) return 2;
+    scale_plane(static_cast<const uint8_t*>(src), sw, sw, sh, static_cast<uint8_t*>(dst), dw, dw, dh);
     return 0;
 }

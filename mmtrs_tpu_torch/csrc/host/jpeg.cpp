@@ -50,7 +50,9 @@
 //     The same with the colour space libtiff's JPEG codec sets for a
 //     JPEG-in-TIFF chunk instead of libjpeg's guess (space 3: YCbCr, to be
 //     converted; 6: JCS_UNKNOWN, the components as stored, no conversion
-//     refused; 0: the guess); dims[3] <- space (0 for 6).
+//     refused; 0: the guess), plus 0x100 for libtiff's data source (past
+//     the chunk's end, a fake EOI marker at every fill: a cut chunk decodes
+//     on as libjpeg decodes past a marker); dims[3] <- space (0 for 6).
 //   int mmtrs_jpeg_own_decode_raw(const void* buf, long long n,
 //                                 long long max_pixels, void* out, void* dims,
 //                                 void* msg);
@@ -80,6 +82,7 @@ namespace {
 
 constexpr int ST_NOT_OWN = 1, ST_BROKEN = 2, ST_TRUNCATED = 3, ST_BOMB = 5, ST_REFUSED = 6;
 constexpr int CS_GRAY = 1, CS_RGB = 2, CS_YCC = 3, CS_CMYK = 4, CS_YCCK = 5, CS_UNKNOWN = 6;
+constexpr int LIBTIFF_SOURCE = 0x100;  // mmtrs_jpeg_own_decode_as: a chunk of a JPEG-in-TIFF
 
 struct Fail {
     int status;
@@ -215,21 +218,42 @@ struct Decoder {
     // ---- the data source: a read libjpeg may suspend on (markers, Huffman
     // data) finds no more bytes past the end -> Pillow's "truncated"
     int get() {
-        if (pos >= n) fail(ST_TRUNCATED, "truncated JPEG: the stream ends early");
+        if (pos >= n) {
+            if (libtiff_source) return fake_eoi();
+            fail(ST_TRUNCATED, "truncated JPEG: the stream ends early");
+        }
         return d[pos++];
     }
+    // libtiff's JPEG source (tif_jpeg.c std_fill_input_buffer): past the
+    // chunk's end each fill is a fake EOI marker, as libjpeg then reads it
+    bool libtiff_source = false;
+    int fake = 0;
+    int fake_eoi() { return (fake++ & 1) ? 0xD9 : 0xFF; }
     int get2() {
         const int a = get();
         return (a << 8) | get();
     }
     void skip(long long k) {
         if (k <= 0) return;
+        if (libtiff_source && (pos >= n || static_cast<unsigned long long>(k) > n - pos)) {
+            // std_skip_input_data: a skip past the buffer refills it instead
+            if (pos < n || k > 2 - (fake & 1)) {
+                pos = n;
+                fake = 0;
+            } else {
+                fake += static_cast<int>(k);
+            }
+            return;
+        }
         if (static_cast<unsigned long long>(k) > n - pos) fail(ST_TRUNCATED, "truncated JPEG: a marker segment ends early");
         pos += static_cast<size_t>(k);
     }
     // a byte for the arithmetic decoder, which cannot suspend
     int get_nosuspend() {
-        if (pos >= n) fail(ST_BROKEN, "corrupt JPEG: arithmetic-coded data ends early");
+        if (pos >= n) {
+            if (libtiff_source) return fake_eoi();
+            fail(ST_BROKEN, "corrupt JPEG: arithmetic-coded data ends early");
+        }
         return d[pos++];
     }
 
@@ -1792,7 +1816,8 @@ extern "C" int mmtrs_jpeg_own_decode_as(const void* buf, long long n, long long 
     try {
         const size_t size = n > 0 ? static_cast<size_t>(n) : 0;
         Decoder dec(static_cast<const uint8_t*>(buf), size);
-        dec.forced_space = space;
+        dec.forced_space = space & 0xFF;
+        dec.libtiff_source = (space & LIBTIFF_SOURCE) != 0;
         dec.take_sof2 = sof2_incomplete(static_cast<const uint8_t*>(buf), size);
         dec.decode(max_pixels, dm);
         const int nc = dec.ncomp;

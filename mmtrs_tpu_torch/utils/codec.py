@@ -456,19 +456,21 @@ def _own_tensor(lib, ptr: int, h: int, w: int, c: int) -> torch.Tensor:
     return torch.from_numpy(np.ctypeslib.as_array(buf).reshape(h, w, c))
 
 
-def jpeg_own_planes(data: bytes, space: int = 0) -> tuple[torch.Tensor, int]:
+def jpeg_own_planes(data: bytes, space: int = 0, libtiff: bool = False) -> tuple[torch.Tensor, int]:
     """A lossless or arithmetic-coded JPEG through the port's own decoder,
     on the host → (its components as stored, at full size: u8 [H, W, C] on
     the CPU; their colour space, a ``JCS_*`` number). ``space``: the colour
     space libtiff sets for a JPEG-in-TIFF chunk (``JCS_YCBCR``, or
-    ``JCS_UNKNOWN``: no conversion) in place of libjpeg's guess. Raises
+    ``JCS_UNKNOWN``: no conversion) in place of libjpeg's guess; ``libtiff``:
+    read through libtiff's data source, which feeds a fake EOI past the
+    chunk's end (a cut chunk decodes on, as past a marker). Raises
     ValueError naming the reason where Pillow refuses the file, and for a
     frame over ``MAX_PIXELS`` before anything is allocated."""
     lib = _build.jpeg_own_library()
     out, dims = ctypes.c_void_p(), np.zeros(4, np.int32)
     msg = ctypes.create_string_buffer(256)
-    status = lib.mmtrs_jpeg_own_decode_as(data, len(data), MAX_PIXELS, space, ctypes.addressof(out),
-                                          dims.ctypes.data, ctypes.addressof(msg))
+    status = lib.mmtrs_jpeg_own_decode_as(data, len(data), MAX_PIXELS, space | (0x100 if libtiff else 0),
+                                          ctypes.addressof(out), dims.ctypes.data, ctypes.addressof(msg))
     if status:
         raise _own_error(status, msg.value.decode(), dims)
     h, w, c, space = (int(v) for v in dims)
@@ -1372,7 +1374,13 @@ class _Tiff:
             # Pillow's raw reader takes the offsets and counts as integers: a str or bytes fails it
             raise ValueError("corrupt TIFF: strip or tile offsets or counts of a text or undefined type (Pillow "
                              "refuses them)")
-        if comp == 7 and t[-7].get(262) in _TIFF_NOT_INTEGERS and photo == 6:
+        # the photometric libtiff's JPEG codec sees: one of an IFD type it
+        # drops (Pillow reads it as a number), and then leaves the
+        # components as stored
+        self.jpeg_ycc = photo == 6 and planar == 1
+        if comp == 7 and t[-7].get(262) in (13, 18) and photo == 6:
+            self.jpeg_ycc = False
+        elif comp == 7 and t[-7].get(262) in _TIFF_NOT_INTEGERS and photo == 6:
             raise ValueError("corrupt TIFF: a photometric tag libtiff cannot read, which its JPEG decode needs")
         if comp != 1:  # libtiff reads the offsets and counts: of SLONG8 too, not of IFD or IFD8
             if self.big and struct.unpack(self.bo + "HH", data[4:8]) != (8, 0):
@@ -1599,7 +1607,7 @@ def _tiff_jpeg_check(f: _Tiff, stream: bytes) -> bool:
     if head is None:
         return False  # the decoders name what is wrong
     marker, precision, _, _, comps = head
-    ycc = f.photo == 6 and f.planar == 1
+    ycc = f.jpeg_ycc
     if f.ycc_sampling is None:  # JPEGFixupTags: from the first chunk's frame, where libtiff's parser reads it
         f.ycc_sampling = tuple(comps[0][1:]) if marker in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA) else (2, 2)
     hs, vs = f.ycc_sampling if ycc else (1, 1)
@@ -1621,8 +1629,8 @@ def _tiff_jpeg_own(f: _Tiff, stream: bytes) -> torch.Tensor:
     """A chunk through the port's own decoder as libtiff has libjpeg decode
     it: YCbCr photometric (chunky) converted, every other photometric's
     components as stored; u8 [h, w, C] on the CPU."""
-    ycc = f.photo == 6 and f.planar == 1
-    planes, _ = jpeg_own_planes(stream, JCS_YCBCR if ycc else JCS_UNKNOWN)
+    ycc = f.jpeg_ycc
+    planes, _ = jpeg_own_planes(stream, JCS_YCBCR if ycc else JCS_UNKNOWN, libtiff=True)
     return ycc_to_rgb(planes) if ycc else planes
 
 
@@ -1631,7 +1639,7 @@ def _tiff_jpeg_cpu(f: _Tiff, data: bytes) -> np.ndarray:
     or the port's own decoder for the frames it takes (lossless and
     arithmetic-coded); YCbCr converted to RGB, every other photometric's
     components as stored."""
-    ycc = f.photo == 6 and f.planar == 1
+    ycc = f.jpeg_ycc
     comps = 3 if ycc else (1 if f.planar == 2 else f.spp)
     img = np.zeros((f.planes, f.down * f.ch, f.across * f.cw, comps), np.uint8)
     dims = np.zeros(3, np.int32)
@@ -1945,7 +1953,7 @@ def decode_tiff_to(data: bytes, dev: torch.device) -> torch.Tensor:
 
 def _tiff_jpeg_cuda(f: _Tiff, data: bytes, dev: torch.device) -> torch.Tensor:
     lib = _build.nvjpeg_library()
-    ycc = f.photo == 6 and f.planar == 1
+    ycc = f.jpeg_ycc
     comps = 3 if ycc else (1 if f.planar == 2 else f.spp)
     dims = np.zeros(11, np.int32)
     with torch.cuda.device(dev):
@@ -1953,9 +1961,9 @@ def _tiff_jpeg_cuda(f: _Tiff, data: bytes, dev: torch.device) -> torch.Tensor:
         for p, r, c, off, count in f.chunks():
             stream = f.jpeg_stream(data, off, count)
             if _tiff_jpeg_check(f, stream):  # the own decoder's frames: on the host, converted on the card
-                planes = _tiff_jpeg_own(f, stream) if not (f.photo == 6 and f.planar == 1) else None
+                planes = _tiff_jpeg_own(f, stream) if not f.jpeg_ycc else None
                 if planes is None:
-                    stored, _ = jpeg_own_planes(stream, JCS_YCBCR)
+                    stored, _ = jpeg_own_planes(stream, JCS_YCBCR, libtiff=True)
                     planes = ycc_to_rgb(stored.to(dev))
                 hh, ww = planes.shape[:2]
                 if ww != f.cw or hh > f.ch:

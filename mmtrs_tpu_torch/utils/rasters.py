@@ -46,11 +46,12 @@ BC1-BC7, CCITT fax) run in C (``csrc/host/rasters.cpp``). Decoded here:
   as Pillow's plugin and OpenJPEG read them, each tile unpacked as
   Pillow's ``Jpeg2KDecode.c`` unpacks it (precision shifts, the signed
   offset, its sYCC guess, palettes), then converted;
-- AVIF still pictures (``utils.avif``): libavif's container and checks, the
-  AV1 intra frame through the port's own decoder (``csrc/host/av1.cpp``),
-  libyuv's YUV → RGB as Pillow's libavif routes it; CDEF, loop
-  restoration, superres, film grain, quantiser matrices, 10/12 bits,
-  palette and intraBC blocks and premultiplied alpha refused by name.
+- AVIF (``utils.avif``): libavif's container and checks, an image
+  sequence from its track, the AV1 intra frame through the port's own
+  decoder (``csrc/host/av1.cpp``: palette, intraBC, CDEF, loop restoration,
+  quantiser matrices, film grain), frames scaled to their ``ispe``,
+  premultiplied alpha, and libyuv's or libavif's own YUV → RGB as Pillow's
+  libavif routes it; superres and 10/12 bits refused by name.
 
 Refused, with an error that names them: the
 formats Pillow identifies but cannot load without

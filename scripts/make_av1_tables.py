@@ -6,8 +6,9 @@ needs the tables the AV1 specification defines by value: the default CDFs
 of every syntax element an intra frame reads (palette, intraBC's MV, the
 var-tx split, the inter tx sets and loop restoration among them), the
 8-bit quantiser lookups, the directional-prediction derivatives, the
-smooth weights, the filter-intra taps, CDEF's directions and divisors and
-the self-guided filter's parameter sets. Pillow's ``pillow.libs/libavif-*.so*`` embeds both
+smooth weights, the filter-intra taps, CDEF's directions and divisors, the
+self-guided filter's parameter sets, the quantiser matrices and film
+grain's Gaussian sequence. Pillow's ``pillow.libs/libavif-*.so*`` embeds both
 libaom 3.12 (its encoder) and dav1d 1.5 (its decoder), and their read-only
 data hold these tables. This script finds each one by its first values,
 takes the first occurrence, checks its shape (each CDF strictly
@@ -307,6 +308,40 @@ def slice2(blob: bytes, lo: int, hi: int) -> list[str]:
     return out
 
 
+# AVIF's third slice (quantiser matrices, film grain): libaom's
+# iwt_matrix_ref (the specification's Quantizer_Matrix, 15 levels x luma and
+# chroma x 3,344 weights: the sizes 4x4 ... 32x8 one after another, each in
+# libaom's coefficient order, column by column), found by the first 4x4's
+# weights and checked against dav1d's 32x32 tables (their lower triangles,
+# row by row); dav1d's Gaussian_Sequence (2,048 int16)
+QM_SIG = (32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150, 97, 110, 150, 200)
+QM_TOTAL = 3344
+QM_32_AT = 336  # the 32x32 weights' offset (after 4x4, 8x8 and 16x16)
+GAUSS_SIG = (56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224)
+
+
+def slice3(blob: bytes, lo: int, hi: int) -> list[str]:
+    qm = ints(blob, lo, hi, QM_SIG, "u1", 15 * 2 * QM_TOTAL, "libaom's iwt_matrix_ref").reshape(15, 2, QM_TOTAL)
+    tri = np.tril_indices(32)
+    for level in range(15):
+        for c in range(2):
+            m32 = qm[level, c, QM_32_AT:QM_32_AT + 1024].reshape(32, 32)
+            if (m32 != m32.T).any():
+                sys.exit(f"libaom's quantiser matrix {level}/{c}: its 32x32 is not symmetric")
+    first = qm[0, 0, QM_32_AT:QM_32_AT + 1024].reshape(32, 32)[tri]
+    at = find(blob, lo, hi, first.astype("u1").tobytes(), "dav1d's 32x32 quantiser matrices")
+    dav1d = np.frombuffer(blob[at:at + 15 * 2 * 528], "u1").reshape(15, 2, 528)
+    if any((qm[level, c, QM_32_AT:QM_32_AT + 1024].reshape(32, 32)[tri] != dav1d[level, c]).any()
+           for level in range(15) for c in range(2)):
+        sys.exit("the quantiser matrices: libaom's and dav1d's 32x32 weights differ")
+    if qm.min() < 1 or (qm[14] > 32).any():
+        sys.exit("libaom's quantiser matrices: a weight out of their range")
+    gauss = ints(blob, lo, hi, GAUSS_SIG, "<i2", 2048, "dav1d's Gaussian_Sequence")
+    if gauss.min() < -2048 or gauss.max() > 2047:
+        sys.exit("dav1d's Gaussian_Sequence: a value past 12 bits")
+    return [c_array("kQuantizerMatrix", "uint8_t", qm), c_array("kGaussianSequence", "int16_t", gauss)]
+
+
 def scans_checked(blob: bytes, lo: int, hi: int) -> int:
     for w, h in SCAN_SIZES:
         order = []
@@ -358,6 +393,7 @@ def build() -> str:
         vals = np.array(struct.unpack(f"<{count}{_FMT[ctype]}", blob[at:at + size * count]))
         out.append(c_array(name, ctype, vals))
     out += slice2(blob, lo, hi)
+    out += slice3(blob, lo, hi)
     # the two libraries' copies agree wherever dav1d keeps the CDFs as
     # libaom does (dav1d lays its coefficient CDFs out otherwise): the mode
     # tables' every CDF is found outside the copy read

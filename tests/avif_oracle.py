@@ -20,12 +20,14 @@ import numpy as np
 YUV444, YUV422, YUV420, YUV400 = 1, 2, 3, 4
 # avifRange
 LIMITED, FULL = 0, 1
-_RGB_FORMAT_RGB = 0
-_PLANES_YUV = 1
+_RGB_FORMAT_RGB, _RGB_FORMAT_RGBA = 0, 1
+_PLANES_YUV, _PLANES_A = 1, 2
+_CHAN_A = 3
 
 # avifImage: width, height, depth, yuvFormat, yuvRange at 0-16;
+# alphaPremultiplied after the alpha plane, its row bytes and ownership;
 # matrixCoefficients (uint16) after the icc avifRWData
-_IMG_RANGE, _IMG_CP, _IMG_TC, _IMG_MC = 16, 104, 106, 108
+_IMG_RANGE, _IMG_PREMULTIPLIED, _IMG_CP, _IMG_TC, _IMG_MC = 16, 80, 104, 106, 108
 # avifRGBImage: width, height, depth, format, chromaUpsampling,
 # chromaDownsampling, avoidLibYUV, ignoreAlpha, alphaPremultiplied, isFloat,
 # maxThreads, then pixels and rowBytes
@@ -178,20 +180,26 @@ def encode(yuv: np.ndarray, options: list[tuple[str, str]], speed: int = 6, qual
 
 
 def yuv_to_rgb(planes: list[np.ndarray], fmt: int, matrix: int, yuv_range: int, primaries: int = 1,
-               transfer: int = 13) -> np.ndarray:
+               transfer: int = 13, alpha: np.ndarray | None = None, premultiplied: bool = False) -> np.ndarray:
     """``avifImageYUVToRGB`` of 8-bit planes into 8-bit RGB with Pillow's
     settings (``avifRGBImageSetDefaults``, format RGB, automatic chroma
-    upsampling) → [H, W, 3] u8."""
+    upsampling) → [H, W, 3] u8. With an ``alpha`` plane, as Pillow converts
+    an RGBA image: into RGBA (unpremultiplied where the image is
+    ``premultiplied``), the alpha then dropped."""
     lib = library()
     h, w = planes[0].shape
     img = lib.avifImageCreate(w, h, 8, fmt)
     try:
         ctypes.c_uint32.from_address(img + _IMG_RANGE).value = yuv_range
+        ctypes.c_uint32.from_address(img + _IMG_PREMULTIPLIED).value = int(premultiplied)
         for off, v in ((_IMG_CP, primaries), (_IMG_TC, transfer), (_IMG_MC, matrix)):
             ctypes.c_uint16.from_address(img + off).value = v
-        if lib.avifImageAllocatePlanes(img, _PLANES_YUV):
+        if lib.avifImageAllocatePlanes(img, _PLANES_YUV | (_PLANES_A if alpha is not None else 0)):
             raise MemoryError("avifImageAllocatePlanes")
-        for p, src in enumerate(planes[:1] if fmt == YUV400 else planes):
+        sources = list(enumerate(planes[:1] if fmt == YUV400 else planes))
+        if alpha is not None:
+            sources.append((_CHAN_A, alpha))
+        for p, src in sources:
             base, rb = lib.avifImagePlane(img, p), lib.avifImagePlaneRowBytes(img, p)
             ph, pw = src.shape
             dst = np.ctypeslib.as_array((ctypes.c_ubyte * (rb * ph)).from_address(base)).reshape(ph, rb)
@@ -199,7 +207,8 @@ def yuv_to_rgb(planes: list[np.ndarray], fmt: int, matrix: int, yuv_range: int, 
         rgb = (ctypes.c_ubyte * _RGB_SIZE)()
         at = ctypes.addressof(rgb)
         lib.avifRGBImageSetDefaults(rgb, img)
-        ctypes.c_uint32.from_address(at + _RGB_FORMAT).value = _RGB_FORMAT_RGB
+        ch = 3 if alpha is None else 4
+        ctypes.c_uint32.from_address(at + _RGB_FORMAT).value = _RGB_FORMAT_RGB if alpha is None else _RGB_FORMAT_RGBA
         if lib.avifRGBImageAllocatePixels(rgb):
             raise MemoryError("avifRGBImageAllocatePixels")
         try:
@@ -209,7 +218,7 @@ def yuv_to_rgb(planes: list[np.ndarray], fmt: int, matrix: int, yuv_range: int, 
             rb = _u32(at, _RGB_ROWBYTES)
             px = ctypes.c_void_p.from_address(at + _RGB_PIXELS).value
             raw = np.ctypeslib.as_array((ctypes.c_ubyte * (rb * h)).from_address(px))
-            return raw.reshape(h, rb)[:, :w * 3].reshape(h, w, 3).copy()
+            return raw.reshape(h, rb)[:, :w * ch].reshape(h, w, ch)[..., :3].copy()
         finally:
             lib.avifRGBImageFreePixels(rgb)
     finally:

@@ -7,9 +7,13 @@ copy of libavif's colour conversion (``utils/avif.py``), against Pillow 12.1
 - the goldens' tool masks cover every tool of AVIF's first slice;
 - the conversion equals libavif's on every (Y, U, V) triple and on random
   4:2:0 and 4:2:2 planes of odd sizes, for each (matrix, range) it takes;
-- each tool left to AVIF's third slice is refused by name on a file that
-  uses it (CDEF, loop restoration and palette, once refused here, now
-  decode equal to Pillow; ``tests/test_torch_codec_avif2.py`` holds them);
+- each tool no slice decodes (superres, 10 bits, inter frames) is refused
+  by name on a file that uses it (CDEF, loop restoration, palette, film
+  grain, quantiser matrices and premultiplied alpha, once refused here, now
+  decode equal to Pillow; ``tests/test_torch_codec_avif2.py`` and
+  ``tests/test_torch_codec_avif3.py`` hold them);
+- damaged image sequences (Queue 3's ``avis`` fault) decode from their
+  track as Pillow's do, or both refuse;
 - cut and mutated files agree with Pillow (both decode equal, or both
   refuse);
 - ``scripts/make_av1_tables.py`` rewrites the committed table header.
@@ -391,20 +395,29 @@ def test_refused_cases_are_listed():
     assert sorted(refused_files()) == sorted(REFUSED)
 
 
-# the tools AVIF's second slice decodes (tests/test_torch_codec_avif2.py)
-DECODED = ("cdef", "loop_restoration", "palette")
+# the tools AVIF's second and third slices decode
+# (tests/test_torch_codec_avif2.py, tests/test_torch_codec_avif3.py)
+DECODED = ("cdef", "loop_restoration", "palette", "film_grain", "quantiser_matrices", "premultiplied_alpha")
 
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_second_slice_tools_are_refused_by_name(case):
-    """Each tool left to AVIF's third slice raises with its name; Pillow
-    decodes the files that Pillow's and libavif's encoders wrote. CDEF, loop
-    restoration and palette now decode, equal to Pillow."""
+    """Each tool no slice decodes (superres, 10 bits, inter frames) raises
+    with its name; Pillow decodes the files that Pillow's and libavif's
+    encoders wrote. CDEF, loop restoration, palette, film grain, quantiser
+    matrices and premultiplied alpha now decode, equal to Pillow. A
+    sequence decodes from its track since the third slice: this one's moov
+    box holds no track, which libavif and the port refuse alike."""
     data, words = refused_files()[case]
     if case not in ("superres", "ten_bit", "inter_frame", "avis_without_primary_item"):
         assert _pillow_or_none(data) is not None
     if case in DECODED:
         np.testing.assert_array_equal(_port(data), _pillow(data)[1])
+        return
+    if case == "avis_without_primary_item":
+        assert _pillow_or_none(data) is None
+        with pytest.raises(ValueError):
+            _port(data)
         return
     with pytest.raises(ValueError, match=words):
         _port(data)
@@ -424,7 +437,7 @@ def test_conversion_equals_libavif_on_every_triple(matrix, full):
 
     v = np.arange(1 << 24, dtype=np.uint32)
     planes = [(v >> s & 255).astype(np.uint8).reshape(4096, 4096) for s in (16, 8, 0)]
-    got = yuv_to_rgb([torch.from_numpy(p) for p in planes], 0, 0, matrix, full).numpy()
+    got = yuv_to_rgb([torch.from_numpy(p) for p in planes], 0, 0, matrix, full, 1).numpy()
     np.testing.assert_array_equal(got, ao.yuv_to_rgb(planes, ao.YUV444, matrix, full))
 
 
@@ -441,26 +454,27 @@ def test_upsampling_equals_libavif_at_odd_sizes(fmt):
         uv = [rng.integers(0, 256, ((h + sy) >> sy, (w + sx) >> sx)).astype(np.uint8) for _ in range(2)]
         planes = [y] if fmt == ao.YUV400 else [y, *uv]
         for matrix, full in ((6, 1), (6, 0), (1, 0), (9, 1)):
-            got = yuv_to_rgb([torch.from_numpy(p) for p in planes], sx, sy, matrix, full).numpy()
+            got = yuv_to_rgb([torch.from_numpy(p) for p in planes], sx, sy, matrix, full, 1).numpy()
             np.testing.assert_array_equal(got, ao.yuv_to_rgb(planes, fmt, matrix, full),
                                           err_msg=f"{h}x{w} {matrix} {full}")
 
 
 def test_conversions_libavif_routes_elsewhere_are_named():
-    """Matrices libavif converts in floating point (FCC, SMPTE 240M, BT.2020
-    at limited range) are refused by name; those libavif cannot convert
-    (the identity on subsampled chroma) fail in both."""
+    """Matrices libavif converts in floating point (FCC, SMPTE 240M; once
+    refused by name, converted since AVIF's third slice) and BT.2020 at
+    limited range (libyuv's) equal libavif's conversion; those libavif
+    cannot convert (the identity on subsampled chroma) fail in both, by
+    name."""
     from mmtrs_tpu_torch.utils.avif import yuv_to_rgb
 
     y = np.full((4, 4), 100, np.uint8)
     uv = [np.full((2, 2), 120, np.uint8)] * 2
     on = [torch.from_numpy(p) for p in (y, *uv)]
     for matrix, full in ((4, 1), (7, 0), (9, 0)):
-        with pytest.raises(ValueError, match="libavif's own conversion"):
-            yuv_to_rgb(on, 1, 1, matrix, full)
-        ao.yuv_to_rgb([y, *uv], ao.YUV420, matrix, full)  # libavif converts them
+        np.testing.assert_array_equal(yuv_to_rgb(on, 1, 1, matrix, full, 1).numpy(),
+                                      ao.yuv_to_rgb([y, *uv], ao.YUV420, matrix, full))
     with pytest.raises(ValueError, match="identity matrix"):
-        yuv_to_rgb(on, 1, 1, 0, 1)
+        yuv_to_rgb(on, 1, 1, 0, 1, 1)
     with pytest.raises(ValueError):
         ao.yuv_to_rgb([y, *uv], ao.YUV420, 0, 1)
 
@@ -529,6 +543,37 @@ CONTAINER_RESIDUALS = {
     # past the frame, and one runs past the data
     "obu_past_the_frame_running_past_the_data": ("rgba_67x45.avif", 134, 157),
 }
+
+
+# Queue 3's avis-track fault: cuts and mutations of the animated goldens
+# (tests/test_torch_codec_avif2.py) that the port once decoded otherwise than
+# Pillow, reading the primary item where Pillow's libavif reads the track's
+# first sample (284 of 1,428 such files; none since AVIF's third slice):
+# (golden, the seed of _mutations(golden, seed, 196), the file's index), one
+# of each kind of damage: a cut, the sample table's sizes, chunks, offsets
+# and description, the media header, the edit list, the sample entry's
+# av1C, the handler, the item list, and the AV1 data of a frame the track's
+# header scales
+AVIS_FUZZ = [("animated_q30_speed4_128x96.avif", 1000, 6), ("animated_q30_speed6_128x96.avif", 1001, 119),
+             ("animated_q30_speed6_128x96.avif", 1001, 33), ("animated_q30_speed6_422_128x96.avif", 1002, 42),
+             ("animated_q30_speed4_128x96.avif", 1000, 23), ("animated_q30_speed4_128x96.avif", 1000, 179),
+             ("animated_q30_speed4_128x96.avif", 1000, 118), ("animated_q30_speed6_128x96.avif", 1001, 36),
+             ("animated_q30_speed6_422_128x96.avif", 1002, 98), ("animated_q30_speed4_128x96.avif", 1000, 74),
+             ("animated_q30_speed4_128x96.avif", 1000, 97), ("animated_q30_speed4_128x96.avif", 1000, 49)]
+
+
+@pytest.mark.parametrize("name,seed,k", AVIS_FUZZ)
+def test_avis_mutations_decode_from_the_track_as_pillow(name, seed, k):
+    """A damaged image sequence: the port decodes equal to Pillow (from the
+    track's first sample), or both refuse."""
+    with np.load(cs.AVIF2_GOLDENS) as z:
+        data = _mutations(z[name].tobytes(), seed, 196)[k]
+    want = _pillow_or_none(data)
+    if want is None:
+        with pytest.raises(ValueError):
+            _port(data)
+    else:
+        np.testing.assert_array_equal(_port(data), want[1])
 
 
 def _changed(goldens, name: str, at: int, value: int) -> bytes:

@@ -764,6 +764,27 @@ def test_queue3_tiff_entry_types_agree_with_pillow(goldens, name, tag, typ):
         np.testing.assert_array_equal(_port(data), want[1])
 
 
+# Queue 3's cut JPEG-in-TIFF faults: a StripByteCounts of BYTE reads a
+# short count, and libtiff's JPEG source feeds libjpeg a fake EOI past the
+# cut (libjpeg decodes on with zero bits, or zero data in an arithmetic
+# scan); a PhotometricInterpretation of type IFD, which libtiff drops (its
+# JPEG codec then leaves the components as stored) where Pillow reads 6
+CUT_JPEG_IN_TIFF = [("jit_arith_cmyk.tif", 279, 1), ("jit_arith_prog_411_ycbcr.tif", 279, 1),
+                    ("jit_arith_prog_422_restart_ycbcr.tif", 279, 1), ("jit_arith_rgb_ids_ycbcr.tif", 279, 1),
+                    ("jit_lossless_cmyk.tif", 279, 1), ("jit_lossless_p7_restart_rgb.tif", 279, 1),
+                    ("jit_arith_rgb_ids_ycbcr.tif", 262, 13)]
+
+
+@pytest.mark.parametrize("name,tag,typ", CUT_JPEG_IN_TIFF)
+def test_cut_jpeg_in_tiff_strips_decode_as_pillow(goldens, name, tag, typ):
+    """Each decodes in Pillow, with every row, and the port's decode is
+    equal."""
+    data = _with_entry_type(goldens[name].tobytes(), tag, typ)
+    want = _pillow(data)[1]
+    assert want.shape == goldens[f"{name}.pil"].shape
+    np.testing.assert_array_equal(_port(data), want)
+
+
 @pytest.mark.parametrize("sample_format,comp,predictor", [(3, 8, 1), (3, 32773, 1), (2, 5, 2), (2, 8, 1)])
 def test_big_endian_32bit_compressed_samples_as_pillow_reads_them(sample_format, comp, predictor):
     """A big-endian TIFF of 32-bit samples that libtiff decompresses: libtiff
